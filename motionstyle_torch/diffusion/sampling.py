@@ -1,0 +1,138 @@
+"""DDPM / DDIM sampling loops as a Python loop over timesteps.
+
+Counterpart of motionstyle/diffusion/sampling.py, whose lax.scan becomes a
+loop here (PyTorch runs eagerly):
+
+  - skip_timesteps / stop_timesteps select the descending index range;
+  - init_image warm start = q_sample at the first index (:1052-1054);
+  - inpainting: noise *= (1 - mask) and the x0 blend in p_mean_variance;
+  - dump_all_xstart returns the stacked per-step x0 predictions (S, B, ...),
+    highest t first, the reference's dump list order;
+  - `noise` pins the initial noise and `step_noise` (S, B, ...) the per-step
+    noise, so tests replay the JAX package's draws exactly.
+
+Not on this slice: the Pallas fused DDPM update (fused_update), the
+differentiable/remat finetune unroll and classifier guidance (cond_fn).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from motionstyle_torch.diffusion import ddpm
+from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
+from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+
+
+def timestep_indices(num_timesteps: int, skip_timesteps: int,
+                     stop_timesteps: Optional[int]) -> np.ndarray:
+    """Descending respaced indices; parity with gaussian_diffusion.py:1047-1050."""
+    lo = 0 if stop_timesteps is None else stop_timesteps
+    idx = np.arange(lo, num_timesteps - skip_timesteps)[::-1]
+    if len(idx) == 0:
+        raise ValueError("empty timestep range")
+    return idx
+
+
+def min_latency_plan(num_timesteps: int, skip_timesteps: int) -> tuple:
+    """(stop_timesteps, dump_pick) for the demo's under-denoise pick: the x0
+    five steps from the chain's end (dump[-5]) is the one predicted at t=4
+    when the chain has >= 5 live steps, so stopping there is exact and the
+    pick becomes dump[-1]; shorter chains run to t=0 with the pick clamped
+    to the earliest dumped x0. Same contract as the JAX package's."""
+    live = num_timesteps - skip_timesteps
+    if live >= 5:
+        return 4, -1
+    return None, -min(5, live)
+
+
+def _nonzero(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def _ddpm_update(pmv, x, t, noise, inpainting):
+    if inpainting is not None:
+        noise = noise * (1.0 - inpainting.mask)
+    return pmv.mean + _nonzero(t, x) * torch.exp(0.5 * pmv.log_variance) * noise
+
+
+def _ddim_update(sched, pmv, x, t, noise, inpainting, eta):
+    eps = ddpm.predict_eps_from_xstart(sched, x, t, pmv.pred_xstart)
+    alpha_bar = sched.extract(sched.alphas_cumprod, t, x.ndim)
+    alpha_bar_prev = sched.extract(sched.alphas_cumprod_prev, t, x.ndim)
+    sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+             * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+    if inpainting is not None:
+        noise = noise * (1.0 - inpainting.mask)
+    mean_pred = (pmv.pred_xstart * torch.sqrt(alpha_bar_prev)
+                 + torch.sqrt(torch.clamp(1 - alpha_bar_prev - sigma ** 2, min=0.0)) * eps)
+    return mean_pred + _nonzero(t, x) * sigma * noise
+
+
+@torch.no_grad()
+def sample_loop(
+    sched: DiffusionSchedule,
+    model_fn: ModelFn,
+    cond: dict,
+    generator: Optional[torch.Generator] = None,
+    *,
+    shape: Optional[tuple] = None,
+    noise: Optional[torch.Tensor] = None,
+    init_image: Optional[torch.Tensor] = None,
+    method: str = "ddpm",
+    skip_timesteps: int = 0,
+    stop_timesteps: Optional[int] = None,
+    clip_denoised: bool = False,
+    inpainting: Optional[Inpainting] = None,
+    eta: float = 0.0,
+    const_noise: bool = False,
+    dump_all_xstart: bool = False,
+    sigma_small: bool = True,
+    step_noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Run the reverse diffusion on the schedule's device. Returns the final
+    sample, or the stacked per-step x0 predictions (S, B, C, F, T) with
+    dump_all_xstart. Noise not pinned by `noise`/`step_noise` is drawn from
+    `generator` (a torch.Generator on the schedule's device)."""
+    device = sched.device
+    if noise is None:
+        assert shape is not None, "need shape when noise is not given"
+        img = torch.randn(shape, generator=generator, device=device)
+    else:
+        img = noise.to(device=device, dtype=torch.float32)
+        shape = tuple(img.shape)
+
+    idx = timestep_indices(sched.num_timesteps, skip_timesteps, stop_timesteps)
+    if step_noise is not None and step_noise.shape[0] != len(idx):
+        raise ValueError(f"step_noise covers {step_noise.shape[0]} steps, "
+                         f"the chain has {len(idx)}")
+    if skip_timesteps and init_image is None:
+        init_image = torch.zeros_like(img)
+    if init_image is not None:
+        t0 = torch.full((shape[0],), int(idx[0]), dtype=torch.int64, device=device)
+        img = ddpm.q_sample(sched, init_image, t0, img, inpainting=inpainting)
+
+    xs = []
+    x = img
+    for i, t_scalar in enumerate(idx):
+        t = torch.full((shape[0],), int(t_scalar), dtype=torch.int64, device=device)
+        pmv = ddpm.p_mean_variance(sched, model_fn, x, t, cond,
+                                   clip_denoised=clip_denoised, inpainting=inpainting,
+                                   sigma_small=sigma_small)
+        if step_noise is not None:
+            noise_step = step_noise[i].to(device)
+        elif method == "ddim" and eta == 0.0:
+            noise_step = torch.zeros_like(x)  # multiplied by sigma = 0
+        else:
+            noise_step = torch.randn(shape, generator=generator, device=device)
+        if const_noise:
+            noise_step = noise_step[:1].expand(shape)
+        if method == "ddim":
+            x = _ddim_update(sched, pmv, x, t, noise_step, inpainting, eta)
+        else:
+            x = _ddpm_update(pmv, x, t, noise_step, inpainting)
+        if dump_all_xstart:
+            xs.append(pmv.pred_xstart)
+    return torch.stack(xs) if dump_all_xstart else x

@@ -1,0 +1,145 @@
+"""Weights into the port: the reference's torch checkpoints, the JAX package's
+flax parameter trees, and a seeded initialisation.
+
+Checkpoint format (motionstyle/models/torch_import.py): reference-layout
+state dicts. A prior checkpoint (model*.pt / --mdm_path) holds the whole MDM
+under its own keys plus the sequence_pos_encoder buffers, which are
+recomputed, not loaded. A style checkpoint (--model_path) holds only
+'seqTransEncoder.layers.{i}.*', the finetuned style encoder (the reference
+strips everything else at save time, training_loop.py:316-335).
+
+flax trees: Dense kernels are (in, out) where torch weights are (out, in);
+LayerNorm 'scale' is torch's 'weight'; the packed in-projection is one
+(D, 3D) kernel, torch's (3D, D) in_proj_weight.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from motionstyle_torch.models.denoiser import MDMConfig
+
+# recomputed buffers of the reference prior, never loaded
+_BUFFERS = ("sequence_pos_encoder.pe", "embed_timestep.sequence_pos_encoder.pe")
+
+
+def _num_layers(keys) -> int:
+    """Encoder depth named by state-dict keys ('...layers.{i}.*')."""
+    found = [int(m.group(1)) for k in keys
+             if (m := re.search(r"(?:^|\.)layers\.(\d+)\.", k))]
+    return 1 + max(found, default=-1)
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.float32))
+
+
+def from_torch_state_dict(sd: Dict[str, np.ndarray], cfg: MDMConfig,
+                          part: str = "mdm") -> Dict[str, torch.Tensor]:
+    """A reference-layout state dict -> entries of StyleDiffusion's state
+    dict. part='mdm' loads a prior checkpoint into 'mdm.*'; part=
+    'style_encoder' loads a style checkpoint's seqTransEncoder into
+    'style_encoder.*'. Load with load_state_dict(..., strict=False)."""
+    if part == "mdm":
+        if any(k.startswith(("seqTransDecoder", "gru")) for k in sd):
+            raise NotImplementedError("checkpoint import supports arch='trans_enc' only")
+        out = {f"mdm.{k}": _tensor(v) for k, v in sd.items() if k not in _BUFFERS}
+    elif part == "style_encoder":
+        prefix = "seqTransEncoder."
+        out = {f"style_encoder.{k[len(prefix):]}": _tensor(v)
+               for k, v in sd.items() if k.startswith(prefix)}
+    else:
+        raise ValueError(f"part must be 'mdm' or 'style_encoder', got {part!r}")
+    n_layers = _num_layers(out)
+    if n_layers != cfg.num_layers:
+        raise ValueError(f"checkpoint has {n_layers} encoder layers, "
+                         f"the config {cfg.num_layers}")
+    return out
+
+
+def _dense(tree: dict, key: str) -> dict:
+    return {f"{key}.weight": _tensor(tree["kernel"]).t().contiguous(),
+            f"{key}.bias": _tensor(tree["bias"])}
+
+
+def _layernorm(tree: dict, key: str) -> dict:
+    return {f"{key}.weight": _tensor(tree["scale"]), f"{key}.bias": _tensor(tree["bias"])}
+
+
+def encoder_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax TransformerEncoder tree ('layers_{i}') -> port encoder state dict."""
+    out = {}
+    i = 0
+    while f"layers_{i}" in tree:
+        lp = tree[f"layers_{i}"]
+        p = f"{prefix}layers.{i}"
+        attn = lp["self_attn"]
+        out[f"{p}.self_attn.in_proj_weight"] = _tensor(attn["in_proj"]["kernel"]).t().contiguous()
+        out[f"{p}.self_attn.in_proj_bias"] = _tensor(attn["in_proj"]["bias"])
+        out.update(_dense(attn["out_proj"], f"{p}.self_attn.out_proj"))
+        out.update(_dense(lp["linear1"], f"{p}.linear1"))
+        out.update(_dense(lp["linear2"], f"{p}.linear2"))
+        out.update(_layernorm(lp["norm1"], f"{p}.norm1"))
+        out.update(_layernorm(lp["norm2"], f"{p}.norm2"))
+        i += 1
+    return out
+
+
+def _mdm_from_jax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {}
+    out.update(_dense(tree["input_process"], f"{prefix}input_process.poseEmbedding"))
+    out.update(_dense(tree["embed_timestep"]["time_embed_0"],
+                      f"{prefix}embed_timestep.time_embed.0"))
+    out.update(_dense(tree["embed_timestep"]["time_embed_2"],
+                      f"{prefix}embed_timestep.time_embed.2"))
+    out.update(_dense(tree["embed_text"], f"{prefix}embed_text"))
+    out.update(encoder_from_jax(tree["seqTransEncoder"], f"{prefix}seqTransEncoder."))
+    out.update(_dense(tree["output_process"], f"{prefix}output_process.poseFinal"))
+    return out
+
+
+def from_jax_params(tree: dict, cfg: MDMConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax params (numpy leaves, optionally under
+    'params') -> the port's state dict: a StyleDiffusion tree ('mdm',
+    'style_encoder', ...) or an MDM tree ('input_process', ...). Subtrees of
+    modules this slice does not hold (the semantic discriminator's
+    motion_enc_encoder, mu_query, sigma_query) are skipped."""
+    tree = tree.get("params", tree)
+    if "mdm" in tree:
+        out = _mdm_from_jax(tree["mdm"], "mdm.")
+        out.update(encoder_from_jax(tree["style_encoder"], "style_encoder."))
+    else:
+        out = _mdm_from_jax(tree, "")
+    n_layers = _num_layers(out)
+    if n_layers != cfg.num_layers:
+        raise ValueError(f"tree has {n_layers} encoder layers, the config {cfg.num_layers}")
+    return out
+
+
+@torch.no_grad()
+def seeded_init_(module: nn.Module, seed: int, stds: dict | None = None) -> nn.Module:
+    """Deterministic initialisation from a seed, independent of the device
+    and of torch's global RNG: Linear and packed in-projection weights
+    lecun-normal (std 1/sqrt(fan_in)), biases 0, LayerNorm 1 and 0, other
+    parameters normal with the std `stds` gives their name, else 1 (flax's
+    defaults for these modules).
+
+    The draws differ from the JAX package's PRNGKey(seed) initialisation:
+    the two frameworks' generators give different numbers from one seed."""
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias" or leaf.endswith("_bias"):
+            p.zero_()
+        elif p.ndim == 1:  # LayerNorm scale
+            p.fill_(1.0)
+        elif leaf in ("weight", "in_proj_weight"):
+            std = p.shape[1] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen) * (stds or {}).get(leaf, 1.0))
+    return module

@@ -1,0 +1,146 @@
+"""The fused encoder layer's plain PyTorch twin vs the JAX package's Pallas
+kernel (interpret mode on the CPU, as tests/test_fused_encoder.py runs it),
+and the wrapper's CPU behaviour. The CUDA kernel itself is held against the
+twin on the card by chip_smoke.py.
+
+Tolerance atol 2e-2 on bf16 outputs: both sides round the same operands to
+bf16 but sum in different orders, so an output can land one bf16 ulp apart
+(7.8e-3 at |y| in [1, 2), 1.6e-2 in [2, 4)).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from motionstyle.models.transformer import TransformerEncoder as JEncoder
+from motionstyle.ops.fused_encoder import fused_encoder as jfused_encoder
+from motionstyle.ops.fused_encoder import fused_encoder_layer as jfused_layer
+from motionstyle_torch.models.params import encoder_from_jax
+from motionstyle_torch.models.transformer import TransformerEncoder
+from motionstyle_torch.ops import fused_encoder as fe
+from tests.test_torch_models import one_torch_thread, numpy_params  # noqa: F401
+
+ATOL = 2e-2
+B, S, D, H, F = 2, 13, 128, 4, 256
+
+
+def _pair(layers: int, seed: int):
+    """(JAX encoder params, port encoder) with the same numpy weights."""
+    x0 = jnp.zeros((1, S, D))
+    params = numpy_params(JEncoder(layers, D, H, F, 0.1).init(jax.random.PRNGKey(0), x0), seed)
+    port = TransformerEncoder(layers, D, H, F)
+    port.load_state_dict(encoder_from_jax(params["params"]))
+    return params["params"], port
+
+
+def _inputs(seed: int, masked: bool):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, S, D).astype(np.float32)
+    kpm = np.ones((B, S), bool)
+    if masked:
+        kpm[1, 7:] = False
+    return x, (kpm if masked else None)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_twin_matches_pallas_layer(masked, dtype):
+    params, port = _pair(1, seed=1)
+    x, kpm = _inputs(2, masked)
+    jx = jnp.asarray(x, dtype=jnp.dtype(dtype))
+    want = jfused_layer(jx, params["layers_0"], H,
+                        None if kpm is None else jnp.asarray(kpm))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = fe.fused_encoder_layer(tx, fe.pack_layer_params(port.layers[0]), H,
+                                 None if kpm is None else torch.from_numpy(kpm))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), atol=ATOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_stack_matches_pallas_stack(masked):
+    """The encoder module's fused arm against the JAX fused stack."""
+    params, port = _pair(2, seed=3)
+    x, kpm = _inputs(4, masked)
+    want = jfused_encoder(jnp.asarray(x, jnp.bfloat16), params, 2, H,
+                          None if kpm is None else jnp.asarray(kpm))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).bfloat16(),
+                   None if kpm is None else torch.from_numpy(kpm), use_fused=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), atol=ATOL)
+
+
+def test_padded_keys_do_not_leak():
+    """Changing masked-out tokens leaves the valid rows unchanged."""
+    _, port = _pair(1, seed=5)
+    x, kpm = _inputs(6, True)
+    x2 = x.copy()
+    x2[1, 7:] = 99.0
+    p = fe.pack_layer_params(port.layers[0])
+    a = fe.fused_encoder_layer(torch.from_numpy(x).bfloat16(), p, H, torch.from_numpy(kpm))
+    b = fe.fused_encoder_layer(torch.from_numpy(x2).bfloat16(), p, H, torch.from_numpy(kpm))
+    torch.testing.assert_close(a[1, :7], b[1, :7], rtol=0, atol=0)
+
+
+def test_cpu_tensors_use_the_twin_and_count_no_launch():
+    _, port = _pair(1, seed=7)
+    x = torch.from_numpy(_inputs(8, False)[0]).bfloat16()
+    p = fe.pack_layer_params(port.layers[0])
+    before = fe.fused_encoder_layer.launches
+    got = fe.fused_encoder_layer(x, p, H)
+    assert fe.fused_encoder_layer.launches == before
+    torch.testing.assert_close(got, fe.fused_encoder_layer_reference(x, p, H),
+                               rtol=0, atol=0)
+
+
+def test_other_devices_raise():
+    _, port = _pair(1, seed=9)
+    p = fe.pack_layer_params(port.layers[0])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fe.fused_encoder_layer(torch.empty(B, S, D, device="meta"), p, H)
+
+
+def test_pack_layer_params_layout():
+    _, port = _pair(1, seed=10)
+    p = fe.pack_layer_params(port.layers[0])
+    assert set(p) == set(fe.WEIGHT_KEYS) | set(fe.VECTOR_KEYS)
+    for k, t in p.items():
+        assert t.is_contiguous()
+        assert t.dtype == (torch.bfloat16 if k in fe.WEIGHT_KEYS else torch.float32)
+    assert p["in_proj_weight"].shape == (3 * D, D)
+    assert p["linear2_weight"].shape == (D, F)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "heads", "seq"])
+def test_kernel_input_checks(bad):
+    """What the CUDA launcher does not take is refused before a launch."""
+    _, port = _pair(1, seed=11)
+    p = fe.pack_layer_params(port.layers[0])
+    x = torch.zeros(B, S, D, dtype=torch.bfloat16)
+    heads = H
+    if bad == "dtype":
+        p["in_proj_weight"] = p["in_proj_weight"].float()
+    elif bad == "shape":
+        p["linear1_bias"] = p["linear1_bias"][:-1]
+    elif bad == "heads":
+        heads = 8  # head width 16
+    else:
+        x = torch.zeros(B, 300, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fe._check_cuda_inputs(x, p, heads)
+
+
+def test_packed_layers_follow_parameter_updates():
+    _, port = _pair(1, seed=12)
+    first = port.packed_layers()
+    assert port.packed_layers() is first
+    with torch.no_grad():
+        port.layers[0].linear1.weight.mul_(2.0)
+    second = port.packed_layers()
+    assert second is not first
+    torch.testing.assert_close(second[0]["linear1_weight"].float(),
+                               (first[0]["linear1_weight"].float() * 2.0))

@@ -1,0 +1,273 @@
+"""The port's serving slice on the CPU: the batcher, the engine's
+batching-invariance contract, the serving CLI over HTTP on localhost, and
+the package's independence from JAX."""
+import json
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from motionstyle_torch.diffusion.schedule import make_schedule
+from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
+from motionstyle_torch.models.params import seeded_init_
+from motionstyle_torch.parallel.inference import Sampler
+from motionstyle_torch.serve.batcher import DynamicBatcher, bucket_for
+from motionstyle_torch.serve.engine import Request, ServingEngine
+from tests.test_torch_models import one_torch_thread  # noqa: F401
+
+ITEM = (12, 1, 8)
+
+
+@pytest.fixture(scope="module")
+def engine():
+    cfg = MDMConfig(njoints=12, nfeats=1, latent_dim=16, ff_size=32, num_layers=1,
+                    num_heads=2, clip_dim=16)
+    model = seeded_init_(StyleDiffusion(cfg), 0).eval()
+    sched = make_schedule("cosine", 40, "ddim10", device="cpu")
+    sampler = Sampler(sched, lambda m: (lambda x, t, c: m(x, t, c.get("enc_text"))), model,
+                      method="ddim", skip_timesteps=3, stop_timesteps=2, dump_all_xstart=True)
+    eng = ServingEngine(sampler, ITEM, max_batch=8, max_wait_ms=50, buckets=(1, 2, 4, 8))
+    yield eng
+    eng.close()
+
+
+def _request(seed, rng_data=0):
+    r = np.random.RandomState(rng_data)
+    mask = np.zeros(ITEM, np.float32)
+    mask[:3] = 1.0
+    return Request({"enc_text": r.randn(16).astype(np.float32)},
+                   init_image=r.randn(*ITEM).astype(np.float32),
+                   inpainting_mask=mask, seed=seed)
+
+
+class TestBatcher:
+    def test_bucket_for(self):
+        assert [bucket_for(n, (1, 2, 4, 8)) for n in (1, 2, 3, 5, 8, 9)] == [1, 2, 4, 8, 8, 8]
+
+    def test_coalesces_concurrent_requests(self):
+        seen = []
+
+        def run(items):
+            seen.append(len(items))
+            return [i * 2 for i in items]
+
+        b = DynamicBatcher(run, max_batch=4, max_wait_ms=100)
+        try:
+            futs = [b.submit(i) for i in range(4)]
+            assert [f.result(timeout=10) for f in futs] == [0, 2, 4, 6]
+            assert seen == [4]
+        finally:
+            b.close()
+
+
+class TestEngine:
+    def test_same_bucket_invariance(self, engine):
+        """A request agrees with itself in two batches of one bucket, with
+        other companions at other positions."""
+        a = [engine.submit(_request(s, rng_data=s)) for s in (3, 5, 9, 4)]
+        b = [engine.submit(_request(s, rng_data=s)) for s in (6, 7, 3, 8)]
+        ra = [f.result(timeout=60) for f in a]
+        rb = [f.result(timeout=60) for f in b]
+        np.testing.assert_array_equal(ra[0], rb[2])
+
+    def test_batched_equals_solo(self, engine):
+        solo = {s: engine.sample(_request(s, rng_data=s)) for s in (3, 5, 9)}
+        futs = [engine.submit(_request(s, rng_data=s)) for s in (3, 5, 9)]
+        for s, f in zip((3, 5, 9), futs):
+            np.testing.assert_allclose(f.result(timeout=60), solo[s], rtol=2e-5, atol=1e-6)
+
+    def test_deterministic_per_seed(self, engine):
+        a = engine.sample(_request(7))
+        np.testing.assert_array_equal(a, engine.sample(_request(7)))
+        assert np.abs(a - engine.sample(_request(8))).max() > 1e-4
+
+    def test_root_channels_preserved(self, engine):
+        req = _request(11, rng_data=4)
+        out = engine.sample(req)
+        assert out.shape == ITEM and np.isfinite(out).all()
+        np.testing.assert_array_equal(out[:3], req.init_image[:3])
+
+    def test_item_noise_depends_only_on_seed(self, engine):
+        n1, s1 = engine.sampler.item_noise([3, 4], ITEM)
+        n2, _ = engine.sampler.item_noise([9, 3], ITEM)
+        assert s1 is None  # DDIM eta=0 consumes no step noise
+        torch.testing.assert_close(n1[0], n2[1], rtol=0, atol=0)
+        assert not torch.equal(n1[0], n1[1])
+
+    def test_bad_shapes_rejected(self, engine):
+        req = _request(1)
+        req.init_image = req.init_image[:, :, :5]
+        with pytest.raises(ValueError, match="shape"):
+            engine.submit(req)
+
+
+def _post(base, path, body: bytes):
+    req = urllib.request.Request(base + path, data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+class TestServeCLI:
+    def test_sample_round_trip(self, tmp_path):
+        """cli/serve.py end to end on the CPU: a seeded tiny model behind
+        MotionServer answers /healthz and /v1/sample through the fused
+        layer's twin; root_horizontal channels of the content come back
+        exactly; a batch of concurrent requests agrees with the same
+        request sent alone in the same bucket."""
+        from motionstyle_torch.cli import serve
+        from motionstyle_torch.data.masks import get_inpainting_mask
+        from motionstyle_torch.serve.server import MotionServer
+
+        args = serve.parse_args([
+            "--device", "cpu", "--model_path", str(tmp_path / "model000000001.pt"),
+            "--layers", "1", "--latent_dim", "128", "--fused", "1",
+            "--diffusion_steps", "40", "--skip_steps", "28", "--timestep_respacing",
+            "ddim10", "--max_wait_ms", "200", "--deterministic", "1"])
+        engine, decode, handle = serve.build_engine(args)
+        assert engine.buckets == (8,)
+        server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                assert json.load(r) == {"status": "ok"}
+            contents = [np.random.RandomState(i).randn(76, 181).astype(np.float32)
+                        for i in range(3)]
+            body = lambda i, seed: json.dumps({  # noqa: E731
+                "content": contents[i].tolist(), "text": "a person walks angrily",
+                "seed": seed}).encode()
+            code, solo = _post(base, "/v1/sample", body(0, 9))
+            assert code == 200 and solo["seed"] == 9
+            motion = np.asarray(solo["motion"], np.float32)
+            assert motion.shape == (181, 1, 76) and np.isfinite(motion).all()
+            mask = np.asarray(get_inpainting_mask("root_horizontal", (1, 181, 1, 76),
+                                                  dataset="stylexia_posrot"), np.float32)[0]
+            init = contents[0].T[:, None, :]
+            np.testing.assert_array_equal(motion * mask, init * mask)
+            assert np.abs((motion - init) * (1 - mask)).max() > 1e-4
+
+            results = {}
+
+            def client(i, seed):
+                results[i] = _post(base, "/v1/sample", body(i, seed))
+
+            threads = [threading.Thread(target=client, args=(i, 9 + i)) for i in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+            assert all(results[i][0] == 200 for i in range(3))
+            np.testing.assert_array_equal(np.asarray(results[0][1]["motion"], np.float32),
+                                          motion)
+
+            import base64
+
+            code, b64 = _post(base, "/v1/sample", json.dumps({
+                "content_b64": base64.b64encode(contents[0].astype("<f4").tobytes()).decode(),
+                "encoding": "b64", "text": "a person walks angrily", "seed": 9}).encode())
+            assert code == 200 and b64["shape"] == [181, 1, 76]
+            np.testing.assert_array_equal(
+                np.frombuffer(base64.b64decode(b64["motion_b64"]), "<f4").reshape(181, 1, 76),
+                motion)
+
+            code, err = _post(base, "/v1/sample", json.dumps(
+                {"content": contents[0][:10].tolist()}).encode())
+            assert code == 500 and "content must be" in err["error"]
+            code, _ = _post(base, "/v1/nope", b"{}")
+            assert code == 404
+            code, _ = _post(base, "/v1/sample", b"{not json")
+            assert code == 400
+        finally:
+            server.close()
+
+    def test_cuda_default_raises_without_a_card(self, tmp_path, monkeypatch):
+        from motionstyle_torch.cli import model_util
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model_util.resolve_device("cuda")
+        assert model_util.resolve_device("cpu").type == "cpu"
+
+
+def test_caption_memo_under_concurrent_requests():
+    """The text-tower memo is shared by request threads: hammered by more
+    threads than cores with a short switch interval, it stays bounded and
+    every answer equals the tower's own output for that caption."""
+    from motionstyle_torch.cli.model_util import ModelBundle
+    from motionstyle_torch.models import clip_text
+
+    tower = seeded_init_(clip_text.ClipTextEncoder(clip_text.ClipTextConfig(
+        layers=1, width=32, heads=2, embed_dim=8)), 42).eval()
+    bundle = ModelBundle(None, tower, None, torch.device("cpu"), memo_size=4)
+    captions = [f"caption {i}" for i in range(6)]
+    want = {c: clip_text.encode_text(tower, [c]).numpy()[0] for c in captions}
+    errors = []
+
+    def worker(k):
+        try:
+            for j in range(20):
+                c = captions[(k + j) % len(captions)]
+                np.testing.assert_array_equal(bundle.encode_text([c], "stylexia_posrot")[0],
+                                              want[c])
+        except Exception as ex:  # noqa: BLE001 — reported below
+            errors.append(ex)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+    assert len(bundle._memo) <= 4
+
+
+def test_package_imports_no_jax():
+    """Every module of motionstyle_torch imports without jax, flax, optax or
+    the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import motionstyle_torch\n"
+        "for m in pkgutil.walk_packages(motionstyle_torch.__path__, 'motionstyle_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'motionstyle'))\n"
+        "print(len([n for n in sys.modules if n.startswith('motionstyle_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 20
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line where torch
+    sees no CUDA device, in the repository and standing alone."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(root, "chip_smoke.py"), alone)
+    for script in (os.path.join(root, "chip_smoke.py"), str(alone)):
+        proc = subprocess.run([sys.executable, script], cwd=os.path.dirname(script),
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
