@@ -6,16 +6,25 @@ NVIDIA GPU.
 
 Phases, each printed on its own line with its seconds:
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
-  2. build: nvcc builds every kernel of the serving path from csrc/.
-  3. kernel: each kernel against its plain PyTorch twin on the card at the
-     serving shapes, with its time, the twin's, a library call's and the
-     card's bound.
+  2. build: nvcc builds every kernel source under csrc/, one process per
+     source, all started together.
+  3. kernel: the inference layer against its plain PyTorch twin on the card
+     at the serving shapes, with its time, the twin's, a library call's and
+     the card's bound.
   4. golden: the port's fp32 MDM with the full-width reference weights of
      tests/goldens/mdm_model.npz against the reference output.
   5. serve: the serving CLI's engine (--fused 1, full width: d=512, 8
      layers) behind MotionServer on localhost answers /healthz and
      /v1/sample requests; results are checked and the kernel launches
      counted.
+  6. train_kernel: the three training kernels (forward, FFN-half and
+     attention-half backward) against their twins at the finetune's shapes
+     (B=64 and B=1, S=77, full width, dropout masks at rate 0.1 and 0), with
+     their times, the twins', a library layer's and the card's bounds.
+  7. finetune: the finetune CLI (--fused 1 --fused_train 1, batch 64, full
+     width, the golden prior, a synthetic Xia corpus written from a seed)
+     runs a few steps; losses, the saved checkpoint, the style encoder's
+     movement and every kernel's launches are checked.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
 a CUDA device, or without the rest of the repository beside it, the script
@@ -31,7 +40,9 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mdm_model.npz")
@@ -43,6 +54,13 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # kernel vs twin gates (bf16 output: one bf16 ulp at |y| in [2, 4) is 1.6e-2)
 LAYER_MAX_ABS, LAYER_REL_L2, STACK_REL_L2 = 3e-2, 1e-2, 2e-2
 GOLDEN_ATOL = 2e-4  # tests/test_models.py:35
+KERNEL_SOURCES = ("fused_encoder", "fused_encoder_train")
+TRAIN_KERNELS = {  # wrapper -> the TPU kernel it replaces
+    "fused_layer_train_forward": "motionstyle/ops/fused_encoder_train.py:154",
+    "fused_layer_train_bwd_ffn": "motionstyle/ops/fused_encoder_train.py:183",
+    "fused_layer_train_bwd_attn": "motionstyle/ops/fused_encoder_train.py:243",
+}
+FINETUNE_STEPS, FINETUNE_BATCH, FINETUNE_LAYERS = 3, 64, 8
 
 
 @contextmanager
@@ -112,8 +130,6 @@ def random_layer(gen, d: int, f: int, device):
 
 def kernel_phase(device) -> dict:
     """Kernel vs twin on the card; returns the kernel's record fields."""
-    from functools import partial
-
     import torch
     import torch.nn.functional as Fn
 
@@ -168,6 +184,178 @@ def kernel_phase(device) -> dict:
           f"bound_ms {bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} GFLOP, "
           f"{nbytes / 1e6:.4g} MB)", flush=True)
     return record
+
+
+# the finetune's shapes for the training layer: the semantic branch's
+# batch of 64 and the unroll's single clip, 76 frames + the condition token
+TRAIN_BATCHES, TRAIN_RATES = (64, 1), (0.1, 0.0)
+GRAD_REL_L2, GRAD_MAX_REL = 1e-2, 3e-2
+
+
+def train_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool) -> dict:
+    """(bound_ms, bound_by, flops, bytes) of the three training kernels:
+    tensor-core operations at the bf16 peak (counting what the backward
+    halves recompute) against each input read once and each output written
+    once at the card's memory rate."""
+    m = b * s
+    attn_core = 2 * b * s * s * d  # one S x S x D product over all heads
+    weights_ffn, weights_attn = 2 * d * f * 2, (3 * d * d + d * d) * 2
+    vec_ffn, vec_attn = (f + d + 4 * d) * 4, (3 * d + d) * 4
+    mask_bytes = (m * (2 * d + f) * 2) if masked else 0
+    work = {
+        "fused_layer_train_forward": (
+            2 * m * d * 3 * d + 2 * attn_core + 2 * m * d * d + 2 * 2 * m * d * f,
+            m * d * 2 + mask_bytes + weights_ffn + weights_attn + vec_ffn + vec_attn
+            + m * d * 2 + m * d * 4 + m * d * 2),
+        "fused_layer_train_bwd_ffn": (
+            6 * 2 * m * d * f,
+            m * d * 4 + m * d * 4 + (m * (f + d) * 2 if masked else 0) + weights_ffn + vec_ffn
+            + m * d * 4 + 2 * d * f * 4 + (f + 5 * d) * 4),
+        "fused_layer_train_bwd_attn": (
+            2 * 2 * m * d * d + 3 * 2 * m * d * 3 * d + 5 * attn_core,
+            m * d * 4 + m * d * 2 + m * d * 2 + (m * d * 2 if masked else 0) + weights_attn
+            + 3 * d * 4 + m * d * 4 + (3 * d * d + d * d) * 4 + 4 * d * 4),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                     flops, nbytes)
+    return out
+
+
+def _grad_gate(name: str, got, want):
+    rel = rel_l2(got, want)
+    mx = float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-12))
+    return rel, mx, rel <= GRAD_REL_L2 and mx <= GRAD_MAX_REL
+
+
+def train_kernel_phase(device) -> dict:
+    """Kernels 5-7 against their twins on the card at B=64 and B=1, S=77,
+    full width, masks at rate 0.1 and 0; times at B=64, rate 0.1. Returns
+    each kernel's record fields by name."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from motionstyle_torch.ops import fused_encoder_train as ft
+
+    gen = torch.Generator().manual_seed(1)
+    p = random_layer(gen, D, F, device)
+    records = {n: {"max_abs_err": 0.0} for n in
+               ("fused_layer_train_forward", "fused_layer_train_bwd_ffn",
+                "fused_layer_train_bwd_attn")}
+    timing_inputs = {}
+    for b in TRAIN_BATCHES:
+        for rate in TRAIN_RATES:
+            x = torch.randn(b, S, D, generator=gen).to(device, torch.bfloat16)
+            dh2 = torch.randn(b, S, D, generator=gen).to(device, torch.bfloat16)
+            masks = None
+            if rate > 0:
+                masks = ft.make_dropout_masks(
+                    torch.Generator(device=device).manual_seed(b), (b, S, D), rate, F)
+            # the gate reads the fp32 output (the kernel's sums before the
+            # output's bf16 rounding); the bf16 output is held to rel_l2
+            out32, _, _ = ft.fused_layer_train_forward(x, p, H, None, masks, torch.float32)
+            out, a1, attn = ft.fused_layer_train_forward(x, p, H, None, masks)
+            torch.cuda.synchronize()
+            r_out, r_a1, r_attn = ft.fused_layer_train_forward_reference(
+                x, p, H, None, masks, torch.float32)
+            err = float((out32 - r_out).abs().max())
+            rel, rel16 = rel_l2(out32, r_out), rel_l2(out, r_out)
+            rel_a1 = rel_l2(a1, r_a1)
+            print(f"  train fwd B={b} rate={rate}: max_abs {err:.6g} rel_l2 {rel:.6g} "
+                  f"(bf16 output: max_abs {float((out.float() - r_out).abs().max()):.6g} "
+                  f"rel_l2 {rel16:.6g}) a1 rel_l2 {rel_a1:.6g} attn rel_l2 "
+                  f"{rel_l2(attn, r_attn):.6g}", flush=True)
+            check(err <= LAYER_MAX_ABS and max(rel, rel16, rel_a1) <= LAYER_REL_L2,
+                  f"train forward B={b} rate={rate} within max_abs {LAYER_MAX_ABS} "
+                  f"and rel_l2 {LAYER_REL_L2}")
+            fwd_rec = records["fused_layer_train_forward"]
+            fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], err)
+
+            # each backward half from the same inputs as its twin
+            da1, g_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks)
+            torch.cuda.synchronize()
+            r_da1, r_ffn = ft.bwd_ffn_reference(dh2, a1, p, masks)
+            dx, g_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, H, None, masks)
+            torch.cuda.synchronize()
+            r_dx, r_attn_g = ft.bwd_attn_reference(r_da1, x, attn, p, H, None, masks)
+            for kname, got, want in (
+                    [("fused_layer_train_bwd_ffn", da1, r_da1)]
+                    + [("fused_layer_train_bwd_ffn", g_ffn[k], r_ffn[k]) for k in r_ffn]
+                    + [("fused_layer_train_bwd_attn", dx, r_dx)]
+                    + [("fused_layer_train_bwd_attn", g_attn[k], r_attn_g[k]) for k in r_attn_g]):
+                rel, mx, ok = _grad_gate(kname, got, want)
+                records[kname]["max_abs_err"] = max(
+                    records[kname]["max_abs_err"], float((got - want).abs().max()))
+                if not ok:
+                    check(False, f"{kname} B={b} rate={rate}: rel_l2 {rel:.6g}, "
+                                 f"max_abs/max {mx:.6g} over {tuple(want.shape)}")
+            print(f"  train bwd B={b} rate={rate}: da1 rel_l2 {rel_l2(da1, r_da1):.6g} "
+                  f"dW1 rel_l2 {rel_l2(g_ffn['linear1_weight'], r_ffn['linear1_weight']):.6g} "
+                  f"dx rel_l2 {rel_l2(dx, r_dx):.6g} dWqkv rel_l2 "
+                  f"{rel_l2(g_attn['in_proj_weight'], r_attn_g['in_proj_weight']):.6g}",
+                  flush=True)
+            check(True, f"train backward B={b} rate={rate}: every gradient leaf, da1 and dx "
+                        f"within rel_l2 {GRAD_REL_L2} and max_abs/max {GRAD_MAX_REL}")
+            if rate > 0:
+                timing_inputs[b] = (x, dh2, masks, a1, attn, r_da1)
+
+    # the unroll's shape (B=1): kernel times only, for the finetune's breakdown
+    x, dh2, masks, a1, attn, da1 = timing_inputs[1]
+    ms_b1 = {
+        "fused_layer_train_forward": time_ms(
+            lambda: ft.fused_layer_train_forward(x, p, H, None, masks), iters=50),
+        "fused_layer_train_bwd_ffn": time_ms(
+            lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks), iters=50),
+        "fused_layer_train_bwd_attn": time_ms(
+            lambda: ft.fused_layer_train_bwd_attn(da1, x, attn, p, H, None, masks), iters=50),
+    }
+    print(f"  B=1 S={S} kernel ms: {ms_b1}", flush=True)
+    x, dh2, masks, a1, attn, da1 = timing_inputs[TRAIN_BATCHES[0]]
+    b = x.shape[0]
+    runs = {
+        "fused_layer_train_forward": (lambda: ft.fused_layer_train_forward(x, p, H, None, masks),
+                                      lambda: ft.fused_layer_train_forward_reference(
+                                          x, p, H, None, masks)),
+        "fused_layer_train_bwd_ffn": (lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks),
+                                      lambda: ft.bwd_ffn_reference(dh2, a1, p, masks)),
+        "fused_layer_train_bwd_attn": (lambda: ft.fused_layer_train_bwd_attn(
+            da1, x, attn, p, H, None, masks),
+            lambda: ft.bwd_attn_reference(da1, x, attn, p, H, None, masks)),
+    }
+    launches0 = {n: getattr(ft, n).launches for n in runs}
+    with torch.no_grad():
+        for name, (kern, twin) in runs.items():
+            records[name]["ms"] = time_ms(kern, iters=50)
+            records[name]["plain_ms"] = time_ms(twin, iters=10)
+    for name in runs:  # timing launches are not the main path's
+        getattr(ft, name).launches = launches0[name]
+    lib = torch.nn.TransformerEncoderLayer(
+        D, H, F, dropout=0.1, activation=partial(Fn.gelu, approximate="tanh"),
+        batch_first=True).to(device, torch.bfloat16).train()
+    xl = x.detach().clone().requires_grad_(True)
+    with torch.no_grad():
+        records["fused_layer_train_forward"]["library_ms"] = time_ms(lambda: lib(x), iters=50)
+
+    def lib_pair():
+        lib(xl).backward(dh2)
+
+    pair_ms = time_ms(lib_pair, iters=20)
+    records["fused_layer_train_bwd_ffn"]["library_ms"] = None
+    records["fused_layer_train_bwd_attn"]["library_ms"] = None
+    bounds = train_bounds(b, S, D, H, F, masked=True)
+    for name, (bound_ms, bound_by, flops, nbytes) in bounds.items():
+        records[name].update(bound_ms=bound_ms, bound_by=bound_by)
+        r = records[name]
+        print(f"  {name} B={b} S={S}: kernel_ms {r['ms']:.6g} reference_ms "
+              f"{r['plain_ms']:.6g} library_ms {r['library_ms']} bound_ms {bound_ms:.6g} "
+              f"({bound_by}: {flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB)", flush=True)
+    fb = sum(records[n]["ms"] for n in runs)
+    print(f"  layer forward + backward: kernels {fb:.6g} ms; library "
+          f"nn.TransformerEncoderLayer (bf16, train, dropout 0.1) forward + backward "
+          f"{pair_ms:.6g} ms", flush=True)
+    return records, ms_b1
 
 
 def golden_phase(device):
@@ -313,6 +501,148 @@ def serve_phase(golden_sd, card: str) -> int:
     return launches
 
 
+def write_xia_corpus(root: str, seed: int = 0, clips: int = 120) -> None:
+    """A synthetic Xia-layout corpus (181-dim new_joint_vecs/*.npy, Mean.npy,
+    Std.npy) from a seed, as tests/test_cli.py:13-22 writes one, large
+    enough for batches of 64 (the Xia set holds ~570 clips)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "new_joint_vecs"))
+    styles = ("angry", "childlike", "depressed", "neutral", "old", "proud", "sexy",
+              "strutting")
+    contents = ("jumping", "running", "walking", "punching", "kicking")
+    names = ["350angry_jumping.npy"] + [
+        f"{100 + i:03d}{styles[i % len(styles)]}_{contents[i % len(contents)]}.npy"
+        for i in range(clips)]
+    for name in names:
+        frames = int(rs.randint(40, 160))
+        np.save(os.path.join(root, "new_joint_vecs", name),
+                (rs.randn(frames, 181) * 0.5).astype(np.float32))
+    np.save(os.path.join(root, "Mean.npy"), (rs.randn(181) * 0.1).astype(np.float32))
+    np.save(os.path.join(root, "Std.npy"), (np.abs(rs.randn(181)) + 0.5).astype(np.float32))
+
+
+def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict,
+                   tmp_root: str) -> tuple:
+    """The finetune CLI at full width with --fused 1 --fused_train 1 and a
+    batch of 64 for a few steps; returns the training kernels' launches and
+    the function that builds the CLI's arguments."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
+    from motionstyle_torch.models.params import convert_encoder, seeded_init_
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+
+    steps, layers, seed = FINETUNE_STEPS, FINETUNE_LAYERS, 10
+    train_kernels = (ft.fused_layer_train_forward, ft.fused_layer_train_bwd_ffn,
+                     ft.fused_layer_train_bwd_attn)
+    mdm_path = os.path.join(tmp_root, "mdm_golden.pt")
+    torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
+
+    def finetune_args(data_dir: str, save_dir: str, num_steps: int) -> list:
+        return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", mdm_path,
+                "--save_dir", save_dir, "--fused", "1", "--fused_train", "1",
+                "--batch_size", str(FINETUNE_BATCH), "--layers", str(layers),
+                "--num_steps", str(num_steps), "--skip_render",
+                "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "style_xia")
+        write_xia_corpus(data_dir)
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: every count from here to the end of the run
+        for k in train_kernels + (fused_encoder_layer,):
+            k.launches = 0
+        t0 = time.perf_counter()
+        save_dir = finetune_main(finetune_args(data_dir, os.path.join(tmp, "ft"), steps))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in train_kernels}
+        inference_launches = fused_encoder_layer.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        ckpts = sorted(n for n in os.listdir(save_dir) if n.startswith("model"))
+        sd = torch.load(os.path.join(save_dir, ckpts[-1]), map_location="cpu")
+    cfg = MDMConfig(njoints=181, nfeats=1)
+    trained = convert_encoder(sd, "seqTransEncoder", layers)
+    init = seeded_init_(StyleDiffusion(cfg), seed).style_encoder.state_dict()
+    moved = max(float((trained[k] - init[k]).abs().max()) for k in init)
+    losses = [float(r["loss"]) for r in rows]
+    secs = [float(r["step_seconds"]) for r in rows]
+    print(f"  {steps} steps in {wall:.4f} s (whole CLI run on {card}); losses {losses}; "
+          f"step seconds {secs}; peak memory {peak_gb:.4g} GB", flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), "finetune losses finite")
+    check(ckpts[-1] == f"model{steps:09d}.pt" and set(trained) == set(init),
+          f"{ckpts[-1]} loads back with convert_encoder ({layers} layers)")
+    print(f"  style encoder moved by max_abs {moved:.6g} from its seeded start", flush=True)
+    check(moved > 0.0, "the style encoder's weights moved")
+    # DDIM-20 skip 700 of 1000: 6 unrolled steps, each recomputed under
+    # checkpoint, plus the semantic branch's forward; 8 layers each
+    unroll = 6
+    want = {"fused_layer_train_forward": layers * (1 + 2 * unroll) * steps,
+            "fused_layer_train_bwd_ffn": layers * (1 + unroll) * steps,
+            "fused_layer_train_bwd_attn": layers * (1 + unroll) * steps}
+    print(f"  training kernel launches {launches} over {steps} steps; inference layer "
+          f"launches {inference_launches} (neutral generation 100 x 8, final resample "
+          f"{unroll} x 8)", flush=True)
+    check(launches == want, f"training kernel launches per step == {want} / {steps}")
+    check(inference_launches == layers * (100 + unroll),
+          "inference kernel launches == 8 x (100 neutral DDPM steps + 6 DDIM steps)")
+    per_step = {n: launches[n] // steps for n in launches}
+    kernel_s = (layers * (kernel_ms_b64["fused_layer_train_forward"]
+                          + kernel_ms_b64["fused_layer_train_bwd_ffn"]
+                          + kernel_ms_b64["fused_layer_train_bwd_attn"])
+                + layers * unroll * (2 * kernel_ms_b1["fused_layer_train_forward"]
+                                     + kernel_ms_b1["fused_layer_train_bwd_ffn"]
+                                     + kernel_ms_b1["fused_layer_train_bwd_attn"])) / 1e3
+    steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
+    print(f"  per step: {per_step} launches; their kernel time (launches x the kernel "
+          f"times measured above at B=64 and B=1) {kernel_s:.6g} s of a median "
+          f"{steady:.6g} s step after the first ({100 * kernel_s / steady:.4g} %)", flush=True)
+    return launches, finetune_args
+
+
+def profile_finetune(args_of) -> None:
+    """One more short finetune run (2 steps) under torch.profiler: device
+    time by kernel name over the whole CLI run (neutral generation
+    included), the device's busy time against the run's wall time. Its
+    launches are not the main path's and are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "style_xia")
+        write_xia_corpus(data_dir)
+        argv = args_of(data_dir, os.path.join(tmp, "ft"), 2)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            finetune_main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total_us = sum(device_us(e) for e in events)
+    if total_us <= 0:
+        print("  profiler: no device time recorded", flush=True)
+        return
+    print(f"  profiler (2 steps + neutral generation + resample): device busy "
+          f"{total_us / 1e6:.4f} s of {wall:.4f} s wall ({100 * total_us / 1e6 / wall:.4g} %); "
+          f"top device time by kernel:", flush=True)
+    for e in sorted(events, key=lambda e: -device_us(e))[:12]:
+        print(f"    {device_us(e) / 1e3:10.3f} ms {e.count:7d} x  {e.key[:90]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -333,25 +663,36 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     with phase("build"):
-        path, secs = _build.build("fused_encoder")
-        _build.load("fused_encoder")
-        print(f"  {os.path.relpath(path, ROOT)}: nvcc {secs:.3f} s", flush=True)
+        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, together
+            built = list(pool.map(_build.build, KERNEL_SOURCES))
+        for name, (path, secs) in zip(KERNEL_SOURCES, built):
+            _build.load(name)
+            print(f"  {os.path.relpath(path, ROOT)}: nvcc {secs:.3f} s", flush=True)
     with phase("kernel"):
         record = kernel_phase(device)
     with phase("golden"):
         golden_sd = golden_phase(device)
     with phase("serve"):
         launches = serve_phase(golden_sd, card)
+    with phase("train_kernel"):
+        train_records, ms_b1 = train_kernel_phase(device)
+    with phase("finetune"), tempfile.TemporaryDirectory() as tmp:
+        train_launches, args_of = finetune_phase(
+            golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp)
+        profile_finetune(args_of)
 
-    kernel = {"name": "fused_encoder_layer", "route": "cuda",
-              "source": "motionstyle_torch/csrc/fused_encoder.cu",
-              "replaces": "motionstyle/ops/fused_encoder.py:96",
-              "launches": launches, "max_abs_err": record["max_abs_err"],
-              "ms": record["ms"], "plain_ms": record["plain_ms"],
-              "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
-              "library_ms": record["library_ms"]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [dict(name="fused_encoder_layer", route="cuda",
+                    source="motionstyle_torch/csrc/fused_encoder.cu",
+                    replaces="motionstyle/ops/fused_encoder.py:96", launches=launches,
+                    **{k: record[k] for k in keys})]
+    for name, replaces in TRAIN_KERNELS.items():
+        kernels.append(dict(name=name, route="cuda",
+                            source="motionstyle_torch/csrc/fused_encoder_train.cu",
+                            replaces=replaces, launches=train_launches[name],
+                            **{k: train_records[name][k] for k in keys}))
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,11 @@ SIGNATURES = {
     "fused_encoder": [
         ("fused_encoder_layer_forward", [_VP] * 23 + [_INT] * 5 + [_VP]),
     ],
+    "fused_encoder_train": [
+        ("fused_layer_train_forward", [_VP] * 27 + [_INT] * 5 + [_VP]),
+        ("fused_layer_train_bwd_ffn", [_VP] * 29 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_bwd_attn", [_VP] * 22 + [_INT] * 4 + [_VP]),
+    ],
 }
 
 _lock = threading.Lock()

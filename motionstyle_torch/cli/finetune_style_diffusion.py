@@ -1,0 +1,227 @@
+"""Few-shot style finetune CLI of the PyTorch port.
+
+Counterpart of motionstyle/cli/finetune_style_diffusion.py (parity:
+train/finetune_style_diffusion.py): args.json config of record, neutral
+content generated by the frozen prior (a 1000-step DDPM stopped at 900,
+keeping the last x0, :195-212), the semantic-guidance caption edit (:279-286),
+training through the few-shot loss, and a final DDIM resample (:307-343).
+With --fused_train 1 every training forward of the style encoder runs the
+CUDA training kernels; with --fused 1 the prior's sampling runs the CUDA
+inference kernel.
+
+Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
+        --dataset stylexia_posrot --save_dir ./save/ft --data_dir .../style_xia \\
+        --mdm_path prior.pt --fused 1 --fused_train 1 --skip_render \\
+        --train_platform_type NoPlatform [--device cuda]
+
+Not on this slice (each raises, naming its ROADMAP item): LoRA, --auto_stop,
+--parallel_finetune, mesh training, orbax checkpoints, the store-probs and
+in-kernel-PRNG training kernels, rendering, and the humanml/bandai datasets.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from os.path import join as pjoin
+
+import numpy as np
+import torch
+
+from motionstyle_torch.cli import model_util
+from motionstyle_torch.cli.parser_util import finetune_inpainting_style_args
+from motionstyle_torch.data.collate import get_dataset_loader, lengths_to_mask, require_batches
+from motionstyle_torch.data.masks import get_inpainting_mask
+from motionstyle_torch.diffusion import sampling
+from motionstyle_torch.diffusion.ddpm import Inpainting
+from motionstyle_torch.train import logging as logger
+from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
+from motionstyle_torch.train.platforms import get_platform
+
+DATASET_DEFAULTS = {
+    "stylexia_posrot": dict(example="350angry_jumping.npy", max_frames=76),
+}
+
+# flag -> (value that means "off", what it needs), checked before any work
+UNSUPPORTED = {
+    "lora_rank": (0, "LoRA finetuning (ROADMAP §1 item 8)"),
+    "auto_stop": (0, "--auto_stop (ROADMAP §1 item 11: eval/style_metrics.py)"),
+    "parallel_finetune": (0, "the Picard-parallel unroll (ROADMAP §1 item 10)"),
+    "data_parallel": (0, "mesh training (ROADMAP §1 item 12)"),
+    "model_parallel": (1, "mesh training (ROADMAP §1 item 12)"),
+    "fsdp": (0, "mesh training (ROADMAP §1 item 12)"),
+    "orbax_checkpoints": (0, "sharded checkpoints (ROADMAP §1 item 12)"),
+    "fused_train_store": (0, "the store-probs training kernels (ROADMAP §2 items 8-9)"),
+    "fused_train_prng": (0, "in-kernel dropout (ROADMAP §2 item 10)"),
+    "quant_int8": (0, "the int8 layer (ROADMAP §2 item 2)"),
+    "native_loader": (0, "the native batch loader (ROADMAP §1 item 13)"),
+    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 13)"),
+    "profile": ("", "profiling (ROADMAP §1 item 12)"),
+}
+
+
+def check_supported(args) -> None:
+    """Raise NotImplementedError for what this slice of the port does not run."""
+    for flag, (off, what) in UNSUPPORTED.items():
+        if getattr(args, flag) != off:
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
+    if not args.skip_render:
+        raise NotImplementedError(
+            "rendering is not ported to motionstyle_torch (ROADMAP §1 item 4: the post "
+            "chain); pass --skip_render")
+    if args.dataset not in DATASET_DEFAULTS:
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
+            "(ROADMAP §1 item 3: humanml and bandai loaders)")
+    if args.arch != "trans_enc":
+        raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
+
+
+def style_caption(dataset: str, style_example: str):
+    """Neutral-content caption + style word; parity: f_s_d.py:113-138."""
+    style_example = os.path.basename(style_example) if style_example else ""
+    if not style_example:
+        return "a person is jumping neutral", "angry"
+    contents = style_example.split("_")[-1][:-4]
+    style_label = style_example.split("_")[0][3:]
+    return "a person is " + contents + " neutral", style_label
+
+
+def edit_caption_with_style(caption: str, style_label: str) -> str:
+    """Semantic-guidance caption edit for the posrot datasets: drop the
+    trailing style word, insert the style before the last word; parity:
+    f_s_d.py:279-286."""
+    words = caption.split(" ")
+    words.pop(-1)
+    words.insert(-1, style_label)
+    return " ".join(words)
+
+
+def main(argv=None):
+    args = finetune_inpainting_style_args(argv)
+    check_supported(args)
+    defaults = DATASET_DEFAULTS[args.dataset]
+    if not args.style_example:
+        args.style_example = defaults["example"]
+    max_frames = defaults["max_frames"]
+
+    if os.path.exists(args.save_dir) and not args.overwrite and os.listdir(args.save_dir):
+        raise FileExistsError(f"save_dir [{args.save_dir}] already exists.")
+    args.save_dir = pjoin(args.save_dir, os.path.basename(args.style_example)[:-4])
+    os.makedirs(args.save_dir, exist_ok=True)
+    model_util.warn_if_clip_fallback(args)
+    with open(pjoin(args.save_dir, "args.json"), "w") as fw:
+        json.dump(vars(args), fw, indent=4, sort_keys=True)
+    logger.configure(args.save_dir, format_strs=("stdout", "csv"))
+    platform = get_platform(args.train_platform_type, args.save_dir)
+    platform.report_args(args, name="Args")
+
+    print("creating data loader...")
+    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, split="train",
+                                              data_root=args.data_dir or None),
+                           "finetune_style_diffusion")
+
+    print("creating model and diffusion...")
+    bundle, sched_ddim, sched_full = model_util.creat_ddpm_ddim_diffusion(
+        args, timestep_respacing="ddim20" if args.use_ddim else "", device=args.device)
+    sched = sched_ddim if args.use_ddim else sched_full
+    dev, cfg, model = bundle.device, bundle.cfg, bundle.model
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+
+    # ---- the one style example ----
+    ds = data.dataset
+    style_path = args.style_example
+    if not os.path.isfile(style_path):
+        style_path = pjoin(ds.opt.motion_dir, args.style_example)
+    motion, m_length = ds.process_np_motion(style_path)
+    input_motions = as_t(motion.T[None, :, None, :])
+    caption, style_label = style_caption(args.dataset, args.style_example)
+    mask = as_t(lengths_to_mask([m_length], max_frames)[:, None, None, :])
+    inp_mask = as_t(get_inpainting_mask(args.inpainting_mask, tuple(input_motions.shape),
+                                        dataset=args.dataset))
+
+    # ---- neutral content from the frozen prior ----
+    print(f'generating neutral content for caption "{caption}" ...')
+    enc_neutral = as_t(bundle.encode_text([caption], args.dataset))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    prior_fn = lambda x, t, c: model.denoise_prior(x, t, c.get("enc_text"))  # noqa: E731
+    # stop at 0.9T (the reference hardcodes 900 for T=1000, f_s_d.py:195)
+    xstarts = sampling.sample_loop(
+        sched_full, prior_fn, {"enc_text": enc_neutral}, gen,
+        shape=(1, cfg.njoints, cfg.nfeats, max_frames), init_image=input_motions,
+        method="ddpm", skip_timesteps=0, stop_timesteps=int(0.9 * args.diffusion_steps),
+        inpainting=Inpainting(inp_mask, input_motions), dump_all_xstart=True)
+    neutral = xstarts[-1]
+
+    # ---- finetune ----
+    if args.semantic_guidance and args.latent_dim != 512:
+        raise ValueError(
+            "semantic guidance compares the 512-d CLIP text embedding against the motion "
+            "encoder's latent; pass --semantic_guidance 0 for other widths")
+    edited_caption = edit_caption_with_style(caption, style_label)
+    print(f'finetuning with style caption "{edited_caption}" ...')
+    text_features = as_t(bundle.encode_text([edited_caption], args.dataset))
+    ft_cfg = FinetuneConfig(
+        save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,
+        lr_anneal_steps=args.lr_anneal_steps, num_steps=args.num_steps,
+        log_interval=args.log_interval, save_interval=args.save_interval,
+        batch_size=args.batch_size, skip_steps=args.skip_steps,
+        diffusion_steps=args.diffusion_steps, use_ddim=bool(args.use_ddim),
+        semantic_guidance=bool(args.semantic_guidance), ls_weight=args.Ls,
+        cond_mask_prob=args.cond_mask_prob, resume_checkpoint=args.resume_checkpoint,
+        seed=args.seed)
+    trainer = StyleFinetuneTrainer(ft_cfg, model, sched, platform)
+    print("Total params: %.2fM trainable" % (
+        sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6))
+    trainer.install_preemption_handler()
+
+    step = 0
+    while step < args.num_steps and not trainer.preempted:
+        for motion_b, cond in data:
+            if step >= args.num_steps or trainer.preempted:
+                break
+            texts = list(cond["y"]["text"])
+            if args.semantic_guidance:  # f_s_d.py:268-285
+                texts = [edit_caption_with_style(t, style_label) for t in texts]
+            batch = {
+                "x_start": motion_b.astype(np.float32),
+                "content": neutral,
+                "style_target": input_motions,
+                "mask": mask,
+                "inp_mask": inp_mask,
+                "enc_text_style": enc_neutral,
+                "enc_text_t2m": bundle.encode_text(texts, args.dataset),  # memoised
+                "inp_mask_t2m": get_inpainting_mask(args.inpainting_mask, motion_b.shape,
+                                                    dataset=args.dataset).astype(np.float32),
+                "frame_mask_t2m": cond["y"]["mask"][:, 0, 0, :].astype(bool),
+                "text_features": text_features,
+            }
+            t0 = time.perf_counter()
+            terms = trainer.run_step(batch)
+            print(f"step[{step}]: loss[{terms['loss']:0.5f}] "
+                  f"({time.perf_counter() - t0:.3f} s)")
+            logger.dumpkvs()
+            step += 1
+    trainer.finish()
+    trainer.restore_signal_handlers()
+    platform.close()
+    if trainer.preempted:
+        print(f"[Preempted] checkpoint saved in {args.save_dir}; exiting")
+        return args.save_dir
+
+    # ---- final eval: resample the style example reconstruction ----
+    style_fn = lambda x, t, c: model(x, t, c.get("enc_text"))  # noqa: E731
+    sample = sampling.sample_loop(
+        sched_ddim, style_fn, {"enc_text": enc_neutral}, gen, shape=tuple(neutral.shape),
+        init_image=neutral, method="ddim",
+        skip_timesteps=int(args.skip_steps / args.diffusion_steps * sched_ddim.num_timesteps),
+        inpainting=Inpainting(inp_mask, input_motions))
+    if not torch.isfinite(sample).all():
+        raise RuntimeError("the final style resample is not finite")
+    print(f"[Done] checkpoints + outputs in {args.save_dir}")
+    return args.save_dir
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,9 @@ initialisation with a warning, and the CLIP text tower to a seeded tower
 (seed 42) unless --clip_weights is given. The seeded fallbacks draw from
 torch's generator, so they differ from the JAX package's PRNGKey draws.
 
-Not on this slice: LoRA adapters, --style_strength/--style_mix, the semantic
-discriminator (--semantic_discriminator_path).
+A semantic discriminator checkpoint (--semantic_discriminator_path) loads
+into the model's mu/sigma queries and motion encoder; without one they are
+seeded. Not on this slice: LoRA adapters, --style_strength/--style_mix.
 """
 from __future__ import annotations
 
@@ -51,7 +52,9 @@ def get_transfer_config(args) -> MDMConfig:
     fused = bool(getattr(args, "fused", 0))
     return MDMConfig(
         njoints=njoints, nfeats=nfeats, latent_dim=args.latent_dim, ff_size=1024,
-        num_layers=args.layers, num_heads=4, clip_dim=512, fused=fused,
+        num_layers=args.layers, num_heads=4, clip_dim=512, dropout=0.1,
+        cond_mask_prob=getattr(args, "cond_mask_prob", 0.1), fused=fused,
+        fused_train=bool(getattr(args, "fused_train", 0)),
         # explicit --dtype wins; the fused kernel defaults to its designed bf16
         # input, everything else to fp32, as in the JAX package
         dtype=getattr(args, "dtype", None) or ("bfloat16" if fused else "float32"),
@@ -107,6 +110,11 @@ def build_model(args, device="cuda") -> ModelBundle:
     mdm_sd = _maybe_load(getattr(args, "mdm_path", ""), "MDM prior")
     if mdm_sd is not None:
         model.load_state_dict(from_torch_state_dict(mdm_sd, cfg, part="mdm"), strict=False)
+    sem_path = getattr(args, "semantic_discriminator_path", "")
+    if sem_path and os.path.exists(sem_path):
+        print(f"loading semantic discriminator from {sem_path}")
+        model.load_state_dict(from_torch_state_dict(load_torch_state_dict(sem_path), cfg,
+                                                    part="semantic"), strict=False)
     model_path = getattr(args, "model_path", "")
     if model_path and os.path.exists(model_path):
         print(f"load style diffusion model: {model_path}")
@@ -134,3 +142,28 @@ def creat_serval_diffusion(args, timestep_respacing: str = "", device="cuda") ->
     sched_full = make_schedule(args.noise_schedule, args.diffusion_steps,
                                device=bundle.device)
     return bundle, sched_respaced, sched_full
+
+
+creat_ddpm_ddim_diffusion = creat_serval_diffusion  # the same pair, as in the JAX package
+
+
+def warn_if_clip_fallback(args) -> bool:
+    """Record args.clip_fallback and warn when semantic guidance would
+    optimise features without pretrained semantics: no --clip_weights
+    checkpoint means a seeded tower whose features carry no semantics, no
+    CLIP_BPE_PATH merges means byte-level token ids. Returns the flag."""
+    clip_w = getattr(args, "clip_weights", "")
+    bpe = os.environ.get("CLIP_BPE_PATH", "")
+    weights_fb = not (clip_w and os.path.exists(clip_w))
+    tok_fb = not (bpe and os.path.exists(bpe))
+    args.clip_fallback = bool(weights_fb or tok_fb)
+    if args.clip_fallback and getattr(args, "semantic_guidance", 0):
+        missing = [m for m, fb in (("weights (--clip_weights)", weights_fb),
+                                   ("BPE merges (CLIP_BPE_PATH)", tok_fb)) if fb]
+        print("=" * 70)
+        print("WARNING: semantic guidance is running with a FALLBACK CLIP text")
+        print(f"tower (missing: {', '.join(missing)}). The Ls CLIP-cosine term")
+        print("optimises features with no pretrained semantics.")
+        print('Recorded as "clip_fallback": true in args.json.')
+        print("=" * 70)
+    return args.clip_fallback

@@ -75,3 +75,11 @@ def p_mean_variance(sched: DiffusionSchedule, model_fn: ModelFn, x: torch.Tensor
     pred_xstart = model_output.clamp(-1.0, 1.0) if clip_denoised else model_output
     mean = q_posterior_mean(sched, pred_xstart, x, t)
     return PMeanVariance(mean, step_log_variance(sched, t, x.ndim, sigma_small), pred_xstart)
+
+
+def masked_l2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-sample mean squared error over unmasked elements. a, b (B, C, F,
+    T); mask (B, 1, 1, T). Parity: gaussian_diffusion.py:223-235
+    (normalised by mask frames x C x F)."""
+    loss = ((a - b) ** 2 * mask).sum(dim=(1, 2, 3))
+    return loss / (mask.sum(dim=(1, 2, 3)) * (a.shape[1] * a.shape[2]))

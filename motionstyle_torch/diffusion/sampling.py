@@ -9,17 +9,25 @@ loop here (PyTorch runs eagerly):
   - dump_all_xstart returns the stacked per-step x0 predictions (S, B, ...),
     highest t first, the reference's dump list order;
   - `noise` pins the initial noise and `step_noise` (S, B, ...) the per-step
-    noise, so tests replay the JAX package's draws exactly.
+    noise, so tests replay the JAX package's draws exactly;
+  - differentiable=True is the finetune unroll (:100-212): each step's x0
+    prediction stays in the autograd graph while the carried sample is
+    detached between steps, and with remat each step's body runs under
+    torch.utils.checkpoint (jax.checkpoint's counterpart). The step noise is
+    drawn before the checkpointed body; a model_fn that draws dropout must
+    re-seed its own generator per call so the recompute sees the same masks.
 
-Not on this slice: the Pallas fused DDPM update (fused_update), the
-differentiable/remat finetune unroll and classifier guidance (cond_fn).
+Not on this slice: the Pallas fused DDPM update (fused_update) and
+classifier guidance (cond_fn).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from motionstyle_torch.diffusion import ddpm
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
@@ -71,7 +79,6 @@ def _ddim_update(sched, pmv, x, t, noise, inpainting, eta):
     return mean_pred + _nonzero(t, x) * sigma * noise
 
 
-@torch.no_grad()
 def sample_loop(
     sched: DiffusionSchedule,
     model_fn: ModelFn,
@@ -91,48 +98,61 @@ def sample_loop(
     dump_all_xstart: bool = False,
     sigma_small: bool = True,
     step_noise: Optional[torch.Tensor] = None,
+    differentiable: bool = False,
+    remat: bool = True,
 ) -> torch.Tensor:
     """Run the reverse diffusion on the schedule's device. Returns the final
     sample, or the stacked per-step x0 predictions (S, B, C, F, T) with
     dump_all_xstart. Noise not pinned by `noise`/`step_noise` is drawn from
-    `generator` (a torch.Generator on the schedule's device)."""
-    device = sched.device
-    if noise is None:
-        assert shape is not None, "need shape when noise is not given"
-        img = torch.randn(shape, generator=generator, device=device)
-    else:
-        img = noise.to(device=device, dtype=torch.float32)
-        shape = tuple(img.shape)
-
-    idx = timestep_indices(sched.num_timesteps, skip_timesteps, stop_timesteps)
-    if step_noise is not None and step_noise.shape[0] != len(idx):
-        raise ValueError(f"step_noise covers {step_noise.shape[0]} steps, "
-                         f"the chain has {len(idx)}")
-    if skip_timesteps and init_image is None:
-        init_image = torch.zeros_like(img)
-    if init_image is not None:
-        t0 = torch.full((shape[0],), int(idx[0]), dtype=torch.int64, device=device)
-        img = ddpm.q_sample(sched, init_image, t0, img, inpainting=inpainting)
-
-    xs = []
-    x = img
-    for i, t_scalar in enumerate(idx):
-        t = torch.full((shape[0],), int(t_scalar), dtype=torch.int64, device=device)
-        pmv = ddpm.p_mean_variance(sched, model_fn, x, t, cond,
-                                   clip_denoised=clip_denoised, inpainting=inpainting,
-                                   sigma_small=sigma_small)
-        if step_noise is not None:
-            noise_step = step_noise[i].to(device)
-        elif method == "ddim" and eta == 0.0:
-            noise_step = torch.zeros_like(x)  # multiplied by sigma = 0
+    `generator` (a torch.Generator on the schedule's device). Without
+    `differentiable` the loop runs under torch.no_grad()."""
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
+        device = sched.device
+        if noise is None:
+            assert shape is not None, "need shape when noise is not given"
+            img = torch.randn(shape, generator=generator, device=device)
         else:
-            noise_step = torch.randn(shape, generator=generator, device=device)
-        if const_noise:
-            noise_step = noise_step[:1].expand(shape)
-        if method == "ddim":
-            x = _ddim_update(sched, pmv, x, t, noise_step, inpainting, eta)
-        else:
-            x = _ddpm_update(pmv, x, t, noise_step, inpainting)
-        if dump_all_xstart:
-            xs.append(pmv.pred_xstart)
-    return torch.stack(xs) if dump_all_xstart else x
+            img = noise.to(device=device, dtype=torch.float32)
+            shape = tuple(img.shape)
+
+        idx = timestep_indices(sched.num_timesteps, skip_timesteps, stop_timesteps)
+        if step_noise is not None and step_noise.shape[0] != len(idx):
+            raise ValueError(f"step_noise covers {step_noise.shape[0]} steps, "
+                             f"the chain has {len(idx)}")
+        if skip_timesteps and init_image is None:
+            init_image = torch.zeros_like(img)
+        if init_image is not None:
+            t0 = torch.full((shape[0],), int(idx[0]), dtype=torch.int64, device=device)
+            img = ddpm.q_sample(sched, init_image, t0, img, inpainting=inpainting)
+
+        xs = []
+        x = img
+        for i, t_scalar in enumerate(idx):
+            t = torch.full((shape[0],), int(t_scalar), dtype=torch.int64, device=device)
+            if step_noise is not None:
+                noise_step = step_noise[i].to(device)
+            elif method == "ddim" and eta == 0.0:
+                noise_step = torch.zeros_like(x)  # multiplied by sigma = 0
+            else:
+                noise_step = torch.randn(shape, generator=generator, device=device)
+            if const_noise:
+                noise_step = noise_step[:1].expand(shape)
+
+            def step(x_in, t=t, noise_step=noise_step):
+                pmv = ddpm.p_mean_variance(sched, model_fn, x_in, t, cond,
+                                           clip_denoised=clip_denoised, inpainting=inpainting,
+                                           sigma_small=sigma_small)
+                if method == "ddim":
+                    return _ddim_update(sched, pmv, x_in, t, noise_step, inpainting, eta), \
+                        pmv.pred_xstart
+                return _ddpm_update(pmv, x_in, t, noise_step, inpainting), pmv.pred_xstart
+
+            if differentiable and remat:
+                x, pred_xstart = checkpoint(step, x, use_reentrant=False)
+            else:
+                x, pred_xstart = step(x)
+            if differentiable:
+                x = x.detach()  # gradients reach each step's x0 only
+            if dump_all_xstart:
+                xs.append(pred_xstart)
+        return torch.stack(xs) if dump_all_xstart else x

@@ -11,9 +11,17 @@ out of the forward (callers pass enc_text, already masked); compute runs in
 cfg.dtype with fp32 parameters and an fp32 output; there is no key-padding
 mask on the denoiser.
 
-StyleDiffusion here holds the frozen prior ('mdm') and the style encoder
-('style_encoder'), which is what sampling runs. The semantic discriminator
-(motion_enc_encoder, mu/sigma queries) is not on this slice.
+StyleDiffusion holds the frozen prior ('mdm'), the trainable style encoder
+('style_encoder') and the frozen semantic discriminator ('mu_query',
+'sigma_query', 'motion_enc_encoder'), as the JAX model does.
+
+Training forwards: `deterministic=False` applies the JAX model's dropout
+(the positional-encoding dropout of _apply_pe and the encoder layers' three
+sites) with masks drawn from an explicit torch.Generator. A caller that
+re-seeds the generator redraws the same masks, which a step recomputed under
+torch.utils.checkpoint needs. With cfg.fused_train the encoder stacks of a
+training forward run the CUDA training layer; with cfg.fused an inference
+forward runs the CUDA inference layer.
 """
 from __future__ import annotations
 
@@ -53,8 +61,14 @@ class MDMConfig:
     # compute dtype of the transformer stacks ('float32' | 'bfloat16');
     # parameters stay fp32 and the denoiser output is fp32
     dtype: str = "float32"
+    dropout: float = 0.1
+    # train-time condition dropout (CFG), applied by mask_cond
+    cond_mask_prob: float = 0.1
     # route the encoder stacks through the fused CUDA layer at inference
     fused: bool = False
+    # route the encoder stacks of training forwards through the fused CUDA
+    # training layer (forward and backward kernels)
+    fused_train: bool = False
 
     @property
     def input_feats(self) -> int:
@@ -106,7 +120,7 @@ class MDM(nn.Module):
         self.embed_timestep = TimestepEmbedder(d)
         self.embed_text = nn.Linear(cfg.clip_dim, d)
         self.seqTransEncoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
-                                                  cfg.ff_size)
+                                                  cfg.ff_size, cfg.dropout)
         self.output_process = _OutputProcess(d, cfg.input_feats)
 
     def frames_to_tokens(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,8 +132,20 @@ class MDM(nn.Module):
         B, T, _ = h.shape
         return h.reshape(B, T, self.cfg.njoints, self.cfg.nfeats).permute(0, 2, 3, 1)
 
+    def apply_pe(self, xseq: torch.Tensor, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """+ the positional encoding, then its dropout in a training forward
+        (JAX _apply_pe, denoiser.py:162-166)."""
+        xseq = xseq + self.pe.to(xseq.dtype)[None, : xseq.shape[1]]
+        if not deterministic and self.cfg.dropout > 0.0:
+            keep = 1.0 - self.cfg.dropout
+            bits = torch.rand(xseq.shape, generator=generator, device=xseq.device)
+            xseq = xseq * ((bits < keep).to(xseq.dtype) / keep)
+        return xseq
+
     def embed_tokens(self, x: torch.Tensor, timesteps: torch.Tensor,
-                     enc_text: Optional[torch.Tensor]) -> torch.Tensor:
+                     enc_text: Optional[torch.Tensor], deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[cond token; frame tokens] + pe, in the compute dtype."""
         dt = self.cfg.torch_dtype
         emb = self.embed_timestep(timesteps, self.pe, dt)  # (B, d)
@@ -127,7 +153,17 @@ class MDM(nn.Module):
             emb = emb + dense(self.embed_text, enc_text, dt)
         h = dense(self.input_process.poseEmbedding, self.frames_to_tokens(x), dt)
         xseq = torch.cat([emb[:, None, :], h], dim=1)
-        return xseq + self.pe.to(dt)[None, : xseq.shape[1]]
+        return self.apply_pe(xseq, deterministic, generator)
+
+    def run_encoder(self, encoder: TransformerEncoder, xseq: torch.Tensor,
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """An encoder stack routed as the JAX model routes it: the inference
+        kernel with cfg.fused at inference, the training kernels with
+        cfg.fused_train in a training forward, else the plain layers."""
+        return encoder(xseq, dtype=self.cfg.torch_dtype, use_fused=self.cfg.fused,
+                       fused_train=self.cfg.fused_train, deterministic=deterministic,
+                       generator=generator)
 
     def output_head(self, encoded: torch.Tensor) -> torch.Tensor:
         """Strip the condition token; (B, S, d) -> (B, C, F, T) fp32 motion."""
@@ -135,39 +171,90 @@ class MDM(nn.Module):
         return self.tokens_to_frames(out).float()
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                enc_text: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enc_text: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, C, F, T), timesteps (B,), enc_text (B, clip_dim) pre-masked.
         Parity: MDM.forward :315-364 (trans_enc)."""
-        xseq = self.embed_tokens(x, timesteps, enc_text)
-        out = self.seqTransEncoder(xseq, dtype=self.cfg.torch_dtype,
-                                   use_fused=self.cfg.fused)
-        return self.output_head(out)
+        xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
+        return self.output_head(self.run_encoder(self.seqTransEncoder, xseq,
+                                                 deterministic, generator))
 
 
 class StyleDiffusion(nn.Module):
-    """Frozen MDM prior + trainable style encoder; the style path borrows the
-    prior's embedding and output modules (StyleDiffusion.forward :602-625)."""
+    """Frozen MDM prior + trainable style encoder + frozen semantic
+    discriminator; the style path borrows the prior's embedding and output
+    modules (StyleDiffusion.forward :602-625)."""
 
     def __init__(self, cfg: MDMConfig):
         super().__init__()
         self.cfg = cfg
+        d = cfg.latent_dim
         self.mdm = MDM(cfg)
-        self.style_encoder = TransformerEncoder(cfg.num_layers, cfg.latent_dim,
-                                                cfg.num_heads, cfg.ff_size)
+        self.style_encoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
+                                                cfg.ff_size, cfg.dropout)
+        # the semantic discriminator (MotionEncoder :11), registered after the
+        # style encoder so the seeded draws of the modules above stay as they were
+        self.mu_query = nn.Parameter(torch.zeros(1, d))
+        self.sigma_query = nn.Parameter(torch.zeros(1, d))
+        self.motion_enc_encoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
+                                                     cfg.ff_size, cfg.dropout)
 
-    def denoise_prior(self, x, timesteps, enc_text=None):
-        return self.mdm(x, timesteps, enc_text)
+    def denoise_prior(self, x, timesteps, enc_text=None, deterministic=True, generator=None):
+        return self.mdm(x, timesteps, enc_text, deterministic, generator)
 
-    def embed_tokens(self, x, timesteps, enc_text=None):
+    def embed_tokens(self, x, timesteps, enc_text=None, deterministic=True, generator=None):
         """Pre-encoder half of forward."""
-        return self.mdm.embed_tokens(x, timesteps, enc_text)
+        return self.mdm.embed_tokens(x, timesteps, enc_text, deterministic, generator)
 
     def output_head(self, encoded):
         """Post-encoder half of forward."""
         return self.mdm.output_head(encoded)
 
-    def forward(self, x, timesteps, enc_text=None):
-        xseq = self.embed_tokens(x, timesteps, enc_text)
-        out = self.style_encoder(xseq, dtype=self.cfg.torch_dtype,
-                                 use_fused=self.cfg.fused)
-        return self.output_head(out)
+    def forward(self, x, timesteps, enc_text=None, deterministic=True, generator=None):
+        xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
+        return self.output_head(self.mdm.run_encoder(self.style_encoder, xseq,
+                                                     deterministic, generator))
+
+    def encode_motion(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """MotionEncoder.forward :90-124 -> mu (B, d), deterministic and
+        unfused as the JAX package's finetune calls it; gradients reach x.
+        x (B, C, F, T); frame_mask (B, T) with True = valid frame."""
+        return _encode_motion_mu(self.mdm, self.mu_query, self.sigma_query,
+                                 self.motion_enc_encoder, x, frame_mask)
+
+    @staticmethod
+    def is_trainable(name: str) -> bool:
+        """True for the trainable parameters (parameters_wo_enc :588): the
+        style encoder's only (JAX trainable_param_filter, :417-419)."""
+        return name.startswith("style_encoder.")
+
+
+def _encode_motion_mu(mdm: MDM, mu_query, sigma_query, encoder: TransformerEncoder,
+                      x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[mu token; sigma token; frame tokens] + pe through the discriminator's
+    encoder with a key-padding mask over the frames; returns the mu token
+    (JAX _encode_motion_mu, denoiser.py:390-406)."""
+    dt = mdm.cfg.torch_dtype
+    B, T = x.shape[0], x.shape[-1]
+    h = dense(mdm.input_process.poseEmbedding, mdm.frames_to_tokens(x), dt)
+    d = h.shape[-1]
+    xseq = torch.cat([mu_query.to(dt).expand(B, 1, d), sigma_query.to(dt).expand(B, 1, d), h],
+                     dim=1)
+    xseq = mdm.apply_pe(xseq)
+    if frame_mask is None:
+        frame_mask = torch.ones((B, T), dtype=torch.bool, device=x.device)
+    kpm = torch.cat([torch.ones((B, 2), dtype=torch.bool, device=x.device),
+                     frame_mask.to(device=x.device, dtype=torch.bool)], dim=1)
+    return encoder(xseq, kpm, dtype=dt)[:, 0]
+
+
+def mask_cond(enc_text: torch.Tensor, cond_mask_prob: float,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Training-time CFG condition dropout: zero each clip's condition with
+    probability cond_mask_prob (parity: mask_cond :288-296, JAX :409-415)."""
+    if cond_mask_prob <= 0.0:
+        return enc_text
+    keep = torch.rand((enc_text.shape[0], 1), generator=generator,
+                      device=enc_text.device) < 1.0 - cond_mask_prob
+    return enc_text * keep.to(enc_text.dtype)

@@ -6,7 +6,10 @@ state dicts. A prior checkpoint (model*.pt / --mdm_path) holds the whole MDM
 under its own keys plus the sequence_pos_encoder buffers, which are
 recomputed, not loaded. A style checkpoint (--model_path) holds only
 'seqTransEncoder.layers.{i}.*', the finetuned style encoder (the reference
-strips everything else at save time, training_loop.py:316-335).
+strips everything else at save time, training_loop.py:316-335);
+export_style_encoder writes one and convert_encoder reads one. A semantic
+discriminator checkpoint (--semantic_discriminator_path) holds muQuery,
+sigmaQuery and its own 'seqTransEncoder.layers.{i}.*'.
 
 flax trees: Dense kernels are (in, out) where torch weights are (out, in);
 LayerNorm 'scale' is torch's 'weight'; the packed in-projection is one
@@ -38,22 +41,48 @@ def _tensor(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.float32))
 
 
+def convert_encoder(sd: Dict[str, np.ndarray], prefix: str, num_layers: int
+                    ) -> Dict[str, torch.Tensor]:
+    """'{prefix}.layers.{i}.*' of a reference-layout state dict -> a port
+    TransformerEncoder's state dict (counterpart of torch_import.py's
+    convert_encoder)."""
+    head = prefix + "."
+    out = {k[len(head):]: _tensor(v) for k, v in sd.items() if k.startswith(head)}
+    if _num_layers(out) != num_layers:
+        raise ValueError(f"checkpoint has {_num_layers(out)} encoder layers under "
+                         f"{prefix!r}, the config {num_layers}")
+    return out
+
+
+def export_style_encoder(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The style encoder of a StyleDiffusion in the reference layout
+    ('seqTransEncoder.layers.{i}.*', fp32 on the CPU): what a model*.pt holds
+    once the frozen modules are stripped (training_loop.py:316-335)."""
+    return {f"seqTransEncoder.{k}": v.detach().float().cpu().clone()
+            for k, v in model.style_encoder.state_dict().items()}
+
+
 def from_torch_state_dict(sd: Dict[str, np.ndarray], cfg: MDMConfig,
                           part: str = "mdm") -> Dict[str, torch.Tensor]:
     """A reference-layout state dict -> entries of StyleDiffusion's state
     dict. part='mdm' loads a prior checkpoint into 'mdm.*'; part=
     'style_encoder' loads a style checkpoint's seqTransEncoder into
-    'style_encoder.*'. Load with load_state_dict(..., strict=False)."""
+    'style_encoder.*'; part='semantic' loads a semantic discriminator into
+    'mu_query', 'sigma_query' and 'motion_enc_encoder.*'. Load with
+    load_state_dict(..., strict=False)."""
     if part == "mdm":
         if any(k.startswith(("seqTransDecoder", "gru")) for k in sd):
             raise NotImplementedError("checkpoint import supports arch='trans_enc' only")
         out = {f"mdm.{k}": _tensor(v) for k, v in sd.items() if k not in _BUFFERS}
-    elif part == "style_encoder":
-        prefix = "seqTransEncoder."
-        out = {f"style_encoder.{k[len(prefix):]}": _tensor(v)
-               for k, v in sd.items() if k.startswith(prefix)}
+    elif part in ("style_encoder", "semantic"):
+        dest = "style_encoder" if part == "style_encoder" else "motion_enc_encoder"
+        out = {f"{dest}.{k}": v for k, v in
+               convert_encoder(sd, "seqTransEncoder", cfg.num_layers).items()}
+        if part == "semantic":
+            out["mu_query"] = _tensor(sd["muQuery"]).reshape(1, -1)
+            out["sigma_query"] = _tensor(sd["sigmaQuery"]).reshape(1, -1)
     else:
-        raise ValueError(f"part must be 'mdm' or 'style_encoder', got {part!r}")
+        raise ValueError(f"part must be 'mdm', 'style_encoder' or 'semantic', got {part!r}")
     n_layers = _num_layers(out)
     if n_layers != cfg.num_layers:
         raise ValueError(f"checkpoint has {n_layers} encoder layers, "
@@ -105,13 +134,15 @@ def _mdm_from_jax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
 def from_jax_params(tree: dict, cfg: MDMConfig) -> Dict[str, torch.Tensor]:
     """The JAX package's flax params (numpy leaves, optionally under
     'params') -> the port's state dict: a StyleDiffusion tree ('mdm',
-    'style_encoder', ...) or an MDM tree ('input_process', ...). Subtrees of
-    modules this slice does not hold (the semantic discriminator's
-    motion_enc_encoder, mu_query, sigma_query) are skipped."""
+    'style_encoder', the semantic discriminator's 'motion_enc_encoder',
+    'mu_query' and 'sigma_query') or an MDM tree ('input_process', ...)."""
     tree = tree.get("params", tree)
     if "mdm" in tree:
         out = _mdm_from_jax(tree["mdm"], "mdm.")
         out.update(encoder_from_jax(tree["style_encoder"], "style_encoder."))
+        out.update(encoder_from_jax(tree["motion_enc_encoder"], "motion_enc_encoder."))
+        out["mu_query"] = _tensor(tree["mu_query"])
+        out["sigma_query"] = _tensor(tree["sigma_query"])
     else:
         out = _mdm_from_jax(tree, "")
     n_layers = _num_layers(out)

@@ -9,12 +9,16 @@ checkpoints load with their own key names:
 Written by hand rather than with nn.TransformerEncoderLayer, which drops
 out attention probabilities; the JAX layer (motionstyle/models/transformer.py)
 has no such dropout. Batch-first (B, S, D), exact-erf gelu, LayerNorm eps
-1e-5. This slice serves inference only, so no dropout is applied.
+1e-5. A training forward (deterministic=False) applies dropout at the JAX
+layer's three sites: after the out-projection, after gelu and after linear2
+(models/transformer.py:67-82), with masks drawn from an explicit
+torch.Generator, so a caller that re-seeds it redraws the same masks.
 
 `dtype` is the compute dtype: parameters stay fp32 and are cast at use, as
-flax's Dense(dtype=...) does. With use_fused the stack runs through the
-hand-written CUDA layer (ops/fused_encoder.py), as the JAX encoder routes
-through its Pallas kernel.
+flax's Dense(dtype=...) does. The encoder routes as the JAX encoder does
+(:218-229): use_fused at inference runs the hand-written CUDA layer
+(ops/fused_encoder.py); fused_train in a training forward runs the
+differentiable CUDA training layer (ops/fused_encoder_train.py).
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from motionstyle_torch.ops.fused_encoder import fused_encoder, pack_layer_params
+from motionstyle_torch.ops.fused_encoder import (
+    fused_encoder, layer_params, pack_layer_params, refuse_grad)
+from motionstyle_torch.ops.fused_encoder_train import fused_encoder_train, make_dropout_masks
 
 _NEG = -1e9
 
@@ -75,19 +81,26 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        a = self.self_attn(x, key_padding_mask, dtype)
+                dtype: torch.dtype = torch.float32, masks: Optional[tuple] = None
+                ) -> torch.Tensor:
+        """masks: the three sites' scaled keep-masks (make_dropout_masks) in a
+        training forward, else None."""
+        drop = (lambda t, i: t) if masks is None else \
+            (lambda t, i: t * masks[i].to(t.dtype))  # noqa: E731
+        a = drop(self.self_attn(x, key_padding_mask, dtype), 0)
         x = self.norm1((x.to(dtype) + a).float()).to(dtype)
-        h = F.gelu(dense(self.linear1, x, dtype), approximate="none")
-        h = dense(self.linear2, h, dtype)
+        h = drop(F.gelu(dense(self.linear1, x, dtype), approximate="none"), 1)
+        h = drop(dense(self.linear2, h, dtype), 2)
         return self.norm2((x + h).float()).to(dtype)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
-                 dim_feedforward: int = 1024):
+                 dim_feedforward: int = 1024, dropout: float = 0.1):
         super().__init__()
         self.nhead = nhead
+        self.dim_feedforward = dim_feedforward
+        self.dropout = dropout
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward)
             for _ in range(num_layers))
@@ -102,11 +115,26 @@ class TransformerEncoder(nn.Module):
         return self._packed[1]
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32, use_fused: bool = False
-                ) -> torch.Tensor:
-        if use_fused:
+                dtype: torch.dtype = torch.float32, use_fused: bool = False,
+                fused_train: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """deterministic=False is a training forward: dropout at rate
+        self.dropout from `generator`, one draw per layer in layer order."""
+        drop = not deterministic and self.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("a training forward with dropout needs a torch.Generator")
+        if use_fused and deterministic:
+            refuse_grad(x, *self.parameters())
             return fused_encoder(x, self.packed_layers(), self.nhead,
                                  key_padding_mask).to(x.dtype)
+        if fused_train and not deterministic:
+            return fused_encoder_train(
+                x, [layer_params(layer) for layer in self.layers], self.nhead,
+                self.dropout, generator, key_padding_mask).to(x.dtype)
         for layer in self.layers:
-            x = layer(x, key_padding_mask, dtype)
+            masks = None
+            if drop:
+                masks = make_dropout_masks(generator, x.shape, self.dropout,
+                                           self.dim_feedforward, dtype=torch.float32)
+            x = layer(x, key_padding_mask, dtype, masks)
         return x

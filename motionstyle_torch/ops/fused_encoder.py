@@ -43,10 +43,10 @@ VECTOR_KEYS = ("in_proj_bias", "out_proj_bias", "norm1_weight", "norm1_bias",
                "linear1_bias", "linear2_bias", "norm2_weight", "norm2_bias")
 
 
-def pack_layer_params(layer) -> dict:
+def layer_params(layer) -> dict:
     """An encoder layer module (models.transformer.TransformerEncoderLayer)
-    -> the kernel's parameter dict: bf16 contiguous weights, fp32 vectors."""
-    src = {
+    -> its parameters by kernel name, still attached to autograd."""
+    return {
         "in_proj_weight": layer.self_attn.in_proj_weight,
         "in_proj_bias": layer.self_attn.in_proj_bias,
         "out_proj_weight": layer.self_attn.out_proj.weight,
@@ -60,8 +60,18 @@ def pack_layer_params(layer) -> dict:
         "norm2_weight": layer.norm2.weight,
         "norm2_bias": layer.norm2.bias,
     }
-    return {k: v.detach().to(_BF16 if k in WEIGHT_KEYS else torch.float32)
-            .contiguous() for k, v in src.items()}
+
+
+def pack(params: dict) -> dict:
+    """Kernel format: bf16 contiguous weights, fp32 contiguous vectors,
+    detached."""
+    return {k: v.detach().to(_BF16 if k in WEIGHT_KEYS else torch.float32).contiguous()
+            for k, v in params.items()}
+
+
+def pack_layer_params(layer) -> dict:
+    """An encoder layer module -> the kernel's parameter dict."""
+    return pack(layer_params(layer))
 
 
 def additive_key_mask(key_padding_mask: Optional[torch.Tensor], B: int, S: int,
@@ -122,7 +132,9 @@ def fused_encoder_layer_reference(x: torch.Tensor, p: dict, num_heads: int,
     return h2.to(x.dtype)
 
 
-def _check_cuda_inputs(x, p, num_heads):
+def _check_cuda_inputs(x, p, num_heads, max_s: int = 256):
+    """Refuse what the CUDA launchers do not take; num_heads None skips the
+    head check (a half of a layer without attention)."""
     B, S, D = x.shape
     F = p["linear1_weight"].shape[0]
     shapes = {"in_proj_weight": (3 * D, D), "out_proj_weight": (D, D),
@@ -139,14 +151,26 @@ def _check_cuda_inputs(x, p, num_heads):
             raise ValueError(
                 f"{key}: need a contiguous {want} {shape} tensor on {x.device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if D not in (128, 256, 512) or D % num_heads or D // num_heads not in (64, 128) \
-            or F % 128 or not 1 <= S <= 256:
+    heads_ok = num_heads is None or (D % num_heads == 0 and D // num_heads in (64, 128))
+    if D not in (128, 256, 512) or not heads_ok or F % 128 or not 1 <= S <= max_s:
         raise ValueError(
             f"kernel supports D in (128, 256, 512), head width 64 or 128, "
-            f"F % 128 == 0 and 1 <= S <= 256; got D={D} H={num_heads} F={F} S={S}")
+            f"F % 128 == 0 and 1 <= S <= {max_s}; got D={D} H={num_heads} F={F} S={S}")
     if x.dtype not in (_BF16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     return B, S, D, F
+
+
+def refuse_grad(*tensors: torch.Tensor) -> None:
+    """The inference layer is forward-only (the JAX package's pallas_call has
+    no VJP either): a forward that autograd would differentiate must take the
+    training path (MDMConfig.fused_train, ops/fused_encoder_train.py) instead
+    of losing its gradient here."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the fused inference encoder layer has no backward: run it under "
+            "torch.no_grad(), or train through fused_train "
+            "(ops/fused_encoder_train.py)")
 
 
 def fused_encoder_layer(x: torch.Tensor, p: dict, num_heads: int,
@@ -154,7 +178,9 @@ def fused_encoder_layer(x: torch.Tensor, p: dict, num_heads: int,
                         ) -> torch.Tensor:
     """Run one fused encoder layer. x (B, S, D) bf16 or fp32; p from
     pack_layer_params; key_padding_mask (B, S) with True = valid key.
-    CUDA tensors launch the kernel; CPU tensors run the twin."""
+    CUDA tensors launch the kernel; CPU tensors run the twin. Refuses inputs
+    that require grad while grad is enabled (refuse_grad)."""
+    refuse_grad(x, *p.values())
     if x.device.type == "cpu":
         return fused_encoder_layer_reference(x, p, num_heads, key_padding_mask)
     if x.device.type != "cuda":

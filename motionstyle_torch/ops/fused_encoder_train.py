@@ -1,0 +1,415 @@
+"""The fused encoder layer's training path: CUDA kernels for Hopper, their
+plain PyTorch twins, and the autograd Function that joins them.
+
+Replaces the Pallas TPU kernels of motionstyle/ops/fused_encoder_train.py:
+
+  fused_layer_train_forward   <- _fwd_kernel       (pallas_call at :602)
+  fused_layer_train_bwd_ffn   <- _bwd_ffn_kernel   (:644)
+  fused_layer_train_bwd_attn  <- _bwd_attn_kernel  (:688)
+
+joined into one differentiable layer as the JAX package's custom VJP
+(`_fused_layer_train`, :732-759) joins them. The forward applies the
+layer's three dropout sites (after the out-projection, after gelu, after
+linear2; none on the attention probabilities) with external bf16 masks
+holding {0, 1/keep}, and keeps two residuals for the backward: `a1`, the
+pre-LN1 sum (fp32), and `attn`, the attention output (bf16). The backward
+recomputes the rest. Rounding points are the Pallas bodies' (see the source
+csrc/fused_encoder_train.cu), gelu is the tanh approximation with the
+gradient of `_gelu_tanh_grad`, and the weight gradients are summed in fp32.
+
+Masks are drawn outside the kernels from an explicit torch.Generator, as the
+JAX package draws them outside its kernels (make_dropout_masks, :766-776), so
+the forward and both backward halves see the same masks.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+twin only for CPU tensors; `<wrapper>.launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from motionstyle_torch.ops.fused_encoder import (
+    _bf16_dot, _check_cuda_inputs as _check_layer, _layernorm, additive_key_mask,
+    gelu_tanh, pack)
+
+_BF16 = torch.bfloat16
+_EPS = 1e-5
+_C = 0.7978845608028654  # sqrt(2/pi)
+_A = 0.044715
+MAX_S = 128  # the CUDA training kernels keep a head's S x S probabilities on chip
+
+# a layer's parameters in the order FusedLayerTrain takes them
+PARAM_KEYS = ("in_proj_weight", "in_proj_bias", "out_proj_weight", "out_proj_bias",
+              "norm1_weight", "norm1_bias", "linear1_weight", "linear1_bias",
+              "linear2_weight", "linear2_bias", "norm2_weight", "norm2_bias")
+
+
+def make_dropout_masks(generator: torch.Generator, shape, rate: float,
+                       dim_feedforward: int, dtype: torch.dtype = _BF16) -> tuple:
+    """Scaled keep-masks {0, 1/keep} for one layer's three dropout sites:
+    (B, S, D) after the out-projection, (B, S, F) after gelu, (B, S, D) after
+    linear2, drawn on the generator's device. bf16, as the JAX package's
+    (1/keep is rounded to bf16 there too); other dtypes for the plain layer."""
+    B, S, D = shape
+    keep = 1.0 - rate
+    scale = torch.tensor(1.0 / keep, dtype=dtype)
+
+    def mk(d):
+        bits = torch.rand((B, S, d), generator=generator, device=generator.device)
+        return ((bits < keep).to(dtype) * scale.to(bits.device)).contiguous()
+
+    return mk(D), mk(dim_feedforward), mk(D)
+
+
+# ---------------------------------------------------------------------------
+# plain twins: the kernels' arithmetic in PyTorch, with the same roundings
+# ---------------------------------------------------------------------------
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_BF16).float()
+
+
+def _mul(t: torch.Tensor, m: Optional[torch.Tensor]) -> torch.Tensor:
+    return t if m is None else t * m.float()
+
+
+def _ln_stats(a: torch.Tensor):
+    mu = a.mean(-1, keepdim=True)
+    var = ((a - mu) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + _EPS)
+    return (a - mu) * rstd, rstd
+
+
+def _ln_bwd(dh, xhat, rstd, scale):
+    """Per-row LayerNorm backward over (M, D) rows -> (dx, dscale, dbias)."""
+    dxh = dh * scale.float()
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xhat).mean(-1, keepdim=True)
+    return rstd * (dxh - m1 - xhat * m2), (dh * xhat).sum(0), dh.sum(0)
+
+
+def _heads(t: torch.Tensor, B: int, S: int, H: int) -> torch.Tensor:
+    return t.reshape(B, S, H, -1).transpose(1, 2)
+
+
+def _probs(q, k, kmask, B, S, H):
+    """Per-head softmax(bf16(q*scale) bf16(k)^T + mask), fp32 (B, H, S, S)."""
+    dh = q.shape[-1] // H
+    scores = _heads(_bf(q * (1.0 / math.sqrt(dh))), B, S, H) @ _heads(_bf(k), B, S, H).transpose(-1, -2)
+    if kmask is not None:
+        scores = scores + kmask[:, None, None, :]
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def fused_layer_train_forward_reference(x, p, num_heads, kmask=None, masks=None,
+                                        out_dtype=None):
+    """Twin of the forward kernel. x (B, S, D); p packed; kmask (B, S)
+    additive fp32 or None; masks (m0, m1, m2) or None. Returns (out, a1 fp32,
+    attn bf16)."""
+    B, S, D = x.shape
+    m0, m1, m2 = masks if masks is not None else (None, None, None)
+    xb = x.to(_BF16)
+    qkv = _bf16_dot(xb, p["in_proj_weight"], p["in_proj_bias"])
+    q, k, v = qkv.split(D, dim=-1)
+    probs = _probs(q, k, kmask, B, S, num_heads)
+    attn = (_bf(probs) @ _heads(_bf(v), B, S, num_heads)).transpose(1, 2).reshape(B, S, D)
+    proj = _mul(_bf16_dot(attn, p["out_proj_weight"], p["out_proj_bias"]), m0)
+    a1 = xb.float() + proj
+    h1 = _layernorm(a1, p["norm1_weight"], p["norm1_bias"])
+    g = _mul(gelu_tanh(_bf16_dot(h1, p["linear1_weight"], p["linear1_bias"])), m1)
+    f = _mul(_bf16_dot(g, p["linear2_weight"], p["linear2_bias"]), m2)
+    out = _layernorm(h1 + f, p["norm2_weight"], p["norm2_bias"])
+    return out.to(out_dtype or x.dtype), a1, attn.to(_BF16)
+
+
+def bwd_ffn_reference(dh2, a1, p, masks=None):
+    """Twin of the FFN-half backward kernel: recompute from a1, then LN2^T,
+    linear2^T, gelu^T, linear1^T, LN1^T. Returns (da1 (B, S, D) fp32, grads)
+    with grads fp32 by parameter name (linear weights in (out, in) layout)."""
+    B, S, D = a1.shape
+    m1, m2 = (masks[1], masks[2]) if masks is not None else (None, None)
+    flat = lambda t: None if t is None else t.reshape(B * S, -1)  # noqa: E731
+    m1, m2 = flat(m1), flat(m2)
+    a1 = flat(a1).float()
+    xhat1, rstd1 = _ln_stats(a1)
+    h1 = xhat1 * p["norm1_weight"] + p["norm1_bias"]
+    u = _bf16_dot(h1, p["linear1_weight"], p["linear1_bias"])
+    t = torch.tanh(_C * (u + _A * u ** 3))
+    gd = _mul(0.5 * u * (1.0 + t), m1)
+    f = _bf16_dot(gd, p["linear2_weight"], p["linear2_bias"])
+    xhat2, rstd2 = _ln_stats(h1 + _mul(f, m2))
+    da2, dls2, dlb2 = _ln_bwd(flat(dh2).float(), xhat2, rstd2, p["norm2_weight"])
+    df = _mul(da2, m2)
+    dw2 = _bf(df).t() @ _bf(gd)
+    dgd = _bf(df) @ _bf(p["linear2_weight"])
+    du = _mul(dgd, m1) * (0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * _C * (1.0 + 3.0 * _A * u * u))
+    dw1 = _bf(du).t() @ _bf(h1)
+    dh1 = da2 + _bf(du) @ _bf(p["linear1_weight"])
+    da1, dls1, dlb1 = _ln_bwd(dh1, xhat1, rstd1, p["norm1_weight"])
+    grads = {"linear1_weight": dw1, "linear1_bias": du.sum(0),
+             "linear2_weight": dw2, "linear2_bias": df.sum(0),
+             "norm1_weight": dls1, "norm1_bias": dlb1,
+             "norm2_weight": dls2, "norm2_bias": dlb2}
+    return da1.reshape(B, S, D), grads
+
+
+def bwd_attn_reference(da1, x, attn, p, num_heads, kmask=None, masks=None):
+    """Twin of the attention-half backward kernel: out-projection^T, qkv and
+    softmax recompute, softmax VJP. x is the layer input (rounded to bf16).
+    Returns (dx (B, S, D) fp32, grads fp32 by parameter name)."""
+    B, S, D = x.shape
+    H = num_heads
+    dh = D // H
+    scale = 1.0 / math.sqrt(dh)
+    m0 = None if masks is None else masks[0].reshape(B * S, D)
+    da1 = da1.reshape(B * S, D).float()
+    xb = x.reshape(B * S, D).to(_BF16)
+    dproj = _mul(da1, m0)
+    dwo = _bf(dproj).t() @ _bf(attn.reshape(B * S, D))
+    dattn = _bf(dproj) @ _bf(p["out_proj_weight"])
+    qkv = _bf16_dot(xb, p["in_proj_weight"], p["in_proj_bias"])
+    q, k, v = qkv.split(D, dim=-1)
+    probs = _probs(q, k, kmask, B, S, H)  # fp32, as the Pallas body keeps it
+    da = _heads(_bf(dattn), B, S, H)
+    dv = _bf(probs).transpose(-1, -2) @ da
+    dp = da @ _heads(_bf(v), B, S, H).transpose(-1, -2)
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    dq = (_bf(ds) @ _heads(_bf(k), B, S, H)) * scale
+    dk = (_bf(ds).transpose(-1, -2) @ _heads(_bf(q), B, S, H)) * scale
+    merge = lambda t: t.transpose(1, 2).reshape(B * S, D)  # noqa: E731
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    dx = da1 + _bf(dqkv) @ _bf(p["in_proj_weight"])
+    grads = {"in_proj_weight": _bf(dqkv).t() @ _bf(xb), "in_proj_bias": dqkv.sum(0),
+             "out_proj_weight": dwo, "out_proj_bias": dproj.sum(0)}
+    return dx.reshape(B, S, D), grads
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda_inputs(x, p, num_heads, masks=None):
+    """Refuse what the training launchers do not take (S <= MAX_S, masks
+    contiguous bf16 of the layer's shapes); num_heads None skips the head
+    check (the FFN half)."""
+    B, S, D, F = _check_layer(x, p, num_heads, max_s=MAX_S)
+    if masks is not None:
+        for m, d in zip(masks, (D, F, D)):
+            if m is None or tuple(m.shape) != (B, S, d) or m.dtype != _BF16 \
+                    or m.device != x.device or not m.is_contiguous():
+                raise ValueError(f"dropout masks must be contiguous bf16 (B, S, D), "
+                                 f"(B, S, F), (B, S, D) on {x.device}")
+    return B, S, D, F
+
+
+def _device_guard(x, what: str) -> bool:
+    """True for CPU tensors (run the twin); raise for anything but CUDA."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return False
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel failed: CUDA error {rc}")
+
+
+def fused_layer_train_forward(x, p, num_heads, kmask=None, masks=None, out_dtype=None):
+    """Training forward of one layer. x (B, S, D) bf16; p packed; kmask (B, S)
+    additive fp32 or None; masks (m0, m1, m2) or None (rate 0). Returns
+    (out in out_dtype, a1 fp32, attn bf16)."""
+    out_dtype = out_dtype or x.dtype
+    if _device_guard(x, "fused_layer_train_forward"):
+        return fused_layer_train_forward_reference(x, p, num_heads, kmask, masks, out_dtype)
+    from motionstyle_torch import _build
+
+    B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks)
+    if out_dtype not in (_BF16, torch.float32):
+        raise ValueError(f"output must be bfloat16 or float32, got {out_dtype}")
+    lib = _build.load("fused_encoder_train")
+    M, dev = B * S, x.device
+    xb = x.to(_BF16).contiguous()
+    m0, m1, m2 = masks if masks is not None else (None, None, None)
+    qkv = torch.empty((3, M, D), dtype=_BF16, device=dev)
+    h1_f32 = torch.empty((M, D), dtype=torch.float32, device=dev)
+    h1_bf16 = torch.empty((M, D), dtype=_BF16, device=dev)
+    g = torch.empty((M, F), dtype=_BF16, device=dev)
+    out = torch.empty((B, S, D), dtype=out_dtype, device=dev)
+    a1 = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    attn = torch.empty((B, S, D), dtype=_BF16, device=dev)
+    rc = lib.fused_layer_train_forward(
+        _ptr(xb), _ptr(kmask), _ptr(m0), _ptr(m1), _ptr(m2),
+        *(_ptr(p[k]) for k in PARAM_KEYS),
+        _ptr(qkv[0]), _ptr(qkv[1]), _ptr(qkv[2]), _ptr(h1_f32), _ptr(h1_bf16), _ptr(g),
+        _ptr(out) if out_dtype == _BF16 else None,
+        _ptr(out) if out_dtype == torch.float32 else None,
+        _ptr(a1), _ptr(attn), B, S, D, num_heads, F, _stream(x))
+    _raise_on(rc, "fused_layer_train_forward")
+    fused_layer_train_forward.launches += 1
+    return out, a1, attn
+
+
+fused_layer_train_forward.launches = 0
+
+
+def fused_layer_train_bwd_ffn(dh2, a1, p, masks=None):
+    """FFN half of the backward. dh2 (B, S, D); a1 (B, S, D) fp32. Returns
+    (da1 fp32, grads fp32 by parameter name)."""
+    if _device_guard(a1, "fused_layer_train_bwd_ffn"):
+        return bwd_ffn_reference(dh2, a1, p, masks)
+    from motionstyle_torch import _build
+
+    B, S, D, F = _check_cuda_inputs(a1, p, None, masks)
+    lib = _build.load("fused_encoder_train")
+    M, dev = B * S, a1.device
+    nb = -(-M // 16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=_BF16, device=dev)
+    dh2 = dh2.float().contiguous()
+    a1 = a1.contiguous()
+    m1, m2 = (masks[1], masks[2]) if masks is not None else (None, None)
+    stats, h1 = torch.empty((M, 2), **f32), torch.empty((M, D), **bf)
+    gd, gp = torch.empty((M, F), **bf), torch.empty((M, F), **f32)
+    da2, df, du = torch.empty((M, D), **f32), torch.empty((M, D), **bf), torch.empty((M, F), **bf)
+    partial = torch.empty((nb * (5 * D + F),), **f32)
+    da1 = torch.empty((B, S, D), **f32)
+    g = {"linear1_weight": torch.empty((F, D), **f32), "linear1_bias": torch.empty((F,), **f32),
+         "linear2_weight": torch.empty((D, F), **f32), "linear2_bias": torch.empty((D,), **f32),
+         "norm1_weight": torch.empty((D,), **f32), "norm1_bias": torch.empty((D,), **f32),
+         "norm2_weight": torch.empty((D,), **f32), "norm2_bias": torch.empty((D,), **f32)}
+    rc = lib.fused_layer_train_bwd_ffn(
+        _ptr(dh2), _ptr(a1), _ptr(m1), _ptr(m2),
+        *(_ptr(p[k]) for k in ("linear1_weight", "linear1_bias", "linear2_weight",
+                               "linear2_bias", "norm1_weight", "norm1_bias",
+                               "norm2_weight", "norm2_bias")),
+        _ptr(stats), _ptr(h1), _ptr(gd), _ptr(gp), _ptr(da2), _ptr(df), _ptr(du),
+        _ptr(partial), _ptr(da1),
+        *(_ptr(g[k]) for k in ("linear1_weight", "linear1_bias", "linear2_weight",
+                               "linear2_bias", "norm1_weight", "norm1_bias",
+                               "norm2_weight", "norm2_bias")),
+        B, S, D, F, _stream(a1))
+    _raise_on(rc, "fused_layer_train_bwd_ffn")
+    fused_layer_train_bwd_ffn.launches += 1
+    return da1, g
+
+
+fused_layer_train_bwd_ffn.launches = 0
+
+
+def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=None):
+    """Attention half of the backward. da1 (B, S, D) fp32; x the layer input
+    (bf16); attn the forward's residual. Returns (dx fp32, grads fp32)."""
+    if _device_guard(x, "fused_layer_train_bwd_attn"):
+        return bwd_attn_reference(da1, x, attn, p, num_heads, kmask, masks)
+    from motionstyle_torch import _build
+
+    B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks)
+    lib = _build.load("fused_encoder_train")
+    M, dev = B * S, x.device
+    nb = -(-M // 16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    xb = x.to(_BF16).contiguous()
+    da1 = da1.float().contiguous()
+    attn = attn.contiguous()
+    m0 = masks[0] if masks is not None else None
+    act = torch.empty((6, M, D), dtype=_BF16, device=dev)  # dproj dattn q_s q k v
+    dqkv = torch.empty((M, 3 * D), dtype=_BF16, device=dev)
+    part_o, part_qkv = torch.empty((nb, D), **f32), torch.empty((B, 3 * D), **f32)
+    dx = torch.empty((B, S, D), **f32)
+    g = {"in_proj_weight": torch.empty((3 * D, D), **f32),
+         "in_proj_bias": torch.empty((3 * D,), **f32),
+         "out_proj_weight": torch.empty((D, D), **f32),
+         "out_proj_bias": torch.empty((D,), **f32)}
+    rc = lib.fused_layer_train_bwd_attn(
+        _ptr(da1), _ptr(xb), _ptr(kmask), _ptr(attn), _ptr(m0),
+        _ptr(p["in_proj_weight"]), _ptr(p["in_proj_bias"]), _ptr(p["out_proj_weight"]),
+        *(_ptr(a) for a in act), _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(dx),
+        _ptr(g["in_proj_weight"]), _ptr(g["in_proj_bias"]), _ptr(g["out_proj_weight"]),
+        _ptr(g["out_proj_bias"]), B, S, D, num_heads, _stream(x))
+    _raise_on(rc, "fused_layer_train_bwd_attn")
+    fused_layer_train_bwd_attn.launches += 1
+    return dx, g
+
+
+fused_layer_train_bwd_attn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the differentiable layer and stack
+# ---------------------------------------------------------------------------
+
+class FusedLayerTrain(torch.autograd.Function):
+    """One differentiable fused layer: the forward kernel, and as backward
+    the FFN half then the attention half. Inputs: x, the additive key mask
+    (or None), the three masks (or None), the head count, then the layer's
+    parameters in PARAM_KEYS order."""
+
+    @staticmethod
+    def forward(ctx, x, kmask, m0, m1, m2, num_heads, *params):
+        p = pack(dict(zip(PARAM_KEYS, params)))
+        masks = None if m0 is None else (m0, m1, m2)
+        xb = x.detach().to(_BF16).contiguous()
+        out, a1, attn = fused_layer_train_forward(xb, p, num_heads, kmask, masks,
+                                                  out_dtype=x.dtype)
+        ctx.num_heads = num_heads
+        ctx.x_dtype = x.dtype
+        ctx.param_dtypes = [t.dtype for t in params]
+        ctx.has_masks = masks is not None
+        ctx.save_for_backward(xb, kmask, m0, m1, m2, a1, attn, *(p[k] for k in PARAM_KEYS))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        xb, kmask, m0, m1, m2, a1, attn, *packed = ctx.saved_tensors
+        p = dict(zip(PARAM_KEYS, packed))
+        masks = (m0, m1, m2) if ctx.has_masks else None
+        da1, g_ffn = fused_layer_train_bwd_ffn(dout, a1, p, masks)
+        dx, g_attn = fused_layer_train_bwd_attn(da1, xb, attn, p, ctx.num_heads, kmask, masks)
+        grads = {**g_ffn, **g_attn}
+        # dx leaves in the layer input's rounding (bf16), then the caller's dtype
+        dx = dx.to(_BF16).to(ctx.x_dtype)
+        return (dx, None, None, None, None, None,
+                *(grads[k].to(dt) for k, dt in zip(PARAM_KEYS, ctx.param_dtypes)))
+
+
+def fused_encoder_layer_train(x, params: dict, num_heads: int, masks=None,
+                              key_padding_mask: Optional[torch.Tensor] = None):
+    """One differentiable fused layer. x (B, S, D); params by PARAM_KEYS name
+    (autograd leaves or not); masks from make_dropout_masks or None."""
+    B, S, _ = x.shape
+    kmask = additive_key_mask(key_padding_mask, B, S, x.device)
+    m0, m1, m2 = masks if masks is not None else (None, None, None)
+    return FusedLayerTrain.apply(x, kmask, m0, m1, m2, num_heads,
+                                 *(params[k] for k in PARAM_KEYS))
+
+
+def fused_encoder_train(x: torch.Tensor, layers: Sequence[dict], num_heads: int,
+                        dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+                        key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable fused encoder stack (training path). dropout > 0 needs
+    a generator; each layer draws independent masks from it, in layer order
+    (fused_encoder_train, :810-851, masks mode)."""
+    if dropout > 0.0 and generator is None:
+        raise ValueError("dropout > 0 needs a torch.Generator")
+    B, S, D = x.shape
+    for params in layers:
+        masks = None
+        if dropout > 0.0:
+            masks = make_dropout_masks(generator, (B, S, D), dropout,
+                                       params["linear1_weight"].shape[0])
+        x = fused_encoder_layer_train(x, params, num_heads, masks, key_padding_mask)
+    return x

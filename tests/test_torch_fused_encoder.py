@@ -144,3 +144,21 @@ def test_packed_layers_follow_parameter_updates():
     assert second is not first
     torch.testing.assert_close(second[0]["linear1_weight"].float(),
                                (first[0]["linear1_weight"].float() * 2.0))
+
+
+def test_inference_layer_refuses_inputs_that_need_a_gradient():
+    """The inference kernel has no backward, as the JAX package's pallas_call
+    has no VJP: a forward autograd would differentiate raises, naming the
+    training path, instead of losing its gradient. Under no_grad it runs."""
+    _, port = _pair(1, seed=13)
+    p = fe.pack_layer_params(port.layers[0])
+    x = torch.from_numpy(_inputs(14, False)[0]).bfloat16()
+    with pytest.raises(RuntimeError, match="fused_train"):
+        fe.fused_encoder_layer(x.clone().requires_grad_(True), p, H)
+    with pytest.raises(RuntimeError, match="fused_train"):
+        fe.fused_encoder_layer(x, {**p, "linear1_bias": p["linear1_bias"].requires_grad_(True)}, H)
+    with pytest.raises(RuntimeError, match="fused_train"):  # the module's packed copies
+        port(x, use_fused=True)
+    with torch.no_grad():
+        out = port(x.requires_grad_(True), use_fused=True)
+    assert out.shape == x.shape and not out.requires_grad

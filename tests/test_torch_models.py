@@ -14,7 +14,8 @@ import torch
 
 from motionstyle.models import clip_text as jclip
 from motionstyle.models import denoiser as jden
-from motionstyle.models.torch_import import export_mdm, export_style_encoder
+from motionstyle.models.torch_import import (
+    export_mdm, export_semantic_discriminator, export_style_encoder)
 from motionstyle.models.transformer import TransformerEncoder as JEncoder
 from motionstyle_torch.models import clip_text
 from motionstyle_torch.models.denoiser import MDM, MDMConfig, StyleDiffusion
@@ -166,7 +167,11 @@ class TestDenoiser:
         model = StyleDiffusion(cfg)
         missing, unexpected = model.load_state_dict(
             from_torch_state_dict(sd, cfg, part="mdm"), strict=False)
-        assert not unexpected and all(k.startswith("style_encoder.") for k in missing)
+        # a prior checkpoint leaves the style encoder and the semantic
+        # discriminator to their own checkpoints
+        assert not unexpected and all(k.startswith(
+            ("style_encoder.", "motion_enc_encoder.", "mu_query", "sigma_query"))
+            for k in missing)
         with torch.no_grad():
             out = model.denoise_prior(torch.from_numpy(g["x"]), torch.from_numpy(g["t"]),
                                       torch.from_numpy(g["enc_text"]))
@@ -176,13 +181,16 @@ class TestDenoiser:
 class TestParams:
     def test_checkpoint_and_jax_tree_agree(self):
         """A checkpoint the JAX package writes (export_mdm /
-        export_style_encoder) loads into the same port state as its tree."""
+        export_style_encoder / export_semantic_discriminator) loads into the
+        same port state as its tree."""
         _, params, port = style_pair(11)
         tcfg = port.cfg
         sd_mdm = export_mdm(params, tcfg.num_layers)
         sd_style = export_style_encoder(params, tcfg.num_layers)
+        sd_sem = export_semantic_discriminator(params, tcfg.num_layers)
         state = from_torch_state_dict(sd_mdm, tcfg, part="mdm")
         state.update(from_torch_state_dict(sd_style, tcfg, part="style_encoder"))
+        state.update(from_torch_state_dict(sd_sem, tcfg, part="semantic"))
         want = from_jax_params(params, tcfg)
         assert state.keys() == want.keys()
         for k in want:
