@@ -9,7 +9,8 @@ Phases, each printed on its own line with its seconds:
   2. build: nvcc builds every kernel source under csrc/, one process per
      source, all started together.
   3. kernel: the inference layer against its plain PyTorch twin on the card
-     at the serving shapes, with its time, the twin's, a library call's and
+     at the serving shapes and past the old caps (S=197 and 300, D=128 with
+     head width 32, D=384 with 6 heads), with its time, the twin's, a library call's and
      the card's bound.
   4. golden: the port's fp32 MDM with the full-width reference weights of
      tests/goldens/mdm_model.npz against the reference output.
@@ -17,14 +18,19 @@ Phases, each printed on its own line with its seconds:
      layers) behind MotionServer on localhost answers /healthz and
      /v1/sample requests; results are checked and the kernel launches
      counted.
-  6. train_kernel: the three training kernels (forward, FFN-half and
-     attention-half backward) against their twins at the finetune's shapes
-     (B=64 and B=1, S=77, full width, dropout masks at rate 0.1 and 0), with
-     their times, the twins', a library layer's and the card's bounds.
-  7. finetune: the finetune CLI (--fused 1 --fused_train 1, batch 64, full
-     width, the golden prior, a synthetic Xia corpus written from a seed)
-     runs a few steps; losses, the saved checkpoint, the style encoder's
-     movement and every kernel's launches are checked.
+  6. train_kernel: the five training kernels (forward, FFN-half and
+     attention-half backward, store-probs forward and stored attention-half
+     backward) against their twins at the finetune's shapes (B=64 and B=1,
+     S=77, full width, dropout masks at rate 0.1 and 0) and past the old
+     caps (S=197, D=384), the store forward's output bit-equal to the
+     forward's, with their times, the twins', a library layer's and the
+     card's bounds.
+  7. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
+     prior, a synthetic Xia corpus written from a seed) runs a few steps
+     with --fused_train 1, then with --fused_train_store 1; losses (the
+     store run's first equal to the recompute run's), the saved checkpoint,
+     the style encoder's movement and every kernel's launches are checked,
+     then a short store run under torch.profiler.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
 a CUDA device, or without the rest of the repository beside it, the script
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -59,8 +66,15 @@ TRAIN_KERNELS = {  # wrapper -> the TPU kernel it replaces
     "fused_layer_train_forward": "motionstyle/ops/fused_encoder_train.py:154",
     "fused_layer_train_bwd_ffn": "motionstyle/ops/fused_encoder_train.py:183",
     "fused_layer_train_bwd_attn": "motionstyle/ops/fused_encoder_train.py:243",
+    "fused_layer_train_forward_store": "motionstyle/ops/fused_encoder_train.py:317",
+    "fused_layer_train_bwd_attn_stored": "motionstyle/ops/fused_encoder_train.py:364",
 }
 FINETUNE_STEPS, FINETUNE_BATCH, FINETUNE_LAYERS = 3, 64, 8
+# (B, S, D, H, F) of the inference layer past the old caps: S = 197 (humanml
+# and bandai clips + the condition token) and 300; head width 32 (the CLIs'
+# --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536
+KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
+                       (B, S, 384, 6, 1536))
 
 
 @contextmanager
@@ -158,6 +172,27 @@ def kernel_phase(device) -> dict:
         if (b, s) == (B, S):
             record["max_abs_err"] = err
 
+    # past the old caps (S <= 256 and D in {128, 256, 512} with head width 64
+    # or 128): longer sequences and the widths the port's CLIs can ask for.
+    # An fp32 input gives the fp32 output (the kernel rounds the input to
+    # bf16 itself), so the gate reads the sums before the output's rounding:
+    # at these shapes |y| reaches [4, 8), where one bf16 ulp is 0.03125.
+    for b, s, d, h, f in KERNEL_EXTRA_SHAPES:
+        pe = random_layer(gen, d, f, device)
+        x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16).float()
+        kpm = torch.ones(b, s, dtype=torch.bool)
+        kpm[-1, s // 2:] = False
+        kpm = kpm.to(device)
+        got = fused_encoder_layer(x, pe, h, kpm)
+        torch.cuda.synchronize()
+        want = fused_encoder_layer_reference(x, pe, h, kpm)
+        err, rel = float((got.float() - want.float()).abs().max()), rel_l2(got, want)
+        print(f"  layer B={b} S={s} D={d} H={h} F={f} (masked): max_abs {err:.6g} "
+              f"rel_l2 {rel:.6g}", flush=True)
+        check(err <= LAYER_MAX_ABS and rel <= LAYER_REL_L2,
+              f"layer B={b} S={s} D={d} H={h} F={f} within max_abs {LAYER_MAX_ABS} and "
+              f"rel_l2 {LAYER_REL_L2}")
+
     layers = [random_layer(gen, D, F, device) for _ in range(8)]
     x = torch.randn(B, S, D, generator=gen).to(device, torch.bfloat16)
     got, want = x, x
@@ -189,11 +224,15 @@ def kernel_phase(device) -> dict:
 # the finetune's shapes for the training layer: the semantic branch's
 # batch of 64 and the unroll's single clip, 76 frames + the condition token
 TRAIN_BATCHES, TRAIN_RATES = (64, 1), (0.1, 0.0)
+# (B, S, D, H, F) of the training kernels past the old caps (S <= 128, D in
+# {128, 256, 512}, head width 64 or 128)
+TRAIN_EXTRA_SHAPES = ((16, 197, D, H, F), (16, S, 384, 6, 1536))
 GRAD_REL_L2, GRAD_MAX_REL = 1e-2, 3e-2
+TRAIN_NAMES = tuple(TRAIN_KERNELS)
 
 
 def train_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool) -> dict:
-    """(bound_ms, bound_by, flops, bytes) of the three training kernels:
+    """(bound_ms, bound_by, flops, bytes) of the five training kernels:
     tensor-core operations at the bf16 peak (counting what the backward
     halves recompute) against each input read once and each output written
     once at the card's memory rate."""
@@ -202,19 +241,26 @@ def train_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool) -> dict:
     weights_ffn, weights_attn = 2 * d * f * 2, (3 * d * d + d * d) * 2
     vec_ffn, vec_attn = (f + d + 4 * d) * 4, (3 * d + d) * 4
     mask_bytes = (m * (2 * d + f) * 2) if masked else 0
+    stored_bytes = b * h * s * s * 2 + m * 3 * d * 2  # probs and qkv, bf16
+    fwd_flops = 2 * m * d * 3 * d + 2 * attn_core + 2 * m * d * d + 2 * 2 * m * d * f
+    fwd_bytes = (m * d * 2 + mask_bytes + weights_ffn + weights_attn + vec_ffn + vec_attn
+                 + m * d * 2 + m * d * 4 + m * d * 2)
+    # the attention half's inputs and outputs besides its recompute: da1, x,
+    # attn, m0 in; dx and the four weight and bias gradients out
+    attn_io = (m * d * 4 + m * d * 2 + m * d * 2 + (m * d * 2 if masked else 0) + weights_attn
+               + m * d * 4 + (3 * d * d + d * d) * 4 + 4 * d * 4)
     work = {
-        "fused_layer_train_forward": (
-            2 * m * d * 3 * d + 2 * attn_core + 2 * m * d * d + 2 * 2 * m * d * f,
-            m * d * 2 + mask_bytes + weights_ffn + weights_attn + vec_ffn + vec_attn
-            + m * d * 2 + m * d * 4 + m * d * 2),
+        "fused_layer_train_forward": (fwd_flops, fwd_bytes),
         "fused_layer_train_bwd_ffn": (
             6 * 2 * m * d * f,
             m * d * 4 + m * d * 4 + (m * (f + d) * 2 if masked else 0) + weights_ffn + vec_ffn
             + m * d * 4 + 2 * d * f * 4 + (f + 5 * d) * 4),
         "fused_layer_train_bwd_attn": (
-            2 * 2 * m * d * d + 3 * 2 * m * d * 3 * d + 5 * attn_core,
-            m * d * 4 + m * d * 2 + m * d * 2 + (m * d * 2 if masked else 0) + weights_attn
-            + 3 * d * 4 + m * d * 4 + (3 * d * d + d * d) * 4 + 4 * d * 4),
+            2 * 2 * m * d * d + 3 * 2 * m * d * 3 * d + 5 * attn_core, attn_io + 3 * d * 4),
+        "fused_layer_train_forward_store": (fwd_flops, fwd_bytes + stored_bytes),
+        # no qkv GEMM and no scores: dattn, dWo, dWqkv, dx and four S x S products
+        "fused_layer_train_bwd_attn_stored": (
+            2 * 2 * m * d * d + 2 * 2 * m * d * 3 * d + 4 * attn_core, attn_io + stored_bytes),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -224,16 +270,91 @@ def train_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool) -> dict:
     return out
 
 
-def _grad_gate(name: str, got, want):
+def _grad_gate(got, want):
     rel = rel_l2(got, want)
     mx = float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-12))
     return rel, mx, rel <= GRAD_REL_L2 and mx <= GRAD_MAX_REL
 
 
-def train_kernel_phase(device) -> dict:
-    """Kernels 5-7 against their twins on the card at B=64 and B=1, S=77,
-    full width, masks at rate 0.1 and 0; times at B=64, rate 0.1. Returns
-    each kernel's record fields by name."""
+def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, gen, device,
+                        records: dict) -> tuple:
+    """Kernels 5-9 against their twins on the same inputs at one shape, and
+    kernel 8's forward bit-equal to kernel 5's. Returns the inputs the
+    timings reuse: (x, dh2, masks, a1, attn, da1, probs, qkv)."""
+    import torch
+
+    from motionstyle_torch.ops import fused_encoder_train as ft
+
+    where = f"B={b} S={s} D={d} H={h} F={f} rate={rate}"
+    x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
+    dh2 = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
+    masks = None
+    if rate > 0:
+        masks = ft.make_dropout_masks(
+            torch.Generator(device=device).manual_seed(b), (b, s, d), rate, f)
+    # the gate reads the fp32 output (the kernel's sums before the output's
+    # bf16 rounding); the bf16 output is held to rel_l2
+    out32, _, _ = ft.fused_layer_train_forward(x, p, h, None, masks, torch.float32)
+    out, a1, attn = ft.fused_layer_train_forward(x, p, h, None, masks)
+    out32_s, _, _, _, _ = ft.fused_layer_train_forward_store(x, p, h, None, masks, torch.float32)
+    out_s, a1_s, attn_s, probs, qkv = ft.fused_layer_train_forward_store(x, p, h, None, masks)
+    torch.cuda.synchronize()
+    r_out, r_a1, r_attn, r_probs, r_qkv = ft.fused_layer_train_forward_store_reference(
+        x, p, h, None, masks, torch.float32)
+    err, rel, rel16 = float((out32 - r_out).abs().max()), rel_l2(out32, r_out), rel_l2(out, r_out)
+    rel_a1 = rel_l2(a1, r_a1)
+    rel_p, rel_qkv = rel_l2(probs, r_probs), rel_l2(qkv, r_qkv)
+    err_p = float((probs.float() - r_probs.float()).abs().max())
+    print(f"  train fwd {where}: max_abs {err:.6g} rel_l2 {rel:.6g} (bf16 output: max_abs "
+          f"{float((out.float() - r_out).abs().max()):.6g} rel_l2 {rel16:.6g}) a1 rel_l2 "
+          f"{rel_a1:.6g} attn rel_l2 {rel_l2(attn, r_attn):.6g}; stored probs max_abs "
+          f"{err_p:.6g} rel_l2 {rel_p:.6g}, qkv rel_l2 {rel_qkv:.6g}", flush=True)
+    check(err <= LAYER_MAX_ABS and max(rel, rel16, rel_a1, rel_p, rel_qkv) <= LAYER_REL_L2,
+          f"train forward and store forward {where} within max_abs {LAYER_MAX_ABS} and "
+          f"rel_l2 {LAYER_REL_L2}")
+    same = all(torch.equal(u, v) for u, v in
+               ((out32, out32_s), (out, out_s), (a1, a1_s), (attn, attn_s)))
+    check(same, f"store forward's out (bf16 and fp32), a1 and attn bit-equal to the "
+                f"forward's at {where}")
+    for name in ("fused_layer_train_forward", "fused_layer_train_forward_store"):
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+
+    # each backward half from the same inputs as its twin
+    da1, g_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks)
+    torch.cuda.synchronize()
+    r_da1, r_ffn = ft.bwd_ffn_reference(dh2, a1, p, masks)
+    dx, g_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, h, None, masks)
+    dx_s, g_attn_s = ft.fused_layer_train_bwd_attn_stored(r_da1, x, attn, probs, qkv, p, h, masks)
+    torch.cuda.synchronize()
+    r_dx, r_attn_g = ft.bwd_attn_reference(r_da1, x, attn, p, h, None, masks)
+    r_dx_s, r_attn_g_s = ft.bwd_attn_stored_reference(r_da1, x, attn, probs, qkv, p, h, masks)
+    pairs = ([("fused_layer_train_bwd_ffn", "da1", da1, r_da1)]
+             + [("fused_layer_train_bwd_ffn", k, g_ffn[k], r_ffn[k]) for k in r_ffn]
+             + [("fused_layer_train_bwd_attn", "dx", dx, r_dx)]
+             + [("fused_layer_train_bwd_attn", k, g_attn[k], r_attn_g[k]) for k in r_attn_g]
+             + [("fused_layer_train_bwd_attn_stored", "dx", dx_s, r_dx_s)]
+             + [("fused_layer_train_bwd_attn_stored", k, g_attn_s[k], r_attn_g_s[k])
+                for k in r_attn_g_s])
+    worst = {}
+    for kname, leaf, got, want in pairs:
+        rel, mx, ok = _grad_gate(got, want)
+        records[kname]["max_abs_err"] = max(records[kname]["max_abs_err"],
+                                            float((got - want).abs().max()))
+        worst[kname] = max(worst.get(kname, 0.0), rel)
+        if not ok:
+            check(False, f"{kname} {leaf} {where}: rel_l2 {rel:.6g}, max_abs/max {mx:.6g} "
+                         f"over {tuple(want.shape)}")
+    print(f"  train bwd {where}: worst rel_l2 by kernel {worst}", flush=True)
+    check(True, f"train backward {where}: every gradient leaf, da1 and dx of kernels 6, 7 and 9 "
+                f"within rel_l2 {GRAD_REL_L2} and max_abs/max {GRAD_MAX_REL}")
+    return x, dh2, masks, a1, attn, r_da1, probs, qkv
+
+
+def train_kernel_phase(device) -> tuple:
+    """Kernels 5-9 against their twins on the card at B=64 and B=1, S=77,
+    full width, masks at rate 0.1 and 0, then past the old caps; times at
+    B=64, rate 0.1. Returns each kernel's record fields by name and the
+    kernels' times at B=1."""
     import torch
     import torch.nn.functional as Fn
 
@@ -241,109 +362,65 @@ def train_kernel_phase(device) -> dict:
 
     gen = torch.Generator().manual_seed(1)
     p = random_layer(gen, D, F, device)
-    records = {n: {"max_abs_err": 0.0} for n in
-               ("fused_layer_train_forward", "fused_layer_train_bwd_ffn",
-                "fused_layer_train_bwd_attn")}
+    records = {n: {"max_abs_err": 0.0} for n in TRAIN_NAMES}
     timing_inputs = {}
     for b in TRAIN_BATCHES:
         for rate in TRAIN_RATES:
-            x = torch.randn(b, S, D, generator=gen).to(device, torch.bfloat16)
-            dh2 = torch.randn(b, S, D, generator=gen).to(device, torch.bfloat16)
-            masks = None
+            inputs = check_train_kernels(p, b, S, D, H, F, rate, gen, device, records)
             if rate > 0:
-                masks = ft.make_dropout_masks(
-                    torch.Generator(device=device).manual_seed(b), (b, S, D), rate, F)
-            # the gate reads the fp32 output (the kernel's sums before the
-            # output's bf16 rounding); the bf16 output is held to rel_l2
-            out32, _, _ = ft.fused_layer_train_forward(x, p, H, None, masks, torch.float32)
-            out, a1, attn = ft.fused_layer_train_forward(x, p, H, None, masks)
-            torch.cuda.synchronize()
-            r_out, r_a1, r_attn = ft.fused_layer_train_forward_reference(
-                x, p, H, None, masks, torch.float32)
-            err = float((out32 - r_out).abs().max())
-            rel, rel16 = rel_l2(out32, r_out), rel_l2(out, r_out)
-            rel_a1 = rel_l2(a1, r_a1)
-            print(f"  train fwd B={b} rate={rate}: max_abs {err:.6g} rel_l2 {rel:.6g} "
-                  f"(bf16 output: max_abs {float((out.float() - r_out).abs().max()):.6g} "
-                  f"rel_l2 {rel16:.6g}) a1 rel_l2 {rel_a1:.6g} attn rel_l2 "
-                  f"{rel_l2(attn, r_attn):.6g}", flush=True)
-            check(err <= LAYER_MAX_ABS and max(rel, rel16, rel_a1) <= LAYER_REL_L2,
-                  f"train forward B={b} rate={rate} within max_abs {LAYER_MAX_ABS} "
-                  f"and rel_l2 {LAYER_REL_L2}")
-            fwd_rec = records["fused_layer_train_forward"]
-            fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], err)
+                timing_inputs[b] = inputs
+    for b, s, d, h, f in TRAIN_EXTRA_SHAPES:
+        check_train_kernels(random_layer(gen, d, f, device), b, s, d, h, f, 0.1, gen, device,
+                            records)
 
-            # each backward half from the same inputs as its twin
-            da1, g_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks)
-            torch.cuda.synchronize()
-            r_da1, r_ffn = ft.bwd_ffn_reference(dh2, a1, p, masks)
-            dx, g_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, H, None, masks)
-            torch.cuda.synchronize()
-            r_dx, r_attn_g = ft.bwd_attn_reference(r_da1, x, attn, p, H, None, masks)
-            for kname, got, want in (
-                    [("fused_layer_train_bwd_ffn", da1, r_da1)]
-                    + [("fused_layer_train_bwd_ffn", g_ffn[k], r_ffn[k]) for k in r_ffn]
-                    + [("fused_layer_train_bwd_attn", dx, r_dx)]
-                    + [("fused_layer_train_bwd_attn", g_attn[k], r_attn_g[k]) for k in r_attn_g]):
-                rel, mx, ok = _grad_gate(kname, got, want)
-                records[kname]["max_abs_err"] = max(
-                    records[kname]["max_abs_err"], float((got - want).abs().max()))
-                if not ok:
-                    check(False, f"{kname} B={b} rate={rate}: rel_l2 {rel:.6g}, "
-                                 f"max_abs/max {mx:.6g} over {tuple(want.shape)}")
-            print(f"  train bwd B={b} rate={rate}: da1 rel_l2 {rel_l2(da1, r_da1):.6g} "
-                  f"dW1 rel_l2 {rel_l2(g_ffn['linear1_weight'], r_ffn['linear1_weight']):.6g} "
-                  f"dx rel_l2 {rel_l2(dx, r_dx):.6g} dWqkv rel_l2 "
-                  f"{rel_l2(g_attn['in_proj_weight'], r_attn_g['in_proj_weight']):.6g}",
-                  flush=True)
-            check(True, f"train backward B={b} rate={rate}: every gradient leaf, da1 and dx "
-                        f"within rel_l2 {GRAD_REL_L2} and max_abs/max {GRAD_MAX_REL}")
-            if rate > 0:
-                timing_inputs[b] = (x, dh2, masks, a1, attn, r_da1)
+    def runs_at(b):
+        x, dh2, masks, a1, attn, da1, probs, qkv = timing_inputs[b]
+        return {
+            "fused_layer_train_forward": (
+                lambda: ft.fused_layer_train_forward(x, p, H, None, masks),
+                lambda: ft.fused_layer_train_forward_reference(x, p, H, None, masks)),
+            "fused_layer_train_bwd_ffn": (
+                lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks),
+                lambda: ft.bwd_ffn_reference(dh2, a1, p, masks)),
+            "fused_layer_train_bwd_attn": (
+                lambda: ft.fused_layer_train_bwd_attn(da1, x, attn, p, H, None, masks),
+                lambda: ft.bwd_attn_reference(da1, x, attn, p, H, None, masks)),
+            "fused_layer_train_forward_store": (
+                lambda: ft.fused_layer_train_forward_store(x, p, H, None, masks),
+                lambda: ft.fused_layer_train_forward_store_reference(x, p, H, None, masks)),
+            "fused_layer_train_bwd_attn_stored": (
+                lambda: ft.fused_layer_train_bwd_attn_stored(da1, x, attn, probs, qkv, p, H,
+                                                             masks),
+                lambda: ft.bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, H, masks)),
+        }
 
+    launches0 = {n: getattr(ft, n).launches for n in TRAIN_NAMES}
     # the unroll's shape (B=1): kernel times only, for the finetune's breakdown
-    x, dh2, masks, a1, attn, da1 = timing_inputs[1]
-    ms_b1 = {
-        "fused_layer_train_forward": time_ms(
-            lambda: ft.fused_layer_train_forward(x, p, H, None, masks), iters=50),
-        "fused_layer_train_bwd_ffn": time_ms(
-            lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks), iters=50),
-        "fused_layer_train_bwd_attn": time_ms(
-            lambda: ft.fused_layer_train_bwd_attn(da1, x, attn, p, H, None, masks), iters=50),
-    }
-    print(f"  B=1 S={S} kernel ms: {ms_b1}", flush=True)
-    x, dh2, masks, a1, attn, da1 = timing_inputs[TRAIN_BATCHES[0]]
-    b = x.shape[0]
-    runs = {
-        "fused_layer_train_forward": (lambda: ft.fused_layer_train_forward(x, p, H, None, masks),
-                                      lambda: ft.fused_layer_train_forward_reference(
-                                          x, p, H, None, masks)),
-        "fused_layer_train_bwd_ffn": (lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks),
-                                      lambda: ft.bwd_ffn_reference(dh2, a1, p, masks)),
-        "fused_layer_train_bwd_attn": (lambda: ft.fused_layer_train_bwd_attn(
-            da1, x, attn, p, H, None, masks),
-            lambda: ft.bwd_attn_reference(da1, x, attn, p, H, None, masks)),
-    }
-    launches0 = {n: getattr(ft, n).launches for n in runs}
     with torch.no_grad():
-        for name, (kern, twin) in runs.items():
+        ms_b1 = {n: time_ms(kern, iters=50) for n, (kern, _) in runs_at(1).items()}
+        print(f"  B=1 S={S} kernel ms: {ms_b1}", flush=True)
+        b = TRAIN_BATCHES[0]
+        for name, (kern, twin) in runs_at(b).items():
             records[name]["ms"] = time_ms(kern, iters=50)
             records[name]["plain_ms"] = time_ms(twin, iters=10)
-    for name in runs:  # timing launches are not the main path's
+    for name in TRAIN_NAMES:  # timing launches are not the main path's
         getattr(ft, name).launches = launches0[name]
+    x, dh2 = timing_inputs[b][:2]
     lib = torch.nn.TransformerEncoderLayer(
         D, H, F, dropout=0.1, activation=partial(Fn.gelu, approximate="tanh"),
         batch_first=True).to(device, torch.bfloat16).train()
     xl = x.detach().clone().requires_grad_(True)
     with torch.no_grad():
-        records["fused_layer_train_forward"]["library_ms"] = time_ms(lambda: lib(x), iters=50)
+        lib_fwd = time_ms(lambda: lib(x), iters=50)
+    # the library layer's forward computes kernels 5's and 8's function (it
+    # keeps no residuals); no one call computes a backward half
+    for name in TRAIN_NAMES:
+        records[name]["library_ms"] = lib_fwd if "forward" in name else None
 
     def lib_pair():
         lib(xl).backward(dh2)
 
     pair_ms = time_ms(lib_pair, iters=20)
-    records["fused_layer_train_bwd_ffn"]["library_ms"] = None
-    records["fused_layer_train_bwd_attn"]["library_ms"] = None
     bounds = train_bounds(b, S, D, H, F, masked=True)
     for name, (bound_ms, bound_by, flops, nbytes) in bounds.items():
         records[name].update(bound_ms=bound_ms, bound_by=bound_by)
@@ -351,10 +428,12 @@ def train_kernel_phase(device) -> dict:
         print(f"  {name} B={b} S={S}: kernel_ms {r['ms']:.6g} reference_ms "
               f"{r['plain_ms']:.6g} library_ms {r['library_ms']} bound_ms {bound_ms:.6g} "
               f"({bound_by}: {flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB)", flush=True)
-    fb = sum(records[n]["ms"] for n in runs)
-    print(f"  layer forward + backward: kernels {fb:.6g} ms; library "
-          f"nn.TransformerEncoderLayer (bf16, train, dropout 0.1) forward + backward "
-          f"{pair_ms:.6g} ms", flush=True)
+    for label, names in (("recompute", TRAIN_NAMES[:3]),
+                         ("store-probs", (TRAIN_NAMES[3], TRAIN_NAMES[1], TRAIN_NAMES[4]))):
+        fb = sum(records[n]["ms"] for n in names)
+        print(f"  layer forward + backward ({label}): kernels {fb:.6g} ms", flush=True)
+    print(f"  library nn.TransformerEncoderLayer (bf16, train, dropout 0.1) forward + "
+          f"backward {pair_ms:.6g} ms", flush=True)
     return records, ms_b1
 
 
@@ -525,9 +604,11 @@ def write_xia_corpus(root: str, seed: int = 0, clips: int = 120) -> None:
 
 def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict,
                    tmp_root: str) -> tuple:
-    """The finetune CLI at full width with --fused 1 --fused_train 1 and a
-    batch of 64 for a few steps; returns the training kernels' launches and
-    the function that builds the CLI's arguments."""
+    """The finetune CLI at full width, --fused 1 and a batch of 64, for a few
+    steps: first --fused_train 1 (kernels 5, 6, 7), then --fused_train_store
+    1 (kernels 8, 6, 9) from the same seed and corpus. Returns each path's
+    training kernel launches and the function that builds the CLI's
+    arguments."""
     import csv
 
     import numpy as np
@@ -540,80 +621,113 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
 
     steps, layers, seed = FINETUNE_STEPS, FINETUNE_LAYERS, 10
-    train_kernels = (ft.fused_layer_train_forward, ft.fused_layer_train_bwd_ffn,
-                     ft.fused_layer_train_bwd_attn)
+    counted = [getattr(ft, n) for n in TRAIN_NAMES] + [fused_encoder_layer]
     mdm_path = os.path.join(tmp_root, "mdm_golden.pt")
     torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
 
-    def finetune_args(data_dir: str, save_dir: str, num_steps: int) -> list:
+    def finetune_args(data_dir: str, save_dir: str, num_steps: int, store: bool) -> list:
+        train_flag = ["--fused_train_store", "1"] if store else ["--fused_train", "1"]
         return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", mdm_path,
-                "--save_dir", save_dir, "--fused", "1", "--fused_train", "1",
+                "--save_dir", save_dir, "--fused", "1", *train_flag,
                 "--batch_size", str(FINETUNE_BATCH), "--layers", str(layers),
                 "--num_steps", str(num_steps), "--skip_render",
                 "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda"]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "style_xia")
-        write_xia_corpus(data_dir)
+    def run(store: bool, data_dir: str, save_root: str) -> tuple:
+        label = "--fused_train_store 1" if store else "--fused_train 1"
         torch.cuda.reset_peak_memory_stats()
+        # the Xia loader draws captions and crops from Python's global random
+        # (as the reference's loader does): seed it so both runs see one batch
+        random.seed(seed)
         # the main path: every count from here to the end of the run
-        for k in train_kernels + (fused_encoder_layer,):
+        for k in counted:
             k.launches = 0
         t0 = time.perf_counter()
-        save_dir = finetune_main(finetune_args(data_dir, os.path.join(tmp, "ft"), steps))
+        save_dir = finetune_main(finetune_args(data_dir, save_root, steps, store))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in train_kernels}
-        inference_launches = fused_encoder_layer.launches
+        launches = {k.__name__: k.launches for k in counted}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(save_dir, "progress.csv")) as f:
             rows = list(csv.DictReader(f))
         ckpts = sorted(n for n in os.listdir(save_dir) if n.startswith("model"))
         sd = torch.load(os.path.join(save_dir, ckpts[-1]), map_location="cpu")
-    cfg = MDMConfig(njoints=181, nfeats=1)
-    trained = convert_encoder(sd, "seqTransEncoder", layers)
-    init = seeded_init_(StyleDiffusion(cfg), seed).style_encoder.state_dict()
-    moved = max(float((trained[k] - init[k]).abs().max()) for k in init)
-    losses = [float(r["loss"]) for r in rows]
-    secs = [float(r["step_seconds"]) for r in rows]
-    print(f"  {steps} steps in {wall:.4f} s (whole CLI run on {card}); losses {losses}; "
-          f"step seconds {secs}; peak memory {peak_gb:.4g} GB", flush=True)
-    check(len(losses) == steps and bool(np.isfinite(losses).all()), "finetune losses finite")
-    check(ckpts[-1] == f"model{steps:09d}.pt" and set(trained) == set(init),
-          f"{ckpts[-1]} loads back with convert_encoder ({layers} layers)")
-    print(f"  style encoder moved by max_abs {moved:.6g} from its seeded start", flush=True)
-    check(moved > 0.0, "the style encoder's weights moved")
+        trained = convert_encoder(sd, "seqTransEncoder", layers)
+        init = seeded_init_(StyleDiffusion(MDMConfig(njoints=181, nfeats=1)),
+                            seed).style_encoder.state_dict()
+        moved = max(float((trained[k] - init[k]).abs().max()) for k in init)
+        losses = [float(r["loss"]) for r in rows]
+        secs = [float(r["step_seconds"]) for r in rows]
+        print(f"  {label}: {steps} steps in {wall:.4f} s (whole CLI run on {card}); losses "
+              f"{losses}; step seconds {secs}; peak memory {peak_gb:.4g} GB", flush=True)
+        check(len(losses) == steps and bool(np.isfinite(losses).all()),
+              f"{label}: finetune losses finite")
+        check(ckpts[-1] == f"model{steps:09d}.pt" and set(trained) == set(init),
+              f"{label}: {ckpts[-1]} loads back with convert_encoder ({layers} layers)")
+        print(f"  {label}: style encoder moved by max_abs {moved:.6g} from its seeded start",
+              flush=True)
+        check(moved > 0.0, f"{label}: the style encoder's weights moved")
+        return launches, losses, secs
+
     # DDIM-20 skip 700 of 1000: 6 unrolled steps, each recomputed under
     # checkpoint, plus the semantic branch's forward; 8 layers each
     unroll = 6
-    want = {"fused_layer_train_forward": layers * (1 + 2 * unroll) * steps,
-            "fused_layer_train_bwd_ffn": layers * (1 + unroll) * steps,
-            "fused_layer_train_bwd_attn": layers * (1 + unroll) * steps}
-    print(f"  training kernel launches {launches} over {steps} steps; inference layer "
-          f"launches {inference_launches} (neutral generation 100 x 8, final resample "
-          f"{unroll} x 8)", flush=True)
-    check(launches == want, f"training kernel launches per step == {want} / {steps}")
-    check(inference_launches == layers * (100 + unroll),
-          "inference kernel launches == 8 x (100 neutral DDPM steps + 6 DDIM steps)")
-    per_step = {n: launches[n] // steps for n in launches}
-    kernel_s = (layers * (kernel_ms_b64["fused_layer_train_forward"]
-                          + kernel_ms_b64["fused_layer_train_bwd_ffn"]
-                          + kernel_ms_b64["fused_layer_train_bwd_attn"])
-                + layers * unroll * (2 * kernel_ms_b1["fused_layer_train_forward"]
-                                     + kernel_ms_b1["fused_layer_train_bwd_ffn"]
-                                     + kernel_ms_b1["fused_layer_train_bwd_attn"])) / 1e3
-    steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
-    print(f"  per step: {per_step} launches; their kernel time (launches x the kernel "
-          f"times measured above at B=64 and B=1) {kernel_s:.6g} s of a median "
-          f"{steady:.6g} s step after the first ({100 * kernel_s / steady:.4g} %)", flush=True)
-    return launches, finetune_args
+    fwd, bwd = layers * (1 + 2 * unroll) * steps, layers * (1 + unroll) * steps
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "style_xia")
+        write_xia_corpus(data_dir)
+        launches, losses, secs = run(False, data_dir, os.path.join(tmp, "ft"))
+        launches_s, losses_s, secs_s = run(True, data_dir, os.path.join(tmp, "ft_store"))
+
+    want = dict.fromkeys(TRAIN_NAMES, 0)
+    want.update(fused_layer_train_forward=fwd, fused_layer_train_bwd_ffn=bwd,
+                fused_layer_train_bwd_attn=bwd)
+    train = {n: launches[n] for n in TRAIN_NAMES}
+    print(f"  --fused_train 1: training kernel launches {train} over {steps} steps; inference "
+          f"layer launches {launches['fused_encoder_layer']} (neutral generation 100 x 8, "
+          f"final resample {unroll} x 8)", flush=True)
+    check(train == want, f"--fused_train 1: training kernel launches == {want} over {steps} steps")
+    for name, got in (("--fused_train 1", launches), ("--fused_train_store 1", launches_s)):
+        check(got["fused_encoder_layer"] == layers * (100 + unroll),
+              f"{name}: inference kernel launches == 8 x (100 neutral DDPM steps + 6 DDIM steps)")
+    want_s = dict.fromkeys(TRAIN_NAMES, 0)
+    want_s.update(fused_layer_train_forward_store=fwd, fused_layer_train_bwd_ffn=bwd,
+                  fused_layer_train_bwd_attn_stored=bwd)
+    train_s = {n: launches_s[n] for n in TRAIN_NAMES}
+    print(f"  --fused_train_store 1: training kernel launches {train_s} over {steps} steps",
+          flush=True)
+    check(train_s == want_s,
+          f"--fused_train_store 1: training kernel launches == {want_s} over {steps} steps "
+          f"(kernels 5 and 7 never)")
+    # the store forward is bit-equal to the recompute forward, so the first
+    # loss (before any update) is the same; later losses differ by the
+    # stored backward's bf16 p in the softmax VJP
+    first = abs(losses_s[0] - losses[0]) / abs(losses[0])
+    later = max(abs(a - b) / abs(b) for a, b in zip(losses_s[1:], losses[1:]))
+    print(f"  store vs recompute losses: first |diff| {abs(losses_s[0] - losses[0]):.6g} "
+          f"(rel {first:.6g}); later max rel {later:.6g}", flush=True)
+    check(first <= 1e-6, "store run's first loss equals the recompute run's (rel <= 1e-6)")
+    check(later <= 2e-2, "store run's later losses within 2e-2 relative of the recompute run's")
+
+    for label, names, sec in (
+            ("--fused_train 1", TRAIN_NAMES[:3], secs),
+            ("--fused_train_store 1", (TRAIN_NAMES[3], TRAIN_NAMES[1], TRAIN_NAMES[4]), secs_s)):
+        f_name, ffn_name, attn_name = names
+        kernel_s = (layers * sum(kernel_ms_b64[n] for n in names)
+                    + layers * unroll * (2 * kernel_ms_b1[f_name] + kernel_ms_b1[ffn_name]
+                                         + kernel_ms_b1[attn_name])) / 1e3
+        steady = float(np.median(sec[1:])) if len(sec) > 1 else sec[0]
+        print(f"  {label} per step: training kernel time (launches x the kernel times "
+              f"measured above at B=64 and B=1) {kernel_s:.6g} s of a median {steady:.6g} s "
+              f"step after the first ({100 * kernel_s / steady:.4g} %)", flush=True)
+    return launches, launches_s, finetune_args
 
 
 def profile_finetune(args_of) -> None:
-    """One more short finetune run (2 steps) under torch.profiler: device
-    time by kernel name over the whole CLI run (neutral generation
-    included), the device's busy time against the run's wall time. Its
-    launches are not the main path's and are not counted."""
+    """One more short finetune run (2 steps, --fused_train_store 1) under
+    torch.profiler: device time by kernel name over the whole CLI run
+    (neutral generation included), the device's busy time against the run's
+    wall time. Its launches are not the main path's and are not counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -622,7 +736,7 @@ def profile_finetune(args_of) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "style_xia")
         write_xia_corpus(data_dir)
-        argv = args_of(data_dir, os.path.join(tmp, "ft"), 2)
+        argv = args_of(data_dir, os.path.join(tmp, "ft"), 2, True)
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             finetune_main(argv)
@@ -677,9 +791,15 @@ def main() -> int:
     with phase("train_kernel"):
         train_records, ms_b1 = train_kernel_phase(device)
     with phase("finetune"), tempfile.TemporaryDirectory() as tmp:
-        train_launches, args_of = finetune_phase(
+        launches_recompute, launches_store, args_of = finetune_phase(
             golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp)
         profile_finetune(args_of)
+    # each kernel's launches on the path that runs it: kernels 5 and 7 on the
+    # recompute finetune, kernels 8 and 9 and the shared kernel 6 on the
+    # store-probs finetune (this slice's path)
+    recompute_only = ("fused_layer_train_forward", "fused_layer_train_bwd_attn")
+    train_launches = {n: (launches_recompute if n in recompute_only else launches_store)[n]
+                      for n in TRAIN_NAMES}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",

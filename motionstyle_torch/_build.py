@@ -7,8 +7,8 @@ a C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The output goes to motionstyle_torch/_build/ (listed in .gitignore), named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads from the file. Building happens at first use, never at
+a hash of the source, the shared headers (csrc/*.cuh) and the flags, so an
+edited source rebuilds and an unchanged one loads from the file. Building happens at first use, never at
 import: machines without nvcc import every module and use the plain PyTorch
 twins on CPU tensors.
 """
@@ -38,7 +38,9 @@ SIGNATURES = {
     "fused_encoder_train": [
         ("fused_layer_train_forward", [_VP] * 27 + [_INT] * 5 + [_VP]),
         ("fused_layer_train_bwd_ffn", [_VP] * 29 + [_INT] * 4 + [_VP]),
-        ("fused_layer_train_bwd_attn", [_VP] * 22 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_bwd_attn", [_VP] * 23 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_forward_store", [_VP] * 27 + [_INT] * 5 + [_VP]),
+        ("fused_layer_train_bwd_attn_stored", [_VP] * 19 + [_INT] * 4 + [_VP]),
     ],
 }
 
@@ -55,8 +57,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the source, the headers under
+    csrc/ (any of them may be included) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -6,8 +6,9 @@ content generated by the frozen prior (a 1000-step DDPM stopped at 900,
 keeping the last x0, :195-212), the semantic-guidance caption edit (:279-286),
 training through the few-shot loss, and a final DDIM resample (:307-343).
 With --fused_train 1 every training forward of the style encoder runs the
-CUDA training kernels; with --fused 1 the prior's sampling runs the CUDA
-inference kernel.
+CUDA training kernels (with --fused_train_store 1, which implies it, the
+store-probs forward and the stored attention backward); with --fused 1 the
+prior's sampling runs the CUDA inference kernel.
 
 Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --dataset stylexia_posrot --save_dir ./save/ft --data_dir .../style_xia \\
@@ -15,8 +16,8 @@ Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --train_platform_type NoPlatform [--device cuda]
 
 Not on this slice (each raises, naming its ROADMAP item): LoRA, --auto_stop,
---parallel_finetune, mesh training, orbax checkpoints, the store-probs and
-in-kernel-PRNG training kernels, rendering, and the humanml/bandai datasets.
+--parallel_finetune, mesh training, orbax checkpoints, the in-kernel-PRNG
+training kernels, rendering, and the humanml/bandai datasets.
 """
 from __future__ import annotations
 
@@ -44,18 +45,17 @@ DATASET_DEFAULTS = {
 
 # flag -> (value that means "off", what it needs), checked before any work
 UNSUPPORTED = {
-    "lora_rank": (0, "LoRA finetuning (ROADMAP §1 item 8)"),
-    "auto_stop": (0, "--auto_stop (ROADMAP §1 item 11: eval/style_metrics.py)"),
-    "parallel_finetune": (0, "the Picard-parallel unroll (ROADMAP §1 item 10)"),
-    "data_parallel": (0, "mesh training (ROADMAP §1 item 12)"),
-    "model_parallel": (1, "mesh training (ROADMAP §1 item 12)"),
-    "fsdp": (0, "mesh training (ROADMAP §1 item 12)"),
-    "orbax_checkpoints": (0, "sharded checkpoints (ROADMAP §1 item 12)"),
-    "fused_train_store": (0, "the store-probs training kernels (ROADMAP §2 items 8-9)"),
-    "fused_train_prng": (0, "in-kernel dropout (ROADMAP §2 item 10)"),
-    "quant_int8": (0, "the int8 layer (ROADMAP §2 item 2)"),
-    "native_loader": (0, "the native batch loader (ROADMAP §1 item 13)"),
-    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 13)"),
+    "lora_rank": (0, "LoRA finetuning (ROADMAP §1 item 3)"),
+    "auto_stop": (0, "--auto_stop (ROADMAP §1 item 2: eval/style_metrics.py)"),
+    "parallel_finetune": (0, "the Picard-parallel unroll (ROADMAP §1 item 2)"),
+    "data_parallel": (0, "mesh training (ROADMAP §1 item 11)"),
+    "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
+    "fsdp": (0, "mesh training (ROADMAP §1 item 11)"),
+    "orbax_checkpoints": (0, "sharded checkpoints (ROADMAP §1 item 11)"),
+    "fused_train_prng": (0, "in-kernel dropout (ROADMAP §2 item 1: kernel 10)"),
+    "quant_int8": (0, "the int8 layer (ROADMAP §2 item 2: kernel 2)"),
+    "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
+    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
     "profile": ("", "profiling (ROADMAP §1 item 12)"),
 }
 
@@ -68,12 +68,12 @@ def check_supported(args) -> None:
                 f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
     if not args.skip_render:
         raise NotImplementedError(
-            "rendering is not ported to motionstyle_torch (ROADMAP §1 item 4: the post "
-            "chain); pass --skip_render")
+            "rendering is not ported to motionstyle_torch (ROADMAP §1 item 12: "
+            "post/render.py); pass --skip_render")
     if args.dataset not in DATASET_DEFAULTS:
         raise NotImplementedError(
             f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
-            "(ROADMAP §1 item 3: humanml and bandai loaders)")
+            "(ROADMAP §1 item 10: humanml and bandai loaders)")
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 

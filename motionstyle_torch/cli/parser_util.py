@@ -63,7 +63,10 @@ def add_model_options(parser):
                             "fused CUDA training layer (forward and backward kernels; "
                             "bf16 matmuls with fp32 sums, tanh-approximate gelu)")
     group.add_argument("--fused_train_prng", default=0, type=int, help="not ported")
-    group.add_argument("--fused_train_store", default=0, type=int, help="not ported")
+    group.add_argument("--fused_train_store", default=0, type=int,
+                       help="with the fused training layer, keep the softmax probabilities "
+                            "and qkv in the forward and read them in the attention backward "
+                            "(implies --fused_train 1)")
 
 
 def add_data_options(parser):

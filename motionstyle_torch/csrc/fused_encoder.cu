@@ -7,6 +7,8 @@
 //   h1   = LN1(x + bf16(attn) Wo^T + bo)      fp32 statistics
 //   out  = LN2(h1 + bf16(gelu_tanh(bf16(h1) W1^T + b1)) W2^T + b2)
 //
+// Shapes taken: any S >= 1; D a multiple of 64 up to 1024; a head width
+// D / H that is a multiple of 16 up to 128; F a multiple of 64.
 // Weights keep PyTorch's Linear layout (out, in), bf16; biases and LayerNorm
 // parameters are fp32. The sequence is not padded: rows past M are masked at
 // load and store, and keys past S are never read.
@@ -20,10 +22,12 @@
 //   1. qkv GEMM (16-row x 128-col tiles, WMMA bf16 tensor cores), bias and
 //      the q scale fused, q/k/v written as bf16 in the rounding the TPU
 //      kernel applies before its score matmul;
-//   2. attention, one block per (batch row, head, 32 queries): K and V of the
-//      head live in shared memory, scores and softmax in fp32 registers;
-//   3. out-projection GEMM whose block owns whole D-wide rows, so bias,
-//      residual and LayerNorm 1 stay in the block;
+//   2. attention, one block per (batch row, head, 32 queries), keys walked
+//      in tiles of 128 through shared memory in two passes
+//      (attention_fwd.cuh), so any sequence length runs;
+//   3. out-projection GEMM whose block owns whole D-wide rows (up to 1024,
+//      in dynamic shared memory), so bias, residual and LayerNorm 1 stay in
+//      the block;
 //   4. FFN-up GEMM with bias and tanh-gelu fused;
 //   5. FFN-down GEMM with bias, residual and LayerNorm 2 fused.
 // The GEMMs load whole tiles per k-step without a pipeline; TMA, wgmma and a
@@ -36,22 +40,25 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "attention_fwd.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
 namespace {
 
+using attention::warp_sum;
+
 constexpr int BM = 16;             // GEMM rows per block
 constexpr int BK = 32;             // GEMM k step
 constexpr int LDT = BK + 8;        // shared row stride (bf16) of the A and W tiles
 constexpr int GEMM_THREADS = 256;  // 8 warps
+constexpr int GEMM_WARPS = GEMM_THREADS / 32;
 constexpr int NARROW_BN = 128;     // column tile of the qkv and FFN-up GEMMs
-
-constexpr int ATT_THREADS = 256;   // 8 warps
-constexpr int ATT_WARPS = ATT_THREADS / 32;
-constexpr int ATT_QT = 32;         // query rows per attention block
-constexpr int MAX_KPL = 8;         // keys per lane: S <= 256
+constexpr int MAX_D = 1024;        // widest row a LayerNorm block owns
+constexpr int NARROW_NF = NARROW_BN / 16 / GEMM_WARPS;  // fragments per warp
+constexpr int ROW_NF = MAX_D / 16 / GEMM_WARPS;
 
 enum Epilogue { EPI_QKV = 0, EPI_GELU = 1, EPI_LN1 = 2, EPI_LN2 = 3 };
 
@@ -76,43 +83,38 @@ struct GemmArgs {
   const float* ln_b;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float gelu_tanh(float f) {
   return 0.5f * f * (1.0f + tanhf(0.7978845608028654f * (f + 0.044715f * f * f * f)));
 }
 
-// C[BM x BN] tile at (blockIdx.x * BM, blockIdx.y * BN) of A W^T, then the
-// epilogue. For the LayerNorm epilogues BN == N, so a block owns whole rows.
-template <int BN, int EPI>
+__host__ __device__ constexpr bool owns_rows(int epi) { return epi == EPI_LN1 || epi == EPI_LN2; }
+
+// shared bytes of a block whose tile is bn columns wide: the A and W tiles
+// during the k loop, then the fp32 C tile over the W tile
+inline int gemm_smem_bytes(int bn) {
+  const int w = bn * LDT * 2, c = BM * (bn + 4) * 4;
+  return BM * LDT * 2 + (w > c ? w : c);
+}
+
+// C[BM x bn] tile of A W^T at rows blockIdx.x * BM, then the epilogue. The
+// narrow GEMMs take columns [blockIdx.y * NARROW_BN, +bn) with bn =
+// min(NARROW_BN, N - n0), so N need only be a multiple of 16; the LayerNorm
+// epilogues own whole rows (bn = N = D <= MAX_D). FULL: every tile is
+// NF * 128 wide (bn is that constant), compiled without the guards of a
+// narrower tile. Warp w holds the 16-column fragments w, w + 8, w + 16, ...
+template <int NF, int EPI, bool FULL>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  constexpr int WARPS = GEMM_THREADS / 32;
-  constexpr int WN = BN / WARPS;  // columns per warp
-  constexpr int NF = WN / 16;     // 16x16 accumulators per warp
-  constexpr int LDC = BN + 4;
-  constexpr int A_BYTES = BM * LDT * 2;
-  constexpr int W_BYTES = BN * LDT * 2;
-  constexpr int C_BYTES = BM * LDC * 4;
-  constexpr int WC_BYTES = W_BYTES > C_BYTES ? W_BYTES : C_BYTES;
-  static_assert(NF >= 1 && WN % 16 == 0, "BN must be a multiple of 128");
-  static_assert(A_BYTES % 128 == 0, "W tile alignment");
-  __shared__ __align__(128) unsigned char smem[A_BYTES + WC_BYTES];
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n0 = owns_rows(EPI) ? 0 : blockIdx.y * NARROW_BN;
+  const int bn =
+      FULL ? NF * GEMM_WARPS * 16 : (owns_rows(EPI) ? p.N : min(NARROW_BN, p.N - n0));
+  const int ldc = bn + 4;
   bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = reinterpret_cast<bf16*>(smem + A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem + A_BYTES);  // aliases Ws after the k loop
+  bf16* Ws = reinterpret_cast<bf16*>(smem + BM * LDT * 2);
+  float* Cs = reinterpret_cast<float*>(smem + BM * LDT * 2);  // aliases Ws after the k loop
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * BM;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
 #pragma unroll
@@ -126,8 +128,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         val = *reinterpret_cast<const uint4*>(p.a + (size_t)(m0 + r) * p.K + k0 + c);
       *reinterpret_cast<uint4*>(As + r * LDT + c) = val;
     }
-    for (int i = tid; i < BN * (BK / 8); i += GEMM_THREADS) {
+#pragma unroll
+    for (int i = tid; i < NF * GEMM_WARPS * 16 * (BK / 8); i += GEMM_THREADS) {
       const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      if (r >= bn) continue;
       *reinterpret_cast<uint4*>(Ws + r * LDT + c) =
           *reinterpret_cast<const uint4*>(p.w + (size_t)(n0 + r) * p.K + k0 + c);
     }
@@ -138,26 +142,31 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       wmma::load_matrix_sync(af, As + kk, LDT);
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-        wmma::load_matrix_sync(bfr, Ws + (warp * WN + f * 16) * LDT + kk, LDT);
-        wmma::mma_sync(acc[f], af, bfr, acc[f]);
+        const int col = (warp + GEMM_WARPS * f) * 16;
+        if (col < bn) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
+          wmma::load_matrix_sync(bfr, Ws + col * LDT + kk, LDT);
+          wmma::mma_sync(acc[f], af, bfr, acc[f]);
+        }
       }
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(Cs + warp * WN + f * 16, acc[f], LDC, wmma::mem_row_major);
+  for (int f = 0; f < NF; ++f) {
+    const int col = (warp + GEMM_WARPS * f) * 16;
+    if (col < bn) wmma::store_matrix_sync(Cs + col, acc[f], ldc, wmma::mem_row_major);
+  }
   __syncthreads();
 
   if (EPI == EPI_QKV || EPI == EPI_GELU) {
-    for (int i = tid; i < BM * (BN / 2); i += GEMM_THREADS) {
-      const int r = i / (BN / 2), c = (i % (BN / 2)) * 2;
+    for (int i = tid; i < BM * (NARROW_BN / 2); i += GEMM_THREADS) {
+      const int r = i / (NARROW_BN / 2), c = (i % (NARROW_BN / 2)) * 2;
       const int m = m0 + r;
-      if (m >= p.M) continue;
+      if (m >= p.M || c >= bn) continue;
       const int n = n0 + c;
-      float v0 = Cs[r * LDC + c] + p.bias[n];
-      float v1 = Cs[r * LDC + c + 1] + p.bias[n + 1];
+      float v0 = Cs[r * ldc + c] + p.bias[n];
+      float v1 = Cs[r * ldc + c + 1] + p.bias[n + 1];
       if (EPI == EPI_GELU) {
         *reinterpret_cast<bf162*>(p.out_bf16 + (size_t)m * p.N + n) =
             __floats2bfloat162_rn(gelu_tanh(v0), gelu_tanh(v1));
@@ -172,27 +181,33 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       }
     }
   } else {
-    // LayerNorm epilogue: one warp per row, BN == N == D
-    for (int r = warp; r < BM; r += WARPS) {
+    // LayerNorm epilogue: one warp per row, bn == N == D
+    for (int r = warp; r < BM; r += GEMM_WARPS) {
       const int m = m0 + r;
       if (m >= p.M) continue;  // warp-uniform
-      float* row = Cs + r * LDC;
-      const size_t g = (size_t)m * BN;
+      float* row = Cs + r * ldc;
+      const size_t g = (size_t)m * bn;
       float sum = 0.f;
-      for (int c = lane; c < BN; c += 32) {
+#pragma unroll
+      for (int c = lane; c < NF * GEMM_WARPS * 16; c += 32) {
+        if (c >= bn) continue;
         const float res = EPI == EPI_LN1 ? __bfloat162float(p.res_bf16[g + c]) : p.res_f32[g + c];
         const float h = (row[c] + p.bias[c]) + res;
         row[c] = h;
         sum += h;
       }
-      const float mu = warp_sum(sum) / BN;
+      const float mu = warp_sum(sum) / bn;
       float var = 0.f;
-      for (int c = lane; c < BN; c += 32) {
+#pragma unroll
+      for (int c = lane; c < NF * GEMM_WARPS * 16; c += 32) {
+        if (c >= bn) continue;
         const float d = row[c] - mu;
         var += d * d;
       }
-      const float rs = rsqrtf(warp_sum(var) / BN + 1e-5f);
-      for (int c = lane; c < BN; c += 32) {
+      const float rs = rsqrtf(warp_sum(var) / bn + 1e-5f);
+#pragma unroll
+      for (int c = lane; c < NF * GEMM_WARPS * 16; c += 32) {
+        if (c >= bn) continue;
         const float y = (row[c] - mu) * rs * p.ln_s[c] + p.ln_b[c];
         if (EPI == EPI_LN1) {
           p.out_f32[g + c] = y;
@@ -207,129 +222,33 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
-// softmax(q k^T + mask) v for one (batch row, head) and ATT_QT queries.
-// q is pre-scaled; q, k, v, out are (B*S, D) bf16 with head h in columns
-// [h*DH, (h+1)*DH). kmask is (B, S) additive fp32 (0 or -1e9) or null.
-template <int DH>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ kmask,
-                 bf16* __restrict__ out, int S, int D, int H) {
-  constexpr int LDK = DH + 2;  // odd count of 4-byte words: conflict-free row reads
-  constexpr int DPL = DH / 32; // output dims per lane
-  static_assert(DPL % 2 == 0, "DH must be a multiple of 64");
-  extern __shared__ __align__(16) unsigned char sm[];
-  bf16* Ks = reinterpret_cast<bf16*>(sm);
-  bf16* Vs = Ks + S * LDK;
-  float* Qs = reinterpret_cast<float*>(Vs + S * LDK);
-  float* Ps = Qs + ATT_WARPS * DH;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < S * (DH / 2); i += ATT_THREADS) {
-    const int j = i / (DH / 2), c = (i % (DH / 2)) * 2;
-    const size_t g = (size_t)(b * S + j) * D + h * DH + c;
-    *reinterpret_cast<bf162*>(Ks + j * LDK + c) = *reinterpret_cast<const bf162*>(k + g);
-    *reinterpret_cast<bf162*>(Vs + j * LDK + c) = *reinterpret_cast<const bf162*>(v + g);
-  }
-  __syncthreads();
-
-  float* qrow = Qs + warp * DH;
-  float* prow = Ps + warp * S;
-  const int q_end = min(S, (int)(blockIdx.y + 1) * ATT_QT);
-  for (int i = blockIdx.y * ATT_QT + warp; i < q_end; i += ATT_WARPS) {
-    const bf16* qg = q + (size_t)(b * S + i) * D + h * DH;
-    for (int c = lane; c < DH; c += 32) qrow[c] = __bfloat162float(qg[c]);
-    __syncwarp();
-
-    float s[MAX_KPL];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < MAX_KPL; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -INFINITY;
-      if (j < S) {
-        const bf162* kr = reinterpret_cast<const bf162*>(Ks + j * LDK);
-        float a = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < DH / 2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
-          a = fmaf(qrow[2 * c], kf.x, a);
-          a = fmaf(qrow[2 * c + 1], kf.y, a);
-        }
-        if (kmask != nullptr) a += kmask[b * S + j];
-        s[t] = a;
-        mx = fmaxf(mx, a);
-      }
-    }
-    mx = warp_max(mx);
-    float l = 0.f;
-#pragma unroll
-    for (int t = 0; t < MAX_KPL; ++t) {
-      if (lane + 32 * t < S) {
-        s[t] = expf(s[t] - mx);
-        l += s[t];
-      }
-    }
-    l = warp_sum(l);
-#pragma unroll
-    for (int t = 0; t < MAX_KPL; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) prow[j] = __bfloat162float(__float2bfloat16_rn(s[t] / l));
-    }
-    __syncwarp();
-
-    float o[DPL];
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) o[d] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float pj = prow[j];
-      const bf16* vr = Vs + j * LDK + lane * DPL;
-#pragma unroll
-      for (int d = 0; d < DPL; d += 2) {
-        const float2 vf = __bfloat1622float2(*reinterpret_cast<const bf162*>(vr + d));
-        o[d] = fmaf(pj, vf.x, o[d]);
-        o[d + 1] = fmaf(pj, vf.y, o[d + 1]);
-      }
-    }
-    bf16* og = out + (size_t)(b * S + i) * D + h * DH + lane * DPL;
-#pragma unroll
-    for (int d = 0; d < DPL; d += 2)
-      *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(o[d], o[d + 1]);
-    __syncwarp();
-  }
-}
-
-template <int DH>
-cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v, const float* kmask,
-                             bf16* out, int B, int S, int D, int H, cudaStream_t st) {
-  const size_t smem = (size_t)2 * S * (DH + 2) * sizeof(bf16) +
-                      (size_t)ATT_WARPS * (DH + S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(B * H, (S + ATT_QT - 1) / ATT_QT);
-  attention_kernel<DH><<<grid, ATT_THREADS, smem, st>>>(q, k, v, kmask, out, S, D, H);
+template <int NF, int EPI, bool FULL>
+cudaError_t launch_gemm_tiles(const GemmArgs& p, cudaStream_t st) {
+  static size_t allowed = 48 * 1024;
+  const int smem = gemm_smem_bytes(owns_rows(EPI) ? p.N : NARROW_BN);
+  cudaError_t e = attention::allow_smem(gemm_kernel<NF, EPI, FULL>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.M + BM - 1) / BM, owns_rows(EPI) ? 1 : (p.N + NARROW_BN - 1) / NARROW_BN);
+  gemm_kernel<NF, EPI, FULL><<<grid, GEMM_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int BN, int EPI>
-cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t st) {
-  dim3 grid((p.M + BM - 1) / BM, p.N / BN);
-  gemm_kernel<BN, EPI><<<grid, GEMM_THREADS, 0, st>>>(p);
-  return cudaGetLastError();
+template <int NF, int EPI>
+cudaError_t launch_gemm_nf(const GemmArgs& p, cudaStream_t st) {
+  constexpr int width = NF * GEMM_WARPS * 16;
+  if (owns_rows(EPI) ? p.N == width : p.N % width == 0)
+    return launch_gemm_tiles<NF, EPI, true>(p, st);
+  return launch_gemm_tiles<NF, EPI, false>(p, st);
 }
 
+// rows up to 512 wide keep 4 accumulator fragments per warp, wider ones 8
 template <int EPI>
-cudaError_t launch_row_gemm(const GemmArgs& p, cudaStream_t st) {
-  switch (p.N) {
-    case 128: return launch_gemm<128, EPI>(p, st);
-    case 256: return launch_gemm<256, EPI>(p, st);
-    case 512: return launch_gemm<512, EPI>(p, st);
-    default: return cudaErrorInvalidValue;
+cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t st) {
+  if constexpr (!owns_rows(EPI)) {
+    return launch_gemm_nf<NARROW_NF, EPI>(p, st);
+  } else {
+    if (p.N <= MAX_D / 2) return launch_gemm_nf<ROW_NF / 2, EPI>(p, st);
+    return launch_gemm_nf<ROW_NF, EPI>(p, st);
   }
 }
 
@@ -353,11 +272,11 @@ extern "C" int fused_encoder_layer_forward(
     const void* ln2_s, const void* ln2_b, void* q, void* k, void* v, void* attn,
     void* h1_f32, void* h1_bf16, void* ff, void* out_bf16, void* out_f32,
     int B, int S, int D, int H, int F, void* stream) {
-  if (B < 1 || S < 1 || S > 32 * MAX_KPL || H < 1 || D % H != 0 || F % NARROW_BN != 0 ||
-      (D != 128 && D != 256 && D != 512) || (out_bf16 == nullptr) == (out_f32 == nullptr))
+  if (B < 1 || S < 1 || H < 1 || D < 64 || D % 64 != 0 || D > MAX_D || D % H != 0 || F < 64 ||
+      F % 64 != 0 || (out_bf16 == nullptr) == (out_f32 == nullptr))
     return (int)cudaErrorInvalidValue;
   const int dh = D / H;
-  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+  if (dh % 16 != 0 || dh > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S;
 
@@ -375,15 +294,13 @@ extern "C" int fused_encoder_layer_forward(
   p.k = static_cast<bf16*>(k);
   p.v = static_cast<bf16*>(v);
   p.q_scale = (float)(1.0 / sqrt((double)dh));
-  RETURN_IF_ERROR((launch_gemm<NARROW_BN, EPI_QKV>(p, st)));
+  RETURN_IF_ERROR(launch_gemm<EPI_QKV>(p, st));
 
   // 2. attention
-  if (dh == 64)
-    RETURN_IF_ERROR(launch_attention<64>(p.q, p.k, p.v, static_cast<const float*>(key_mask),
-                                         static_cast<bf16*>(attn), B, S, D, H, st));
-  else
-    RETURN_IF_ERROR(launch_attention<128>(p.q, p.k, p.v, static_cast<const float*>(key_mask),
-                                          static_cast<bf16*>(attn), B, S, D, H, st));
+  RETURN_IF_ERROR(attention::launch_forward(p.q, D, p.k, p.v, D,
+                                            static_cast<const float*>(key_mask),
+                                            static_cast<bf16*>(attn), D, nullptr, B, S, H, dh,
+                                            st));
 
   // 3. out-projection + residual + LayerNorm 1
   p.a = static_cast<const bf16*>(attn);
@@ -396,7 +313,7 @@ extern "C" int fused_encoder_layer_forward(
   p.ln_b = static_cast<const float*>(ln1_b);
   p.out_f32 = static_cast<float*>(h1_f32);
   p.out_bf16 = static_cast<bf16*>(h1_bf16);
-  RETURN_IF_ERROR(launch_row_gemm<EPI_LN1>(p, st));
+  RETURN_IF_ERROR(launch_gemm<EPI_LN1>(p, st));
 
   // 4. FFN up + tanh-gelu
   p.a = static_cast<const bf16*>(h1_bf16);
@@ -406,7 +323,7 @@ extern "C" int fused_encoder_layer_forward(
   p.K = D;
   p.out_bf16 = static_cast<bf16*>(ff);
   p.out_f32 = nullptr;
-  RETURN_IF_ERROR((launch_gemm<NARROW_BN, EPI_GELU>(p, st)));
+  RETURN_IF_ERROR(launch_gemm<EPI_GELU>(p, st));
 
   // 5. FFN down + residual + LayerNorm 2
   p.a = static_cast<const bf16*>(ff);
@@ -419,6 +336,6 @@ extern "C" int fused_encoder_layer_forward(
   p.ln_b = static_cast<const float*>(ln2_b);
   p.out_bf16 = static_cast<bf16*>(out_bf16);
   p.out_f32 = static_cast<float*>(out_f32);
-  RETURN_IF_ERROR(launch_row_gemm<EPI_LN2>(p, st));
+  RETURN_IF_ERROR(launch_gemm<EPI_LN2>(p, st));
   return 0;
 }

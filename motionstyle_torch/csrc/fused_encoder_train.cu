@@ -1,51 +1,62 @@
 // The training path of one post-LN transformer encoder layer for Hopper
 // (sm_90a): a forward that applies the layer's three dropout sites and keeps
-// the two residuals the backward needs, and the backward as two halves.
+// the residuals the backward needs, and the backward as two halves.
 // Replaces the Pallas TPU kernels of motionstyle/ops/fused_encoder_train.py:
 //
-//   fused_layer_train_forward   <- _fwd_kernel       (:154)
-//   fused_layer_train_bwd_ffn   <- _bwd_ffn_kernel   (:183)
-//   fused_layer_train_bwd_attn  <- _bwd_attn_kernel  (:243)
+//   fused_layer_train_forward          <- _fwd_kernel              (:154)
+//   fused_layer_train_bwd_ffn          <- _bwd_ffn_kernel          (:183)
+//   fused_layer_train_bwd_attn         <- _bwd_attn_kernel         (:243)
+//   fused_layer_train_forward_store    <- _fwd_store_kernel        (:317)
+//   fused_layer_train_bwd_attn_stored  <- _bwd_attn_stored_kernel  (:364)
 //
 // Forward (m0, m1, m2 are bf16 dropout masks holding {0, 1/keep}, or null):
 //   qkv = x Wqkv^T + b; attn = softmax(bf16(q/sqrt(dh)) bf16(k)^T + mask) v
 //   a1  = x + (bf16(attn) Wo^T + bo) * m0            (kept, fp32)
 //   h1  = LN1(a1); g = gelu_tanh(bf16(h1) W1^T + b1) * m1
 //   out = LN2(h1 + (bf16(g) W2^T + b2) * m2)
-// plus attn (bf16) as the second residual.
+// plus attn (bf16) as the second residual. The store-probs forward is the
+// same launches and also keeps the bf16 softmax probabilities (B, H, S, S)
+// and qkv (M, 3D, q unscaled); its `out` is bit-equal to the forward's.
 // FFN half of the backward: recompute h1, u, g, f and LN2 from a1; then
 // LN2^T, linear2^T, gelu^T (tanh formula), linear1^T and LN1^T; dW1, db1,
 // dW2, db2 and the LayerNorm grads summed over all B*S rows in fp32.
 // Attention half: out-projection^T, recompute of qkv and the per-head
-// softmax, the softmax VJP, dWqkv, dbqkv, dWo, dbo and dx = da1 + dqkv Wqkv.
+// softmax (or, from the stored residuals, none), the softmax VJP, dWqkv,
+// dbqkv, dWo, dbo and dx = da1 + dqkv Wqkv.
 // Operands are rounded to bf16 where the Pallas bodies round them (x; q*scale
 // before the scores; p before p@V and dv; ds, q and k for dq/dk; h1 for dW1;
 // x for dWqkv; every _dotT_ab/_dot_abT operand), so kernel and plain twin
 // differ only in the order of their fp32 sums.
 //
-// Weights keep PyTorch's Linear layout (out, in), bf16; biases and LayerNorm
-// parameters fp32; weight gradients come out fp32 in the same layout. The
-// sequence is not padded: rows past M = B*S are masked at load and store and
-// keys past S are never read (the TPU pads S to 16 and masks padded keys with
-// -1e9; padded rows carry zero cotangents there, so the sums agree).
+// Shapes taken: any S >= 1; D a multiple of 64 up to 1024; a head width that
+// is a multiple of 16 up to 128; F a multiple of 64. Weights keep PyTorch's
+// Linear layout (out, in), bf16; biases and LayerNorm parameters fp32;
+// weight gradients come out fp32 in the same layout. The sequence is not
+// padded: rows past M = B*S are masked at load and store and keys past S are
+// never read (the TPU pads S to 16 and masks padded keys with -1e9; padded
+// rows carry zero cotangents there, so the sums agree).
 //
 // What bounds it: at B=64, S=77, D=512, F=1024 the forward is ~21 GFLOP and
 // the backward with its recompute ~50 GFLOP of tensor-core work over ~30 MB,
-// so the card's bound is its bf16 rate. Design, simple first:
+// so the card's bound is its bf16 rate (the stored backward drops the qkv
+// GEMM and the scores, ~8 GFLOP, for ~18 MB more of residual traffic).
+// Design, simple first:
 //   * one templated WMMA (bf16 in, fp32 accumulate) tile GEMM serves every
 //     product, with either operand stored transposed, so input gradients
 //     (A W) and weight gradients (X^T Y over all rows) need no copies;
 //   * epilogues that need whole rows (residual + LayerNorm and their
-//     backward) run in 16-row x D blocks, as the inference kernel does;
+//     backward) run in 16-row x D blocks in dynamic shared memory (up to
+//     ~83 KB at D = 1024), as the inference kernel does;
 //   * the TPU accumulates dW and db in place across its sequential batch
 //     grid. Here blocks run in parallel, so each weight gradient is ONE
 //     product over all M rows (K = M, 64x64 output tiles), and each bias or
 //     LayerNorm gradient is written as per-block partial column sums that a
 //     last pass adds in a fixed order. Both are deterministic, which fp32
 //     atomicAdd would not be;
-//   * attention backward runs one block per (batch row, head): K, V, q, dattn
-//     and the bf16 p and ds of the head sit in shared memory (S <= 128), so
-//     dk and dv are summed over all queries inside the block.
+//   * attention forward walks the keys in tiles, two passes per query row
+//     (attention_fwd.cuh); attention backward is two launches over 64-wide
+//     tiles (queries for dq, keys for dk and dv), so no head's S x S block
+//     has to fit in shared memory.
 // No pipeline, TMA or wgmma yet. The launchers allocate nothing: the caller
 // passes every scratch buffer. Each returns a cudaError_t (0 on success).
 
@@ -57,6 +68,8 @@
 
 #include <type_traits>
 
+#include "attention_fwd.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -65,19 +78,23 @@ namespace {
 
 constexpr int BK = 32;             // GEMM k step
 constexpr int GEMM_THREADS = 256;  // 8 warps
+constexpr int GEMM_WARPS = GEMM_THREADS / 32;
 constexpr int ROW_BM = 16;         // rows of a block that owns whole rows
 constexpr int NARROW_BN = 128;     // column tile of the other row-major GEMMs
 constexpr int WG_TILE = 64;        // weight-gradient output tile (both sides)
+constexpr int MAX_D = 1024;        // widest row a LayerNorm block owns
 constexpr float LN_EPS = 1e-5f;
 constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi)
 constexpr float GELU_A = 0.044715f;
 
-constexpr int ATT_THREADS = 256;
-constexpr int ATT_WARPS = ATT_THREADS / 32;
-constexpr int ATT_QT = 32;         // query rows per forward attention block
-constexpr int MAX_KPL = 8;         // forward: keys per lane, S <= 256
-constexpr int MAX_S_TRAIN = 128;   // the training kernels take S <= 128
-constexpr int BWD_KPL = MAX_S_TRAIN / 32;
+// attention backward: query rows and keys per tile, 8 warps
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_T = 64;
+constexpr int BWD_RPW = BWD_T / BWD_WARPS;  // rows (or keys) per warp
+constexpr int BWD_KPL = BWD_T / 32;         // keys per lane
+constexpr int BWD_KT = 128;                 // key tile of the dq launch
+constexpr int BWD_RKPL = BWD_KT / 32;       // its keys per lane
 
 enum Epilogue {
   EPI_QKV = 0,    // q*scale, k, v as bf16 (and q unscaled when q_raw is set)
@@ -112,76 +129,86 @@ struct GemmArgs {
   bf16* out_bf16;
   float* out_f32;
   float* out2_f32;       // EPI_LN1_FWD: a1
-  bf16* q;
-  bf16* k;
+  bf16* q;               // EPI_QKV: q*scale (M, D)
+  bf16* k;               // k, v and q_raw: row stride ldkv
   bf16* v;
   bf16* q_raw;
+  int ldkv;
   int D;
   float q_scale;
   float* partial;        // per-block column sums, slot-major: [slot][block][N]
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using attention::dot_bf16;
+using attention::load_rows;
+using attention::warp_max;
+using attention::warp_sum;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+__device__ __forceinline__ float bfr(float v) { return attention::bf16_round(v); }
 
 __device__ __forceinline__ float mask_at(const bf16* m, size_t i) {
   return m == nullptr ? 1.0f : __bfloat162float(m[i]);
 }
 
 // Column sums over the block's valid rows of Cs -> partial[slot][blockIdx.x][n0 + c]
-template <int BM, int BN, int LDC>
-__device__ void column_partials(const float* Cs, int rows, float* partial, int slot,
-                                int N, int n0) {
-  for (int c = threadIdx.x; c < BN; c += GEMM_THREADS) {
+__device__ void column_partials(const float* Cs, int ldc, int rows, int bn, float* partial,
+                                int slot, int N, int n0) {
+  for (int c = threadIdx.x; c < bn; c += GEMM_THREADS) {
     float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += Cs[r * LDC + c];
+    for (int r = 0; r < rows; ++r) s += Cs[r * ldc + c];
     partial[((size_t)slot * gridDim.x + blockIdx.x) * N + n0 + c] = s;
   }
 }
 
-// C tile (BM x BN) at (blockIdx.x * BM, blockIdx.y * BN) of op(A) op(B), then
-// the epilogue. AT: A is stored (K, M); BT: B is stored (N, K). For the row
-// epilogues BN == N, so a block owns whole rows.
-template <int BM, int BN, bool AT, bool BT, int EPI>
+__host__ __device__ constexpr bool owns_rows(int epi) {
+  return epi == EPI_LN1_FWD || epi == EPI_LN2_FWD || epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
+}
+
+template <int BM, bool AT>
+__host__ __device__ constexpr int gemm_a_bytes() {
+  return (AT ? BK * (BM + 8) : BM * (BK + 8)) * 2;
+}
+
+// shared bytes of a block whose tile is bn columns wide: the A and B tiles
+// during the k loop, then the fp32 C tile over both
+template <int BM, int BN, bool AT, bool BT>
+__host__ __device__ inline int gemm_smem_bytes(int bn) {
+  const int ab = gemm_a_bytes<BM, AT>() + (BT ? bn * (BK + 8) : BK * (BN + 8)) * 2;
+  const int c = BM * (bn + 4) * 4;
+  return ab > c ? ab : c;
+}
+
+// C tile (BM x bn) at rows blockIdx.x * BM of op(A) op(B), then the
+// epilogue. AT: A is stored (K, M); BT: B is stored (N, K). The row epilogues
+// own whole rows (bn = N = D <= BN = MAX_D, in dynamic shared memory); the
+// others take columns [blockIdx.y * BN, +bn) with bn = min(BN, N - n0), so N
+// need only be a multiple of 16. FULL: every tile is BN wide (bn == BN), the
+// common case, compiled without the guards of a narrower tile. Warp (wm, wn)
+// holds the 16-column fragments wn, wn + WARPS_N, ... of its 16 rows.
+template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  constexpr int WARPS = GEMM_THREADS / 32;
   constexpr int WARPS_M = BM / 16;
-  constexpr int WARPS_N = WARPS / WARPS_M;
-  constexpr int WN = BN / WARPS_N;
-  constexpr int NF = WN / 16;
+  constexpr int WARPS_N = GEMM_WARPS / WARPS_M;
+  constexpr int NF = BN / 16 / WARPS_N;  // fragments per warp at the widest tile
   constexpr int LDA = AT ? BM + 8 : BK + 8;
-  constexpr int LDB = BT ? BK + 8 : BN + 8;
-  constexpr int LDC = BN + 4;
-  constexpr int A_BYTES = (AT ? BK * LDA : BM * LDA) * 2;
-  constexpr int B_BYTES = (BT ? BN * LDB : BK * LDB) * 2;
-  constexpr int C_BYTES = BM * LDC * 4;
-  constexpr int AB_BYTES = A_BYTES + B_BYTES;
-  constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  static_assert(WARPS_M * WARPS_N == WARPS && NF >= 1 && WN % 16 == 0, "tile shape");
-  static_assert(A_BYTES % 32 == 0, "B tile alignment");
+  static_assert(WARPS_M * WARPS_N == GEMM_WARPS && NF >= 1, "tile shape");
+  static_assert(gemm_a_bytes<BM, AT>() % 32 == 0, "B tile alignment");
   typedef typename std::conditional<AT, wmma::col_major, wmma::row_major>::type ALayout;
   typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type BLayout;
 
-  __shared__ __align__(128) unsigned char smem[SMEM];
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float row_mu[BM], row_rs[BM];
   bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + A_BYTES);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + gemm_a_bytes<BM, AT>());
   float* Cs = reinterpret_cast<float*>(smem);  // after the k loop
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = owns_rows(EPI) ? 0 : blockIdx.y * BN;
+  const int bn = FULL ? BN : (owns_rows(EPI) ? p.N : min(BN, p.N - n0));
+  constexpr int LDB = BT ? BK + 8 : BN + 8;
+  const int ldc = bn + 4;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
 #pragma unroll
@@ -206,16 +233,19 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       }
     }
     if (BT) {
+#pragma unroll
       for (int i = tid; i < BN * (BK / 8); i += GEMM_THREADS) {
         const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+        if (!FULL && r >= bn) continue;
         *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
             *reinterpret_cast<const uint4*>(p.b + (size_t)(n0 + r) * p.K + k0 + c);
       }
     } else {
+#pragma unroll
       for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
         const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < p.K)
+        if (k0 + r < p.K && (FULL || c < bn))
           val = *reinterpret_cast<const uint4*>(p.b + (size_t)(k0 + r) * p.N + n0 + c);
         *reinterpret_cast<uint4*>(Bs + r * LDB + c) = val;
       }
@@ -230,21 +260,25 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         wmma::load_matrix_sync(af, As + wm * 16 * LDA + kk, LDA);
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
-        const int n = wn * WN + f * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfrag;
-        if (BT)
-          wmma::load_matrix_sync(bfrag, Bs + n * LDB + kk, LDB);
-        else
-          wmma::load_matrix_sync(bfrag, Bs + kk * LDB + n, LDB);
-        wmma::mma_sync(acc[f], af, bfrag, acc[f]);
+        const int n = (wn + WARPS_N * f) * 16;
+        if (FULL || n < bn) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfrag;
+          if (BT)
+            wmma::load_matrix_sync(bfrag, Bs + n * LDB + kk, LDB);
+          else
+            wmma::load_matrix_sync(bfrag, Bs + kk * LDB + n, LDB);
+          wmma::mma_sync(acc[f], af, bfrag, acc[f]);
+        }
       }
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(Cs + wm * 16 * LDC + wn * WN + f * 16, acc[f], LDC,
-                            wmma::mem_row_major);
+  for (int f = 0; f < NF; ++f) {
+    const int n = (wn + WARPS_N * f) * 16;
+    if (FULL || n < bn)
+      wmma::store_matrix_sync(Cs + wm * 16 * ldc + n, acc[f], ldc, wmma::mem_row_major);
+  }
   __syncthreads();
 
   const int rows = min(BM, p.M - m0);  // valid rows of this block
@@ -253,22 +287,22 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       EPI == EPI_F32 || EPI == EPI_ADD_F32) {
     for (int i = tid; i < BM * (BN / 2); i += GEMM_THREADS) {
       const int r = i / (BN / 2), c = (i % (BN / 2)) * 2;
-      if (r >= rows) continue;
+      if (r >= rows || (!FULL && c >= bn)) continue;
       const int m = m0 + r, n = n0 + c;
       const size_t g = (size_t)m * p.N + n;
-      float v0 = Cs[r * LDC + c], v1 = Cs[r * LDC + c + 1];
+      float v0 = Cs[r * ldc + c], v1 = Cs[r * ldc + c + 1];
       if (EPI == EPI_QKV) {
         v0 += p.bias[n];
         v1 += p.bias[n + 1];
         const int part = n / p.D, col = n - part * p.D;
-        const size_t gd = (size_t)m * p.D + col;
+        const size_t gkv = (size_t)m * p.ldkv + col;
         if (part == 0) {
           if (p.q_raw != nullptr)
-            *reinterpret_cast<bf162*>(p.q_raw + gd) = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<bf162*>(p.q + gd) =
+            *reinterpret_cast<bf162*>(p.q_raw + gkv) = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<bf162*>(p.q + (size_t)m * p.D + col) =
               __floats2bfloat162_rn(v0 * p.q_scale, v1 * p.q_scale);
         } else {
-          *reinterpret_cast<bf162*>((part == 1 ? p.k : p.v) + gd) = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<bf162*>((part == 1 ? p.k : p.v) + gkv) = __floats2bfloat162_rn(v0, v1);
         }
       } else if (EPI == EPI_GELU_DROP || EPI == EPI_UP_BWD) {
         float u[2] = {v0 + p.bias[n], v1 + p.bias[n + 1]};
@@ -298,25 +332,28 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   } else if (EPI == EPI_DU) {
     for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
       const int r = i / BN, c = i % BN;
+      if (c >= bn) continue;
       float du = 0.f;
       if (r < rows) {
         const size_t g = (size_t)(m0 + r) * p.N + n0 + c;
-        du = Cs[r * LDC + c] * mask_at(p.mask, g) * p.gp[g];
+        du = Cs[r * ldc + c] * mask_at(p.mask, g) * p.gp[g];
         p.out_bf16[g] = __float2bfloat16_rn(du);
       }
-      Cs[r * LDC + c] = du;
+      Cs[r * ldc + c] = du;
     }
     __syncthreads();
-    column_partials<BM, BN, LDC>(Cs, rows, p.partial, 0, p.N, n0);
+    column_partials(Cs, ldc, rows, bn, p.partial, 0, p.N, n0);
   } else {
-    // row epilogues: BN == N == D, one warp per row
+    // row epilogues: bn == N == D, one warp per row
     if (EPI == EPI_LN1_FWD || EPI == EPI_LN2_FWD) {
-      for (int r = warp; r < rows; r += WARPS) {
+      for (int r = warp; r < rows; r += GEMM_WARPS) {
         const int m = m0 + r;
-        float* row = Cs + r * LDC;
-        const size_t g = (size_t)m * BN;
+        float* row = Cs + r * ldc;
+        const size_t g = (size_t)m * bn;
         float sum = 0.f;
+#pragma unroll
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float proj = (row[c] + p.bias[c]) * mask_at(p.mask, g + c);
           const float h = EPI == EPI_LN1_FWD ? __bfloat162float(p.res_bf16[g + c]) + proj
                                              : p.res_f32[g + c] + proj;
@@ -324,16 +361,20 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
           row[c] = h;
           sum += h;
         }
-        const float mu = warp_sum(sum) / BN;
+        const float mu = warp_sum(sum) / bn;
         float var = 0.f;
+#pragma unroll
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float d = row[c] - mu;
           var += d * d;
         }
-        const float rs = rsqrtf(warp_sum(var) / BN + LN_EPS);
+        const float rs = rsqrtf(warp_sum(var) / bn + LN_EPS);
         const float* s = EPI == EPI_LN1_FWD ? p.ln1_s : p.ln2_s;
         const float* b = EPI == EPI_LN1_FWD ? p.ln1_b : p.ln2_b;
+#pragma unroll
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float y = (row[c] - mu) * rs * s[c] + b[c];
           if (EPI == EPI_LN1_FWD) {
             p.out_f32[g + c] = y;
@@ -347,55 +388,61 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       }
     } else if (EPI == EPI_LN2_BWD) {
       // 1. rows: a2 = h1 + (acc + b2) * m2 with h1 recomputed from a1; Cs <- xhat2
-      for (int r = warp; r < rows; r += WARPS) {
+      for (int r = warp; r < rows; r += GEMM_WARPS) {
         const int m = m0 + r;
-        float* row = Cs + r * LDC;
-        const size_t g = (size_t)m * BN;
+        float* row = Cs + r * ldc;
+        const size_t g = (size_t)m * bn;
         const float mu1 = p.stats[2 * m], rs1 = p.stats[2 * m + 1];
         float sum = 0.f;
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float h1 = (p.a1[g + c] - mu1) * rs1 * p.ln1_s[c] + p.ln1_b[c];
           const float a2 = h1 + (row[c] + p.bias[c]) * mask_at(p.mask, g + c);
           row[c] = a2;
           sum += a2;
         }
-        const float mu = warp_sum(sum) / BN;
+        const float mu = warp_sum(sum) / bn;
         float var = 0.f;
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float d = row[c] - mu;
           var += d * d;
         }
-        const float rs = rsqrtf(warp_sum(var) / BN + LN_EPS);
-        for (int c = lane; c < BN; c += 32) row[c] = (row[c] - mu) * rs;
+        const float rs = rsqrtf(warp_sum(var) / bn + LN_EPS);
+        for (int c = lane; c < BN; c += 32)
+          if (c < bn) row[c] = (row[c] - mu) * rs;
         if (lane == 0) row_rs[r] = rs;
       }
       __syncthreads();
       // 2. columns: dscale2 = sum dh2 * xhat2, dbias2 = sum dh2
       for (int c = tid; c < BN; c += GEMM_THREADS) {
+        if (c >= bn) continue;
         float s0 = 0.f, s1 = 0.f;
         for (int r = 0; r < rows; ++r) {
-          const float dh = p.dh[(size_t)(m0 + r) * BN + c];
-          s0 += dh * Cs[r * LDC + c];
+          const float dh = p.dh[(size_t)(m0 + r) * bn + c];
+          s0 += dh * Cs[r * ldc + c];
           s1 += dh;
         }
-        p.partial[((size_t)0 * gridDim.x + blockIdx.x) * BN + c] = s0;
-        p.partial[((size_t)1 * gridDim.x + blockIdx.x) * BN + c] = s1;
+        p.partial[((size_t)0 * gridDim.x + blockIdx.x) * bn + c] = s0;
+        p.partial[((size_t)1 * gridDim.x + blockIdx.x) * bn + c] = s1;
       }
       __syncthreads();
       // 3. rows: da2 = rstd2 (dxh - mean dxh - xhat2 mean(dxh xhat2)); df = da2 * m2
-      for (int r = warp; r < rows; r += WARPS) {
+      for (int r = warp; r < rows; r += GEMM_WARPS) {
         const int m = m0 + r;
-        float* row = Cs + r * LDC;
-        const size_t g = (size_t)m * BN;
+        float* row = Cs + r * ldc;
+        const size_t g = (size_t)m * bn;
         float s1 = 0.f, s2 = 0.f;
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float dxh = p.dh[g + c] * p.ln2_s[c];
           s1 += dxh;
           s2 += dxh * row[c];
         }
-        const float mean1 = warp_sum(s1) / BN, mean2 = warp_sum(s2) / BN;
+        const float mean1 = warp_sum(s1) / bn, mean2 = warp_sum(s2) / bn;
         const float rs = row_rs[r];
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float dxh = p.dh[g + c] * p.ln2_s[c];
           const float da2 = rs * (dxh - mean1 - row[c] * mean2);
           const float df = da2 * mask_at(p.mask, g + c);
@@ -406,13 +453,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       }
       __syncthreads();
       // 4. columns: db2 = sum df
-      column_partials<BM, BN, LDC>(Cs, rows, p.partial, 2, BN, 0);
+      column_partials(Cs, ldc, rows, bn, p.partial, 2, bn, 0);
     } else {  // EPI_LN1_BWD
       // 1. rows: dh1 = da2 + acc into Cs
-      for (int i = tid; i < rows * BN; i += GEMM_THREADS) {
-        const int r = i / BN, c = i % BN;
-        Cs[r * LDC + c] += p.res_f32[(size_t)(m0 + r) * BN + c];
-      }
+      for (int r = warp; r < rows; r += GEMM_WARPS)
+        for (int c = lane; c < BN; c += 32)
+          if (c < bn) Cs[r * ldc + c] += p.res_f32[(size_t)(m0 + r) * bn + c];
       if (tid < rows) {
         row_mu[tid] = p.stats[2 * (m0 + tid)];
         row_rs[tid] = p.stats[2 * (m0 + tid) + 1];
@@ -420,29 +466,32 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       __syncthreads();
       // 2. columns: dscale1 = sum dh1 * xhat1, dbias1 = sum dh1
       for (int c = tid; c < BN; c += GEMM_THREADS) {
+        if (c >= bn) continue;
         float s0 = 0.f, s1 = 0.f;
         for (int r = 0; r < rows; ++r) {
-          const float xhat = (p.a1[(size_t)(m0 + r) * BN + c] - row_mu[r]) * row_rs[r];
-          const float dh = Cs[r * LDC + c];
+          const float xhat = (p.a1[(size_t)(m0 + r) * bn + c] - row_mu[r]) * row_rs[r];
+          const float dh = Cs[r * ldc + c];
           s0 += dh * xhat;
           s1 += dh;
         }
-        p.partial[((size_t)0 * gridDim.x + blockIdx.x) * BN + c] = s0;
-        p.partial[((size_t)1 * gridDim.x + blockIdx.x) * BN + c] = s1;
+        p.partial[((size_t)0 * gridDim.x + blockIdx.x) * bn + c] = s0;
+        p.partial[((size_t)1 * gridDim.x + blockIdx.x) * bn + c] = s1;
       }
       // 3. rows: da1 = rstd1 (dxh - mean dxh - xhat1 mean(dxh xhat1))
-      for (int r = warp; r < rows; r += WARPS) {
-        const size_t g = (size_t)(m0 + r) * BN;
-        const float* row = Cs + r * LDC;
+      for (int r = warp; r < rows; r += GEMM_WARPS) {
+        const size_t g = (size_t)(m0 + r) * bn;
+        const float* row = Cs + r * ldc;
         float s1 = 0.f, s2 = 0.f;
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float xhat = (p.a1[g + c] - row_mu[r]) * row_rs[r];
           const float dxh = row[c] * p.ln1_s[c];
           s1 += dxh;
           s2 += dxh * xhat;
         }
-        const float mean1 = warp_sum(s1) / BN, mean2 = warp_sum(s2) / BN;
+        const float mean1 = warp_sum(s1) / bn, mean2 = warp_sum(s2) / bn;
         for (int c = lane; c < BN; c += 32) {
+          if (c >= bn) continue;
           const float xhat = (p.a1[g + c] - row_mu[r]) * row_rs[r];
           const float dxh = row[c] * p.ln1_s[c];
           p.out_f32[g + c] = row_rs[r] * (dxh - mean1 - xhat * mean2);
@@ -452,285 +501,362 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
-// Forward attention, as the inference kernel: softmax(q k^T + mask) v for one
-// (batch row, head) and ATT_QT queries. q is pre-scaled; q, k, v, out are
-// (B*S, D) bf16 with head h in columns [h*DH, (h+1)*DH). kmask is (B, S)
-// additive fp32 (0 or -1e9) or null.
-template <int DH>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ kmask,
-                     bf16* __restrict__ out, int S, int D, int H) {
-  constexpr int LDK = DH + 2;   // odd count of 4-byte words: conflict-free row reads
-  constexpr int DPL = DH / 32;  // output dims per lane
-  static_assert(DPL % 2 == 0, "DH must be a multiple of 64");
-  extern __shared__ __align__(16) unsigned char sm[];
-  bf16* Ks = reinterpret_cast<bf16*>(sm);
-  bf16* Vs = Ks + S * LDK;
-  float* Qs = reinterpret_cast<float*>(Vs + S * LDK);
-  float* Ps = Qs + ATT_WARPS * DH;
+// The attention half of the backward, tiled so that any S runs. For one
+// (batch row, head) with the probabilities p (recomputed from bf16(q*scale)
+// bf16(k)^T + mask in fp32, or read as the stored bf16 values):
+//   dp = bf16(da) bf16(v)^T;  delta_i = sum_j dp_ij p_ij;  ds = p (dp - delta)
+//   dq = scale bf16(ds) bf16(k);  dk = scale bf16(ds)^T bf16(q);  dv = bf16(p)^T bf16(da)
+// with q unscaled in dk. Two launches, each summing in a fixed order with no
+// atomics:
+//   rows: one block per (batch row, head, BWD_T queries) walks the key
+//     tiles of BWD_KT (recompute: pass 1 the row max and sum; pass 2 delta;
+//     pass 3 ds and dq; with one tile, S <= BWD_KT, all in one pass over
+//     each row), writes dq and the rows' (max, sum, delta);
+//   cols: one block per (batch row, head, BWD_T keys) walks the query tiles,
+//     forms bf16 p and ds of the (queries x keys) tile in shared memory and
+//     sums dk and dv over all queries.
+// Each block also writes the column sums of its dq (rows) or dk and dv (cols)
+// over its rows, the fp32 values before rounding, into
+// partial[(b * ntiles + tile)][3D]; a last pass adds them into dbqkv.
+struct AttnBwdArgs {
+  const bf16* q_s;     // (M, D) q*scale, recompute only
+  const bf16* q;       // unscaled q, k and v: row stride ldqkv, head h at column h*dh
+  const bf16* k;
+  const bf16* v;
+  int ldqkv;
+  const bf16* dattn;   // (M, D)
+  const float* kmask;  // (B, S) additive or null, recompute only
+  const bf16* probs;   // (B, H, S, S), stored only
+  float* stats;        // (B*H*S, 3): row max, row sum of exp, delta
+  bf16* dqkv;          // (M, 3D)
+  float* partial;      // (B * ceil(S / BWD_T), 3D)
+  int S, D, H, dh;
+  float scale;
+};
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < S * (DH / 2); i += ATT_THREADS) {
-    const int j = i / (DH / 2), c = (i % (DH / 2)) * 2;
-    const size_t g = (size_t)(b * S + j) * D + h * DH + c;
-    *reinterpret_cast<bf162*>(Ks + j * LDK + c) = *reinterpret_cast<const bf162*>(k + g);
-    *reinterpret_cast<bf162*>(Vs + j * LDK + c) = *reinterpret_cast<const bf162*>(v + g);
-  }
+// column sums over the warps' rows, in warp order: vals[d] of lane l is
+// column l*DPL + d; writes dst[0, dh)
+template <int MAXD>
+__device__ void sum_columns(float* red, const float* vals, float* dst, int dh) {
+  constexpr int DPL = MAXD / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __syncthreads();
-
-  float* qrow = Qs + warp * DH;
-  float* prow = Ps + warp * S;
-  const int q_end = min(S, (int)(blockIdx.y + 1) * ATT_QT);
-  for (int i = blockIdx.y * ATT_QT + warp; i < q_end; i += ATT_WARPS) {
-    const bf16* qg = q + (size_t)(b * S + i) * D + h * DH;
-    for (int c = lane; c < DH; c += 32) qrow[c] = __bfloat162float(qg[c]);
-    __syncwarp();
-
-    float s[MAX_KPL];
-    float mx = -INFINITY;
 #pragma unroll
-    for (int t = 0; t < MAX_KPL; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -INFINITY;
-      if (j < S) {
-        const bf162* kr = reinterpret_cast<const bf162*>(Ks + j * LDK);
-        float a = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < DH / 2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
-          a = fmaf(qrow[2 * c], kf.x, a);
-          a = fmaf(qrow[2 * c + 1], kf.y, a);
-        }
-        if (kmask != nullptr) a += kmask[b * S + j];
-        s[t] = a;
-        mx = fmaxf(mx, a);
-      }
-    }
-    mx = warp_max(mx);
-    float l = 0.f;
-#pragma unroll
-    for (int t = 0; t < MAX_KPL; ++t) {
-      if (lane + 32 * t < S) {
-        s[t] = expf(s[t] - mx);
-        l += s[t];
-      }
-    }
-    l = warp_sum(l);
-#pragma unroll
-    for (int t = 0; t < MAX_KPL; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) prow[j] = bfr(s[t] / l);
-    }
-    __syncwarp();
-
-    float o[DPL];
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) o[d] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float pj = prow[j];
-      const bf16* vr = Vs + j * LDK + lane * DPL;
-#pragma unroll
-      for (int d = 0; d < DPL; d += 2) {
-        const float2 vf = __bfloat1622float2(*reinterpret_cast<const bf162*>(vr + d));
-        o[d] = fmaf(pj, vf.x, o[d]);
-        o[d + 1] = fmaf(pj, vf.y, o[d + 1]);
-      }
-    }
-    bf16* og = out + (size_t)(b * S + i) * D + h * DH + lane * DPL;
-#pragma unroll
-    for (int d = 0; d < DPL; d += 2)
-      *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(o[d], o[d + 1]);
-    __syncwarp();
+  for (int d = 0; d < DPL; ++d) red[warp * MAXD + lane * DPL + d] = vals[d];
+  __syncthreads();
+  for (int c = threadIdx.x; c < dh; c += BWD_THREADS) {
+    float t = 0.f;
+    for (int w = 0; w < BWD_WARPS; ++w) t += red[w * MAXD + c];
+    dst[c] = t;
   }
 }
 
-// Attention backward for one (batch row, head), all S <= 128 queries:
-//   p  = softmax(bf16(q*scale) bf16(k)^T + mask)     recomputed, fp32
-//   dp = bf16(da) bf16(v)^T;  ds = p (dp - sum_j dp p)
-//   dq = scale bf16(ds) bf16(k);  dk = scale bf16(ds)^T bf16(q);  dv = bf16(p)^T bf16(da)
-// written as bf16 into dqkv (B*S, 3D) at the head's q, k and v columns, and
-// the fp32 sums of those columns over the S rows into partial[b][3D].
-template <int DH>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_bwd_kernel(const bf16* __restrict__ q_s, const bf16* __restrict__ q,
-                     const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dattn, const float* __restrict__ kmask,
-                     bf16* __restrict__ dqkv, float* __restrict__ partial, int S, int D, int H,
-                     float scale) {
-  constexpr int LDK = DH + 2;
-  constexpr int DPL = DH / 32;
-  static_assert(DPL % 2 == 0, "DH must be a multiple of 64");
+template <int MAXD, bool STORED>
+__global__ void __launch_bounds__(BWD_THREADS) attention_bwd_rows_kernel(AttnBwdArgs a) {
+  constexpr int DPL = MAXD / 32;
+  static_assert(DPL == 2 || DPL == 4, "MAXD is 64 or 128");
   extern __shared__ __align__(16) unsigned char sm[];
-  bf16* Ks = reinterpret_cast<bf16*>(sm);
-  bf16* Vs = Ks + S * LDK;
-  bf16* Qr = Vs + S * LDK;
-  bf16* As = Qr + S * LDK;
-  bf16* Pb = As + S * LDK;  // (S, S) bf16(p)
-  bf16* Db = Pb + S * S;    // (S, S) bf16(ds)
-  float* Qw = reinterpret_cast<float*>(Db + S * S);  // per warp: scaled q row
-  float* Aw = Qw + ATT_WARPS * DH;                   // per warp: da row
-  float* Red = Aw + ATT_WARPS * DH;                  // (ATT_WARPS, DH) column sums
+  const int S = a.S, D = a.D, H = a.H, dh = a.dh, ldk = attention::smem_ld(dh);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);  // the block's q*scale rows (recompute)
+  bf16* As = Qs + BWD_T * ldk;             // the block's dattn rows
+  bf16* Ks = As + BWD_T * ldk;             // key tile of BWD_KT rows
+  bf16* Vs = Ks + BWD_KT * ldk;
+  float* Dw = reinterpret_cast<float*>(Vs + BWD_KT * ldk);  // per warp: bf16(ds) of a row
+  float* Red = Dw + BWD_WARPS * BWD_KT;                     // (BWD_WARPS, MAXD)
+  float* Rst = Red + BWD_WARPS * MAXD;     // per row: max, sum of exp, delta
+  float* Dq = Rst + BWD_T * 3;  // per row: dq summed over the key tiles (S > BWD_KT only)
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int D3 = 3 * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.y * BWD_T, nq = min(BWD_T, S - q0);
+  const int nt = (S + BWD_KT - 1) / BWD_KT;  // key tiles
+  const size_t brow = (size_t)b * S, bh = (size_t)b * H + h;
+  const bool lane_on = lane * DPL < dh;
+  float* dsrow = Dw + warp * BWD_KT;
 
-  for (int i = tid; i < S * (DH / 2); i += ATT_THREADS) {
-    const int j = i / (DH / 2), c = (i % (DH / 2)) * 2;
-    const size_t g = (size_t)(b * S + j) * D + h * DH + c;
-    *reinterpret_cast<bf162*>(Ks + j * LDK + c) = *reinterpret_cast<const bf162*>(k + g);
-    *reinterpret_cast<bf162*>(Vs + j * LDK + c) = *reinterpret_cast<const bf162*>(v + g);
-    *reinterpret_cast<bf162*>(Qr + j * LDK + c) = *reinterpret_cast<const bf162*>(q + g);
-    *reinterpret_cast<bf162*>(As + j * LDK + c) = *reinterpret_cast<const bf162*>(dattn + g);
+  if (!STORED) load_rows(Qs, a.q_s, brow + q0, nq, D, h * dh, dh);
+  load_rows(As, a.dattn, brow + q0, nq, D, h * dh, dh);
+  for (int i = threadIdx.x; i < BWD_T; i += BWD_THREADS) {
+    Rst[i * 3] = -INFINITY;
+    Rst[i * 3 + 1] = 0.f;
+    Rst[i * 3 + 2] = 0.f;
   }
-  __syncthreads();
 
-  float* qrow = Qw + warp * DH;
-  float* arow = Aw + warp * DH;
+  // the scores of row il against this lane's keys of tile t (-inf past S)
+  auto scores = [&](int il, int t, float* s) {
+#pragma unroll
+    for (int kk = 0; kk < BWD_RKPL; ++kk) {
+      const int jl = lane + 32 * kk, j = t * BWD_KT + jl;
+      s[kk] = -INFINITY;
+      if (j < S) {
+        s[kk] = dot_bf16(Qs + il * ldk, Ks + jl * ldk, dh);
+        if (a.kmask != nullptr) s[kk] += a.kmask[brow + j];
+      }
+    }
+  };
+  // fold this tile's scores into row il's max and sum of exp(s - max)
+  auto fold_stats = [&](int il, const float* s) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int kk = 0; kk < BWD_RKPL; ++kk) mx = fmaxf(mx, s[kk]);
+    const float m_old = Rst[il * 3], m_new = fmaxf(m_old, warp_max(mx));
+    float e = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BWD_RKPL; ++kk) e += expf(s[kk] - m_new);  // 0 past S
+    e = warp_sum(e);
+    const float l = (m_old == -INFINITY ? 0.f : Rst[il * 3 + 1] * expf(m_old - m_new)) + e;
+    __syncwarp();
+    if (lane == 0) Rst[il * 3] = m_new, Rst[il * 3 + 1] = l;
+    __syncwarp();
+  };
+  // p (recomputed from the scores s, or stored) and dp of row il against
+  // this lane's keys of tile t; returns this lane's sum of dp * p
+  auto p_dp = [&](int il, int t, const float* s, float* p, float* dp) {
+    float sdp = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BWD_RKPL; ++kk) {
+      const int jl = lane + 32 * kk, j = t * BWD_KT + jl;
+      p[kk] = dp[kk] = 0.f;
+      if (j < S) {
+        p[kk] = STORED ? __bfloat162float(a.probs[(bh * S + q0 + il) * S + j])
+                       : expf(s[kk] - Rst[il * 3]) / Rst[il * 3 + 1];
+        dp[kk] = dot_bf16(As + il * ldk, Vs + jl * ldk, dh);
+        sdp += dp[kk] * p[kk];
+      }
+    }
+    return sdp;
+  };
+  // ds = p (dp - delta) of row il, rounded; acc = bf16(ds) k over the tile
+  auto tile_dq = [&](int il, int t, const float* p, const float* dp, float* acc) {
+    const int n = min(BWD_KT, S - t * BWD_KT);
+    const float delta = Rst[il * 3 + 2];
+#pragma unroll
+    for (int kk = 0; kk < BWD_RKPL; ++kk) {
+      const int jl = lane + 32 * kk;
+      if (jl < n) dsrow[jl] = bfr(p[kk] * (dp[kk] - delta));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
+    if (lane_on) {
+      for (int jl = 0; jl < n; ++jl) {
+        const float dsj = dsrow[jl];
+        const bf16* kr = Ks + jl * ldk + lane * DPL;
+#pragma unroll
+        for (int d = 0; d < DPL; d += 2) {
+          const float2 kf = __bfloat1622float2(*reinterpret_cast<const bf162*>(kr + d));
+          acc[d] = fmaf(dsj, kf.x, acc[d]);
+          acc[d + 1] = fmaf(dsj, kf.y, acc[d + 1]);
+        }
+      }
+    }
+    __syncwarp();
+  };
+  // dq * scale of row il as bf16, and its share of the column sums
   float csum[DPL];
 #pragma unroll
   for (int d = 0; d < DPL; ++d) csum[d] = 0.f;
-
-  // 1. per query row: p, dp, ds (kept as bf16) and dq
-  for (int i = warp; i < S; i += ATT_WARPS) {
-    const bf16* qg = q_s + (size_t)(b * S + i) * D + h * DH;
-    for (int c = lane; c < DH; c += 32) {
-      qrow[c] = __bfloat162float(qg[c]);
-      arow[c] = __bfloat162float(As[i * LDK + c]);
-    }
-    __syncwarp();
-    float s[BWD_KPL], dp[BWD_KPL];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < BWD_KPL; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -INFINITY;
-      dp[t] = 0.f;
-      if (j < S) {
-        const bf162* kr = reinterpret_cast<const bf162*>(Ks + j * LDK);
-        const bf162* vr = reinterpret_cast<const bf162*>(Vs + j * LDK);
-        float a = 0.f, e = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < DH / 2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
-          const float2 vf = __bfloat1622float2(vr[c]);
-          a = fmaf(qrow[2 * c], kf.x, a);
-          a = fmaf(qrow[2 * c + 1], kf.y, a);
-          e = fmaf(arow[2 * c], vf.x, e);
-          e = fmaf(arow[2 * c + 1], vf.y, e);
-        }
-        if (kmask != nullptr) a += kmask[b * S + j];
-        s[t] = a;
-        dp[t] = e;
-        mx = fmaxf(mx, a);
-      }
-    }
-    mx = warp_max(mx);
-    float l = 0.f;
-#pragma unroll
-    for (int t = 0; t < BWD_KPL; ++t) {
-      if (lane + 32 * t < S) {
-        s[t] = expf(s[t] - mx);
-        l += s[t];
-      }
-    }
-    l = warp_sum(l);
-    float sdp = 0.f;
-#pragma unroll
-    for (int t = 0; t < BWD_KPL; ++t) {
-      if (lane + 32 * t < S) {
-        s[t] = s[t] / l;  // p
-        sdp += dp[t] * s[t];
-      }
-    }
-    sdp = warp_sum(sdp);
-#pragma unroll
-    for (int t = 0; t < BWD_KPL; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) {
-        Pb[i * S + j] = __float2bfloat16_rn(s[t]);
-        Db[i * S + j] = __float2bfloat16_rn(s[t] * (dp[t] - sdp));
-      }
-    }
-    __syncwarp();
-    float o[DPL];
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) o[d] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float dsj = __bfloat162float(Db[i * S + j]);
-      const bf16* kr = Ks + j * LDK + lane * DPL;
-#pragma unroll
-      for (int d = 0; d < DPL; d += 2) {
-        const float2 kf = __bfloat1622float2(*reinterpret_cast<const bf162*>(kr + d));
-        o[d] = fmaf(dsj, kf.x, o[d]);
-        o[d + 1] = fmaf(dsj, kf.y, o[d + 1]);
-      }
-    }
-    bf16* og = dqkv + (size_t)(b * S + i) * D3 + h * DH + lane * DPL;
+  auto emit_dq = [&](int il, const float* acc) {
+    if (!lane_on) return;
+    bf16* og = a.dqkv + (brow + q0 + il) * 3 * D + h * dh + lane * DPL;
 #pragma unroll
     for (int d = 0; d < DPL; d += 2) {
-      const float a0 = o[d] * scale, a1 = o[d + 1] * scale;
-      csum[d] += a0;
-      csum[d + 1] += a1;
-      *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(a0, a1);
+      const float v0 = acc[d] * a.scale, v1 = acc[d + 1] * a.scale;
+      csum[d] += v0;
+      csum[d + 1] += v1;
+      *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(v0, v1);
     }
-    __syncwarp();
-  }
-  __syncthreads();  // every row of Pb and Db is written
+  };
+  auto load_tile = [&](int t) {
+    const int j0 = t * BWD_KT, n = min(BWD_KT, S - j0);
+    __syncthreads();
+    load_rows(Ks, a.k, brow + j0, n, a.ldqkv, h * dh, dh);
+    load_rows(Vs, a.v, brow + j0, n, a.ldqkv, h * dh, dh);
+    __syncthreads();
+  };
 
-  // 2. per key row: dk and dv
+  float s[BWD_RKPL], p[BWD_RKPL], dp[BWD_RKPL], acc[DPL];
+  if (nt == 1) {
+    // one key tile: each row in one pass, its scores, dp and dq in registers
+    load_tile(0);
+#pragma unroll 1
+    for (int il = warp; il < nq; il += BWD_WARPS) {
+      if (!STORED) {
+        scores(il, 0, s);
+        fold_stats(il, s);
+      }
+      const float delta = warp_sum(p_dp(il, 0, s, p, dp));
+      if (lane == 0) Rst[il * 3 + 2] = delta;
+      __syncwarp();
+      tile_dq(il, 0, p, dp, acc);
+      emit_dq(il, acc);
+    }
+  } else {
+    // pass 1 (recompute): row max and sum of exp(s - max)
+    if (!STORED) {
+      for (int t = 0; t < nt; ++t) {
+        load_tile(t);
+#pragma unroll 1
+        for (int il = warp; il < nq; il += BWD_WARPS) {
+          scores(il, t, s);
+          fold_stats(il, s);
+        }
+      }
+    }
+    // pass 2: delta = sum_j dp p
+    for (int t = 0; t < nt; ++t) {
+      load_tile(t);
+#pragma unroll 1
+      for (int il = warp; il < nq; il += BWD_WARPS) {
+        if (!STORED) scores(il, t, s);
+        const float part = warp_sum(p_dp(il, t, s, p, dp));
+        if (lane == 0) Rst[il * 3 + 2] += part;
+        __syncwarp();
+      }
+    }
+    // pass 3: ds and dq, summed over the tiles in Dq
+    for (int i = threadIdx.x; i < BWD_T * MAXD; i += BWD_THREADS) Dq[i] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      load_tile(t);
+#pragma unroll 1
+      for (int il = warp; il < nq; il += BWD_WARPS) {
+        if (!STORED) scores(il, t, s);
+        p_dp(il, t, s, p, dp);
+        tile_dq(il, t, p, dp, acc);
+        if (lane_on) {
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) Dq[il * MAXD + lane * DPL + d] += acc[d];
+        }
+      }
+    }
+#pragma unroll 1
+    for (int il = warp; il < nq; il += BWD_WARPS) {
+      if (lane_on) {
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) acc[d] = Dq[il * MAXD + lane * DPL + d];
+      }
+      emit_dq(il, acc);
+    }
+  }
+
+  // the rows' statistics for the dk/dv launch, and the column sums of dq
+#pragma unroll 1
+  for (int il = warp; il < nq; il += BWD_WARPS)
+    if (lane < 3) a.stats[(bh * S + q0 + il) * 3 + lane] = Rst[il * 3 + lane];
+  sum_columns<MAXD>(Red, csum, a.partial + ((size_t)b * gridDim.y + blockIdx.y) * 3 * D + h * dh,
+                    dh);
+}
+
+template <int MAXD, bool STORED>
+__global__ void __launch_bounds__(BWD_THREADS) attention_bwd_cols_kernel(AttnBwdArgs a) {
+  constexpr int DPL = MAXD / 32;
+  constexpr int LDP = BWD_T + 2;
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int S = a.S, D = a.D, H = a.H, dh = a.dh, ldk = attention::smem_ld(dh);
+  bf16* Ks = reinterpret_cast<bf16*>(sm);  // the block's keys
+  bf16* Vs = Ks + BWD_T * ldk;
+  bf16* Qs = Vs + BWD_T * ldk;             // query tile: q*scale (recompute)
+  bf16* Qr = Qs + BWD_T * ldk;             // unscaled q
+  bf16* As = Qr + BWD_T * ldk;             // dattn
+  bf16* Pb = As + BWD_T * ldk;             // (BWD_T, LDP) bf16(p)
+  bf16* Db = Pb + BWD_T * LDP;             // (BWD_T, LDP) bf16(ds)
+  float* St = reinterpret_cast<float*>(Db + BWD_T * LDP);  // (BWD_T, 3) row stats
+  float* Red = St + BWD_T * 3;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = blockIdx.y * BWD_T, nk = min(BWD_T, S - j0);
+  const int nt = (S + BWD_T - 1) / BWD_T;
+  const size_t brow = (size_t)b * S, bh = (size_t)b * H + h;
+  const bool lane_on = lane * DPL < dh;
+
+  load_rows(Ks, a.k, brow + j0, nk, a.ldqkv, h * dh, dh);
+  load_rows(Vs, a.v, brow + j0, nk, a.ldqkv, h * dh, dh);
+  float dk[BWD_RPW][DPL], dv[BWD_RPW][DPL];
+#pragma unroll
+  for (int rr = 0; rr < BWD_RPW; ++rr)
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) dk[rr][d] = dv[rr][d] = 0.f;
+
+  for (int qt = 0; qt < nt; ++qt) {
+    const int i0 = qt * BWD_T, nq = min(BWD_T, S - i0);
+    __syncthreads();
+    if (!STORED) load_rows(Qs, a.q_s, brow + i0, nq, D, h * dh, dh);
+    load_rows(Qr, a.q, brow + i0, nq, a.ldqkv, h * dh, dh);
+    load_rows(As, a.dattn, brow + i0, nq, D, h * dh, dh);
+    for (int i = threadIdx.x; i < nq * 3; i += BWD_THREADS) St[i] = a.stats[(bh * S + i0) * 3 + i];
+    __syncthreads();
+    // bf16 p and ds of the (queries x keys) tile: a warp per query row, a lane per key
+#pragma unroll 1
+    for (int il = warp; il < nq; il += BWD_WARPS) {
+#pragma unroll
+      for (int kk = 0; kk < BWD_KPL; ++kk) {
+        const int jl = lane + 32 * kk, j = j0 + jl;
+        if (jl >= nk) continue;
+        float p;
+        if (STORED) {
+          p = __bfloat162float(a.probs[(bh * S + i0 + il) * S + j]);
+        } else {
+          float s = dot_bf16(Qs + il * ldk, Ks + jl * ldk, dh);
+          if (a.kmask != nullptr) s += a.kmask[brow + j];
+          p = expf(s - St[il * 3]) / St[il * 3 + 1];
+        }
+        const float dp = dot_bf16(As + il * ldk, Vs + jl * ldk, dh);
+        Pb[il * LDP + jl] = __float2bfloat16_rn(p);
+        Db[il * LDP + jl] = __float2bfloat16_rn(p * (dp - St[il * 3 + 2]));
+      }
+    }
+    __syncthreads();
+    // dk and dv: a warp per key, a lane per DPL dims, summed over the queries
+    if (lane_on) {
+#pragma unroll
+      for (int rr = 0; rr < BWD_RPW; ++rr) {
+        const int jl = warp + BWD_WARPS * rr;
+        if (jl >= nk) continue;
+        for (int il = 0; il < nq; ++il) {
+          const float dsij = __bfloat162float(Db[il * LDP + jl]);
+          const float pij = __bfloat162float(Pb[il * LDP + jl]);
+          const bf16* qr = Qr + il * ldk + lane * DPL;
+          const bf16* ar = As + il * ldk + lane * DPL;
+#pragma unroll
+          for (int d = 0; d < DPL; d += 2) {
+            const float2 qf = __bfloat1622float2(*reinterpret_cast<const bf162*>(qr + d));
+            const float2 af = __bfloat1622float2(*reinterpret_cast<const bf162*>(ar + d));
+            dk[rr][d] = fmaf(dsij, qf.x, dk[rr][d]);
+            dk[rr][d + 1] = fmaf(dsij, qf.y, dk[rr][d + 1]);
+            dv[rr][d] = fmaf(pij, af.x, dv[rr][d]);
+            dv[rr][d + 1] = fmaf(pij, af.y, dv[rr][d + 1]);
+          }
+        }
+      }
+    }
+  }
+
   float ksum[DPL], vsum[DPL];
 #pragma unroll
   for (int d = 0; d < DPL; ++d) ksum[d] = vsum[d] = 0.f;
-  for (int j = warp; j < S; j += ATT_WARPS) {
-    float ok[DPL], ov[DPL];
+  if (lane_on) {
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) ok[d] = ov[d] = 0.f;
-    for (int i = 0; i < S; ++i) {
-      const float dsij = __bfloat162float(Db[i * S + j]);
-      const float pij = __bfloat162float(Pb[i * S + j]);
-      const bf16* qr = Qr + i * LDK + lane * DPL;
-      const bf16* ar = As + i * LDK + lane * DPL;
+    for (int rr = 0; rr < BWD_RPW; ++rr) {
+      const int jl = warp + BWD_WARPS * rr;
+      if (jl >= nk) continue;
+      bf16* kg = a.dqkv + (brow + j0 + jl) * 3 * D + D + h * dh + lane * DPL;
+      bf16* vg = kg + D;
 #pragma unroll
       for (int d = 0; d < DPL; d += 2) {
-        const float2 qf = __bfloat1622float2(*reinterpret_cast<const bf162*>(qr + d));
-        const float2 af = __bfloat1622float2(*reinterpret_cast<const bf162*>(ar + d));
-        ok[d] = fmaf(dsij, qf.x, ok[d]);
-        ok[d + 1] = fmaf(dsij, qf.y, ok[d + 1]);
-        ov[d] = fmaf(pij, af.x, ov[d]);
-        ov[d + 1] = fmaf(pij, af.y, ov[d + 1]);
+        const float k0 = dk[rr][d] * a.scale, k1 = dk[rr][d + 1] * a.scale;
+        ksum[d] += k0;
+        ksum[d + 1] += k1;
+        vsum[d] += dv[rr][d];
+        vsum[d + 1] += dv[rr][d + 1];
+        *reinterpret_cast<bf162*>(kg + d) = __floats2bfloat162_rn(k0, k1);
+        *reinterpret_cast<bf162*>(vg + d) = __floats2bfloat162_rn(dv[rr][d], dv[rr][d + 1]);
       }
     }
-    bf16* kg = dqkv + (size_t)(b * S + j) * D3 + D + h * DH + lane * DPL;
-    bf16* vg = kg + D;
-#pragma unroll
-    for (int d = 0; d < DPL; d += 2) {
-      const float k0 = ok[d] * scale, k1 = ok[d + 1] * scale;
-      ksum[d] += k0;
-      ksum[d + 1] += k1;
-      vsum[d] += ov[d];
-      vsum[d + 1] += ov[d + 1];
-      *reinterpret_cast<bf162*>(kg + d) = __floats2bfloat162_rn(k0, k1);
-      *reinterpret_cast<bf162*>(vg + d) = __floats2bfloat162_rn(ov[d], ov[d + 1]);
-    }
   }
-
-  // 3. column sums of dq, dk, dv over the rows, warps added in a fixed order
-  for (int part = 0; part < 3; ++part) {
-    const float* vals = part == 0 ? csum : (part == 1 ? ksum : vsum);
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) Red[warp * DH + lane * DPL + d] = vals[d];
-    __syncthreads();
-    for (int c = tid; c < DH; c += ATT_THREADS) {
-      float t = 0.f;
-      for (int w = 0; w < ATT_WARPS; ++w) t += Red[w * DH + c];
-      partial[(size_t)b * D3 + part * D + h * DH + c] = t;
-    }
-    __syncthreads();
-  }
+  float* part = a.partial + ((size_t)b * nt + blockIdx.y) * 3 * D + h * dh;
+  sum_columns<MAXD>(Red, ksum, part + D, dh);
+  sum_columns<MAXD>(Red, vsum, part + 2 * D, dh);
 }
 
 // LN1 statistics of a1 and h1 = LN1(a1) in bf16; one warp per row.
@@ -801,55 +927,71 @@ cudaError_t launch_reduce(const ReduceJobs& jobs, int njobs, int max_cols, cudaS
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_attention_fwd(const bf16* q, const bf16* k, const bf16* v,
-                                 const float* kmask, bf16* out, int B, int S, int D, int H,
-                                 cudaStream_t st) {
-  const size_t smem =
-      (size_t)2 * S * (DH + 2) * sizeof(bf16) + (size_t)ATT_WARPS * (DH + S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_fwd_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(B * H, (S + ATT_QT - 1) / ATT_QT);
-  attention_fwd_kernel<DH><<<grid, ATT_THREADS, smem, st>>>(q, k, v, kmask, out, S, D, H);
+template <int MAXD, bool STORED>
+cudaError_t launch_attention_bwd_t(const AttnBwdArgs& a, int B, cudaStream_t st) {
+  const int ldk = attention::smem_ld(a.dh);
+  const size_t rows_smem =
+      (size_t)2 * (BWD_T + BWD_KT) * ldk * sizeof(bf16) +
+      (size_t)(BWD_WARPS * BWD_KT + BWD_WARPS * MAXD + BWD_T * 3) * 4 +
+      (a.S > BWD_KT ? (size_t)BWD_T * MAXD * 4 : 0);  // Dq, with more than one key tile
+  const size_t cols_smem = (size_t)5 * BWD_T * ldk * sizeof(bf16) +
+                           (size_t)2 * BWD_T * (BWD_T + 2) * sizeof(bf16) +
+                           (size_t)(BWD_T * 3 + BWD_WARPS * MAXD) * 4;
+  static size_t rows_allowed = 48 * 1024, cols_allowed = 48 * 1024;
+  cudaError_t e = attention::allow_smem(attention_bwd_rows_kernel<MAXD, STORED>, rows_smem,
+                                        rows_allowed);
+  if (e != cudaSuccess) return e;
+  e = attention::allow_smem(attention_bwd_cols_kernel<MAXD, STORED>, cols_smem, cols_allowed);
+  if (e != cudaSuccess) return e;
+  dim3 grid(B * a.H, (a.S + BWD_T - 1) / BWD_T);
+  attention_bwd_rows_kernel<MAXD, STORED><<<grid, BWD_THREADS, rows_smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attention_bwd_cols_kernel<MAXD, STORED><<<grid, BWD_THREADS, cols_smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_attention_bwd(const bf16* q_s, const bf16* q, const bf16* k, const bf16* v,
-                                 const bf16* dattn, const float* kmask, bf16* dqkv,
-                                 float* partial, int B, int S, int D, int H, cudaStream_t st) {
-  const size_t smem = (size_t)4 * S * (DH + 2) * sizeof(bf16) +
-                      (size_t)2 * S * S * sizeof(bf16) + (size_t)3 * ATT_WARPS * DH * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const float scale = (float)(1.0 / sqrt((double)DH));
-  attention_bwd_kernel<DH><<<B * H, ATT_THREADS, smem, st>>>(q_s, q, k, v, dattn, kmask, dqkv,
-                                                             partial, S, D, H, scale);
+cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int B, bool stored, cudaStream_t st) {
+  if (a.dh <= 64)
+    return stored ? launch_attention_bwd_t<64, true>(a, B, st)
+                  : launch_attention_bwd_t<64, false>(a, B, st);
+  return stored ? launch_attention_bwd_t<128, true>(a, B, st)
+                : launch_attention_bwd_t<128, false>(a, B, st);
+}
+
+template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL>
+cudaError_t launch_gemm_tiles(const GemmArgs& p, cudaStream_t st) {
+  static size_t allowed = 48 * 1024;
+  const int smem = gemm_smem_bytes<BM, BN, AT, BT>(owns_rows(EPI) ? p.N : BN);
+  cudaError_t e = attention::allow_smem(gemm_kernel<BM, BN, AT, BT, EPI, FULL>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.M + BM - 1) / BM, owns_rows(EPI) ? 1 : (p.N + BN - 1) / BN);
+  gemm_kernel<BM, BN, AT, BT, EPI, FULL><<<grid, GEMM_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 template <int BM, int BN, bool AT, bool BT, int EPI>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t st) {
-  if (p.N % BN != 0 || (AT && p.M % BM != 0)) return cudaErrorInvalidValue;
-  dim3 grid((p.M + BM - 1) / BM, p.N / BN);
-  gemm_kernel<BM, BN, AT, BT, EPI><<<grid, GEMM_THREADS, 0, st>>>(p);
-  return cudaGetLastError();
+  if (p.N % 16 != 0 || (owns_rows(EPI) && p.N > BN) || (AT && (p.M % BM != 0 || p.N % BN != 0)))
+    return cudaErrorInvalidValue;
+  if constexpr (AT) {  // weight gradients: every tile is full
+    return launch_gemm_tiles<BM, BN, AT, BT, EPI, true>(p, st);
+  } else {
+    if (owns_rows(EPI) ? p.N == BN : p.N % BN == 0)
+      return launch_gemm_tiles<BM, BN, AT, BT, EPI, true>(p, st);
+    return launch_gemm_tiles<BM, BN, AT, BT, EPI, false>(p, st);
+  }
 }
 
-// A GEMM whose blocks own whole rows (BN == N == D).
+// 16-row GEMMs: blocks that own whole rows (BN == N == D; rows up to 512
+// wide keep 4 accumulator fragments per warp, wider ones 8) or 128-column tiles
 template <bool BT, int EPI>
 cudaError_t launch_row_gemm(const GemmArgs& p, cudaStream_t st) {
-  switch (p.N) {
-    case 128: return launch_gemm<ROW_BM, 128, false, BT, EPI>(p, st);
-    case 256: return launch_gemm<ROW_BM, 256, false, BT, EPI>(p, st);
-    case 512: return launch_gemm<ROW_BM, 512, false, BT, EPI>(p, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (!owns_rows(EPI)) {
+    return launch_gemm<ROW_BM, NARROW_BN, false, BT, EPI>(p, st);
+  } else {
+    if (p.N <= MAX_D / 2) return launch_gemm<ROW_BM, MAX_D / 2, false, BT, EPI>(p, st);
+    return launch_gemm<ROW_BM, MAX_D, false, BT, EPI>(p, st);
   }
 }
 
@@ -867,11 +1009,12 @@ cudaError_t launch_weight_grad(const void* x, const void* y, void* out, int M, i
 }
 
 bool dims_ok(int B, int S, int D, int F) {
-  return B >= 1 && S >= 1 && S <= MAX_S_TRAIN && F % NARROW_BN == 0 &&
-         (D == 128 || D == 256 || D == 512);
+  return B >= 1 && S >= 1 && D >= 64 && D % 64 == 0 && D <= MAX_D && F >= 64 && F % 64 == 0;
 }
 
-bool heads_ok(int D, int H) { return H >= 1 && D % H == 0 && (D / H == 64 || D / H == 128); }
+bool heads_ok(int D, int H) {
+  return H >= 1 && D % H == 0 && (D / H) % 16 == 0 && D / H <= 128;
+}
 
 }  // namespace
 
@@ -884,18 +1027,19 @@ bool heads_ok(int D, int H) { return H >= 1 && D % H == 0 && (D / H == 64 || D /
 #define BF(p) static_cast<const bf16*>(p)
 #define F32(p) static_cast<const float*>(p)
 
-// Forward. x (B, S, D) bf16; key_mask (B, S) fp32 additive or null; m0, m1,
-// m2 bf16 masks (B, S, D), (B, S, F), (B, S, D), all null at rate 0; weights
-// bf16 in Linear layout, vectors fp32. Scratch: q, k, v, h1_bf16 (M, D) bf16,
-// h1_f32 (M, D) fp32, g (M, F) bf16. Outputs: out_bf16 or out_f32 (M, D),
-// exactly one non-null; a1 (M, D) fp32; attn (M, D) bf16.
-extern "C" int fused_layer_train_forward(
-    const void* x, const void* key_mask, const void* m0, const void* m1, const void* m2,
-    const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
-    const void* ln1_b, const void* w_1, const void* b_1, const void* w_2, const void* b_2,
-    const void* ln2_s, const void* ln2_b, void* q, void* k, void* v, void* h1_f32,
-    void* h1_bf16, void* g, void* out_bf16, void* out_f32, void* a1, void* attn, int B, int S,
-    int D, int H, int F, void* stream) {
+// The training forward shared by kernels 5 and 8. With qkv null (kernel 5)
+// q (scaled), k and v go to the (M, D) scratch planes q, k, v. With qkv set
+// (kernel 8, store-probs) q unscaled, k and v go to qkv (M, 3D), q*scale to
+// the scratch q, and the attention launch also writes probs (B, H, S, S):
+// the same launches in the same order with the same arithmetic, so `out`,
+// a1 and attn are bit-equal between the two.
+static int train_forward(const void* x, const void* key_mask, const void* m0, const void* m1,
+                  const void* m2, const void* w_qkv, const void* b_qkv, const void* w_o,
+                  const void* b_o, const void* ln1_s, const void* ln1_b, const void* w_1,
+                  const void* b_1, const void* w_2, const void* b_2, const void* ln2_s,
+                  const void* ln2_b, void* q, void* k, void* v, void* h1_f32, void* h1_bf16,
+                  void* g, void* out_bf16, void* out_f32, void* a1, void* attn, void* probs,
+                  void* qkv, int B, int S, int D, int H, int F, void* stream) {
   if (!dims_ok(B, S, D, F) || !heads_ok(D, H) || (out_bf16 == nullptr) == (out_f32 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -911,17 +1055,22 @@ extern "C" int fused_layer_train_forward(
   p.N = 3 * D;
   p.K = D;
   p.q = static_cast<bf16*>(q);
-  p.k = static_cast<bf16*>(k);
-  p.v = static_cast<bf16*>(v);
+  if (qkv != nullptr) {
+    p.q_raw = static_cast<bf16*>(qkv);
+    p.k = p.q_raw + D;
+    p.v = p.q_raw + 2 * D;
+    p.ldkv = 3 * D;
+  } else {
+    p.k = static_cast<bf16*>(k);
+    p.v = static_cast<bf16*>(v);
+    p.ldkv = D;
+  }
   p.q_scale = (float)(1.0 / sqrt((double)dh));
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, true, EPI_QKV>(p, st)));
-  // 2. attention
-  if (dh == 64)
-    RETURN_IF_ERROR(launch_attention_fwd<64>(p.q, p.k, p.v, F32(key_mask),
-                                             static_cast<bf16*>(attn), B, S, D, H, st));
-  else
-    RETURN_IF_ERROR(launch_attention_fwd<128>(p.q, p.k, p.v, F32(key_mask),
-                                              static_cast<bf16*>(attn), B, S, D, H, st));
+  RETURN_IF_ERROR((launch_row_gemm<true, EPI_QKV>(p, st)));
+  // 2. attention (and the probabilities it multiplies by V, when stored)
+  RETURN_IF_ERROR(attention::launch_forward(p.q, D, p.k, p.v, p.ldkv, F32(key_mask),
+                                            static_cast<bf16*>(attn), D,
+                                            static_cast<bf16*>(probs), B, S, H, dh, st));
   // 3. out-projection, dropout 0, residual -> a1, LayerNorm 1 -> h1
   p.a = BF(attn);
   p.b = BF(w_o);
@@ -943,7 +1092,7 @@ extern "C" int fused_layer_train_forward(
   p.N = F;
   p.mask = BF(m1);
   p.out_bf16 = static_cast<bf16*>(g);
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, true, EPI_GELU_DROP>(p, st)));
+  RETURN_IF_ERROR((launch_row_gemm<true, EPI_GELU_DROP>(p, st)));
   // 5. FFN down, dropout 2, residual h1, LayerNorm 2
   p.a = BF(g);
   p.b = BF(w_2);
@@ -958,6 +1107,40 @@ extern "C" int fused_layer_train_forward(
   p.out_f32 = static_cast<float*>(out_f32);
   RETURN_IF_ERROR((launch_row_gemm<true, EPI_LN2_FWD>(p, st)));
   return 0;
+}
+
+// Forward (kernel 5). x (B, S, D) bf16; key_mask (B, S) fp32 additive or
+// null; m0, m1, m2 bf16 masks (B, S, D), (B, S, F), (B, S, D), all null at
+// rate 0; weights bf16 in Linear layout, vectors fp32. Scratch: q, k, v,
+// h1_bf16 (M, D) bf16, h1_f32 (M, D) fp32, g (M, F) bf16. Outputs: out_bf16
+// or out_f32 (M, D), exactly one non-null; a1 (M, D) fp32; attn (M, D) bf16.
+extern "C" int fused_layer_train_forward(
+    const void* x, const void* key_mask, const void* m0, const void* m1, const void* m2,
+    const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
+    const void* ln1_b, const void* w_1, const void* b_1, const void* w_2, const void* b_2,
+    const void* ln2_s, const void* ln2_b, void* q, void* k, void* v, void* h1_f32,
+    void* h1_bf16, void* g, void* out_bf16, void* out_f32, void* a1, void* attn, int B, int S,
+    int D, int H, int F, void* stream) {
+  return train_forward(x, key_mask, m0, m1, m2, w_qkv, b_qkv, w_o, b_o, ln1_s, ln1_b, w_1, b_1,
+                       w_2, b_2, ln2_s, ln2_b, q, k, v, h1_f32, h1_bf16, g, out_bf16, out_f32, a1,
+                       attn, nullptr, nullptr, B, S, D, H, F, stream);
+}
+
+// Store-probs forward (kernel 8): kernel 5's arguments with the scratch k and
+// v replaced by two more outputs, probs (B, H, S, S) bf16, the softmax
+// probabilities exactly as p @ V used them, and qkv (M, 3D) bf16, the
+// projection with q unscaled. q_s (M, D) is scratch for q*scale.
+extern "C" int fused_layer_train_forward_store(
+    const void* x, const void* key_mask, const void* m0, const void* m1, const void* m2,
+    const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
+    const void* ln1_b, const void* w_1, const void* b_1, const void* w_2, const void* b_2,
+    const void* ln2_s, const void* ln2_b, void* q_s, void* h1_f32, void* h1_bf16, void* g,
+    void* out_bf16, void* out_f32, void* a1, void* attn, void* probs, void* qkv, int B, int S,
+    int D, int H, int F, void* stream) {
+  if (probs == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
+  return train_forward(x, key_mask, m0, m1, m2, w_qkv, b_qkv, w_o, b_o, ln1_s, ln1_b, w_1, b_1,
+                       w_2, b_2, ln2_s, ln2_b, q_s, nullptr, nullptr, h1_f32, h1_bf16, g,
+                       out_bf16, out_f32, a1, attn, probs, qkv, B, S, D, H, F, stream);
 }
 
 // FFN half of the backward. dh2 (M, D) fp32; a1 (M, D) fp32; m1 (M, F) and m2
@@ -1001,7 +1184,7 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.mask = BF(m1);
   p.out_bf16 = static_cast<bf16*>(gd);
   p.out_f32 = static_cast<float*>(gp);
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, true, EPI_UP_BWD>(p, st)));
+  RETURN_IF_ERROR((launch_row_gemm<true, EPI_UP_BWD>(p, st)));
   // 3. f = gd W2^T + b2; a2 = h1 + f m2; LN2 backward -> da2, df = da2 m2
   p.a = BF(gd);
   p.b = BF(w_2);
@@ -1024,7 +1207,7 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.gp = F32(gp);
   p.out_bf16 = static_cast<bf16*>(du);
   p.partial = part_db1;
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, false, EPI_DU>(p, st)));
+  RETURN_IF_ERROR((launch_row_gemm<false, EPI_DU>(p, st)));
   // 5. dh1 = da2 + du W1; LN1 backward -> da1
   p.a = BF(du);
   p.b = BF(w_1);  // (F, D) = (K, N)
@@ -1050,17 +1233,18 @@ extern "C" int fused_layer_train_bwd_ffn(
   return 0;
 }
 
-// Attention half of the backward. da1 (M, D) fp32; x (M, D) bf16; key_mask
-// (B, S) fp32 or null; attn (M, D) bf16; m0 (M, D) bf16 or null. Scratch:
-// dproj, dattn, q_s, q, k, v (M, D) bf16; dqkv (M, 3D) bf16; part_o
-// (ceil(M/16), D) and part_qkv (B, 3D) fp32. Outputs (fp32): dx (M, D),
-// dwqkv (3D, D), dbqkv (3D), dwo (D, D), dbo (D).
-extern "C" int fused_layer_train_bwd_attn(
-    const void* da1, const void* x, const void* key_mask, const void* attn, const void* m0,
-    const void* w_qkv, const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s,
-    void* q, void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* dx, void* dwqkv,
-    void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H, void* stream) {
-  if (!dims_ok(B, S, D, NARROW_BN) || !heads_ok(D, H)) return (int)cudaErrorInvalidValue;
+// The attention half of the backward shared by kernels 7 and 9. probs null
+// (kernel 7): q*scale, q, k and v are recomputed into the scratch planes
+// q_s, q, k, v, and the softmax from them. probs and qkv set (kernel 9): q,
+// k and v are read from the stored qkv (M, 3D) and p from probs.
+static int bwd_attn(const void* da1, const void* x, const void* key_mask, const void* attn,
+             const void* m0, const void* probs, const void* qkv, const void* w_qkv,
+             const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s, void* q,
+             void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* stats, void* dx,
+             void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H,
+             void* stream) {
+  if (!dims_ok(B, S, D, 64) || !heads_ok(D, H)) return (int)cudaErrorInvalidValue;
+  const bool stored = probs != nullptr;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int dh = D / H, M = B * S, nb = (M + ROW_BM - 1) / ROW_BM;
 
@@ -1077,27 +1261,45 @@ extern "C" int fused_layer_train_bwd_attn(
   p.N = D;
   p.K = D;
   p.out_bf16 = static_cast<bf16*>(dattn);
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, false, EPI_BF16>(p, st)));
-  // 3. recompute q*scale, q, k, v
-  p.a = BF(x);
-  p.b = BF(w_qkv);
-  p.bias = F32(b_qkv);
-  p.N = 3 * D;
-  p.q = static_cast<bf16*>(q_s);
-  p.q_raw = static_cast<bf16*>(q);
-  p.k = static_cast<bf16*>(k);
-  p.v = static_cast<bf16*>(v);
-  p.q_scale = (float)(1.0 / sqrt((double)dh));
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, true, EPI_QKV>(p, st)));
-  // 4. softmax recompute and VJP per (batch row, head) -> dqkv
-  if (dh == 64)
-    RETURN_IF_ERROR(launch_attention_bwd<64>(p.q, p.q_raw, p.k, p.v, BF(dattn), F32(key_mask),
-                                             static_cast<bf16*>(dqkv),
-                                             static_cast<float*>(part_qkv), B, S, D, H, st));
-  else
-    RETURN_IF_ERROR(launch_attention_bwd<128>(p.q, p.q_raw, p.k, p.v, BF(dattn), F32(key_mask),
-                                              static_cast<bf16*>(dqkv),
-                                              static_cast<float*>(part_qkv), B, S, D, H, st));
+  RETURN_IF_ERROR((launch_row_gemm<false, EPI_BF16>(p, st)));
+  // 3. q, k, v: recomputed (kernel 7) or stored (kernel 9)
+  AttnBwdArgs a = {};
+  if (stored) {
+    a.q = BF(qkv);
+    a.k = a.q + D;
+    a.v = a.q + 2 * D;
+    a.ldqkv = 3 * D;
+    a.probs = BF(probs);
+  } else {
+    p.a = BF(x);
+    p.b = BF(w_qkv);
+    p.bias = F32(b_qkv);
+    p.N = 3 * D;
+    p.q = static_cast<bf16*>(q_s);
+    p.q_raw = static_cast<bf16*>(q);
+    p.k = static_cast<bf16*>(k);
+    p.v = static_cast<bf16*>(v);
+    p.ldkv = D;
+    p.q_scale = (float)(1.0 / sqrt((double)dh));
+    RETURN_IF_ERROR((launch_row_gemm<true, EPI_QKV>(p, st)));
+    a.q_s = p.q;
+    a.q = p.q_raw;
+    a.k = p.k;
+    a.v = p.v;
+    a.ldqkv = D;
+    a.kmask = F32(key_mask);
+  }
+  // 4. the softmax VJP per (batch row, head) -> dqkv
+  a.dattn = BF(dattn);
+  a.stats = static_cast<float*>(stats);
+  a.dqkv = static_cast<bf16*>(dqkv);
+  a.partial = static_cast<float*>(part_qkv);
+  a.S = S;
+  a.D = D;
+  a.H = H;
+  a.dh = dh;
+  a.scale = (float)(1.0 / sqrt((double)dh));
+  RETURN_IF_ERROR(launch_attention_bwd(a, B, stored, st));
   // 5, 6. dWqkv = dqkv^T x and dWo = dproj^T attn over all rows
   RETURN_IF_ERROR(launch_weight_grad(dqkv, x, dwqkv, M, 3 * D, D, st));
   RETURN_IF_ERROR(launch_weight_grad(dproj, attn, dwo, M, D, D, st));
@@ -1109,11 +1311,42 @@ extern "C" int fused_layer_train_bwd_attn(
   p.K = 3 * D;
   p.res_f32 = F32(da1);
   p.out_f32 = static_cast<float*>(dx);
-  RETURN_IF_ERROR((launch_gemm<ROW_BM, NARROW_BN, false, false, EPI_ADD_F32>(p, st)));
+  RETURN_IF_ERROR((launch_row_gemm<false, EPI_ADD_F32>(p, st)));
   // 8. dbo, dbqkv from the partial column sums
+  const int nt = (S + BWD_T - 1) / BWD_T;
   ReduceJobs jobs = {};
   jobs.job[0] = {F32(part_o), static_cast<float*>(dbo), nb, D};
-  jobs.job[1] = {F32(part_qkv), static_cast<float*>(dbqkv), B, 3 * D};
+  jobs.job[1] = {F32(part_qkv), static_cast<float*>(dbqkv), B * nt, 3 * D};
   RETURN_IF_ERROR(launch_reduce(jobs, 2, 3 * D, st));
   return 0;
+}
+
+// Attention half of the backward (kernel 7). da1 (M, D) fp32; x (M, D) bf16;
+// key_mask (B, S) fp32 or null; attn (M, D) bf16; m0 (M, D) bf16 or null.
+// Scratch: dproj, dattn, q_s, q, k, v (M, D) bf16; dqkv (M, 3D) bf16; part_o
+// (ceil(M/16), D), part_qkv (B * ceil(S/64), 3D) and stats (B*H*S, 3) fp32.
+// Outputs (fp32): dx (M, D), dwqkv (3D, D), dbqkv (3D), dwo (D, D), dbo (D).
+extern "C" int fused_layer_train_bwd_attn(
+    const void* da1, const void* x, const void* key_mask, const void* attn, const void* m0,
+    const void* w_qkv, const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s,
+    void* q, void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* stats, void* dx,
+    void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H, void* stream) {
+  return bwd_attn(da1, x, key_mask, attn, m0, nullptr, nullptr, w_qkv, b_qkv, w_o, dproj, dattn,
+                  q_s, q, k, v, dqkv, part_o, part_qkv, stats, dx, dwqkv, dbqkv, dwo, dbo, B, S,
+                  D, H, stream);
+}
+
+// Attention half of the backward from the stored residuals (kernel 9): probs
+// (B, H, S, S) bf16 and qkv (M, 3D) bf16 (q unscaled) from kernel 8 replace
+// the recompute; no key mask is needed (it is in p). Scratch and outputs as
+// kernel 7's, without q_s, q, k and v.
+extern "C" int fused_layer_train_bwd_attn_stored(
+    const void* da1, const void* x, const void* attn, const void* m0, const void* probs,
+    const void* qkv, const void* w_qkv, const void* w_o, void* dproj, void* dattn, void* dqkv,
+    void* part_o, void* part_qkv, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo,
+    void* dbo, int B, int S, int D, int H, void* stream) {
+  if (probs == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
+  return bwd_attn(da1, x, nullptr, attn, m0, probs, qkv, w_qkv, nullptr, w_o, dproj, dattn,
+                  nullptr, nullptr, nullptr, nullptr, dqkv, part_o, part_qkv, stats, dx, dwqkv,
+                  dbqkv, dwo, dbo, B, S, D, H, stream);
 }

@@ -4,7 +4,7 @@ port keeps its own copy of; parity: StyleXia in
 data_loaders/humanml/data/dataset.py:207-553).
 
 Only stylexia_posrot is on this slice; the humanml and bandai loaders wait
-(ROADMAP §1 item 3).
+(ROADMAP §1 item 10).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def get_opt(dataset_name: str, data_root: Optional[str] = None) -> DataOpt:
     if dataset_name != "stylexia_posrot":
         raise NotImplementedError(
             f"dataset {dataset_name!r} is not ported to motionstyle_torch "
-            "(ROADMAP §1 item 3: humanml and bandai loaders); use stylexia_posrot")
+            "(ROADMAP §1 item 10: humanml and bandai loaders); use stylexia_posrot")
     return DataOpt(dataset_name, data_root or "./processed_data/style_xia/", 20, 181, 76)
 
 

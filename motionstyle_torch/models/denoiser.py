@@ -69,6 +69,9 @@ class MDMConfig:
     # route the encoder stacks of training forwards through the fused CUDA
     # training layer (forward and backward kernels)
     fused_train: bool = False
+    # with fused_train: the forward keeps the softmax probabilities and qkv,
+    # and the attention backward reads them instead of recomputing them
+    fused_train_store: bool = False
 
     @property
     def input_feats(self) -> int:
@@ -163,7 +166,7 @@ class MDM(nn.Module):
         cfg.fused_train in a training forward, else the plain layers."""
         return encoder(xseq, dtype=self.cfg.torch_dtype, use_fused=self.cfg.fused,
                        fused_train=self.cfg.fused_train, deterministic=deterministic,
-                       generator=generator)
+                       generator=generator, store_probs=self.cfg.fused_train_store)
 
     def output_head(self, encoded: torch.Tensor) -> torch.Tensor:
         """Strip the condition token; (B, S, d) -> (B, C, F, T) fp32 motion."""

@@ -13,7 +13,9 @@ sigmaQuery and its own 'seqTransEncoder.layers.{i}.*'.
 
 flax trees: Dense kernels are (in, out) where torch weights are (out, in);
 LayerNorm 'scale' is torch's 'weight'; the packed in-projection is one
-(D, 3D) kernel, torch's (3D, D) in_proj_weight.
+(D, 3D) kernel, torch's (3D, D) in_proj_weight. encoder_leaves lists an
+encoder's leaves in jax's flattening order with that mapping; the weights
+and the optimizer's moments (train/finetune.py) both cross over through it.
 """
 from __future__ import annotations
 
@@ -90,31 +92,62 @@ def from_torch_state_dict(sd: Dict[str, np.ndarray], cfg: MDMConfig,
     return out
 
 
+# One encoder layer's flax leaves and the port's parameter names: (flax path
+# under 'layers_{i}', state-dict key under 'layers.{i}.', whether the flax
+# kernel is the transpose of the torch weight).
+_LAYER_LEAVES = (
+    (("self_attn", "in_proj", "kernel"), "self_attn.in_proj_weight", True),
+    (("self_attn", "in_proj", "bias"), "self_attn.in_proj_bias", False),
+    (("self_attn", "out_proj", "kernel"), "self_attn.out_proj.weight", True),
+    (("self_attn", "out_proj", "bias"), "self_attn.out_proj.bias", False),
+    (("linear1", "kernel"), "linear1.weight", True),
+    (("linear1", "bias"), "linear1.bias", False),
+    (("linear2", "kernel"), "linear2.weight", True),
+    (("linear2", "bias"), "linear2.bias", False),
+    (("norm1", "scale"), "norm1.weight", False),
+    (("norm1", "bias"), "norm1.bias", False),
+    (("norm2", "scale"), "norm2.weight", False),
+    (("norm2", "bias"), "norm2.bias", False),
+)
+
+
+def encoder_leaves(num_layers: int) -> list:
+    """(flax path, port state-dict key, transposed) for every leaf of a flax
+    TransformerEncoder tree, in the order jax.tree_util flattens it (dict
+    keys sorted at every level, so 'layers_10' comes before 'layers_2')."""
+    leaves = [((f"layers_{i}",) + path, f"layers.{i}.{key}", transposed)
+              for i in range(num_layers) for path, key, transposed in _LAYER_LEAVES]
+    return sorted(leaves, key=lambda leaf: leaf[0])
+
+
+def flax_to_torch(a, transposed: bool) -> torch.Tensor:
+    """A flax leaf -> the port's layout ((in, out) kernels become (out, in))."""
+    t = _tensor(a)
+    return t.t().contiguous() if transposed else t
+
+
+def torch_to_flax(t: torch.Tensor, transposed: bool) -> np.ndarray:
+    """A port tensor -> the flax leaf's layout, fp32 numpy."""
+    t = t.detach().float().cpu()
+    return np.ascontiguousarray((t.t() if transposed else t).numpy())
+
+
 def _dense(tree: dict, key: str) -> dict:
-    return {f"{key}.weight": _tensor(tree["kernel"]).t().contiguous(),
-            f"{key}.bias": _tensor(tree["bias"])}
-
-
-def _layernorm(tree: dict, key: str) -> dict:
-    return {f"{key}.weight": _tensor(tree["scale"]), f"{key}.bias": _tensor(tree["bias"])}
+    return {f"{key}.weight": flax_to_torch(tree["kernel"], True),
+            f"{key}.bias": flax_to_torch(tree["bias"], False)}
 
 
 def encoder_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     """flax TransformerEncoder tree ('layers_{i}') -> port encoder state dict."""
+    n = 0
+    while f"layers_{n}" in tree:
+        n += 1
     out = {}
-    i = 0
-    while f"layers_{i}" in tree:
-        lp = tree[f"layers_{i}"]
-        p = f"{prefix}layers.{i}"
-        attn = lp["self_attn"]
-        out[f"{p}.self_attn.in_proj_weight"] = _tensor(attn["in_proj"]["kernel"]).t().contiguous()
-        out[f"{p}.self_attn.in_proj_bias"] = _tensor(attn["in_proj"]["bias"])
-        out.update(_dense(attn["out_proj"], f"{p}.self_attn.out_proj"))
-        out.update(_dense(lp["linear1"], f"{p}.linear1"))
-        out.update(_dense(lp["linear2"], f"{p}.linear2"))
-        out.update(_layernorm(lp["norm1"], f"{p}.norm1"))
-        out.update(_layernorm(lp["norm2"], f"{p}.norm2"))
-        i += 1
+    for path, key, transposed in encoder_leaves(n):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        out[prefix + key] = flax_to_torch(leaf, transposed)
     return out
 
 

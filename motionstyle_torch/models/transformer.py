@@ -18,7 +18,8 @@ torch.Generator, so a caller that re-seeds it redraws the same masks.
 flax's Dense(dtype=...) does. The encoder routes as the JAX encoder does
 (:218-229): use_fused at inference runs the hand-written CUDA layer
 (ops/fused_encoder.py); fused_train in a training forward runs the
-differentiable CUDA training layer (ops/fused_encoder_train.py).
+differentiable CUDA training layer (ops/fused_encoder_train.py), with
+store_probs its store-probs kernels.
 """
 from __future__ import annotations
 
@@ -117,9 +118,12 @@ class TransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32, use_fused: bool = False,
                 fused_train: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                store_probs: bool = False) -> torch.Tensor:
         """deterministic=False is a training forward: dropout at rate
-        self.dropout from `generator`, one draw per layer in layer order."""
+        self.dropout from `generator`, one draw per layer in layer order.
+        store_probs (with fused_train) runs the store-probs training kernels,
+        as the JAX encoder passes it (motionstyle/models/transformer.py:204-227)."""
         drop = not deterministic and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("a training forward with dropout needs a torch.Generator")
@@ -130,7 +134,7 @@ class TransformerEncoder(nn.Module):
         if fused_train and not deterministic:
             return fused_encoder_train(
                 x, [layer_params(layer) for layer in self.layers], self.nhead,
-                self.dropout, generator, key_padding_mask).to(x.dtype)
+                self.dropout, generator, key_padding_mask, store_probs).to(x.dtype)
         for layer in self.layers:
             masks = None
             if drop:

@@ -17,9 +17,10 @@ On the card (csrc/fused_encoder.cu) the layer is bound by tensor-core
 operations at the serving shape: ~2.7 GFLOP over ~5 MB at B=8, S=77, D=512,
 F=1024. The TPU kernel held a whole batch row plus all weights in VMEM per
 grid step; a Hopper SM has 227 KB of shared memory, so the layer runs as five
-launches (qkv GEMM, attention per (row, head), out-projection + LN1, FFN-up +
-gelu, FFN-down + LN2), each LayerNorm fused into the GEMM block that owns
-whole rows. See the source for the design.
+launches (qkv GEMM, attention per (row, head) over key tiles, out-projection
++ LN1, FFN-up + gelu, FFN-down + LN2), each LayerNorm fused into the GEMM
+block that owns whole rows. See the source for the design and the shapes it
+takes (_check_cuda_inputs states them).
 
 `fused_encoder_layer` launches the kernel for CUDA tensors (or raises) and
 runs the twin `fused_encoder_layer_reference` only for CPU tensors.
@@ -132,9 +133,14 @@ def fused_encoder_layer_reference(x: torch.Tensor, p: dict, num_heads: int,
     return h2.to(x.dtype)
 
 
-def _check_cuda_inputs(x, p, num_heads, max_s: int = 256):
-    """Refuse what the CUDA launchers do not take; num_heads None skips the
-    head check (a half of a layer without attention)."""
+MAX_D, MAX_HEAD_WIDTH = 1024, 128  # the widest rows and heads the CUDA kernels take
+
+
+def _check_cuda_inputs(x, p, num_heads):
+    """Refuse what the CUDA launchers do not take: D a multiple of 64 up to
+    MAX_D, a head width D / H that is a multiple of 16 up to MAX_HEAD_WIDTH,
+    F a multiple of 64; any S >= 1. num_heads None skips the head check (a
+    half of a layer without attention)."""
     B, S, D = x.shape
     F = p["linear1_weight"].shape[0]
     shapes = {"in_proj_weight": (3 * D, D), "out_proj_weight": (D, D),
@@ -151,11 +157,14 @@ def _check_cuda_inputs(x, p, num_heads, max_s: int = 256):
             raise ValueError(
                 f"{key}: need a contiguous {want} {shape} tensor on {x.device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    heads_ok = num_heads is None or (D % num_heads == 0 and D // num_heads in (64, 128))
-    if D not in (128, 256, 512) or not heads_ok or F % 128 or not 1 <= S <= max_s:
+    heads_ok = num_heads is None or (
+        num_heads >= 1 and D % num_heads == 0 and (D // num_heads) % 16 == 0
+        and D // num_heads <= MAX_HEAD_WIDTH)
+    if D % 64 or not 64 <= D <= MAX_D or not heads_ok or F % 64 or F < 64 or S < 1:
         raise ValueError(
-            f"kernel supports D in (128, 256, 512), head width 64 or 128, "
-            f"F % 128 == 0 and 1 <= S <= {max_s}; got D={D} H={num_heads} F={F} S={S}")
+            f"kernel supports D a multiple of 64 up to {MAX_D}, a head width that is a "
+            f"multiple of 16 up to {MAX_HEAD_WIDTH}, F a multiple of 64 and any S >= 1; "
+            f"got D={D} H={num_heads} F={F} S={S}")
     if x.dtype not in (_BF16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     return B, S, D, F

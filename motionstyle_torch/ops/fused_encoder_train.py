@@ -3,12 +3,19 @@ plain PyTorch twins, and the autograd Function that joins them.
 
 Replaces the Pallas TPU kernels of motionstyle/ops/fused_encoder_train.py:
 
-  fused_layer_train_forward   <- _fwd_kernel       (pallas_call at :602)
-  fused_layer_train_bwd_ffn   <- _bwd_ffn_kernel   (:644)
-  fused_layer_train_bwd_attn  <- _bwd_attn_kernel  (:688)
+  fused_layer_train_forward          <- _fwd_kernel             (pallas_call at :602)
+  fused_layer_train_bwd_ffn          <- _bwd_ffn_kernel         (:644)
+  fused_layer_train_bwd_attn         <- _bwd_attn_kernel        (:688)
+  fused_layer_train_forward_store    <- _fwd_store_kernel       (:439)
+  fused_layer_train_bwd_attn_stored  <- _bwd_attn_stored_kernel (:482)
 
-joined into one differentiable layer as the JAX package's custom VJP
-(`_fused_layer_train`, :732-759) joins them. The forward applies the
+joined into one differentiable layer as the JAX package's custom VJPs
+(`_fused_layer_train`, :732-759, and `_fused_layer_train_store`, :499-539)
+join them: forward, FFN half, attention half; with store_probs the forward
+also keeps the bf16 softmax probabilities (B, H, S, S) and qkv (B, S, 3D, q
+unscaled), and the attention half reads them instead of recomputing qkv, the
+scores and the softmax (its gradients differ from the recompute path's at
+bf16 epsilon: p enters the softmax VJP rounded). The forward applies the
 layer's three dropout sites (after the out-projection, after gelu, after
 linear2; none on the attention probabilities) with external bf16 masks
 holding {0, 1/keep}, and keeps two residuals for the backward: `a1`, the
@@ -39,7 +46,6 @@ _BF16 = torch.bfloat16
 _EPS = 1e-5
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
-MAX_S = 128  # the CUDA training kernels keep a head's S x S probabilities on chip
 
 # a layer's parameters in the order FusedLayerTrain takes them
 PARAM_KEYS = ("in_proj_weight", "in_proj_bias", "out_proj_weight", "out_proj_bias",
@@ -105,11 +111,9 @@ def _probs(q, k, kmask, B, S, H):
     return e / e.sum(-1, keepdim=True)
 
 
-def fused_layer_train_forward_reference(x, p, num_heads, kmask=None, masks=None,
-                                        out_dtype=None):
-    """Twin of the forward kernel. x (B, S, D); p packed; kmask (B, S)
-    additive fp32 or None; masks (m0, m1, m2) or None. Returns (out, a1 fp32,
-    attn bf16)."""
+def _forward_reference(x, p, num_heads, kmask, masks, out_dtype):
+    """The forward's arithmetic; returns (out, a1 fp32, attn bf16, probs fp32
+    (B, H, S, S), qkv fp32 (B, S, 3D) with q unscaled)."""
     B, S, D = x.shape
     m0, m1, m2 = masks if masks is not None else (None, None, None)
     xb = x.to(_BF16)
@@ -123,7 +127,24 @@ def fused_layer_train_forward_reference(x, p, num_heads, kmask=None, masks=None,
     g = _mul(gelu_tanh(_bf16_dot(h1, p["linear1_weight"], p["linear1_bias"])), m1)
     f = _mul(_bf16_dot(g, p["linear2_weight"], p["linear2_bias"]), m2)
     out = _layernorm(h1 + f, p["norm2_weight"], p["norm2_bias"])
-    return out.to(out_dtype or x.dtype), a1, attn.to(_BF16)
+    return out.to(out_dtype or x.dtype), a1, attn.to(_BF16), probs, qkv
+
+
+def fused_layer_train_forward_reference(x, p, num_heads, kmask=None, masks=None,
+                                        out_dtype=None):
+    """Twin of the forward kernel. x (B, S, D); p packed; kmask (B, S)
+    additive fp32 or None; masks (m0, m1, m2) or None. Returns (out, a1 fp32,
+    attn bf16)."""
+    return _forward_reference(x, p, num_heads, kmask, masks, out_dtype)[:3]
+
+
+def fused_layer_train_forward_store_reference(x, p, num_heads, kmask=None, masks=None,
+                                              out_dtype=None):
+    """Twin of the store-probs forward kernel: the forward twin's (out, a1,
+    attn), bit-equal to it, plus probs (B, H, S, S) bf16, the probabilities
+    exactly as p @ V used them, and qkv (B, S, 3D) bf16 with q unscaled."""
+    out, a1, attn, probs, qkv = _forward_reference(x, p, num_heads, kmask, masks, out_dtype)
+    return out, a1, attn, probs.to(_BF16), qkv.to(_BF16)
 
 
 def bwd_ffn_reference(dh2, a1, p, masks=None):
@@ -157,23 +178,17 @@ def bwd_ffn_reference(dh2, a1, p, masks=None):
     return da1.reshape(B, S, D), grads
 
 
-def bwd_attn_reference(da1, x, attn, p, num_heads, kmask=None, masks=None):
-    """Twin of the attention-half backward kernel: out-projection^T, qkv and
-    softmax recompute, softmax VJP. x is the layer input (rounded to bf16).
-    Returns (dx (B, S, D) fp32, grads fp32 by parameter name)."""
-    B, S, D = x.shape
-    H = num_heads
-    dh = D // H
-    scale = 1.0 / math.sqrt(dh)
+def _bwd_attn_half(da1, xb, attn, p, H, probs, q, k, v, masks):
+    """out-projection^T, the softmax VJP from fp32 probs (B, H, S, S) and
+    q (unscaled), k, v (B*S, D), then dWqkv and dx. xb (B*S, D) bf16."""
+    B, _, S, _ = probs.shape
+    D = xb.shape[-1]
+    scale = 1.0 / math.sqrt(D // H)
     m0 = None if masks is None else masks[0].reshape(B * S, D)
     da1 = da1.reshape(B * S, D).float()
-    xb = x.reshape(B * S, D).to(_BF16)
     dproj = _mul(da1, m0)
     dwo = _bf(dproj).t() @ _bf(attn.reshape(B * S, D))
     dattn = _bf(dproj) @ _bf(p["out_proj_weight"])
-    qkv = _bf16_dot(xb, p["in_proj_weight"], p["in_proj_bias"])
-    q, k, v = qkv.split(D, dim=-1)
-    probs = _probs(q, k, kmask, B, S, H)  # fp32, as the Pallas body keeps it
     da = _heads(_bf(dattn), B, S, H)
     dv = _bf(probs).transpose(-1, -2) @ da
     dp = da @ _heads(_bf(v), B, S, H).transpose(-1, -2)
@@ -188,15 +203,38 @@ def bwd_attn_reference(da1, x, attn, p, num_heads, kmask=None, masks=None):
     return dx.reshape(B, S, D), grads
 
 
+def bwd_attn_reference(da1, x, attn, p, num_heads, kmask=None, masks=None):
+    """Twin of the attention-half backward kernel: out-projection^T, qkv and
+    softmax recompute, softmax VJP. x is the layer input (rounded to bf16).
+    Returns (dx (B, S, D) fp32, grads fp32 by parameter name)."""
+    B, S, D = x.shape
+    xb = x.reshape(B * S, D).to(_BF16)
+    qkv = _bf16_dot(xb, p["in_proj_weight"], p["in_proj_bias"])
+    q, k, v = qkv.split(D, dim=-1)
+    probs = _probs(q, k, kmask, B, S, num_heads)  # fp32, as the Pallas body keeps it
+    return _bwd_attn_half(da1, xb, attn, p, num_heads, probs, q, k, v, masks)
+
+
+def bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, num_heads, masks=None):
+    """Twin of the stored attention-half backward kernel: the same VJP from
+    the store forward's bf16 probs (B, H, S, S) and qkv (B, S, 3D, q
+    unscaled) instead of a recompute (_bwd_attn_stored_kernel, :364-406)."""
+    B, S, D = x.shape
+    q, k, v = qkv.reshape(B * S, 3 * D).float().split(D, dim=-1)
+    return _bwd_attn_half(da1, x.reshape(B * S, D).to(_BF16), attn, p, num_heads,
+                          probs.float(), q, k, v, masks)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
 def _check_cuda_inputs(x, p, num_heads, masks=None):
-    """Refuse what the training launchers do not take (S <= MAX_S, masks
-    contiguous bf16 of the layer's shapes); num_heads None skips the head
-    check (the FFN half)."""
-    B, S, D, F = _check_layer(x, p, num_heads, max_s=MAX_S)
+    """Refuse what the training launchers do not take (the layer's shapes as
+    the inference kernel's _check_cuda_inputs states them; masks contiguous
+    bf16 of the layer's shapes); num_heads None skips the head check (the
+    FFN half)."""
+    B, S, D, F = _check_layer(x, p, num_heads)
     if masks is not None:
         for m, d in zip(masks, (D, F, D)):
             if m is None or tuple(m.shape) != (B, S, d) or m.dtype != _BF16 \
@@ -204,6 +242,14 @@ def _check_cuda_inputs(x, p, num_heads, masks=None):
                 raise ValueError(f"dropout masks must be contiguous bf16 (B, S, D), "
                                  f"(B, S, F), (B, S, D) on {x.device}")
     return B, S, D, F
+
+
+def _check_stored(probs, qkv, B, S, D, H, device):
+    for name, t, shape in (("probs", probs, (B, H, S, S)), ("qkv", qkv, (B, S, 3 * D))):
+        if tuple(t.shape) != shape or t.dtype != _BF16 or t.device != device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bf16 {shape} tensor on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _device_guard(x, what: str) -> bool:
@@ -228,13 +274,9 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel failed: CUDA error {rc}")
 
 
-def fused_layer_train_forward(x, p, num_heads, kmask=None, masks=None, out_dtype=None):
-    """Training forward of one layer. x (B, S, D) bf16; p packed; kmask (B, S)
-    additive fp32 or None; masks (m0, m1, m2) or None (rate 0). Returns
-    (out in out_dtype, a1 fp32, attn bf16)."""
-    out_dtype = out_dtype or x.dtype
-    if _device_guard(x, "fused_layer_train_forward"):
-        return fused_layer_train_forward_reference(x, p, num_heads, kmask, masks, out_dtype)
+def _forward_launch(symbol, x, p, num_heads, kmask, masks, out_dtype, store):
+    """Run kernel 5 (store False) or kernel 8 (store True) on the card;
+    returns (out, a1, attn) and, with store, (probs, qkv)."""
     from motionstyle_torch import _build
 
     B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks)
@@ -242,28 +284,65 @@ def fused_layer_train_forward(x, p, num_heads, kmask=None, masks=None, out_dtype
         raise ValueError(f"output must be bfloat16 or float32, got {out_dtype}")
     lib = _build.load("fused_encoder_train")
     M, dev = B * S, x.device
+    bf = dict(dtype=_BF16, device=dev)
     xb = x.to(_BF16).contiguous()
     m0, m1, m2 = masks if masks is not None else (None, None, None)
-    qkv = torch.empty((3, M, D), dtype=_BF16, device=dev)
     h1_f32 = torch.empty((M, D), dtype=torch.float32, device=dev)
-    h1_bf16 = torch.empty((M, D), dtype=_BF16, device=dev)
-    g = torch.empty((M, F), dtype=_BF16, device=dev)
+    h1_bf16, g = torch.empty((M, D), **bf), torch.empty((M, F), **bf)
     out = torch.empty((B, S, D), dtype=out_dtype, device=dev)
     a1 = torch.empty((B, S, D), dtype=torch.float32, device=dev)
-    attn = torch.empty((B, S, D), dtype=_BF16, device=dev)
-    rc = lib.fused_layer_train_forward(
+    attn = torch.empty((B, S, D), **bf)
+    if store:
+        q_s = torch.empty((M, D), **bf)
+        probs = torch.empty((B, num_heads, S, S), **bf)
+        qkv = torch.empty((B, S, 3 * D), **bf)
+        scratch = (q_s,)
+        stored = (probs, qkv)
+    else:
+        scratch = tuple(torch.empty((3, M, D), **bf))  # q k v
+        stored = ()
+    rc = getattr(lib, symbol)(
         _ptr(xb), _ptr(kmask), _ptr(m0), _ptr(m1), _ptr(m2),
         *(_ptr(p[k]) for k in PARAM_KEYS),
-        _ptr(qkv[0]), _ptr(qkv[1]), _ptr(qkv[2]), _ptr(h1_f32), _ptr(h1_bf16), _ptr(g),
+        *(_ptr(t) for t in scratch), _ptr(h1_f32), _ptr(h1_bf16), _ptr(g),
         _ptr(out) if out_dtype == _BF16 else None,
         _ptr(out) if out_dtype == torch.float32 else None,
-        _ptr(a1), _ptr(attn), B, S, D, num_heads, F, _stream(x))
-    _raise_on(rc, "fused_layer_train_forward")
+        _ptr(a1), _ptr(attn), *(_ptr(t) for t in stored), B, S, D, num_heads, F, _stream(x))
+    _raise_on(rc, symbol)
+    return (out, a1, attn) + stored
+
+
+def fused_layer_train_forward(x, p, num_heads, kmask=None, masks=None, out_dtype=None):
+    """Training forward of one layer. x (B, S, D) bf16; p packed; kmask (B, S)
+    additive fp32 or None; masks (m0, m1, m2) or None (rate 0). Returns
+    (out in out_dtype, a1 fp32, attn bf16)."""
+    out_dtype = out_dtype or x.dtype
+    if _device_guard(x, "fused_layer_train_forward"):
+        return fused_layer_train_forward_reference(x, p, num_heads, kmask, masks, out_dtype)
+    res = _forward_launch("fused_layer_train_forward", x, p, num_heads, kmask, masks,
+                          out_dtype, store=False)
     fused_layer_train_forward.launches += 1
-    return out, a1, attn
+    return res
 
 
 fused_layer_train_forward.launches = 0
+
+
+def fused_layer_train_forward_store(x, p, num_heads, kmask=None, masks=None, out_dtype=None):
+    """Store-probs training forward of one layer: the forward's (out, a1,
+    attn), bit-equal to fused_layer_train_forward's, plus probs (B, H, S, S)
+    bf16 and qkv (B, S, 3D) bf16 (q unscaled) for the stored backward."""
+    out_dtype = out_dtype or x.dtype
+    if _device_guard(x, "fused_layer_train_forward_store"):
+        return fused_layer_train_forward_store_reference(x, p, num_heads, kmask, masks,
+                                                         out_dtype)
+    res = _forward_launch("fused_layer_train_forward_store", x, p, num_heads, kmask, masks,
+                          out_dtype, store=True)
+    fused_layer_train_forward_store.launches += 1
+    return res
+
+
+fused_layer_train_forward_store.launches = 0
 
 
 def fused_layer_train_bwd_ffn(dh2, a1, p, masks=None):
@@ -310,6 +389,28 @@ def fused_layer_train_bwd_ffn(dh2, a1, p, masks=None):
 fused_layer_train_bwd_ffn.launches = 0
 
 
+def _attn_bwd_buffers(B, S, D, H, dev) -> tuple:
+    """Scratch shared by both attention halves (dproj, dattn, dqkv, the
+    partial column sums and the rows' softmax statistics) and their outputs
+    (dx, grads)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    M, nb, nt = B * S, -(-B * S // 16), -(-S // 64)
+    scratch = (torch.empty((M, D), dtype=_BF16, device=dev),      # dproj
+               torch.empty((M, D), dtype=_BF16, device=dev),      # dattn
+               torch.empty((M, 3 * D), dtype=_BF16, device=dev),  # dqkv
+               torch.empty((nb, D), **f32), torch.empty((B * nt, 3 * D), **f32),
+               torch.empty((B * H * S, 3), **f32))
+    dx = torch.empty((B, S, D), **f32)
+    g = {"in_proj_weight": torch.empty((3 * D, D), **f32),
+         "in_proj_bias": torch.empty((3 * D,), **f32),
+         "out_proj_weight": torch.empty((D, D), **f32),
+         "out_proj_bias": torch.empty((D,), **f32)}
+    return scratch, dx, g
+
+
+_GRAD_KEYS = ("in_proj_weight", "in_proj_bias", "out_proj_weight", "out_proj_bias")
+
+
 def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=None):
     """Attention half of the backward. da1 (B, S, D) fp32; x the layer input
     (bf16); attn the forward's residual. Returns (dx fp32, grads fp32)."""
@@ -319,27 +420,17 @@ def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=Non
 
     B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks)
     lib = _build.load("fused_encoder_train")
-    M, dev = B * S, x.device
-    nb = -(-M // 16)
-    f32 = dict(dtype=torch.float32, device=dev)
+    (dproj, dattn, dqkv, part_o, part_qkv, stats), dx, g = _attn_bwd_buffers(
+        B, S, D, num_heads, x.device)
     xb = x.to(_BF16).contiguous()
-    da1 = da1.float().contiguous()
-    attn = attn.contiguous()
     m0 = masks[0] if masks is not None else None
-    act = torch.empty((6, M, D), dtype=_BF16, device=dev)  # dproj dattn q_s q k v
-    dqkv = torch.empty((M, 3 * D), dtype=_BF16, device=dev)
-    part_o, part_qkv = torch.empty((nb, D), **f32), torch.empty((B, 3 * D), **f32)
-    dx = torch.empty((B, S, D), **f32)
-    g = {"in_proj_weight": torch.empty((3 * D, D), **f32),
-         "in_proj_bias": torch.empty((3 * D,), **f32),
-         "out_proj_weight": torch.empty((D, D), **f32),
-         "out_proj_bias": torch.empty((D,), **f32)}
+    qs = torch.empty((4, B * S, D), dtype=_BF16, device=x.device)  # q_s q k v
     rc = lib.fused_layer_train_bwd_attn(
-        _ptr(da1), _ptr(xb), _ptr(kmask), _ptr(attn), _ptr(m0),
-        _ptr(p["in_proj_weight"]), _ptr(p["in_proj_bias"]), _ptr(p["out_proj_weight"]),
-        *(_ptr(a) for a in act), _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(dx),
-        _ptr(g["in_proj_weight"]), _ptr(g["in_proj_bias"]), _ptr(g["out_proj_weight"]),
-        _ptr(g["out_proj_bias"]), B, S, D, num_heads, _stream(x))
+        _ptr(da1.float().contiguous()), _ptr(xb), _ptr(kmask), _ptr(attn.contiguous()),
+        _ptr(m0), _ptr(p["in_proj_weight"]), _ptr(p["in_proj_bias"]),
+        _ptr(p["out_proj_weight"]), _ptr(dproj), _ptr(dattn), *(_ptr(t) for t in qs),
+        _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(stats), _ptr(dx),
+        *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
     _raise_on(rc, "fused_layer_train_bwd_attn")
     fused_layer_train_bwd_attn.launches += 1
     return dx, g
@@ -348,58 +439,101 @@ def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=Non
 fused_layer_train_bwd_attn.launches = 0
 
 
+def fused_layer_train_bwd_attn_stored(da1, x, attn, probs, qkv, p, num_heads, masks=None):
+    """Attention half of the backward from the store forward's probs
+    (B, H, S, S) and qkv (B, S, 3D), with no recompute. Returns (dx fp32,
+    grads fp32)."""
+    if _device_guard(x, "fused_layer_train_bwd_attn_stored"):
+        return bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, num_heads, masks)
+    from motionstyle_torch import _build
+
+    B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks)
+    _check_stored(probs, qkv, B, S, D, num_heads, x.device)
+    lib = _build.load("fused_encoder_train")
+    (dproj, dattn, dqkv, part_o, part_qkv, stats), dx, g = _attn_bwd_buffers(
+        B, S, D, num_heads, x.device)
+    xb = x.to(_BF16).contiguous()
+    m0 = masks[0] if masks is not None else None
+    rc = lib.fused_layer_train_bwd_attn_stored(
+        _ptr(da1.float().contiguous()), _ptr(xb), _ptr(attn.contiguous()), _ptr(m0),
+        _ptr(probs), _ptr(qkv), _ptr(p["in_proj_weight"]), _ptr(p["out_proj_weight"]),
+        _ptr(dproj), _ptr(dattn), _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(stats),
+        _ptr(dx), *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
+    _raise_on(rc, "fused_layer_train_bwd_attn_stored")
+    fused_layer_train_bwd_attn_stored.launches += 1
+    return dx, g
+
+
+fused_layer_train_bwd_attn_stored.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # the differentiable layer and stack
 # ---------------------------------------------------------------------------
 
 class FusedLayerTrain(torch.autograd.Function):
     """One differentiable fused layer: the forward kernel, and as backward
-    the FFN half then the attention half. Inputs: x, the additive key mask
-    (or None), the three masks (or None), the head count, then the layer's
-    parameters in PARAM_KEYS order."""
+    the FFN half then the attention half. With store the forward is the
+    store-probs kernel and the attention half reads its probs and qkv.
+    Inputs: x, the additive key mask (or None), the three masks (or None),
+    the head count, store, then the layer's parameters in PARAM_KEYS order."""
 
     @staticmethod
-    def forward(ctx, x, kmask, m0, m1, m2, num_heads, *params):
+    def forward(ctx, x, kmask, m0, m1, m2, num_heads, store, *params):
         p = pack(dict(zip(PARAM_KEYS, params)))
         masks = None if m0 is None else (m0, m1, m2)
         xb = x.detach().to(_BF16).contiguous()
-        out, a1, attn = fused_layer_train_forward(xb, p, num_heads, kmask, masks,
-                                                  out_dtype=x.dtype)
+        probs = qkv = None
+        if store:
+            out, a1, attn, probs, qkv = fused_layer_train_forward_store(
+                xb, p, num_heads, kmask, masks, out_dtype=x.dtype)
+        else:
+            out, a1, attn = fused_layer_train_forward(xb, p, num_heads, kmask, masks,
+                                                      out_dtype=x.dtype)
         ctx.num_heads = num_heads
         ctx.x_dtype = x.dtype
         ctx.param_dtypes = [t.dtype for t in params]
         ctx.has_masks = masks is not None
-        ctx.save_for_backward(xb, kmask, m0, m1, m2, a1, attn, *(p[k] for k in PARAM_KEYS))
+        ctx.save_for_backward(xb, kmask, m0, m1, m2, a1, attn, probs, qkv,
+                              *(p[k] for k in PARAM_KEYS))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        xb, kmask, m0, m1, m2, a1, attn, *packed = ctx.saved_tensors
+        xb, kmask, m0, m1, m2, a1, attn, probs, qkv, *packed = ctx.saved_tensors
         p = dict(zip(PARAM_KEYS, packed))
         masks = (m0, m1, m2) if ctx.has_masks else None
         da1, g_ffn = fused_layer_train_bwd_ffn(dout, a1, p, masks)
-        dx, g_attn = fused_layer_train_bwd_attn(da1, xb, attn, p, ctx.num_heads, kmask, masks)
+        if probs is not None:
+            dx, g_attn = fused_layer_train_bwd_attn_stored(da1, xb, attn, probs, qkv, p,
+                                                           ctx.num_heads, masks)
+        else:
+            dx, g_attn = fused_layer_train_bwd_attn(da1, xb, attn, p, ctx.num_heads, kmask,
+                                                    masks)
         grads = {**g_ffn, **g_attn}
         # dx leaves in the layer input's rounding (bf16), then the caller's dtype
         dx = dx.to(_BF16).to(ctx.x_dtype)
-        return (dx, None, None, None, None, None,
+        return (dx, None, None, None, None, None, None,
                 *(grads[k].to(dt) for k, dt in zip(PARAM_KEYS, ctx.param_dtypes)))
 
 
 def fused_encoder_layer_train(x, params: dict, num_heads: int, masks=None,
-                              key_padding_mask: Optional[torch.Tensor] = None):
+                              key_padding_mask: Optional[torch.Tensor] = None,
+                              store_probs: bool = False):
     """One differentiable fused layer. x (B, S, D); params by PARAM_KEYS name
-    (autograd leaves or not); masks from make_dropout_masks or None."""
+    (autograd leaves or not); masks from make_dropout_masks or None;
+    store_probs selects the store-probs forward and stored backward."""
     B, S, _ = x.shape
     kmask = additive_key_mask(key_padding_mask, B, S, x.device)
     m0, m1, m2 = masks if masks is not None else (None, None, None)
-    return FusedLayerTrain.apply(x, kmask, m0, m1, m2, num_heads,
+    return FusedLayerTrain.apply(x, kmask, m0, m1, m2, num_heads, bool(store_probs),
                                  *(params[k] for k in PARAM_KEYS))
 
 
 def fused_encoder_train(x: torch.Tensor, layers: Sequence[dict], num_heads: int,
                         dropout: float = 0.0, generator: Optional[torch.Generator] = None,
-                        key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        key_padding_mask: Optional[torch.Tensor] = None,
+                        store_probs: bool = False) -> torch.Tensor:
     """Differentiable fused encoder stack (training path). dropout > 0 needs
     a generator; each layer draws independent masks from it, in layer order
     (fused_encoder_train, :810-851, masks mode)."""
@@ -411,5 +545,6 @@ def fused_encoder_train(x: torch.Tensor, layers: Sequence[dict], num_heads: int,
         if dropout > 0.0:
             masks = make_dropout_masks(generator, (B, S, D), dropout,
                                        params["linear1_weight"].shape[0])
-        x = fused_encoder_layer_train(x, params, num_heads, masks, key_padding_mask)
+        x = fused_encoder_layer_train(x, params, num_heads, masks, key_padding_mask,
+                                      store_probs)
     return x

@@ -16,7 +16,12 @@ trainer folds t into its dropout key; a step recomputed under
 torch.utils.checkpoint therefore draws the same masks again.
 
 optax.adamw and torch.optim.AdamW compute the same update: decoupled decay
-lr * wd * param, bias-corrected moments, eps added to sqrt(v_hat).
+lr * wd * param, bias-corrected moments, eps added to sqrt(v_hat). So the
+optimizer state crosses packages: opt{step:09d}.pt is written in the JAX
+trainer's layout (motionstyle/train/finetune.py:343-345), the flat leaf list
+of its optax.multi_transform state: Adam's count, mu and nu over the style
+encoder's leaves in flax's order and (in, out) kernel layout, then the LR
+schedule's count when the LR anneals. The frozen partition holds no leaves.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from motionstyle_torch.diffusion import losses
@@ -32,7 +38,8 @@ from motionstyle_torch.diffusion.ddpm import Inpainting
 from motionstyle_torch.diffusion.resample import UniformSampler
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
 from motionstyle_torch.models.denoiser import StyleDiffusion, mask_cond
-from motionstyle_torch.models.params import convert_encoder, export_style_encoder
+from motionstyle_torch.models.params import (
+    convert_encoder, encoder_leaves, export_style_encoder, flax_to_torch, torch_to_flax)
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.preemption import PreemptionMixin
 
@@ -115,9 +122,7 @@ class StyleFinetuneTrainer(PreemptionMixin):
                 trainable.append(p)
         self.opt = torch.optim.AdamW(trainable, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=cfg.weight_decay)
-        anneal = cfg.lr_anneal_steps
-        self.lr_schedule = torch.optim.lr_scheduler.LambdaLR(
-            self.opt, (lambda k: max(0.0, 1.0 - k / anneal)) if anneal else (lambda k: 1.0))
+        self.lr_schedule = torch.optim.lr_scheduler.LambdaLR(self.opt, self._lr_factor)
         if self.resume_step:
             self._load_optimizer_state()
         if cfg.use_ddim:
@@ -126,6 +131,11 @@ class StyleFinetuneTrainer(PreemptionMixin):
         else:
             self.t_range = cfg.diffusion_steps - cfg.skip_steps
         self.sampler = UniformSampler(sched.num_timesteps)
+
+    def _lr_factor(self, k: int) -> float:
+        """optax.linear_schedule(lr, 0, lr_anneal_steps) over the base LR."""
+        anneal = self.cfg.lr_anneal_steps
+        return max(0.0, 1.0 - k / anneal) if anneal else 1.0
 
     # ------------------------------------------------------------------
     def _model_fn(self, step_seed: int):
@@ -214,13 +224,13 @@ class StyleFinetuneTrainer(PreemptionMixin):
 
     def save(self):
         """The style encoder in the reference layout (frozen modules stripped,
-        training_loop.py:316-335) and this trainer's optimizer state."""
+        training_loop.py:316-335) and the optimizer state in the JAX trainer's
+        layout (optimizer_leaves)."""
         os.makedirs(self.cfg.save_dir, exist_ok=True)
         step = self.step + self.resume_step
         path = os.path.join(self.cfg.save_dir, self.ckpt_file_name())
         torch.save(export_style_encoder(self.model), path)
-        torch.save({"optimizer": self.opt.state_dict(),
-                    "lr_schedule": self.lr_schedule.state_dict()},
+        torch.save(self.optimizer_leaves(),
                    os.path.join(self.cfg.save_dir, f"opt{step:09d}.pt"))
         self._last_saved_step = step
         logger.log(f"saved checkpoint {path}")
@@ -238,17 +248,61 @@ class StyleFinetuneTrainer(PreemptionMixin):
         self.model.style_encoder.load_state_dict(
             convert_encoder(sd, "seqTransEncoder", self.model.cfg.num_layers))
 
+    def _encoder_params(self) -> list:
+        """(parameter, transposed) of the style encoder in flax leaf order."""
+        named = dict(self.model.style_encoder.named_parameters())
+        return [(named[key], transposed)
+                for _, key, transposed in encoder_leaves(self.model.cfg.num_layers)]
+
+    def optimizer_leaves(self) -> list:
+        """The optimizer state as the JAX trainer flattens its optax state:
+        [Adam count, mu leaves..., nu leaves..., (schedule count)] as numpy
+        arrays, int32 counts and fp32 moments in flax's layout."""
+        params = self._encoder_params()
+        states = [self.opt.state.get(p, {}) for p, _ in params]
+        count = int(states[0]["step"]) if "step" in states[0] else 0
+        moments = [torch_to_flax(st.get(name, torch.zeros_like(p)), transposed)
+                   for name in ("exp_avg", "exp_avg_sq")
+                   for (p, transposed), st in zip(params, states)]
+        leaves = [np.asarray(count, np.int32)] + moments
+        if self.cfg.lr_anneal_steps:
+            leaves.append(np.asarray(self.lr_schedule.last_epoch, np.int32))
+        return leaves
+
+    def load_optimizer_leaves(self, leaves: list):
+        """Restore AdamW's moments and step and the LR schedule's position
+        from the JAX trainer's flat leaf list (optimizer_leaves' format)."""
+        params = self._encoder_params()
+        n = len(params)
+        if not isinstance(leaves, list) or len(leaves) not in (1 + 2 * n, 2 + 2 * n):
+            raise ValueError(f"an optimizer state of {1 + 2 * n} or {2 + 2 * n} leaves "
+                             f"(count, mu, nu[, schedule count]) was expected, got "
+                             f"{len(leaves) if isinstance(leaves, list) else type(leaves)}")
+        count = int(np.asarray(leaves[0]))
+        for i, (p, transposed) in enumerate(params):
+            mu = flax_to_torch(leaves[1 + i], transposed)
+            nu = flax_to_torch(leaves[1 + n + i], transposed)
+            if mu.shape != p.shape or nu.shape != p.shape:
+                raise ValueError(f"optimizer leaf {i}: moments of shape {tuple(mu.shape)} for "
+                                 f"a parameter of shape {tuple(p.shape)}")
+            self.opt.state[p] = {"step": torch.tensor(float(count)),
+                                 "exp_avg": mu.to(p.device), "exp_avg_sq": nu.to(p.device)}
+        position = int(np.asarray(leaves[-1])) if len(leaves) == 2 + 2 * n else count
+        self.lr_schedule.last_epoch = position
+        for group, base in zip(self.opt.param_groups, self.lr_schedule.base_lrs):
+            group["lr"] = base * self._lr_factor(position)
+        self.lr_schedule._last_lr = [group["lr"] for group in self.opt.param_groups]
+
     def _load_optimizer_state(self):
         opt_path = os.path.join(os.path.dirname(self._resolved_checkpoint),
                                 f"opt{self.resume_step:09d}.pt")
         if not os.path.exists(opt_path):
             return
         state = torch.load(opt_path, map_location="cpu", weights_only=False)
-        if not (isinstance(state, dict) and "optimizer" in state):
-            # an optimizer file of the JAX package (optax leaves): the moments
-            # start afresh, as the reference's tolerant load does (:138-141)
-            logger.log(f"{opt_path} is not this trainer's optimizer state; not loaded")
-            return
-        self.opt.load_state_dict(state["optimizer"])
-        self.lr_schedule.load_state_dict(state["lr_schedule"])
+        if isinstance(state, dict) and "optimizer" in state:
+            # a file of this port's earlier layout (a torch state_dict)
+            self.opt.load_state_dict(state["optimizer"])
+            self.lr_schedule.load_state_dict(state["lr_schedule"])
+        else:
+            self.load_optimizer_leaves(state)
         logger.log(f"loaded optimizer state from {opt_path}")

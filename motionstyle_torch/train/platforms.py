@@ -31,5 +31,5 @@ def get_platform(name: str, save_dir: str) -> TrainPlatform:
         return NoPlatform(save_dir)
     raise NotImplementedError(
         f"--train_platform_type {name} is not ported to motionstyle_torch "
-        "(ROADMAP §1 item 7: it needs a package the GPU machine lacks); "
+        "(ROADMAP §1 item 12: it needs a package the GPU machine lacks); "
         "pass --train_platform_type NoPlatform")

@@ -29,12 +29,15 @@ from motionstyle.models.torch_import import convert_encoder as jconvert_encoder
 from motionstyle.models.torch_import import export_style_encoder as jexport_style_encoder
 from motionstyle.train.finetune import FinetuneConfig as JFinetuneConfig
 from motionstyle.train.finetune import StyleFinetuneTrainer as JTrainer
+from motionstyle_torch.cli import model_util
 from motionstyle_torch.cli.finetune_style_diffusion import main as ft_main
+from motionstyle_torch.cli.parser_util import finetune_inpainting_style_args
 from motionstyle_torch.diffusion import losses, sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting
 from motionstyle_torch.diffusion.schedule import make_schedule
 from motionstyle_torch.models.params import (
     convert_encoder, encoder_from_jax, export_style_encoder)
+from motionstyle_torch.ops import fused_encoder_train as ft
 from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
 from tests.test_torch_models import one_torch_thread, style_pair  # noqa: F401
 
@@ -249,6 +252,98 @@ def test_resume_picks_the_newest_checkpoint(tmp_path):
         torch.testing.assert_close(c.style_encoder.state_dict()[k], v, rtol=0, atol=0)
 
 
+def _adam_state(jt):
+    """The JAX trainer's Adam state and schedule count (None without an
+    anneal): PartitionState -> 'trainable' -> MaskedState -> chain."""
+    chain = jt.opt_state.inner_states["trainable"].inner_state
+    sched = chain[-1]
+    return chain[0], (sched.count if "count" in getattr(sched, "_fields", ()) else None)
+
+
+@pytest.mark.parametrize("anneal", [0, 10])
+def test_optimizer_state_crosses_from_jax_to_the_port(anneal, tmp_path):
+    """An opt*.pt written by the JAX trainer resumes the port's trainer with
+    the same Adam moments, step and learning rate."""
+    jmodel, params, port = _pair(71)
+    kw = dict(lr=1e-4, weight_decay=1e-2, lr_anneal_steps=anneal)
+    jt = _jtrainer(jmodel, params, tmp_path, **kw)
+    leaves, treedef = jax.tree_util.tree_flatten(jt.opt_state)
+    rs = np.random.RandomState(0)
+    jt.opt_state = jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(3, a.dtype) if a.ndim == 0
+        else jnp.asarray(np.abs(rs.randn(*a.shape)).astype(np.float32)) for a in leaves])
+    jt.step = 3
+    jt.save()
+    trainer = StyleFinetuneTrainer(
+        FinetuneConfig(save_dir=str(tmp_path / "port"), resume_checkpoint=str(tmp_path / "jax"),
+                       **kw), port, make_schedule("cosine", 1000, "ddim20", device="cpu"))
+    assert trainer.resume_step == 3
+    adam, _ = _adam_state(jt)
+    mu = encoder_from_jax(jax.device_get(adam.mu["style_encoder"]))
+    nu = encoder_from_jax(jax.device_get(adam.nu["style_encoder"]))
+    for name, p in port.style_encoder.named_parameters():
+        st = trainer.opt.state[p]
+        assert float(st["step"]) == 3
+        assert float(st["exp_avg"].abs().min()) > 0  # the file's moments, not fresh zeros
+        torch.testing.assert_close(st["exp_avg"], mu[name], rtol=0, atol=0)
+        torch.testing.assert_close(st["exp_avg_sq"], nu[name], rtol=0, atol=0)
+    want_lr = 1e-4 * (1 - 3 / anneal) if anneal else 1e-4
+    assert trainer.opt.param_groups[0]["lr"] == pytest.approx(want_lr, rel=1e-6)
+    assert trainer.lr_schedule.get_last_lr()[0] == pytest.approx(want_lr, rel=1e-6)
+
+
+@pytest.mark.parametrize("anneal", [0, 10])
+def test_optimizer_state_crosses_from_the_port_to_jax(anneal, tmp_path):
+    """An opt*.pt written by the port's trainer resumes the JAX trainer with
+    the same Adam moments, count and schedule position (the JAX loader
+    unflattens into its own treedef and swallows a mismatch, so the loaded
+    leaves themselves are compared)."""
+    jmodel, params, port = _pair(72)
+    kw = dict(lr=1e-4, weight_decay=1e-2, lr_anneal_steps=anneal)
+    trainer = StyleFinetuneTrainer(FinetuneConfig(save_dir=str(tmp_path / "port"), **kw), port,
+                                   make_schedule("cosine", 1000, "ddim20", device="cpu"))
+    rs = np.random.RandomState(1)
+    for p in trainer.opt.param_groups[0]["params"]:
+        trainer.opt.state[p] = {
+            "step": torch.tensor(3.0),
+            "exp_avg": torch.from_numpy(rs.randn(*p.shape).astype(np.float32)),
+            "exp_avg_sq": torch.from_numpy(np.abs(rs.randn(*p.shape)).astype(np.float32))}
+    trainer.lr_schedule.last_epoch = 3
+    trainer.step = 3
+    trainer.save()
+    jt = _jtrainer(jmodel, params, tmp_path, resume_checkpoint=str(tmp_path / "port"), **kw)
+    assert jt.resume_step == 3
+    adam, sched_count = _adam_state(jt)
+    assert int(adam.count) == 3
+    assert (sched_count is None) == (anneal == 0)
+    if anneal:
+        assert int(sched_count) == 3
+    mu = encoder_from_jax(jax.device_get(adam.mu["style_encoder"]))
+    nu = encoder_from_jax(jax.device_get(adam.nu["style_encoder"]))
+    for name, p in port.style_encoder.named_parameters():
+        st = trainer.opt.state[p]
+        torch.testing.assert_close(mu[name], st["exp_avg"], rtol=0, atol=0)
+        torch.testing.assert_close(nu[name], st["exp_avg_sq"], rtol=0, atol=0)
+
+
+def test_optimizer_state_of_the_old_port_layout_still_loads(tmp_path):
+    """A file in the port's earlier layout (a torch state_dict) loads."""
+    sched = make_schedule("cosine", 1000, "ddim20", device="cpu")
+    _, _, a = _pair(73)
+    tr = StyleFinetuneTrainer(FinetuneConfig(save_dir=str(tmp_path), lr_anneal_steps=10), a, sched)
+    for p in tr.opt.param_groups[0]["params"]:
+        tr.opt.state[p] = {"step": torch.tensor(2.0), "exp_avg": torch.ones_like(p),
+                           "exp_avg_sq": torch.ones_like(p)}
+    tr.step = 2
+    tr.save()
+    torch.save({"optimizer": tr.opt.state_dict(), "lr_schedule": tr.lr_schedule.state_dict()},
+               tmp_path / "opt000000002.pt")
+    _, _, b = _pair(74)
+    tr2 = StyleFinetuneTrainer(FinetuneConfig(save_dir=str(tmp_path / "next"), lr_anneal_steps=10,
+                                              resume_checkpoint=str(tmp_path)), b, sched)
+    assert all(float(tr2.opt.state[p]["step"]) == 2 for p in tr2.opt.param_groups[0]["params"])
+
+
 @pytest.mark.parametrize("fused_train", [False, True])
 def test_checkpointed_unroll_equals_unchecked_under_dropout(fused_train, tmp_path):
     """The finetune unroll with dropout and condition dropout on: the
@@ -314,9 +409,34 @@ def test_cli_finetune_end_to_end(xia_root, tmp_path):
     assert all(re.match(r"seqTransEncoder\.layers\.0\.", k) for k in sd)
 
 
+def test_cli_finetune_store_probs(xia_root, tmp_path, monkeypatch):
+    """--fused_train_store 1 alone implies the fused training layer, and the
+    CLI trains through the store-probs twins (kernels 8 and 9 on the card)."""
+    args = finetune_inpainting_style_args(["--save_dir", "x", "--fused_train_store", "1"])
+    cfg = model_util.get_transfer_config(args)
+    assert cfg.fused_train and cfg.fused_train_store
+    calls = {"store": 0, "recompute": 0}
+    for name, key in (("fused_layer_train_forward_store_reference", "store"),
+                      ("fused_layer_train_forward_reference", "recompute")):
+        fn = getattr(ft, name)
+
+        def counted(*a, _fn=fn, _key=key, **k):
+            calls[_key] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(ft, name, counted)
+    save_dir = ft_main(["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root,
+                        "--fused", "1", "--fused_train_store", "1"] + CLI_ARGS)
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        losses_ = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses_) == 2 and np.isfinite(losses_).all()
+    assert calls["store"] > 0 and calls["recompute"] == 0
+    assert os.path.exists(os.path.join(save_dir, "opt000000002.pt"))
+
+
 @pytest.mark.parametrize("flag", [
     ["--lora_rank", "4"], ["--auto_stop", "1"], ["--parallel_finetune", "1"],
-    ["--data_parallel", "1"], ["--fused_train_store", "1"], ["--fused_train_prng", "1"],
+    ["--data_parallel", "1"], ["--quant_int8", "1"], ["--fused_train_prng", "1"],
     ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
     ["--render"], ["--train_platform_type", "TensorboardPlatform"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):

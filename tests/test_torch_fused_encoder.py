@@ -127,9 +127,9 @@ def test_kernel_input_checks(bad):
     elif bad == "shape":
         p["linear1_bias"] = p["linear1_bias"][:-1]
     elif bad == "heads":
-        heads = 8  # head width 16
+        heads = 16  # head width 8: not a multiple of 16
     else:
-        x = torch.zeros(B, 300, D, dtype=torch.bfloat16)
+        x = torch.zeros(B, 0, D, dtype=torch.bfloat16)  # any S >= 1 runs
     with pytest.raises(ValueError):
         fe._check_cuda_inputs(x, p, heads)
 

@@ -231,9 +231,9 @@ def test_kernel_input_checks(setup, bad):
     if bad == "dtype":
         p["linear2_weight"] = p["linear2_weight"].float()
     elif bad == "seq":
-        x = torch.zeros(2, 129, 128, dtype=torch.bfloat16)
+        x = torch.zeros(2, 0, 128, dtype=torch.bfloat16)  # any S >= 1 runs
     elif bad == "heads":
-        heads = 4  # head width 32
+        heads = 16  # head width 8: not a multiple of 16
     else:
         masks = ft.make_dropout_masks(torch.Generator().manual_seed(0), (2, 9, 128), 0.1, 128)
     with pytest.raises(ValueError):
@@ -245,3 +245,163 @@ def test_other_devices_raise(setup):
     p = ft.pack(fe.layer_params(_port_layer(params)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         ft.fused_layer_train_forward(torch.empty(B, S, D, device="meta"), p, H)
+
+
+# ---------------------------------------------------------------------------
+# the store-probs pair (kernels 8 and 9) and shapes past the old caps
+# ---------------------------------------------------------------------------
+
+def _port_grads_store(layer, x, kpm, masks, store=True):
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ft.fused_encoder_layer_train(xt, fe.layer_params(layer), H, masks,
+                                       torch.from_numpy(kpm), store_probs=store)
+    _loss(out).backward()
+    grads = {f"layers.0.{n}": p.grad.numpy() for n, p in layer.named_parameters()}
+    return out.detach().numpy(), grads, xt.grad.numpy()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_store_forward_and_grads_match_pallas(setup, rate):
+    """The store twins (forward, every gradient leaf and dx) against the
+    Pallas layer with store_probs=True, the same masks, the gates above."""
+    params, x, kpm = setup
+    masks = _np_masks(rate, 8)
+    jmasks = _to_jax(masks)
+    want = jlayer_train(jnp.asarray(x), params, H, masks=jmasks,
+                        key_padding_mask=jnp.asarray(kpm), store_probs=True)
+
+    def loss(p, xx):
+        return _jloss(jlayer_train(xx, p, H, masks=jmasks, key_padding_mask=jnp.asarray(kpm),
+                                   store_probs=True))
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    g_jax = {k: v.numpy() for k, v in encoder_from_jax({"layers_0": jax.device_get(gp)}).items()}
+    out, g_port, gx_port = _port_grads_store(_port_layer(params), x, kpm, _to_port(masks))
+    np.testing.assert_allclose(out, np.asarray(want), atol=FWD_ATOL)
+    assert g_port.keys() == g_jax.keys()
+    for k in g_jax:
+        assert _rel(g_port[k], g_jax[k]) < GRAD_REL, (k, _rel(g_port[k], g_jax[k]))
+    assert _rel(gx_port, np.asarray(gx)) < GRAD_REL
+
+
+def test_store_forward_twin_bit_equals_the_forward_twin(setup):
+    """Keeping probs and qkv changes nothing the forward returns, with masks
+    and without (tests/test_fused_train.py:208-220)."""
+    params, x, kpm = setup
+    p = ft.pack(fe.layer_params(_port_layer(params)))
+    kmask = torch.where(torch.from_numpy(kpm), 0.0, -1e9)
+    for masks in (None, _to_port(_np_masks(0.25, 9))):
+        plain = ft.fused_layer_train_forward_reference(torch.from_numpy(x), p, H, kmask, masks)
+        out, a1, attn, probs, qkv = ft.fused_layer_train_forward_store_reference(
+            torch.from_numpy(x), p, H, kmask, masks)
+        for u, v in zip(plain, (out, a1, attn)):
+            torch.testing.assert_close(u, v, rtol=0, atol=0)
+        assert probs.dtype == qkv.dtype == torch.bfloat16
+        assert probs.shape == (B, H, S, S) and qkv.shape == (B, S, 3 * D)
+        # the stored probabilities are the ones p @ V used: rows sum to 1 over valid keys
+        torch.testing.assert_close(probs.float().sum(-1), torch.ones(B, H, S), atol=2e-2,
+                                   rtol=0)
+        assert float(probs[..., 7:].float().abs().max()) == 0.0  # masked keys
+
+
+def test_store_grads_match_recompute(setup):
+    """Stored-probs gradients equal the recompute path's up to the bf16
+    rounding of the stored probabilities, every leaf and dx, dropout on
+    (tests/test_fused_train.py:222-245, the same 2e-2 bound)."""
+    params, x, kpm = setup
+    masks = _to_port(_np_masks(0.1, 10))
+    _, g_r, gx_r = _port_grads_store(_port_layer(params), x, kpm, masks, store=False)
+    _, g_s, gx_s = _port_grads_store(_port_layer(params), x, kpm, masks, store=True)
+    for k in g_r:
+        assert _rel(g_s[k], g_r[k]) < 2e-2, (k, _rel(g_s[k], g_r[k]))
+    assert _rel(gx_s, gx_r) < 2e-2
+
+
+def test_store_stack_checkpointed_equals_unchecked_under_dropout(setup):
+    """The store-probs stack under torch.utils.checkpoint: the recomputed
+    forward stores the same probs and draws the same masks, so the gradients
+    equal the unchecked run's exactly."""
+    params, x, kpm = setup
+    enc = TransformerEncoder(2, D, H, F)
+    enc.load_state_dict(encoder_from_jax({"layers_0": params, "layers_1": params}))
+    layers = [fe.layer_params(layer) for layer in enc.layers]
+
+    def body(xx):
+        gen = torch.Generator().manual_seed(4321)
+        return ft.fused_encoder_train(xx, layers, H, dropout=0.1, generator=gen,
+                                      key_padding_mask=torch.from_numpy(kpm), store_probs=True)
+
+    grads = []
+    for use_ckpt in (False, True):
+        enc.zero_grad()
+        xt = torch.from_numpy(x).requires_grad_(True)
+        out = checkpoint(body, xt, use_reentrant=False) if use_ckpt else body(xt)
+        _loss(out).backward()
+        grads.append([p.grad.clone() for p in enc.parameters()] + [xt.grad.clone()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("store", [False, True])
+def test_twins_match_pallas_past_the_old_sequence_cap(store):
+    """S = 140 (the CUDA kernels took S <= 128 before), B=1, D=32, H=4: the
+    forward and every gradient of the twins against the Pallas layer."""
+    s, d, f = 140, 32, 64
+    r = np.random.RandomState(12)
+    x = r.randn(1, s, d).astype(np.float32)
+    kpm = np.ones((1, s), bool)
+    kpm[0, 120:] = False
+    tree = JLayer(d, H, f, dropout=0.1).init(jax.random.PRNGKey(1), jnp.asarray(x))
+    params = numpy_params(tree, 13)["params"]
+    keep = float(torch.tensor(1 / 0.9, dtype=torch.bfloat16))
+    sp = -(-s // 16) * 16
+    masks = tuple(((r.rand(1, sp, w) < 0.9) * keep).astype(np.float32) for w in (d, f, d))
+
+    def jloss(p, xx):
+        return _jloss(jlayer_train(xx, p, H, masks=_to_jax(masks),
+                                   key_padding_mask=jnp.asarray(kpm), store_probs=store))
+
+    want = jlayer_train(jnp.asarray(x), params, H, masks=_to_jax(masks),
+                        key_padding_mask=jnp.asarray(kpm), store_probs=store)
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    g_jax = {k: v.numpy() for k, v in encoder_from_jax({"layers_0": jax.device_get(gp)}).items()}
+    enc = TransformerEncoder(1, d, H, f)
+    enc.load_state_dict(encoder_from_jax({"layers_0": params}))
+    tmasks = tuple(torch.from_numpy(m[:, :s].copy()).bfloat16() for m in masks)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ft.fused_encoder_layer_train(xt, fe.layer_params(enc.layers[0]), H, tmasks,
+                                       torch.from_numpy(kpm), store_probs=store)
+    _loss(out).backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=FWD_ATOL)
+    for n, p in enc.layers[0].named_parameters():
+        k = f"layers.0.{n}"
+        assert _rel(p.grad.numpy(), g_jax[k]) < GRAD_REL, (k, _rel(p.grad.numpy(), g_jax[k]))
+    assert _rel(xt.grad.numpy(), np.asarray(gx)) < GRAD_REL
+
+
+@pytest.mark.parametrize("shape,ok", [((2, 197, 128, 2, 256), True),
+                                      ((2, 9, 384, 6, 1536), True),
+                                      ((2, 9, 128, 4, 320), True),
+                                      ((2, 9, 100, 4, 256), False)])
+def test_kernel_input_checks_take_every_sequence_length(shape, ok):
+    """S = 197 and D = 384 with 6 heads (head width 64), head width 32 and
+    F = 320 are taken since the caps were lifted; D = 100 is refused."""
+    b, s, d, h, f = shape
+    p = ft.pack(fe.layer_params(TransformerEncoder(1, d, h, f).layers[0]))
+    x = torch.zeros(b, s, d, dtype=torch.bfloat16)
+    masks = ft.make_dropout_masks(torch.Generator().manual_seed(0), (b, s, d), 0.1, f)
+    if ok:
+        assert ft._check_cuda_inputs(x, p, h, masks) == (b, s, d, f)
+        assert fe._check_cuda_inputs(x, p, h) == (b, s, d, f)
+    else:
+        with pytest.raises(ValueError):
+            ft._check_cuda_inputs(x, p, h, masks)
+
+
+def test_store_wrappers_on_the_cpu_count_no_launch(setup):
+    params, x, kpm = setup
+    names = ("fused_layer_train_forward_store", "fused_layer_train_bwd_attn_stored",
+             "fused_layer_train_forward", "fused_layer_train_bwd_attn")
+    before = [getattr(ft, n).launches for n in names]
+    _port_grads_store(_port_layer(params), x, kpm, None)
+    assert [getattr(ft, n).launches for n in names] == before
