@@ -8,29 +8,37 @@ Phases, each printed on its own line with its seconds:
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: nvcc builds every kernel source under csrc/, one process per
      source, all started together.
-  3. kernel: the inference layer against its plain PyTorch twin on the card
-     at the serving shapes and past the old caps (S=197 and 300, D=128 with
-     head width 32, D=384 with 6 heads), with its time, the twin's, a library call's and
-     the card's bound.
+  3. kernel: the inference layer (kernel 1) against its plain PyTorch twin
+     on the card at the serving shapes and past the old caps (S=197 and 300,
+     D=128 with head width 32, D=384 with 6 heads), then the int8 layer
+     (kernel 2) against its twin at the serving shape with a key padding
+     mask, S=197, D=128 and D=384; each with its time, the twin's, a library
+     reference and the card's bound.
   4. golden: the port's fp32 MDM with the full-width reference weights of
      tests/goldens/mdm_model.npz against the reference output.
   5. serve: the serving CLI's engine (--fused 1, full width: d=512, 8
      layers) behind MotionServer on localhost answers /healthz and
      /v1/sample requests; results are checked and the kernel launches
      counted.
-  6. train_kernel: the five training kernels (forward, FFN-half and
+  6. serve_int8: the same with --quant_int8 1, one wave of 4 requests;
+     kernel 2 launched 16 times per batch, kernel 1 never.
+  7. train_kernel: the five training kernels (forward, FFN-half and
      attention-half backward, store-probs forward and stored attention-half
      backward) against their twins at the finetune's shapes (B=64 and B=1,
      S=77, full width, dropout masks at rate 0.1 and 0) and past the old
      caps (S=197, D=384), the store forward's output bit-equal to the
      forward's, with their times, the twins', a library layer's and the
      card's bounds.
-  7. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
+  8. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
      prior, a synthetic Xia corpus written from a seed) runs a few steps
      with --fused_train 1, then with --fused_train_store 1; losses (the
      store run's first equal to the recompute run's), the saved checkpoint,
      the style encoder's movement and every kernel's launches are checked,
      then a short store run under torch.profiler.
+  9. demo: the demo CLI on the store run's model*.pt and args.json, 8
+     samples, --skip_render, with --fused 1 and with --quant_int8 1:
+     results.npy, the kept root channels, the kernels' launches and the
+     int8 result's deviation from the bf16 one.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
 a CUDA device, or without the rest of the repository beside it, the script
@@ -57,11 +65,12 @@ GOLDEN = os.path.join(ROOT, "tests", "goldens", "mdm_model.npz")
 # the serving shape: a bucket of 8 clips of 76 frames + the condition token
 B, S, D, H, F = 8, 77, 512, 4, 1024
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # kernel vs twin gates (bf16 output: one bf16 ulp at |y| in [2, 4) is 1.6e-2)
 LAYER_MAX_ABS, LAYER_REL_L2, STACK_REL_L2 = 3e-2, 1e-2, 2e-2
 GOLDEN_ATOL = 2e-4  # tests/test_models.py:35
-KERNEL_SOURCES = ("fused_encoder", "fused_encoder_train")
+KERNEL_SOURCES = ("fused_encoder", "fused_encoder_train", "fused_encoder_int8")
 TRAIN_KERNELS = {  # wrapper -> the TPU kernel it replaces
     "fused_layer_train_forward": "motionstyle/ops/fused_encoder_train.py:154",
     "fused_layer_train_bwd_ffn": "motionstyle/ops/fused_encoder_train.py:183",
@@ -75,6 +84,12 @@ FINETUNE_STEPS, FINETUNE_BATCH, FINETUNE_LAYERS = 3, 64, 8
 # --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536
 KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
                        (B, S, 384, 6, 1536))
+# the int8 layer (kernel 2) against its twin: the serving shape, then S = 197,
+# head width 32 and D = 384 with 6 heads; rel L2 on the fp32 output (the two
+# differ by summation order, and a code flip where that moves a value across
+# a rounding tie)
+INT8_SHAPES = ((B, S, D, H, F), (B, 197, D, H, F), (B, S, 128, 4, F), (B, S, 384, 6, 1536))
+INT8_REL_L2 = 2e-3
 
 
 @contextmanager
@@ -124,22 +139,26 @@ def layer_bound(b: int, s: int, d: int, h: int, f: int) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
-def random_layer(gen, d: int, f: int, device):
+def random_params(gen, d: int, f: int) -> dict:
+    """One encoder layer's fp32 parameters by kernel name, on the CPU."""
     import torch
-
-    from motionstyle_torch.ops.fused_encoder import WEIGHT_KEYS
 
     def r(*shape, std=1.0):
         return torch.randn(*shape, generator=gen) * std
 
-    p = {"in_proj_weight": r(3 * d, d, std=d ** -0.5), "in_proj_bias": r(3 * d, std=0.1),
-         "out_proj_weight": r(d, d, std=d ** -0.5), "out_proj_bias": r(d, std=0.1),
-         "linear1_weight": r(f, d, std=d ** -0.5), "linear1_bias": r(f, std=0.1),
-         "linear2_weight": r(d, f, std=f ** -0.5), "linear2_bias": r(d, std=0.1),
-         "norm1_weight": 1 + r(d, std=0.1), "norm1_bias": r(d, std=0.1),
-         "norm2_weight": 1 + r(d, std=0.1), "norm2_bias": r(d, std=0.1)}
-    return {k: v.to(device=device, dtype=torch.bfloat16 if k in WEIGHT_KEYS
-                    else torch.float32).contiguous() for k, v in p.items()}
+    return {"in_proj_weight": r(3 * d, d, std=d ** -0.5), "in_proj_bias": r(3 * d, std=0.1),
+            "out_proj_weight": r(d, d, std=d ** -0.5), "out_proj_bias": r(d, std=0.1),
+            "linear1_weight": r(f, d, std=d ** -0.5), "linear1_bias": r(f, std=0.1),
+            "linear2_weight": r(d, f, std=f ** -0.5), "linear2_bias": r(d, std=0.1),
+            "norm1_weight": 1 + r(d, std=0.1), "norm1_bias": r(d, std=0.1),
+            "norm2_weight": 1 + r(d, std=0.1), "norm2_bias": r(d, std=0.1)}
+
+
+def random_layer(gen, d: int, f: int, device):
+    """random_params on the card in the bf16 kernels' format."""
+    from motionstyle_torch.ops.fused_encoder import pack
+
+    return pack({k: v.to(device) for k, v in random_params(gen, d, f).items()})
 
 
 def kernel_phase(device) -> dict:
@@ -218,6 +237,96 @@ def kernel_phase(device) -> dict:
           f"{record['plain_ms']:.6g} library_ms {record['library_ms']:.6g} "
           f"bound_ms {bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} GFLOP, "
           f"{nbytes / 1e6:.4g} MB)", flush=True)
+    return record
+
+
+def int8_layer_bound(b: int, s: int, d: int, h: int, f: int, masked: bool) -> tuple:
+    """(bound_ms, bound_by, int8 ops, bf16 flops, bytes) of one int8 layer:
+    the four GEMMs at the int8 peak plus the attention products at the bf16
+    peak, against each input read once (bf16 x, int8 weights, fp32 scales
+    and vectors, the fp32 mask) and the bf16 output written once."""
+    m = b * s
+    ops = 2 * m * (3 * d * d + d * d + 2 * d * f)
+    flops = 2 * 2 * b * s * s * d
+    weights = 3 * d * d + d * d + 2 * d * f
+    vectors = (3 * d + d + f + d) * 4 + (3 * d + d + 4 * d + f + d) * 4
+    nbytes = 2 * m * d * 2 + weights + vectors + (b * s * 4 if masked else 0)
+    t_ops = ops / PEAK_INT8_OPS + flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            ops, flops, nbytes)
+
+
+def int8_kernel_phase(device) -> dict:
+    """Kernel 2 against its twin on the card at INT8_SHAPES (a key padding
+    mask on the last clip); time, the twin's time and the bound at the
+    serving shape; the four torch._int_mm products and scaled_dot_product_
+    attention at the same shapes as a library reference (no one library
+    call computes the layer). Returns the kernel's record fields."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from motionstyle_torch.ops.fused_encoder import (
+        fused_encoder_layer_int8, fused_encoder_layer_int8_reference, quantize_layer_params)
+
+    gen = torch.Generator().manual_seed(2)
+    record = {}
+    for b, s, d, h, f in INT8_SHAPES:
+        p8 = quantize_layer_params({k: v.to(device)
+                                    for k, v in random_params(gen, d, f).items()})
+        # bf16 values in an fp32 tensor: the fp32 output, before a rounding
+        x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16).float()
+        kpm = torch.ones(b, s, dtype=torch.bool)
+        kpm[-1, s // 2:] = False
+        kpm = kpm.to(device)
+        got = fused_encoder_layer_int8(x, p8, h, kpm)
+        torch.cuda.synchronize()
+        want = fused_encoder_layer_int8_reference(x, p8, h, kpm)
+        err, rel = float((got - want).abs().max()), rel_l2(got, want)
+        where = f"B={b} S={s} D={d} H={h} F={f} (masked)"
+        print(f"  int8 layer {where}: max_abs {err:.6g} rel_l2 {rel:.6g}", flush=True)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()) and rel <= INT8_REL_L2,
+              f"int8 layer {where} finite and within rel_l2 {INT8_REL_L2}")
+        if (b, s, d) == (B, S, D):
+            record["max_abs_err"] = err
+            p_serve = p8
+
+    x = torch.randn(B, S, D, generator=gen).to(device, torch.bfloat16)
+    n0 = fused_encoder_layer_int8.launches
+    fused_encoder_layer_int8(x, p_serve, H)
+    per_call = fused_encoder_layer_int8.launches - n0
+    with torch.no_grad():
+        record["ms"] = time_ms(lambda: fused_encoder_layer_int8(x, p_serve, H))
+        record["plain_ms"] = time_ms(lambda: fused_encoder_layer_int8_reference(x, p_serve, H),
+                                     iters=20)
+    fused_encoder_layer_int8.launches = n0  # checks and timings are not the main path's
+    # the library reference: int8 x int8 -> int32 products at the layer's four
+    # GEMM shapes and the bf16 attention at its shape, one call each
+    m = B * S
+    a8 = torch.randint(-127, 128, (m, max(D, F)), generator=gen, dtype=torch.int8).to(device)
+    gemms = [(a8[:, :D].contiguous(), p_serve["in_proj_weight"].t().contiguous()),
+             (a8[:, :D].contiguous(), p_serve["out_proj_weight"].t().contiguous()),
+             (a8[:, :D].contiguous(), p_serve["linear1_weight"].t().contiguous()),
+             (a8[:, :F].contiguous(), p_serve["linear2_weight"].t().contiguous())]
+    qkv = torch.randn(3, B, H, S, D // H, generator=gen).to(device, torch.bfloat16)
+
+    def library():
+        for a, w in gemms:
+            torch._int_mm(a, w)
+        Fn.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+
+    with torch.no_grad():
+        int_mm_ms = time_ms(library)
+    record["library_ms"] = None
+    bound_ms, bound_by, ops, flops, nbytes = int8_layer_bound(B, S, D, H, F, masked=False)
+    record.update(bound_ms=bound_ms, bound_by=bound_by, int_mm_ms=int_mm_ms)
+    print(f"  int8 B={B} S={S}: kernel_ms {record['ms']:.6g} reference_ms "
+          f"{record['plain_ms']:.6g} bound_ms {bound_ms:.6g} ({bound_by}: {ops / 1e9:.4g} GOP "
+          f"int8, {flops / 1e9:.4g} GFLOP bf16, {nbytes / 1e6:.4g} MB); four torch._int_mm + "
+          f"scaled_dot_product_attention {int_mm_ms:.6g} ms (no one library call computes "
+          f"the layer); {per_call} wrapper launch per layer call (8 CUDA launches inside)",
+          flush=True)
+    check(per_call == 1, "int8 layer: one counted launch per layer call")
     return record
 
 
@@ -471,17 +580,23 @@ def _post(base: str, payload: dict) -> tuple:
     return res, time.perf_counter() - t0
 
 
-def serve_phase(golden_sd, card: str) -> int:
-    """Serve through the CLI's engine behind MotionServer; returns the
-    kernel launches counted during the served traffic."""
+def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
+    """Serve through the CLI's engine behind MotionServer with `flag`
+    ("--fused" or "--quant_int8") set to 1, `waves` waves of 4 concurrent
+    HTTP requests; returns the launches of the flag's kernel (kernel 1 or 2)
+    counted during the served traffic, and checks the other was not
+    launched."""
     import numpy as np
     import torch
 
     from motionstyle_torch.cli import serve
     from motionstyle_torch.data.masks import get_inpainting_mask
-    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
     from motionstyle_torch.serve.engine import Request
     from motionstyle_torch.serve.server import MotionServer
+
+    kernel, other = ((fused_encoder_layer, fused_encoder_layer_int8) if flag == "--fused"
+                     else (fused_encoder_layer_int8, fused_encoder_layer))
 
     njoints, nframes = serve.DATASET_DIMS["stylexia_posrot"]
     mask_full = np.asarray(get_inpainting_mask(
@@ -492,7 +607,7 @@ def serve_phase(golden_sd, card: str) -> int:
         mdm_path = os.path.join(tmp, "mdm_golden.pt")
         torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
         args = serve.parse_args([
-            "--fused", "1", "--dataset", "stylexia_posrot", "--mdm_path", mdm_path,
+            flag, "1", "--dataset", "stylexia_posrot", "--mdm_path", mdm_path,
             # no style checkpoint ships with the repo: a seeded style encoder
             "--model_path", os.path.join(tmp, "model000000000.pt"),
             "--max_wait_ms", "20", "--port", "0"])
@@ -505,7 +620,7 @@ def serve_phase(golden_sd, card: str) -> int:
     contents = [rng.randn(nframes, njoints).astype(np.float32) * 0.5 for _ in range(8)]
     try:
         # the main path: every count from here to the end of the phase
-        fused_encoder_layer.launches = 0
+        kernel.launches = other.launches = 0
         batches0 = engine.stats()["batches"]
 
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
@@ -543,7 +658,7 @@ def serve_phase(golden_sd, card: str) -> int:
                 latencies.append(dt)
 
         t0 = time.perf_counter()
-        for wave in range(4):
+        for wave in range(waves):
             threads = [threading.Thread(target=client, args=(i, 100 * wave + i))
                        for i in range(4)]
             for t in threads:
@@ -555,11 +670,11 @@ def serve_phase(golden_sd, card: str) -> int:
         torch.cuda.synchronize()
         stats = engine.stats()
         batches = stats["batches"] - batches0
-        launches = fused_encoder_layer.launches
+        launches, stray = kernel.launches, other.launches
     finally:
         server.close()
 
-    check(len(results) == 16, "16 concurrent /v1/sample requests answered")
+    check(len(results) == 4 * waves, f"{4 * waves} concurrent /v1/sample requests answered")
     for i, motion in results:
         if motion.shape != (njoints, 1, nframes) or not np.isfinite(motion).all():
             check(False, f"result shape {motion.shape} finite {np.isfinite(motion).all()}")
@@ -568,15 +683,16 @@ def serve_phase(golden_sd, card: str) -> int:
     check(True, "every result finite, (181, 1, 76), root_horizontal channels exact")
     lat = np.sort(np.asarray(latencies) * 1e3)
     p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
-    print(f"  HTTP: {len(results)} requests in {wall:.4f} s: p50 {p50:.4f} ms, "
+    print(f"  HTTP ({flag} 1): {len(results)} requests in {wall:.4f} s: p50 {p50:.4f} ms, "
           f"p95 {p95:.4f} ms, {len(results) / wall:.4f} clips/s on {card}", flush=True)
     print(f"  engine: batch p50 {stats['batch_p50_ms']} ms (2 denoiser calls + noise), "
           f"submit-to-result p50 {stats['latency_p50_ms']} ms, mean batch "
           f"{stats['mean_batch_size']:.4g}", flush=True)
-    print(f"  launches {launches} over {batches} batches "
-          f"(8 layers x 2 denoiser calls each)", flush=True)
+    print(f"  {kernel.__name__} launches {launches} over {batches} batches "
+          f"(8 layers x 2 denoiser calls each); {other.__name__} launches {stray}", flush=True)
     check(launches == 16 * batches and batches > 0,
-          "kernel launch counter == 16 x batches served")
+          f"{kernel.__name__} launch counter == 16 x batches served")
+    check(stray == 0, f"{other.__name__} never launched with {flag} 1")
     return launches
 
 
@@ -606,9 +722,9 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
                    tmp_root: str) -> tuple:
     """The finetune CLI at full width, --fused 1 and a batch of 64, for a few
     steps: first --fused_train 1 (kernels 5, 6, 7), then --fused_train_store
-    1 (kernels 8, 6, 9) from the same seed and corpus. Returns each path's
-    training kernel launches and the function that builds the CLI's
-    arguments."""
+    1 (kernels 8, 6, 9) from the same seed and corpus, both under tmp_root.
+    Returns each path's training kernel launches, the function that builds
+    the CLI's arguments, the store run's last model*.pt and the corpus."""
     import csv
 
     import numpy as np
@@ -667,17 +783,17 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         print(f"  {label}: style encoder moved by max_abs {moved:.6g} from its seeded start",
               flush=True)
         check(moved > 0.0, f"{label}: the style encoder's weights moved")
-        return launches, losses, secs
+        return launches, losses, secs, os.path.join(save_dir, ckpts[-1])
 
     # DDIM-20 skip 700 of 1000: 6 unrolled steps, each recomputed under
     # checkpoint, plus the semantic branch's forward; 8 layers each
     unroll = 6
     fwd, bwd = layers * (1 + 2 * unroll) * steps, layers * (1 + unroll) * steps
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "style_xia")
-        write_xia_corpus(data_dir)
-        launches, losses, secs = run(False, data_dir, os.path.join(tmp, "ft"))
-        launches_s, losses_s, secs_s = run(True, data_dir, os.path.join(tmp, "ft_store"))
+    data_dir = os.path.join(tmp_root, "style_xia")
+    write_xia_corpus(data_dir)
+    launches, losses, secs, _ = run(False, data_dir, os.path.join(tmp_root, "ft"))
+    launches_s, losses_s, secs_s, model_path = run(True, data_dir,
+                                                   os.path.join(tmp_root, "ft_store"))
 
     want = dict.fromkeys(TRAIN_NAMES, 0)
     want.update(fused_layer_train_forward=fwd, fused_layer_train_bwd_ffn=bwd,
@@ -720,7 +836,7 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         print(f"  {label} per step: training kernel time (launches x the kernel times "
               f"measured above at B=64 and B=1) {kernel_s:.6g} s of a median {steady:.6g} s "
               f"step after the first ({100 * kernel_s / steady:.4g} %)", flush=True)
-    return launches, launches_s, finetune_args
+    return launches, launches_s, finetune_args, model_path, data_dir
 
 
 def profile_finetune(args_of) -> None:
@@ -757,6 +873,70 @@ def profile_finetune(args_of) -> None:
         print(f"    {device_us(e) / 1e3:10.3f} ms {e.count:7d} x  {e.key[:90]}", flush=True)
 
 
+DEMO_CONTENT = "103neutral_punching.npy"  # a neutral clip of write_xia_corpus's corpus
+DEMO_SAMPLES = 8
+RESULT_KEYS = {"motion", "text", "lengths", "num_samples", "num_repetitions", "hml"}
+
+
+def demo_phase(model_path: str, data_dir: str, out_root: str, card: str) -> int:
+    """The demo CLI on the finetune phase's model*.pt and args.json (full
+    width, DDIM-20 skip 14 early-stopped at t=4), --skip_render, 8 samples,
+    once with --fused 1 and once with --quant_int8 1: results.npy's schema
+    and shapes, finite values, the content's root_horizontal channels kept,
+    each run's kernel launches, and the int8 hml's mean relative deviation
+    from the bf16 hml (the JAX package's own bound for an int8 sampling
+    chain, tests/test_fused_encoder.py::test_int8_sampling_chain_bounded_
+    deviation). Returns kernel 2's launches in its run."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+
+    ds = StyleMotionDataset(get_opt("stylexia_posrot", data_dir), split="test")
+    content, _ = ds.process_np_motion(os.path.join(ds.opt.motion_dir, DEMO_CONTENT))
+    keep = np.asarray(get_inpainting_mask("root_horizontal", (1, 181, 1, 76),
+                                          dataset="stylexia_posrot"))[0, :, 0, 0] > 0
+    root = ds.inv_transform(content)[:, keep]
+    hml, launches = {}, {}
+    for flag, kernel, other in (("--fused", fused_encoder_layer, fused_encoder_layer_int8),
+                                ("--quant_int8", fused_encoder_layer_int8, fused_encoder_layer)):
+        # the main path: every count from here to the end of the run
+        kernel.launches = other.launches = 0
+        t0 = time.perf_counter()
+        out = demo_main(["--model_path", model_path, "--input_content", DEMO_CONTENT,
+                         "--data_dir", data_dir, "--skip_render", "--num_samples",
+                         str(DEMO_SAMPLES), "--output_dir", os.path.join(out_root, flag[2:]),
+                         flag, "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[flag] = (kernel.launches, other.launches)
+        res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+        reps = res["num_repetitions"]
+        root_err = float(np.abs(res["hml"][..., keep] - root).max())
+        print(f"  demo {flag} 1: whole CLI run {wall:.4f} s on {card}; {kernel.__name__} "
+              f"launches {kernel.launches}, {other.__name__} {other.launches}; root_horizontal "
+              f"channels max_abs {root_err:.6g} from the content", flush=True)
+        check(set(res) == RESULT_KEYS and res["motion"].shape == (DEMO_SAMPLES, 20, 3, 76)
+              and res["hml"].shape == (DEMO_SAMPLES, 76, 181)
+              and bool(np.isfinite(res["motion"]).all() and np.isfinite(res["hml"]).all()),
+              f"demo {flag} 1: results.npy has the JAX schema, motion (8, 20, 3, 76), finite")
+        check(root_err <= 1e-5, f"demo {flag} 1: root_horizontal channels equal the content's "
+                                "within 1e-5")
+        per_rep = 2 * FINETUNE_LAYERS  # 2 denoiser calls x the finetuned model's layers
+        check(launches[flag] == (per_rep * reps, 0),
+              f"demo {flag} 1: {kernel.__name__} launched {per_rep} x {reps} repetition "
+              f"(2 denoiser calls x {FINETUNE_LAYERS} layers), {other.__name__} never")
+        hml[flag] = res["hml"]
+    dev = float(np.abs(hml["--quant_int8"] - hml["--fused"]).mean()
+                / np.abs(hml["--fused"]).mean())
+    print(f"  demo: int8 hml against bf16 hml, mean relative deviation {dev:.6g}", flush=True)
+    check(dev < 0.1, "demo: int8 hml within mean relative deviation 0.1 of the bf16 hml")
+    return launches["--quant_int8"][0]
+
+
 def main() -> int:
     import torch
 
@@ -784,19 +964,25 @@ def main() -> int:
             print(f"  {os.path.relpath(path, ROOT)}: nvcc {secs:.3f} s", flush=True)
     with phase("kernel"):
         record = kernel_phase(device)
+        record_int8 = int8_kernel_phase(device)
     with phase("golden"):
         golden_sd = golden_phase(device)
     with phase("serve"):
-        launches = serve_phase(golden_sd, card)
+        launches = serve_phase(golden_sd, card, "--fused", waves=4)
+    with phase("serve_int8"):
+        launches_int8 = serve_phase(golden_sd, card, "--quant_int8", waves=1)
     with phase("train_kernel"):
         train_records, ms_b1 = train_kernel_phase(device)
-    with phase("finetune"), tempfile.TemporaryDirectory() as tmp:
-        launches_recompute, launches_store, args_of = finetune_phase(
-            golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp)
-        profile_finetune(args_of)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("finetune"):
+            launches_recompute, launches_store, args_of, model_path, data_dir = finetune_phase(
+                golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp)
+            profile_finetune(args_of)
+        with phase("demo"):
+            demo_phase(model_path, data_dir, tmp, card)
     # each kernel's launches on the path that runs it: kernels 5 and 7 on the
     # recompute finetune, kernels 8 and 9 and the shared kernel 6 on the
-    # store-probs finetune (this slice's path)
+    # store-probs finetune
     recompute_only = ("fused_layer_train_forward", "fused_layer_train_bwd_attn")
     train_launches = {n: (launches_recompute if n in recompute_only else launches_store)[n]
                       for n in TRAIN_NAMES}
@@ -805,7 +991,11 @@ def main() -> int:
     kernels = [dict(name="fused_encoder_layer", route="cuda",
                     source="motionstyle_torch/csrc/fused_encoder.cu",
                     replaces="motionstyle/ops/fused_encoder.py:96", launches=launches,
-                    **{k: record[k] for k in keys})]
+                    **{k: record[k] for k in keys}),
+               dict(name="fused_encoder_layer_int8", route="cuda",
+                    source="motionstyle_torch/csrc/fused_encoder_int8.cu",
+                    replaces="motionstyle/ops/fused_encoder.py:136", launches=launches_int8,
+                    **{k: record_int8[k] for k in keys})]
     for name, replaces in TRAIN_KERNELS.items():
         kernels.append(dict(name=name, route="cuda",
                             source="motionstyle_torch/csrc/fused_encoder_train.cu",

@@ -35,6 +35,9 @@ SIGNATURES = {
     "fused_encoder": [
         ("fused_encoder_layer_forward", [_VP] * 23 + [_INT] * 5 + [_VP]),
     ],
+    "fused_encoder_int8": [
+        ("fused_encoder_layer_int8_forward", [_VP] * 30 + [_INT] * 5 + [_VP]),
+    ],
     "fused_encoder_train": [
         ("fused_layer_train_forward", [_VP] * 27 + [_INT] * 5 + [_VP]),
         ("fused_layer_train_bwd_ffn", [_VP] * 29 + [_INT] * 4 + [_VP]),

@@ -49,17 +49,22 @@ def resolve_device(device) -> torch.device:
 
 def get_transfer_config(args) -> MDMConfig:
     njoints, nfeats = DATASET_DIMS.get(args.dataset, (25, 6))
-    fused = bool(getattr(args, "fused", 0))
+    # --quant_int8 runs inside the fused layer, so it implies --fused
+    # (motionstyle/cli/model_util.py:68-71)
+    quant_int8 = bool(getattr(args, "quant_int8", 0))
+    fused = bool(getattr(args, "fused", 0)) or quant_int8
     return MDMConfig(
         njoints=njoints, nfeats=nfeats, latent_dim=args.latent_dim, ff_size=1024,
         num_layers=args.layers, num_heads=4, clip_dim=512, dropout=0.1,
         cond_mask_prob=getattr(args, "cond_mask_prob", 0.1), fused=fused,
+        quant_int8=quant_int8,
         # --fused_train_store implies --fused_train, as in the JAX package
         # (motionstyle/cli/model_util.py:74-81)
         fused_train=bool(getattr(args, "fused_train", 0) or getattr(args, "fused_train_store", 0)),
         fused_train_store=bool(getattr(args, "fused_train_store", 0)),
-        # explicit --dtype wins; the fused kernel defaults to its designed bf16
-        # input, everything else to fp32, as in the JAX package
+        # explicit --dtype wins; the fused kernels (bf16 and int8) default to
+        # their designed bf16 input, everything else to fp32, as in the JAX
+        # package (:86-88)
         dtype=getattr(args, "dtype", None) or ("bfloat16" if fused else "float32"),
     )
 

@@ -1,13 +1,25 @@
-"""Argument parsing of the finetune CLI (the port's own copy of
-motionstyle/cli/parser_util.py's finetune_inpainting_style_args and its
-option groups; parity: utils/parser_util.py). Flag names, groups and
-defaults are the JAX package's, so one command line drives either package;
---device names a torch device ('cuda' unless asked). Flags of parts that are
-not ported yet are parsed and refused by the CLI (check_supported).
+"""Argument parsing of the finetune and demo CLIs (the port's own copy of
+motionstyle/cli/parser_util.py: finetune_inpainting_style_args,
+eval_inpainting_style_args with the args.json round trip, and their option
+groups; parity: utils/parser_util.py). Flag names, groups and defaults are
+the JAX package's, so one command line drives either package; --device names
+a torch device ('cuda' unless asked). Flags of parts that are not ported yet
+are parsed and refused by the CLIs (check_supported).
 """
 from __future__ import annotations
 
+import json
+import os
+import sys
 from argparse import ArgumentParser
+
+# flags that belong to one run and are never taken from a checkpoint's
+# args.json (motionstyle/cli/parser_util.py:37-48)
+RUN_LOCAL_FLAGS = ("skip_render", "model_path", "output_dir", "fused", "parallel_window",
+                   "forecast_stride", "forecast_order", "model_parallel", "pipeline_parallel",
+                   "pipeline_micro", "sequence_parallel", "quant_int8", "fused_train",
+                   "fused_train_store", "fused_train_prng", "dtype", "native_loader",
+                   "prefetch", "style_strength", "style_mix", "long_frames")
 
 
 def _str2bool(v) -> bool:
@@ -54,10 +66,13 @@ def add_model_options(parser):
                        help="optional CLIP text-tower .pt; seeded if absent")
     group.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                        help="transformer compute dtype; default float32, or bfloat16 "
-                            "with --fused 1")
+                            "with --fused 1 or --quant_int8 1")
     group.add_argument("--fused", default=0, type=int,
                        help="run inference forwards through the fused CUDA encoder layer")
-    group.add_argument("--quant_int8", default=0, type=int, help="not ported")
+    group.add_argument("--quant_int8", default=0, type=int,
+                       help="int8 serving: run inference forwards through the int8 CUDA "
+                            "encoder layer (int8 x int8 -> int32 matmuls with per-row and "
+                            "per-channel scales, bf16 attention); implies --fused 1")
     group.add_argument("--fused_train", default=0, type=int,
                        help="run the encoder stacks of training forwards through the "
                             "fused CUDA training layer (forward and backward kernels; "
@@ -134,3 +149,96 @@ def finetune_inpainting_style_args(argv=None):
     add_model_options(parser)
     add_style_inpainting_options(parser)
     return parser.parse_args(argv)
+
+
+def add_sampling_options(parser):
+    group = parser.add_argument_group("inpainting module")
+    group.add_argument("--semantic_discriminator_path", default="", type=str)
+    group.add_argument("--model_path", required=True, type=str)
+    group.add_argument("--output_dir", default="", type=str)
+    group.add_argument("--num_samples", default=1, type=int)
+    group.add_argument("--num_repetitions", default=1, type=int)
+    group.add_argument("--guidance_param", default=2.5, type=float)
+    group.add_argument("--parallel_window", default=0, type=int, help="not ported")
+    group.add_argument("--forecast_stride", default=1, type=int, help="not ported")
+    group.add_argument("--forecast_order", default=1, type=int, choices=[0, 1, 2])
+    group.add_argument("--long_frames", default=0, type=int, help="not ported")
+    group.add_argument("--style_strength", default=1.0, type=float,
+                       help="not ported (1 = the finetuned style)")
+    group.add_argument("--style_mix", default="", type=str, help="not ported")
+    group.add_argument("--model_parallel", default=1, type=int, help="not ported")
+    group.add_argument("--pipeline_parallel", default=1, type=int, help="not ported")
+    group.add_argument("--pipeline_micro", default=0, type=int)
+    group.add_argument("--sequence_parallel", default=1, type=int, help="not ported")
+    group.add_argument("--skip_render", action="store_true")
+    return group
+
+
+def add_generate_options(parser):
+    group = parser.add_argument_group("generate")
+    group.add_argument("--motion_length", default=6.0, type=float)
+    group.add_argument("--input_text", default="", type=str)
+    group.add_argument("--text_prompt", default="", type=str)
+    group.add_argument("--input_content", default="", type=str)
+
+
+def get_args_per_group_name(parser, args, group_name) -> list:
+    for group in parser._action_groups:
+        if group.title == group_name:
+            return [a.dest for a in group._group_actions if hasattr(args, a.dest)]
+    return []
+
+
+def parse_and_load_from_model(parser, argv=None):
+    """Parse argv (sys.argv[1:] when None), then take the dataset, model,
+    diffusion, style-inpainting and sampling flags from the args.json beside
+    --model_path, except the run-local flags (RUN_LOCAL_FLAGS) and every flag
+    given on the command line (abbreviations included)."""
+    add_data_options(parser)
+    add_model_options(parser)
+    add_diffusion_options(parser)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parser.parse_args(argv)
+    to_overwrite = [a for group in ("dataset", "model", "diffusion", "style inpainting",
+                                    "inpainting module")
+                    for a in get_args_per_group_name(parser, args, group)
+                    if a not in RUN_LOCAL_FLAGS]
+    opt_to_dest = {opt: action.dest for action in parser._actions
+                   for opt in action.option_strings}
+
+    def dest_of(tok: str):
+        name = tok.split("=", 1)[0]
+        if name in opt_to_dest:
+            return opt_to_dest[name]
+        # argparse takes unambiguous prefixes (--skip_st): protect those too
+        hits = {d for o, d in opt_to_dest.items() if o.startswith(name)}
+        return hits.pop() if len(hits) == 1 else None
+
+    given = {dest_of(tok) for tok in argv if tok.startswith("--")} - {None}
+    to_overwrite = [a for a in to_overwrite if a not in given]
+
+    args_path = os.path.join(os.path.dirname(args.model_path), "args.json")
+    if not os.path.exists(args_path):
+        raise FileNotFoundError(f"Arguments json file was not found: {args_path}")
+    with open(args_path) as fr:
+        model_args = json.load(fr)
+    for a in to_overwrite:
+        if a in model_args:
+            setattr(args, a, model_args[a])
+        elif "cond_mode" in model_args:
+            args.unconstrained = model_args["cond_mode"] == "no_cond"
+        else:
+            print(f"Warning: was not able to load [{a}], using default value "
+                  f"[{getattr(args, a)}] instead.")
+    if args.cond_mask_prob == 0:
+        args.guidance_param = 1
+    return args
+
+
+def eval_inpainting_style_args(argv=None):
+    parser = ArgumentParser()
+    add_base_options(parser)
+    add_generate_options(parser)
+    add_style_inpainting_options(parser)
+    add_sampling_options(parser)
+    return parse_and_load_from_model(parser, argv)

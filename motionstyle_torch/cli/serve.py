@@ -8,8 +8,11 @@ sampled with the root_horizontal inpainting contract (DDIM-20, skip 700 of
 the transferred hml_vec motion. A request's `seed` pins its noise, so its
 answer does not depend on co-batched traffic.
 
+With --fused 1 every encoder layer runs the CUDA layer of kernel 1; with
+--quant_int8 1 (which implies it) the int8 CUDA layer of kernel 2.
+
 Run:  python -m motionstyle_torch.cli.serve --model_path save/.../model000000032.pt \\
-        --dataset stylexia_posrot --fused 1 [--port 8500]
+        --dataset stylexia_posrot --fused 1 [--quant_int8 1] [--port 8500]
 
 Request:  POST /v1/sample
   {"content": [[...T x C...]], "text": "a person walks angrily", "seed": 7}
@@ -17,7 +20,7 @@ Request:  POST /v1/sample
 Response: {"motion": [[...C x 1 x T...]], "seed": 7}
 
 Not on this slice: /v1/stream and long-form content, --artifact, --styles,
---style_strength, --model_parallel, --quant_int8.
+--style_strength, --model_parallel.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ DATASET_DIMS = {"stylexia_posrot": (181, 76), "bandai-1_posrot": (190, 196),
 
 def build_sampler(args):
     """args -> (bundle, Sampler, item_shape, dump pick): the min-latency
-    serving plan on args.device."""
+    serving plan on args.device; --fused and --quant_int8 reach the model's
+    config through model_util.get_transfer_config."""
     from motionstyle_torch.cli import model_util
     from motionstyle_torch.diffusion.sampling import min_latency_plan
     from motionstyle_torch.parallel.inference import Sampler
@@ -114,9 +118,12 @@ def build_parser() -> ArgumentParser:
                         help="optional CLIP text-tower .pt; seeded if absent")
     parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                         help="transformer compute dtype; default float32, or "
-                             "bfloat16 with --fused 1")
+                             "bfloat16 with --fused 1 or --quant_int8 1")
     parser.add_argument("--fused", default=0, type=int,
                         help="run the encoder layers through the fused CUDA kernel")
+    parser.add_argument("--quant_int8", default=0, type=int,
+                        help="int8 serving: run the encoder layers through the int8 CUDA "
+                             "kernel (implies --fused 1)")
     parser.add_argument("--dataset", default="stylexia_posrot", type=str)
     parser.add_argument("--model_path", default="", type=str,
                         help="finetuned style checkpoint to serve")

@@ -4,7 +4,9 @@
 // width dh that is a multiple of 16 up to MAXD (64 or 128).
 //
 //   p   = softmax(bf16(q*scale) bf16(k)^T + mask)     fp32 statistics
-//   out = bf16(p) bf16(v)                              fp32 sums, bf16 out
+//   out = bf16(p) bf16(v)                              fp32 sums; bf16 out
+//                                                      (kernels 1, 5, 8) or
+//                                                      fp32 out (kernel 2)
 //
 // The keys are walked in tiles of ATT_KT held in shared memory, in two passes
 // so that the normalised probabilities are rounded to bf16 before p @ V, as
@@ -26,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 // Internal linkage: each library that includes this file keeps its own copy,
 // and with it its own record of the shared memory each kernel was allowed.
@@ -96,13 +100,16 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t row
   }
 }
 
-// EXACT: dh == MAXD, known when compiling (the common head widths 64 and 128)
-template <int MAXD, bool EXACT>
+// EXACT: dh == MAXD, known when compiling (the common head widths 64 and 128);
+// OutT: bf16 or float, the type of `out`
+template <int MAXD, bool EXACT, typename OutT>
 __global__ void __launch_bounds__(ATT_THREADS)
 forward_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-               bf16* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
+               OutT* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
                int dh_arg) {
+  static_assert(std::is_same<OutT, bf16>::value || std::is_same<OutT, float>::value,
+                "out is bf16 or float");
   const int dh = EXACT ? MAXD : dh_arg;
   constexpr int DPL = MAXD / 32;  // output dims per lane
   static_assert(DPL == 2 || DPL == 4, "MAXD is 64 or 128");
@@ -222,10 +229,14 @@ forward_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
   for (int rr = 0; rr < ATT_RPW; ++rr) {
     const int i = q0 + warp + ATT_WARPS * rr;
     if (i >= S || !lane_on) continue;
-    bf16* og = out + (brow + i) * ldo + h * dh + lane * DPL;
+    OutT* og = out + (brow + i) * ldo + h * dh + lane * DPL;
 #pragma unroll
-    for (int d = 0; d < DPL; d += 2)
-      *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(o[rr][d], o[rr][d + 1]);
+    for (int d = 0; d < DPL; d += 2) {
+      if constexpr (std::is_same<OutT, float>::value)
+        *reinterpret_cast<float2*>(og + d) = make_float2(o[rr][d], o[rr][d + 1]);
+      else
+        *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(o[rr][d], o[rr][d + 1]);
+    }
   }
 }
 
@@ -241,27 +252,28 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return e;
 }
 
-template <int MAXD, bool EXACT>
+template <int MAXD, bool EXACT, typename OutT>
 cudaError_t launch_forward_kernel(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                                  const float* kmask, bf16* out, int ldo, bf16* probs, int B,
+                                  const float* kmask, OutT* out, int ldo, bf16* probs, int B,
                                   int S, int H, int dh, cudaStream_t st) {
   // K and V tiles of min(S, ATT_KT) rows
   const size_t smem = (size_t)2 * (S < ATT_KT ? S : ATT_KT) * smem_ld(dh) * sizeof(bf16) +
                       (size_t)ATT_QT * smem_ld(dh) * sizeof(bf16) +
                       (size_t)ATT_WARPS * ATT_KT * sizeof(float);
   static size_t allowed = 48 * 1024;
-  cudaError_t e = allow_smem(forward_kernel<MAXD, EXACT>, smem, allowed);
+  cudaError_t e = allow_smem(forward_kernel<MAXD, EXACT, OutT>, smem, allowed);
   if (e != cudaSuccess) return e;
   dim3 grid(B * H, (S + ATT_QT - 1) / ATT_QT);
-  forward_kernel<MAXD, EXACT><<<grid, ATT_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask, out, ldo,
-                                                        probs, S, H, dh);
+  forward_kernel<MAXD, EXACT, OutT><<<grid, ATT_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask,
+                                                              out, ldo, probs, S, H, dh);
   return cudaGetLastError();
 }
 
-// head width dh: a multiple of 16, at most 128
-inline cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                                  const float* kmask, bf16* out, int ldo, bf16* probs, int B,
-                                  int S, int H, int dh, cudaStream_t st) {
+// head width dh: a multiple of 16, at most 128; out bf16 or float
+template <typename OutT>
+cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
+                           const float* kmask, OutT* out, int ldo, bf16* probs, int B, int S,
+                           int H, int dh, cudaStream_t st) {
   if (dh == 64)
     return launch_forward_kernel<64, true>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
                                            dh, st);

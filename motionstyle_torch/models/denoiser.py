@@ -21,7 +21,8 @@ sites) with masks drawn from an explicit torch.Generator. A caller that
 re-seeds the generator redraws the same masks, which a step recomputed under
 torch.utils.checkpoint needs. With cfg.fused_train the encoder stacks of a
 training forward run the CUDA training layer; with cfg.fused an inference
-forward runs the CUDA inference layer.
+forward runs the CUDA inference layer, and with cfg.quant_int8 (which implies
+it) the int8 CUDA layer.
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ class MDMConfig:
     cond_mask_prob: float = 0.1
     # route the encoder stacks through the fused CUDA layer at inference
     fused: bool = False
+    # int8 serving: inference forwards run the int8 CUDA layer (implies fused)
+    quant_int8: bool = False
     # route the encoder stacks of training forwards through the fused CUDA
     # training layer (forward and backward kernels)
     fused_train: bool = False
@@ -161,12 +164,16 @@ class MDM(nn.Module):
     def run_encoder(self, encoder: TransformerEncoder, xseq: torch.Tensor,
                     deterministic: bool = True,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """An encoder stack routed as the JAX model routes it: the inference
-        kernel with cfg.fused at inference, the training kernels with
-        cfg.fused_train in a training forward, else the plain layers."""
-        return encoder(xseq, dtype=self.cfg.torch_dtype, use_fused=self.cfg.fused,
-                       fused_train=self.cfg.fused_train, deterministic=deterministic,
-                       generator=generator, store_probs=self.cfg.fused_train_store)
+        """An encoder stack routed as the JAX model routes it
+        (motionstyle/models/denoiser.py:185-187, :267-269): the inference
+        kernel with cfg.fused or cfg.quant_int8 at inference (the int8 one
+        with cfg.quant_int8), the training kernels with cfg.fused_train in a
+        training forward, else the plain layers."""
+        cfg = self.cfg
+        return encoder(xseq, dtype=cfg.torch_dtype, use_fused=cfg.fused or cfg.quant_int8,
+                       fused_train=cfg.fused_train, deterministic=deterministic,
+                       generator=generator, store_probs=cfg.fused_train_store,
+                       use_int8=cfg.quant_int8)
 
     def output_head(self, encoded: torch.Tensor) -> torch.Tensor:
         """Strip the condition token; (B, S, d) -> (B, C, F, T) fp32 motion."""

@@ -16,10 +16,10 @@ torch.Generator, so a caller that re-seeds it redraws the same masks.
 
 `dtype` is the compute dtype: parameters stay fp32 and are cast at use, as
 flax's Dense(dtype=...) does. The encoder routes as the JAX encoder does
-(:218-229): use_fused at inference runs the hand-written CUDA layer
-(ops/fused_encoder.py); fused_train in a training forward runs the
-differentiable CUDA training layer (ops/fused_encoder_train.py), with
-store_probs its store-probs kernels.
+(:203-229): use_fused at inference runs the hand-written CUDA layer
+(ops/fused_encoder.py), with use_int8 the int8 CUDA layer; fused_train in a
+training forward runs the differentiable CUDA training layer
+(ops/fused_encoder_train.py), with store_probs its store-probs kernels.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from motionstyle_torch.ops.fused_encoder import (
-    fused_encoder, layer_params, pack_layer_params, refuse_grad)
+    fused_encoder, layer_params, pack, quantize_layer_params, refuse_grad)
 from motionstyle_torch.ops.fused_encoder_train import fused_encoder_train, make_dropout_masks
 
 _NEG = -1e9
@@ -105,32 +105,37 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward)
             for _ in range(num_layers))
-        self._packed = None  # (parameter versions, packed kernel params)
+        self._packed = {}  # format -> (parameter versions, per-layer kernel params)
 
-    def packed_layers(self) -> list:
-        """The layers' parameters in the fused kernel's format (bf16 weights),
-        rebuilt whenever a parameter was replaced or changed in place."""
+    def packed_layers(self, int8: bool = False) -> list:
+        """The layers' parameters in the fused kernel's format: bf16 weights,
+        or with int8 the int8 kernel's codes and scales quantized from the
+        fp32 parameters. Rebuilt whenever a parameter was replaced or changed
+        in place."""
         key = tuple((p.data_ptr(), p._version, p.device) for p in self.parameters())
-        if self._packed is None or self._packed[0] != key:
-            self._packed = (key, [pack_layer_params(l) for l in self.layers])
-        return self._packed[1]
+        cached = self._packed.get(int8)
+        if cached is None or cached[0] != key:
+            convert = quantize_layer_params if int8 else pack
+            cached = self._packed[int8] = (key, [convert(layer_params(l)) for l in self.layers])
+        return cached[1]
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32, use_fused: bool = False,
                 fused_train: bool = False, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                store_probs: bool = False) -> torch.Tensor:
+                store_probs: bool = False, use_int8: bool = False) -> torch.Tensor:
         """deterministic=False is a training forward: dropout at rate
         self.dropout from `generator`, one draw per layer in layer order.
-        store_probs (with fused_train) runs the store-probs training kernels,
-        as the JAX encoder passes it (motionstyle/models/transformer.py:204-227)."""
+        use_int8 (with use_fused, at inference) runs the int8 layer and
+        store_probs (with fused_train) the store-probs training kernels, as
+        the JAX encoder passes them (motionstyle/models/transformer.py:203-227)."""
         drop = not deterministic and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("a training forward with dropout needs a torch.Generator")
         if use_fused and deterministic:
             refuse_grad(x, *self.parameters())
-            return fused_encoder(x, self.packed_layers(), self.nhead,
-                                 key_padding_mask).to(x.dtype)
+            return fused_encoder(x, self.packed_layers(use_int8), self.nhead,
+                                 key_padding_mask, int8=use_int8).to(x.dtype)
         if fused_train and not deterministic:
             return fused_encoder_train(
                 x, [layer_params(layer) for layer in self.layers], self.nhead,

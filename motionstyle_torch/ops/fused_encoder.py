@@ -25,6 +25,29 @@ takes (_check_cuda_inputs states them).
 `fused_encoder_layer` launches the kernel for CUDA tensors (or raises) and
 runs the twin `fused_encoder_layer_reference` only for CPU tensors.
 `fused_encoder_layer.launches` counts kernel launches (one per layer call).
+
+The int8 serving layer (`fused_encoder_layer_int8`, csrc/fused_encoder_int8.cu)
+replaces the Pallas TPU kernel motionstyle/ops/fused_encoder.py::
+_layer_kernel_int8 (pallas_call in fused_encoder_layer_int8): kernel 1 with
+its four large matmuls done int8 x int8 -> int32 (`int8_dot`):
+
+  q, s = quant_rows(h)      per row: s = max(max|h| / 127, 1e-8),
+                            q = clip(round_half_even(h / s), -127, 127)
+  y    = fp32(q Wq^T) * s * s_w + b   per-output-channel weight scales s_w
+
+  qkv = int8_dot(x)                             x the bf16 input in fp32
+  per head: softmax(bf16(q/sqrt(dh)) bf16(k)^T + mask) -> bf16(p) bf16(v),
+            the attention output kept in fp32
+  h1  = LN1(x + int8_dot(attn))
+  out = LN2(h1 + int8_dot(gelu_tanh(int8_dot(h1))))   gelu output fp32
+
+Weights are quantized once from the fp32 parameters (quantize_weight), never
+from kernel 1's bf16 copies. On the card it is bound by operations: at B=8,
+S=77, D=512, F=1024 the four int8 GEMMs are ~2.6 GOP at 1,979 TOP/s and the
+attention products ~0.1 GFLOP at 989 TFLOP/s. `fused_encoder_layer_int8`
+launches the kernel for CUDA tensors (or raises), runs its twin
+`fused_encoder_layer_int8_reference` only for CPU tensors, and counts its
+launches in `fused_encoder_layer_int8.launches`.
 """
 from __future__ import annotations
 
@@ -42,6 +65,9 @@ WEIGHT_KEYS = ("in_proj_weight", "out_proj_weight", "linear1_weight",
                "linear2_weight")
 VECTOR_KEYS = ("in_proj_bias", "out_proj_bias", "norm1_weight", "norm1_bias",
                "linear1_bias", "linear2_bias", "norm2_weight", "norm2_bias")
+# the int8 layer's per-output-channel weight scales, fp32 (N,), beside the
+# int8 (out, in) codes under the WEIGHT_KEYS
+SCALE_KEYS = tuple(k.replace("_weight", "_scale") for k in WEIGHT_KEYS)
 
 
 def layer_params(layer) -> dict:
@@ -75,6 +101,38 @@ def pack_layer_params(layer) -> dict:
     return pack(layer_params(layer))
 
 
+def _div127(amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127 as a true division. PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which rounds some scales one ulp
+    away from the JAX package's and the kernel's amax / 127; the inputs of
+    the int8 layer are bf16 values, whose codes often sit exactly on a tie,
+    so that ulp would move whole rows of codes."""
+    return amax / amax.new_tensor(127.0)
+
+
+def quantize_weight(w: torch.Tensor) -> tuple:
+    """Per-output-channel symmetric int8 of an (out, in) weight: (int8 codes
+    (out, in), fp32 scales (out,)). The JAX package's quantize_weight on its
+    (in, out) kernel, transposed: the same codes and scales bit for bit."""
+    w = w.detach().float()
+    s = torch.clamp_min(_div127(w.abs().amax(dim=1)), 1e-8)
+    q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+    return q.contiguous(), s.contiguous()
+
+
+def quantize_layer_params(params: dict) -> dict:
+    """An encoder layer's parameters (layer_params) -> the int8 kernel's
+    format: int8 weight codes, their fp32 scales under SCALE_KEYS, fp32
+    vectors, all contiguous and detached."""
+    out = {}
+    for k, v in params.items():
+        if k in WEIGHT_KEYS:
+            out[k], out[k.replace("_weight", "_scale")] = quantize_weight(v)
+        else:
+            out[k] = v.detach().float().contiguous()
+    return out
+
+
 def additive_key_mask(key_padding_mask: Optional[torch.Tensor], B: int, S: int,
                       device) -> Optional[torch.Tensor]:
     """(B, S) bool, True = valid key -> (B, S) fp32 additive mask (0 / -1e9)."""
@@ -102,28 +160,56 @@ def gelu_tanh(f):
     return 0.5 * f * (1.0 + torch.tanh(0.7978845608028654 * (f + 0.044715 * f ** 3)))
 
 
-def fused_encoder_layer_reference(x: torch.Tensor, p: dict, num_heads: int,
-                                  key_padding_mask: Optional[torch.Tensor] = None
-                                  ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: the same math in the same bf16/fp32
-    places, on any device. x (B, S, D); p from pack_layer_params."""
-    B, S, D = x.shape
+def quant_rows(h: torch.Tensor) -> tuple:
+    """Dynamic per-row symmetric int8 of fp32 h (..., K): (int8 codes, fp32
+    row scales (..., 1)); round half to even, as jnp.round and the kernel's
+    rintf do."""
+    s = torch.clamp_min(_div127(h.abs().amax(dim=-1, keepdim=True)), 1e-8)
+    q = torch.clamp(torch.round(h / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def int8_dot(h: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """fp32 h (..., K) times int8 (N, K) codes: row codes, an exact integer
+    product (in fp64, exact for any K this layer takes: |sum| < 2^53), its
+    fp32 value, then * row scale * column scale + bias in that order."""
+    q, s = quant_rows(h.float())
+    acc = q.double() @ wq.double().t()
+    return acc.float() * s * ws.float() + b.float()
+
+
+def _attention(qkv: torch.Tensor, num_heads: int,
+               key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-head masked softmax attention over fp32 (B, S, 3D) qkv with the
+    Pallas bodies' roundings: bf16(q * scale) bf16(k)^T in fp32, fp32
+    softmax, bf16(p) bf16(v) summed in fp32; (B, S, D) fp32."""
+    B, S, D3 = qkv.shape
+    D = D3 // 3
     dh = D // num_heads
-    xb = x.to(_BF16)
-    qkv = _bf16_dot(xb, p["in_proj_weight"], p["in_proj_bias"])  # (B, S, 3D)
     q, k, v = qkv.split(D, dim=-1)
 
     def heads(t):
         return t.to(_BF16).float().reshape(B, S, num_heads, dh).transpose(1, 2)
 
     scores = heads(q * (1.0 / math.sqrt(dh))) @ heads(k).transpose(-1, -2)
-    mask = additive_key_mask(key_padding_mask, B, S, x.device)
+    mask = additive_key_mask(key_padding_mask, B, S, qkv.device)
     if mask is not None:
         scores = scores + mask[:, None, None, :]
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     probs = e / e.sum(dim=-1, keepdim=True)
-    attn = (probs.to(_BF16).float() @ heads(v)).transpose(1, 2).reshape(B, S, D)
+    return (probs.to(_BF16).float() @ heads(v)).transpose(1, 2).reshape(B, S, D)
+
+
+def fused_encoder_layer_reference(x: torch.Tensor, p: dict, num_heads: int,
+                                  key_padding_mask: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: the same math in the same bf16/fp32
+    places, on any device. x (B, S, D); p from pack_layer_params."""
+    xb = x.to(_BF16)
+    qkv = _bf16_dot(xb, p["in_proj_weight"], p["in_proj_bias"])  # (B, S, 3D)
+    attn = _attention(qkv, num_heads, key_padding_mask)
     h1 = _layernorm(xb.float() + _bf16_dot(attn, p["out_proj_weight"],
                                            p["out_proj_bias"]),
                     p["norm1_weight"], p["norm1_bias"])
@@ -133,14 +219,32 @@ def fused_encoder_layer_reference(x: torch.Tensor, p: dict, num_heads: int,
     return h2.to(x.dtype)
 
 
+def fused_encoder_layer_int8_reference(x: torch.Tensor, p: dict, num_heads: int,
+                                       key_padding_mask: Optional[torch.Tensor] = None
+                                       ) -> torch.Tensor:
+    """Plain PyTorch twin of the int8 kernel (the Pallas _layer_kernel_int8's
+    rounding points), on any device. x (B, S, D); p from
+    quantize_layer_params."""
+    def dot(h, name):
+        return int8_dot(h, p[f"{name}_weight"], p[f"{name}_scale"], p[f"{name}_bias"])
+
+    xf = x.to(_BF16).float()
+    attn = _attention(dot(xf, "in_proj"), num_heads, key_padding_mask)
+    h1 = _layernorm(xf + dot(attn, "out_proj"), p["norm1_weight"], p["norm1_bias"])
+    ff = dot(gelu_tanh(dot(h1, "linear1")), "linear2")
+    h2 = _layernorm(h1 + ff, p["norm2_weight"], p["norm2_bias"])
+    return h2.to(x.dtype)
+
+
 MAX_D, MAX_HEAD_WIDTH = 1024, 128  # the widest rows and heads the CUDA kernels take
 
 
-def _check_cuda_inputs(x, p, num_heads):
+def _check_cuda_inputs(x, p, num_heads, int8: bool = False):
     """Refuse what the CUDA launchers do not take: D a multiple of 64 up to
     MAX_D, a head width D / H that is a multiple of 16 up to MAX_HEAD_WIDTH,
     F a multiple of 64; any S >= 1. num_heads None skips the head check (a
-    half of a layer without attention)."""
+    half of a layer without attention). int8: the int8 kernel's parameters
+    (quantize_layer_params) instead of bf16 weights."""
     B, S, D = x.shape
     F = p["linear1_weight"].shape[0]
     shapes = {"in_proj_weight": (3 * D, D), "out_proj_weight": (D, D),
@@ -149,9 +253,12 @@ def _check_cuda_inputs(x, p, num_heads):
               "linear1_bias": (F,), "linear2_bias": (D,),
               "norm1_weight": (D,), "norm1_bias": (D,),
               "norm2_weight": (D,), "norm2_bias": (D,)}
+    if int8:
+        shapes.update({"in_proj_scale": (3 * D,), "out_proj_scale": (D,),
+                       "linear1_scale": (F,), "linear2_scale": (D,)})
     for key, shape in shapes.items():
         t = p[key]
-        want = _BF16 if key in WEIGHT_KEYS else torch.float32
+        want = (torch.int8 if int8 else _BF16) if key in WEIGHT_KEYS else torch.float32
         if tuple(t.shape) != shape or t.dtype != want or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(
@@ -229,9 +336,62 @@ def fused_encoder_layer(x: torch.Tensor, p: dict, num_heads: int,
 fused_encoder_layer.launches = 0
 
 
+def fused_encoder_layer_int8(x: torch.Tensor, p: dict, num_heads: int,
+                             key_padding_mask: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Run one int8 encoder layer. x (B, S, D) bf16 or fp32; p from
+    quantize_layer_params; key_padding_mask (B, S) with True = valid key.
+    CUDA tensors launch the kernel; CPU tensors run the twin. Refuses inputs
+    that require grad while grad is enabled (refuse_grad)."""
+    refuse_grad(x, *p.values())
+    if x.device.type == "cpu":
+        return fused_encoder_layer_int8_reference(x, p, num_heads, key_padding_mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_encoder_layer_int8 runs on cuda or cpu, not {x.device}")
+    from motionstyle_torch import _build
+
+    B, S, D, F = _check_cuda_inputs(x, p, num_heads, int8=True)
+    lib = _build.load("fused_encoder_int8")
+    M, dev = B * S, x.device
+    xb = x.to(_BF16).contiguous()
+    kmask = additive_key_mask(key_padding_mask, B, S, dev)
+    codes = torch.empty((M, max(D, F)), dtype=torch.int8, device=dev)  # each GEMM's row codes
+    scales = torch.empty((M,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((3, M, D), dtype=_BF16, device=dev)
+    attn = torch.empty((M, D), dtype=torch.float32, device=dev)
+    h1 = torch.empty((M, D), dtype=torch.float32, device=dev)
+    h1_codes = torch.empty((M, D), dtype=torch.int8, device=dev)
+    h1_scales = torch.empty((M,), dtype=torch.float32, device=dev)
+    ff = torch.empty((M, F), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, D), dtype=x.dtype, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.fused_encoder_layer_int8_forward(
+        ptr(xb), ptr(kmask),
+        *(ptr(p[f"{n}_{k}"]) for n in ("in_proj", "out_proj") for k in ("weight", "scale", "bias")),
+        ptr(p["norm1_weight"]), ptr(p["norm1_bias"]),
+        *(ptr(p[f"{n}_{k}"]) for n in ("linear1", "linear2") for k in ("weight", "scale", "bias")),
+        ptr(p["norm2_weight"]), ptr(p["norm2_bias"]),
+        ptr(codes), ptr(scales), ptr(qkv[0]), ptr(qkv[1]), ptr(qkv[2]), ptr(attn),
+        ptr(h1), ptr(h1_codes), ptr(h1_scales), ptr(ff),
+        ptr(out) if out.dtype == _BF16 else None,
+        ptr(out) if out.dtype == torch.float32 else None,
+        B, S, D, num_heads, F,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_encoder_layer_int8 kernel failed: CUDA error {rc}")
+    fused_encoder_layer_int8.launches += 1
+    return out
+
+
+fused_encoder_layer_int8.launches = 0
+
+
 def fused_encoder(x: torch.Tensor, layers: list, num_heads: int,
-                  key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stack of fused layers over packed per-layer parameter dicts."""
+                  key_padding_mask: Optional[torch.Tensor] = None,
+                  int8: bool = False) -> torch.Tensor:
+    """Stack of fused layers over packed per-layer parameter dicts
+    (pack_layer_params, or quantize_layer_params with int8)."""
+    layer = fused_encoder_layer_int8 if int8 else fused_encoder_layer
     for p in layers:
-        x = fused_encoder_layer(x, p, num_heads, key_padding_mask)
+        x = layer(x, p, num_heads, key_padding_mask)
     return x

@@ -189,6 +189,45 @@ class TestServeCLI:
         finally:
             server.close()
 
+    def test_quant_int8_build_and_serve(self, tmp_path, monkeypatch):
+        """--quant_int8 1 alone builds an int8 model (fused implied, bf16
+        compute) and serves /v1/sample through the int8 layer's twin on the
+        CPU, never through kernel 1's."""
+        from motionstyle_torch.cli import serve
+        from motionstyle_torch.ops import fused_encoder as fe
+        from motionstyle_torch.serve.server import MotionServer
+
+        calls = {"int8": 0, "bf16": 0}
+        for name, key in (("fused_encoder_layer_int8_reference", "int8"),
+                          ("fused_encoder_layer_reference", "bf16")):
+            fn = getattr(fe, name)
+
+            def counted(*a, _fn=fn, _key=key, **k):
+                calls[_key] += 1
+                return _fn(*a, **k)
+
+            monkeypatch.setattr(fe, name, counted)
+        args = serve.parse_args([
+            "--device", "cpu", "--model_path", str(tmp_path / "model000000001.pt"),
+            "--layers", "1", "--latent_dim", "128", "--quant_int8", "1",
+            "--diffusion_steps", "40", "--skip_steps", "28", "--timestep_respacing",
+            "ddim10", "--max_wait_ms", "50"])
+        engine, decode, handle = serve.build_engine(args)
+        cfg = engine.sampler.params.cfg
+        assert cfg.quant_int8 and cfg.fused and cfg.dtype == "bfloat16"
+        server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
+        try:
+            content = np.random.RandomState(5).randn(76, 181).astype(np.float32)
+            code, res = _post(f"http://127.0.0.1:{server.port}", "/v1/sample", json.dumps(
+                {"content": content.tolist(), "text": "a person walks", "seed": 3}).encode())
+        finally:
+            server.close()
+        assert code == 200
+        motion = np.asarray(res["motion"], np.float32)
+        assert motion.shape == (181, 1, 76) and np.isfinite(motion).all()
+        np.testing.assert_array_equal(motion[:3], content.T[:3, None, :])
+        assert calls["int8"] > 0 and calls["bf16"] == 0
+
     def test_cuda_default_raises_without_a_card(self, tmp_path, monkeypatch):
         from motionstyle_torch.cli import model_util
 
