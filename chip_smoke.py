@@ -28,14 +28,28 @@ Phases, each printed on its own line with its seconds:
      S=77, full width, dropout masks at rate 0.1 and 0) and past the old
      caps (S=197, D=384), the store forward's output bit-equal to the
      forward's, with their times, the twins', a library layer's and the
-     card's bounds.
-  8. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
-     prior, a synthetic Xia corpus written from a seed) runs a few steps
-     with --fused_train 1, then with --fused_train_store 1; losses (the
-     store run's first equal to the recompute run's), the saved checkpoint,
-     the style encoder's movement and every kernel's launches are checked,
-     then a short store run under torch.profiler.
-  9. demo: the demo CLI on the store run's model*.pt and args.json, 8
+     card's bounds; then the same in prng mode (kernel 10: the dropout bits
+     regenerated inside the kernels from per-clip seeds, also at rate 0.5),
+     with determinism and seed sensitivity, rate 1e-9 against the
+     deterministic layer, the keep fraction at rate 0.5, a finite difference
+     through the layer with store off and on, and the prng times beside the
+     masks times, in turns; prng mode is also checked at the pretrain's
+     microbatch (B=32).
+  8. pretrain: the prior pretraining CLI at full width (batch 64) on a
+     synthetic Xia corpus written from a seed: 4 steps with --fused_train 1,
+     4 with --fused_train_prng 1 (like for like: the seconds per step of the
+     two dropout modes), then 4 with --fused_train_prng 1 --grad_accum 2
+     --ema_rate 0.999 --schedule_sampler loss_second_moment; losses, the
+     written mdm.pt, model_pretrained.pt and mdm_ema.pt, seconds per step and
+     every kernel's launches, with no mask arrays drawn in the prng runs.
+  9. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
+     prior, the same corpus) runs a few steps with --fused_train 1, then
+     with --fused_train_store 1; losses (the store run's first equal to the
+     recompute run's), the saved checkpoint, the style encoder's movement
+     and every kernel's launches are checked; then 2 steps with
+     --fused_train_prng 1 from the pretrain phase's mdm.pt, every training
+     launch in prng mode; then a short store run under torch.profiler.
+ 10. demo: the demo CLI on the store run's model*.pt and args.json, 8
      samples, --skip_render, with --fused 1 and with --quant_int8 1:
      results.npy, the kept root channels, the kernels' launches and the
      int8 result's deviation from the bf16 one.
@@ -79,6 +93,9 @@ TRAIN_KERNELS = {  # wrapper -> the TPU kernel it replaces
     "fused_layer_train_bwd_attn_stored": "motionstyle/ops/fused_encoder_train.py:364",
 }
 FINETUNE_STEPS, FINETUNE_BATCH, FINETUNE_LAYERS = 3, 64, 8
+# the pretrain phase's last run splits each batch of FINETUNE_BATCH clips
+# into this many microbatches
+PRETRAIN_ACCUM = 2
 # (B, S, D, H, F) of the inference layer past the old caps: S = 197 (humanml
 # and bandai clips + the condition token) and 300; head width 32 (the CLIs'
 # --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536
@@ -338,6 +355,10 @@ TRAIN_BATCHES, TRAIN_RATES = (64, 1), (0.1, 0.0)
 TRAIN_EXTRA_SHAPES = ((16, 197, D, H, F), (16, S, 384, 6, 1536))
 GRAD_REL_L2, GRAD_MAX_REL = 1e-2, 3e-2
 TRAIN_NAMES = tuple(TRAIN_KERNELS)
+# kernel 10: the dropout that kernels 5-9 generate in prng mode (no launch of
+# its own; its launches are the prng-mode launches of kernels 5-9)
+PRNG_NAME = "fused_layer_train_prng_dropout"
+PRNG_REPLACES = "motionstyle/ops/fused_encoder_train.py:118"
 
 
 def train_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool) -> dict:
@@ -385,31 +406,48 @@ def _grad_gate(got, want):
     return rel, mx, rel <= GRAD_REL_L2 and mx <= GRAD_MAX_REL
 
 
+def draw_seeds(gen, b: int, device):
+    """(b,) int32 per-clip seeds over the full 32-bit range, on `device`."""
+    from motionstyle_torch.ops.fused_encoder_train import draw_dropout_seeds
+
+    return draw_dropout_seeds(gen, 1, b)[0].to(device)
+
+
 def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, gen, device,
-                        records: dict) -> tuple:
+                        records: dict, prng: bool = False) -> tuple:
     """Kernels 5-9 against their twins on the same inputs at one shape, and
-    kernel 8's forward bit-equal to kernel 5's. Returns the inputs the
-    timings reuse: (x, dh2, masks, a1, attn, da1, probs, qkv)."""
+    kernel 8's forward bit-equal to kernel 5's: with bf16 dropout masks, or
+    with prng (kernel 10 inside them) the same per-clip seeds for kernel and
+    twin, where the same seeds must give the same output and other seeds
+    another. Returns the inputs the timings reuse: (x, dh2, drop, a1, attn,
+    da1, probs, qkv), drop being the wrappers' dropout keywords."""
     import torch
 
     from motionstyle_torch.ops import fused_encoder_train as ft
 
-    where = f"B={b} S={s} D={d} H={h} F={f} rate={rate}"
+    where = f"{'prng' if prng else 'masks'} B={b} S={s} D={d} H={h} F={f} rate={rate}"
     x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
     dh2 = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
-    masks = None
-    if rate > 0:
-        masks = ft.make_dropout_masks(
-            torch.Generator(device=device).manual_seed(b), (b, s, d), rate, f)
+    drop = {}
+    if rate > 0 and prng:
+        drop = dict(seeds=draw_seeds(gen, b, device), rate=rate)
+    elif rate > 0:
+        drop = dict(masks=ft.make_dropout_masks(
+            torch.Generator(device=device).manual_seed(b), (b, s, d), rate, f))
     # the gate reads the fp32 output (the kernel's sums before the output's
     # bf16 rounding); the bf16 output is held to rel_l2
-    out32, _, _ = ft.fused_layer_train_forward(x, p, h, None, masks, torch.float32)
-    out, a1, attn = ft.fused_layer_train_forward(x, p, h, None, masks)
-    out32_s, _, _, _, _ = ft.fused_layer_train_forward_store(x, p, h, None, masks, torch.float32)
-    out_s, a1_s, attn_s, probs, qkv = ft.fused_layer_train_forward_store(x, p, h, None, masks)
+    f32 = dict(out_dtype=torch.float32)
+    out32, _, _ = ft.fused_layer_train_forward(x, p, h, None, **f32, **drop)
+    out, a1, attn = ft.fused_layer_train_forward(x, p, h, None, **drop)
+    out32_s, _, _, _, _ = ft.fused_layer_train_forward_store(x, p, h, None, **f32, **drop)
+    out_s, a1_s, attn_s, probs, qkv = ft.fused_layer_train_forward_store(x, p, h, None, **drop)
+    if prng:
+        again = ft.fused_layer_train_forward(x, p, h, None, **f32, **drop)[0]
+        other = ft.fused_layer_train_forward(x, p, h, None, **f32, rate=rate,
+                                             seeds=drop["seeds"] + 1)[0]
     torch.cuda.synchronize()
     r_out, r_a1, r_attn, r_probs, r_qkv = ft.fused_layer_train_forward_store_reference(
-        x, p, h, None, masks, torch.float32)
+        x, p, h, None, **f32, **drop)
     err, rel, rel16 = float((out32 - r_out).abs().max()), rel_l2(out32, r_out), rel_l2(out, r_out)
     rel_a1 = rel_l2(a1, r_a1)
     rel_p, rel_qkv = rel_l2(probs, r_probs), rel_l2(qkv, r_qkv)
@@ -425,18 +463,23 @@ def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, 
                ((out32, out32_s), (out, out_s), (a1, a1_s), (attn, attn_s)))
     check(same, f"store forward's out (bf16 and fp32), a1 and attn bit-equal to the "
                 f"forward's at {where}")
+    if prng:
+        check(torch.equal(out32, again) and not torch.equal(out32, other),
+              f"{where}: the same seeds give the same output, seeds + 1 another")
     for name in ("fused_layer_train_forward", "fused_layer_train_forward_store"):
-        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        rec = records[PRNG_NAME if prng else name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
     # each backward half from the same inputs as its twin
-    da1, g_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks)
+    da1, g_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, **drop)
     torch.cuda.synchronize()
-    r_da1, r_ffn = ft.bwd_ffn_reference(dh2, a1, p, masks)
-    dx, g_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, h, None, masks)
-    dx_s, g_attn_s = ft.fused_layer_train_bwd_attn_stored(r_da1, x, attn, probs, qkv, p, h, masks)
+    r_da1, r_ffn = ft.bwd_ffn_reference(dh2, a1, p, **drop)
+    dx, g_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, h, None, **drop)
+    dx_s, g_attn_s = ft.fused_layer_train_bwd_attn_stored(r_da1, x, attn, probs, qkv, p, h,
+                                                          **drop)
     torch.cuda.synchronize()
-    r_dx, r_attn_g = ft.bwd_attn_reference(r_da1, x, attn, p, h, None, masks)
-    r_dx_s, r_attn_g_s = ft.bwd_attn_stored_reference(r_da1, x, attn, probs, qkv, p, h, masks)
+    r_dx, r_attn_g = ft.bwd_attn_reference(r_da1, x, attn, p, h, None, **drop)
+    r_dx_s, r_attn_g_s = ft.bwd_attn_stored_reference(r_da1, x, attn, probs, qkv, p, h, **drop)
     pairs = ([("fused_layer_train_bwd_ffn", "da1", da1, r_da1)]
              + [("fused_layer_train_bwd_ffn", k, g_ffn[k], r_ffn[k]) for k in r_ffn]
              + [("fused_layer_train_bwd_attn", "dx", dx, r_dx)]
@@ -447,8 +490,8 @@ def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, 
     worst = {}
     for kname, leaf, got, want in pairs:
         rel, mx, ok = _grad_gate(got, want)
-        records[kname]["max_abs_err"] = max(records[kname]["max_abs_err"],
-                                            float((got - want).abs().max()))
+        rec = records[PRNG_NAME if prng else kname]
+        rec["max_abs_err"] = max(rec["max_abs_err"], float((got - want).abs().max()))
         worst[kname] = max(worst.get(kname, 0.0), rel)
         if not ok:
             check(False, f"{kname} {leaf} {where}: rel_l2 {rel:.6g}, max_abs/max {mx:.6g} "
@@ -456,14 +499,91 @@ def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, 
     print(f"  train bwd {where}: worst rel_l2 by kernel {worst}", flush=True)
     check(True, f"train backward {where}: every gradient leaf, da1 and dx of kernels 6, 7 and 9 "
                 f"within rel_l2 {GRAD_REL_L2} and max_abs/max {GRAD_MAX_REL}")
-    return x, dh2, masks, a1, attn, r_da1, probs, qkv
+    return x, dh2, drop, a1, attn, r_da1, probs, qkv
+
+
+def check_prng_limits(p, gen, device) -> None:
+    """The prng mode's limits on the card, at B=64, S=77, full width: rate
+    1e-9 against the deterministic layer (atol 1e-5, as the JAX package's
+    TPU test); the keep fraction of the regenerated bits at rate 0.5 within
+    5 sigma over every element of the three sites (the kernels use these
+    bits: they match their twins at rate 0.5 above)."""
+    import math
+
+    import torch
+
+    from motionstyle_torch.ops import fused_encoder_train as ft
+
+    b = TRAIN_BATCHES[0]
+    x = torch.randn(b, S, D, generator=gen).to(device, torch.bfloat16)
+    seeds = draw_seeds(gen, b, device)
+    det = ft.fused_layer_train_forward(x, p, H, None, out_dtype=torch.float32)[0]
+    tiny = ft.fused_layer_train_forward(x, p, H, None, out_dtype=torch.float32, seeds=seeds,
+                                        rate=1e-9)[0]
+    err = float((tiny - det).abs().max())
+    print(f"  prng rate 1e-9 vs deterministic B={b} S={S}: max_abs {err:.6g}", flush=True)
+    check(err <= 1e-5, "prng rate 1e-9 equals the deterministic layer within 1e-5")
+    thresh, _ = ft.prng_threshold(0.5)
+    kept = n = 0
+    for site, width in ((0, D), (1, F), (2, D)):
+        bits = ft.dropout_bits(seeds, site, S, width)
+        kept += int((bits < thresh).sum())
+        n += bits.numel()
+    frac, sigma = kept / n, 0.5 / math.sqrt(n)
+    print(f"  prng keep fraction at rate 0.5: {frac:.6f} over {n} elements "
+          f"({abs(frac - 0.5) / sigma:.3g} sigma)", flush=True)
+    check(abs(frac - 0.5) <= 5 * sigma, "prng keep fraction at rate 0.5 within 5 sigma")
+
+
+def prng_finite_difference(device) -> None:
+    """The gradient of the fused layer in prng mode against a central finite
+    difference through the same kernels, store off and on (the JAX
+    package's TPU check, tests/test_fused_train.py:323-362, and its 5e-2
+    bound), at B=4, S=20, D=128, 4 heads, F=256, rate 0.1. The direction
+    takes each gradient entry's sign, scaled by its leaf's rms (x's too), so
+    the directional derivative does not cancel to a small sum and each
+    entry moves by 1 % of its leaf's scale, above the bf16 rounding of
+    weights and input: with the right bits the two agreed to ~1 % in a CPU
+    rehearsal of the twins, with another clip's bits they missed by ~20 %."""
+    import torch
+
+    from motionstyle_torch.ops import fused_encoder_train as ft
+
+    gen = torch.Generator().manual_seed(7)
+    b, s, d, h, f = 4, 20, 128, 4, 256
+    base = {k: v.to(device) for k, v in random_params(gen, d, f).items()}
+    x = torch.randn(b, s, d, generator=gen).to(device)
+    seeds = draw_seeds(gen, b, device)
+    eps = 1e-2
+    for store in (False, True):
+        def loss(pd, xx):
+            return torch.sin(ft.fused_encoder_layer_train(
+                xx, pd, h, store_probs=store, seeds=seeds, rate=0.1)).sum()
+
+        leaves = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+        xt = x.clone().requires_grad_(True)
+        loss(leaves, xt).backward()
+        rms = lambda t: t.pow(2).mean().sqrt()  # noqa: E731
+        vp = {k: torch.sign(leaves[k].grad) * rms(base[k]) for k in base}
+        vx = torch.sign(xt.grad) * rms(x)
+        with torch.no_grad():
+            plus = loss({k: base[k] + eps * vp[k] for k in base}, x + eps * vx)
+            minus = loss({k: base[k] - eps * vp[k] for k in base}, x - eps * vx)
+        fd = float((plus - minus) / (2 * eps))
+        an = sum(float((leaves[k].grad * vp[k]).sum()) for k in base) + float((xt.grad * vx).sum())
+        rel = abs(fd - an) / abs(an)
+        print(f"  prng finite difference store={store}: fd {fd:.6g} analytic {an:.6g} "
+              f"(rel {rel:.3g})", flush=True)
+        check(rel < 5e-2, f"prng gradient (store={store}) matches a central finite difference "
+                          f"within 5e-2")
 
 
 def train_kernel_phase(device) -> tuple:
     """Kernels 5-9 against their twins on the card at B=64 and B=1, S=77,
-    full width, masks at rate 0.1 and 0, then past the old caps; times at
-    B=64, rate 0.1. Returns each kernel's record fields by name and the
-    kernels' times at B=1."""
+    full width, masks at rate 0.1 and 0, then past the old caps; the same in
+    prng mode at rate 0.1 (and 0.5 at B=64, 0.1 at the pretrain's microbatch
+    B=32); times at B=64, rate 0.1. Returns each kernel's record fields by
+    name and the kernels' times at B=1."""
     import torch
     import torch.nn.functional as Fn
 
@@ -471,49 +591,71 @@ def train_kernel_phase(device) -> tuple:
 
     gen = torch.Generator().manual_seed(1)
     p = random_layer(gen, D, F, device)
-    records = {n: {"max_abs_err": 0.0} for n in TRAIN_NAMES}
-    timing_inputs = {}
+    records = {n: {"max_abs_err": 0.0} for n in TRAIN_NAMES + (PRNG_NAME,)}
+    timing_inputs, prng_inputs = {}, {}
     for b in TRAIN_BATCHES:
         for rate in TRAIN_RATES:
             inputs = check_train_kernels(p, b, S, D, H, F, rate, gen, device, records)
             if rate > 0:
                 timing_inputs[b] = inputs
+                prng_inputs[b] = check_train_kernels(p, b, S, D, H, F, rate, gen, device,
+                                                     records, prng=True)
+    check_train_kernels(p, TRAIN_BATCHES[0], S, D, H, F, 0.5, gen, device, records, prng=True)
+    # the prng pretrain run's microbatch, the shape of kernel 10's main path
+    check_train_kernels(p, FINETUNE_BATCH // PRETRAIN_ACCUM, S, D, H, F, 0.1, gen, device,
+                        records, prng=True)
     for b, s, d, h, f in TRAIN_EXTRA_SHAPES:
-        check_train_kernels(random_layer(gen, d, f, device), b, s, d, h, f, 0.1, gen, device,
-                            records)
+        layer = random_layer(gen, d, f, device)
+        for prng in (False, True):
+            check_train_kernels(layer, b, s, d, h, f, 0.1, gen, device, records, prng=prng)
+    check_prng_limits(p, gen, device)
+    prng_finite_difference(device)
 
-    def runs_at(b):
-        x, dh2, masks, a1, attn, da1, probs, qkv = timing_inputs[b]
+    def runs_at(inputs):
+        x, dh2, drop, a1, attn, da1, probs, qkv = inputs
         return {
             "fused_layer_train_forward": (
-                lambda: ft.fused_layer_train_forward(x, p, H, None, masks),
-                lambda: ft.fused_layer_train_forward_reference(x, p, H, None, masks)),
+                lambda: ft.fused_layer_train_forward(x, p, H, None, **drop),
+                lambda: ft.fused_layer_train_forward_reference(x, p, H, None, **drop)),
             "fused_layer_train_bwd_ffn": (
-                lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks),
-                lambda: ft.bwd_ffn_reference(dh2, a1, p, masks)),
+                lambda: ft.fused_layer_train_bwd_ffn(dh2, a1, p, **drop),
+                lambda: ft.bwd_ffn_reference(dh2, a1, p, **drop)),
             "fused_layer_train_bwd_attn": (
-                lambda: ft.fused_layer_train_bwd_attn(da1, x, attn, p, H, None, masks),
-                lambda: ft.bwd_attn_reference(da1, x, attn, p, H, None, masks)),
+                lambda: ft.fused_layer_train_bwd_attn(da1, x, attn, p, H, None, **drop),
+                lambda: ft.bwd_attn_reference(da1, x, attn, p, H, None, **drop)),
             "fused_layer_train_forward_store": (
-                lambda: ft.fused_layer_train_forward_store(x, p, H, None, masks),
-                lambda: ft.fused_layer_train_forward_store_reference(x, p, H, None, masks)),
+                lambda: ft.fused_layer_train_forward_store(x, p, H, None, **drop),
+                lambda: ft.fused_layer_train_forward_store_reference(x, p, H, None, **drop)),
             "fused_layer_train_bwd_attn_stored": (
                 lambda: ft.fused_layer_train_bwd_attn_stored(da1, x, attn, probs, qkv, p, H,
-                                                             masks),
-                lambda: ft.bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, H, masks)),
+                                                             **drop),
+                lambda: ft.bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, H, **drop)),
         }
 
-    launches0 = {n: getattr(ft, n).launches for n in TRAIN_NAMES}
+    counts0 = {n: (getattr(ft, n).launches, getattr(ft, n).prng_launches) for n in TRAIN_NAMES}
     # the unroll's shape (B=1): kernel times only, for the finetune's breakdown
+    b = TRAIN_BATCHES[0]
+    prng_ms, prng_plain_ms = {}, {}
     with torch.no_grad():
-        ms_b1 = {n: time_ms(kern, iters=50) for n, (kern, _) in runs_at(1).items()}
+        ms_b1 = {n: time_ms(kern, iters=50) for n, (kern, _) in runs_at(timing_inputs[1]).items()}
         print(f"  B=1 S={S} kernel ms: {ms_b1}", flush=True)
-        b = TRAIN_BATCHES[0]
-        for name, (kern, twin) in runs_at(b).items():
-            records[name]["ms"] = time_ms(kern, iters=50)
+        # masks and prng mode in turns on the same card (masks, prng, prng, masks)
+        turns = {True: [], False: []}
+        for prng in (False, True, True, False):
+            runs = runs_at(prng_inputs[b] if prng else timing_inputs[b])
+            turns[prng].append({n: time_ms(kern, iters=50) for n, (kern, _) in runs.items()})
+        for name, (_, twin) in runs_at(timing_inputs[b]).items():
+            records[name]["ms"] = min(t[name] for t in turns[False])
             records[name]["plain_ms"] = time_ms(twin, iters=10)
+        for name, (_, twin) in runs_at(prng_inputs[b]).items():
+            prng_ms[name] = min(t[name] for t in turns[True])
+            prng_plain_ms[name] = time_ms(twin, iters=10)
     for name in TRAIN_NAMES:  # timing launches are not the main path's
-        getattr(ft, name).launches = launches0[name]
+        getattr(ft, name).launches, getattr(ft, name).prng_launches = counts0[name]
+    print(f"  B={b} S={S} rate 0.1, masks vs prng mode (kernel 10 inside), in turns "
+          f"(masks, prng, prng, masks), ms: " + "; ".join(
+              f"{n} {[round(t[n], 6) for t in turns[False]]} vs "
+              f"{[round(t[n], 6) for t in turns[True]]}" for n in TRAIN_NAMES), flush=True)
     x, dh2 = timing_inputs[b][:2]
     lib = torch.nn.TransformerEncoderLayer(
         D, H, F, dropout=0.1, activation=partial(Fn.gelu, approximate="tanh"),
@@ -525,6 +667,20 @@ def train_kernel_phase(device) -> tuple:
     # keeps no residuals); no one call computes a backward half
     for name in TRAIN_NAMES:
         records[name]["library_ms"] = lib_fwd if "forward" in name else None
+    # kernel 10 has no launch of its own: its record is the forward in prng
+    # mode (kernel 5 with kernel 10 generating its three sites) against the
+    # prng twin, the forward's bound without mask traffic and the library
+    # layer's forward in train mode (which draws its own dropout masks)
+    fwd = TRAIN_NAMES[0]
+    records[PRNG_NAME].update(ms=prng_ms[fwd], plain_ms=prng_plain_ms[fwd], library_ms=lib_fwd)
+    prng_bound = train_bounds(b, S, D, H, F, masked=False)
+    records[PRNG_NAME].update(bound_ms=prng_bound[fwd][0], bound_by=prng_bound[fwd][1])
+    for name in TRAIN_NAMES:
+        bound_ms, bound_by, flops, nbytes = prng_bound[name]
+        print(f"  {name} prng mode B={b} S={S}: kernel_ms {prng_ms[name]:.6g} (masks "
+              f"{records[name]['ms']:.6g}) reference_ms {prng_plain_ms[name]:.6g} bound_ms "
+              f"{bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB, no "
+              f"masks)", flush=True)
 
     def lib_pair():
         lib(xl).backward(dh2)
@@ -541,9 +697,13 @@ def train_kernel_phase(device) -> tuple:
                          ("store-probs", (TRAIN_NAMES[3], TRAIN_NAMES[1], TRAIN_NAMES[4]))):
         fb = sum(records[n]["ms"] for n in names)
         print(f"  layer forward + backward ({label}): kernels {fb:.6g} ms", flush=True)
+    for label, names in (("recompute", TRAIN_NAMES[:3]),
+                         ("store-probs", (TRAIN_NAMES[3], TRAIN_NAMES[1], TRAIN_NAMES[4]))):
+        fb = sum(prng_ms[n] for n in names)
+        print(f"  layer forward + backward ({label}, prng): kernels {fb:.6g} ms", flush=True)
     print(f"  library nn.TransformerEncoderLayer (bf16, train, dropout 0.1) forward + "
           f"backward {pair_ms:.6g} ms", flush=True)
-    return records, ms_b1
+    return records, ms_b1, prng_ms
 
 
 def golden_phase(device):
@@ -718,13 +878,102 @@ def write_xia_corpus(root: str, seed: int = 0, clips: int = 120) -> None:
     np.save(os.path.join(root, "Std.npy"), (np.abs(rs.randn(181)) + 0.5).astype(np.float32))
 
 
+PRETRAIN_STEPS = 4
+
+
+def _prior_counts(ft) -> dict:
+    """Launches and prng-mode launches of kernels 5-9, and mask draws."""
+    out = {n: (getattr(ft, n).launches, getattr(ft, n).prng_launches) for n in TRAIN_NAMES}
+    out["make_dropout_masks"] = ft.make_dropout_masks.calls
+    return out
+
+
+def _zero_counts(ft) -> None:
+    for n in TRAIN_NAMES:
+        getattr(ft, n).launches = getattr(ft, n).prng_launches = 0
+    ft.make_dropout_masks.calls = 0
+
+
+def pretrain_phase(card: str, data_dir: str, tmp_root: str) -> tuple:
+    """The prior pretraining CLI at full width (d=512, 8 layers, 4 heads, ff
+    1024, batch 64, 76 frames: S=77, 181 features) on the synthetic corpus,
+    4 steps with --fused_train 1 (mask arrays), 4 with --fused_train_prng 1
+    (kernel 10; the same run otherwise, so the two seconds per step compare
+    the dropout modes alone), then 4 with --fused_train_prng 1 --grad_accum
+    2 --ema_rate 0.999 --schedule_sampler loss_second_moment. Each run's
+    counts are set to 0 just before it and read just after. Checks finite
+    losses, the written checkpoints and every kernel's launches, and that
+    the prng runs draw no mask arrays. Returns (the last run's counts, its
+    mdm.pt)."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
+    from motionstyle_torch.ops import fused_encoder_train as ft
+
+    layers, seed, batch = FINETUNE_LAYERS, 10, FINETUNE_BATCH
+    runs = {}
+    accum_flags = ["--grad_accum", str(PRETRAIN_ACCUM), "--ema_rate", "0.999",
+                   "--schedule_sampler", "loss_second_moment"]
+    for label, flags, prng, accum in (
+            ("--fused_train 1", ["--fused_train", "1"], False, 1),
+            ("--fused_train_prng 1", ["--fused_train_prng", "1"], True, 1),
+            ("--fused_train_prng 1 " + " ".join(accum_flags),
+             ["--fused_train_prng", "1", *accum_flags], True, PRETRAIN_ACCUM)):
+        save_dir = os.path.join(tmp_root, f"prior_{len(runs)}")
+        random.seed(seed)  # the loader's crops and captions
+        # the main path: every count from here to the end of the run
+        _zero_counts(ft)
+        t0 = time.perf_counter()
+        pretrain_main(["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--save_dir",
+                       save_dir, "--batch_size", str(batch), "--layers", str(layers),
+                       "--num_steps", str(PRETRAIN_STEPS), "--log_interval", "1", "--seed",
+                       str(seed), *flags, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _prior_counts(ft)
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["prior_loss"]) for r in rows]
+        secs = [float(r["step_seconds"]) for r in rows]
+        steady = float(np.median(secs[1:]))
+        print(f"  pretrain {label}: {PRETRAIN_STEPS} steps in {wall:.4f} s (whole CLI run on "
+              f"{card}); losses {losses}; step seconds {secs}; median after the first "
+              f"{steady:.6g} s = {batch / steady:.6g} clips/s", flush=True)
+        check(len(losses) == PRETRAIN_STEPS and bool(np.isfinite(losses).all()),
+              f"pretrain {label}: losses finite")
+        files = sorted(n for n in os.listdir(save_dir) if n.endswith(".pt"))
+        want_files = ["mdm.pt", "model_pretrained.pt"] + (["mdm_ema.pt"] if "--ema_rate" in flags else [])
+        check(files == sorted(want_files), f"pretrain {label}: writes {sorted(want_files)}")
+        per_step = layers * accum
+        fwd, ffn, attn = TRAIN_NAMES[:3]
+        want = {n: (0, 0) for n in TRAIN_NAMES}
+        for n in (fwd, ffn, attn):
+            want[n] = (per_step * PRETRAIN_STEPS, per_step * PRETRAIN_STEPS if prng else 0)
+        want["make_dropout_masks"] = 0 if prng else layers * PRETRAIN_STEPS
+        print(f"  pretrain {label}: (launches, prng launches) {counts}", flush=True)
+        check(counts == want, f"pretrain {label}: {per_step} launches of kernels 5, 6 and 7 per "
+                              f"step ({'all in prng mode, no mask arrays' if prng else 'mask arrays, one draw per layer'}), "
+                              f"none of kernels 8 and 9")
+        runs[label] = (counts, steady, os.path.join(save_dir, "mdm.pt"))
+    print("  pretrain seconds per step after the first: " + "; ".join(
+        f"{label} {secs:.6g} ({batch / secs:.6g} clips/s)"
+        for label, (_, secs, _) in runs.items()) + f" on {card}", flush=True)
+    return runs[label][0], runs[label][2]
+
+
 def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict,
-                   tmp_root: str) -> tuple:
+                   tmp_root: str, data_dir: str, prior_path: str) -> tuple:
     """The finetune CLI at full width, --fused 1 and a batch of 64, for a few
-    steps: first --fused_train 1 (kernels 5, 6, 7), then --fused_train_store
-    1 (kernels 8, 6, 9) from the same seed and corpus, both under tmp_root.
-    Returns each path's training kernel launches, the function that builds
-    the CLI's arguments, the store run's last model*.pt and the corpus."""
+    steps from the golden prior: first --fused_train 1 (kernels 5, 6, 7),
+    then --fused_train_store 1 (kernels 8, 6, 9) from the same seed and
+    corpus, both under tmp_root; then 2 steps of --fused_train_prng 1
+    (kernels 5, 6, 7 with kernel 10, no mask arrays) from the pretrain
+    phase's prior (prior_path). Returns each masks path's training kernel
+    launches, the prng run's counts, the function that builds the CLI's
+    arguments and the store run's last model*.pt."""
     import csv
 
     import numpy as np
@@ -741,16 +990,16 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     mdm_path = os.path.join(tmp_root, "mdm_golden.pt")
     torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
 
-    def finetune_args(data_dir: str, save_dir: str, num_steps: int, store: bool) -> list:
-        train_flag = ["--fused_train_store", "1"] if store else ["--fused_train", "1"]
-        return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", mdm_path,
-                "--save_dir", save_dir, "--fused", "1", *train_flag,
+    def finetune_args(data_dir: str, save_dir: str, num_steps: int, train_flag: str,
+                      prior: str = mdm_path) -> list:
+        return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", prior,
+                "--save_dir", save_dir, "--fused", "1", train_flag, "1",
                 "--batch_size", str(FINETUNE_BATCH), "--layers", str(layers),
                 "--num_steps", str(num_steps), "--skip_render",
                 "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda"]
 
-    def run(store: bool, data_dir: str, save_root: str) -> tuple:
-        label = "--fused_train_store 1" if store else "--fused_train 1"
+    def run(train_flag: str, save_root: str, steps: int = steps, prior: str = mdm_path) -> tuple:
+        label = f"{train_flag} 1"
         torch.cuda.reset_peak_memory_stats()
         # the Xia loader draws captions and crops from Python's global random
         # (as the reference's loader does): seed it so both runs see one batch
@@ -758,11 +1007,13 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         # the main path: every count from here to the end of the run
         for k in counted:
             k.launches = 0
+        _zero_counts(ft)
         t0 = time.perf_counter()
-        save_dir = finetune_main(finetune_args(data_dir, save_root, steps, store))
+        save_dir = finetune_main(finetune_args(data_dir, save_root, steps, train_flag, prior))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in counted}
+        launches["counts"] = _prior_counts(ft)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(os.path.join(save_dir, "progress.csv")) as f:
             rows = list(csv.DictReader(f))
@@ -789,10 +1040,8 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     # checkpoint, plus the semantic branch's forward; 8 layers each
     unroll = 6
     fwd, bwd = layers * (1 + 2 * unroll) * steps, layers * (1 + unroll) * steps
-    data_dir = os.path.join(tmp_root, "style_xia")
-    write_xia_corpus(data_dir)
-    launches, losses, secs, _ = run(False, data_dir, os.path.join(tmp_root, "ft"))
-    launches_s, losses_s, secs_s, model_path = run(True, data_dir,
+    launches, losses, secs, _ = run("--fused_train", os.path.join(tmp_root, "ft"))
+    launches_s, losses_s, secs_s, model_path = run("--fused_train_store",
                                                    os.path.join(tmp_root, "ft_store"))
 
     want = dict.fromkeys(TRAIN_NAMES, 0)
@@ -836,7 +1085,22 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         print(f"  {label} per step: training kernel time (launches x the kernel times "
               f"measured above at B=64 and B=1) {kernel_s:.6g} s of a median {steady:.6g} s "
               f"step after the first ({100 * kernel_s / steady:.4g} %)", flush=True)
-    return launches, launches_s, finetune_args, model_path, data_dir
+
+    # in-kernel dropout (kernel 10) from the port's own pretrained prior
+    prng_steps = 2
+    launches_p, losses_p, _, _ = run("--fused_train_prng", os.path.join(tmp_root, "ft_prng"),
+                                     prng_steps, prior_path)
+    counts = launches_p["counts"]
+    fwd_p, bwd_p = layers * (1 + 2 * unroll) * prng_steps, layers * (1 + unroll) * prng_steps
+    want_p = {n: (0, 0) for n in TRAIN_NAMES}
+    want_p.update({TRAIN_NAMES[0]: (fwd_p, fwd_p), TRAIN_NAMES[1]: (bwd_p, bwd_p),
+                   TRAIN_NAMES[2]: (bwd_p, bwd_p), "make_dropout_masks": 0})
+    print(f"  --fused_train_prng 1 from the pretrained prior: (launches, prng launches) "
+          f"{counts} over {prng_steps} steps", flush=True)
+    check(counts == want_p, f"--fused_train_prng 1: every launch of kernels 5, 6 and 7 in prng "
+                            f"mode ({fwd_p}, {bwd_p}, {bwd_p} over {prng_steps} steps), no mask "
+                            f"arrays, kernels 8 and 9 never")
+    return launches, launches_s, counts, finetune_args, model_path
 
 
 def profile_finetune(args_of) -> None:
@@ -852,7 +1116,7 @@ def profile_finetune(args_of) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "style_xia")
         write_xia_corpus(data_dir)
-        argv = args_of(data_dir, os.path.join(tmp, "ft"), 2, True)
+        argv = args_of(data_dir, os.path.join(tmp, "ft"), 2, "--fused_train_store")
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             finetune_main(argv)
@@ -972,11 +1236,16 @@ def main() -> int:
     with phase("serve_int8"):
         launches_int8 = serve_phase(golden_sd, card, "--quant_int8", waves=1)
     with phase("train_kernel"):
-        train_records, ms_b1 = train_kernel_phase(device)
+        train_records, ms_b1, _ = train_kernel_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "style_xia")
+        write_xia_corpus(data_dir)
+        with phase("pretrain"):
+            prng_counts, prior_path = pretrain_phase(card, data_dir, tmp)
         with phase("finetune"):
-            launches_recompute, launches_store, args_of, model_path, data_dir = finetune_phase(
-                golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp)
+            launches_recompute, launches_store, _, args_of, model_path = finetune_phase(
+                golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp,
+                data_dir, prior_path)
             profile_finetune(args_of)
         with phase("demo"):
             demo_phase(model_path, data_dir, tmp, card)
@@ -1001,6 +1270,13 @@ def main() -> int:
                             source="motionstyle_torch/csrc/fused_encoder_train.cu",
                             replaces=replaces, launches=train_launches[name],
                             **{k: train_records[name][k] for k in keys}))
+    # kernel 10: its launches are those of kernels 5-9 in prng mode on the
+    # prng pretrain run, its main path
+    kernels.append(dict(name=PRNG_NAME, route="cuda",
+                        source="motionstyle_torch/csrc/fused_encoder_train.cu",
+                        replaces=PRNG_REPLACES,
+                        launches=sum(prng_counts[n][1] for n in TRAIN_NAMES),
+                        **{k: train_records[PRNG_NAME][k] for k in keys}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

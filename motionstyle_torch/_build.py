@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
+_DROP = [_VP, ctypes.c_uint, ctypes.c_float]  # prng dropout: seeds, keep threshold, 1/keep
 # C signature of each library's entry points: name -> [(symbol, argtypes)]
 SIGNATURES = {
     "fused_encoder": [
@@ -39,11 +40,13 @@ SIGNATURES = {
         ("fused_encoder_layer_int8_forward", [_VP] * 30 + [_INT] * 5 + [_VP]),
     ],
     "fused_encoder_train": [
-        ("fused_layer_train_forward", [_VP] * 27 + [_INT] * 5 + [_VP]),
-        ("fused_layer_train_bwd_ffn", [_VP] * 29 + [_INT] * 4 + [_VP]),
-        ("fused_layer_train_bwd_attn", [_VP] * 23 + [_INT] * 4 + [_VP]),
-        ("fused_layer_train_forward_store", [_VP] * 27 + [_INT] * 5 + [_VP]),
-        ("fused_layer_train_bwd_attn_stored", [_VP] * 19 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_forward", [_VP] * 5 + _DROP + [_VP] * 22 + [_INT] * 5 + [_VP]),
+        ("fused_layer_train_bwd_ffn", [_VP] * 4 + _DROP + [_VP] * 25 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_bwd_attn", [_VP] * 5 + _DROP + [_VP] * 18 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_forward_store",
+         [_VP] * 5 + _DROP + [_VP] * 22 + [_INT] * 5 + [_VP]),
+        ("fused_layer_train_bwd_attn_stored",
+         [_VP] * 4 + _DROP + [_VP] * 15 + [_INT] * 4 + [_VP]),
     ],
 }
 

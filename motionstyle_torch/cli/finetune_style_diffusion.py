@@ -7,7 +7,9 @@ keeping the last x0, :195-212), the semantic-guidance caption edit (:279-286),
 training through the few-shot loss, and a final DDIM resample (:307-343).
 With --fused_train 1 every training forward of the style encoder runs the
 CUDA training kernels (with --fused_train_store 1, which implies it, the
-store-probs forward and the stored attention backward); with --fused 1 the
+store-probs forward and the stored attention backward; with
+--fused_train_prng 1, which implies it too, the kernels' own Philox dropout
+from per-(clip, layer) seeds instead of mask arrays); with --fused 1 the
 prior's sampling runs the CUDA inference kernel.
 
 Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
@@ -16,9 +18,9 @@ Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --train_platform_type NoPlatform [--device cuda]
 
 Not on this slice (each raises, naming its ROADMAP item): LoRA, --auto_stop,
---parallel_finetune, mesh training, orbax checkpoints, the in-kernel-PRNG
-training kernels, rendering, and the humanml/bandai datasets. --quant_int8 is
-refused too: neither package trains through the int8 layer.
+--parallel_finetune, mesh training, orbax checkpoints, rendering, and the
+humanml/bandai datasets. --quant_int8 is refused too: neither package trains
+through the int8 layer.
 """
 from __future__ import annotations
 
@@ -53,7 +55,6 @@ UNSUPPORTED = {
     "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
     "fsdp": (0, "mesh training (ROADMAP §1 item 11)"),
     "orbax_checkpoints": (0, "sharded checkpoints (ROADMAP §1 item 11)"),
-    "fused_train_prng": (0, "in-kernel dropout (ROADMAP §2 item 1: kernel 10)"),
     "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
     "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
     "profile": ("", "profiling (ROADMAP §1 item 12)"),

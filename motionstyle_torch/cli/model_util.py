@@ -53,15 +53,19 @@ def get_transfer_config(args) -> MDMConfig:
     # (motionstyle/cli/model_util.py:68-71)
     quant_int8 = bool(getattr(args, "quant_int8", 0))
     fused = bool(getattr(args, "fused", 0)) or quant_int8
+    if (getattr(args, "fused_train_store", 0) or getattr(args, "fused_train_prng", 0)) \
+            and hasattr(args, "fused_train"):
+        args.fused_train = 1  # the args object too (motionstyle/cli/model_util.py:50-53)
     return MDMConfig(
         njoints=njoints, nfeats=nfeats, latent_dim=args.latent_dim, ff_size=1024,
         num_layers=args.layers, num_heads=4, clip_dim=512, dropout=0.1,
         cond_mask_prob=getattr(args, "cond_mask_prob", 0.1), fused=fused,
         quant_int8=quant_int8,
-        # --fused_train_store implies --fused_train, as in the JAX package
-        # (motionstyle/cli/model_util.py:74-81)
-        fused_train=bool(getattr(args, "fused_train", 0) or getattr(args, "fused_train_store", 0)),
+        # --fused_train_store and --fused_train_prng imply --fused_train (the
+        # config's __post_init__), as in the JAX package (:74-81)
+        fused_train=bool(getattr(args, "fused_train", 0)),
         fused_train_store=bool(getattr(args, "fused_train_store", 0)),
+        fused_train_prng=bool(getattr(args, "fused_train_prng", 0)),
         # explicit --dtype wins; the fused kernels (bf16 and int8) default to
         # their designed bf16 input, everything else to fp32, as in the JAX
         # package (:86-88)

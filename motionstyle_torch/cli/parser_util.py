@@ -77,7 +77,10 @@ def add_model_options(parser):
                        help="run the encoder stacks of training forwards through the "
                             "fused CUDA training layer (forward and backward kernels; "
                             "bf16 matmuls with fp32 sums, tanh-approximate gelu)")
-    group.add_argument("--fused_train_prng", default=0, type=int, help="not ported")
+    group.add_argument("--fused_train_prng", default=0, type=int,
+                       help="with the fused training layer, generate the dropout masks "
+                            "inside the kernels from per-(clip, layer) seeds (counter-based "
+                            "Philox) instead of mask arrays (implies --fused_train 1)")
     group.add_argument("--fused_train_store", default=0, type=int,
                        help="with the fused training layer, keep the softmax probabilities "
                             "and qkv in the forward and read them in the attention backward "

@@ -9,7 +9,14 @@
 //   fused_layer_train_forward_store    <- _fwd_store_kernel        (:317)
 //   fused_layer_train_bwd_attn_stored  <- _bwd_attn_stored_kernel  (:364)
 //
-// Forward (m0, m1, m2 are bf16 dropout masks holding {0, 1/keep}, or null):
+// and, inside all five, the in-kernel dropout of _drop_site in "prng" mode
+// (:118-133, with _unpack_drop :136): each dropout site either reads a bf16
+// mask holding {0, 1/keep} (masks mode) or regenerates the keep bit from a
+// per-clip seed with counter-based Philox4x32-10 (prng mode, see Dropout
+// below), so the forward and both backward halves see one mask and no mask
+// is ever written to device memory.
+//
+// Forward (m0, m1, m2 are the dropout sites 0, 1 and 2; identity at rate 0):
 //   qkv = x Wqkv^T + b; attn = softmax(bf16(q/sqrt(dh)) bf16(k)^T + mask) v
 //   a1  = x + (bf16(attn) Wo^T + bo) * m0            (kept, fp32)
 //   h1  = LN1(a1); g = gelu_tanh(bf16(h1) W1^T + b1) * m1
@@ -57,6 +64,14 @@
 //     (attention_fwd.cuh); attention backward is two launches over 64-wide
 //     tiles (queries for dq, keys for dk and dv), so no head's S x S block
 //     has to fit in shared memory.
+//   * in prng mode each dropout site computes one full Philox4x32-10 per
+//     element it touches (about 100 integer operations on the CUDA cores,
+//     ~1 G per forward at B=64, S=77, D=512, F=1024, where the masks mode
+//     reads ~20 MB of bf16 masks); the GELU epilogue and the FFN
+//     backward regenerate sites 1 and 2, the attention half site 0. The
+//     mode is a template parameter of every kernel with a dropout site
+//     (PRNG), chosen at launch from whether seeds are set, so the masks and
+//     rate-0 instantiations carry no Philox code.
 // No pipeline, TMA or wgmma yet. The launchers allocate nothing: the caller
 // passes every scratch buffer. Each returns a cudaError_t (0 on success).
 
@@ -110,12 +125,61 @@ enum Epilogue {
   EPI_ADD_F32,    // acc + res_f32
 };
 
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011; the constants of Random123): ten rounds of two 32x32->64
+// multiplies, with the key bumped by the Weyl constants between rounds.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// One dropout site of one layer call, applied to element (m, n) of an
+// (M = B*S, N) row-major activation by apply<PRNG>.
+//   masks mode (PRNG false, mask set): v * mask[m, n], the bf16 {0, 1/keep}
+//   mask; with no mask (rate 0): v;
+//   prng mode (PRNG true, seeds set, kernel 10): with b = m / S and s = m % S,
+//     bits = Philox4x32-10(counter (s, n >> 2, 0, 0), key (seeds[b], site))
+//     word n & 3, and v * scale where bits < thresh, else 0. The bit depends
+//     only on the element's logical index, never on the tile or thread, so
+//     the forward epilogues and both backward halves, which tile
+//     differently, regenerate one mask.
+struct Dropout {
+  const bf16* mask;
+  const int* seeds;  // (B,) per-clip seeds of this layer
+  unsigned thresh;   // min(int(keep * 2^32), 2^32 - 1)
+  float scale;       // fp32(1 / keep)
+  int S;             // rows per clip
+  int site;          // 0: after the out-projection, 1: after gelu, 2: after linear2
+  template <bool PRNG>
+  __device__ __forceinline__ float apply(float v, int m, int n, int N) const {
+    if constexpr (!PRNG) {
+      return mask == nullptr ? v : v * __bfloat162float(mask[(size_t)m * N + n]);
+    } else {
+      const int b = m / S;
+      const uint4 r = philox4x32_10(make_uint4((unsigned)(m - b * S), (unsigned)n >> 2, 0u, 0u),
+                                    make_uint2((unsigned)seeds[b], (unsigned)site));
+      const int w = n & 3;
+      const unsigned bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+      return bits < thresh ? v * scale : 0.0f;
+    }
+  }
+};
+
 struct GemmArgs {
   const bf16* a;  // (M, K) row-major, or (K, M) when transposed
   const bf16* b;  // (N, K) row-major (Linear weight), or (K, N)
   const float* bias;
   int M, N, K;
-  const bf16* mask;      // (M, N) dropout mask or null
+  Dropout drop;          // the epilogue's dropout site (identity when unset)
   const bf16* res_bf16;  // EPI_LN1_FWD: the layer input x
   const float* res_f32;  // EPI_LN2_FWD: h1; EPI_LN1_BWD: da2; EPI_ADD_F32
   const float* a1;       // LN1 input, for the recompute (backward epilogues)
@@ -146,9 +210,6 @@ using attention::warp_sum;
 
 __device__ __forceinline__ float bfr(float v) { return attention::bf16_round(v); }
 
-__device__ __forceinline__ float mask_at(const bf16* m, size_t i) {
-  return m == nullptr ? 1.0f : __bfloat162float(m[i]);
-}
 
 // Column sums over the block's valid rows of Cs -> partial[slot][blockIdx.x][n0 + c]
 __device__ void column_partials(const float* Cs, int ldc, int rows, int bn, float* partial,
@@ -162,6 +223,12 @@ __device__ void column_partials(const float* Cs, int ldc, int rows, int bn, floa
 
 __host__ __device__ constexpr bool owns_rows(int epi) {
   return epi == EPI_LN1_FWD || epi == EPI_LN2_FWD || epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
+}
+
+// the epilogues with a dropout site
+__host__ __device__ constexpr bool drops(int epi) {
+  return epi == EPI_GELU_DROP || epi == EPI_LN1_FWD || epi == EPI_LN2_FWD || epi == EPI_UP_BWD ||
+         epi == EPI_LN2_BWD || epi == EPI_DU;
 }
 
 template <int BM, bool AT>
@@ -183,9 +250,10 @@ __host__ __device__ inline int gemm_smem_bytes(int bn) {
 // own whole rows (bn = N = D <= BN = MAX_D, in dynamic shared memory); the
 // others take columns [blockIdx.y * BN, +bn) with bn = min(BN, N - n0), so N
 // need only be a multiple of 16. FULL: every tile is BN wide (bn == BN), the
-// common case, compiled without the guards of a narrower tile. Warp (wm, wn)
-// holds the 16-column fragments wn, wn + WARPS_N, ... of its 16 rows.
-template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL>
+// common case, compiled without the guards of a narrower tile. PRNG: the
+// dropout site's mode (see Dropout). Warp (wm, wn) holds the 16-column
+// fragments wn, wn + WARPS_N, ... of its 16 rows.
+template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL, bool PRNG>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   constexpr int WARPS_M = BM / 16;
   constexpr int WARPS_N = GEMM_WARPS / WARPS_M;
@@ -311,7 +379,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         for (int e = 0; e < 2; ++e) {
           const float x = u[e];
           const float t = tanhf(GELU_C * (x + GELU_A * x * x * x));
-          gd[e] = 0.5f * x * (1.0f + t) * mask_at(p.mask, g + e);
+          gd[e] = p.drop.apply<PRNG>(0.5f * x * (1.0f + t), m, n + e, p.N);
           gp[e] = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * GELU_C * (1.0f + 3.0f * GELU_A * x * x);
         }
         *reinterpret_cast<bf162*>(p.out_bf16 + g) = __floats2bfloat162_rn(gd[0], gd[1]);
@@ -336,7 +404,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       float du = 0.f;
       if (r < rows) {
         const size_t g = (size_t)(m0 + r) * p.N + n0 + c;
-        du = Cs[r * ldc + c] * mask_at(p.mask, g) * p.gp[g];
+        du = p.drop.apply<PRNG>(Cs[r * ldc + c], m0 + r, n0 + c, p.N) * p.gp[g];
         p.out_bf16[g] = __float2bfloat16_rn(du);
       }
       Cs[r * ldc + c] = du;
@@ -354,7 +422,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 #pragma unroll
         for (int c = lane; c < BN; c += 32) {
           if (c >= bn) continue;
-          const float proj = (row[c] + p.bias[c]) * mask_at(p.mask, g + c);
+          const float proj = p.drop.apply<PRNG>(row[c] + p.bias[c], m, c, bn);
           const float h = EPI == EPI_LN1_FWD ? __bfloat162float(p.res_bf16[g + c]) + proj
                                              : p.res_f32[g + c] + proj;
           if (EPI == EPI_LN1_FWD) p.out2_f32[g + c] = h;
@@ -397,7 +465,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         for (int c = lane; c < BN; c += 32) {
           if (c >= bn) continue;
           const float h1 = (p.a1[g + c] - mu1) * rs1 * p.ln1_s[c] + p.ln1_b[c];
-          const float a2 = h1 + (row[c] + p.bias[c]) * mask_at(p.mask, g + c);
+          const float a2 = h1 + p.drop.apply<PRNG>(row[c] + p.bias[c], m, c, bn);
           row[c] = a2;
           sum += a2;
         }
@@ -445,7 +513,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
           if (c >= bn) continue;
           const float dxh = p.dh[g + c] * p.ln2_s[c];
           const float da2 = rs * (dxh - mean1 - row[c] * mean2);
-          const float df = da2 * mask_at(p.mask, g + c);
+          const float df = p.drop.apply<PRNG>(da2, m, c, bn);
           p.out_f32[g + c] = da2;
           p.out_bf16[g + c] = __float2bfloat16_rn(df);
           row[c] = df;
@@ -885,16 +953,18 @@ ln_recompute_kernel(const float* __restrict__ a1, const float* __restrict__ s,
     h1[(size_t)m * D + c] = __float2bfloat16_rn((row[c] - mu) * rs * s[c] + bias[c]);
 }
 
-// dproj = da1 * m0 as bf16, and per-16-row-block column sums of the fp32 values.
+// dproj = dropout site 0 of da1 as bf16, and per-16-row-block column sums of
+// the fp32 values.
+template <bool PRNG>
 __global__ void __launch_bounds__(256)
-dropout_bwd_kernel(const float* __restrict__ da1, const bf16* __restrict__ m0,
-                   bf16* __restrict__ out, float* __restrict__ partial, int M, int D) {
+dropout_bwd_kernel(const float* __restrict__ da1, Dropout drop, bf16* __restrict__ out,
+                   float* __restrict__ partial, int M, int D) {
   const int r0 = blockIdx.x * ROW_BM, r1 = min(M, r0 + ROW_BM);
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float s = 0.f;
     for (int r = r0; r < r1; ++r) {
       const size_t g = (size_t)r * D + c;
-      const float val = da1[g] * mask_at(m0, g);
+      const float val = drop.apply<PRNG>(da1[g], r, c, D);
       out[g] = __float2bfloat16_rn(val);
       s += val;
     }
@@ -959,40 +1029,51 @@ cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int B, bool stored, cudaS
                 : launch_attention_bwd_t<128, false>(a, B, st);
 }
 
-template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL>
+template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL, bool PRNG>
 cudaError_t launch_gemm_tiles(const GemmArgs& p, cudaStream_t st) {
   static size_t allowed = 48 * 1024;
   const int smem = gemm_smem_bytes<BM, BN, AT, BT>(owns_rows(EPI) ? p.N : BN);
-  cudaError_t e = attention::allow_smem(gemm_kernel<BM, BN, AT, BT, EPI, FULL>, smem, allowed);
+  cudaError_t e =
+      attention::allow_smem(gemm_kernel<BM, BN, AT, BT, EPI, FULL, PRNG>, smem, allowed);
   if (e != cudaSuccess) return e;
   dim3 grid((p.M + BM - 1) / BM, owns_rows(EPI) ? 1 : (p.N + BN - 1) / BN);
-  gemm_kernel<BM, BN, AT, BT, EPI, FULL><<<grid, GEMM_THREADS, smem, st>>>(p);
+  gemm_kernel<BM, BN, AT, BT, EPI, FULL, PRNG><<<grid, GEMM_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int BM, int BN, bool AT, bool BT, int EPI>
+template <int BM, int BN, bool AT, bool BT, int EPI, bool PRNG = false>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t st) {
   if (p.N % 16 != 0 || (owns_rows(EPI) && p.N > BN) || (AT && (p.M % BM != 0 || p.N % BN != 0)))
     return cudaErrorInvalidValue;
   if constexpr (AT) {  // weight gradients: every tile is full
-    return launch_gemm_tiles<BM, BN, AT, BT, EPI, true>(p, st);
+    return launch_gemm_tiles<BM, BN, AT, BT, EPI, true, PRNG>(p, st);
   } else {
     if (owns_rows(EPI) ? p.N == BN : p.N % BN == 0)
-      return launch_gemm_tiles<BM, BN, AT, BT, EPI, true>(p, st);
-    return launch_gemm_tiles<BM, BN, AT, BT, EPI, false>(p, st);
+      return launch_gemm_tiles<BM, BN, AT, BT, EPI, true, PRNG>(p, st);
+    return launch_gemm_tiles<BM, BN, AT, BT, EPI, false, PRNG>(p, st);
   }
 }
 
 // 16-row GEMMs: blocks that own whole rows (BN == N == D; rows up to 512
 // wide keep 4 accumulator fragments per warp, wider ones 8) or 128-column tiles
+template <bool BT, int EPI, bool PRNG>
+cudaError_t launch_row_gemm_mode(const GemmArgs& p, cudaStream_t st) {
+  if constexpr (!owns_rows(EPI)) {
+    return launch_gemm<ROW_BM, NARROW_BN, false, BT, EPI, PRNG>(p, st);
+  } else {
+    if (p.N <= MAX_D / 2) return launch_gemm<ROW_BM, MAX_D / 2, false, BT, EPI, PRNG>(p, st);
+    return launch_gemm<ROW_BM, MAX_D, false, BT, EPI, PRNG>(p, st);
+  }
+}
+
+// ... in the dropout site's mode: prng where the site has seeds, else masks
+// (or none); epilogues without a site compile only the latter
 template <bool BT, int EPI>
 cudaError_t launch_row_gemm(const GemmArgs& p, cudaStream_t st) {
-  if constexpr (!owns_rows(EPI)) {
-    return launch_gemm<ROW_BM, NARROW_BN, false, BT, EPI>(p, st);
-  } else {
-    if (p.N <= MAX_D / 2) return launch_gemm<ROW_BM, MAX_D / 2, false, BT, EPI>(p, st);
-    return launch_gemm<ROW_BM, MAX_D, false, BT, EPI>(p, st);
+  if constexpr (drops(EPI)) {
+    if (p.drop.seeds != nullptr) return launch_row_gemm_mode<BT, EPI, true>(p, st);
   }
+  return launch_row_gemm_mode<BT, EPI, false>(p, st);
 }
 
 // dW = X^T Y over all M rows: X (M, P) and Y (M, Q) bf16 -> (P, Q) fp32.
@@ -1016,6 +1097,25 @@ bool heads_ok(int D, int H) {
   return H >= 1 && D % H == 0 && (D / H) % 16 == 0 && D / H <= 128;
 }
 
+// Masks and seeds are exclusive, and seeds need a keep threshold above 0.
+bool dropout_ok(const void* m0, const void* m1, const void* m2, const void* seeds,
+                unsigned thresh) {
+  return seeds == nullptr || (m0 == nullptr && m1 == nullptr && m2 == nullptr && thresh > 0);
+}
+
+// Site `site` of a layer call: its bf16 mask, or in prng mode the seeds.
+Dropout dropout_site(const void* mask, const void* seeds, unsigned thresh, float scale, int S,
+                     int site) {
+  Dropout d = {};
+  d.mask = static_cast<const bf16*>(mask);
+  d.seeds = static_cast<const int*>(seeds);
+  d.thresh = thresh;
+  d.scale = scale;
+  d.S = S;
+  d.site = site;
+  return d;
+}
+
 }  // namespace
 
 #define RETURN_IF_ERROR(expr)              \
@@ -1034,13 +1134,15 @@ bool heads_ok(int D, int H) {
 // the same launches in the same order with the same arithmetic, so `out`,
 // a1 and attn are bit-equal between the two.
 static int train_forward(const void* x, const void* key_mask, const void* m0, const void* m1,
-                  const void* m2, const void* w_qkv, const void* b_qkv, const void* w_o,
+                  const void* m2, const void* seeds, unsigned thresh, float scale,
+                  const void* w_qkv, const void* b_qkv, const void* w_o,
                   const void* b_o, const void* ln1_s, const void* ln1_b, const void* w_1,
                   const void* b_1, const void* w_2, const void* b_2, const void* ln2_s,
                   const void* ln2_b, void* q, void* k, void* v, void* h1_f32, void* h1_bf16,
                   void* g, void* out_bf16, void* out_f32, void* a1, void* attn, void* probs,
                   void* qkv, int B, int S, int D, int H, int F, void* stream) {
-  if (!dims_ok(B, S, D, F) || !heads_ok(D, H) || (out_bf16 == nullptr) == (out_f32 == nullptr))
+  if (!dims_ok(B, S, D, F) || !heads_ok(D, H) || (out_bf16 == nullptr) == (out_f32 == nullptr) ||
+      !dropout_ok(m0, m1, m2, seeds, thresh))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int dh = D / H, M = B * S;
@@ -1077,7 +1179,7 @@ static int train_forward(const void* x, const void* key_mask, const void* m0, co
   p.bias = F32(b_o);
   p.N = D;
   p.K = D;
-  p.mask = BF(m0);
+  p.drop = dropout_site(m0, seeds, thresh, scale, S, 0);
   p.res_bf16 = BF(x);
   p.ln1_s = F32(ln1_s);
   p.ln1_b = F32(ln1_b);
@@ -1090,7 +1192,7 @@ static int train_forward(const void* x, const void* key_mask, const void* m0, co
   p.b = BF(w_1);
   p.bias = F32(b_1);
   p.N = F;
-  p.mask = BF(m1);
+  p.drop = dropout_site(m1, seeds, thresh, scale, S, 1);
   p.out_bf16 = static_cast<bf16*>(g);
   RETURN_IF_ERROR((launch_row_gemm<true, EPI_GELU_DROP>(p, st)));
   // 5. FFN down, dropout 2, residual h1, LayerNorm 2
@@ -1099,7 +1201,7 @@ static int train_forward(const void* x, const void* key_mask, const void* m0, co
   p.bias = F32(b_2);
   p.N = D;
   p.K = F;
-  p.mask = BF(m2);
+  p.drop = dropout_site(m2, seeds, thresh, scale, S, 2);
   p.res_f32 = F32(h1_f32);
   p.ln2_s = F32(ln2_s);
   p.ln2_b = F32(ln2_b);
@@ -1111,18 +1213,19 @@ static int train_forward(const void* x, const void* key_mask, const void* m0, co
 
 // Forward (kernel 5). x (B, S, D) bf16; key_mask (B, S) fp32 additive or
 // null; m0, m1, m2 bf16 masks (B, S, D), (B, S, F), (B, S, D), all null at
-// rate 0; weights bf16 in Linear layout, vectors fp32. Scratch: q, k, v,
+// rate 0 and in prng mode; seeds (B,) int32 per-clip seeds in prng mode (else
+// null) with the keep threshold and the 1/keep scale; weights bf16 in Linear layout, vectors fp32. Scratch: q, k, v,
 // h1_bf16 (M, D) bf16, h1_f32 (M, D) fp32, g (M, F) bf16. Outputs: out_bf16
 // or out_f32 (M, D), exactly one non-null; a1 (M, D) fp32; attn (M, D) bf16.
 extern "C" int fused_layer_train_forward(
     const void* x, const void* key_mask, const void* m0, const void* m1, const void* m2,
-    const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
+    const void* seeds, unsigned thresh, float scale, const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
     const void* ln1_b, const void* w_1, const void* b_1, const void* w_2, const void* b_2,
     const void* ln2_s, const void* ln2_b, void* q, void* k, void* v, void* h1_f32,
     void* h1_bf16, void* g, void* out_bf16, void* out_f32, void* a1, void* attn, int B, int S,
     int D, int H, int F, void* stream) {
-  return train_forward(x, key_mask, m0, m1, m2, w_qkv, b_qkv, w_o, b_o, ln1_s, ln1_b, w_1, b_1,
-                       w_2, b_2, ln2_s, ln2_b, q, k, v, h1_f32, h1_bf16, g, out_bf16, out_f32, a1,
+  return train_forward(x, key_mask, m0, m1, m2, seeds, thresh, scale, w_qkv, b_qkv, w_o, b_o,
+                       ln1_s, ln1_b, w_1, b_1, w_2, b_2, ln2_s, ln2_b, q, k, v, h1_f32, h1_bf16, g, out_bf16, out_f32, a1,
                        attn, nullptr, nullptr, B, S, D, H, F, stream);
 }
 
@@ -1132,29 +1235,31 @@ extern "C" int fused_layer_train_forward(
 // projection with q unscaled. q_s (M, D) is scratch for q*scale.
 extern "C" int fused_layer_train_forward_store(
     const void* x, const void* key_mask, const void* m0, const void* m1, const void* m2,
-    const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
+    const void* seeds, unsigned thresh, float scale, const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o, const void* ln1_s,
     const void* ln1_b, const void* w_1, const void* b_1, const void* w_2, const void* b_2,
     const void* ln2_s, const void* ln2_b, void* q_s, void* h1_f32, void* h1_bf16, void* g,
     void* out_bf16, void* out_f32, void* a1, void* attn, void* probs, void* qkv, int B, int S,
     int D, int H, int F, void* stream) {
   if (probs == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
-  return train_forward(x, key_mask, m0, m1, m2, w_qkv, b_qkv, w_o, b_o, ln1_s, ln1_b, w_1, b_1,
-                       w_2, b_2, ln2_s, ln2_b, q_s, nullptr, nullptr, h1_f32, h1_bf16, g,
+  return train_forward(x, key_mask, m0, m1, m2, seeds, thresh, scale, w_qkv, b_qkv, w_o, b_o,
+                       ln1_s, ln1_b, w_1, b_1, w_2, b_2, ln2_s, ln2_b, q_s, nullptr, nullptr, h1_f32, h1_bf16, g,
                        out_bf16, out_f32, a1, attn, probs, qkv, B, S, D, H, F, stream);
 }
 
 // FFN half of the backward. dh2 (M, D) fp32; a1 (M, D) fp32; m1 (M, F) and m2
-// (M, D) bf16 masks or null. Scratch: stats (M, 2) fp32; h1 (M, D) bf16; gd
+// (M, D) bf16 masks or null; seeds, thresh, scale as the forward's. Scratch: stats (M, 2) fp32; h1 (M, D) bf16; gd
 // (M, F) bf16; gp (M, F) fp32; da2 (M, D) fp32; df (M, D) bf16; du (M, F)
 // bf16; partial (ceil(M/16) * (5 D + F)) fp32. Outputs (fp32): da1 (M, D),
 // dw1 (F, D), db1 (F), dw2 (D, F), db2, dls1, dlb1, dls2, dlb2 (D).
 extern "C" int fused_layer_train_bwd_ffn(
-    const void* dh2, const void* a1, const void* m1, const void* m2, const void* w_1,
+    const void* dh2, const void* a1, const void* m1, const void* m2, const void* seeds,
+    unsigned thresh, float scale, const void* w_1,
     const void* b_1, const void* w_2, const void* b_2, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, void* stats, void* h1, void* gd, void* gp, void* da2,
     void* df, void* du, void* partial, void* da1, void* dw1, void* db1, void* dw2, void* db2,
     void* dls1, void* dlb1, void* dls2, void* dlb2, int B, int S, int D, int F, void* stream) {
-  if (!dims_ok(B, S, D, F)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(B, S, D, F) || !dropout_ok(nullptr, m1, m2, seeds, thresh))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * S, nb = (M + ROW_BM - 1) / ROW_BM;
   float* part_ln2 = static_cast<float*>(partial);  // 3 slots x nb x D: dls2, dlb2, db2
@@ -1181,7 +1286,7 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.bias = F32(b_1);
   p.N = F;
   p.K = D;
-  p.mask = BF(m1);
+  p.drop = dropout_site(m1, seeds, thresh, scale, S, 1);
   p.out_bf16 = static_cast<bf16*>(gd);
   p.out_f32 = static_cast<float*>(gp);
   RETURN_IF_ERROR((launch_row_gemm<true, EPI_UP_BWD>(p, st)));
@@ -1191,7 +1296,7 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.bias = F32(b_2);
   p.N = D;
   p.K = F;
-  p.mask = BF(m2);
+  p.drop = dropout_site(m2, seeds, thresh, scale, S, 2);
   p.dh = F32(dh2);
   p.out_f32 = static_cast<float*>(da2);
   p.out_bf16 = static_cast<bf16*>(df);
@@ -1203,7 +1308,7 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.bias = nullptr;
   p.N = F;
   p.K = D;
-  p.mask = BF(m1);
+  p.drop = dropout_site(m1, seeds, thresh, scale, S, 1);
   p.gp = F32(gp);
   p.out_bf16 = static_cast<bf16*>(du);
   p.partial = part_db1;
@@ -1213,7 +1318,7 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.b = BF(w_1);  // (F, D) = (K, N)
   p.N = D;
   p.K = F;
-  p.mask = nullptr;
+  p.drop = Dropout{};
   p.res_f32 = F32(da2);
   p.out_f32 = static_cast<float*>(da1);
   p.partial = part_ln1;
@@ -1238,19 +1343,25 @@ extern "C" int fused_layer_train_bwd_ffn(
 // q_s, q, k, v, and the softmax from them. probs and qkv set (kernel 9): q,
 // k and v are read from the stored qkv (M, 3D) and p from probs.
 static int bwd_attn(const void* da1, const void* x, const void* key_mask, const void* attn,
-             const void* m0, const void* probs, const void* qkv, const void* w_qkv,
+             const void* m0, const void* seeds, unsigned thresh, float scale, const void* probs, const void* qkv, const void* w_qkv,
              const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s, void* q,
              void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* stats, void* dx,
              void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H,
              void* stream) {
-  if (!dims_ok(B, S, D, 64) || !heads_ok(D, H)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(B, S, D, 64) || !heads_ok(D, H) || !dropout_ok(m0, nullptr, nullptr, seeds, thresh))
+    return (int)cudaErrorInvalidValue;
   const bool stored = probs != nullptr;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int dh = D / H, M = B * S, nb = (M + ROW_BM - 1) / ROW_BM;
 
-  // 1. dproj = da1 m0
-  dropout_bwd_kernel<<<nb, 256, 0, st>>>(F32(da1), BF(m0), static_cast<bf16*>(dproj),
-                                         static_cast<float*>(part_o), M, D);
+  // 1. dproj = dropout site 0 of da1
+  const Dropout d0 = dropout_site(m0, seeds, thresh, scale, S, 0);
+  if (seeds != nullptr)
+    dropout_bwd_kernel<true><<<nb, 256, 0, st>>>(F32(da1), d0, static_cast<bf16*>(dproj),
+                                                 static_cast<float*>(part_o), M, D);
+  else
+    dropout_bwd_kernel<false><<<nb, 256, 0, st>>>(F32(da1), d0, static_cast<bf16*>(dproj),
+                                                  static_cast<float*>(part_o), M, D);
   RETURN_IF_ERROR(cudaGetLastError());
   GemmArgs p = {};
   p.M = M;
@@ -1322,16 +1433,17 @@ static int bwd_attn(const void* da1, const void* x, const void* key_mask, const 
 }
 
 // Attention half of the backward (kernel 7). da1 (M, D) fp32; x (M, D) bf16;
-// key_mask (B, S) fp32 or null; attn (M, D) bf16; m0 (M, D) bf16 or null.
+// key_mask (B, S) fp32 or null; attn (M, D) bf16; m0 (M, D) bf16 or null;
+// seeds, thresh, scale as the forward's.
 // Scratch: dproj, dattn, q_s, q, k, v (M, D) bf16; dqkv (M, 3D) bf16; part_o
 // (ceil(M/16), D), part_qkv (B * ceil(S/64), 3D) and stats (B*H*S, 3) fp32.
 // Outputs (fp32): dx (M, D), dwqkv (3D, D), dbqkv (3D), dwo (D, D), dbo (D).
 extern "C" int fused_layer_train_bwd_attn(
     const void* da1, const void* x, const void* key_mask, const void* attn, const void* m0,
-    const void* w_qkv, const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s,
+    const void* seeds, unsigned thresh, float scale, const void* w_qkv, const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s,
     void* q, void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* stats, void* dx,
     void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H, void* stream) {
-  return bwd_attn(da1, x, key_mask, attn, m0, nullptr, nullptr, w_qkv, b_qkv, w_o, dproj, dattn,
+  return bwd_attn(da1, x, key_mask, attn, m0, seeds, thresh, scale, nullptr, nullptr, w_qkv, b_qkv, w_o, dproj, dattn,
                   q_s, q, k, v, dqkv, part_o, part_qkv, stats, dx, dwqkv, dbqkv, dwo, dbo, B, S,
                   D, H, stream);
 }
@@ -1341,12 +1453,13 @@ extern "C" int fused_layer_train_bwd_attn(
 // the recompute; no key mask is needed (it is in p). Scratch and outputs as
 // kernel 7's, without q_s, q, k and v.
 extern "C" int fused_layer_train_bwd_attn_stored(
-    const void* da1, const void* x, const void* attn, const void* m0, const void* probs,
+    const void* da1, const void* x, const void* attn, const void* m0, const void* seeds,
+    unsigned thresh, float scale, const void* probs,
     const void* qkv, const void* w_qkv, const void* w_o, void* dproj, void* dattn, void* dqkv,
     void* part_o, void* part_qkv, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo,
     void* dbo, int B, int S, int D, int H, void* stream) {
   if (probs == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
-  return bwd_attn(da1, x, nullptr, attn, m0, probs, qkv, w_qkv, nullptr, w_o, dproj, dattn,
+  return bwd_attn(da1, x, nullptr, attn, m0, seeds, thresh, scale, probs, qkv, w_qkv, nullptr, w_o, dproj, dattn,
                   nullptr, nullptr, nullptr, nullptr, dqkv, part_o, part_qkv, stats, dx, dwqkv,
                   dbqkv, dwo, dbo, B, S, D, H, stream);
 }

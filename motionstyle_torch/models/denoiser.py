@@ -75,6 +75,16 @@ class MDMConfig:
     # with fused_train: the forward keeps the softmax probabilities and qkv,
     # and the attention backward reads them instead of recomputing them
     fused_train_store: bool = False
+    # with fused_train: the kernels generate the dropout masks themselves from
+    # per-(clip, layer) seeds (Philox, kernel 10) instead of reading mask
+    # arrays; the draws differ from the masks mode's, the statistics agree
+    fused_train_prng: bool = False
+
+    def __post_init__(self):
+        # either variant of the fused training layer implies it, as the JAX
+        # CLIs normalize it (motionstyle/cli/model_util.py:50-53, :74-81)
+        if self.fused_train_store or self.fused_train_prng:
+            object.__setattr__(self, "fused_train", True)
 
     @property
     def input_feats(self) -> int:
@@ -168,12 +178,13 @@ class MDM(nn.Module):
         (motionstyle/models/denoiser.py:185-187, :267-269): the inference
         kernel with cfg.fused or cfg.quant_int8 at inference (the int8 one
         with cfg.quant_int8), the training kernels with cfg.fused_train in a
-        training forward, else the plain layers."""
+        training forward (store-probs with cfg.fused_train_store, in-kernel
+        dropout with cfg.fused_train_prng), else the plain layers."""
         cfg = self.cfg
         return encoder(xseq, dtype=cfg.torch_dtype, use_fused=cfg.fused or cfg.quant_int8,
                        fused_train=cfg.fused_train, deterministic=deterministic,
                        generator=generator, store_probs=cfg.fused_train_store,
-                       use_int8=cfg.quant_int8)
+                       use_int8=cfg.quant_int8, in_kernel_prng=cfg.fused_train_prng)
 
     def output_head(self, encoded: torch.Tensor) -> torch.Tensor:
         """Strip the condition token; (B, S, d) -> (B, C, F, T) fp32 motion."""

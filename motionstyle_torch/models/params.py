@@ -7,15 +7,17 @@ under its own keys plus the sequence_pos_encoder buffers, which are
 recomputed, not loaded. A style checkpoint (--model_path) holds only
 'seqTransEncoder.layers.{i}.*', the finetuned style encoder (the reference
 strips everything else at save time, training_loop.py:316-335);
-export_style_encoder writes one and convert_encoder reads one. A semantic
+export_style_encoder writes one and convert_encoder reads one; export_mdm
+writes a prior and from_torch_state_dict reads one. A semantic
 discriminator checkpoint (--semantic_discriminator_path) holds muQuery,
 sigmaQuery and its own 'seqTransEncoder.layers.{i}.*'.
 
 flax trees: Dense kernels are (in, out) where torch weights are (out, in);
 LayerNorm 'scale' is torch's 'weight'; the packed in-projection is one
-(D, 3D) kernel, torch's (3D, D) in_proj_weight. encoder_leaves lists an
-encoder's leaves in jax's flattening order with that mapping; the weights
-and the optimizer's moments (train/finetune.py) both cross over through it.
+(D, 3D) kernel, torch's (3D, D) in_proj_weight. encoder_leaves and
+mdm_leaves list an encoder's and a prior's leaves in jax's flattening order
+with that mapping; the weights and the optimizer's moments
+(train/finetune.py, train/pretrain.py) cross over through them.
 """
 from __future__ import annotations
 
@@ -56,12 +58,29 @@ def convert_encoder(sd: Dict[str, np.ndarray], prefix: str, num_layers: int
     return out
 
 
+def _cpu_state(module: nn.Module, prefix: str = "") -> Dict[str, torch.Tensor]:
+    return {prefix + k: v.detach().float().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def export_encoder(encoder: nn.Module) -> Dict[str, torch.Tensor]:
+    """A port TransformerEncoder in the reference layout
+    ('seqTransEncoder.layers.{i}.*', fp32 on the CPU)."""
+    return _cpu_state(encoder, "seqTransEncoder.")
+
+
 def export_style_encoder(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The style encoder of a StyleDiffusion in the reference layout
-    ('seqTransEncoder.layers.{i}.*', fp32 on the CPU): what a model*.pt holds
-    once the frozen modules are stripped (training_loop.py:316-335)."""
-    return {f"seqTransEncoder.{k}": v.detach().float().cpu().clone()
-            for k, v in model.style_encoder.state_dict().items()}
+    """The style encoder of a StyleDiffusion in the reference layout: what a
+    model*.pt holds once the frozen modules are stripped
+    (training_loop.py:316-335)."""
+    return export_encoder(model.style_encoder)
+
+
+def export_mdm(mdm: nn.Module) -> Dict[str, torch.Tensor]:
+    """A port MDM prior in the reference layout (fp32 on the CPU), loadable as
+    an --mdm_path checkpoint by either package: the counterpart of
+    motionstyle/models/torch_import.py:203 export_mdm. The positional
+    encoding is a recomputed buffer and is not written."""
+    return _cpu_state(mdm)
 
 
 def from_torch_state_dict(sd: Dict[str, np.ndarray], cfg: MDMConfig,
@@ -120,6 +139,28 @@ def encoder_leaves(num_layers: int) -> list:
     return sorted(leaves, key=lambda leaf: leaf[0])
 
 
+# The prior's Dense layers outside its encoder: (flax path under 'mdm', the
+# port's module path under MDM).
+_MDM_DENSE = (
+    (("embed_text",), "embed_text"),
+    (("embed_timestep", "time_embed_0"), "embed_timestep.time_embed.0"),
+    (("embed_timestep", "time_embed_2"), "embed_timestep.time_embed.2"),
+    (("input_process",), "input_process.poseEmbedding"),
+    (("output_process",), "output_process.poseFinal"),
+)
+
+
+def mdm_leaves(num_layers: int) -> list:
+    """(flax path, port MDM state-dict key, transposed) for every leaf of the
+    JAX MDM subtree ('mdm': the embeddings, the input and output heads and
+    the encoder), in the order jax.tree_util flattens it."""
+    leaves = [(path + (leaf,), f"{key}.{name}", leaf == "kernel")
+              for path, key in _MDM_DENSE for leaf, name in (("bias", "bias"), ("kernel", "weight"))]
+    leaves += [(("seqTransEncoder",) + path, f"seqTransEncoder.{key}", transposed)
+               for path, key, transposed in encoder_leaves(num_layers)]
+    return sorted(leaves, key=lambda leaf: leaf[0])
+
+
 def flax_to_torch(a, transposed: bool) -> torch.Tensor:
     """A flax leaf -> the port's layout ((in, out) kernels become (out, in))."""
     t = _tensor(a)
@@ -153,14 +194,12 @@ def encoder_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def _mdm_from_jax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
     out = {}
-    out.update(_dense(tree["input_process"], f"{prefix}input_process.poseEmbedding"))
-    out.update(_dense(tree["embed_timestep"]["time_embed_0"],
-                      f"{prefix}embed_timestep.time_embed.0"))
-    out.update(_dense(tree["embed_timestep"]["time_embed_2"],
-                      f"{prefix}embed_timestep.time_embed.2"))
-    out.update(_dense(tree["embed_text"], f"{prefix}embed_text"))
+    for path, key in _MDM_DENSE:
+        sub = tree
+        for k in path:
+            sub = sub[k]
+        out.update(_dense(sub, prefix + key))
     out.update(encoder_from_jax(tree["seqTransEncoder"], f"{prefix}seqTransEncoder."))
-    out.update(_dense(tree["output_process"], f"{prefix}output_process.poseFinal"))
     return out
 
 

@@ -19,7 +19,8 @@ flax's Dense(dtype=...) does. The encoder routes as the JAX encoder does
 (:203-229): use_fused at inference runs the hand-written CUDA layer
 (ops/fused_encoder.py), with use_int8 the int8 CUDA layer; fused_train in a
 training forward runs the differentiable CUDA training layer
-(ops/fused_encoder_train.py), with store_probs its store-probs kernels.
+(ops/fused_encoder_train.py), with store_probs its store-probs kernels and
+with in_kernel_prng its in-kernel Philox dropout.
 """
 from __future__ import annotations
 
@@ -123,12 +124,15 @@ class TransformerEncoder(nn.Module):
                 dtype: torch.dtype = torch.float32, use_fused: bool = False,
                 fused_train: bool = False, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                store_probs: bool = False, use_int8: bool = False) -> torch.Tensor:
+                store_probs: bool = False, use_int8: bool = False,
+                in_kernel_prng: bool = False) -> torch.Tensor:
         """deterministic=False is a training forward: dropout at rate
         self.dropout from `generator`, one draw per layer in layer order.
-        use_int8 (with use_fused, at inference) runs the int8 layer and
-        store_probs (with fused_train) the store-probs training kernels, as
-        the JAX encoder passes them (motionstyle/models/transformer.py:203-227)."""
+        use_int8 (with use_fused, at inference) runs the int8 layer;
+        store_probs and in_kernel_prng (with fused_train) the store-probs
+        training kernels and the kernels' own dropout (one seed vector per
+        layer from `generator`), as the JAX encoder passes them
+        (motionstyle/models/transformer.py:203-227)."""
         drop = not deterministic and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("a training forward with dropout needs a torch.Generator")
@@ -139,7 +143,8 @@ class TransformerEncoder(nn.Module):
         if fused_train and not deterministic:
             return fused_encoder_train(
                 x, [layer_params(layer) for layer in self.layers], self.nhead,
-                self.dropout, generator, key_padding_mask, store_probs).to(x.dtype)
+                self.dropout, generator, key_padding_mask, store_probs,
+                in_kernel_prng).to(x.dtype)
         for layer in self.layers:
             masks = None
             if drop:

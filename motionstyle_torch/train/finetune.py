@@ -87,6 +87,58 @@ def find_resume_checkpoint(save_dir: str, mode: str = "model") -> Optional[str]:
     return os.path.join(save_dir, f"{mode}{steps[-1]:09d}.pt")
 
 
+def optimizer_state_leaves(opt: torch.optim.Optimizer, params: list,
+                           schedule_count: Optional[int] = None) -> list:
+    """An AdamW's state as the JAX trainers flatten their optax.adamw state:
+    [Adam count, mu leaves..., nu leaves..., (the LR schedule's count)] as
+    numpy arrays, int32 counts and fp32 moments in flax's layout. params:
+    (parameter, transposed) in flax leaf order."""
+    states = [opt.state.get(p, {}) for p, _ in params]
+    count = int(states[0]["step"]) if "step" in states[0] else 0
+    moments = [torch_to_flax(st.get(name, torch.zeros_like(p)), transposed)
+               for name in ("exp_avg", "exp_avg_sq")
+               for (p, transposed), st in zip(params, states)]
+    leaves = [np.asarray(count, np.int32)] + moments
+    if schedule_count is not None:
+        leaves.append(np.asarray(schedule_count, np.int32))
+    return leaves
+
+
+def load_optimizer_state_leaves(opt: torch.optim.Optimizer, params: list, leaves: list) -> int:
+    """Restore an AdamW's moments and step from optimizer_state_leaves'
+    format; returns the LR schedule's count (the Adam count when the leaves
+    hold none)."""
+    n = len(params)
+    if not isinstance(leaves, list) or len(leaves) not in (1 + 2 * n, 2 + 2 * n):
+        raise ValueError(f"an optimizer state of {1 + 2 * n} or {2 + 2 * n} leaves "
+                         f"(count, mu, nu[, schedule count]) was expected, got "
+                         f"{len(leaves) if isinstance(leaves, list) else type(leaves)}")
+    count = int(np.asarray(leaves[0]))
+    for i, (p, transposed) in enumerate(params):
+        mu = flax_to_torch(leaves[1 + i], transposed)
+        nu = flax_to_torch(leaves[1 + n + i], transposed)
+        if mu.shape != p.shape or nu.shape != p.shape:
+            raise ValueError(f"optimizer leaf {i}: moments of shape {tuple(mu.shape)} for "
+                             f"a parameter of shape {tuple(p.shape)}")
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu.to(p.device), "exp_avg_sq": nu.to(p.device)}
+    return int(np.asarray(leaves[-1])) if len(leaves) == 2 + 2 * n else count
+
+
+def set_schedule_position(lr_schedule, position: int, factor) -> None:
+    """Move a LambdaLR to `position` updates, its optimizer's LR with it."""
+    lr_schedule.last_epoch = position
+    for group, base in zip(lr_schedule.optimizer.param_groups, lr_schedule.base_lrs):
+        group["lr"] = base * factor(position)
+    lr_schedule._last_lr = [group["lr"] for group in lr_schedule.optimizer.param_groups]
+
+
+def linear_anneal(anneal_steps: int):
+    """optax.linear_schedule(lr, 0, anneal_steps) as a factor of the base LR
+    (constant without an anneal)."""
+    return lambda k: max(0.0, 1.0 - k / anneal_steps) if anneal_steps else 1.0
+
+
 def _mix(*parts: int) -> int:
     """A generator seed from integers (a fixed polynomial hash)."""
     h = 0
@@ -122,6 +174,7 @@ class StyleFinetuneTrainer(PreemptionMixin):
                 trainable.append(p)
         self.opt = torch.optim.AdamW(trainable, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=cfg.weight_decay)
+        self._lr_factor = linear_anneal(cfg.lr_anneal_steps)
         self.lr_schedule = torch.optim.lr_scheduler.LambdaLR(self.opt, self._lr_factor)
         if self.resume_step:
             self._load_optimizer_state()
@@ -131,11 +184,6 @@ class StyleFinetuneTrainer(PreemptionMixin):
         else:
             self.t_range = cfg.diffusion_steps - cfg.skip_steps
         self.sampler = UniformSampler(sched.num_timesteps)
-
-    def _lr_factor(self, k: int) -> float:
-        """optax.linear_schedule(lr, 0, lr_anneal_steps) over the base LR."""
-        anneal = self.cfg.lr_anneal_steps
-        return max(0.0, 1.0 - k / anneal) if anneal else 1.0
 
     # ------------------------------------------------------------------
     def _model_fn(self, step_seed: int):
@@ -255,43 +303,17 @@ class StyleFinetuneTrainer(PreemptionMixin):
                 for _, key, transposed in encoder_leaves(self.model.cfg.num_layers)]
 
     def optimizer_leaves(self) -> list:
-        """The optimizer state as the JAX trainer flattens its optax state:
-        [Adam count, mu leaves..., nu leaves..., (schedule count)] as numpy
-        arrays, int32 counts and fp32 moments in flax's layout."""
-        params = self._encoder_params()
-        states = [self.opt.state.get(p, {}) for p, _ in params]
-        count = int(states[0]["step"]) if "step" in states[0] else 0
-        moments = [torch_to_flax(st.get(name, torch.zeros_like(p)), transposed)
-                   for name in ("exp_avg", "exp_avg_sq")
-                   for (p, transposed), st in zip(params, states)]
-        leaves = [np.asarray(count, np.int32)] + moments
-        if self.cfg.lr_anneal_steps:
-            leaves.append(np.asarray(self.lr_schedule.last_epoch, np.int32))
-        return leaves
+        """The optimizer state in the JAX trainer's flat layout
+        (optimizer_state_leaves over the style encoder)."""
+        return optimizer_state_leaves(
+            self.opt, self._encoder_params(),
+            self.lr_schedule.last_epoch if self.cfg.lr_anneal_steps else None)
 
     def load_optimizer_leaves(self, leaves: list):
         """Restore AdamW's moments and step and the LR schedule's position
         from the JAX trainer's flat leaf list (optimizer_leaves' format)."""
-        params = self._encoder_params()
-        n = len(params)
-        if not isinstance(leaves, list) or len(leaves) not in (1 + 2 * n, 2 + 2 * n):
-            raise ValueError(f"an optimizer state of {1 + 2 * n} or {2 + 2 * n} leaves "
-                             f"(count, mu, nu[, schedule count]) was expected, got "
-                             f"{len(leaves) if isinstance(leaves, list) else type(leaves)}")
-        count = int(np.asarray(leaves[0]))
-        for i, (p, transposed) in enumerate(params):
-            mu = flax_to_torch(leaves[1 + i], transposed)
-            nu = flax_to_torch(leaves[1 + n + i], transposed)
-            if mu.shape != p.shape or nu.shape != p.shape:
-                raise ValueError(f"optimizer leaf {i}: moments of shape {tuple(mu.shape)} for "
-                                 f"a parameter of shape {tuple(p.shape)}")
-            self.opt.state[p] = {"step": torch.tensor(float(count)),
-                                 "exp_avg": mu.to(p.device), "exp_avg_sq": nu.to(p.device)}
-        position = int(np.asarray(leaves[-1])) if len(leaves) == 2 + 2 * n else count
-        self.lr_schedule.last_epoch = position
-        for group, base in zip(self.opt.param_groups, self.lr_schedule.base_lrs):
-            group["lr"] = base * self._lr_factor(position)
-        self.lr_schedule._last_lr = [group["lr"] for group in self.opt.param_groups]
+        position = load_optimizer_state_leaves(self.opt, self._encoder_params(), leaves)
+        set_schedule_position(self.lr_schedule, position, self._lr_factor)
 
     def _load_optimizer_state(self):
         opt_path = os.path.join(os.path.dirname(self._resolved_checkpoint),

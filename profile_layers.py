@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Device time of each launch inside the port's layer kernels, on one NVIDIA
 GPU, at the finetune's and the serving's shapes (d=512, 4 heads, ff 1024,
-S=77; training at B=64 and B=1 with dropout 0.1, inference at B=8).
+S=77; training at B=64 and B=1 with dropout masks at rate 0.1, and at B=64
+in prng mode, the dropout regenerated inside the kernels from per-clip seeds,
+where the checkout has it; inference at B=8).
 
     python3 profile_layers.py [ROOT ...]
 
@@ -55,6 +57,16 @@ def profile(root: str) -> None:
             runs[f"B={b} bwd_attn_stored"] = (
                 lambda d=da1, x=x, a=attn, pr=probs, q=qkv, m=masks:
                 ft.fused_layer_train_bwd_attn_stored(d, x, a, pr, q, p, 4, m))
+        if b == 64 and hasattr(ft, "draw_dropout_seeds"):
+            drop = dict(seeds=ft.draw_dropout_seeds(torch.Generator(device=dev).manual_seed(b),
+                                                    1, b)[0], rate=0.1)
+            runs[f"B={b} forward prng"] = (
+                lambda x=x: ft.fused_layer_train_forward(x, p, 4, None, **drop))
+            runs[f"B={b} bwd_ffn prng"] = (
+                lambda d=dh2, a=a1: ft.fused_layer_train_bwd_ffn(d, a, p, **drop))
+            runs[f"B={b} bwd_attn prng"] = (
+                lambda d=da1, x=x, a=attn: ft.fused_layer_train_bwd_attn(d, x, a, p, 4, None,
+                                                                         **drop))
     xi = torch.randn(8, 77, 512, generator=gen).to(dev, torch.bfloat16)
     runs["B=8 inference layer"] = lambda: fused_encoder_layer(xi, p, 4)
 

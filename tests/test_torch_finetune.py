@@ -12,6 +12,7 @@ other orders through a 6-step unroll); a trainer step's updated weights atol
 """
 import csv
 import glob
+import inspect
 import os
 import re
 
@@ -434,10 +435,40 @@ def test_cli_finetune_store_probs(xia_root, tmp_path, monkeypatch):
     assert os.path.exists(os.path.join(save_dir, "opt000000002.pt"))
 
 
+def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypatch):
+    """The paper's workflow in the port: pretrain a prior with the CLI, then
+    finetune from its mdm.pt with --fused_train_prng 1 (which implies the
+    fused training layer): 2 steps through the twins with per-layer seeds,
+    no mask arrays."""
+    from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
+
+    prior_dir = str(tmp_path / "prior")
+    pretrain_main(["--dataset", "stylexia_posrot", "--data_dir", xia_root, "--save_dir",
+                   prior_dir, "--batch_size", "2", "--layers", "1", "--latent_dim", "128",
+                   "--diffusion_steps", "40", "--num_steps", "2", "--log_interval", "1",
+                   "--fused_train_prng", "1", "--device", "cpu"])
+    seeded = {"forward": 0}
+    fn = ft.fused_layer_train_forward_reference
+
+    def counted(*a, **k):
+        seeded["forward"] += inspect.signature(fn).bind(*a, **k).arguments.get("seeds") is not None
+        return fn(*a, **k)
+
+    monkeypatch.setattr(ft, "fused_layer_train_forward_reference", counted)
+    calls = ft.make_dropout_masks.calls
+    save_dir = ft_main(["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root,
+                        "--mdm_path", os.path.join(prior_dir, "mdm.pt"), "--fused", "1",
+                        "--fused_train_prng", "1"] + CLI_ARGS)
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        losses_ = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses_) == 2 and np.isfinite(losses_).all()
+    assert seeded["forward"] > 0 and ft.make_dropout_masks.calls == calls
+    assert os.path.exists(os.path.join(save_dir, "model000000002.pt"))
+
+
 @pytest.mark.parametrize("flag", [
     ["--lora_rank", "4"], ["--auto_stop", "1"], ["--parallel_finetune", "1"],
-    ["--data_parallel", "1"], ["--quant_int8", "1"], ["--fused_train_prng", "1"],
-    ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
+    ["--data_parallel", "1"], ["--quant_int8", "1"], ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
     ["--render"], ["--train_platform_type", "TensorboardPlatform"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
     args = ["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root] + CLI_ARGS + flag
