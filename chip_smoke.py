@@ -14,15 +14,37 @@ Phases, each printed on its own line with its seconds:
      (kernel 2) against its twin at the serving shape with a key padding
      mask, S=197, D=128 and D=384; each with its time, the twin's, a library
      reference and the card's bound.
-  4. golden: the port's fp32 MDM with the full-width reference weights of
-     tests/goldens/mdm_model.npz against the reference output.
-  5. serve: the serving CLI's engine (--fused 1, full width: d=512, 8
+  4. attention_kernel: the standalone attention (kernel 4) against its plain
+     version at B=8, S=77, D=512, 4 heads, at S=197 and 600, at D=128 and at
+     S=1, 33 and 513, fp32 and bf16 inputs, with a key padding mask (rel L2
+     <= 1e-5); gradients through its autograd Function bit-equal to the
+     plain version's; its time, the plain version's,
+     scaled_dot_product_attention's and the bound.
+  5. golden: the port's fp32 MDM with the full-width reference weights of
+     tests/goldens/mdm_model.npz against the reference output, plain and
+     with MOTIONSTYLE_PALLAS_ATTN=1 (kernel 4, 8 launches); then at 599
+     frames (S=600), B=2, where the default dispatch takes kernel 4, against
+     the same weights' forward on the CPU.
+  6. serve: the serving CLI's engine (--fused 1, full width: d=512, 8
      layers) behind MotionServer on localhost answers /healthz and
      /v1/sample requests; results are checked and the kernel launches
      counted.
-  6. serve_int8: the same with --quant_int8 1, one wave of 4 requests;
+  7. serve_int8: the same with --quant_int8 1, one wave of 4 requests;
      kernel 2 launched 16 times per batch, kernel 1 never.
-  7. train_kernel: the five training kernels (forward, FFN-half and
+  8. serve_unfused: the same with --fused 0 (the fp32 plain layers) under
+     MOTIONSTYLE_PALLAS_ATTN=1, one wave: kernel 4 launched 16 times per
+     batch, kernels 1 and 2 never.
+  9. sampler_update: the fused DDPM update (kernel 3) against its plain
+     version at B=64, C=181, T=196 with a root_horizontal mask: x0 and the
+     sigma-0 sample bit-equal, sigma 1 within 2e-6, kept channels
+     noise-free, the noise's moments, seed behaviour; its time, the plain
+     version's, an unfused update's and the bound.
+ 10. ddpm_fused: the 50-step tail of the 1000-step DDPM chain (the golden
+     prior through kernel 1, B=64, T=196, root_horizontal inpainting) with
+     sample_loop(fused_update=True): 50 launches of kernel 3, every dumped
+     x0's kept channels equal to the content; then fused and unfused
+     updates in turns, seconds per step and clips/s.
+ 11. train_kernel: the five training kernels (forward, FFN-half and
      attention-half backward, store-probs forward and stored attention-half
      backward) against their twins at the finetune's shapes (B=64 and B=1,
      S=77, full width, dropout masks at rate 0.1 and 0) and past the old
@@ -35,21 +57,25 @@ Phases, each printed on its own line with its seconds:
      through the layer with store off and on, and the prng times beside the
      masks times, in turns; prng mode is also checked at the pretrain's
      microbatch (B=32).
-  8. pretrain: the prior pretraining CLI at full width (batch 64) on a
+ 12. pretrain: the prior pretraining CLI at full width (batch 64) on a
      synthetic Xia corpus written from a seed: 4 steps with --fused_train 1,
      4 with --fused_train_prng 1 (like for like: the seconds per step of the
      two dropout modes), then 4 with --fused_train_prng 1 --grad_accum 2
      --ema_rate 0.999 --schedule_sampler loss_second_moment; losses, the
      written mdm.pt, model_pretrained.pt and mdm_ema.pt, seconds per step and
      every kernel's launches, with no mask arrays drawn in the prng runs.
-  9. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
+ 13. pretrain_unfused: the same CLI with --fused_train 0, 2 steps without
+     MOTIONSTYLE_PALLAS_ATTN and 2 with it =1 from the same seed: kernel 4
+     launched 8 times per forward with it, never without; the first losses
+     within rel 1e-4; seconds per step of both.
+ 14. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
      prior, the same corpus) runs a few steps with --fused_train 1, then
      with --fused_train_store 1; losses (the store run's first equal to the
      recompute run's), the saved checkpoint, the style encoder's movement
      and every kernel's launches are checked; then 2 steps with
      --fused_train_prng 1 from the pretrain phase's mdm.pt, every training
      launch in prng mode; then a short store run under torch.profiler.
- 10. demo: the demo CLI on the store run's model*.pt and args.json, 8
+ 15. demo: the demo CLI on the store run's model*.pt and args.json, 8
      samples, --skip_render, with --fused 1 and with --quant_int8 1:
      results.npy, the kept root channels, the kernels' launches and the
      int8 result's deviation from the bf16 one.
@@ -84,7 +110,8 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # kernel vs twin gates (bf16 output: one bf16 ulp at |y| in [2, 4) is 1.6e-2)
 LAYER_MAX_ABS, LAYER_REL_L2, STACK_REL_L2 = 3e-2, 1e-2, 2e-2
 GOLDEN_ATOL = 2e-4  # tests/test_models.py:35
-KERNEL_SOURCES = ("fused_encoder", "fused_encoder_train", "fused_encoder_int8")
+KERNEL_SOURCES = ("fused_encoder", "fused_encoder_train", "fused_encoder_int8", "attention",
+                  "sampler_update")
 TRAIN_KERNELS = {  # wrapper -> the TPU kernel it replaces
     "fused_layer_train_forward": "motionstyle/ops/fused_encoder_train.py:154",
     "fused_layer_train_bwd_ffn": "motionstyle/ops/fused_encoder_train.py:183",
@@ -141,6 +168,41 @@ def time_ms(fn, iters: int = 100) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def event_device_us(e) -> float:
+    """A torch.profiler event's own device time, us (the attribute's name
+    differs across PyTorch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_profile(fn, iters: int = 20) -> list:
+    """Device time of one call of fn by kernel name, us, largest first:
+    torch.profiler's CUDA time over `iters` calls. A profile that records no
+    device time is taken once more; empty if that one records none either."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, event_device_us(e) / iters) for e in prof.key_averages()
+                       if e.device_type.name == "CUDA" and event_device_us(e) > 0),
+                      key=lambda r: -r[1])
+        if rows:
+            return rows
+    return []
+
+
+def device_us(fn, iters: int = 20) -> str:
+    """Device time of one call of fn (every launch summed) as text, "not
+    measured" when the profiler records none."""
+    rows = device_profile(fn, iters)
+    return f"{sum(us for _, us in rows):.4g} us" if rows else "not measured"
 
 
 def layer_bound(b: int, s: int, d: int, h: int, f: int) -> tuple:
@@ -706,20 +768,30 @@ def train_kernel_phase(device) -> tuple:
     return records, ms_b1, prng_ms
 
 
-def golden_phase(device):
+def golden_model(device, **cfg_kw):
+    """The port's MDM with tests/goldens/mdm_model.npz's full-width weights
+    on `device`, eval mode; returns (model, the golden arrays, its state
+    dict)."""
     import numpy as np
-    import torch
 
     from motionstyle_torch.models.denoiser import MDM, MDMConfig
     from motionstyle_torch.models.params import from_torch_state_dict
 
     g = np.load(GOLDEN)
     sd = {k[len("sd__"):]: g[k] for k in g.files if k.startswith("sd__")}
-    cfg = MDMConfig(njoints=181, nfeats=1)
-    state = {k[len("mdm."):]: v for k, v in from_torch_state_dict(sd, cfg).items()}
+    cfg = MDMConfig(njoints=181, nfeats=1, **cfg_kw)
     model = MDM(cfg)
-    model.load_state_dict(state)
-    model.to(device).eval()
+    model.load_state_dict({k[len("mdm."):]: v for k, v in from_torch_state_dict(sd, cfg).items()})
+    return model.to(device).eval(), g, sd
+
+
+def golden_phase(device):
+    """The port's fp32 MDM with the golden prior's weights against the
+    reference output; returns the prior's state dict."""
+    import numpy as np
+    import torch
+
+    model, g, sd = golden_model(device)
     with torch.no_grad():
         out = model(torch.as_tensor(g["x"], device=device),
                     torch.as_tensor(g["t"], device=device),
@@ -740,12 +812,15 @@ def _post(base: str, payload: dict) -> tuple:
     return res, time.perf_counter() - t0
 
 
-def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
+def serve_phase(golden_sd, card: str, flag: str, waves: int, value: int = 1, kernel=None,
+                others: tuple = ()) -> int:
     """Serve through the CLI's engine behind MotionServer with `flag`
-    ("--fused" or "--quant_int8") set to 1, `waves` waves of 4 concurrent
-    HTTP requests; returns the launches of the flag's kernel (kernel 1 or 2)
-    counted during the served traffic, and checks the other was not
-    launched."""
+    ("--fused" or "--quant_int8") set to `value` (--fused 0: the unfused
+    fp32 denoiser), `waves` waves of 4 concurrent HTTP requests;
+    returns the launches of `kernel` (by default the flag's: kernel 1 or 2)
+    counted during the served traffic, 16 per batch (8 layers x 2 denoiser
+    calls), and checks that none of `others` (by default the other of
+    kernels 1 and 2) was launched."""
     import numpy as np
     import torch
 
@@ -755,8 +830,11 @@ def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
     from motionstyle_torch.serve.engine import Request
     from motionstyle_torch.serve.server import MotionServer
 
-    kernel, other = ((fused_encoder_layer, fused_encoder_layer_int8) if flag == "--fused"
-                     else (fused_encoder_layer_int8, fused_encoder_layer))
+    if kernel is None:
+        kernel, other = ((fused_encoder_layer, fused_encoder_layer_int8) if flag == "--fused"
+                         else (fused_encoder_layer_int8, fused_encoder_layer))
+        others = (other,)
+    label = f"{flag} {value}"
 
     njoints, nframes = serve.DATASET_DIMS["stylexia_posrot"]
     mask_full = np.asarray(get_inpainting_mask(
@@ -767,7 +845,7 @@ def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
         mdm_path = os.path.join(tmp, "mdm_golden.pt")
         torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
         args = serve.parse_args([
-            flag, "1", "--dataset", "stylexia_posrot", "--mdm_path", mdm_path,
+            *label.split(), "--dataset", "stylexia_posrot", "--mdm_path", mdm_path,
             # no style checkpoint ships with the repo: a seeded style encoder
             "--model_path", os.path.join(tmp, "model000000000.pt"),
             "--max_wait_ms", "20", "--port", "0"])
@@ -780,7 +858,8 @@ def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
     contents = [rng.randn(nframes, njoints).astype(np.float32) * 0.5 for _ in range(8)]
     try:
         # the main path: every count from here to the end of the phase
-        kernel.launches = other.launches = 0
+        for k in (kernel, *others):
+            k.launches = 0
         batches0 = engine.stats()["batches"]
 
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
@@ -830,7 +909,7 @@ def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
         torch.cuda.synchronize()
         stats = engine.stats()
         batches = stats["batches"] - batches0
-        launches, stray = kernel.launches, other.launches
+        launches, stray = kernel.launches, {k.__name__: k.launches for k in others}
     finally:
         server.close()
 
@@ -843,16 +922,16 @@ def serve_phase(golden_sd, card: str, flag: str, waves: int) -> int:
     check(True, "every result finite, (181, 1, 76), root_horizontal channels exact")
     lat = np.sort(np.asarray(latencies) * 1e3)
     p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
-    print(f"  HTTP ({flag} 1): {len(results)} requests in {wall:.4f} s: p50 {p50:.4f} ms, "
+    print(f"  HTTP ({label}): {len(results)} requests in {wall:.4f} s: p50 {p50:.4f} ms, "
           f"p95 {p95:.4f} ms, {len(results) / wall:.4f} clips/s on {card}", flush=True)
     print(f"  engine: batch p50 {stats['batch_p50_ms']} ms (2 denoiser calls + noise), "
           f"submit-to-result p50 {stats['latency_p50_ms']} ms, mean batch "
           f"{stats['mean_batch_size']:.4g}", flush=True)
     print(f"  {kernel.__name__} launches {launches} over {batches} batches "
-          f"(8 layers x 2 denoiser calls each); {other.__name__} launches {stray}", flush=True)
+          f"(8 layers x 2 denoiser calls each); other kernels' launches {stray}", flush=True)
     check(launches == 16 * batches and batches > 0,
           f"{kernel.__name__} launch counter == 16 x batches served")
-    check(stray == 0, f"{other.__name__} never launched with {flag} 1")
+    check(not any(stray.values()), f"{sorted(stray)} never launched with {label}")
     return launches
 
 
@@ -1122,19 +1201,16 @@ def profile_finetune(args_of) -> None:
             finetune_main(argv)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total_us = sum(device_us(e) for e in events)
+    total_us = sum(event_device_us(e) for e in events)
     if total_us <= 0:
         print("  profiler: no device time recorded", flush=True)
         return
     print(f"  profiler (2 steps + neutral generation + resample): device busy "
           f"{total_us / 1e6:.4f} s of {wall:.4f} s wall ({100 * total_us / 1e6 / wall:.4g} %); "
           f"top device time by kernel:", flush=True)
-    for e in sorted(events, key=lambda e: -device_us(e))[:12]:
-        print(f"    {device_us(e) / 1e3:10.3f} ms {e.count:7d} x  {e.key[:90]}", flush=True)
+    for e in sorted(events, key=lambda e: -event_device_us(e))[:12]:
+        print(f"    {event_device_us(e) / 1e3:10.3f} ms {e.count:7d} x  {e.key[:90]}", flush=True)
 
 
 DEMO_CONTENT = "103neutral_punching.npy"  # a neutral clip of write_xia_corpus's corpus
@@ -1201,6 +1277,413 @@ def demo_phase(model_path: str, data_dir: str, out_root: str, card: str) -> int:
     return launches["--quant_int8"][0]
 
 
+# ---------------------------------------------------------------------------
+# kernel 4 (standalone attention) and kernel 3 (fused DDPM update)
+# ---------------------------------------------------------------------------
+
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
+ATTN_REL_L2 = 1e-5  # kernel 4 vs its plain version: fp32 sums in another order
+# (B, S, D, H) of kernel 4's checks: the serving shape, S = 197 and 600, head
+# width 32 (D = 128) and ragged S (1, 33, 513)
+ATTN_SHAPES = ((B, S, D, H), (B, 197, D, H), (2, 600, D, H), (B, S, 128, 4), (4, 1, D, H),
+               (4, 33, D, H), (2, 513, D, H))
+PALLAS_ATTN = "MOTIONSTYLE_PALLAS_ATTN"
+
+
+@contextmanager
+def env_var(name: str, value):
+    """Set (or, with None, unset) an environment variable for a block."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def attention_bound(b: int, s: int, d: int, h: int, width: int) -> tuple:
+    """(bound_ms, bound_by, flops, bytes) of kernel 4: 4 B H S^2 dh operations
+    at the fp32 (width 4) or bf16 (width 2) peak against q, k, v and the
+    output, 4 B S D x width bytes, at the card's memory rate."""
+    flops = 4 * b * h * s * s * (d // h)
+    nbytes = 4 * b * s * d * width
+    peak = PEAK_FP32_FLOPS if width == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def attention_kernel_phase(device) -> dict:
+    """Kernel 4 against attention_reference on the card at ATTN_SHAPES, fp32
+    and bf16 inputs, q, k, v as column slices of one packed qkv (the
+    denoiser's layout), a key padding mask on the last clip (its first key
+    kept); gate rel L2 <= ATTN_REL_L2. Gradients through KernelAttention
+    bit-equal to the plain version's autograd gradients. Times at the
+    serving shape (fp32): the kernel, the plain version and
+    scaled_dot_product_attention with the same additive mask; also at
+    S = 600. Returns the kernel's record fields."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from motionstyle_torch.ops import attention as at
+    from motionstyle_torch.ops.fused_encoder import additive_key_mask
+
+    gen = torch.Generator().manual_seed(3)
+    record = {"max_abs_err": 0.0}
+    n0 = at.attention_kernel.launches
+    for b, s, d, h in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(b, s, 3 * d, generator=gen).to(device, dtype)
+            q, k, v = qkv.split(d, -1)
+            kpm = torch.ones(b, s, dtype=torch.bool)
+            kpm[-1, s // 2 + 1:] = False
+            mask = additive_key_mask(kpm, kpm.shape[0], kpm.shape[1], device)
+            got = at.attention_kernel(q, k, v, h, mask)
+            torch.cuda.synchronize()
+            want = at.attention_reference(q, k, v, h, mask)
+            err, rel = float((got - want).abs().max()), rel_l2(got, want)
+            where = f"B={b} S={s} D={d} H={h} {str(dtype)[6:]} (masked)"
+            print(f"  attention {where}: max_abs {err:.6g} rel_l2 {rel:.6g}", flush=True)
+            check(got.dtype == torch.float32 and got.shape == (b, s, d) and rel <= ATTN_REL_L2,
+                  f"attention {where} fp32 out within rel_l2 {ATTN_REL_L2}")
+            record["max_abs_err"] = max(record["max_abs_err"], err)
+    # the backward is the plain recompute: gradients bit-equal to autograd's
+    for b, s, dtype in ((B, S, torch.float32), (2, 600, torch.float32), (B, S, torch.bfloat16)):
+        base = torch.randn(b, s, 3 * D, generator=gen).to(device, dtype)
+        w = torch.randn(b, s, D, generator=gen).to(device)
+        kpm = torch.ones(b, s, dtype=torch.bool)
+        kpm[-1, s // 3:] = False
+        mask = additive_key_mask(kpm, kpm.shape[0], kpm.shape[1], device)
+        grads = []
+        for fn in (lambda *a: at.KernelAttention.apply(*a, H, mask),
+                   lambda *a: at.attention_reference(*a, H, mask)):
+            qkv = base.clone().requires_grad_(True)
+            (fn(*qkv.split(D, -1)) * w).sum().backward()
+            grads.append(qkv.grad)
+        torch.cuda.synchronize()
+        check(torch.equal(grads[0], grads[1]),
+              f"attention gradients through the kernel's Function bit-equal to the plain "
+              f"version's at B={b} S={s} {str(dtype)[6:]}")
+    at.attention_kernel.launches = n0  # checks are not the main path's
+
+    def timed(b, s, dtype):
+        qkv = torch.randn(b, s, 3 * D, generator=gen).to(device, dtype)
+        q, k, v = qkv.split(D, -1)
+        kpm = torch.ones(b, s, dtype=torch.bool)
+        kpm[-1, s // 2:] = False
+        mask = additive_key_mask(kpm, kpm.shape[0], kpm.shape[1], device)
+        heads = [t.reshape(b, s, H, D // H).transpose(1, 2) for t in (q, k, v)]
+        def kern():
+            return at.attention_kernel(q, k, v, H, mask)
+
+        def library():
+            return Fn.scaled_dot_product_attention(*heads,
+                                                   attn_mask=mask[:, None, None, :].to(dtype))
+
+        with torch.no_grad():
+            ms = time_ms(kern)
+            plain = time_ms(lambda: at.attention_reference(q, k, v, H, mask))
+            lib = time_ms(library)
+            dev_us, lib_us = device_us(kern), device_us(library)
+        at.attention_kernel.launches = n0
+        bound_ms, bound_by, flops, nbytes = attention_bound(b, s, D, H, qkv.element_size())
+        print(f"  attention B={b} S={s} D={D} H={H} {str(dtype)[6:]}: kernel_ms {ms:.6g} "
+              f"reference_ms {plain:.6g} library_ms {lib:.6g} (scaled_dot_product_attention, "
+              f"the same additive mask) bound_ms {bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} "
+              f"GFLOP at the {'fp32' if dtype == torch.float32 else 'bf16'} peak, "
+              f"{nbytes / 1e6:.4g} MB); device time (torch.profiler) kernel {dev_us}, "
+              f"scaled_dot_product_attention {lib_us}", flush=True)
+        return ms, plain, lib, bound_ms, bound_by
+
+    ms, plain, lib, bound_ms, bound_by = timed(B, S, torch.float32)
+    record.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
+    timed(B, S, torch.bfloat16)
+    timed(2, 600, torch.float32)
+    return record
+
+
+def golden_attention_phase(device) -> None:
+    """Kernel 4 on the golden prior: the fp32 MDM under
+    MOTIONSTYLE_PALLAS_ATTN=1 (8 launches, within GOLDEN_ATOL of the
+    reference output); then the full-width fp32 MDM at 599 frames (S = 600),
+    B = 2, without the variable: the default dispatch launches kernel 4 for
+    S > 512 (8 launches) and the output is within GOLDEN_ATOL of the same
+    weights' forward on the CPU (the plain version)."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.ops.attention import attention_kernel
+
+    model, g, _ = golden_model(device)
+    with env_var(PALLAS_ATTN, "1"), torch.no_grad():
+        attention_kernel.launches = 0
+        out = model(torch.as_tensor(g["x"], device=device), torch.as_tensor(g["t"], device=device),
+                    torch.as_tensor(g["enc_text"], device=device))
+        torch.cuda.synchronize()
+        n = attention_kernel.launches
+    err = float(np.abs(out.cpu().numpy() - g["out"]).max())
+    print(f"  fp32 MDM with {PALLAS_ATTN}=1 vs reference out: max_abs {err:.6g}; "
+          f"attention_kernel launches {n}", flush=True)
+    check(n == 8 and err <= GOLDEN_ATOL,
+          f"golden MDM through kernel 4 (8 launches) within atol {GOLDEN_ATOL}")
+
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy((rs.randn(2, 181, 1, 599) * 0.5).astype(np.float32))
+    t = torch.tensor([10, 700])
+    enc = torch.from_numpy(rs.randn(2, g["enc_text"].shape[-1]).astype(np.float32))
+    with env_var(PALLAS_ATTN, None), torch.no_grad():
+        attention_kernel.launches = 0
+        t0 = time.perf_counter()
+        got = model(x.to(device), t.to(device), enc.to(device))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = attention_kernel.launches
+        want = model.cpu()(x, t, enc)
+    err = float((got.cpu() - want).abs().max())
+    print(f"  fp32 MDM at S=600 (599 frames), B=2, default dispatch: attention_kernel launches "
+          f"{n}; max_abs {err:.6g} from the CPU forward; card forward {secs:.4f} s (first call)",
+          flush=True)
+    check(n == 8 and bool(torch.isfinite(got).all()) and err <= GOLDEN_ATOL,
+          f"S > 512 routes to kernel 4 by default (8 launches), within atol {GOLDEN_ATOL} of the "
+          f"CPU forward")
+
+
+UNFUSED_PRETRAIN_STEPS = 2
+
+
+def pretrain_unfused_phase(card: str, data_dir: str, tmp_root: str) -> None:
+    """The pretrain CLI with --fused_train 0 (the plain layers; full width,
+    batch 64) for 2 steps, first without MOTIONSTYLE_PALLAS_ATTN, then with
+    it =1 from the same seed: kernel 4 launched 8 times per forward with the
+    variable and never without, finite losses, the first loss within rel
+    1e-4 of the run without (the dropout masks come from the same
+    generator); seconds per step of both."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
+    from motionstyle_torch.ops.attention import attention_kernel
+
+    layers, seed, batch = FINETUNE_LAYERS, 10, FINETUNE_BATCH
+    runs = {}
+    for label, value in (("without the variable", None), (f"{PALLAS_ATTN}=1", "1")):
+        save_dir = os.path.join(tmp_root, f"prior_unfused_{len(runs)}")
+        random.seed(seed)  # the loader's crops and captions
+        with env_var(PALLAS_ATTN, value):
+            attention_kernel.launches = 0
+            t0 = time.perf_counter()
+            pretrain_main(["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--save_dir",
+                           save_dir, "--batch_size", str(batch), "--layers", str(layers),
+                           "--num_steps", str(UNFUSED_PRETRAIN_STEPS), "--log_interval", "1",
+                           "--seed", str(seed), "--fused_train", "0", "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = attention_kernel.launches
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["prior_loss"]) for r in rows]
+        secs = [float(r["step_seconds"]) for r in rows]
+        print(f"  pretrain --fused_train 0 {label}: {UNFUSED_PRETRAIN_STEPS} steps in "
+              f"{wall:.4f} s (whole CLI run on {card}); losses {losses}; step seconds {secs} "
+              f"({batch / secs[-1]:.6g} clips/s at the last); attention_kernel launches {n}",
+              flush=True)
+        check(len(losses) == UNFUSED_PRETRAIN_STEPS and bool(np.isfinite(losses).all()),
+              f"pretrain --fused_train 0 {label}: losses finite")
+        want = layers * UNFUSED_PRETRAIN_STEPS if value else 0
+        check(n == want, f"pretrain --fused_train 0 {label}: kernel 4 launched {want} times "
+                         f"({layers} per forward)" if value else
+                         f"pretrain --fused_train 0 {label}: kernel 4 never launched")
+        runs[label] = losses
+    plain, kern = runs.values()
+    rel = abs(kern[0] - plain[0]) / abs(plain[0])
+    print(f"  first loss with kernel 4 {kern[0]:.8g} against {plain[0]:.8g} (rel {rel:.3g})",
+          flush=True)
+    check(rel <= 1e-4, "pretrain through kernel 4: first loss within rel 1e-4 of the plain run")
+
+
+SAMPLER_SHAPE = (64, 181, 1, 196)  # bench.py's throughput shape: Xia C=181, T=196
+UPDATE_T = 500  # the chain step whose posterior coefficients the checks use
+
+
+def update_bound(n: int, masked: bool) -> tuple:
+    """(bound_ms, bytes) of kernel 3: x, model_out (and mask, motion) read
+    and sample, x0 written once, fp32, at the card's memory rate."""
+    nbytes = n * 4 * ((4 if masked else 2) + 2)
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def sampler_update_phase(device) -> dict:
+    """Kernel 3 against its plain version at SAMPLER_SHAPE with a
+    root_horizontal inpainting mask: x0 bit-equal; at sigma 0 the sample
+    bit-equal to c1 x0b + c2 x; at sigma 1 within max abs 2e-6; kept
+    channels noise-free; the free channels' standardised noise within the
+    stated moments; the same seed the same output, seed + 1 another. Times:
+    the kernel, the plain version and, for reference, the port's unfused
+    update (torch.randn + the DDPM update of diffusion/sampling.py); no one
+    PyTorch call computes the function. Returns the kernel's record."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.diffusion import ddpm, sampling
+    from motionstyle_torch.diffusion.schedule import make_schedule
+    from motionstyle_torch.ops.sampler_update import (
+        fused_ddpm_update, fused_ddpm_update_reference)
+
+    gen = torch.Generator().manual_seed(4)
+    shape = SAMPLER_SHAPE
+    x, out0, motion = (torch.randn(shape, generator=gen).to(device) for _ in range(3))
+    mask = torch.as_tensor(np.asarray(get_inpainting_mask(
+        "root_horizontal", shape, dataset="stylexia_posrot"), np.float32)).to(device).contiguous()
+    sched = make_schedule("cosine", 1000, device=device)
+    c1, c2 = sched.posterior_mean_coef1[UPDATE_T], sched.posterior_mean_coef2[UPDATE_T]
+    one, zero = torch.ones((), device=device), torch.zeros((), device=device)
+    n0 = fused_ddpm_update.launches
+
+    got0, xs0 = fused_ddpm_update(x, out0, mask, motion, c1, c2, zero, one, 7)
+    got1, xs1 = fused_ddpm_update(x, out0, mask, motion, c1, c2, one, one, 7)
+    again, _ = fused_ddpm_update(x, out0, mask, motion, c1, c2, one, one, 7)
+    other, _ = fused_ddpm_update(x, out0, mask, motion, c1, c2, one, one, 8)
+    torch.cuda.synchronize()
+    ref0, rxs0 = fused_ddpm_update_reference(x, out0, mask, motion, c1, c2, zero, one, 7)
+    ref1, _ = fused_ddpm_update_reference(x, out0, mask, motion, c1, c2, one, one, 7)
+    check(torch.equal(xs0, rxs0) and torch.equal(xs1, rxs0),
+          "update: blended x0 bit-equal to the plain version")
+    mean = c1 * xs0 + c2 * x
+    check(torch.equal(got0, mean) and torch.equal(got0, ref0),
+          "update at sigma 0: bit-equal to c1 x0b + c2 x and to the plain version")
+    err = float((got1 - ref1).abs().max())
+    print(f"  update at sigma 1: max_abs {err:.6g} from the plain version", flush=True)
+    check(err <= 2e-6, "update at sigma 1 within max_abs 2e-6 of the plain version")
+    kept = mask > 0
+    noise = got1 - mean
+    check(bool((noise[kept] == 0).all()), "update: kept channels carry exactly no noise")
+    z = noise[~kept].double()
+    zmean, zstd = float(z.mean()), float(z.std())
+    tail = float((z.abs() > 2).double().mean())
+    print(f"  update noise over {z.numel()} free elements: mean {zmean:.6g} std {zstd:.6g} "
+          f"P(|z| > 2) {tail:.6g}", flush=True)
+    check(abs(zmean) < 0.005 and abs(zstd - 1) < 0.005 and abs(tail - 0.0455) <= 0.003,
+          "update noise: |mean| < 0.005, |std - 1| < 0.005, P(|z| > 2) within 0.003 of 0.0455")
+    check(torch.equal(again, got1) and not torch.equal(other, got1),
+          "update: the same seed gives the same output, seed + 1 another")
+
+    t = torch.full((shape[0],), UPDATE_T, dtype=torch.int64, device=device)
+    inp = ddpm.Inpainting(mask, motion)
+    noise_gen = torch.Generator(device=device).manual_seed(0)
+
+    def unfused():
+        pmv = ddpm.p_mean_variance(sched, lambda *_: out0, x, t, {}, inpainting=inp)
+        step_noise = torch.randn(shape, generator=noise_gen, device=device)
+        return sampling._ddpm_update(pmv, x, t, step_noise, inp)
+
+    def kern():
+        return fused_ddpm_update(x, out0, mask, motion, c1, c2, one, one, 7)
+
+    with torch.no_grad():
+        ms = time_ms(kern)
+        plain = time_ms(lambda: fused_ddpm_update_reference(x, out0, mask, motion, c1, c2, one,
+                                                            one, 7), iters=20)
+        unfused_ms = time_ms(unfused)
+        dev_us, unfused_us = device_us(kern), device_us(unfused)
+    fused_ddpm_update.launches = n0  # checks and timings are not the main path's
+    bound_ms, nbytes = update_bound(x.numel(), masked=True)
+    print(f"  update B={shape[0]} C={shape[1]} T={shape[3]} ({x.numel()} elements): kernel_ms "
+          f"{ms:.6g} reference_ms {plain:.6g} unfused update (torch.randn + the DDPM update) "
+          f"{unfused_ms:.6g} ms; bound_ms {bound_ms:.6g} (bytes: {nbytes / 1e6:.4g} MB); no one "
+          f"PyTorch call computes the update; device time (torch.profiler) kernel call "
+          f"{dev_us}, unfused update {unfused_us}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None, unfused_ms=unfused_ms)
+
+
+DDPM_SKIP = 950  # a 50-step tail of the 1000-step chain, down to t = 0
+
+
+def ddpm_fused_phase(card: str, device) -> int:
+    """The full-width denoiser with --fused 1 (kernel 1, bf16) on the golden
+    prior runs sample_loop(method="ddpm", fused_update=True,
+    dump_all_xstart=True) at SAMPLER_SHAPE: the last 50 steps of the
+    1000-step chain from the content (skip_timesteps=950, init_image =
+    content, root_horizontal inpainting), so t = 0 and its noise-free step
+    run. Checks 50 launches of kernel 3, every dumped x0's kept channels
+    bit-equal to the content and a finite result; then the same chain with
+    fused_update=False and True in turns (fused, unfused, unfused, fused):
+    seconds per step and clips/s. Returns kernel 3's launches."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.diffusion import sampling
+    from motionstyle_torch.diffusion.ddpm import Inpainting
+    from motionstyle_torch.diffusion.schedule import make_schedule
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.ops.sampler_update import fused_ddpm_update
+
+    model, g, _ = golden_model(device, fused=True, dtype="bfloat16")
+    shape = SAMPLER_SHAPE
+    rs = np.random.RandomState(6)
+    content = torch.from_numpy((rs.randn(*shape) * 0.5).astype(np.float32)).to(device)
+    mask = torch.as_tensor(np.asarray(get_inpainting_mask(
+        "root_horizontal", shape, dataset="stylexia_posrot"), np.float32)).to(device)
+    enc = torch.from_numpy(rs.randn(shape[0], g["enc_text"].shape[-1]).astype(np.float32))
+    cond = {"enc_text": enc.to(device)}
+    sched = make_schedule("cosine", 1000, device=device)
+    steps = sched.num_timesteps - DDPM_SKIP
+
+    def model_fn(x, t, c):
+        return model(x, t, c["enc_text"])
+
+    def chain(fused: bool, dump: bool = False):
+        return sampling.sample_loop(
+            sched, model_fn, cond, torch.Generator(device=device).manual_seed(0), shape=shape,
+            init_image=content, method="ddpm", skip_timesteps=DDPM_SKIP,
+            inpainting=Inpainting(mask, content), dump_all_xstart=dump, fused_update=fused)
+
+    # the main path: every count from here to the end of the run
+    fused_ddpm_update.launches = fused_encoder_layer.launches = 0
+    xs = chain(True, dump=True)
+    torch.cuda.synchronize()
+    launches, layer_launches = fused_ddpm_update.launches, fused_encoder_layer.launches
+    keep = mask > 0
+    kept_ok = all(torch.equal(x0[keep], content[keep]) for x0 in xs)
+    print(f"  ddpm fused_update: {steps} steps, fused_ddpm_update launches {launches}, "
+          f"fused_encoder_layer launches {layer_launches}; dumped x0 {tuple(xs.shape)}",
+          flush=True)
+    check(launches == steps, f"ddpm fused_update: kernel 3 launched once per step ({steps})")
+    check(kept_ok, "ddpm fused_update: every dumped x0's kept channels bit-equal to the content")
+    check(bool(torch.isfinite(xs).all()), "ddpm fused_update: finite result")
+
+    secs = {True: [], False: []}
+    for fused in (True, False, False, True):
+        t0 = time.perf_counter()
+        out = chain(fused)
+        torch.cuda.synchronize()
+        secs[fused].append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out).all()), f"ddpm chain fused_update={fused}: finite")
+    with torch.no_grad():
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(7)).to(device)
+        t = torch.full((shape[0],), 10, dtype=torch.int64, device=device)
+        rows = device_profile(lambda: model_fn(x, t, cond), iters=10)
+    print(f"  ddpm step's denoiser (kernel 1, B={shape[0]} S={shape[3] + 1}): device time "
+          f"(torch.profiler) {sum(us for _, us in rows):.6g} us per call; by kernel: " + "; ".join(
+              f"{us:.6g} us {name[:60]}" for name, us in rows[:5]), flush=True)
+    for fused in (True, False):
+        per_step = [s_ / steps for s_ in secs[fused]]
+        print(f"  ddpm chain fused_update={fused}, B={shape[0]} T={shape[3]}, {steps} steps "
+              f"(kernel 1 denoiser): seconds per step {[round(p, 8) for p in per_step]}, "
+              f"clips/s {[round(shape[0] / s_, 4) for s_ in secs[fused]]} over the chain, on "
+              f"{card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1209,6 +1692,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from motionstyle_torch import _build  # absent when the script stands alone
+    from motionstyle_torch.ops.attention import attention_kernel
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
 
     device = torch.device("cuda")
     with phase("device"):
@@ -1229,12 +1714,23 @@ def main() -> int:
     with phase("kernel"):
         record = kernel_phase(device)
         record_int8 = int8_kernel_phase(device)
+    with phase("attention_kernel"):
+        record_attn = attention_kernel_phase(device)
     with phase("golden"):
         golden_sd = golden_phase(device)
+        golden_attention_phase(device)
     with phase("serve"):
         launches = serve_phase(golden_sd, card, "--fused", waves=4)
     with phase("serve_int8"):
         launches_int8 = serve_phase(golden_sd, card, "--quant_int8", waves=1)
+    with phase("serve_unfused"), env_var(PALLAS_ATTN, "1"):
+        launches_attn = serve_phase(golden_sd, card, "--fused", waves=1, value=0,
+                                    kernel=attention_kernel,
+                                    others=(fused_encoder_layer, fused_encoder_layer_int8))
+    with phase("sampler_update"):
+        record_update = sampler_update_phase(device)
+    with phase("ddpm_fused"):
+        launches_update = ddpm_fused_phase(card, device)
     with phase("train_kernel"):
         train_records, ms_b1, _ = train_kernel_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1242,6 +1738,8 @@ def main() -> int:
         write_xia_corpus(data_dir)
         with phase("pretrain"):
             prng_counts, prior_path = pretrain_phase(card, data_dir, tmp)
+        with phase("pretrain_unfused"):
+            pretrain_unfused_phase(card, data_dir, tmp)
         with phase("finetune"):
             launches_recompute, launches_store, _, args_of, model_path = finetune_phase(
                 golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp,
@@ -1277,6 +1775,15 @@ def main() -> int:
                         replaces=PRNG_REPLACES,
                         launches=sum(prng_counts[n][1] for n in TRAIN_NAMES),
                         **{k: train_records[PRNG_NAME][k] for k in keys}))
+    # kernel 3 on the fused DDPM chain, kernel 4 on the unfused server
+    kernels.append(dict(name="fused_ddpm_update", route="cuda",
+                        source="motionstyle_torch/csrc/sampler_update.cu",
+                        replaces="motionstyle/ops/sampler_update.py:45", launches=launches_update,
+                        **{k: record_update[k] for k in keys}))
+    kernels.append(dict(name="attention_kernel", route="cuda",
+                        source="motionstyle_torch/csrc/attention.cu",
+                        replaces="motionstyle/ops/attention.py:52", launches=launches_attn,
+                        **{k: record_attn[k] for k in keys}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

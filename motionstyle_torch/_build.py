@@ -39,6 +39,12 @@ SIGNATURES = {
     "fused_encoder_int8": [
         ("fused_encoder_layer_int8_forward", [_VP] * 30 + [_INT] * 5 + [_VP]),
     ],
+    "attention": [
+        ("attention_forward", [_VP, _INT] * 3 + [_VP] * 2 + [_INT] * 5 + [ctypes.c_float, _VP]),
+    ],
+    "sampler_update": [
+        ("sampler_update_forward", [_VP] * 5 + [_INT] + [_VP] * 2 + [ctypes.c_longlong, _VP]),
+    ],
     "fused_encoder_train": [
         ("fused_layer_train_forward", [_VP] * 5 + _DROP + [_VP] * 22 + [_INT] * 5 + [_VP]),
         ("fused_layer_train_bwd_ffn", [_VP] * 4 + _DROP + [_VP] * 25 + [_INT] * 4 + [_VP]),

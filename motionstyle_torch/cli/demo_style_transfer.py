@@ -25,8 +25,8 @@ Run:  python -m motionstyle_torch.cli.demo_style_transfer \\
 
 Not on this slice (each raises before any work, naming its ROADMAP item):
 rendering and BVH output, the humanml and bandai datasets, long-form
-transfer, style strength and mixes, the parallel and forecast samplers, mesh
-serving and profiling.
+transfer, style strength and mixes, the parallel sampler, the forecast
+sampler of the humanml branch, mesh serving and profiling.
 """
 from __future__ import annotations
 
@@ -54,7 +54,9 @@ REFUSED = (
     ("style_mix", bool, "style mixes (ROADMAP §1 item 6)"),
     ("style_strength", lambda v: v != 1.0, "style strength (ROADMAP §1 item 6)"),
     ("parallel_window", lambda v: v > 0, "the Picard-parallel sampler (ROADMAP §1 item 2)"),
-    ("forecast_stride", lambda v: v > 1, "the forecast sampler (ROADMAP §1 item 7)"),
+    # the JAX demo reaches the forecast sampler only on its humanml branch
+    ("forecast_stride", lambda v: v > 1,
+     "the forecast sampler of the humanml branch (ROADMAP §1 item 10)"),
     ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
     ("pipeline_parallel", lambda v: v > 1, "pipeline-parallel serving (ROADMAP §1 item 11)"),
     ("sequence_parallel", lambda v: v > 1, "sequence-parallel serving (ROADMAP §1 item 11)"),

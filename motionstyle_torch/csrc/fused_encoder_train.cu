@@ -84,6 +84,7 @@
 #include <type_traits>
 
 #include "attention_fwd.cuh"
+#include "philox.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -124,23 +125,6 @@ enum Epilogue {
   EPI_F32,        // acc
   EPI_ADD_F32,    // acc + res_f32
 };
-
-// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC 2011; the constants of Random123): ten rounds of two 32x32->64
-// multiplies, with the key bumped by the Weyl constants between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
 
 // One dropout site of one layer call, applied to element (m, n) of an
 // (M = B*S, N) row-major activation by apply<PRNG>.

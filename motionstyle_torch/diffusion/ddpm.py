@@ -1,5 +1,7 @@
 """DDPM math on torch tensors: q(x_t|x_0) with inpainting, the posterior,
-and p_mean_variance with the inpainting x0 blend.
+p_mean_variance with the inpainting x0 blend, classifier guidance
+(condition_mean, condition_score) and classifier-free guidance
+(cfg_model_fn).
 
 Counterpart of motionstyle/diffusion/ddpm.py (parity:
 gaussian_diffusion.py:250-452, START_X mean type, FIXED_SMALL/FIXED_LARGE
@@ -83,3 +85,44 @@ def masked_l2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Ten
     (normalised by mask frames x C x F)."""
     loss = ((a - b) ** 2 * mask).sum(dim=(1, 2, 3))
     return loss / (mask.sum(dim=(1, 2, 3)) * (a.shape[1] * a.shape[2]))
+
+
+def condition_mean(sched: DiffusionSchedule, cond_fn, pmv: PMeanVariance, x: torch.Tensor,
+                   t: torch.Tensor, cond: dict) -> torch.Tensor:
+    """Classifier-guidance mean shift (Sohl-Dickstein): mean + var * grad,
+    cond_fn(x, t_orig, cond) -> grad log p(y|x). Parity:
+    gaussian_diffusion.py:454-467."""
+    gradient = cond_fn(x, sched.timestep_map[t], cond)
+    return pmv.mean + torch.exp(pmv.log_variance) * gradient
+
+
+def condition_score(sched: DiffusionSchedule, cond_fn, pmv: PMeanVariance, x: torch.Tensor,
+                    t: torch.Tensor, cond: dict) -> PMeanVariance:
+    """Score-based conditioning (Song et al.): eps shifted by
+    -sqrt(1 - abar) * grad, then x0 and the mean recomputed. Parity:
+    gaussian_diffusion.py:486-530."""
+    alpha_bar = sched.extract(sched.alphas_cumprod, t, x.ndim)
+    eps = predict_eps_from_xstart(sched, x, t, pmv.pred_xstart)
+    eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, sched.timestep_map[t], cond)
+    pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
+    return PMeanVariance(q_posterior_mean(sched, pred_xstart, x, t), pmv.log_variance,
+                         pred_xstart)
+
+
+def cfg_model_fn(model_fn: ModelFn, scale: torch.Tensor) -> ModelFn:
+    """Classifier-free guidance as one batched forward over the cond and
+    uncond halves (the reference's two calls, cfg_sampler.py:36-43). The
+    uncond half zeroes cond['enc_text'], mask_cond's null condition. A
+    per-clip scale is tiled when the batch is a multiple of it."""
+
+    def wrapped(x, t_orig, cond):
+        cond2 = dict(cond)
+        enc = cond["enc_text"]
+        cond2["enc_text"] = torch.cat([enc, torch.zeros_like(enc)], dim=0)
+        out = model_fn(torch.cat([x, x], dim=0), torch.cat([t_orig, t_orig], dim=0), cond2)
+        out_cond, out_uncond = out.chunk(2, dim=0)
+        s = torch.as_tensor(scale, dtype=out.dtype, device=out.device).reshape(-1)
+        s = s.repeat(x.shape[0] // s.shape[0]).reshape((-1,) + (1,) * (x.ndim - 1))
+        return out_uncond + s * (out_cond - out_uncond)
+
+    return wrapped

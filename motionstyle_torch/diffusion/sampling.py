@@ -16,9 +16,13 @@ loop here (PyTorch runs eagerly):
     torch.utils.checkpoint (jax.checkpoint's counterpart). The step noise is
     drawn before the checkpointed body; a model_fn that draws dropout must
     re-seed its own generator per call so the recompute sees the same masks.
-
-Not on this slice: the Pallas fused DDPM update (fused_update) and
-classifier guidance (cond_fn).
+  - cond_fn adds classifier guidance: DDPM shifts the mean
+    (ddpm.condition_mean), DDIM the score (ddpm.condition_score);
+  - fused_update=True runs each DDPM step's update as one kernel launch
+    (ops/sampler_update.py, kernel 3) under the JAX loop's conditions: DDPM,
+    no grad, no x0 clipping, sigma_small, no cond_fn, no const_noise and no
+    pinned step noise; otherwise the normal path runs. Its noise comes from
+    the kernel's Philox stream, seeded once per loop from `generator`.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from motionstyle_torch.diffusion import ddpm
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+from motionstyle_torch.ops.sampler_update import fused_ddpm_update
 
 
 def timestep_indices(num_timesteps: int, skip_timesteps: int,
@@ -79,6 +84,33 @@ def _ddim_update(sched, pmv, x, t, noise, inpainting, eta):
     return mean_pred + _nonzero(t, x) * sigma * noise
 
 
+def use_fused_update(fused_update: bool, method: str, differentiable: bool,
+                     clip_denoised: bool, sigma_small: bool, cond_fn, const_noise: bool,
+                     step_noise) -> bool:
+    """The JAX loop's predicate for the fused update (sampling.py:146-149):
+    the hot serving configuration only."""
+    return (fused_update and method != "ddim" and not differentiable and not clip_denoised
+            and sigma_small and cond_fn is None and not const_noise and step_noise is None)
+
+
+def draw_base_seed(generator: Optional[torch.Generator], device) -> int:
+    """The fused update's base seed, in [0, 2^30), from `generator` (the JAX
+    loop's randint(fold_in(rng, 7), (), 0, 2^30)); step t uses base + t. The
+    one host read of a fused loop."""
+    dev = generator.device if generator is not None else device
+    return int(torch.randint(0, 2 ** 30, (), generator=generator, device=dev))
+
+
+def fused_update_table(sched: DiffusionSchedule, idx: np.ndarray) -> torch.Tensor:
+    """(len(idx), 4) fp32 on the schedule's device: each step's [c1, c2,
+    sigma = exp(0.5 * posterior_log_variance_clipped), nonzero], built once
+    per loop so that no step reads a scalar on the host."""
+    t = torch.as_tensor(np.ascontiguousarray(idx), dtype=torch.int64, device=sched.device)
+    return torch.stack([sched.posterior_mean_coef1[t], sched.posterior_mean_coef2[t],
+                        torch.exp(0.5 * sched.posterior_log_variance_clipped[t]),
+                        (t != 0).to(torch.float32)], dim=1)
+
+
 def sample_loop(
     sched: DiffusionSchedule,
     model_fn: ModelFn,
@@ -100,12 +132,16 @@ def sample_loop(
     step_noise: Optional[torch.Tensor] = None,
     differentiable: bool = False,
     remat: bool = True,
+    cond_fn=None,
+    fused_update: bool = False,
 ) -> torch.Tensor:
     """Run the reverse diffusion on the schedule's device. Returns the final
     sample, or the stacked per-step x0 predictions (S, B, C, F, T) with
     dump_all_xstart. Noise not pinned by `noise`/`step_noise` is drawn from
     `generator` (a torch.Generator on the schedule's device). Without
-    `differentiable` the loop runs under torch.no_grad()."""
+    `differentiable` the loop runs under torch.no_grad(). cond_fn(x, t_orig,
+    cond) -> grad log p(y|x) guides each step; fused_update asks for the
+    fused DDPM update (see the module docstring for when it runs)."""
     with contextlib.nullcontext() if differentiable else torch.no_grad():
         device = sched.device
         if noise is None:
@@ -125,10 +161,28 @@ def sample_loop(
             t0 = torch.full((shape[0],), int(idx[0]), dtype=torch.int64, device=device)
             img = ddpm.q_sample(sched, init_image, t0, img, inpainting=inpainting)
 
+        fused = use_fused_update(fused_update, method, differentiable, clip_denoised,
+                                 sigma_small, cond_fn, const_noise, step_noise)
+        if fused:
+            base_seed = draw_base_seed(generator, device)
+            table = fused_update_table(sched, idx)
+            mask = motion = None
+            if inpainting is not None:
+                mask = inpainting.mask.float().expand(shape).contiguous()
+                motion = inpainting.motion.float().expand(shape).contiguous()
+
         xs = []
         x = img
         for i, t_scalar in enumerate(idx):
             t = torch.full((shape[0],), int(t_scalar), dtype=torch.int64, device=device)
+            if fused:
+                model_output = model_fn(x, sched.timestep_map[t], cond)
+                x, pred_xstart = fused_ddpm_update(
+                    x, model_output.float().contiguous(), mask, motion, *table[i],
+                    base_seed + int(t_scalar))
+                if dump_all_xstart:
+                    xs.append(pred_xstart)  # the blended x0, as the JAX loop dumps
+                continue
             if step_noise is not None:
                 noise_step = step_noise[i].to(device)
             elif method == "ddim" and eta == 0.0:
@@ -142,6 +196,13 @@ def sample_loop(
                 pmv = ddpm.p_mean_variance(sched, model_fn, x_in, t, cond,
                                            clip_denoised=clip_denoised, inpainting=inpainting,
                                            sigma_small=sigma_small)
+                if cond_fn is not None:  # classifier guidance
+                    if method == "ddim":
+                        pmv = ddpm.condition_score(sched, cond_fn, pmv, x_in, t, cond)
+                    else:
+                        pmv = ddpm.PMeanVariance(
+                            ddpm.condition_mean(sched, cond_fn, pmv, x_in, t, cond),
+                            pmv.log_variance, pmv.pred_xstart)
                 if method == "ddim":
                     return _ddim_update(sched, pmv, x_in, t, noise_step, inpainting, eta), \
                         pmv.pred_xstart

@@ -30,11 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from motionstyle_torch.ops.attention import multihead_attention
 from motionstyle_torch.ops.fused_encoder import (
     fused_encoder, layer_params, pack, quantize_layer_params, refuse_grad)
 from motionstyle_torch.ops.fused_encoder_train import fused_encoder_train, make_dropout_masks
-
-_NEG = -1e9
 
 
 def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -56,20 +55,14 @@ class MultiheadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
                 dtype: torch.dtype) -> torch.Tensor:
-        B, S, D = x.shape
-        H = self.num_heads
-        dh = D // H
+        D = x.shape[-1]
         qkv = F.linear(x.to(dtype), self.in_proj_weight.to(dtype),
                        self.in_proj_bias.to(dtype))
-        q, k, v = (t.reshape(B, S, H, dh).transpose(1, 2) for t in qkv.split(D, -1))
-        # scores and softmax in fp32, as the JAX XLA path's
-        # preferred_element_type=float32
-        scores = (q * (1.0 / dh ** 0.5)).float() @ k.float().transpose(-1, -2)
-        if key_padding_mask is not None:
-            scores = scores + torch.where(key_padding_mask.bool(), 0.0,
-                                          _NEG)[:, None, None, :]
-        probs = torch.softmax(scores, dim=-1)
-        out = (probs @ v.float()).transpose(1, 2).reshape(B, S, D)
+        q, k, v = qkv.split(D, -1)
+        # the fp32 attention output (ops/attention.py: the plain version, or
+        # kernel 4 on the card for S > 512 or MOTIONSTYLE_PALLAS_ATTN=1, as
+        # the JAX package dispatches), cast by the out-projection
+        out = multihead_attention(q, k, v, self.num_heads, key_padding_mask)
         return dense(self.out_proj, out, dtype)
 
 

@@ -133,7 +133,7 @@ def test_demo_matches_the_jax_demo(flags, finetuned, xia_root, tmp_path,  # noqa
     (None, 1), (["--dataset", "humanml"], 10), (["--dataset", "bandai-2_posrot"], 10),
     (["--long_frames", "200"], 6), (["--style_mix", "a.pt:1"], 6),
     (["--style_strength", "0.5"], 6), (["--parallel_window", "4"], 2),
-    (["--forecast_stride", "2"], 7), (["--model_parallel", "2"], 11),
+    (["--forecast_stride", "2"], 10), (["--model_parallel", "2"], 11),
     (["--pipeline_parallel", "2"], 11), (["--sequence_parallel", "2"], 11),
     (["--profile", "trace"], 12)])
 def test_demo_refuses_what_is_not_ported(flag, item, finetuned, xia_root,  # noqa: F811
