@@ -10,16 +10,22 @@ Phases, each printed on its own line with its seconds:
      source, all started together.
   3. kernel: the inference layer (kernel 1) against its plain PyTorch twin
      on the card at the serving shapes and past the old caps (S=197 and 300,
-     D=128 with head width 32, D=384 with 6 heads), then the int8 layer
-     (kernel 2) against its twin at the serving shape with a key padding
-     mask, S=197, D=128 and D=384; each with its time, the twin's, a library
-     reference and the card's bound.
+     D=128 with head width 32, D=384 with 6 heads), at the DDPM chain's
+     B=64, S=197, at S=1, 256, 257 and 600 (the edges of its attention's
+     register-resident and two-pass paths) and at head width 48; kernel 1
+     timed at B=64, S=197 (device time per launch, the attention launch
+     apart) beside nn.TransformerEncoderLayer and
+     scaled_dot_product_attention; then the int8 layer (kernel 2) against
+     its twin at the serving shape with a key padding mask, S=197, D=128
+     and D=384; each with its time, the twin's, a library reference and the
+     card's bound.
   4. attention_kernel: the standalone attention (kernel 4) against its plain
-     version at B=8, S=77, D=512, 4 heads, at S=197 and 600, at D=128 and at
-     S=1, 33 and 513, fp32 and bf16 inputs, with a key padding mask (rel L2
-     <= 1e-5); gradients through its autograd Function bit-equal to the
-     plain version's; its time, the plain version's,
-     scaled_dot_product_attention's and the bound.
+     version at B=8, S=77, D=512, 4 heads, at S=197 and 600, at D=128 and
+     192 and at S=1, 33 and 513, fp32 and bf16 inputs, with a key padding
+     mask (rel L2 <= 1e-5); gradients through its autograd Function
+     bit-equal to the plain version's; its time, the plain version's,
+     scaled_dot_product_attention's and the bound (at the fp32 or bf16 peak,
+     and on the split-precision tensor-core route the kernel takes).
   5. golden: the port's fp32 MDM with the full-width reference weights of
      tests/goldens/mdm_model.npz against the reference output, plain and
      with MOTIONSTYLE_PALLAS_ATTN=1 (kernel 4, 8 launches); then at 599
@@ -67,7 +73,9 @@ Phases, each printed on its own line with its seconds:
  13. pretrain_unfused: the same CLI with --fused_train 0, 2 steps without
      MOTIONSTYLE_PALLAS_ATTN and 2 with it =1 from the same seed: kernel 4
      launched 8 times per forward with it, never without; the first losses
-     within rel 1e-4; seconds per step of both.
+     within rel 1e-4; seconds per step of both; the second step of each
+     under torch.profiler, its device time (kernel 4's apart) beside its host
+     clock.
  14. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
      prior, the same corpus) runs a few steps with --fused_train 1, then
      with --fused_train_store 1; losses (the store run's first equal to the
@@ -128,6 +136,13 @@ PRETRAIN_ACCUM = 2
 # --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536
 KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
                        (B, S, 384, 6, 1536))
+# the inference layer at the DDPM chain's shape (bench.py's B=64, T=196: S=197),
+# at the edges of its attention's two paths: S=1 and 256 (the score row in
+# registers), 257 and 600 (two passes over the key tiles), and at head width
+# 48, which no CLI asks for but the kernel takes (not a multiple of 32)
+DDPM_LAYER = (64, 197)
+KERNEL_ATTENTION_SHAPES = ((*DDPM_LAYER, D, H, F), (B, 1, D, H, F), (B, 256, D, H, F),
+                           (B, 257, D, H, F), (B, 600, D, H, F), (B, S, 192, 4, F))
 # the int8 layer (kernel 2) against its twin: the serving shape, then S = 197,
 # head width 32 and D = 384 with 6 heads; rel L2 on the fp32 output (the two
 # differ by summation order, and a code flip where that moves a value across
@@ -275,7 +290,7 @@ def kernel_phase(device) -> dict:
     # An fp32 input gives the fp32 output (the kernel rounds the input to
     # bf16 itself), so the gate reads the sums before the output's rounding:
     # at these shapes |y| reaches [4, 8), where one bf16 ulp is 0.03125.
-    for b, s, d, h, f in KERNEL_EXTRA_SHAPES:
+    for b, s, d, h, f in KERNEL_EXTRA_SHAPES + KERNEL_ATTENTION_SHAPES:
         pe = random_layer(gen, d, f, device)
         x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16).float()
         kpm = torch.ones(b, s, dtype=torch.bool)
@@ -316,7 +331,43 @@ def kernel_phase(device) -> dict:
           f"{record['plain_ms']:.6g} library_ms {record['library_ms']:.6g} "
           f"bound_ms {bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} GFLOP, "
           f"{nbytes / 1e6:.4g} MB)", flush=True)
+    ddpm_layer_timing(p, lib, gen, device)
     return record
+
+
+def ddpm_layer_timing(p, lib, gen, device) -> None:
+    """Kernel 1 at the DDPM chain's shape (DDPM_LAYER): CUDA events per call,
+    torch.profiler's device time per launch (the attention launch apart from
+    the GEMMs), the layer's bound; beside it nn.TransformerEncoderLayer (bf16,
+    eval) and, as the attention launch's yardstick,
+    scaled_dot_product_attention's bf16 device time on q, k, v of the same
+    shape, with the attention launch's own bound."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+
+    b, s = DDPM_LAYER
+    x = torch.randn(b, s, D, generator=gen).to(device, torch.bfloat16)
+    qkv = torch.randn(b, s, 3 * D, generator=gen).to(device, torch.bfloat16)
+    heads = [t.reshape(b, s, H, D // H).transpose(1, 2) for t in qkv.split(D, -1)]
+    with torch.no_grad():
+        ms = time_ms(lambda: fused_encoder_layer(x, p, H), iters=20)
+        lib_ms = time_ms(lambda: lib(x), iters=20)
+        rows = device_profile(lambda: fused_encoder_layer(x, p, H), iters=10)
+        lib_us = device_us(lambda: lib(x), iters=10)
+        sdpa_us = device_us(lambda: Fn.scaled_dot_product_attention(*heads), iters=10)
+    bound_ms, bound_by, flops, nbytes = layer_bound(b, s, D, H, F)
+    attn_flops, attn_bytes = 4 * b * s * s * D, 4 * b * s * D * 2
+    attn_bound = max(attn_flops / PEAK_BF16_FLOPS, attn_bytes / PEAK_BYTES) * 1e3
+    launches = "; ".join(f"{us:.6g} us {name[:70]}" for name, us in rows) or "not measured"
+    print(f"  B={b} S={s}: kernel_ms {ms:.6g} (events); device time (torch.profiler) "
+          f"{sum(us for _, us in rows):.6g} us per call, by launch: {launches}; bound_ms "
+          f"{bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB); "
+          f"library nn.TransformerEncoderLayer (bf16, eval) {lib_ms:.6g} ms, device {lib_us}; "
+          f"attention launch bound {attn_bound:.6g} ms (bytes: {attn_bytes / 1e6:.4g} MB of q, "
+          f"k, v, out; {attn_flops / 1e9:.4g} GFLOP at the bf16 peak); "
+          f"scaled_dot_product_attention (bf16, no mask) device {sdpa_us}", flush=True)
 
 
 def int8_layer_bound(b: int, s: int, d: int, h: int, f: int, masked: bool) -> tuple:
@@ -1282,11 +1333,13 @@ def demo_phase(model_path: str, data_dir: str, out_root: str, card: str) -> int:
 # ---------------------------------------------------------------------------
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 ATTN_REL_L2 = 1e-5  # kernel 4 vs its plain version: fp32 sums in another order
 # (B, S, D, H) of kernel 4's checks: the serving shape, S = 197 and 600, head
-# width 32 (D = 128) and ragged S (1, 33, 513)
-ATTN_SHAPES = ((B, S, D, H), (B, 197, D, H), (2, 600, D, H), (B, S, 128, 4), (4, 1, D, H),
-               (4, 33, D, H), (2, 513, D, H))
+# width 32 (D = 128) and 48 (D = 192, not a multiple of 32) and ragged S (1,
+# 33, 513)
+ATTN_SHAPES = ((B, S, D, H), (B, 197, D, H), (2, 600, D, H), (B, S, 128, 4), (B, S, 192, 4),
+               (4, 1, D, H), (4, 33, D, H), (2, 513, D, H))
 PALLAS_ATTN = "MOTIONSTYLE_PALLAS_ATTN"
 
 
@@ -1316,6 +1369,19 @@ def attention_bound(b: int, s: int, d: int, h: int, width: int) -> tuple:
     peak = PEAK_FP32_FLOPS if width == 4 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def attention_bound_tensor_cores(b: int, s: int, d: int, h: int, width: int) -> float:
+    """Kernel 4's bound (ms) on the route it takes: the split-precision
+    tensor-core products (fp32 inputs: 3 TF32 products for q k^T and for
+    p v; bf16: q k^T in bf16, p v in 2 TF32 products) against the same
+    bytes as attention_bound."""
+    flops = 4 * b * h * s * s * (d // h)
+    if width == 4:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+    else:
+        t_ops = flops / 2 / PEAK_BF16_FLOPS + 2 * (flops / 2) / PEAK_TF32_FLOPS
+    return max(t_ops, 4 * b * s * d * width / PEAK_BYTES) * 1e3
 
 
 def attention_kernel_phase(device) -> dict:
@@ -1392,12 +1458,14 @@ def attention_kernel_phase(device) -> dict:
             dev_us, lib_us = device_us(kern), device_us(library)
         at.attention_kernel.launches = n0
         bound_ms, bound_by, flops, nbytes = attention_bound(b, s, D, H, qkv.element_size())
+        tc_ms = attention_bound_tensor_cores(b, s, D, H, qkv.element_size())
         print(f"  attention B={b} S={s} D={D} H={H} {str(dtype)[6:]}: kernel_ms {ms:.6g} "
               f"reference_ms {plain:.6g} library_ms {lib:.6g} (scaled_dot_product_attention, "
               f"the same additive mask) bound_ms {bound_ms:.6g} ({bound_by}: {flops / 1e9:.4g} "
               f"GFLOP at the {'fp32' if dtype == torch.float32 else 'bf16'} peak, "
-              f"{nbytes / 1e6:.4g} MB); device time (torch.profiler) kernel {dev_us}, "
-              f"scaled_dot_product_attention {lib_us}", flush=True)
+              f"{nbytes / 1e6:.4g} MB), on the split tensor-core route {tc_ms:.6g}; device "
+              f"time (torch.profiler) kernel {dev_us}, scaled_dot_product_attention {lib_us}",
+              flush=True)
         return ms, plain, lib, bound_ms, bound_by
 
     ms, plain, lib, bound_ms, bound_by = timed(B, S, torch.float32)
@@ -1456,13 +1524,50 @@ def golden_attention_phase(device) -> None:
 UNFUSED_PRETRAIN_STEPS = 2
 
 
+@contextmanager
+def profiled_step(n: int, out: dict):
+    """Run the n-th PriorTrainer.run_step call (1-based) of the block under
+    torch.profiler: out gets its host seconds (up to the loss's host read and
+    a synchronize) and its device time, every CUDA kernel summed and kernel
+    4's launches apart (us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionstyle_torch.train.pretrain import PriorTrainer
+
+    run_step, calls = PriorTrainer.run_step, [0]
+
+    def wrapped(self, batch):
+        calls[0] += 1
+        if calls[0] != n:
+            return run_step(self, batch)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss = run_step(self, batch)
+            float(loss)
+            torch.cuda.synchronize()
+            out["host_s"] = time.perf_counter() - t0
+        rows = [(e.key, event_device_us(e)) for e in prof.key_averages()
+                if e.device_type.name == "CUDA"]
+        out["device_us"] = sum(us for _, us in rows)
+        out["kernel4_us"] = sum(us for name, us in rows if "attention_kernel" in name)
+        return loss
+
+    PriorTrainer.run_step = wrapped
+    try:
+        yield
+    finally:
+        PriorTrainer.run_step = run_step
+
+
 def pretrain_unfused_phase(card: str, data_dir: str, tmp_root: str) -> None:
     """The pretrain CLI with --fused_train 0 (the plain layers; full width,
     batch 64) for 2 steps, first without MOTIONSTYLE_PALLAS_ATTN, then with
     it =1 from the same seed: kernel 4 launched 8 times per forward with the
     variable and never without, finite losses, the first loss within rel
     1e-4 of the run without (the dropout masks come from the same
-    generator); seconds per step of both."""
+    generator); seconds per step of both, and the second step of each under
+    torch.profiler: its device time against its host clock."""
     import csv
 
     import numpy as np
@@ -1476,7 +1581,8 @@ def pretrain_unfused_phase(card: str, data_dir: str, tmp_root: str) -> None:
     for label, value in (("without the variable", None), (f"{PALLAS_ATTN}=1", "1")):
         save_dir = os.path.join(tmp_root, f"prior_unfused_{len(runs)}")
         random.seed(seed)  # the loader's crops and captions
-        with env_var(PALLAS_ATTN, value):
+        step2 = {}
+        with env_var(PALLAS_ATTN, value), profiled_step(2, step2):
             attention_kernel.launches = 0
             t0 = time.perf_counter()
             pretrain_main(["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--save_dir",
@@ -1492,7 +1598,9 @@ def pretrain_unfused_phase(card: str, data_dir: str, tmp_root: str) -> None:
         secs = [float(r["step_seconds"]) for r in rows]
         print(f"  pretrain --fused_train 0 {label}: {UNFUSED_PRETRAIN_STEPS} steps in "
               f"{wall:.4f} s (whole CLI run on {card}); losses {losses}; step seconds {secs} "
-              f"({batch / secs[-1]:.6g} clips/s at the last); attention_kernel launches {n}",
+              f"({batch / secs[-1]:.6g} clips/s at the last); attention_kernel launches {n}; "
+              f"second step under torch.profiler: host {step2['host_s']:.6g} s, device "
+              f"{step2['device_us']:.6g} us, of which kernel 4 {step2['kernel4_us']:.6g} us",
               flush=True)
         check(len(losses) == UNFUSED_PRETRAIN_STEPS and bool(np.isfinite(losses).all()),
               f"pretrain --fused_train 0 {label}: losses finite")

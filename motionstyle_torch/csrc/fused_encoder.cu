@@ -22,9 +22,11 @@
 //   1. qkv GEMM (16-row x 128-col tiles, WMMA bf16 tensor cores), bias and
 //      the q scale fused, q/k/v written as bf16 in the rounding the TPU
 //      kernel applies before its score matmul;
-//   2. attention, one block per (batch row, head, 32 queries), keys walked
-//      in tiles of 128 through shared memory in two passes
-//      (attention_fwd.cuh), so any sequence length runs;
+//   2. attention on the tensor cores (attention_fwd.cuh, launch_forward_tc):
+//      a warp per 16 queries of one (batch row, head), bf16 mma.sync for
+//      q k^T and p v, key and value tiles streamed by cp.async; for S <= 256
+//      the score row stays in registers, longer S takes two passes over the
+//      key tiles, so any sequence length runs;
 //   3. out-projection GEMM whose block owns whole D-wide rows (up to 1024,
 //      in dynamic shared memory), so bias, residual and LayerNorm 1 stay in
 //      the block;
@@ -297,10 +299,9 @@ extern "C" int fused_encoder_layer_forward(
   RETURN_IF_ERROR(launch_gemm<EPI_QKV>(p, st));
 
   // 2. attention
-  RETURN_IF_ERROR(attention::launch_forward(p.q, D, p.k, p.v, D,
-                                            static_cast<const float*>(key_mask),
-                                            static_cast<bf16*>(attn), D, nullptr, B, S, H, dh,
-                                            st));
+  RETURN_IF_ERROR(attention::launch_forward_tc(p.q, D, p.k, p.v, D,
+                                               static_cast<const float*>(key_mask),
+                                               static_cast<bf16*>(attn), D, B, S, H, dh, st));
 
   // 3. out-projection + residual + LayerNorm 1
   p.a = static_cast<const bf16*>(attn);

@@ -17,9 +17,15 @@ roundings (:73-88):
 
 fp32 inputs (the unfused denoiser's default) give fp32 products throughout;
 bf16 inputs differ only in q, k and v being bf16 values. The kernel
-(csrc/attention.cu) does every product in fp32 on the CUDA cores, never in
-TF32: at S=77 it is bound by the bytes of q, k and v, at S=600 by its fp32
-operations (see the source for the design).
+(csrc/attention.cu) runs the products on the tensor cores in split
+precision, never in single-pass TF32 (three digits): fp32 operands split into
+two TF32 terms each and multiply as hi*hi + hi*lo + lo*hi (3xTF32); bf16 q k^T
+is exact in bf16 products, and p v splits p in two TF32 terms against v,
+which is exact in TF32. Its softmax is online and normalises at the end,
+which changes only fp32 rounding since p is never rounded. The keys of each
+16-row query group are split over 4 warps and combined at the end, so the
+short sequences fill the card (see the source for the design);
+tests/test_torch_attention_split.py emulates the split on the CPU.
 
 `multihead_attention` copies the JAX dispatch (:133-178): self-attention
 only; with use_pallas=None the kernel runs for CUDA tensors when S > 512 or

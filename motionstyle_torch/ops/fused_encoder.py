@@ -17,9 +17,9 @@ On the card (csrc/fused_encoder.cu) the layer is bound by tensor-core
 operations at the serving shape: ~2.7 GFLOP over ~5 MB at B=8, S=77, D=512,
 F=1024. The TPU kernel held a whole batch row plus all weights in VMEM per
 grid step; a Hopper SM has 227 KB of shared memory, so the layer runs as five
-launches (qkv GEMM, attention per (row, head) over key tiles, out-projection
-+ LN1, FFN-up + gelu, FFN-down + LN2), each LayerNorm fused into the GEMM
-block that owns whole rows. See the source for the design and the shapes it
+launches (qkv GEMM, attention on the tensor cores per (row, head, 16
+queries) over key tiles, out-projection + LN1, FFN-up + gelu, FFN-down +
+LN2), each LayerNorm fused into the GEMM block that owns whole rows. See the source for the design and the shapes it
 takes (_check_cuda_inputs states them).
 
 `fused_encoder_layer` launches the kernel for CUDA tensors (or raises) and

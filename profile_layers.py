@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
-"""Device time of each launch inside the port's layer kernels, on one NVIDIA
-GPU, at the finetune's and the serving's shapes (d=512, 4 heads, ff 1024,
-S=77; training at B=64 and B=1 with dropout masks at rate 0.1, and at B=64
-in prng mode, the dropout regenerated inside the kernels from per-clip seeds,
-where the checkout has it; inference at B=8).
+"""Device time of each launch inside the port's layer and attention kernels,
+on one NVIDIA GPU, at the shapes their main paths use (d=512, 4 heads, ff
+1024): the training layer at B=64 and B=1, S=77, with dropout masks at rate
+0.1 (and at B=64 in prng mode, the dropout regenerated inside the kernels
+from per-clip seeds, where the checkout has it), beside
+nn.TransformerEncoderLayer's train forward at B=64; the inference layer at
+B=8, S=77 and at the DDPM chain's B=64, S=197 (its attention launch apart),
+beside nn.TransformerEncoderLayer (eval) and scaled_dot_product_attention;
+the standalone attention (kernel 4) at B=8, S=77 fp32 and bf16 and at B=2,
+S=600 fp32, beside scaled_dot_product_attention with the same mask; and the
+seconds per step of the 1000-step DDPM chain's last 50 steps through the
+inference layer (a seeded full-width prior, B=64, T=196, the fused update).
 
     python3 profile_layers.py [ROOT ...]
 
@@ -20,21 +27,67 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+DDPM_SHAPE, DDPM_STEPS = (64, 181, 1, 196), 50
+
+
+def ddpm_seconds_per_step(dev) -> float:
+    """Host seconds per step of the DDPM chain's last DDPM_STEPS steps
+    through the fused bf16 denoiser (seeded weights), the second of two runs."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.diffusion import sampling
+    from motionstyle_torch.diffusion.ddpm import Inpainting
+    from motionstyle_torch.diffusion.schedule import make_schedule
+    from motionstyle_torch.models.denoiser import MDM, MDMConfig
+
+    torch.manual_seed(0)
+    model = MDM(MDMConfig(njoints=181, nfeats=1, fused=True, dtype="bfloat16")).to(dev).eval()
+    rs = np.random.RandomState(6)
+    content = torch.from_numpy((rs.randn(*DDPM_SHAPE) * 0.5).astype(np.float32)).to(dev)
+    mask = torch.as_tensor(np.asarray(get_inpainting_mask(
+        "root_horizontal", DDPM_SHAPE, dataset="stylexia_posrot"), np.float32)).to(dev)
+    cond = {"enc_text": torch.from_numpy(rs.randn(DDPM_SHAPE[0], 512).astype(np.float32)).to(dev)}
+    sched = make_schedule("cosine", 1000, device=dev)
+
+    def chain():
+        return sampling.sample_loop(
+            sched, lambda x, t, c: model(x, t, c["enc_text"]), cond,
+            torch.Generator(device=dev).manual_seed(0), shape=DDPM_SHAPE, init_image=content,
+            method="ddpm", skip_timesteps=1000 - DDPM_STEPS, inpainting=Inpainting(mask, content),
+            fused_update=True)
+
+    with torch.no_grad():
+        chain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chain()
+        torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / DDPM_STEPS
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError("the DDPM chain gave non-finite values")
+    return secs
 
 
 def profile(root: str) -> None:
     sys.path.insert(0, root)
     import torch
+    import torch.nn.functional as Fn
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     import chip_smoke as cs
+    from motionstyle_torch.ops import attention as at
     from motionstyle_torch.ops import fused_encoder_train as ft
-    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.ops.fused_encoder import additive_key_mask, fused_encoder_layer
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     p = cs.random_layer(gen, 512, 1024, dev)
     runs = {}
@@ -54,6 +107,8 @@ def profile(root: str) -> None:
                                                                            None, m))
         if hasattr(ft, "fused_layer_train_bwd_attn_stored"):
             _, _, _, probs, qkv = ft.fused_layer_train_forward_store(x, p, 4, None, masks)
+            runs[f"B={b} forward_store"] = (
+                lambda x=x, m=masks: ft.fused_layer_train_forward_store(x, p, 4, None, m))
             runs[f"B={b} bwd_attn_stored"] = (
                 lambda d=da1, x=x, a=attn, pr=probs, q=qkv, m=masks:
                 ft.fused_layer_train_bwd_attn_stored(d, x, a, pr, q, p, 4, m))
@@ -67,8 +122,37 @@ def profile(root: str) -> None:
             runs[f"B={b} bwd_attn prng"] = (
                 lambda d=da1, x=x, a=attn: ft.fused_layer_train_bwd_attn(d, x, a, p, 4, None,
                                                                          **drop))
-    xi = torch.randn(8, 77, 512, generator=gen).to(dev, torch.bfloat16)
-    runs["B=8 inference layer"] = lambda: fused_encoder_layer(xi, p, 4)
+        if b == 64:
+            train_lib = torch.nn.TransformerEncoderLayer(
+                512, 4, 1024, dropout=0.1, activation=partial(Fn.gelu, approximate="tanh"),
+                batch_first=True).to(dev, torch.bfloat16).train()
+            runs["B=64 library nn.TransformerEncoderLayer forward (train, dropout 0.1)"] = (
+                lambda x=x: train_lib(x))
+    eval_lib = torch.nn.TransformerEncoderLayer(
+        512, 4, 1024, dropout=0.0, activation=partial(Fn.gelu, approximate="tanh"),
+        batch_first=True).to(dev, torch.bfloat16).eval()
+    for b, s in ((8, 77), (64, 197)):
+        xi = torch.randn(b, s, 512, generator=gen).to(dev, torch.bfloat16)
+        runs[f"B={b} S={s} inference layer"] = lambda xi=xi: fused_encoder_layer(xi, p, 4)
+        runs[f"B={b} S={s} library nn.TransformerEncoderLayer (eval)"] = (
+            lambda xi=xi: eval_lib(xi))
+    qkv = torch.randn(64, 197, 3 * 512, generator=gen).to(dev, torch.bfloat16)
+    heads = [t.reshape(64, 197, 4, 128).transpose(1, 2) for t in qkv.split(512, -1)]
+    runs["B=64 S=197 library scaled_dot_product_attention (bf16, no mask)"] = (
+        lambda: Fn.scaled_dot_product_attention(*heads))
+    for b, s, dtype in ((8, 77, torch.float32), (8, 77, torch.bfloat16), (2, 600, torch.float32)):
+        qkv = torch.randn(b, s, 3 * 512, generator=gen).to(dev, dtype)
+        q, k, v = qkv.split(512, -1)
+        kpm = torch.ones(b, s, dtype=torch.bool)
+        kpm[-1, s // 2:] = False
+        mask = additive_key_mask(kpm, b, s, dev)
+        hd = [t.reshape(b, s, 4, 128).transpose(1, 2) for t in (q, k, v)]
+        name = f"B={b} S={s} {str(dtype)[6:]}"
+        runs[f"{name} attention kernel"] = (
+            lambda q=q, k=k, v=v, m=mask: at.attention_kernel(q, k, v, 4, m))
+        runs[f"{name} library scaled_dot_product_attention"] = (
+            lambda hd=hd, m=mask, dt=dtype: Fn.scaled_dot_product_attention(
+                *hd, attn_mask=m[:, None, None, :].to(dt)))
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -85,6 +169,8 @@ def profile(root: str) -> None:
             print(f"  {name}: {ms:.4f} ms per call (events); device {total:.1f} us", flush=True)
             for e in sorted(events, key=lambda e: -device_us(e)):
                 print(f"      {device_us(e) / 20:8.1f} us  {e.key[:100]}", flush=True)
+    print(f"  DDPM chain B={DDPM_SHAPE[0]} T={DDPM_SHAPE[3]}, last {DDPM_STEPS} steps, fused "
+          f"update: {ddpm_seconds_per_step(dev):.6f} s per step (host clock)", flush=True)
 
 
 def main() -> int:
@@ -96,8 +182,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
     print(card, flush=True)
-    build = ("import sys; sys.path.insert(0, sys.argv[1]); from motionstyle_torch import "
-             "_build; [_build.build(n) for n in ('fused_encoder', 'fused_encoder_train')]")
+    build = ("import sys; from concurrent.futures import ThreadPoolExecutor as Pool; "
+             "sys.path.insert(0, sys.argv[1]); from motionstyle_torch import _build; "
+             "names = ('fused_encoder', 'fused_encoder_train', 'attention', 'sampler_update'); "
+             "list(Pool(len(names)).map(_build.build, names))")
     procs = [subprocess.Popen([sys.executable, "-c", build, r]) for r in roots]
     if any(p.wait() != 0 for p in procs):
         return 1
