@@ -10,11 +10,13 @@ Phases, each printed on its own line with its seconds:
      source, all started together.
   3. kernel: the inference layer (kernel 1) against its plain PyTorch twin
      on the card at the serving shapes and past the old caps (S=197 and 300,
-     D=128 with head width 32, D=384 with 6 heads), at the DDPM chain's
-     B=64, S=197, at S=1, 256, 257 and 600 (the edges of its attention's
-     register-resident and two-pass paths) and at head width 48; kernel 1
-     timed at B=64, S=197 (device time per launch, the attention launch
-     apart) beside nn.TransformerEncoderLayer and
+     D=128 with head width 32, D=384 with 6 heads), at the edges of its
+     GEMMs' tiles and clusters (D=64, D=1024 with 8 heads, M=3), at the
+     DDPM chain's B=64, S=197, at S=1, 256, 257 and 600 (the edges of its
+     attention's register-resident and two-pass paths) and at head width
+     48; kernel 1 timed at B=8, S=77 and B=64, S=197 (device time per
+     launch; each GEMM launch's tile, grid and cluster beside its bound)
+     beside nn.TransformerEncoderLayer and
      scaled_dot_product_attention; then the int8 layer (kernel 2) against
      its twin at the serving shape with a key padding mask, S=197, D=128
      and D=384; each with its time, the twin's, a library reference and the
@@ -133,9 +135,14 @@ FINETUNE_STEPS, FINETUNE_BATCH, FINETUNE_LAYERS = 3, 64, 8
 PRETRAIN_ACCUM = 2
 # (B, S, D, H, F) of the inference layer past the old caps: S = 197 (humanml
 # and bandai clips + the condition token) and 300; head width 32 (the CLIs'
-# --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536
+# --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536 (a
+# LayerNorm cluster of 3 or 6); and at the edges of the GEMMs' tiles and
+# clusters: D = 64 (one head, F = 64: a cluster of one, a half-empty tile),
+# D = 1024 with 8 heads and F = 2048 (the largest cluster) and B=3, S=1
+# (M = 3: one tile, nearly all rows TMA's zero fill)
 KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
-                       (B, S, 384, 6, 1536))
+                       (B, S, 384, 6, 1536), (B, S, 64, 1, 64), (B, S, 1024, 8, 2048),
+                       (3, 1, D, H, F))
 # the inference layer at the DDPM chain's shape (bench.py's B=64, T=196: S=197),
 # at the edges of its attention's two paths: S=1 and 256 (the score row in
 # registers), 257 and 600 (two passes over the key tiles), and at head width
@@ -233,6 +240,74 @@ def layer_bound(b: int, s: int, d: int, h: int, f: int) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+# kernel 1's four GEMM launches in launch order (fused_encoder_layer_plan's)
+GEMM_LAUNCHES = ("qkv_gemm", "ln1_gemm", "ffn_up_gemm", "ln2_gemm")
+
+
+def print_gemm_registers(lib_path: str) -> None:
+    """Each GEMM kernel's registers and spills as ptxas reported them (-v) in
+    the build log beside the library."""
+    import re
+
+    with open(lib_path[:-3] + ".log") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"((?:qkv|ffn_up|ln1|ln2)_gemm)ILi(\d+)ELi(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            after = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", after)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", after)
+            print(f"  {m.group(1)}<{m.group(2)}, {m.group(3)}>: "
+                  f"{regs.group(1) if regs else '?'} registers, "
+                  f"{spill.group(1) if spill else '?'} B spill stores, "
+                  f"{spill.group(2) if spill else '?'} B spill loads", flush=True)
+
+
+def gemm_bounds(b: int, s: int, d: int, f: int) -> list:
+    """(flops, bytes) of each of kernel 1's GEMM launches, in GEMM_LAUNCHES
+    order: each input read once (activations, weight, fp32 vectors), each
+    output written once (q, k, v; h1 in fp32 and bf16; ff; the bf16 out)."""
+    m = b * s
+    return [(2 * m * d * 3 * d, m * d * 2 + 3 * d * d * 2 + 3 * d * 4 + 3 * m * d * 2),
+            (2 * m * d * d, 2 * m * d * 2 + d * d * 2 + 3 * d * 4 + m * d * 4 + m * d * 2),
+            (2 * m * d * f, m * d * 2 + f * d * 2 + f * 4 + m * f * 2),
+            (2 * m * f * d, m * f * 2 + m * d * 4 + d * f * 2 + 3 * d * 4 + m * d * 2)]
+
+
+def gemm_plan(b: int, s: int, d: int, f: int) -> list:
+    """The tile, grid and cluster of each GEMM launch, as the C launcher
+    picks them on this card (fused_encoder_layer_plan)."""
+    import ctypes
+
+    from motionstyle_torch import _build
+
+    out = (ctypes.c_int * 28)()
+    rc = _build.load("fused_encoder").fused_encoder_layer_plan(b, s, d, f, out)
+    check(rc == 0, f"fused_encoder_layer_plan B={b} S={s} D={d} F={f} returned 0")
+    keys = ("bm", "bn", "grid_x", "grid_y", "cluster", "threads", "smem")
+    return [dict(zip(keys, out[7 * i:7 * i + 7])) for i in range(4)]
+
+
+def print_gemm_launches(rows: list, b: int, s: int, d: int, f: int) -> None:
+    """Each GEMM launch's plan and device time (torch.profiler rows of one
+    layer call) beside its bound, then the four together."""
+    total_us = total_bound = 0.0
+    for name, plan, (flops, nbytes) in zip(GEMM_LAUNCHES, gemm_plan(b, s, d, f),
+                                           gemm_bounds(b, s, d, f)):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e6, nbytes / PEAK_BYTES * 1e6
+        us = sum(u for key, u in rows if f"{name}<" in key)
+        total_us, total_bound = total_us + us, total_bound + max(t_ops, t_bytes)
+        print(f"  B={b} S={s} {name}: tile {plan['bm']}x{plan['bn']}, grid "
+              f"{plan['grid_x']}x{plan['grid_y']}, cluster {plan['cluster']}, "
+              f"{plan['threads']} threads, {plan['smem']} B shared; device "
+              f"{f'{us:.6g} us' if rows else 'not measured'}, bound {max(t_ops, t_bytes):.6g} us "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.4g} GFLOP, "
+              f"{nbytes / 1e6:.4g} MB)", flush=True)
+    print(f"  B={b} S={s} four GEMM launches: device "
+          f"{f'{total_us:.6g} us' if rows else 'not measured'}, bound {total_bound:.6g} us",
+          flush=True)
+
+
 def random_params(gen, d: int, f: int) -> dict:
     """One encoder layer's fp32 parameters by kernel name, on the CPU."""
     import torch
@@ -325,6 +400,8 @@ def kernel_phase(device) -> dict:
         record["ms"] = time_ms(lambda: fused_encoder_layer(x, p, H))
         record["plain_ms"] = time_ms(lambda: fused_encoder_layer_reference(x, p, H))
         record["library_ms"] = time_ms(lambda: lib(x))
+        rows = device_profile(lambda: fused_encoder_layer(x, p, H))
+    print_gemm_launches(rows, B, S, D, F)
     bound_ms, bound_by, flops, nbytes = layer_bound(B, S, D, H, F)
     record.update(bound_ms=bound_ms, bound_by=bound_by)
     print(f"  B={B} S={S}: kernel_ms {record['ms']:.6g} reference_ms "
@@ -368,6 +445,7 @@ def ddpm_layer_timing(p, lib, gen, device) -> None:
           f"attention launch bound {attn_bound:.6g} ms (bytes: {attn_bytes / 1e6:.4g} MB of q, "
           f"k, v, out; {attn_flops / 1e9:.4g} GFLOP at the bf16 peak); "
           f"scaled_dot_product_attention (bf16, no mask) device {sdpa_us}", flush=True)
+    print_gemm_launches(rows, b, s, D, F)
 
 
 def int8_layer_bound(b: int, s: int, d: int, h: int, f: int, masked: bool) -> tuple:
@@ -1819,6 +1897,7 @@ def main() -> int:
         for name, (path, secs) in zip(KERNEL_SOURCES, built):
             _build.load(name)
             print(f"  {os.path.relpath(path, ROOT)}: nvcc {secs:.3f} s", flush=True)
+        print_gemm_registers(built[KERNEL_SOURCES.index("fused_encoder")][0])
     with phase("kernel"):
         record = kernel_phase(device)
         record_int8 = int8_kernel_phase(device)

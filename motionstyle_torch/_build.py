@@ -35,6 +35,7 @@ _DROP = [_VP, ctypes.c_uint, ctypes.c_float]  # prng dropout: seeds, keep thresh
 SIGNATURES = {
     "fused_encoder": [
         ("fused_encoder_layer_forward", [_VP] * 23 + [_INT] * 5 + [_VP]),
+        ("fused_encoder_layer_plan", [_INT] * 4 + [_VP]),
     ],
     "fused_encoder_int8": [
         ("fused_encoder_layer_int8_forward", [_VP] * 30 + [_INT] * 5 + [_VP]),

@@ -19,14 +19,25 @@ Request:  POST /v1/sample
   (or "content_b64": base64 of little-endian float32 (T, C))
 Response: {"motion": [[...C x 1 x T...]], "seed": 7}
 
-Not on this slice: /v1/stream and long-form content, --artifact, --styles,
---style_strength, --model_parallel.
+Not on this slice: /v1/stream and long-form content. --artifact, --styles,
+--style_strength and --model_parallel are refused (NotImplementedError) when
+they ask for anything but their defaults; a request naming a "style" is
+refused as the JAX server refuses an unregistered one (HTTP 500, "unknown
+style").
 """
 from __future__ import annotations
 
 from argparse import ArgumentParser
 
 import numpy as np
+
+# flag, when it asks for something not ported, what it needs
+REFUSED = (
+    ("artifact", bool, "serving an exported artifact (ROADMAP §1 item 6)"),
+    ("styles", bool, "named styles (ROADMAP §1 item 6)"),
+    ("style_strength", lambda v: v != 1.0, "style strength (ROADMAP §1 item 6)"),
+    ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
+)
 
 DATASET_DIMS = {"stylexia_posrot": (181, 76), "bandai-1_posrot": (190, 196),
                 "bandai-2_posrot": (190, 196), "humanml": (263, 196),
@@ -94,7 +105,8 @@ def build_engine(args):
                              f"got {content.shape}")
         enc = bundle.encode_text([payload.get("text", "")], args.dataset)[0]
         return Request({"enc_text": enc}, init_image=content.T[:, None, :],
-                       inpainting_mask=mask, seed=payload.get("seed", 0))
+                       inpainting_mask=mask, seed=payload.get("seed", 0),
+                       style=payload.get("style"))
 
     def handle(payload: dict) -> np.ndarray:
         return engine.sample(decode(payload))
@@ -127,15 +139,23 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--dataset", default="stylexia_posrot", type=str)
     parser.add_argument("--model_path", default="", type=str,
                         help="finetuned style checkpoint to serve")
+    parser.add_argument("--artifact", default="", type=str,
+                        help="exported artifact directory to serve (not ported)")
     parser.add_argument("--inpainting_mask", default="root_horizontal", type=str)
     parser.add_argument("--skip_steps", default=700, type=int)
     parser.add_argument("--timestep_respacing", default="ddim20", type=str)
+    parser.add_argument("--model_parallel", default=1, type=int,
+                        help="model-parallel serving across cards (not ported)")
     parser.add_argument("--host", default="127.0.0.1", type=str)
     parser.add_argument("--port", default=8500, type=int)
     parser.add_argument("--max_batch", default=8, type=int)
     parser.add_argument("--max_wait_ms", default=5.0, type=float)
     parser.add_argument("--max_queue", default=256, type=int,
                         help="bound the admission queue (0 = unbounded)")
+    parser.add_argument("--style_strength", default=1.0, type=float,
+                        help="scale of the learned style task vector (not ported)")
+    parser.add_argument("--styles", default="", type=str,
+                        help="extra named styles 'name=ckpt[,n2=ckpt2]' (not ported)")
     parser.add_argument("--deterministic", default=0, type=int,
                         help="serve every batch in the largest bucket shape")
     parser.add_argument("--max_body_mb", default=64.0, type=float)
@@ -148,6 +168,10 @@ def build_parser() -> ArgumentParser:
 
 def parse_args(argv=None):
     args = build_parser().parse_args(argv)
+    for flag, asks, what in REFUSED:
+        if asks(getattr(args, flag)):
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
     if not args.model_path:
         raise SystemExit("pass --model_path (a missing file serves a seeded "
                          "style encoder)")

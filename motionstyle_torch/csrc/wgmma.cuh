@@ -1,0 +1,274 @@
+// Hopper (sm_90a) tools for tensor-core GEMMs fed by the Tensor Memory
+// Accelerator, in inline PTX (PTX ISA 8.x), as mma.cuh is for mma.sync:
+//   * the shared-memory matrix descriptor of a K-major bf16 tile in the
+//     128-byte swizzle that TMA writes (rows of 64 bf16 = 128 bytes, 8-row
+//     atoms of 1024 bytes, the tile 1024-byte aligned);
+//   * wgmma.fence, commit_group and wait_group, and wgmma.mma_async
+//     m64n64k16 and m64n128k16 bf16 x bf16 -> fp32 with both operands read
+//     from shared memory;
+//   * mbarriers: init, arrive, arrive with an expected transaction count,
+//     and a wait on a phase's parity;
+//   * cp.async.bulk.tensor.2d TMA loads completing on an mbarrier, TMA
+//     stores in bulk groups, fence.proxy.async, and named barriers;
+//   * thread-block cluster helpers: barrier.cluster arrive/wait, the block's
+//     rank in its cluster, mapa and st.shared::cluster for distributed
+//     shared memory;
+//   * on the host, 2-D tensor maps encoded by libcuda's
+//     cuTensorMapEncodeTiled, fetched through the runtime
+//     (cudaGetDriverEntryPointByVersion from CUDA 12.5, else
+//     cudaGetDriverEntryPoint), so that no library links against libcuda.
+//     A kernel takes a map as a `const __grid_constant__ CUtensorMap`
+//     parameter.
+//
+// wgmma accumulator layout (m64nN, PTX ISA "wgmma register fragments"):
+// thread t of the warpgroup, warp w = t / 32, lane l = t % 32, holds d[4j],
+// d[4j+1] at row 16 w + l / 4, columns 8 j + 2 (l % 4) and +1, and d[4j+2],
+// d[4j+3] at row 16 w + l / 4 + 8, the same columns (j < N / 8). The four
+// lanes of a quad hold one row's values.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda call is linked
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+namespace wgmma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Descriptor of a K-major tile in 128-byte swizzle at shared address `addr`
+// (1024-byte aligned, or that plus a k offset of 32-byte steps inside the
+// swizzle row): start address >> 4, leading offset 1 (unused by this
+// layout), stride 1024 bytes between 8-row atoms, layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous products (call after wait() and before fence()).
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32, the accumulator layout above) += A (64 x 16) W^T
+// (16 x 64): bf16 operands in shared memory, both K-major, given by their
+// descriptors
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_w), "r"(1));
+}
+
+// d (64 x 128, fp32, the accumulator layout above) += A (64 x 16) W^T
+// (16 x 128): bf16 operands in shared memory, both K-major, given by their
+// descriptors
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_w), "r"(1));
+}
+
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy and the cluster
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive, and expect `bytes` of transactions (TMA) before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed (a fresh barrier
+// counts its phase of parity 1 as completed)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---- TMA -------------------------------------------------------------------
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// the box of `map` at (c0 innermost, c1) into shared `dst`, completing
+// (box bytes, out-of-bounds elements zero-filled) on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the box of `map` at (c0 innermost, c1) from shared `src`; parts of the box
+// past the matrix are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// commits this thread's TMA stores, then waits until their shared-memory
+// reads are done (the source may then be reused or the block exit)
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (a TMA store) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a multiple of 32
+__device__ __forceinline__ void named_barrier(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- clusters --------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits; relaxed:
+// orders nothing (the start of a cluster's life), release/acquire: this
+// thread's shared-memory writes, local or remote, are seen after the wait
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (this block's shared memory) in block `rank`
+__device__ __forceinline__ uint32_t mapa(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched once; null if it is missing
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? (EncodeTiledFn)p : nullptr;
+  }();
+  return fn;
+}
+
+// Map of a row-major (rows, cols) bf16 (elem_bytes 2) or fp32 (4) matrix in
+// boxes of box_rows x 128 bytes (one swizzle row: 64 bf16 or 32 fp32) laid
+// out in shared memory in 128-byte swizzle; loads past the matrix fill
+// zeros, stores past it are dropped. cols * elem_bytes must be a multiple
+// of 16 and `base` 16-byte aligned. Returns 0 or the encode's CUresult.
+inline int make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                    uint32_t box_rows, int elem_bytes) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)encode(map,
+                     elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     2, const_cast<void*>(base), dims, strides, box, elem,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace wgmma
+}  // namespace

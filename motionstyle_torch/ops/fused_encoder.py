@@ -19,8 +19,11 @@ F=1024. The TPU kernel held a whole batch row plus all weights in VMEM per
 grid step; a Hopper SM has 227 KB of shared memory, so the layer runs as five
 launches (qkv GEMM, attention on the tensor cores per (row, head, 16
 queries) over key tiles, out-projection + LN1, FFN-up + gelu, FFN-down +
-LN2), each LayerNorm fused into the GEMM block that owns whole rows. See the source for the design and the shapes it
-takes (_check_cuda_inputs states them).
+LN2). The GEMMs run wgmma on tiles that TMA streams through a shared-memory
+ring (csrc/wgmma.cuh); each LayerNorm launch is a thread-block cluster whose
+blocks split a row's columns and share its statistics through distributed
+shared memory. See the source for the design and the shapes it takes
+(_check_cuda_inputs states them).
 
 `fused_encoder_layer` launches the kernel for CUDA tensors (or raises) and
 runs the twin `fused_encoder_layer_reference` only for CPU tensors.

@@ -37,14 +37,18 @@ from motionstyle_torch.serve.batcher import DynamicBatcher, bucket_for
 
 class Request:
     """One sampling request: cond entries are per-item arrays (no batch
-    axis); init_image (C, F, T); inpainting_mask optional (C, F, T)."""
+    axis); init_image (C, F, T); inpainting_mask optional (C, F, T); style
+    names a style registered with the engine (None = the sampler's own
+    model)."""
 
     def __init__(self, cond: dict, init_image: Optional[np.ndarray] = None,
-                 inpainting_mask: Optional[np.ndarray] = None, seed: int = 0):
+                 inpainting_mask: Optional[np.ndarray] = None, seed: int = 0,
+                 style: Optional[str] = None):
         self.cond = cond
         self.init_image = init_image
         self.inpainting_mask = inpainting_mask
         self.seed = int(seed)
+        self.style = style
 
 
 class ServingEngine:
@@ -60,6 +64,8 @@ class ServingEngine:
         self.item_shape = tuple(item_shape)
         self.dump_pick = dump_pick
         self.buckets = tuple(sorted(buckets))
+        # named styles: empty until the port serves --styles (ROADMAP §1 item 6)
+        self._styles: dict = {}
         if deterministic:
             self.buckets = (self.buckets[-1],)
         self._batcher = DynamicBatcher(self._run_groups, max_batch=max_batch,
@@ -70,6 +76,9 @@ class ServingEngine:
 
     def submit(self, request: Request):
         """Returns a concurrent.futures.Future resolving to (C, F, T)."""
+        if request.style is not None and request.style not in self._styles:
+            raise ValueError(f"unknown style {request.style!r}; registered: "
+                             f"{sorted(self._styles)}")
         for name in ("init_image", "inpainting_mask"):
             arr = getattr(request, name)
             if arr is not None and tuple(np.shape(arr)) != self.item_shape:

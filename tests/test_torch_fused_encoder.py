@@ -162,3 +162,36 @@ def test_inference_layer_refuses_inputs_that_need_a_gradient():
     with torch.no_grad():
         out = port(x.requires_grad_(True), use_fused=True)
     assert out.shape == x.shape and not out.requires_grad
+
+
+@pytest.mark.parametrize("b, s, d, f", [(64, 197, 512, 1024), (8, 77, 512, 1024),
+                                        (3, 1, 1024, 2048)])
+def test_gemm_launch_bounds_split_the_layer(b, s, d, f):
+    """chip_smoke.py's per-launch GEMM work: with the attention products the
+    four launches' operations are the layer's, and at the DDPM chain's shape
+    they are 19.83 / 6.61 / 13.22 / 13.22 GFLOP over 53.2 / 65.1 / 39.8 /
+    65.6 MB (each input read once, each output written once)."""
+    import chip_smoke
+
+    launches = chip_smoke.gemm_bounds(b, s, d, f)
+    _, _, layer_flops, _ = chip_smoke.layer_bound(b, s, d, 4, f)
+    assert sum(fl for fl, _ in launches) + 4 * b * s * s * d == layer_flops
+    if (b, s) == (64, 197):
+        assert [round(fl / 1e9, 2) for fl, _ in launches] == [19.83, 6.61, 13.22, 13.22]
+        assert [round(nb / 1e6, 1) for _, nb in launches] == [53.2, 65.1, 39.8, 65.6]
+
+
+def test_gemm_registers_read_from_the_build_log(tmp_path, capsys):
+    """chip_smoke.py reads each GEMM kernel's registers and spills from the
+    nvcc log that sits beside the built library."""
+    import chip_smoke
+
+    fn = "_ZN49_GLOBAL__N__b0_16_fused_encoder_cu_5aa43aa68ln2_gemmILi64ELi128EEEv14CUtensorMap_st"
+    (tmp_path / "lib.log").write_text(
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {fn}\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 116 registers, used 1 barriers\n")
+    chip_smoke.print_gemm_registers(str(tmp_path / "lib.so"))
+    assert capsys.readouterr().out.strip() == (
+        "ln2_gemm<64, 128>: 116 registers, 8 B spill stores, 4 B spill loads")

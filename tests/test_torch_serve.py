@@ -105,6 +105,15 @@ class TestEngine:
         with pytest.raises(ValueError, match="shape"):
             engine.submit(req)
 
+    def test_unknown_style_rejected(self, engine):
+        """As the JAX engine: a request naming a style that is not
+        registered is refused, never served with the default model."""
+        bad = _request(1)
+        bad.style = "nope"
+        with pytest.raises(ValueError, match="unknown style"):
+            engine.submit(bad)
+        assert _request(1).style is None
+
 
 def _post(base, path, body: bytes):
     req = urllib.request.Request(base + path, data=body,
@@ -227,6 +236,42 @@ class TestServeCLI:
         assert motion.shape == (181, 1, 76) and np.isfinite(motion).all()
         np.testing.assert_array_equal(motion[:3], content.T[:3, None, :])
         assert calls["int8"] > 0 and calls["bf16"] == 0
+
+    def test_unknown_style_refused_over_http(self, tmp_path):
+        """A payload's "style" reaches the engine: an unregistered name gets
+        the JAX server's answer (500, "unknown style"), not a 200 with the
+        default style's motion."""
+        from motionstyle_torch.cli import serve
+        from motionstyle_torch.serve.server import MotionServer
+
+        args = serve.parse_args([
+            "--device", "cpu", "--model_path", str(tmp_path / "model000000001.pt"),
+            "--layers", "1", "--latent_dim", "64", "--diffusion_steps", "40",
+            "--skip_steps", "28", "--timestep_respacing", "ddim10"])
+        engine, decode, handle = serve.build_engine(args)
+        assert decode({"content": np.zeros((76, 181)), "style": "angry"}).style == "angry"
+        server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
+        try:
+            code, err = _post(f"http://127.0.0.1:{server.port}", "/v1/sample", json.dumps(
+                {"content": np.zeros((76, 181)).tolist(), "text": "a person walks",
+                 "style": "angry"}).encode())
+        finally:
+            server.close()
+        assert code == 500 and "unknown style 'angry'" in err["error"]
+
+    @pytest.mark.parametrize("flag, item", [
+        (["--artifact", "exported"], 6), (["--styles", "angry=a.pt"], 6),
+        (["--style_strength", "0.5"], 6), (["--model_parallel", "2"], 11)])
+    def test_refuses_what_is_not_ported(self, flag, item):
+        """Each JAX serve flag the port lacks is refused before any work and
+        names its ROADMAP item; at its default it parses."""
+        from motionstyle_torch.cli import serve
+
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
+            serve.parse_args(["--model_path", "m.pt", *flag])
+        args = serve.parse_args(["--model_path", "m.pt"])
+        assert (args.artifact, args.styles, args.style_strength, args.model_parallel) == (
+            "", "", 1.0, 1)
 
     def test_cuda_default_raises_without_a_card(self, tmp_path, monkeypatch):
         from motionstyle_torch.cli import model_util
