@@ -7,7 +7,9 @@ NVIDIA GPU.
 Phases, each printed on its own line with its seconds:
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: nvcc builds every kernel source under csrc/, one process per
-     source, all started together.
+     source, all started together; the registers and spills of the wgmma
+     GEMM kernels (kernel 1's and the training forwards') from the build
+     logs.
   3. kernel: the inference layer (kernel 1) against its plain PyTorch twin
      on the card at the serving shapes and past the old caps (S=197 and 300,
      D=128 with head width 32, D=384 with 6 heads), at the edges of its
@@ -55,10 +57,15 @@ Phases, each printed on its own line with its seconds:
  11. train_kernel: the five training kernels (forward, FFN-half and
      attention-half backward, store-probs forward and stored attention-half
      backward) against their twins at the finetune's shapes (B=64 and B=1,
-     S=77, full width, dropout masks at rate 0.1 and 0) and past the old
-     caps (S=197, D=384), the store forward's output bit-equal to the
-     forward's, with their times, the twins', a library layer's and the
-     card's bounds; then the same in prng mode (kernel 10: the dropout bits
+     S=77, full width, dropout masks at rate 0.1 and 0), past the old caps
+     (S=197, D=384), at the edges of the forwards' wgmma GEMM tiles and
+     clusters (D=64 with one head and F=64, D=1024 with 8 heads, B=3 S=1)
+     and at S=257 and 300 (the tensor-core attention's tiled route, which
+     writes kernel 8's probs there); the store forward's out, a1 and attn
+     bit-equal to the forward's, its probs against probs_twin; their
+     times, the twins', a library layer's and the card's bounds, and
+     kernels 5 and 8 launch by launch (device time, tile, grid, cluster,
+     bound) at B=64 and B=1; then the same in prng mode (kernel 10: the dropout bits
      regenerated inside the kernels from per-clip seeds, also at rate 0.5),
      with determinism and seed sensitivity, rate 1e-9 against the
      deterministic layer, the keep fraction at rate 0.5, a finite difference
@@ -245,19 +252,23 @@ GEMM_LAUNCHES = ("qkv_gemm", "ln1_gemm", "ffn_up_gemm", "ln2_gemm")
 
 
 def print_gemm_registers(lib_path: str) -> None:
-    """Each GEMM kernel's registers and spills as ptxas reported them (-v) in
-    the build log beside the library."""
+    """Each wgmma GEMM kernel's registers and spills as ptxas reported them
+    (-v) in the build log beside the library: kernel 1's (qkv_gemm, ...) and
+    the training forwards' (qkv_train_gemm, ..., the dropout site's prng
+    mode as a third template argument)."""
     import re
 
     with open(lib_path[:-3] + ".log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"((?:qkv|ffn_up|ln1|ln2)_gemm)ILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"((?:qkv_store|qkv|ffn_up|ln1|ln2)(?:_train)?_gemm)ILi(\d+)ELi(\d+)E"
+                      r"(?:Lb([01])E)?", line)
         if m and "Compiling entry function" in line:
             after = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", after)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", after)
-            print(f"  {m.group(1)}<{m.group(2)}, {m.group(3)}>: "
+            prng = "" if m.group(4) is None else f", {'true' if m.group(4) == '1' else 'false'}"
+            print(f"  {m.group(1)}<{m.group(2)}, {m.group(3)}{prng}>: "
                   f"{regs.group(1) if regs else '?'} registers, "
                   f"{spill.group(1) if spill else '?'} B spill stores, "
                   f"{spill.group(2) if spill else '?'} B spill loads", flush=True)
@@ -274,16 +285,19 @@ def gemm_bounds(b: int, s: int, d: int, f: int) -> list:
             (2 * m * f * d, m * f * 2 + m * d * 4 + d * f * 2 + 3 * d * 4 + m * d * 2)]
 
 
-def gemm_plan(b: int, s: int, d: int, f: int) -> list:
+def gemm_plan(b: int, s: int, d: int, f: int, train: bool = False) -> list:
     """The tile, grid and cluster of each GEMM launch, as the C launcher
-    picks them on this card (fused_encoder_layer_plan)."""
+    picks them on this card (fused_encoder_layer_plan; with train, the
+    training forward's fused_layer_train_forward_plan)."""
     import ctypes
 
     from motionstyle_torch import _build
 
+    lib, fn = (("fused_encoder_train", "fused_layer_train_forward_plan") if train
+               else ("fused_encoder", "fused_encoder_layer_plan"))
     out = (ctypes.c_int * 28)()
-    rc = _build.load("fused_encoder").fused_encoder_layer_plan(b, s, d, f, out)
-    check(rc == 0, f"fused_encoder_layer_plan B={b} S={s} D={d} F={f} returned 0")
+    rc = getattr(_build.load(lib), fn)(b, s, d, f, out)
+    check(rc == 0, f"{fn} B={b} S={s} D={d} F={f} returned 0")
     keys = ("bm", "bn", "grid_x", "grid_y", "cluster", "threads", "smem")
     return [dict(zip(keys, out[7 * i:7 * i + 7])) for i in range(4)]
 
@@ -542,8 +556,15 @@ def int8_kernel_phase(device) -> dict:
 # batch of 64 and the unroll's single clip, 76 frames + the condition token
 TRAIN_BATCHES, TRAIN_RATES = (64, 1), (0.1, 0.0)
 # (B, S, D, H, F) of the training kernels past the old caps (S <= 128, D in
-# {128, 256, 512}, head width 64 or 128)
-TRAIN_EXTRA_SHAPES = ((16, 197, D, H, F), (16, S, 384, 6, 1536))
+# {128, 256, 512}, head width 64 or 128); then, for the forwards' wgmma
+# GEMMs, the edges of their tiles and clusters as kernel 1's: D = 64 with one
+# head and F = 64 (a cluster of one, a half-empty tile), D = 1024 with 8
+# heads and F = 2048 (the largest cluster), B=3, S=1 (M = 3); and S = 257
+# and 300, where the tensor-core attention takes its two-pass tiled route
+# and writes kernel 8's probs from there
+TRAIN_EXTRA_SHAPES = ((16, 197, D, H, F), (16, S, 384, 6, 1536), (8, S, 64, 1, 64),
+                      (8, S, 1024, 8, 2048), (3, 1, D, H, F), (4, 257, D, H, F),
+                      (4, 300, D, H, F))
 GRAD_REL_L2, GRAD_MAX_REL = 1e-2, 3e-2
 TRAIN_NAMES = tuple(TRAIN_KERNELS)
 # kernel 10: the dropout that kernels 5-9 generate in prng mode (no launch of
@@ -589,6 +610,89 @@ def train_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool) -> dict:
         out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
                      flops, nbytes)
     return out
+
+
+# kernels 5 and 8's five launches in launch order: the qkv GEMM (kernel 8's
+# stores qkv and q_s), the tensor-core attention, then the GEMMs of LN1,
+# FFN-up and LN2 (fused_layer_train_forward_plan's order for the four GEMMs)
+TRAIN_LAUNCHES = ("qkv_train_gemm", "forward_tc", "ln1_train_gemm", "ffn_up_train_gemm",
+                  "ln2_train_gemm")
+
+
+def train_gemm_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool = True,
+                      store: bool = False) -> list:
+    """(flops, bytes) of each of kernel 5's launches (kernel 8's with store),
+    in TRAIN_LAUNCHES order: each input read once (activations, weight, fp32
+    vectors, the bf16 dropout mask of the launch's site in masks mode), each
+    output written once (q, k, v, or kernel 8's q_s and qkv; attn, and
+    kernel 8's probs; a1, h1 in fp32 and bf16; g; the bf16 out). Their
+    operations are train_bounds' forward's."""
+    m = b * s
+    mask = 2 if masked else 0  # bytes of a mask element
+    qkv_out = m * d * 2 + 3 * m * d * 2 if store else 3 * m * d * 2
+    return [(2 * m * d * 3 * d, m * d * 2 + 3 * d * d * 2 + 3 * d * 4 + qkv_out),
+            (2 * 2 * b * s * s * d, 3 * m * d * 2 + m * d * 2 + (b * h * s * s * 2 if store else 0)),
+            (2 * m * d * d, m * d * 2 + d * d * 2 + 3 * d * 4 + m * d * 2 + m * d * mask
+             + m * d * 4 + m * d * 4 + m * d * 2),
+            (2 * m * d * f, m * d * 2 + f * d * 2 + f * 4 + m * f * mask + m * f * 2),
+            (2 * m * f * d, m * f * 2 + d * f * 2 + 3 * d * 4 + m * d * 4 + m * d * mask
+             + m * d * 2)]
+
+
+def print_train_launches(name: str, rows: list, b: int, s: int, d: int, h: int, f: int,
+                         masked: bool, store: bool) -> None:
+    """Each launch of kernel 5 (or 8) with its device time (torch.profiler
+    rows of one call) beside its bound, the GEMMs with their plan, then the
+    five together."""
+    plans = gemm_plan(b, s, d, f, train=True)
+    plan_of = dict(zip(("qkv_train_gemm", "ln1_train_gemm", "ffn_up_train_gemm",
+                        "ln2_train_gemm"), plans))
+    total_us = total_bound = 0.0
+    for launch, (flops, nbytes) in zip(TRAIN_LAUNCHES,
+                                       train_gemm_bounds(b, s, d, h, f, masked, store)):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e6, nbytes / PEAK_BYTES * 1e6
+        key = ("qkv_store_train_gemm<" if store and launch == "qkv_train_gemm"
+               else launch if launch == "forward_tc" else f"{launch}<")
+        us = sum(u for k, u in rows if key in k)
+        total_us, total_bound = total_us + us, total_bound + max(t_ops, t_bytes)
+        plan = plan_of.get(launch)
+        shape = ("" if plan is None else
+                 f"tile {plan['bm']}x{plan['bn']}, grid {plan['grid_x']}x{plan['grid_y']}, "
+                 f"cluster {plan['cluster']}, {plan['threads']} threads, {plan['smem']} B "
+                 f"shared; ")
+        print(f"  {name} B={b} S={s} {key.rstrip('<')}: {shape}device "
+              f"{f'{us:.6g} us' if rows else 'not measured'}, bound {max(t_ops, t_bytes):.6g} us "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.4g} GFLOP, "
+              f"{nbytes / 1e6:.4g} MB)", flush=True)
+    others = [(k, u) for k, u in rows
+              if not any(n in k for n in TRAIN_LAUNCHES + ("qkv_store_train_gemm",))]
+    print(f"  {name} B={b} S={s} five launches: device "
+          f"{f'{total_us:.6g} us' if rows else 'not measured'}, bound {total_bound:.6g} us; "
+          f"other device rows: {others or 'none'}", flush=True)
+    check(not any("gemm_kernel<" in k or "forward_kernel<" in k for k, _ in rows),
+          f"{name} B={b} S={s} launches neither the WMMA GEMM nor the CUDA-core attention")
+
+
+def probs_twin(x, p, h: int, kmask=None):
+    """The bf16 probabilities (B, H, S, S) kernel 8's attention launch
+    stores, as the Pallas body rounds them, written out here apart from the
+    store twin: qkv from bf16 x and weights with fp32 sums; per head s =
+    bf16(q / sqrt(dh)) bf16(k)^T + mask; p = exp(s - max) / sum, then bf16."""
+    import math
+
+    import torch
+
+    b, s, d = x.shape
+    bf = torch.bfloat16
+    qkv = x.to(bf).float() @ p["in_proj_weight"].to(bf).float().t() + p["in_proj_bias"].float()
+    q, k, _ = qkv.split(d, dim=-1)
+    heads = lambda t: t.reshape(b, s, h, -1).transpose(1, 2)  # noqa: E731
+    scores = (heads((q * (1.0 / math.sqrt(d // h))).to(bf).float())
+              @ heads(k.to(bf).float()).transpose(-1, -2))
+    if kmask is not None:
+        scores = scores + kmask[:, None, None, :]
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(bf)
 
 
 def _grad_gate(got, want):
@@ -637,8 +741,9 @@ def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, 
         other = ft.fused_layer_train_forward(x, p, h, None, **f32, rate=rate,
                                              seeds=drop["seeds"] + 1)[0]
     torch.cuda.synchronize()
-    r_out, r_a1, r_attn, r_probs, r_qkv = ft.fused_layer_train_forward_store_reference(
+    r_out, r_a1, r_attn, _, r_qkv = ft.fused_layer_train_forward_store_reference(
         x, p, h, None, **f32, **drop)
+    r_probs = probs_twin(x, p, h)
     err, rel, rel16 = float((out32 - r_out).abs().max()), rel_l2(out32, r_out), rel_l2(out, r_out)
     rel_a1 = rel_l2(a1, r_a1)
     rel_p, rel_qkv = rel_l2(probs, r_probs), rel_l2(qkv, r_qkv)
@@ -841,6 +946,17 @@ def train_kernel_phase(device) -> tuple:
         for name, (_, twin) in runs_at(prng_inputs[b]).items():
             prng_ms[name] = min(t[name] for t in turns[True])
             prng_plain_ms[name] = time_ms(twin, iters=10)
+        # kernels 5 and 8 launch by launch (torch.profiler), at both batches
+        # in masks mode and at B=64 in prng mode
+        for bb, inputs, mode in ((b, timing_inputs[b], "masks"), (1, timing_inputs[1], "masks"),
+                                 (b, prng_inputs[b], "prng")):
+            xx, drop = inputs[0], inputs[2]
+            for name, store in (("fused_layer_train_forward", False),
+                                ("fused_layer_train_forward_store", True)):
+                fn = getattr(ft, name)
+                rows = device_profile(lambda: fn(xx, p, H, None, **drop), iters=10)
+                print_train_launches(f"{name} ({mode})", rows, bb, S, D, H, F,
+                                     masked=mode == "masks", store=store)
     for name in TRAIN_NAMES:  # timing launches are not the main path's
         getattr(ft, name).launches, getattr(ft, name).prng_launches = counts0[name]
     print(f"  B={b} S={S} rate 0.1, masks vs prng mode (kernel 10 inside), in turns "
@@ -1897,7 +2013,8 @@ def main() -> int:
         for name, (path, secs) in zip(KERNEL_SOURCES, built):
             _build.load(name)
             print(f"  {os.path.relpath(path, ROOT)}: nvcc {secs:.3f} s", flush=True)
-        print_gemm_registers(built[KERNEL_SOURCES.index("fused_encoder")][0])
+        for name in ("fused_encoder", "fused_encoder_train"):  # the wgmma GEMMs
+            print_gemm_registers(built[KERNEL_SOURCES.index(name)][0])
     with phase("kernel"):
         record = kernel_phase(device)
         record_int8 = int8_kernel_phase(device)

@@ -54,6 +54,7 @@ SIGNATURES = {
          [_VP] * 5 + _DROP + [_VP] * 22 + [_INT] * 5 + [_VP]),
         ("fused_layer_train_bwd_attn_stored",
          [_VP] * 4 + _DROP + [_VP] * 15 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_forward_plan", [_INT] * 4 + [_VP]),
     ],
 }
 

@@ -1,19 +1,17 @@
 // Masked softmax attention forwards for the layer kernels. Two of them:
 //   * forward_kernel (launch_forward): one block per (batch row, head) and
-//     ATT_QT queries, products on the CUDA cores; the int8 layer
-//     (fused_encoder_int8.cu, kernel 2) and the training forwards
-//     (fused_encoder_train.cu, kernels 5 and 8, which also writes p) launch
-//     it;
-//   * the tensor-core forward further down (launch_forward_tc), which the
-//     inference layer (fused_encoder.cu, kernel 1) launches.
+//     ATT_QT queries, products on the CUDA cores, fp32 out; the int8 layer
+//     (fused_encoder_int8.cu, kernel 2) launches it;
+//   * the tensor-core forward further down (launch_forward_tc), bf16 out,
+//     which the inference layer (fused_encoder.cu, kernel 1) and the
+//     training forwards (fused_encoder_train.cu, kernels 5 and 8; kernel 8
+//     also writes p) launch.
 // Both take any sequence length S >= 1 and any head width dh that is a
 // multiple of 16 up to 128, and compute the same numbers up to the order of
 // their fp32 sums. forward_kernel:
 //
 //   p   = softmax(bf16(q*scale) bf16(k)^T + mask)     fp32 statistics
-//   out = bf16(p) bf16(v)                              fp32 sums; bf16 out
-//                                                      (kernels 5, 8) or
-//                                                      fp32 out (kernel 2)
+//   out = bf16(p) bf16(v)                              fp32 sums and out
 //
 // The keys are walked in tiles of ATT_KT held in shared memory, in two passes
 // so that the normalised probabilities are rounded to bf16 before p @ V, as
@@ -22,9 +20,7 @@
 // row's max and sum of exp(s - max) (the sum rescaled when a later tile
 // raises the max); pass 2 recomputes the scores and forms bf16(e / l) @ V.
 // With S <= ATT_KT the one tile is loaded once and its exp(s - max) are
-// computed once. When `probs` is set the
-// bf16 p of pass 2 (the very values p @ V multiplies) is also written there,
-// (B, H, S, S) row-major: the store-probs training forward.
+// computed once.
 //
 // q is pre-scaled, (B*S, ldq) bf16 with head h in columns [h*dh, (h+1)*dh);
 // k and v likewise with row stride ldkv; out (B*S, ldo); every row start
@@ -35,8 +31,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <type_traits>
 
 #include "mma.cuh"
 
@@ -109,16 +103,12 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t row
   }
 }
 
-// EXACT: dh == MAXD, known when compiling (the common head widths 64 and 128);
-// OutT: bf16 or float, the type of `out`
-template <int MAXD, bool EXACT, typename OutT>
+// EXACT: dh == MAXD, known when compiling (the common head widths 64 and 128)
+template <int MAXD, bool EXACT>
 __global__ void __launch_bounds__(ATT_THREADS)
 forward_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-               OutT* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
-               int dh_arg) {
-  static_assert(std::is_same<OutT, bf16>::value || std::is_same<OutT, float>::value,
-                "out is bf16 or float");
+               float* __restrict__ out, int ldo, int S, int H, int dh_arg) {
   const int dh = EXACT ? MAXD : dh_arg;
   constexpr int DPL = MAXD / 32;  // output dims per lane
   static_assert(DPL == 2 || DPL == 4, "MAXD is 64 or 128");
@@ -212,10 +202,7 @@ forward_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
       for (int kk = 0; kk < ATT_KPL; ++kk) {
         const int jl = lane + 32 * kk;
         if (jl < n) {
-          const float p = bf16_round((nt == 1 ? s[kk] : expf(s[kk] - m[rr])) / l[rr]);
-          prow[jl] = p;
-          if (probs != nullptr)
-            probs[(((size_t)b * H + h) * S + i) * S + t * ATT_KT + jl] = __float2bfloat16_rn(p);
+          prow[jl] = bf16_round((nt == 1 ? s[kk] : expf(s[kk] - m[rr])) / l[rr]);
         }
       }
       __syncwarp();
@@ -238,14 +225,10 @@ forward_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
   for (int rr = 0; rr < ATT_RPW; ++rr) {
     const int i = q0 + warp + ATT_WARPS * rr;
     if (i >= S || !lane_on) continue;
-    OutT* og = out + (brow + i) * ldo + h * dh + lane * DPL;
+    float* og = out + (brow + i) * ldo + h * dh + lane * DPL;
 #pragma unroll
-    for (int d = 0; d < DPL; d += 2) {
-      if constexpr (std::is_same<OutT, float>::value)
-        *reinterpret_cast<float2*>(og + d) = make_float2(o[rr][d], o[rr][d + 1]);
-      else
-        *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(o[rr][d], o[rr][d + 1]);
-    }
+    for (int d = 0; d < DPL; d += 2)
+      *reinterpret_cast<float2*>(og + d) = make_float2(o[rr][d], o[rr][d + 1]);
   }
 }
 
@@ -261,51 +244,49 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return e;
 }
 
-template <int MAXD, bool EXACT, typename OutT>
+template <int MAXD, bool EXACT>
 cudaError_t launch_forward_kernel(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                                  const float* kmask, OutT* out, int ldo, bf16* probs, int B,
-                                  int S, int H, int dh, cudaStream_t st) {
+                                  const float* kmask, float* out, int ldo, int B, int S, int H,
+                                  int dh, cudaStream_t st) {
   // K and V tiles of min(S, ATT_KT) rows
   const size_t smem = (size_t)2 * (S < ATT_KT ? S : ATT_KT) * smem_ld(dh) * sizeof(bf16) +
                       (size_t)ATT_QT * smem_ld(dh) * sizeof(bf16) +
                       (size_t)ATT_WARPS * ATT_KT * sizeof(float);
   static size_t allowed = 48 * 1024;
-  cudaError_t e = allow_smem(forward_kernel<MAXD, EXACT, OutT>, smem, allowed);
+  cudaError_t e = allow_smem(forward_kernel<MAXD, EXACT>, smem, allowed);
   if (e != cudaSuccess) return e;
   dim3 grid(B * H, (S + ATT_QT - 1) / ATT_QT);
-  forward_kernel<MAXD, EXACT, OutT><<<grid, ATT_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask,
-                                                              out, ldo, probs, S, H, dh);
+  forward_kernel<MAXD, EXACT><<<grid, ATT_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask, out, ldo,
+                                                               S, H, dh);
   return cudaGetLastError();
 }
 
-// head width dh: a multiple of 16, at most 128; out bf16 or float
-template <typename OutT>
-cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                           const float* kmask, OutT* out, int ldo, bf16* probs, int B, int S,
-                           int H, int dh, cudaStream_t st) {
+// head width dh: a multiple of 16, at most 128; fp32 out
+inline cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
+                                  const float* kmask, float* out, int ldo, int B, int S, int H,
+                                  int dh, cudaStream_t st) {
   if (dh == 64)
-    return launch_forward_kernel<64, true>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
-                                           dh, st);
+    return launch_forward_kernel<64, true>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
   if (dh < 64)
-    return launch_forward_kernel<64, false>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
-                                            dh, st);
+    return launch_forward_kernel<64, false>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
   if (dh == 128)
-    return launch_forward_kernel<128, true>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
-                                            dh, st);
-  return launch_forward_kernel<128, false>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
-                                           dh, st);
+    return launch_forward_kernel<128, true>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
+  return launch_forward_kernel<128, false>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core forward (kernel 1's attention launch). The same arithmetic as
-// forward_kernel above, with q k^T and p v as bf16 mma.sync products:
+// Tensor-core forward (the attention launch of kernels 1, 5 and 8). The
+// same arithmetic as forward_kernel above, with q k^T and p v as bf16
+// mma.sync products:
 //
 //   s   = bf16(q*scale) bf16(k)^T + mask   exact bf16 products, fp32 sums
 //   p   = bf16(exp(s - max) / sum)          max and sum exact over the row
 //   out = bf16(p v)                          fp32 sums
 //
-// Replaces the attention body of the Pallas TPU kernel
-// motionstyle/ops/fused_encoder.py::_layer_kernel (`_attention`, :54-81).
+// Replaces the attention body of the Pallas TPU kernels
+// motionstyle/ops/fused_encoder.py::_layer_kernel (`_attention`, :54-81) and
+// motionstyle/ops/fused_encoder_train.py::_fwd_kernel and _fwd_store_kernel
+// (the latter also keeps p).
 // A warp owns 16 query rows of one (batch row, head); a block holds
 // TC_WARPS of them (64 rows) and streams the head's key and value rows
 // through a two-slot ring of TC_KT-row tiles with cp.async, one tile landing
@@ -340,7 +321,12 @@ cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const bf16* v,
 // tiled path two K + V stages, 87 KB).
 //
 // Same arguments as launch_forward (q pre-scaled bf16; any S >= 1; dh a
-// multiple of 16 up to 128), bf16 out, no probs.
+// multiple of 16 up to 128), bf16 out, and with PROBS the probabilities
+// (B, H, S, S) bf16 row-major: exactly the packed bf16 p that p v
+// multiplies, written from the A fragments on both paths (store_probs). PROBS
+// is a template parameter, so kernel 1's and kernel 5's launches carry no
+// code for it. At S = 77 p is 2 * 77 * 77 bytes a (batch row, head), ~3 MB at
+// B=64 with 4 heads, against ~15 MB of q, k, v and out.
 
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
@@ -385,12 +371,36 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, int ldo, size
   }
 }
 
+// The warp's p of 16 keys [j0, j0 + 16), pa (the A fragment: pa[e] holds row
+// g + 8 (e & 1), keys j0 + 8 (e >> 1) + 2t and +1), at rows row0 + g and +8
+// of head bh's (S, S) block of probs. Rows and keys past S are not written;
+// with S odd a row starts at an odd element, so a pair goes out as one
+// 4-byte store only where it is aligned.
+__device__ __forceinline__ void store_probs(bf16* __restrict__ probs, size_t bh, int S, int row0,
+                                            int j0, const uint32_t (&pa)[4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = row0 + g + 8 * (e & 1), j = j0 + 8 * (e >> 1) + 2 * t;
+    if (i >= S || j >= S) continue;
+    const size_t at = (bh * S + i) * S + j;
+    if (j + 1 < S && (at & 1) == 0) {
+      *reinterpret_cast<uint32_t*>(probs + at) = pa[e];
+    } else {
+      const bf162 pr = *reinterpret_cast<const bf162*>(&pa[e]);
+      probs[at] = pr.x;
+      if (j + 1 < S) probs[at + 1] = pr.y;
+    }
+  }
+}
+
 // S <= 16 NC: the whole score row in registers
-template <int NC, int DMAX>
+template <int NC, int DMAX, bool PROBS>
 __global__ void __launch_bounds__(TC_THREADS)
 forward_tc_regs(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-                bf16* __restrict__ out, int ldo, int S, int H, int dh) {
+                bf16* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
+                int dh) {
   constexpr int KC = DMAX / 16, NDT = DMAX / 8;
   constexpr int NT = (NC * 16 + TC_KT - 1) / TC_KT;  // most key tiles
   extern __shared__ __align__(16) unsigned char sm[];
@@ -494,6 +504,13 @@ forward_tc_regs(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
     pa[c][2] = mma::pack_bf16(mma::div_by(b[0], l0, r0), mma::div_by(b[1], l0, r0));
     pa[c][3] = mma::pack_bf16(mma::div_by(b[2], l1, r1), mma::div_by(b[3], l1, r1));
   }
+  if constexpr (PROBS) {
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (c < nc) store_probs(probs, (size_t)b * H + h, S, row0, c * 16, pa[c], lane);
+    }
+  }
 
   // pass 2: p v, tile by tile
   float o[NDT][4];
@@ -519,11 +536,12 @@ forward_tc_regs(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
 }
 
 // any S: two passes over the key tiles
-template <int DMAX>
+template <int DMAX, bool PROBS>
 __global__ void __launch_bounds__(TC_THREADS)
 forward_tc_tiles(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-                 bf16* __restrict__ out, int ldo, int S, int H, int dh) {
+                 bf16* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
+                 int dh) {
   constexpr int KC = DMAX / 16, NDT = DMAX / 8;
   extern __shared__ __align__(16) unsigned char sm[];
   const int ldk = smem_ld(dh);
@@ -637,6 +655,8 @@ forward_tc_tiles(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k
         pa[1] = mma::pack_bf16(p(a[2], m1, l1, r1), p(a[3], m1, l1, r1));
         pa[2] = mma::pack_bf16(p(b2[0], m0, l0, r0), p(b2[1], m0, l0, r0));
         pa[3] = mma::pack_bf16(p(b2[2], m1, l1, r1), p(b2[3], m1, l1, r1));
+        if constexpr (PROBS)
+          store_probs(probs, (size_t)b * H + h, S, row0, tt * TC_KT + c * 16, pa, lane);
         pv_chunk(o, pa, Kt + tile_elems + c * 16 * ldk, ldk, dh, lane);
       }
     }
@@ -649,51 +669,58 @@ forward_tc_tiles(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k
 template <typename Kernel>
 cudaError_t launch_tc(Kernel kernel, size_t smem, size_t& allowed, const bf16* q, int ldq,
                       const bf16* k, const bf16* v, int ldkv, const float* kmask, bf16* out,
-                      int ldo, int B, int S, int H, int dh, cudaStream_t st) {
+                      int ldo, bf16* probs, int B, int S, int H, int dh, cudaStream_t st) {
   cudaError_t e = allow_smem(kernel, smem, allowed);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (S + TC_QT - 1) / TC_QT);
-  kernel<<<grid, TC_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask, out, ldo, S, H, dh);
+  kernel<<<grid, TC_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, S, H, dh);
   return cudaGetLastError();
 }
 
-template <int NC, int DMAX>
+template <int NC, int DMAX, bool PROBS>
 cudaError_t launch_tc_regs(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                           const float* kmask, bf16* out, int ldo, int B, int S, int H, int dh,
-                           cudaStream_t st) {
+                           const float* kmask, bf16* out, int ldo, bf16* probs, int B, int S,
+                           int H, int dh, cudaStream_t st) {
   static size_t allowed = 48 * 1024;
   const size_t smem = (size_t)(TC_QT + 2 * TC_KT) * smem_ld(dh) * sizeof(bf16);
-  return launch_tc(forward_tc_regs<NC, DMAX>, smem, allowed, q, ldq, k, v, ldkv, kmask, out, ldo,
-                   B, S, H, dh, st);
+  return launch_tc(forward_tc_regs<NC, DMAX, PROBS>, smem, allowed, q, ldq, k, v, ldkv, kmask,
+                   out, ldo, probs, B, S, H, dh, st);
 }
 
-template <int DMAX>
+template <int DMAX, bool PROBS>
 cudaError_t launch_tc_dmax(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                           const float* kmask, bf16* out, int ldo, int B, int S, int H, int dh,
-                           cudaStream_t st) {
+                           const float* kmask, bf16* out, int ldo, bf16* probs, int B, int S,
+                           int H, int dh, cudaStream_t st) {
   if (S <= 64)
-    return launch_tc_regs<4, DMAX>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
+    return launch_tc_regs<4, DMAX, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
+                                          dh, st);
   if (S <= 128)
-    return launch_tc_regs<8, DMAX>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
+    return launch_tc_regs<8, DMAX, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
+                                          dh, st);
   if (S <= 208)
-    return launch_tc_regs<13, DMAX>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
+    return launch_tc_regs<13, DMAX, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
+                                           dh, st);
   if (S <= TC_REG_MAX)
-    return launch_tc_regs<16, DMAX>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
+    return launch_tc_regs<16, DMAX, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
+                                           dh, st);
   static size_t allowed = 48 * 1024;
   const size_t smem = (size_t)(TC_QT + 4 * TC_KT) * smem_ld(dh) * sizeof(bf16);
-  return launch_tc(forward_tc_tiles<DMAX>, smem, allowed, q, ldq, k, v, ldkv, kmask, out, ldo, B,
-                   S, H, dh, st);
+  return launch_tc(forward_tc_tiles<DMAX, PROBS>, smem, allowed, q, ldq, k, v, ldkv, kmask, out,
+                   ldo, probs, B, S, H, dh, st);
 }
 
-// kernel 1's attention on the tensor cores: head width dh a multiple of 16,
-// at most 128; bf16 out
-inline cudaError_t launch_forward_tc(const bf16* q, int ldq, const bf16* k, const bf16* v,
-                                     int ldkv, const float* kmask, bf16* out, int ldo, int B,
-                                     int S, int H, int dh, cudaStream_t st) {
-  if (dh % 16 != 0 || dh < 16 || dh > 128) return cudaErrorInvalidValue;
+// attention on the tensor cores: head width dh a multiple of 16, at most
+// 128; bf16 out; with PROBS also the bf16 probabilities into probs
+template <bool PROBS = false>
+cudaError_t launch_forward_tc(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
+                              const float* kmask, bf16* out, int ldo, bf16* probs, int B, int S,
+                              int H, int dh, cudaStream_t st) {
+  if (dh % 16 != 0 || dh < 16 || dh > 128 || PROBS != (probs != nullptr))
+    return cudaErrorInvalidValue;
   if (dh <= 64)
-    return launch_tc_dmax<64>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
-  return launch_tc_dmax<128>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
+    return launch_tc_dmax<64, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H, dh,
+                                     st);
+  return launch_tc_dmax<128, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H, dh, st);
 }
 
 }  // namespace attention

@@ -377,8 +377,7 @@ extern "C" int fused_encoder_layer_int8_forward(
   // 3. attention, fp32 out
   RETURN_IF_ERROR(attention::launch_forward(p.q, D, p.k, p.v, D,
                                             static_cast<const float*>(key_mask),
-                                            static_cast<float*>(attn), D, nullptr, B, S, H, dh,
-                                            st));
+                                            static_cast<float*>(attn), D, B, S, H, dh, st));
 
   // 4. row codes of attn, 5. out-projection + residual + LayerNorm 1 (+ h1's codes)
   RETURN_IF_ERROR(launch_quant(static_cast<const float*>(attn), M, D, a_codes, a_scales, st));

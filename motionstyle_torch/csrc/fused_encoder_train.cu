@@ -47,33 +47,44 @@
 // the backward with its recompute ~50 GFLOP of tensor-core work over ~30 MB,
 // so the card's bound is its bf16 rate (the stored backward drops the qkv
 // GEMM and the scores, ~8 GFLOP, for ~18 MB more of residual traffic).
-// Design, simple first:
+// Design of the forwards (kernels 5 and 8): the inference layer's launches.
+//   * Their four GEMMs are the shared wgmma GEMM of wgmma_gemm.cuh (TMA and
+//     mbarrier ring, 128 x 128 tiles where they fill the card, LayerNorm rows
+//     across a thread-block cluster, TMA-stored epilogues) with a dropout
+//     Site in the epilogue: acc + bias is multiplied by the site's keep value
+//     straight from the accumulator layout, a pair of neighbours at a time
+//     (one 4-byte mask load, or one Philox for both), and LayerNorm 1 stages
+//     and stores a1 before h1. Kernel 8's qkv launch stores q, k and v
+//     unscaled into qkv and q*scale into q_s.
+//   * Their attention is the tensor-core forward (attention_fwd.cuh,
+//     launch_forward_tc); kernel 8's launch also writes the bf16 p it
+//     multiplies by V.
+// Design of the backward halves (kernels 6, 7, 9), simple first:
 //   * one templated WMMA (bf16 in, fp32 accumulate) tile GEMM serves every
 //     product, with either operand stored transposed, so input gradients
 //     (A W) and weight gradients (X^T Y over all rows) need no copies;
-//   * epilogues that need whole rows (residual + LayerNorm and their
-//     backward) run in 16-row x D blocks in dynamic shared memory (up to
-//     ~83 KB at D = 1024), as the inference kernel does;
+//   * epilogues that need whole rows (the LayerNorm backward) run in 16-row
+//     x D blocks in dynamic shared memory (up to ~83 KB at D = 1024);
 //   * the TPU accumulates dW and db in place across its sequential batch
 //     grid. Here blocks run in parallel, so each weight gradient is ONE
 //     product over all M rows (K = M, 64x64 output tiles), and each bias or
 //     LayerNorm gradient is written as per-block partial column sums that a
 //     last pass adds in a fixed order. Both are deterministic, which fp32
 //     atomicAdd would not be;
-//   * attention forward walks the keys in tiles, two passes per query row
-//     (attention_fwd.cuh); attention backward is two launches over 64-wide
-//     tiles (queries for dq, keys for dk and dv), so no head's S x S block
-//     has to fit in shared memory.
-//   * in prng mode each dropout site computes one full Philox4x32-10 per
-//     element it touches (about 100 integer operations on the CUDA cores,
-//     ~1 G per forward at B=64, S=77, D=512, F=1024, where the masks mode
-//     reads ~20 MB of bf16 masks); the GELU epilogue and the FFN
-//     backward regenerate sites 1 and 2, the attention half site 0. The
-//     mode is a template parameter of every kernel with a dropout site
-//     (PRNG), chosen at launch from whether seeds are set, so the masks and
-//     rate-0 instantiations carry no Philox code.
-// No pipeline, TMA or wgmma yet. The launchers allocate nothing: the caller
-// passes every scratch buffer. Each returns a cudaError_t (0 on success).
+//   * attention backward is two launches over 64-wide tiles (queries for
+//     dq, keys for dk and dv), so no head's S x S block has to fit in
+//     shared memory.
+// In prng mode each dropout site regenerates its bits with Philox4x32-10
+// (about 100 integer operations on the CUDA cores): the forward's epilogues
+// one for each pair of neighbours, the backward's one for each element; the
+// FFN backward regenerates sites 1 and 2, the attention half site 0. The
+// bit of an element depends only on its index (Dropout), so every tiling
+// sees one mask. The mode is a template parameter of every kernel with a
+// dropout site (PRNG), chosen at launch from whether seeds are set, so the
+// masks and rate-0 instantiations carry no Philox code.
+// The launchers allocate nothing: the caller passes every scratch buffer.
+// Each returns a cudaError_t, or the CUresult of a failed tensor-map
+// encode (0 on success); nothing falls back to another path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +96,7 @@
 
 #include "attention_fwd.cuh"
 #include "philox.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -112,11 +124,9 @@ constexpr int BWD_KPL = BWD_T / 32;         // keys per lane
 constexpr int BWD_KT = 128;                 // key tile of the dq launch
 constexpr int BWD_RKPL = BWD_KT / 32;       // its keys per lane
 
+// the epilogues of the WMMA GEMM (the backward kernels' products)
 enum Epilogue {
-  EPI_QKV = 0,    // q*scale, k, v as bf16 (and q unscaled when q_raw is set)
-  EPI_GELU_DROP,  // bf16(gelu(acc + b) * m)
-  EPI_LN1_FWD,    // a1 = x + (acc + b) * m; h1 = LN1(a1)
-  EPI_LN2_FWD,    // out = LN2(h1 + (acc + b) * m)
+  EPI_QKV = 0,    // q*scale, k, v and q unscaled as bf16 (kernel 7's recompute)
   EPI_UP_BWD,     // u = acc + b: bf16(gelu(u) * m), gelu'(u)
   EPI_LN2_BWD,    // LN2 backward from the recomputed a2; da2, df, partials
   EPI_DU,         // du = acc * m * gelu'(u); partial column sums
@@ -143,17 +153,87 @@ struct Dropout {
   float scale;       // fp32(1 / keep)
   int S;             // rows per clip
   int site;          // 0: after the out-projection, 1: after gelu, 2: after linear2
+  // the four words of (m, n)'s counter group in prng mode
+  __device__ __forceinline__ uint4 words(int m, int n) const {
+    const int b = m / S;
+    return philox4x32_10(make_uint4((unsigned)(m - b * S), (unsigned)n >> 2, 0u, 0u),
+                         make_uint2((unsigned)seeds[b], (unsigned)site));
+  }
   template <bool PRNG>
   __device__ __forceinline__ float apply(float v, int m, int n, int N) const {
     if constexpr (!PRNG) {
       return mask == nullptr ? v : v * __bfloat162float(mask[(size_t)m * N + n]);
     } else {
-      const int b = m / S;
-      const uint4 r = philox4x32_10(make_uint4((unsigned)(m - b * S), (unsigned)n >> 2, 0u, 0u),
-                                    make_uint2((unsigned)seeds[b], (unsigned)site));
+      const uint4 r = words(m, n);
       const int w = n & 3;
       const unsigned bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
       return bits < thresh ? v * scale : 0.0f;
+    }
+  }
+};
+
+// A dropout site of the training forward in the shared wgmma GEMM's
+// epilogue (wgmma_gemm.cuh's Site interface): acc + bias times the site's
+// keep value, and LayerNorm 1 keeps its input a1 for the backward.
+//   masks mode: load<BN> copies the warpgroup's 64 x BN tile of the bf16
+//     mask into shared memory with coalesced 16-byte cp.async (rows read
+//     whole, 16 B a lane), where 4-byte loads straight from the accumulator
+//     layout would touch 8 rows of 16 bytes each; apply reads its pairs
+//     there, in the output rows' swizzle (no bank conflicts);
+//   the products are rounded on their own (__fmul_rn), as the twins round
+//     them, never contracted into an FMA with the residual add after them;
+//   prng mode: a thread's pair (m, n), (m, n + 1) and its neighbour lane's
+//     (m, n + 2), (m, n + 3) lie in one Philox counter group, so the even
+//     lane of the two regenerates row m's group and the odd lane row
+//     m + 8's, and they trade the two words the other needs: one Philox for
+//     every four values, with the bits of Dropout::apply.
+template <bool PRNG>
+struct Site {
+  static constexpr bool TRAIN = true;
+  Dropout d;
+
+  template <int BN>
+  __device__ __forceinline__ void load(unsigned char* keep, int row0, int n0, int M, int N,
+                                       int wg) const {
+    if constexpr (!PRNG) {
+      if (d.mask == nullptr) return;
+      constexpr int CHUNKS = BN / 8;  // 16-byte chunks of a tile row
+      for (int i = threadIdx.x & 127; i < 64 * CHUNKS; i += 128) {
+        const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+        const bool ok = row0 + r < M && n0 + c < N;
+        const bf16* src = ok ? d.mask + (size_t)(row0 + r) * N + n0 + c : d.mask;
+        mma::cp_async16(keep + (c / 64) * 8192 + r * 128 + ((((c % 64) >> 3) ^ (r & 7)) << 4),
+                        src, ok);
+      }
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
+      wgmma::named_barrier(2 + wg, 128);
+    }
+  }
+
+  __device__ __forceinline__ void apply(float (&v)[4], const unsigned char* keep, int rr, int c,
+                                        int m, int n, int M, int N) const {
+    if constexpr (!PRNG) {
+      if (d.mask == nullptr) return;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rr + 8 * h, b = (c % 64) * 2;
+        const float2 k = __bfloat1622float2(*reinterpret_cast<const bf162*>(
+            keep + (c / 64) * 8192 + r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15))));
+        v[2 * h] = __fmul_rn(v[2 * h], k.x);
+        v[2 * h + 1] = __fmul_rn(v[2 * h + 1], k.y);
+      }
+    } else {
+      const bool odd = (threadIdx.x & 1) != 0;
+      const int mine = odd ? m + 8 : m;
+      const uint4 w = mine < M ? d.words(mine, n) : make_uint4(0u, 0u, 0u, 0u);
+      // the even lane keeps x, y of row m and gives z, w; the odd lane keeps
+      // z, w of row m + 8 and gives x, y
+      const unsigned g0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+      const unsigned g1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+      const unsigned bits[4] = {odd ? g0 : w.x, odd ? g1 : w.y, odd ? w.z : g0, odd ? w.w : g1};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = bits[e] < d.thresh ? __fmul_rn(v[e], d.scale) : 0.0f;
     }
   }
 };
@@ -164,24 +244,20 @@ struct GemmArgs {
   const float* bias;
   int M, N, K;
   Dropout drop;          // the epilogue's dropout site (identity when unset)
-  const bf16* res_bf16;  // EPI_LN1_FWD: the layer input x
-  const float* res_f32;  // EPI_LN2_FWD: h1; EPI_LN1_BWD: da2; EPI_ADD_F32
+  const float* res_f32;  // EPI_LN1_BWD: da2; EPI_ADD_F32
   const float* a1;       // LN1 input, for the recompute (backward epilogues)
   const float* stats;    // (M, 2) mean and 1/std of a1
   const float* ln1_s;
   const float* ln1_b;
   const float* ln2_s;
-  const float* ln2_b;
   const float* dh;       // EPI_LN2_BWD: dh2 (M, N) fp32
   const float* gp;       // EPI_DU: gelu'(u) (M, N) fp32
   bf16* out_bf16;
   float* out_f32;
-  float* out2_f32;       // EPI_LN1_FWD: a1
-  bf16* q;               // EPI_QKV: q*scale (M, D)
-  bf16* k;               // k, v and q_raw: row stride ldkv
-  bf16* v;
+  bf16* q;               // EPI_QKV: q*scale, q unscaled, k and v (M, D)
   bf16* q_raw;
-  int ldkv;
+  bf16* k;
+  bf16* v;
   int D;
   float q_scale;
   float* partial;        // per-block column sums, slot-major: [slot][block][N]
@@ -206,13 +282,12 @@ __device__ void column_partials(const float* Cs, int ldc, int rows, int bn, floa
 }
 
 __host__ __device__ constexpr bool owns_rows(int epi) {
-  return epi == EPI_LN1_FWD || epi == EPI_LN2_FWD || epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
+  return epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
 }
 
 // the epilogues with a dropout site
 __host__ __device__ constexpr bool drops(int epi) {
-  return epi == EPI_GELU_DROP || epi == EPI_LN1_FWD || epi == EPI_LN2_FWD || epi == EPI_UP_BWD ||
-         epi == EPI_LN2_BWD || epi == EPI_DU;
+  return epi == EPI_UP_BWD || epi == EPI_LN2_BWD || epi == EPI_DU;
 }
 
 template <int BM, bool AT>
@@ -335,8 +410,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
 
   const int rows = min(BM, p.M - m0);  // valid rows of this block
 
-  if (EPI == EPI_QKV || EPI == EPI_GELU_DROP || EPI == EPI_UP_BWD || EPI == EPI_BF16 ||
-      EPI == EPI_F32 || EPI == EPI_ADD_F32) {
+  if (EPI == EPI_QKV || EPI == EPI_UP_BWD || EPI == EPI_BF16 || EPI == EPI_F32 ||
+      EPI == EPI_ADD_F32) {
     for (int i = tid; i < BM * (BN / 2); i += GEMM_THREADS) {
       const int r = i / (BN / 2), c = (i % (BN / 2)) * 2;
       if (r >= rows || (!FULL && c >= bn)) continue;
@@ -347,16 +422,15 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
         v0 += p.bias[n];
         v1 += p.bias[n + 1];
         const int part = n / p.D, col = n - part * p.D;
-        const size_t gkv = (size_t)m * p.ldkv + col;
+        const size_t gkv = (size_t)m * p.D + col;
         if (part == 0) {
-          if (p.q_raw != nullptr)
-            *reinterpret_cast<bf162*>(p.q_raw + gkv) = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<bf162*>(p.q + (size_t)m * p.D + col) =
+          *reinterpret_cast<bf162*>(p.q_raw + gkv) = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<bf162*>(p.q + gkv) =
               __floats2bfloat162_rn(v0 * p.q_scale, v1 * p.q_scale);
         } else {
           *reinterpret_cast<bf162*>((part == 1 ? p.k : p.v) + gkv) = __floats2bfloat162_rn(v0, v1);
         }
-      } else if (EPI == EPI_GELU_DROP || EPI == EPI_UP_BWD) {
+      } else if (EPI == EPI_UP_BWD) {
         float u[2] = {v0 + p.bias[n], v1 + p.bias[n + 1]};
         float gd[2], gp[2];
 #pragma unroll
@@ -367,10 +441,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
           gp[e] = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * GELU_C * (1.0f + 3.0f * GELU_A * x * x);
         }
         *reinterpret_cast<bf162*>(p.out_bf16 + g) = __floats2bfloat162_rn(gd[0], gd[1]);
-        if (EPI == EPI_UP_BWD) {
-          p.out_f32[g] = gp[0];
-          p.out_f32[g + 1] = gp[1];
-        }
+        p.out_f32[g] = gp[0];
+        p.out_f32[g + 1] = gp[1];
       } else if (EPI == EPI_BF16) {
         *reinterpret_cast<bf162*>(p.out_bf16 + g) = __floats2bfloat162_rn(v0, v1);
       } else if (EPI == EPI_F32) {
@@ -397,48 +469,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     column_partials(Cs, ldc, rows, bn, p.partial, 0, p.N, n0);
   } else {
     // row epilogues: bn == N == D, one warp per row
-    if (EPI == EPI_LN1_FWD || EPI == EPI_LN2_FWD) {
-      for (int r = warp; r < rows; r += GEMM_WARPS) {
-        const int m = m0 + r;
-        float* row = Cs + r * ldc;
-        const size_t g = (size_t)m * bn;
-        float sum = 0.f;
-#pragma unroll
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float proj = p.drop.apply<PRNG>(row[c] + p.bias[c], m, c, bn);
-          const float h = EPI == EPI_LN1_FWD ? __bfloat162float(p.res_bf16[g + c]) + proj
-                                             : p.res_f32[g + c] + proj;
-          if (EPI == EPI_LN1_FWD) p.out2_f32[g + c] = h;
-          row[c] = h;
-          sum += h;
-        }
-        const float mu = warp_sum(sum) / bn;
-        float var = 0.f;
-#pragma unroll
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float d = row[c] - mu;
-          var += d * d;
-        }
-        const float rs = rsqrtf(warp_sum(var) / bn + LN_EPS);
-        const float* s = EPI == EPI_LN1_FWD ? p.ln1_s : p.ln2_s;
-        const float* b = EPI == EPI_LN1_FWD ? p.ln1_b : p.ln2_b;
-#pragma unroll
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float y = (row[c] - mu) * rs * s[c] + b[c];
-          if (EPI == EPI_LN1_FWD) {
-            p.out_f32[g + c] = y;
-            p.out_bf16[g + c] = __float2bfloat16_rn(y);
-          } else if (p.out_f32 != nullptr) {
-            p.out_f32[g + c] = y;
-          } else {
-            p.out_bf16[g + c] = __float2bfloat16_rn(y);
-          }
-        }
-      }
-    } else if (EPI == EPI_LN2_BWD) {
+    if (EPI == EPI_LN2_BWD) {
       // 1. rows: a2 = h1 + (acc + b2) * m2 with h1 recomputed from a1; Cs <- xhat2
       for (int r = warp; r < rows; r += GEMM_WARPS) {
         const int m = m0 + r;
@@ -1073,6 +1104,53 @@ cudaError_t launch_weight_grad(const void* x, const void* y, void* out, int M, i
   return launch_gemm<WG_TILE, WG_TILE, true, false, EPI_F32>(g, st);
 }
 
+// The training forward's four GEMM launches on the shared wgmma GEMM
+// (wgmma_gemm.cuh), one kernel name each: qkv (kernel 5: q*scale, k, v
+// planes; kernel 8: qkv and q_s) with no site, the others with their
+// dropout site in the mode chosen at launch.
+WGMMA_GEMM_KERNEL(qkv_train_gemm, gemm::EPI_QKV)
+WGMMA_GEMM_KERNEL(qkv_store_train_gemm, gemm::EPI_QKV_STORE)
+
+#define TRAIN_GEMM_KERNEL(name, EPI)                                                         \
+  template <int BM, int BN, bool PRNG>                                                       \
+  __global__ void __launch_bounds__(gemm::Tile<BM, BN, EPI>::THREADS,                        \
+                                    gemm::Tile<BM, BN, EPI>::MIN_BLOCKS)                     \
+      name(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, \
+           const __grid_constant__ gemm::OutMaps out, const gemm::Args p, const Dropout drop) { \
+    gemm::gemm_body<BM, BN, EPI>(&tm_a, &tm_w, out, p, Site<PRNG>{drop});                   \
+  }
+TRAIN_GEMM_KERNEL(ln1_train_gemm, gemm::EPI_LN1)
+TRAIN_GEMM_KERNEL(ffn_up_train_gemm, gemm::EPI_GELU)
+TRAIN_GEMM_KERNEL(ln2_train_gemm, gemm::EPI_LN2)
+#undef TRAIN_GEMM_KERNEL
+
+// the training forward's launch of epilogue EPI at each tile (PRNG: the
+// dropout site's mode)
+template <int EPI, bool PRNG>
+struct TrainLayer {
+  template <int BM, int BN>
+  static constexpr auto kernel() {
+    if constexpr (EPI == gemm::EPI_QKV) return qkv_train_gemm<BM, BN>;
+    else if constexpr (EPI == gemm::EPI_QKV_STORE) return qkv_store_train_gemm<BM, BN>;
+    else if constexpr (EPI == gemm::EPI_GELU) return ffn_up_train_gemm<BM, BN, PRNG>;
+    else if constexpr (EPI == gemm::EPI_LN1) return ln1_train_gemm<BM, BN, PRNG>;
+    else return ln2_train_gemm<BM, BN, PRNG>;
+  }
+};
+
+// A launch with a dropout site: prng mode where the site has seeds, else
+// masks (or none, at rate 0)
+template <int EPI>
+int launch_site_gemm(const gemm::Args& p, const void* a, const void* w, int n_out,
+                     void* const* outs, const int* cols, const int* bytes, const Dropout& d,
+                     cudaStream_t st) {
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* W = static_cast<const bf16*>(w);
+  if (d.seeds != nullptr)
+    return gemm::launch_gemm<EPI, TrainLayer<EPI, true>>(p, A, W, n_out, outs, cols, bytes, st, d);
+  return gemm::launch_gemm<EPI, TrainLayer<EPI, false>>(p, A, W, n_out, outs, cols, bytes, st, d);
+}
+
 bool dims_ok(int B, int S, int D, int F) {
   return B >= 1 && S >= 1 && D >= 64 && D % 64 == 0 && D <= MAX_D && F >= 64 && F % 64 == 0;
 }
@@ -1102,96 +1180,112 @@ Dropout dropout_site(const void* mask, const void* seeds, unsigned thresh, float
 
 }  // namespace
 
-#define RETURN_IF_ERROR(expr)              \
-  do {                                     \
-    cudaError_t e_ = (expr);               \
-    if (e_ != cudaSuccess) return (int)e_; \
+#define RETURN_IF_ERROR(expr)      \
+  do {                             \
+    const int e_ = (int)(expr);    \
+    if (e_ != 0) return e_;        \
   } while (0)
 
 #define BF(p) static_cast<const bf16*>(p)
 #define F32(p) static_cast<const float*>(p)
 
-// The training forward shared by kernels 5 and 8. With qkv null (kernel 5)
-// q (scaled), k and v go to the (M, D) scratch planes q, k, v. With qkv set
-// (kernel 8, store-probs) q unscaled, k and v go to qkv (M, 3D), q*scale to
-// the scratch q, and the attention launch also writes probs (B, H, S, S):
-// the same launches in the same order with the same arithmetic, so `out`,
-// a1 and attn are bit-equal between the two.
+// The training forward shared by kernels 5 and 8, five launches: the qkv
+// GEMM, the tensor-core attention, then the out-projection (+ dropout 0,
+// residual, a1, LayerNorm 1), FFN-up (+ gelu, dropout 1) and FFN-down (+
+// dropout 2, residual, LayerNorm 2) GEMMs, all four on wgmma_gemm.cuh. With
+// qkv null (kernel 5) q (scaled), k and v go to the (M, D) scratch planes q,
+// k, v. With qkv set (kernel 8, store-probs) q unscaled, k and v go to qkv
+// (M, 3D), q*scale to the scratch q, and the attention launch also writes
+// probs (B, H, S, S). The q*scale, k and v the attention reads, and every
+// later launch, have the same plan and arithmetic in both, so `out`, a1 and
+// attn are bit-equal between the two.
 static int train_forward(const void* x, const void* key_mask, const void* m0, const void* m1,
-                  const void* m2, const void* seeds, unsigned thresh, float scale,
-                  const void* w_qkv, const void* b_qkv, const void* w_o,
-                  const void* b_o, const void* ln1_s, const void* ln1_b, const void* w_1,
-                  const void* b_1, const void* w_2, const void* b_2, const void* ln2_s,
-                  const void* ln2_b, void* q, void* k, void* v, void* h1_f32, void* h1_bf16,
-                  void* g, void* out_bf16, void* out_f32, void* a1, void* attn, void* probs,
-                  void* qkv, int B, int S, int D, int H, int F, void* stream) {
+                         const void* m2, const void* seeds, unsigned thresh, float scale,
+                         const void* w_qkv, const void* b_qkv, const void* w_o, const void* b_o,
+                         const void* ln1_s, const void* ln1_b, const void* w_1, const void* b_1,
+                         const void* w_2, const void* b_2, const void* ln2_s, const void* ln2_b,
+                         void* q, void* k, void* v, void* h1_f32, void* h1_bf16, void* g,
+                         void* out_bf16, void* out_f32, void* a1, void* attn, void* probs,
+                         void* qkv, int B, int S, int D, int H, int F, void* stream) {
   if (!dims_ok(B, S, D, F) || !heads_ok(D, H) || (out_bf16 == nullptr) == (out_f32 == nullptr) ||
       !dropout_ok(m0, m1, m2, seeds, thresh))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int dh = D / H, M = B * S;
 
-  GemmArgs p = {};
+  gemm::Args p = {};
   p.M = M;
   p.D = D;
   // 1. qkv
-  p.a = BF(x);
-  p.b = BF(w_qkv);
   p.bias = F32(b_qkv);
   p.N = 3 * D;
   p.K = D;
-  p.q = static_cast<bf16*>(q);
-  if (qkv != nullptr) {
-    p.q_raw = static_cast<bf16*>(qkv);
-    p.k = p.q_raw + D;
-    p.v = p.q_raw + 2 * D;
-    p.ldkv = 3 * D;
-  } else {
-    p.k = static_cast<bf16*>(k);
-    p.v = static_cast<bf16*>(v);
-    p.ldkv = D;
-  }
   p.q_scale = (float)(1.0 / sqrt((double)dh));
-  RETURN_IF_ERROR((launch_row_gemm<true, EPI_QKV>(p, st)));
-  // 2. attention (and the probabilities it multiplies by V, when stored)
-  RETURN_IF_ERROR(attention::launch_forward(p.q, D, p.k, p.v, p.ldkv, F32(key_mask),
-                                            static_cast<bf16*>(attn), D,
-                                            static_cast<bf16*>(probs), B, S, H, dh, st));
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  int ldkv = D;
+  if (qkv == nullptr) {
+    void* const outs[3] = {q, k, v};
+    const int cols[3] = {D, D, D}, bytes[3] = {2, 2, 2};
+    RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_QKV, TrainLayer<gemm::EPI_QKV, false>>(
+        p, BF(x), BF(w_qkv), 3, outs, cols, bytes, st)));
+  } else {
+    void* const outs[2] = {q, qkv};
+    const int cols[2] = {D, 3 * D}, bytes[2] = {2, 2};
+    RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_QKV_STORE,
+                                       TrainLayer<gemm::EPI_QKV_STORE, false>>(
+        p, BF(x), BF(w_qkv), 2, outs, cols, bytes, st)));
+    kp = BF(qkv) + D;
+    vp = BF(qkv) + 2 * D;
+    ldkv = 3 * D;
+  }
+  // 2. attention on the tensor cores (and the probabilities it multiplies
+  // by V, when stored)
+  if (probs == nullptr)
+    RETURN_IF_ERROR(attention::launch_forward_tc<false>(BF(q), D, kp, vp, ldkv, F32(key_mask),
+                                                        static_cast<bf16*>(attn), D, nullptr, B,
+                                                        S, H, dh, st));
+  else
+    RETURN_IF_ERROR(attention::launch_forward_tc<true>(BF(q), D, kp, vp, ldkv, F32(key_mask),
+                                                       static_cast<bf16*>(attn), D,
+                                                       static_cast<bf16*>(probs), B, S, H, dh,
+                                                       st));
   // 3. out-projection, dropout 0, residual -> a1, LayerNorm 1 -> h1
-  p.a = BF(attn);
-  p.b = BF(w_o);
   p.bias = F32(b_o);
   p.N = D;
   p.K = D;
-  p.drop = dropout_site(m0, seeds, thresh, scale, S, 0);
   p.res_bf16 = BF(x);
-  p.ln1_s = F32(ln1_s);
-  p.ln1_b = F32(ln1_b);
-  p.out2_f32 = static_cast<float*>(a1);
-  p.out_f32 = static_cast<float*>(h1_f32);
-  p.out_bf16 = static_cast<bf16*>(h1_bf16);
-  RETURN_IF_ERROR((launch_row_gemm<true, EPI_LN1_FWD>(p, st)));
+  p.ln_s = F32(ln1_s);
+  p.ln_b = F32(ln1_b);
+  {
+    void* const outs[3] = {h1_f32, h1_bf16, a1};
+    const int cols[3] = {D, D, D}, bytes[3] = {4, 2, 4};
+    RETURN_IF_ERROR(launch_site_gemm<gemm::EPI_LN1>(
+        p, attn, w_o, 3, outs, cols, bytes, dropout_site(m0, seeds, thresh, scale, S, 0), st));
+  }
   // 4. FFN up, tanh-gelu, dropout 1
-  p.a = BF(h1_bf16);
-  p.b = BF(w_1);
   p.bias = F32(b_1);
   p.N = F;
-  p.drop = dropout_site(m1, seeds, thresh, scale, S, 1);
-  p.out_bf16 = static_cast<bf16*>(g);
-  RETURN_IF_ERROR((launch_row_gemm<true, EPI_GELU_DROP>(p, st)));
+  {
+    void* const outs[1] = {g};
+    const int cols[1] = {F}, bytes[1] = {2};
+    RETURN_IF_ERROR(launch_site_gemm<gemm::EPI_GELU>(
+        p, h1_bf16, w_1, 1, outs, cols, bytes, dropout_site(m1, seeds, thresh, scale, S, 1), st));
+  }
   // 5. FFN down, dropout 2, residual h1, LayerNorm 2
-  p.a = BF(g);
-  p.b = BF(w_2);
   p.bias = F32(b_2);
   p.N = D;
   p.K = F;
-  p.drop = dropout_site(m2, seeds, thresh, scale, S, 2);
   p.res_f32 = F32(h1_f32);
-  p.ln2_s = F32(ln2_s);
-  p.ln2_b = F32(ln2_b);
-  p.out_bf16 = static_cast<bf16*>(out_bf16);
-  p.out_f32 = static_cast<float*>(out_f32);
-  RETURN_IF_ERROR((launch_row_gemm<true, EPI_LN2_FWD>(p, st)));
+  p.ln_s = F32(ln2_s);
+  p.ln_b = F32(ln2_b);
+  p.out_f32 = out_f32 != nullptr;
+  {
+    void* const outs[1] = {out_f32 != nullptr ? out_f32 : out_bf16};
+    const int cols[1] = {D}, bytes[1] = {out_f32 != nullptr ? 4 : 2};
+    RETURN_IF_ERROR(launch_site_gemm<gemm::EPI_LN2>(
+        p, g, w_2, 1, outs, cols, bytes, dropout_site(m2, seeds, thresh, scale, S, 2), st));
+  }
   return 0;
 }
 
@@ -1230,6 +1324,18 @@ extern "C" int fused_layer_train_forward_store(
                        out_bf16, out_f32, a1, attn, probs, qkv, B, S, D, H, F, stream);
 }
 
+// The plan of the training forward's four GEMM launches at B, S, D, F, as
+// fused_encoder_layer_plan gives kernel 1's (the same plan_for): per launch
+// (qkv, out-projection + LN1, FFN-up, FFN-down + LN2) seven ints, the tile's
+// rows and columns, the grid's x and y, the cluster's size, threads per
+// block and dynamic shared bytes. Needs a current device. Returns a
+// cudaError_t (0 on success).
+extern "C" int fused_layer_train_forward_plan(int B, int S, int D, int F, int* out) {
+  if (!dims_ok(B, S, D, F)) return (int)cudaErrorInvalidValue;
+  gemm::layer_plan(B * S, D, F, out);
+  return 0;
+}
+
 // FFN half of the backward. dh2 (M, D) fp32; a1 (M, D) fp32; m1 (M, F) and m2
 // (M, D) bf16 masks or null; seeds, thresh, scale as the forward's. Scratch: stats (M, 2) fp32; h1 (M, D) bf16; gd
 // (M, F) bf16; gp (M, F) fp32; da2 (M, D) fp32; df (M, D) bf16; du (M, F)
@@ -1263,7 +1369,6 @@ extern "C" int fused_layer_train_bwd_ffn(
   p.ln1_s = F32(ln1_s);
   p.ln1_b = F32(ln1_b);
   p.ln2_s = F32(ln2_s);
-  p.ln2_b = F32(ln2_b);
   // 2. u = h1 W1^T + b1: gd = bf16(gelu(u) m1), gp = gelu'(u)
   p.a = BF(h1);
   p.b = BF(w_1);
@@ -1374,7 +1479,6 @@ static int bwd_attn(const void* da1, const void* x, const void* key_mask, const 
     p.q_raw = static_cast<bf16*>(q);
     p.k = static_cast<bf16*>(k);
     p.v = static_cast<bf16*>(v);
-    p.ldkv = D;
     p.q_scale = (float)(1.0 / sqrt((double)dh));
     RETURN_IF_ERROR((launch_row_gemm<true, EPI_QKV>(p, st)));
     a.q_s = p.q;

@@ -9,7 +9,8 @@
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a wait on a phase's parity;
 //   * cp.async.bulk.tensor.2d TMA loads completing on an mbarrier, TMA
-//     stores in bulk groups, fence.proxy.async, and named barriers;
+//     stores in bulk groups (commit, wait for their reads), fence.proxy.async,
+//     and named barriers;
 //   * thread-block cluster helpers: barrier.cluster arrive/wait, the block's
 //     rank in its cluster, mapa and st.shared::cluster for distributed
 //     shared memory;
@@ -173,11 +174,22 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       : "memory");
 }
 
-// commits this thread's TMA stores, then waits until their shared-memory
-// reads are done (the source may then be reused or the block exit)
-__device__ __forceinline__ void tma_store_drain() {
+// commits this thread's TMA stores issued since the last commit as one bulk group
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until every committed bulk group of this thread has read its shared
+// memory (the source may then be reused or the block exit)
+__device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// commits this thread's TMA stores, then waits until their shared-memory
+// reads are done
+__device__ __forceinline__ void tma_store_drain() {
+  tma_store_commit();
+  tma_store_wait_read();
 }
 
 // orders this thread's generic-proxy shared-memory writes before later

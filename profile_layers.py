@@ -10,7 +10,10 @@ beside nn.TransformerEncoderLayer (eval) and scaled_dot_product_attention;
 the standalone attention (kernel 4) at B=8, S=77 fp32 and bf16 and at B=2,
 S=600 fp32, beside scaled_dot_product_attention with the same mask; and the
 seconds per step of the 1000-step DDPM chain's last 50 steps through the
-inference layer (a seeded full-width prior, B=64, T=196, the fused update).
+inference layer (a seeded full-width prior, B=64, T=196, the fused update);
+and the prior pretraining CLI's seconds per step at batch 64, full width
+(the root's own chip_smoke.pretrain_phase: --fused_train 1, then
+--fused_train_prng 1, then with --grad_accum 2), on a synthetic corpus.
 
     python3 profile_layers.py [ROOT ...]
 
@@ -21,12 +24,23 @@ launch). Give two checkouts, e.g. a `git archive` of the parent commit
 unpacked into a git-ignored directory and this one, to compare them on the
 same card in one run; they are measured in turns (A, B, B, A), each in its
 own process. Prints the card's name and power limit first.
+
+Every run also prints a digest of what it returned (SHA-256 of each
+tensor's bytes, in order), so two roots show which kernels give the same
+bits: the backward halves (kernels 6, 7, 9) take their inputs from the
+plain twins, the same in every root, so an unchanged kernel digests alike.
+In prng mode at B=64 the FFN-half backward (kernel 6) also runs on the
+root's own forward's a1 and is held to its twin there (rel L2 of da1 and of
+the worst gradient leaf), which shows that the forward and the backward
+still draw one dropout mask.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -74,6 +88,27 @@ def ddpm_seconds_per_step(dev) -> float:
     return secs
 
 
+def digest(out) -> str:
+    """SHA-256 (16 hex digits) of the bytes of every tensor in `out` (a
+    tensor, or tuples, lists and dicts of them, dicts in key order)."""
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            h.update(o.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o):
+                walk(o[k])
+        elif isinstance(o, (tuple, list)):
+            for v in o:
+                walk(v)
+
+    walk(out)
+    return h.hexdigest()[:16]
+
+
 def profile(root: str) -> None:
     sys.path.insert(0, root)
     import torch
@@ -96,8 +131,9 @@ def profile(root: str) -> None:
         dh2 = torch.randn(b, 77, 512, generator=gen).to(dev, torch.bfloat16)
         masks = ft.make_dropout_masks(torch.Generator(device=dev).manual_seed(b),
                                       (b, 77, 512), 0.1, 1024)
-        _, a1, attn = ft.fused_layer_train_forward(x, p, 4, None, masks)
-        da1, _ = ft.fused_layer_train_bwd_ffn(dh2, a1, p, masks)
+        # the backward halves' inputs from the twins: the same in every root
+        _, a1, attn = ft.fused_layer_train_forward_reference(x, p, 4, None, masks)
+        da1, _ = ft.bwd_ffn_reference(dh2, a1, p, masks)
         runs[f"B={b} forward"] = (
             lambda x=x, m=masks: ft.fused_layer_train_forward(x, p, 4, None, m))
         runs[f"B={b} bwd_ffn"] = (
@@ -106,7 +142,8 @@ def profile(root: str) -> None:
             lambda d=da1, x=x, a=attn, m=masks: ft.fused_layer_train_bwd_attn(d, x, a, p, 4,
                                                                            None, m))
         if hasattr(ft, "fused_layer_train_bwd_attn_stored"):
-            _, _, _, probs, qkv = ft.fused_layer_train_forward_store(x, p, 4, None, masks)
+            _, _, _, probs, qkv = ft.fused_layer_train_forward_store_reference(x, p, 4, None,
+                                                                               masks)
             runs[f"B={b} forward_store"] = (
                 lambda x=x, m=masks: ft.fused_layer_train_forward_store(x, p, 4, None, m))
             runs[f"B={b} bwd_attn_stored"] = (
@@ -122,6 +159,15 @@ def profile(root: str) -> None:
             runs[f"B={b} bwd_attn prng"] = (
                 lambda d=da1, x=x, a=attn: ft.fused_layer_train_bwd_attn(d, x, a, p, 4, None,
                                                                          **drop))
+            # kernel 6 on this root's own prng forward's a1, against its twin
+            a1_own = ft.fused_layer_train_forward(x, p, 4, None, **drop)[1]
+            got, got_g = ft.fused_layer_train_bwd_ffn(dh2, a1_own, p, **drop)
+            want, want_g = ft.bwd_ffn_reference(dh2, a1_own, p, **drop)
+            torch.cuda.synchronize()
+            leaf = max(cs.rel_l2(got_g[k], want_g[k]) for k in want_g)
+            print(f"  B={b} bwd_ffn prng on the forward's own a1 vs its twin: da1 rel_l2 "
+                  f"{cs.rel_l2(got, want):.6g}, worst gradient leaf rel_l2 {leaf:.6g}",
+                  flush=True)
         if b == 64:
             train_lib = torch.nn.TransformerEncoderLayer(
                 512, 4, 1024, dropout=0.1, activation=partial(Fn.gelu, approximate="tanh"),
@@ -166,11 +212,18 @@ def profile(root: str) -> None:
                 torch.cuda.synchronize()
             events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
             total = sum(device_us(e) for e in events) / 20
-            print(f"  {name}: {ms:.4f} ms per call (events); device {total:.1f} us", flush=True)
+            print(f"  {name}: {ms:.4f} ms per call (events); device {total:.1f} us; "
+                  f"digest {digest(fn())}", flush=True)
             for e in sorted(events, key=lambda e: -device_us(e)):
                 print(f"      {device_us(e) / 20:8.1f} us  {e.key[:100]}", flush=True)
     print(f"  DDPM chain B={DDPM_SHAPE[0]} T={DDPM_SHAPE[3]}, last {DDPM_STEPS} steps, fused "
           f"update: {ddpm_seconds_per_step(dev):.6f} s per step (host clock)", flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "style_xia")
+        cs.write_xia_corpus(data_dir)
+        cs.pretrain_phase(card, data_dir, tmp)
 
 
 def main() -> int:
