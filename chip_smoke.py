@@ -64,8 +64,11 @@ Phases, each printed on its own line with its seconds:
      writes kernel 8's probs there); the store forward's out, a1 and attn
      bit-equal to the forward's, its probs against probs_twin; their
      times, the twins', a library layer's and the card's bounds, and
-     kernels 5 and 8 launch by launch (device time, tile, grid, cluster,
-     bound) at B=64 and B=1; then the same in prng mode (kernel 10: the dropout bits
+     kernels 5-9 launch by launch (device time, tile, grid, cluster, the
+     weight gradients' slices, bound) at B=64 and B=1 and in prng mode at
+     B=64, none of them the WMMA gemm_kernel; two calls of kernels 6, 7
+     and 9 on the same inputs bit-equal, and the backward's plan on the card
+     equal to the wrapper's mirror at every shape; then the same in prng mode (kernel 10: the dropout bits
      regenerated inside the kernels from per-clip seeds, also at rate 0.5),
      with determinism and seed sensitivity, rate 1e-9 against the
      deterministic layer, the keep fraction at rate 0.5, a finite difference
@@ -208,23 +211,26 @@ def event_device_us(e) -> float:
 def device_profile(fn, iters: int = 20) -> list:
     """Device time of one call of fn by kernel name, us, largest first:
     torch.profiler's CUDA time over `iters` calls. A profile that records no
-    device time is taken once more; empty if that one records none either."""
+    device time, or a kernel a number of times that is not a multiple of
+    `iters` (a profile that lost some calls' events: it reads as a fraction
+    of the time), is taken again, at most twice; empty if none records any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    rows = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = sorted(((e.key, event_device_us(e) / iters) for e in prof.key_averages()
-                       if e.device_type.name == "CUDA" and event_device_us(e) > 0),
-                      key=lambda r: -r[1])
-        if rows:
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and event_device_us(e) > 0]
+        rows = sorted(((e.key, event_device_us(e) / iters) for e in events), key=lambda r: -r[1])
+        if rows and all(e.count % iters == 0 for e in events):
             return rows
-    return []
+    return rows
 
 
 def device_us(fn, iters: int = 20) -> str:
@@ -253,16 +259,18 @@ GEMM_LAUNCHES = ("qkv_gemm", "ln1_gemm", "ffn_up_gemm", "ln2_gemm")
 
 def print_gemm_registers(lib_path: str) -> None:
     """Each wgmma GEMM kernel's registers and spills as ptxas reported them
-    (-v) in the build log beside the library: kernel 1's (qkv_gemm, ...) and
-    the training forwards' (qkv_train_gemm, ..., the dropout site's prng
-    mode as a third template argument)."""
+    (-v) in the build log beside the library: kernel 1's (qkv_gemm, ...),
+    the training forwards' (qkv_train_gemm, ...) and backward halves'
+    (up_bwd_gemm, ..., dw2_gemm, ...), the dropout site's prng mode as a
+    third template argument."""
     import re
 
     with open(lib_path[:-3] + ".log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"((?:qkv_store|qkv|ffn_up|ln1|ln2)(?:_train)?_gemm)ILi(\d+)ELi(\d+)E"
-                      r"(?:Lb([01])E)?", line)
+        m = re.search(r"((?:qkv_store_train|qkv_train|ffn_up_train|ln1_train|ln2_train|up_bwd|"
+                      r"ln2_bwd|du_bwd|ln1_bwd|dattn_bwd|dx_bwd|dwqkv|dwo|dw1|dw2|qkv|ffn_up|ln1|"
+                      r"ln2)_gemm)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", line)
         if m and "Compiling entry function" in line:
             after = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", after)
@@ -673,6 +681,125 @@ def print_train_launches(name: str, rows: list, b: int, s: int, d: int, h: int, 
           f"{name} B={b} S={s} launches neither the WMMA GEMM nor the CUDA-core attention")
 
 
+# kernels 6, 7 and 9's launches in launch order; their GEMMs' plans come from
+# fused_layer_train_backward_plan (ops.fused_encoder_train.BACKWARD_GEMMS)
+TRAIN_BWD_LAUNCHES = {
+    "fused_layer_train_bwd_ffn": (
+        "ln_recompute_kernel", "up_bwd_gemm", "ln2_bwd_gemm", "du_bwd_gemm", "ln1_bwd_gemm",
+        "dw2_gemm", "dw1_gemm", "reduce_rows_kernel"),
+    "fused_layer_train_bwd_attn": (
+        "dropout_bwd_kernel", "dattn_bwd_gemm", "qkv_store_train_gemm",
+        "attention_bwd_rows_kernel", "attention_bwd_cols_kernel", "dwqkv_gemm", "dwo_gemm",
+        "dx_bwd_gemm", "reduce_rows_kernel"),
+    "fused_layer_train_bwd_attn_stored": (
+        "dropout_bwd_kernel", "dattn_bwd_gemm", "attention_bwd_rows_kernel",
+        "attention_bwd_cols_kernel", "dwqkv_gemm", "dwo_gemm", "dx_bwd_gemm",
+        "reduce_rows_kernel"),
+}
+
+
+def train_bwd_gemm_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool = True) -> dict:
+    """(flops, bytes) of each launch of kernels 6, 7 and 9, by kernel, in
+    TRAIN_BWD_LAUNCHES order: each input read once (activations, residuals,
+    weight, fp32 vectors and LayerNorm statistics, the bf16 mask of the
+    launch's dropout site in masks mode), each output written once (the
+    launch's activations or gradients; the last pass's bias and LayerNorm
+    gradients). The blocks' column sums and the weight gradients' slices are
+    the design's scratch and count in neither. The operations add up to
+    train_bounds' of the three kernels: the attention backward's rows launch
+    counts the scores (kernel 7), dp and dq, its cols launch dk and dv (it
+    forms the scores and dp again, which the bound does not count)."""
+    m, mk = b * s, (2 if masked else 0)
+    core = 2 * b * s * s * d  # one S x S x D product over all heads
+    stats = b * h * s * 3 * 4  # the rows' (max, sum, delta)
+    probs = b * h * s * s * 2
+    dropout = (0, m * d * 4 + m * d * mk + m * d * 2)
+    dattn = (2 * m * d * d, m * d * 2 + d * d * 2 + m * d * 2)
+    wgrads = [(2 * m * 3 * d * d, 3 * m * d * 2 + m * d * 2 + 3 * d * d * 4),
+              (2 * m * d * d, 2 * m * d * 2 + d * d * 4)]
+    dx = (2 * m * 3 * d * d, 3 * m * d * 2 + 3 * d * d * 2 + 2 * m * d * 4)
+    reduce_attn = (0, 4 * d * 4)
+    return {
+        "fused_layer_train_bwd_ffn": [
+            (0, m * d * 4 + 2 * d * 4 + m * 2 * 4 + m * d * 2),
+            (2 * m * d * f, m * d * 2 + f * d * 2 + f * 4 + m * f * mk + m * f * 2 + m * f * 4),
+            (2 * m * f * d, m * f * 2 + d * f * 2 + 4 * d * 4 + m * d * 4 + m * 2 * 4
+             + m * d * 4 + m * d * mk + m * d * 4 + m * d * 2),
+            (2 * m * d * f, m * d * 2 + d * f * 2 + m * f * 4 + m * f * mk + m * f * 2),
+            (2 * m * f * d, m * f * 2 + f * d * 2 + 2 * m * d * 4 + m * 2 * 4 + d * 4 + m * d * 4),
+            (2 * m * d * f, m * d * 2 + m * f * 2 + d * f * 4),
+            (2 * m * f * d, m * f * 2 + m * d * 2 + f * d * 4),
+            (0, (f + 5 * d) * 4)],
+        "fused_layer_train_bwd_attn": [
+            dropout, dattn,
+            (2 * m * d * 3 * d, m * d * 2 + 3 * d * d * 2 + 3 * d * 4 + m * d * 2 + 3 * m * d * 2),
+            (3 * core, m * d * 2 + m * d * 2 + 2 * m * d * 2 + stats + m * d * 2),
+            (2 * core, m * d * 2 + m * d * 2 + 2 * m * d * 2 + m * d * 2 + stats + 2 * m * d * 2),
+            *wgrads, dx, reduce_attn],
+        "fused_layer_train_bwd_attn_stored": [
+            dropout, dattn,
+            (2 * core, probs + m * d * 2 + 2 * m * d * 2 + stats + m * d * 2),
+            (2 * core, probs + m * d * 2 + m * d * 2 + m * d * 2 + stats + 2 * m * d * 2),
+            *wgrads, dx, reduce_attn],
+    }
+
+
+def train_bwd_plan(b: int, s: int, d: int, f: int) -> dict:
+    """The plan of the backward's GEMM launches as the C launcher picks it
+    on this card (fused_layer_train_backward_plan), by kernel name, each
+    checked against the wrapper's plain mirror (ops.fused_encoder_train.
+    backward_plan), which sizes the partial buffers."""
+    import ctypes
+
+    import torch
+
+    from motionstyle_torch import _build
+    from motionstyle_torch.ops import fused_encoder_train as ft
+
+    n = len(ft.BACKWARD_GEMMS)
+    out = (ctypes.c_int * (8 * n))()
+    rc = _build.load("fused_encoder_train").fused_layer_train_backward_plan(b, s, d, f, out)
+    check(rc == 0, f"fused_layer_train_backward_plan B={b} S={s} D={d} F={f} returned 0")
+    keys = ("bm", "bn", "grid_x", "grid_y", "cluster", "threads", "smem", "split")
+    plans = [dict(zip(keys, out[8 * i:8 * i + 8])) for i in range(n)]
+    mirror = ft.backward_plan(b, s, d, f, torch.cuda.get_device_properties(0).multi_processor_count)
+    same = all((c["bm"], c["bn"], c["grid_x"], c["grid_y"], c["cluster"], c["split"])
+               == (py["bm"], py["bn"], py["gx"], py["gy"], py["cluster"], py["split"])
+               for c, py in zip(plans, mirror))
+    check(same, f"backward plan B={b} S={s} D={d} F={f}: the C launcher's equals the wrapper's "
+                f"mirror (which sizes the partial buffers)")
+    return dict(zip(ft.BACKWARD_GEMMS, plans))
+
+
+def print_train_bwd_launches(name: str, rows: list, b: int, s: int, d: int, h: int, f: int,
+                             masked: bool) -> None:
+    """Each launch of kernel 6, 7 or 9 with its device time (torch.profiler
+    rows of one call) beside its bound, the GEMMs with their plan, then the
+    launches together; none may be the WMMA gemm_kernel."""
+    plans = train_bwd_plan(b, s, d, f)
+    total_us = total_bound = 0.0
+    for launch, (flops, nbytes) in zip(TRAIN_BWD_LAUNCHES[name],
+                                       train_bwd_gemm_bounds(b, s, d, h, f, masked)[name]):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e6, nbytes / PEAK_BYTES * 1e6
+        us = sum(u for k, u in rows if launch in k)
+        total_us, total_bound = total_us + us, total_bound + max(t_ops, t_bytes)
+        plan = plans.get(launch)
+        shape = ("" if plan is None else
+                 f"tile {plan['bm']}x{plan['bn']}, grid {plan['grid_x']}x{plan['grid_y']}"
+                 f"x{plan['split']}, cluster {plan['cluster']}, {plan['threads']} threads, "
+                 f"{plan['smem']} B shared; ")
+        print(f"  {name} B={b} S={s} {launch}: {shape}device "
+              f"{f'{us:.6g} us' if rows else 'not measured'}, bound {max(t_ops, t_bytes):.6g} us "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.4g} GFLOP, "
+              f"{nbytes / 1e6:.4g} MB)", flush=True)
+    others = [(k, u) for k, u in rows if not any(n in k for n in TRAIN_BWD_LAUNCHES[name])]
+    print(f"  {name} B={b} S={s} {len(TRAIN_BWD_LAUNCHES[name])} launches: device "
+          f"{f'{total_us:.6g} us' if rows else 'not measured'}, bound {total_bound:.6g} us; "
+          f"other device rows: {others or 'none'}", flush=True)
+    check(not any("gemm_kernel<" in k for k, _ in rows),
+          f"{name} B={b} S={s}: no launch is the WMMA gemm_kernel")
+
+
 def probs_twin(x, p, h: int, kmask=None):
     """The bf16 probabilities (B, H, S, S) kernel 8's attention launch
     stores, as the Pallas body rounds them, written out here apart from the
@@ -766,14 +893,26 @@ def check_train_kernels(p, b: int, s: int, d: int, h: int, f: int, rate: float, 
         rec = records[PRNG_NAME if prng else name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
-    # each backward half from the same inputs as its twin
+    # each backward half from the same inputs as its twin, twice: the second
+    # call must give the same bits (no atomics, sums in a fixed order); the
+    # partial buffers sized by the plan the launcher follows
+    train_bwd_plan(b, s, d, f)
     da1, g_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, **drop)
+    again_ffn = ft.fused_layer_train_bwd_ffn(dh2, a1, p, **drop)
     torch.cuda.synchronize()
     r_da1, r_ffn = ft.bwd_ffn_reference(dh2, a1, p, **drop)
     dx, g_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, h, None, **drop)
+    again_attn = ft.fused_layer_train_bwd_attn(r_da1, x, attn, p, h, None, **drop)
     dx_s, g_attn_s = ft.fused_layer_train_bwd_attn_stored(r_da1, x, attn, probs, qkv, p, h,
                                                           **drop)
+    again_stored = ft.fused_layer_train_bwd_attn_stored(r_da1, x, attn, probs, qkv, p, h, **drop)
     torch.cuda.synchronize()
+    for kname, first, second in (("kernel 6", (da1, g_ffn), again_ffn),
+                                 ("kernel 7", (dx, g_attn), again_attn),
+                                 ("kernel 9", (dx_s, g_attn_s), again_stored)):
+        check(torch.equal(first[0], second[0])
+              and all(torch.equal(first[1][k], second[1][k]) for k in first[1]),
+              f"{kname} {where}: two calls on the same inputs give the same bits")
     r_dx, r_attn_g = ft.bwd_attn_reference(r_da1, x, attn, p, h, None, **drop)
     r_dx_s, r_attn_g_s = ft.bwd_attn_stored_reference(r_da1, x, attn, probs, qkv, p, h, **drop)
     pairs = ([("fused_layer_train_bwd_ffn", "da1", da1, r_da1)]
@@ -957,6 +1096,12 @@ def train_kernel_phase(device) -> tuple:
                 rows = device_profile(lambda: fn(xx, p, H, None, **drop), iters=10)
                 print_train_launches(f"{name} ({mode})", rows, bb, S, D, H, F,
                                      masked=mode == "masks", store=store)
+            # kernels 6, 7 and 9 launch by launch
+            runs = runs_at(inputs)
+            for name in TRAIN_BWD_LAUNCHES:
+                rows = device_profile(runs[name][0], iters=10)
+                print(f"  {name} ({mode}) B={bb} S={S}:", flush=True)
+                print_train_bwd_launches(name, rows, bb, S, D, H, F, masked=mode == "masks")
     for name in TRAIN_NAMES:  # timing launches are not the main path's
         getattr(ft, name).launches, getattr(ft, name).prng_launches = counts0[name]
     print(f"  B={b} S={S} rate 0.1, masks vs prng mode (kernel 10 inside), in turns "

@@ -49,12 +49,13 @@ SIGNATURES = {
     "fused_encoder_train": [
         ("fused_layer_train_forward", [_VP] * 5 + _DROP + [_VP] * 22 + [_INT] * 5 + [_VP]),
         ("fused_layer_train_bwd_ffn", [_VP] * 4 + _DROP + [_VP] * 25 + [_INT] * 4 + [_VP]),
-        ("fused_layer_train_bwd_attn", [_VP] * 5 + _DROP + [_VP] * 18 + [_INT] * 4 + [_VP]),
+        ("fused_layer_train_bwd_attn", [_VP] * 5 + _DROP + [_VP] * 17 + [_INT] * 4 + [_VP]),
         ("fused_layer_train_forward_store",
          [_VP] * 5 + _DROP + [_VP] * 22 + [_INT] * 5 + [_VP]),
         ("fused_layer_train_bwd_attn_stored",
-         [_VP] * 4 + _DROP + [_VP] * 15 + [_INT] * 4 + [_VP]),
+         [_VP] * 4 + _DROP + [_VP] * 16 + [_INT] * 4 + [_VP]),
         ("fused_layer_train_forward_plan", [_INT] * 4 + [_VP]),
+        ("fused_layer_train_backward_plan", [_INT] * 4 + [_VP]),
     ],
 }
 

@@ -59,29 +59,41 @@
 //   * Their attention is the tensor-core forward (attention_fwd.cuh,
 //     launch_forward_tc); kernel 8's launch also writes the bf16 p it
 //     multiplies by V.
-// Design of the backward halves (kernels 6, 7, 9), simple first:
-//   * one templated WMMA (bf16 in, fp32 accumulate) tile GEMM serves every
-//     product, with either operand stored transposed, so input gradients
-//     (A W) and weight gradients (X^T Y over all rows) need no copies;
-//   * epilogues that need whole rows (the LayerNorm backward) run in 16-row
-//     x D blocks in dynamic shared memory (up to ~83 KB at D = 1024);
+// Design of the backward halves (kernels 6, 7, 9):
+//   * their GEMMs are the same shared wgmma GEMM, with the operand layouts
+//     the backward needs (wgmma_gemm.cuh): A W^T for the recomputes (u, f,
+//     kernel 7's qkv), A W with the weight read MN-major for the input
+//     gradients (du, dh1, dattn, dx), and X^T Y over all M rows, both
+//     operands MN-major, for the weight gradients, which the plan cuts into
+//     slices of M (a few dozen output tiles would leave most SMs idle) that
+//     a last pass adds in slice order;
+//   * the epilogues run from the accumulator registers: gelu and gelu' of u,
+//     the dropout sites, du = site1(acc) gelu'(u); the LayerNorm backwards
+//     (LN2: recompute h1 from a1, a2 = h1 + site2(acc + b2), its mean and
+//     variance, then the backward's two row sums; LN1: its two row sums)
+//     run as clusters along N that exchange each row's sums, as the
+//     forward's LayerNorm launches do;
 //   * the TPU accumulates dW and db in place across its sequential batch
-//     grid. Here blocks run in parallel, so each weight gradient is ONE
-//     product over all M rows (K = M, 64x64 output tiles), and each bias or
-//     LayerNorm gradient is written as per-block partial column sums that a
-//     last pass adds in a fixed order. Both are deterministic, which fp32
-//     atomicAdd would not be;
-//   * attention backward is two launches over 64-wide tiles (queries for
-//     dq, keys for dk and dv), so no head's S x S block has to fit in
-//     shared memory.
+//     grid. Here blocks run in parallel, so each bias or LayerNorm gradient
+//     is written as per-block partial column sums and each weight gradient
+//     as per-slice partial products, which a last pass adds in a fixed order.
+//     Both are deterministic, which fp32 atomicAdd would not be;
+//   * kernel 7 recomputes qkv with kernel 8's qkv launch (q, k, v unscaled
+//     into one (M, 3D) plane, q*scale apart), so it recomputes exactly the
+//     bits kernel 8 stores and both read q, k and v alike;
+//   * attention backward is two launches over 64-wide tiles on the CUDA
+//     cores (queries for dq, keys for dk and dv), so no head's S x S block
+//     has to fit in shared memory.
 // In prng mode each dropout site regenerates its bits with Philox4x32-10
-// (about 100 integer operations on the CUDA cores): the forward's epilogues
-// one for each pair of neighbours, the backward's one for each element; the
-// FFN backward regenerates sites 1 and 2, the attention half site 0. The
-// bit of an element depends only on its index (Dropout), so every tiling
-// sees one mask. The mode is a template parameter of every kernel with a
-// dropout site (PRNG), chosen at launch from whether seeds are set, so the
-// masks and rate-0 instantiations carry no Philox code.
+// (about 100 integer operations on the CUDA cores), one for every four
+// values: in the GEMM epilogues a pair of lanes shares a counter group
+// (Site), and site 0's backward (dropout_bwd_kernel) takes four columns a
+// thread; the FFN backward regenerates sites 1 and 2 (site 2's bits once for
+// its two uses), the attention half site 0. The bit of an element depends
+// only on its index (Dropout), so every tiling sees one mask. The mode is a
+// template parameter of every kernel with a dropout site (PRNG), chosen at
+// launch from whether seeds are set, so the masks and rate-0
+// instantiations carry no Philox code.
 // The launchers allocate nothing: the caller passes every scratch buffer.
 // Each returns a cudaError_t, or the CUresult of a failed tensor-map
 // encode (0 on success); nothing falls back to another path.
@@ -89,31 +101,27 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "attention_fwd.cuh"
 #include "philox.cuh"
 #include "wgmma_gemm.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
+#define RETURN_IF_ERROR(expr)      \
+  do {                             \
+    const int e_ = (int)(expr);    \
+    if (e_ != 0) return e_;        \
+  } while (0)
+
+#define BF(p) static_cast<const bf16*>(p)
+#define F32(p) static_cast<const float*>(p)
+
 namespace {
 
-constexpr int BK = 32;             // GEMM k step
-constexpr int GEMM_THREADS = 256;  // 8 warps
-constexpr int GEMM_WARPS = GEMM_THREADS / 32;
-constexpr int ROW_BM = 16;         // rows of a block that owns whole rows
-constexpr int NARROW_BN = 128;     // column tile of the other row-major GEMMs
-constexpr int WG_TILE = 64;        // weight-gradient output tile (both sides)
-constexpr int MAX_D = 1024;        // widest row a LayerNorm block owns
-constexpr float LN_EPS = 1e-5f;
-constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi)
-constexpr float GELU_A = 0.044715f;
+constexpr int DROP_ROWS = 16;  // rows of a dropout_bwd_kernel block (one partial row)
 
 // attention backward: query rows and keys per tile, 8 warps
 constexpr int BWD_THREADS = 256;
@@ -124,20 +132,8 @@ constexpr int BWD_KPL = BWD_T / 32;         // keys per lane
 constexpr int BWD_KT = 128;                 // key tile of the dq launch
 constexpr int BWD_RKPL = BWD_KT / 32;       // its keys per lane
 
-// the epilogues of the WMMA GEMM (the backward kernels' products)
-enum Epilogue {
-  EPI_QKV = 0,    // q*scale, k, v and q unscaled as bf16 (kernel 7's recompute)
-  EPI_UP_BWD,     // u = acc + b: bf16(gelu(u) * m), gelu'(u)
-  EPI_LN2_BWD,    // LN2 backward from the recomputed a2; da2, df, partials
-  EPI_DU,         // du = acc * m * gelu'(u); partial column sums
-  EPI_LN1_BWD,    // dh1 = da2 + acc; LN1 backward -> da1; partials
-  EPI_BF16,       // bf16(acc)
-  EPI_F32,        // acc
-  EPI_ADD_F32,    // acc + res_f32
-};
-
-// One dropout site of one layer call, applied to element (m, n) of an
-// (M = B*S, N) row-major activation by apply<PRNG>.
+// One dropout site of one layer call, applied to elements (m, n) of an
+// (M = B*S, N) row-major activation (Site below; apply4 four at a time).
 //   masks mode (PRNG false, mask set): v * mask[m, n], the bf16 {0, 1/keep}
 //   mask; with no mask (rate 0): v;
 //   prng mode (PRNG true, seeds set, kernel 10): with b = m / S and s = m % S,
@@ -159,22 +155,31 @@ struct Dropout {
     return philox4x32_10(make_uint4((unsigned)(m - b * S), (unsigned)n >> 2, 0u, 0u),
                          make_uint2((unsigned)seeds[b], (unsigned)site));
   }
+  // the four values at (m, n .. n + 3), n a multiple of 4: one 8-byte mask
+  // load, or one Philox for all four
   template <bool PRNG>
-  __device__ __forceinline__ float apply(float v, int m, int n, int N) const {
+  __device__ __forceinline__ void apply4(float (&v)[4], int m, int n, int N) const {
     if constexpr (!PRNG) {
-      return mask == nullptr ? v : v * __bfloat162float(mask[(size_t)m * N + n]);
+      if (mask == nullptr) return;
+      const uint2 k = *reinterpret_cast<const uint2*>(mask + (size_t)m * N + n);
+      const float2 k01 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&k.x));
+      const float2 k23 = __bfloat1622float2(*reinterpret_cast<const bf162*>(&k.y));
+      v[0] = __fmul_rn(v[0], k01.x);
+      v[1] = __fmul_rn(v[1], k01.y);
+      v[2] = __fmul_rn(v[2], k23.x);
+      v[3] = __fmul_rn(v[3], k23.y);
     } else {
       const uint4 r = words(m, n);
-      const int w = n & 3;
-      const unsigned bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-      return bits < thresh ? v * scale : 0.0f;
+      const unsigned bits[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = bits[e] < thresh ? __fmul_rn(v[e], scale) : 0.0f;
     }
   }
 };
 
-// A dropout site of the training forward in the shared wgmma GEMM's
-// epilogue (wgmma_gemm.cuh's Site interface): acc + bias times the site's
-// keep value, and LayerNorm 1 keeps its input a1 for the backward.
+// A dropout site of the training forward and backward in the shared wgmma
+// GEMM's epilogue (wgmma_gemm.cuh's Site interface): values times the
+// site's keep value, and LayerNorm 1 keeps its input a1 for the backward.
 //   masks mode: load<BN> copies the warpgroup's 64 x BN tile of the bf16
 //     mask into shared memory with coalesced 16-byte cp.async (rows read
 //     whole, 16 B a lane), where 4-byte loads straight from the accumulator
@@ -186,10 +191,11 @@ struct Dropout {
 //     (m, n + 2), (m, n + 3) lie in one Philox counter group, so the even
 //     lane of the two regenerates row m's group and the odd lane row
 //     m + 8's, and they trade the two words the other needs: one Philox for
-//     every four values, with the bits of Dropout::apply.
+//     every four values, with the bits of Dropout::words.
 template <bool PRNG>
 struct Site {
   static constexpr bool TRAIN = true;
+  static constexpr bool PRNG_MODE = PRNG;
   Dropout d;
 
   template <int BN>
@@ -224,43 +230,41 @@ struct Site {
         v[2 * h + 1] = __fmul_rn(v[2 * h + 1], k.y);
       }
     } else {
-      const bool odd = (threadIdx.x & 1) != 0;
-      const int mine = odd ? m + 8 : m;
-      const uint4 w = mine < M ? d.words(mine, n) : make_uint4(0u, 0u, 0u, 0u);
-      // the even lane keeps x, y of row m and gives z, w; the odd lane keeps
-      // z, w of row m + 8 and gives x, y
-      const unsigned g0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
-      const unsigned g1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
-      const unsigned bits[4] = {odd ? g0 : w.x, odd ? g1 : w.y, odd ? w.z : g0, odd ? w.w : g1};
+      const uint4 r = pair_words(m, n, M);
+      const unsigned bits[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = bits[e] < d.thresh ? __fmul_rn(v[e], d.scale) : 0.0f;
     }
   }
-};
 
-struct GemmArgs {
-  const bf16* a;  // (M, K) row-major, or (K, M) when transposed
-  const bf16* b;  // (N, K) row-major (Linear weight), or (K, N)
-  const float* bias;
-  int M, N, K;
-  Dropout drop;          // the epilogue's dropout site (identity when unset)
-  const float* res_f32;  // EPI_LN1_BWD: da2; EPI_ADD_F32
-  const float* a1;       // LN1 input, for the recompute (backward epilogues)
-  const float* stats;    // (M, 2) mean and 1/std of a1
-  const float* ln1_s;
-  const float* ln1_b;
-  const float* ln2_s;
-  const float* dh;       // EPI_LN2_BWD: dh2 (M, N) fp32
-  const float* gp;       // EPI_DU: gelu'(u) (M, N) fp32
-  bf16* out_bf16;
-  float* out_f32;
-  bf16* q;               // EPI_QKV: q*scale, q unscaled, k and v (M, D)
-  bf16* q_raw;
-  bf16* k;
-  bf16* v;
-  int D;
-  float q_scale;
-  float* partial;        // per-block column sums, slot-major: [slot][block][N]
+  // prng mode: the random words of the four values apply takes, by the pair
+  // exchange above
+  __device__ __forceinline__ uint4 pair_words(int m, int n, int M) const {
+    const bool odd = (threadIdx.x & 1) != 0;
+    const int mine = odd ? m + 8 : m;
+    const uint4 w = mine < M ? d.words(mine, n) : make_uint4(0u, 0u, 0u, 0u);
+    // the even lane keeps x, y of row m and gives z, w; the odd lane keeps
+    // z, w of row m + 8 and gives x, y
+    const unsigned g0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+    const unsigned g1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+    return make_uint4(odd ? g0 : w.x, odd ? g1 : w.y, odd ? w.z : g0, odd ? w.w : g1);
+  }
+
+  // prng mode: the keep bits of those four values (bit e for v[e]), for a
+  // site applied twice (LN2_BWD)
+  __device__ __forceinline__ unsigned bits(int m, int n, int M) const {
+    const uint4 r = pair_words(m, n, M);
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+    unsigned k = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) k |= (w[e] < d.thresh ? 1u : 0u) << e;
+    return k;
+  }
+
+  __device__ __forceinline__ void apply_bits(float (&v)[4], unsigned k) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = (k >> e) & 1u ? __fmul_rn(v[e], d.scale) : 0.0f;
+  }
 };
 
 using attention::dot_bf16;
@@ -270,319 +274,6 @@ using attention::warp_sum;
 
 __device__ __forceinline__ float bfr(float v) { return attention::bf16_round(v); }
 
-
-// Column sums over the block's valid rows of Cs -> partial[slot][blockIdx.x][n0 + c]
-__device__ void column_partials(const float* Cs, int ldc, int rows, int bn, float* partial,
-                                int slot, int N, int n0) {
-  for (int c = threadIdx.x; c < bn; c += GEMM_THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += Cs[r * ldc + c];
-    partial[((size_t)slot * gridDim.x + blockIdx.x) * N + n0 + c] = s;
-  }
-}
-
-__host__ __device__ constexpr bool owns_rows(int epi) {
-  return epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
-}
-
-// the epilogues with a dropout site
-__host__ __device__ constexpr bool drops(int epi) {
-  return epi == EPI_UP_BWD || epi == EPI_LN2_BWD || epi == EPI_DU;
-}
-
-template <int BM, bool AT>
-__host__ __device__ constexpr int gemm_a_bytes() {
-  return (AT ? BK * (BM + 8) : BM * (BK + 8)) * 2;
-}
-
-// shared bytes of a block whose tile is bn columns wide: the A and B tiles
-// during the k loop, then the fp32 C tile over both
-template <int BM, int BN, bool AT, bool BT>
-__host__ __device__ inline int gemm_smem_bytes(int bn) {
-  const int ab = gemm_a_bytes<BM, AT>() + (BT ? bn * (BK + 8) : BK * (BN + 8)) * 2;
-  const int c = BM * (bn + 4) * 4;
-  return ab > c ? ab : c;
-}
-
-// C tile (BM x bn) at rows blockIdx.x * BM of op(A) op(B), then the
-// epilogue. AT: A is stored (K, M); BT: B is stored (N, K). The row epilogues
-// own whole rows (bn = N = D <= BN = MAX_D, in dynamic shared memory); the
-// others take columns [blockIdx.y * BN, +bn) with bn = min(BN, N - n0), so N
-// need only be a multiple of 16. FULL: every tile is BN wide (bn == BN), the
-// common case, compiled without the guards of a narrower tile. PRNG: the
-// dropout site's mode (see Dropout). Warp (wm, wn) holds the 16-column
-// fragments wn, wn + WARPS_N, ... of its 16 rows.
-template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL, bool PRNG>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  constexpr int WARPS_M = BM / 16;
-  constexpr int WARPS_N = GEMM_WARPS / WARPS_M;
-  constexpr int NF = BN / 16 / WARPS_N;  // fragments per warp at the widest tile
-  constexpr int LDA = AT ? BM + 8 : BK + 8;
-  static_assert(WARPS_M * WARPS_N == GEMM_WARPS && NF >= 1, "tile shape");
-  static_assert(gemm_a_bytes<BM, AT>() % 32 == 0, "B tile alignment");
-  typedef typename std::conditional<AT, wmma::col_major, wmma::row_major>::type ALayout;
-  typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type BLayout;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float row_mu[BM], row_rs[BM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + gemm_a_bytes<BM, AT>());
-  float* Cs = reinterpret_cast<float*>(smem);  // after the k loop
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = owns_rows(EPI) ? 0 : blockIdx.y * BN;
-  const int bn = FULL ? BN : (owns_rows(EPI) ? p.N : min(BN, p.N - n0));
-  constexpr int LDB = BT ? BK + 8 : BN + 8;
-  const int ldc = bn + 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    if (AT) {
-      for (int i = tid; i < BK * (BM / 8); i += GEMM_THREADS) {
-        const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < p.K)
-          val = *reinterpret_cast<const uint4*>(p.a + (size_t)(k0 + r) * p.M + m0 + c);
-        *reinterpret_cast<uint4*>(As + r * LDA + c) = val;
-      }
-    } else {
-      for (int i = tid; i < BM * (BK / 8); i += GEMM_THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < p.M)
-          val = *reinterpret_cast<const uint4*>(p.a + (size_t)(m0 + r) * p.K + k0 + c);
-        *reinterpret_cast<uint4*>(As + r * LDA + c) = val;
-      }
-    }
-    if (BT) {
-#pragma unroll
-      for (int i = tid; i < BN * (BK / 8); i += GEMM_THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        if (!FULL && r >= bn) continue;
-        *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-            *reinterpret_cast<const uint4*>(p.b + (size_t)(n0 + r) * p.K + k0 + c);
-      }
-    } else {
-#pragma unroll
-      for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < p.K && (FULL || c < bn))
-          val = *reinterpret_cast<const uint4*>(p.b + (size_t)(k0 + r) * p.N + n0 + c);
-        *reinterpret_cast<uint4*>(Bs + r * LDB + c) = val;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> af;
-      if (AT)
-        wmma::load_matrix_sync(af, As + kk * LDA + wm * 16, LDA);
-      else
-        wmma::load_matrix_sync(af, As + wm * 16 * LDA + kk, LDA);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const int n = (wn + WARPS_N * f) * 16;
-        if (FULL || n < bn) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfrag;
-          if (BT)
-            wmma::load_matrix_sync(bfrag, Bs + n * LDB + kk, LDB);
-          else
-            wmma::load_matrix_sync(bfrag, Bs + kk * LDB + n, LDB);
-          wmma::mma_sync(acc[f], af, bfrag, acc[f]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const int n = (wn + WARPS_N * f) * 16;
-    if (FULL || n < bn)
-      wmma::store_matrix_sync(Cs + wm * 16 * ldc + n, acc[f], ldc, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  const int rows = min(BM, p.M - m0);  // valid rows of this block
-
-  if (EPI == EPI_QKV || EPI == EPI_UP_BWD || EPI == EPI_BF16 || EPI == EPI_F32 ||
-      EPI == EPI_ADD_F32) {
-    for (int i = tid; i < BM * (BN / 2); i += GEMM_THREADS) {
-      const int r = i / (BN / 2), c = (i % (BN / 2)) * 2;
-      if (r >= rows || (!FULL && c >= bn)) continue;
-      const int m = m0 + r, n = n0 + c;
-      const size_t g = (size_t)m * p.N + n;
-      float v0 = Cs[r * ldc + c], v1 = Cs[r * ldc + c + 1];
-      if (EPI == EPI_QKV) {
-        v0 += p.bias[n];
-        v1 += p.bias[n + 1];
-        const int part = n / p.D, col = n - part * p.D;
-        const size_t gkv = (size_t)m * p.D + col;
-        if (part == 0) {
-          *reinterpret_cast<bf162*>(p.q_raw + gkv) = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<bf162*>(p.q + gkv) =
-              __floats2bfloat162_rn(v0 * p.q_scale, v1 * p.q_scale);
-        } else {
-          *reinterpret_cast<bf162*>((part == 1 ? p.k : p.v) + gkv) = __floats2bfloat162_rn(v0, v1);
-        }
-      } else if (EPI == EPI_UP_BWD) {
-        float u[2] = {v0 + p.bias[n], v1 + p.bias[n + 1]};
-        float gd[2], gp[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = u[e];
-          const float t = tanhf(GELU_C * (x + GELU_A * x * x * x));
-          gd[e] = p.drop.apply<PRNG>(0.5f * x * (1.0f + t), m, n + e, p.N);
-          gp[e] = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * GELU_C * (1.0f + 3.0f * GELU_A * x * x);
-        }
-        *reinterpret_cast<bf162*>(p.out_bf16 + g) = __floats2bfloat162_rn(gd[0], gd[1]);
-        p.out_f32[g] = gp[0];
-        p.out_f32[g + 1] = gp[1];
-      } else if (EPI == EPI_BF16) {
-        *reinterpret_cast<bf162*>(p.out_bf16 + g) = __floats2bfloat162_rn(v0, v1);
-      } else if (EPI == EPI_F32) {
-        p.out_f32[g] = v0;
-        p.out_f32[g + 1] = v1;
-      } else {  // EPI_ADD_F32
-        p.out_f32[g] = v0 + p.res_f32[g];
-        p.out_f32[g + 1] = v1 + p.res_f32[g + 1];
-      }
-    }
-  } else if (EPI == EPI_DU) {
-    for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
-      const int r = i / BN, c = i % BN;
-      if (c >= bn) continue;
-      float du = 0.f;
-      if (r < rows) {
-        const size_t g = (size_t)(m0 + r) * p.N + n0 + c;
-        du = p.drop.apply<PRNG>(Cs[r * ldc + c], m0 + r, n0 + c, p.N) * p.gp[g];
-        p.out_bf16[g] = __float2bfloat16_rn(du);
-      }
-      Cs[r * ldc + c] = du;
-    }
-    __syncthreads();
-    column_partials(Cs, ldc, rows, bn, p.partial, 0, p.N, n0);
-  } else {
-    // row epilogues: bn == N == D, one warp per row
-    if (EPI == EPI_LN2_BWD) {
-      // 1. rows: a2 = h1 + (acc + b2) * m2 with h1 recomputed from a1; Cs <- xhat2
-      for (int r = warp; r < rows; r += GEMM_WARPS) {
-        const int m = m0 + r;
-        float* row = Cs + r * ldc;
-        const size_t g = (size_t)m * bn;
-        const float mu1 = p.stats[2 * m], rs1 = p.stats[2 * m + 1];
-        float sum = 0.f;
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float h1 = (p.a1[g + c] - mu1) * rs1 * p.ln1_s[c] + p.ln1_b[c];
-          const float a2 = h1 + p.drop.apply<PRNG>(row[c] + p.bias[c], m, c, bn);
-          row[c] = a2;
-          sum += a2;
-        }
-        const float mu = warp_sum(sum) / bn;
-        float var = 0.f;
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float d = row[c] - mu;
-          var += d * d;
-        }
-        const float rs = rsqrtf(warp_sum(var) / bn + LN_EPS);
-        for (int c = lane; c < BN; c += 32)
-          if (c < bn) row[c] = (row[c] - mu) * rs;
-        if (lane == 0) row_rs[r] = rs;
-      }
-      __syncthreads();
-      // 2. columns: dscale2 = sum dh2 * xhat2, dbias2 = sum dh2
-      for (int c = tid; c < BN; c += GEMM_THREADS) {
-        if (c >= bn) continue;
-        float s0 = 0.f, s1 = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float dh = p.dh[(size_t)(m0 + r) * bn + c];
-          s0 += dh * Cs[r * ldc + c];
-          s1 += dh;
-        }
-        p.partial[((size_t)0 * gridDim.x + blockIdx.x) * bn + c] = s0;
-        p.partial[((size_t)1 * gridDim.x + blockIdx.x) * bn + c] = s1;
-      }
-      __syncthreads();
-      // 3. rows: da2 = rstd2 (dxh - mean dxh - xhat2 mean(dxh xhat2)); df = da2 * m2
-      for (int r = warp; r < rows; r += GEMM_WARPS) {
-        const int m = m0 + r;
-        float* row = Cs + r * ldc;
-        const size_t g = (size_t)m * bn;
-        float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float dxh = p.dh[g + c] * p.ln2_s[c];
-          s1 += dxh;
-          s2 += dxh * row[c];
-        }
-        const float mean1 = warp_sum(s1) / bn, mean2 = warp_sum(s2) / bn;
-        const float rs = row_rs[r];
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float dxh = p.dh[g + c] * p.ln2_s[c];
-          const float da2 = rs * (dxh - mean1 - row[c] * mean2);
-          const float df = p.drop.apply<PRNG>(da2, m, c, bn);
-          p.out_f32[g + c] = da2;
-          p.out_bf16[g + c] = __float2bfloat16_rn(df);
-          row[c] = df;
-        }
-      }
-      __syncthreads();
-      // 4. columns: db2 = sum df
-      column_partials(Cs, ldc, rows, bn, p.partial, 2, bn, 0);
-    } else {  // EPI_LN1_BWD
-      // 1. rows: dh1 = da2 + acc into Cs
-      for (int r = warp; r < rows; r += GEMM_WARPS)
-        for (int c = lane; c < BN; c += 32)
-          if (c < bn) Cs[r * ldc + c] += p.res_f32[(size_t)(m0 + r) * bn + c];
-      if (tid < rows) {
-        row_mu[tid] = p.stats[2 * (m0 + tid)];
-        row_rs[tid] = p.stats[2 * (m0 + tid) + 1];
-      }
-      __syncthreads();
-      // 2. columns: dscale1 = sum dh1 * xhat1, dbias1 = sum dh1
-      for (int c = tid; c < BN; c += GEMM_THREADS) {
-        if (c >= bn) continue;
-        float s0 = 0.f, s1 = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          const float xhat = (p.a1[(size_t)(m0 + r) * bn + c] - row_mu[r]) * row_rs[r];
-          const float dh = Cs[r * ldc + c];
-          s0 += dh * xhat;
-          s1 += dh;
-        }
-        p.partial[((size_t)0 * gridDim.x + blockIdx.x) * bn + c] = s0;
-        p.partial[((size_t)1 * gridDim.x + blockIdx.x) * bn + c] = s1;
-      }
-      // 3. rows: da1 = rstd1 (dxh - mean dxh - xhat1 mean(dxh xhat1))
-      for (int r = warp; r < rows; r += GEMM_WARPS) {
-        const size_t g = (size_t)(m0 + r) * bn;
-        const float* row = Cs + r * ldc;
-        float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float xhat = (p.a1[g + c] - row_mu[r]) * row_rs[r];
-          const float dxh = row[c] * p.ln1_s[c];
-          s1 += dxh;
-          s2 += dxh * xhat;
-        }
-        const float mean1 = warp_sum(s1) / bn, mean2 = warp_sum(s2) / bn;
-        for (int c = lane; c < BN; c += 32) {
-          if (c >= bn) continue;
-          const float xhat = (p.a1[g + c] - row_mu[r]) * row_rs[r];
-          const float dxh = row[c] * p.ln1_s[c];
-          p.out_f32[g + c] = row_rs[r] * (dxh - mean1 - xhat * mean2);
-        }
-      }
-    }
-  }
-}
 
 // The attention half of the backward, tiled so that any S runs. For one
 // (batch row, head) with the probabilities p (recomputed from bf16(q*scale)
@@ -959,7 +650,7 @@ ln_recompute_kernel(const float* __restrict__ a1, const float* __restrict__ s,
     const float d = row[c] - mu;
     var += d * d;
   }
-  const float rs = rsqrtf(warp_sum(var) / D + LN_EPS);
+  const float rs = rsqrtf(warp_sum(var) / D + gemm::LN_EPS);
   if (lane == 0) {
     stats[2 * m] = mu;
     stats[2 * m + 1] = rs;
@@ -968,22 +659,32 @@ ln_recompute_kernel(const float* __restrict__ a1, const float* __restrict__ s,
     h1[(size_t)m * D + c] = __float2bfloat16_rn((row[c] - mu) * rs * s[c] + bias[c]);
 }
 
-// dproj = dropout site 0 of da1 as bf16, and per-16-row-block column sums of
+// dproj = dropout site 0 of da1 as bf16, four columns a thread (one Philox
+// for the four in prng mode), and per-DROP_ROWS-row-block column sums of
 // the fp32 values.
 template <bool PRNG>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(128)
 dropout_bwd_kernel(const float* __restrict__ da1, Dropout drop, bf16* __restrict__ out,
                    float* __restrict__ partial, int M, int D) {
-  const int r0 = blockIdx.x * ROW_BM, r1 = min(M, r0 + ROW_BM);
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int r = r0; r < r1; ++r) {
+  const int r0 = blockIdx.x * DROP_ROWS, r1 = min(M, r0 + DROP_ROWS);
+  for (int c = 4 * threadIdx.x; c < D; c += 4 * blockDim.x) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DROP_ROWS; ++i) {  // unrolled: the rows' loads in flight together
+      const int r = r0 + i;
+      if (r >= r1) break;
       const size_t g = (size_t)r * D + c;
-      const float val = drop.apply<PRNG>(da1[g], r, c, D);
-      out[g] = __float2bfloat16_rn(val);
-      s += val;
+      const float4 x = *reinterpret_cast<const float4*>(da1 + g);
+      float v[4] = {x.x, x.y, x.z, x.w};
+      drop.apply4<PRNG>(v, r, c, D);
+      const bf162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(out + g) =
+          make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] += v[e];
     }
-    partial[(size_t)blockIdx.x * D + c] = s;
+    *reinterpret_cast<float4*>(partial + (size_t)blockIdx.x * D + c) =
+        make_float4(s[0], s[1], s[2], s[3]);
   }
 }
 
@@ -994,21 +695,59 @@ struct ReduceJob {
 };
 
 struct ReduceJobs {
-  ReduceJob job[6];
+  ReduceJob job[8];
 };
 
-// out[c] = sum over rows of part[r][c], rows in order; one job per blockIdx.y.
-__global__ void __launch_bounds__(256) reduce_rows_kernel(ReduceJobs jobs) {
-  const ReduceJob j = jobs.job[blockIdx.y];
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j.part == nullptr || c >= j.cols) return;
-  float s = 0.f;
-  for (int r = 0; r < j.rows; ++r) s += j.part[(size_t)r * j.cols + c];
-  j.out[c] = s;
+// out[c] = sum over rows of part[r][c] (cols a multiple of 4), in a fixed
+// order, four columns a lane. A job of at most 8 rows (a weight gradient's
+// slices) adds them in row order, a warp taking 128 columns and a block
+// 1024; a longer one (the blocks' column sums) has its 8 warps add rows w,
+// w + 8, ... of the block's 128 columns, then adds the warps' sums in warp
+// order. One job per blockIdx.y.
+constexpr int REDUCE_COLS = 128;  // columns of a warp (few rows) or a block (many)
+
+__host__ __device__ inline int reduce_blocks(const ReduceJob& j) {
+  return (j.cols + (j.rows <= 8 ? 8 : 1) * REDUCE_COLS - 1) / ((j.rows <= 8 ? 8 : 1) * REDUCE_COLS);
 }
 
-cudaError_t launch_reduce(const ReduceJobs& jobs, int njobs, int max_cols, cudaStream_t st) {
-  reduce_rows_kernel<<<dim3((max_cols + 255) / 256, njobs), 256, 0, st>>>(jobs);
+__global__ void __launch_bounds__(256) reduce_rows_kernel(ReduceJobs jobs) {
+  __shared__ float4 red[8][32];
+  const ReduceJob j = jobs.job[blockIdx.y];
+  if (j.part == nullptr || (int)blockIdx.x >= reduce_blocks(j)) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto add = [](float4& s, const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  };
+  if (j.rows <= 8) {
+    const int c = (blockIdx.x * 8 + warp) * REDUCE_COLS + 4 * lane;
+    if (c >= j.cols) return;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < j.rows; ++r) add(s, j.part + (size_t)r * j.cols + c);
+    *reinterpret_cast<float4*>(j.out + c) = s;
+    return;
+  }
+  const int c = blockIdx.x * REDUCE_COLS + 4 * lane;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c < j.cols)
+    for (int r = warp; r < j.rows; r += 8) add(s, j.part + (size_t)r * j.cols + c);
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < j.cols) {
+    float4 t = red[0][lane];
+    for (int w = 1; w < 8; ++w) add(t, reinterpret_cast<const float*>(&red[w][lane]));
+    *reinterpret_cast<float4*>(j.out + c) = t;
+  }
+}
+
+cudaError_t launch_reduce(const ReduceJobs& jobs, int njobs, cudaStream_t st) {
+  int blocks = 1;
+  for (int i = 0; i < njobs; ++i)
+    blocks = reduce_blocks(jobs.job[i]) > blocks ? reduce_blocks(jobs.job[i]) : blocks;
+  reduce_rows_kernel<<<dim3(blocks, njobs), 256, 0, st>>>(jobs);
   return cudaGetLastError();
 }
 
@@ -1044,66 +783,6 @@ cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int B, bool stored, cudaS
                 : launch_attention_bwd_t<128, false>(a, B, st);
 }
 
-template <int BM, int BN, bool AT, bool BT, int EPI, bool FULL, bool PRNG>
-cudaError_t launch_gemm_tiles(const GemmArgs& p, cudaStream_t st) {
-  static size_t allowed = 48 * 1024;
-  const int smem = gemm_smem_bytes<BM, BN, AT, BT>(owns_rows(EPI) ? p.N : BN);
-  cudaError_t e =
-      attention::allow_smem(gemm_kernel<BM, BN, AT, BT, EPI, FULL, PRNG>, smem, allowed);
-  if (e != cudaSuccess) return e;
-  dim3 grid((p.M + BM - 1) / BM, owns_rows(EPI) ? 1 : (p.N + BN - 1) / BN);
-  gemm_kernel<BM, BN, AT, BT, EPI, FULL, PRNG><<<grid, GEMM_THREADS, smem, st>>>(p);
-  return cudaGetLastError();
-}
-
-template <int BM, int BN, bool AT, bool BT, int EPI, bool PRNG = false>
-cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t st) {
-  if (p.N % 16 != 0 || (owns_rows(EPI) && p.N > BN) || (AT && (p.M % BM != 0 || p.N % BN != 0)))
-    return cudaErrorInvalidValue;
-  if constexpr (AT) {  // weight gradients: every tile is full
-    return launch_gemm_tiles<BM, BN, AT, BT, EPI, true, PRNG>(p, st);
-  } else {
-    if (owns_rows(EPI) ? p.N == BN : p.N % BN == 0)
-      return launch_gemm_tiles<BM, BN, AT, BT, EPI, true, PRNG>(p, st);
-    return launch_gemm_tiles<BM, BN, AT, BT, EPI, false, PRNG>(p, st);
-  }
-}
-
-// 16-row GEMMs: blocks that own whole rows (BN == N == D; rows up to 512
-// wide keep 4 accumulator fragments per warp, wider ones 8) or 128-column tiles
-template <bool BT, int EPI, bool PRNG>
-cudaError_t launch_row_gemm_mode(const GemmArgs& p, cudaStream_t st) {
-  if constexpr (!owns_rows(EPI)) {
-    return launch_gemm<ROW_BM, NARROW_BN, false, BT, EPI, PRNG>(p, st);
-  } else {
-    if (p.N <= MAX_D / 2) return launch_gemm<ROW_BM, MAX_D / 2, false, BT, EPI, PRNG>(p, st);
-    return launch_gemm<ROW_BM, MAX_D, false, BT, EPI, PRNG>(p, st);
-  }
-}
-
-// ... in the dropout site's mode: prng where the site has seeds, else masks
-// (or none); epilogues without a site compile only the latter
-template <bool BT, int EPI>
-cudaError_t launch_row_gemm(const GemmArgs& p, cudaStream_t st) {
-  if constexpr (drops(EPI)) {
-    if (p.drop.seeds != nullptr) return launch_row_gemm_mode<BT, EPI, true>(p, st);
-  }
-  return launch_row_gemm_mode<BT, EPI, false>(p, st);
-}
-
-// dW = X^T Y over all M rows: X (M, P) and Y (M, Q) bf16 -> (P, Q) fp32.
-cudaError_t launch_weight_grad(const void* x, const void* y, void* out, int M, int P, int Q,
-                               cudaStream_t st) {
-  GemmArgs g = {};
-  g.a = static_cast<const bf16*>(x);
-  g.b = static_cast<const bf16*>(y);
-  g.M = P;
-  g.N = Q;
-  g.K = M;
-  g.out_f32 = static_cast<float*>(out);
-  return launch_gemm<WG_TILE, WG_TILE, true, false, EPI_F32>(g, st);
-}
-
 // The training forward's four GEMM launches on the shared wgmma GEMM
 // (wgmma_gemm.cuh), one kernel name each: qkv (kernel 5: q*scale, k, v
 // planes; kernel 8: qkv and q_s) with no site, the others with their
@@ -1122,10 +801,25 @@ WGMMA_GEMM_KERNEL(qkv_store_train_gemm, gemm::EPI_QKV_STORE)
 TRAIN_GEMM_KERNEL(ln1_train_gemm, gemm::EPI_LN1)
 TRAIN_GEMM_KERNEL(ffn_up_train_gemm, gemm::EPI_GELU)
 TRAIN_GEMM_KERNEL(ln2_train_gemm, gemm::EPI_LN2)
-#undef TRAIN_GEMM_KERNEL
 
-// the training forward's launch of epilogue EPI at each tile (PRNG: the
-// dropout site's mode)
+// The backward halves' GEMM launches on the same GEMM: kernel 6's UP_BWD,
+// LN2_BWD and DU with their dropout site and LN1_BWD, kernels 7 and 9's
+// dattn and dx, and the four weight gradients, each its own name (kernel
+// 7's qkv recompute is kernel 8's qkv_store_train_gemm).
+TRAIN_GEMM_KERNEL(up_bwd_gemm, gemm::EPI_UP_BWD)
+TRAIN_GEMM_KERNEL(ln2_bwd_gemm, gemm::EPI_LN2_BWD)
+TRAIN_GEMM_KERNEL(du_bwd_gemm, gemm::EPI_DU)
+#undef TRAIN_GEMM_KERNEL
+WGMMA_GEMM_KERNEL(ln1_bwd_gemm, gemm::EPI_LN1_BWD)
+WGMMA_GEMM_KERNEL(dattn_bwd_gemm, gemm::EPI_BF16)
+WGMMA_GEMM_KERNEL(dx_bwd_gemm, gemm::EPI_ADD_F32)
+WGMMA_GEMM_KERNEL(dw2_gemm, gemm::EPI_WGRAD)
+WGMMA_GEMM_KERNEL(dw1_gemm, gemm::EPI_WGRAD)
+WGMMA_GEMM_KERNEL(dwqkv_gemm, gemm::EPI_WGRAD)
+WGMMA_GEMM_KERNEL(dwo_gemm, gemm::EPI_WGRAD)
+
+// the training launch of epilogue EPI at each tile (PRNG: the dropout
+// site's mode)
 template <int EPI, bool PRNG>
 struct TrainLayer {
   template <int BM, int BN>
@@ -1134,7 +828,26 @@ struct TrainLayer {
     else if constexpr (EPI == gemm::EPI_QKV_STORE) return qkv_store_train_gemm<BM, BN>;
     else if constexpr (EPI == gemm::EPI_GELU) return ffn_up_train_gemm<BM, BN, PRNG>;
     else if constexpr (EPI == gemm::EPI_LN1) return ln1_train_gemm<BM, BN, PRNG>;
-    else return ln2_train_gemm<BM, BN, PRNG>;
+    else if constexpr (EPI == gemm::EPI_LN2) return ln2_train_gemm<BM, BN, PRNG>;
+    else if constexpr (EPI == gemm::EPI_UP_BWD) return up_bwd_gemm<BM, BN, PRNG>;
+    else if constexpr (EPI == gemm::EPI_LN2_BWD) return ln2_bwd_gemm<BM, BN, PRNG>;
+    else if constexpr (EPI == gemm::EPI_DU) return du_bwd_gemm<BM, BN, PRNG>;
+    else if constexpr (EPI == gemm::EPI_LN1_BWD) return ln1_bwd_gemm<BM, BN>;
+    else if constexpr (EPI == gemm::EPI_BF16) return dattn_bwd_gemm<BM, BN>;
+    else return dx_bwd_gemm<BM, BN>;
+  }
+};
+
+// the weight gradients' launches: 0 dW2, 1 dW1 (kernel 6), 2 dWqkv, 3 dWo
+// (kernels 7 and 9)
+template <int ID>
+struct WeightGrad {
+  template <int BM, int BN>
+  static constexpr auto kernel() {
+    if constexpr (ID == 0) return dw2_gemm<BM, BN>;
+    else if constexpr (ID == 1) return dw1_gemm<BM, BN>;
+    else if constexpr (ID == 2) return dwqkv_gemm<BM, BN>;
+    else return dwo_gemm<BM, BN>;
   }
 };
 
@@ -1152,7 +865,8 @@ int launch_site_gemm(const gemm::Args& p, const void* a, const void* w, int n_ou
 }
 
 bool dims_ok(int B, int S, int D, int F) {
-  return B >= 1 && S >= 1 && D >= 64 && D % 64 == 0 && D <= MAX_D && F >= 64 && F % 64 == 0;
+  return B >= 1 && S >= 1 && D >= 64 && D % 64 == 0 && D <= gemm::MAX_D && F >= 64 &&
+         F % 64 == 0;
 }
 
 bool heads_ok(int D, int H) {
@@ -1178,16 +892,34 @@ Dropout dropout_site(const void* mask, const void* seeds, unsigned thresh, float
   return d;
 }
 
+// dW = X^T Y over all M rows, X (M, P) and Y (M, Q) bf16 -> (P, Q) fp32, in
+// the plan's slices of M: one slice writes dW itself, several write `part`
+// (split, P, Q) and add the job that sums them in slice order to `jobs`.
+template <int ID>
+int launch_weight_grad(const void* x, const void* y, void* dw, float* part, int M, int P, int Q,
+                       ReduceJobs& jobs, int& njobs, cudaStream_t st) {
+  gemm::Args g = {};
+  g.M = P;
+  g.N = Q;
+  g.K = M;
+  const int split = gemm::plan_wgrad(P, Q, M).split;
+  void* const outs[1] = {split > 1 ? static_cast<void*>(part) : dw};
+  const int cols[1] = {Q}, bytes[1] = {4};
+  RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_WGRAD, WeightGrad<ID>>(g, BF(x), BF(y), 1, outs,
+                                                                       cols, bytes, st)));
+  if (split > 1) jobs.job[njobs++] = {part, static_cast<float*>(dw), split, P * Q};
+  return 0;
+}
+
+// floats of a weight gradient's slices in the caller's partial buffer (none
+// when one slice writes the gradient itself)
+size_t weight_grad_floats(int M, int P, int Q) {
+  const int split = gemm::plan_wgrad(P, Q, M).split;
+  return split > 1 ? (size_t)split * P * Q : 0;
+}
+
 }  // namespace
 
-#define RETURN_IF_ERROR(expr)      \
-  do {                             \
-    const int e_ = (int)(expr);    \
-    if (e_ != 0) return e_;        \
-  } while (0)
-
-#define BF(p) static_cast<const bf16*>(p)
-#define F32(p) static_cast<const float*>(p)
 
 // The training forward shared by kernels 5 and 8, five launches: the qkv
 // GEMM, the tensor-core attention, then the out-projection (+ dropout 0,
@@ -1336,11 +1068,35 @@ extern "C" int fused_layer_train_forward_plan(int B, int S, int D, int F, int* o
   return 0;
 }
 
+// The plan of the backward halves' GEMM launches at B, S, D, F, as
+// fused_layer_train_forward_plan gives the forward's (the same plan_for;
+// plan_wgrad for the weight gradients): per launch, in this order, kernel
+// 6's UP_BWD, LN2_BWD, DU, LN1_BWD, dW2, dW1, then kernel 7's dattn, qkv
+// recompute, dWqkv, dWo, dx (kernel 9's are the same but the qkv), eight
+// ints: the tile's rows and columns, the grid's x and y, the cluster's
+// size, threads per block, dynamic shared bytes and the slices of K. Needs a
+// current device. Returns a cudaError_t (0 on success).
+extern "C" int fused_layer_train_backward_plan(int B, int S, int D, int F, int* out) {
+  if (!dims_ok(B, S, D, F)) return (int)cudaErrorInvalidValue;
+  const int M = B * S;
+  const int launches[11][4] = {
+      {gemm::EPI_UP_BWD, M, F, D},  {gemm::EPI_LN2_BWD, M, D, F},   {gemm::EPI_DU, M, F, D},
+      {gemm::EPI_LN1_BWD, M, D, F}, {gemm::EPI_WGRAD, D, F, M},     {gemm::EPI_WGRAD, F, D, M},
+      {gemm::EPI_BF16, M, D, D},    {gemm::EPI_QKV_STORE, M, 3 * D, D},
+      {gemm::EPI_WGRAD, 3 * D, D, M}, {gemm::EPI_WGRAD, D, D, M}, {gemm::EPI_ADD_F32, M, D, 3 * D}};
+  for (int i = 0; i < 11; ++i)
+    gemm::plan_row(launches[i][0], launches[i][1], launches[i][2], launches[i][3], 8, out + 8 * i);
+  return 0;
+}
+
 // FFN half of the backward. dh2 (M, D) fp32; a1 (M, D) fp32; m1 (M, F) and m2
-// (M, D) bf16 masks or null; seeds, thresh, scale as the forward's. Scratch: stats (M, 2) fp32; h1 (M, D) bf16; gd
-// (M, F) bf16; gp (M, F) fp32; da2 (M, D) fp32; df (M, D) bf16; du (M, F)
-// bf16; partial (ceil(M/16) * (5 D + F)) fp32. Outputs (fp32): da1 (M, D),
-// dw1 (F, D), db1 (F), dw2 (D, F), db2, dls1, dlb1, dls2, dlb2 (D).
+// (M, D) bf16 masks or null; seeds, thresh, scale as the forward's. Scratch:
+// stats (M, 2) fp32; h1 (M, D) bf16; gd (M, F) bf16; gp (M, F) fp32; da2
+// (M, D) fp32; df (M, D) bf16; du (M, F) bf16; partial fp32, R = ceil(M /
+// 64): the column sums 3 x R x D (LN2: dscale, dbias, db2), R x F (db1), 2 x
+// R x D (LN1: dscale, dbias), then dW2's and dW1's slices (split x D x F
+// each, none for one slice; plan_wgrad). Outputs (fp32): da1 (M, D), dw1
+// (F, D), db1 (F), dw2 (D, F), db2, dls1, dlb1, dls2, dlb2 (D).
 extern "C" int fused_layer_train_bwd_ffn(
     const void* dh2, const void* a1, const void* m1, const void* m2, const void* seeds,
     unsigned thresh, float scale, const void* w_1,
@@ -1351,10 +1107,12 @@ extern "C" int fused_layer_train_bwd_ffn(
   if (!dims_ok(B, S, D, F) || !dropout_ok(nullptr, m1, m2, seeds, thresh))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * S, nb = (M + ROW_BM - 1) / ROW_BM;
-  float* part_ln2 = static_cast<float*>(partial);  // 3 slots x nb x D: dls2, dlb2, db2
-  float* part_db1 = part_ln2 + (size_t)3 * nb * D;  // nb x F
-  float* part_ln1 = part_db1 + (size_t)nb * F;      // 2 slots x nb x D: dls1, dlb1
+  const int M = B * S, R = gemm::cdiv(M, 64);
+  float* part_ln2 = static_cast<float*>(partial);  // 3 slots x R x D: dls2, dlb2, db2
+  float* part_db1 = part_ln2 + (size_t)3 * R * D;   // R x F
+  float* part_ln1 = part_db1 + (size_t)R * F;       // 2 slots x R x D: dls1, dlb1
+  float* part_w2 = part_ln1 + (size_t)2 * R * D;
+  float* part_w1 = part_w2 + weight_grad_floats(M, D, F);
 
   // 1. LN1 statistics and h1 from a1
   ln_recompute_kernel<<<(M + 7) / 8, 256, 0, st>>>(F32(a1), F32(ln1_s), F32(ln1_b),
@@ -1362,132 +1120,135 @@ extern "C" int fused_layer_train_bwd_ffn(
                                                     static_cast<bf16*>(h1), M, D);
   RETURN_IF_ERROR(cudaGetLastError());
 
-  GemmArgs p = {};
+  gemm::Args p = {};
   p.M = M;
   p.a1 = F32(a1);
   p.stats = F32(stats);
-  p.ln1_s = F32(ln1_s);
-  p.ln1_b = F32(ln1_b);
+  p.ln_s = F32(ln1_s);
+  p.ln_b = F32(ln1_b);
   p.ln2_s = F32(ln2_s);
-  // 2. u = h1 W1^T + b1: gd = bf16(gelu(u) m1), gp = gelu'(u)
-  p.a = BF(h1);
-  p.b = BF(w_1);
+  p.dh = F32(dh2);
+  p.gp = F32(gp);
+  // 2. u = h1 W1^T + b1: gd = bf16(site1(gelu(u))), gp = gelu'(u)
   p.bias = F32(b_1);
   p.N = F;
   p.K = D;
-  p.drop = dropout_site(m1, seeds, thresh, scale, S, 1);
-  p.out_bf16 = static_cast<bf16*>(gd);
-  p.out_f32 = static_cast<float*>(gp);
-  RETURN_IF_ERROR((launch_row_gemm<true, EPI_UP_BWD>(p, st)));
-  // 3. f = gd W2^T + b2; a2 = h1 + f m2; LN2 backward -> da2, df = da2 m2
-  p.a = BF(gd);
-  p.b = BF(w_2);
+  {
+    void* const outs[2] = {gp, gd};
+    const int cols[2] = {F, F}, bytes[2] = {4, 2};
+    RETURN_IF_ERROR(launch_site_gemm<gemm::EPI_UP_BWD>(
+        p, h1, w_1, 2, outs, cols, bytes, dropout_site(m1, seeds, thresh, scale, S, 1), st));
+  }
+  // 3. f = gd W2^T + b2; a2 = h1 + site2(f); LN2 backward -> da2, df = site2(da2)
   p.bias = F32(b_2);
   p.N = D;
   p.K = F;
-  p.drop = dropout_site(m2, seeds, thresh, scale, S, 2);
-  p.dh = F32(dh2);
-  p.out_f32 = static_cast<float*>(da2);
-  p.out_bf16 = static_cast<bf16*>(df);
   p.partial = part_ln2;
-  RETURN_IF_ERROR((launch_row_gemm<true, EPI_LN2_BWD>(p, st)));
-  // 4. du = (df W2) m1 gelu'(u)
-  p.a = BF(df);
-  p.b = BF(w_2);  // (D, F) = (K, N)
+  {
+    void* const outs[2] = {da2, df};
+    const int cols[2] = {D, D}, bytes[2] = {4, 2};
+    RETURN_IF_ERROR(launch_site_gemm<gemm::EPI_LN2_BWD>(
+        p, gd, w_2, 2, outs, cols, bytes, dropout_site(m2, seeds, thresh, scale, S, 2), st));
+  }
+  // 4. du = site1(df W2) gelu'(u), W2 (D, F) read as (K, N)
   p.bias = nullptr;
   p.N = F;
   p.K = D;
-  p.drop = dropout_site(m1, seeds, thresh, scale, S, 1);
-  p.gp = F32(gp);
-  p.out_bf16 = static_cast<bf16*>(du);
   p.partial = part_db1;
-  RETURN_IF_ERROR((launch_row_gemm<false, EPI_DU>(p, st)));
-  // 5. dh1 = da2 + du W1; LN1 backward -> da1
-  p.a = BF(du);
-  p.b = BF(w_1);  // (F, D) = (K, N)
+  {
+    void* const outs[1] = {du};
+    const int cols[1] = {F}, bytes[1] = {2};
+    RETURN_IF_ERROR(launch_site_gemm<gemm::EPI_DU>(
+        p, df, w_2, 1, outs, cols, bytes, dropout_site(m1, seeds, thresh, scale, S, 1), st));
+  }
+  // 5. dh1 = da2 + du W1, W1 (F, D) read as (K, N); LN1 backward -> da1
   p.N = D;
   p.K = F;
-  p.drop = Dropout{};
   p.res_f32 = F32(da2);
-  p.out_f32 = static_cast<float*>(da1);
   p.partial = part_ln1;
-  RETURN_IF_ERROR((launch_row_gemm<false, EPI_LN1_BWD>(p, st)));
+  {
+    void* const outs[1] = {da1};
+    const int cols[1] = {D}, bytes[1] = {4};
+    RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_LN1_BWD, TrainLayer<gemm::EPI_LN1_BWD, false>>(
+        p, BF(du), BF(w_1), 1, outs, cols, bytes, st)));
+  }
   // 6, 7. dW2 = df^T gd and dW1 = du^T h1 over all rows
-  RETURN_IF_ERROR(launch_weight_grad(df, gd, dw2, M, D, F, st));
-  RETURN_IF_ERROR(launch_weight_grad(du, h1, dw1, M, F, D, st));
-  // 8. bias and LayerNorm gradients from the partial column sums
   ReduceJobs jobs = {};
-  jobs.job[0] = {part_ln2, static_cast<float*>(dls2), nb, D};
-  jobs.job[1] = {part_ln2 + (size_t)nb * D, static_cast<float*>(dlb2), nb, D};
-  jobs.job[2] = {part_ln2 + (size_t)2 * nb * D, static_cast<float*>(db2), nb, D};
-  jobs.job[3] = {part_db1, static_cast<float*>(db1), nb, F};
-  jobs.job[4] = {part_ln1, static_cast<float*>(dls1), nb, D};
-  jobs.job[5] = {part_ln1 + (size_t)nb * D, static_cast<float*>(dlb1), nb, D};
-  RETURN_IF_ERROR(launch_reduce(jobs, 6, F > D ? F : D, st));
+  int njobs = 0;
+  RETURN_IF_ERROR(launch_weight_grad<0>(df, gd, dw2, part_w2, M, D, F, jobs, njobs, st));
+  RETURN_IF_ERROR(launch_weight_grad<1>(du, h1, dw1, part_w1, M, F, D, jobs, njobs, st));
+  // 8. bias and LayerNorm gradients from the blocks' column sums, the
+  // weight gradients from their slices
+  const int gl = gemm::plan_for(gemm::EPI_LN2_BWD, M, D).gx, gu = gemm::plan_for(gemm::EPI_DU, M, F).gx;
+  jobs.job[njobs++] = {part_ln2, static_cast<float*>(dls2), gl, D};
+  jobs.job[njobs++] = {part_ln2 + (size_t)gl * D, static_cast<float*>(dlb2), gl, D};
+  jobs.job[njobs++] = {part_ln2 + (size_t)2 * gl * D, static_cast<float*>(db2), gl, D};
+  jobs.job[njobs++] = {part_db1, static_cast<float*>(db1), gu, F};
+  jobs.job[njobs++] = {part_ln1, static_cast<float*>(dls1), gl, D};
+  jobs.job[njobs++] = {part_ln1 + (size_t)gl * D, static_cast<float*>(dlb1), gl, D};
+  RETURN_IF_ERROR(launch_reduce(jobs, njobs, st));
   return 0;
 }
 
 // The attention half of the backward shared by kernels 7 and 9. probs null
-// (kernel 7): q*scale, q, k and v are recomputed into the scratch planes
-// q_s, q, k, v, and the softmax from them. probs and qkv set (kernel 9): q,
-// k and v are read from the stored qkv (M, 3D) and p from probs.
+// (kernel 7): q*scale into the scratch q_s and q, k, v (unscaled) into the
+// scratch qkv (M, 3D) are recomputed by kernel 8's qkv launch, and the
+// softmax from them. probs set (kernel 9): q, k and v are read from the
+// stored qkv and p from probs. part_w holds dWqkv's then dWo's slices.
 static int bwd_attn(const void* da1, const void* x, const void* key_mask, const void* attn,
-             const void* m0, const void* seeds, unsigned thresh, float scale, const void* probs, const void* qkv, const void* w_qkv,
-             const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s, void* q,
-             void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* stats, void* dx,
-             void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H,
-             void* stream) {
+                    const void* m0, const void* seeds, unsigned thresh, float scale,
+                    const void* probs, void* qkv, const void* w_qkv, const void* b_qkv,
+                    const void* w_o, void* dproj, void* dattn, void* q_s, void* dqkv,
+                    void* part_o, void* part_qkv, void* part_w, void* stats, void* dx,
+                    void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H,
+                    void* stream) {
   if (!dims_ok(B, S, D, 64) || !heads_ok(D, H) || !dropout_ok(m0, nullptr, nullptr, seeds, thresh))
     return (int)cudaErrorInvalidValue;
   const bool stored = probs != nullptr;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int dh = D / H, M = B * S, nb = (M + ROW_BM - 1) / ROW_BM;
+  const int dh = D / H, M = B * S, nb = (M + DROP_ROWS - 1) / DROP_ROWS;
 
   // 1. dproj = dropout site 0 of da1
   const Dropout d0 = dropout_site(m0, seeds, thresh, scale, S, 0);
   if (seeds != nullptr)
-    dropout_bwd_kernel<true><<<nb, 256, 0, st>>>(F32(da1), d0, static_cast<bf16*>(dproj),
+    dropout_bwd_kernel<true><<<nb, 128, 0, st>>>(F32(da1), d0, static_cast<bf16*>(dproj),
                                                  static_cast<float*>(part_o), M, D);
   else
-    dropout_bwd_kernel<false><<<nb, 256, 0, st>>>(F32(da1), d0, static_cast<bf16*>(dproj),
+    dropout_bwd_kernel<false><<<nb, 128, 0, st>>>(F32(da1), d0, static_cast<bf16*>(dproj),
                                                   static_cast<float*>(part_o), M, D);
   RETURN_IF_ERROR(cudaGetLastError());
-  GemmArgs p = {};
+  gemm::Args p = {};
   p.M = M;
   p.D = D;
-  // 2. dattn = dproj Wo
-  p.a = BF(dproj);
-  p.b = BF(w_o);  // (out, in) = (K, N)
+  // 2. dattn = dproj Wo, Wo (out, in) read as (K, N)
   p.N = D;
   p.K = D;
-  p.out_bf16 = static_cast<bf16*>(dattn);
-  RETURN_IF_ERROR((launch_row_gemm<false, EPI_BF16>(p, st)));
-  // 3. q, k, v: recomputed (kernel 7) or stored (kernel 9)
+  {
+    void* const outs[1] = {dattn};
+    const int cols[1] = {D}, bytes[1] = {2};
+    RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_BF16, TrainLayer<gemm::EPI_BF16, false>>(
+        p, BF(dproj), BF(w_o), 1, outs, cols, bytes, st)));
+  }
+  // 3. q, k, v: recomputed (kernel 7) or stored (kernel 9), unscaled in qkv
   AttnBwdArgs a = {};
-  if (stored) {
-    a.q = BF(qkv);
-    a.k = a.q + D;
-    a.v = a.q + 2 * D;
-    a.ldqkv = 3 * D;
-    a.probs = BF(probs);
-  } else {
-    p.a = BF(x);
-    p.b = BF(w_qkv);
+  if (!stored) {
     p.bias = F32(b_qkv);
     p.N = 3 * D;
-    p.q = static_cast<bf16*>(q_s);
-    p.q_raw = static_cast<bf16*>(q);
-    p.k = static_cast<bf16*>(k);
-    p.v = static_cast<bf16*>(v);
     p.q_scale = (float)(1.0 / sqrt((double)dh));
-    RETURN_IF_ERROR((launch_row_gemm<true, EPI_QKV>(p, st)));
-    a.q_s = p.q;
-    a.q = p.q_raw;
-    a.k = p.k;
-    a.v = p.v;
-    a.ldqkv = D;
+    void* const outs[2] = {q_s, qkv};
+    const int cols[2] = {D, 3 * D}, bytes[2] = {2, 2};
+    RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_QKV_STORE,
+                                       TrainLayer<gemm::EPI_QKV_STORE, false>>(
+        p, BF(x), BF(w_qkv), 2, outs, cols, bytes, st)));
+    a.q_s = BF(q_s);
     a.kmask = F32(key_mask);
+  } else {
+    a.probs = BF(probs);
   }
+  a.q = BF(qkv);
+  a.k = a.q + D;
+  a.v = a.q + 2 * D;
+  a.ldqkv = 3 * D;
   // 4. the softmax VJP per (batch row, head) -> dqkv
   a.dattn = BF(dattn);
   a.stats = static_cast<float*>(stats);
@@ -1500,54 +1261,65 @@ static int bwd_attn(const void* da1, const void* x, const void* key_mask, const 
   a.scale = (float)(1.0 / sqrt((double)dh));
   RETURN_IF_ERROR(launch_attention_bwd(a, B, stored, st));
   // 5, 6. dWqkv = dqkv^T x and dWo = dproj^T attn over all rows
-  RETURN_IF_ERROR(launch_weight_grad(dqkv, x, dwqkv, M, 3 * D, D, st));
-  RETURN_IF_ERROR(launch_weight_grad(dproj, attn, dwo, M, D, D, st));
-  // 7. dx = da1 + dqkv Wqkv
-  p.a = BF(dqkv);
-  p.b = BF(w_qkv);  // (3D, D) = (K, N)
+  ReduceJobs jobs = {};
+  int njobs = 0;
+  float* part_wqkv = static_cast<float*>(part_w);
+  float* part_wo = part_wqkv + weight_grad_floats(M, 3 * D, D);
+  RETURN_IF_ERROR(launch_weight_grad<2>(dqkv, x, dwqkv, part_wqkv, M, 3 * D, D, jobs, njobs, st));
+  RETURN_IF_ERROR(launch_weight_grad<3>(dproj, attn, dwo, part_wo, M, D, D, jobs, njobs, st));
+  // 7. dx = da1 + dqkv Wqkv, Wqkv (3D, D) read as (K, N)
   p.bias = nullptr;
   p.N = D;
   p.K = 3 * D;
   p.res_f32 = F32(da1);
-  p.out_f32 = static_cast<float*>(dx);
-  RETURN_IF_ERROR((launch_row_gemm<false, EPI_ADD_F32>(p, st)));
-  // 8. dbo, dbqkv from the partial column sums
+  {
+    void* const outs[1] = {dx};
+    const int cols[1] = {D}, bytes[1] = {4};
+    RETURN_IF_ERROR((gemm::launch_gemm<gemm::EPI_ADD_F32, TrainLayer<gemm::EPI_ADD_F32, false>>(
+        p, BF(dqkv), BF(w_qkv), 1, outs, cols, bytes, st)));
+  }
+  // 8. dbo, dbqkv from the partial column sums, the weight gradients from
+  // their slices
   const int nt = (S + BWD_T - 1) / BWD_T;
-  ReduceJobs jobs = {};
-  jobs.job[0] = {F32(part_o), static_cast<float*>(dbo), nb, D};
-  jobs.job[1] = {F32(part_qkv), static_cast<float*>(dbqkv), B * nt, 3 * D};
-  RETURN_IF_ERROR(launch_reduce(jobs, 2, 3 * D, st));
+  jobs.job[njobs++] = {F32(part_o), static_cast<float*>(dbo), nb, D};
+  jobs.job[njobs++] = {F32(part_qkv), static_cast<float*>(dbqkv), B * nt, 3 * D};
+  RETURN_IF_ERROR(launch_reduce(jobs, njobs, st));
   return 0;
 }
 
 // Attention half of the backward (kernel 7). da1 (M, D) fp32; x (M, D) bf16;
 // key_mask (B, S) fp32 or null; attn (M, D) bf16; m0 (M, D) bf16 or null;
 // seeds, thresh, scale as the forward's.
-// Scratch: dproj, dattn, q_s, q, k, v (M, D) bf16; dqkv (M, 3D) bf16; part_o
-// (ceil(M/16), D), part_qkv (B * ceil(S/64), 3D) and stats (B*H*S, 3) fp32.
-// Outputs (fp32): dx (M, D), dwqkv (3D, D), dbqkv (3D), dwo (D, D), dbo (D).
+// Scratch: dproj, dattn, q_s (M, D) bf16; qkv, dqkv (M, 3D) bf16; part_o
+// (ceil(M/16), D), part_qkv (B * ceil(S/64), 3D), part_w (dWqkv's, then
+// dWo's slices: split x P x Q each, none for one slice; plan_wgrad) and
+// stats (B*H*S, 3) fp32. Outputs (fp32): dx (M, D), dwqkv (3D, D), dbqkv
+// (3D), dwo (D, D), dbo (D).
 extern "C" int fused_layer_train_bwd_attn(
     const void* da1, const void* x, const void* key_mask, const void* attn, const void* m0,
-    const void* seeds, unsigned thresh, float scale, const void* w_qkv, const void* b_qkv, const void* w_o, void* dproj, void* dattn, void* q_s,
-    void* q, void* k, void* v, void* dqkv, void* part_o, void* part_qkv, void* stats, void* dx,
-    void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H, void* stream) {
-  return bwd_attn(da1, x, key_mask, attn, m0, seeds, thresh, scale, nullptr, nullptr, w_qkv, b_qkv, w_o, dproj, dattn,
-                  q_s, q, k, v, dqkv, part_o, part_qkv, stats, dx, dwqkv, dbqkv, dwo, dbo, B, S,
-                  D, H, stream);
+    const void* seeds, unsigned thresh, float scale, const void* w_qkv, const void* b_qkv,
+    const void* w_o, void* dproj, void* dattn, void* q_s, void* qkv, void* dqkv, void* part_o,
+    void* part_qkv, void* part_w, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo,
+    void* dbo, int B, int S, int D, int H, void* stream) {
+  if (q_s == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
+  return bwd_attn(da1, x, key_mask, attn, m0, seeds, thresh, scale, nullptr, qkv, w_qkv, b_qkv,
+                  w_o, dproj, dattn, q_s, dqkv, part_o, part_qkv, part_w, stats, dx, dwqkv,
+                  dbqkv, dwo, dbo, B, S, D, H, stream);
 }
 
 // Attention half of the backward from the stored residuals (kernel 9): probs
 // (B, H, S, S) bf16 and qkv (M, 3D) bf16 (q unscaled) from kernel 8 replace
 // the recompute; no key mask is needed (it is in p). Scratch and outputs as
-// kernel 7's, without q_s, q, k and v.
+// kernel 7's, without q_s and the scratch qkv.
 extern "C" int fused_layer_train_bwd_attn_stored(
     const void* da1, const void* x, const void* attn, const void* m0, const void* seeds,
-    unsigned thresh, float scale, const void* probs,
-    const void* qkv, const void* w_qkv, const void* w_o, void* dproj, void* dattn, void* dqkv,
-    void* part_o, void* part_qkv, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo,
-    void* dbo, int B, int S, int D, int H, void* stream) {
+    unsigned thresh, float scale, const void* probs, const void* qkv, const void* w_qkv,
+    const void* w_o, void* dproj, void* dattn, void* dqkv, void* part_o, void* part_qkv,
+    void* part_w, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B,
+    int S, int D, int H, void* stream) {
   if (probs == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
-  return bwd_attn(da1, x, nullptr, attn, m0, seeds, thresh, scale, probs, qkv, w_qkv, nullptr, w_o, dproj, dattn,
-                  nullptr, nullptr, nullptr, nullptr, dqkv, part_o, part_qkv, stats, dx, dwqkv,
-                  dbqkv, dwo, dbo, B, S, D, H, stream);
+  return bwd_attn(da1, x, nullptr, attn, m0, seeds, thresh, scale, probs,
+                  const_cast<void*>(qkv), w_qkv, nullptr, w_o, dproj, dattn, nullptr, dqkv,
+                  part_o, part_qkv, part_w, stats, dx, dwqkv, dbqkv, dwo, dbo, B, S, D, H,
+                  stream);
 }

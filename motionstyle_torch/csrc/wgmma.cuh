@@ -1,11 +1,12 @@
 // Hopper (sm_90a) tools for tensor-core GEMMs fed by the Tensor Memory
 // Accelerator, in inline PTX (PTX ISA 8.x), as mma.cuh is for mma.sync:
-//   * the shared-memory matrix descriptor of a K-major bf16 tile in the
-//     128-byte swizzle that TMA writes (rows of 64 bf16 = 128 bytes, 8-row
-//     atoms of 1024 bytes, the tile 1024-byte aligned);
+//   * the shared-memory matrix descriptors of bf16 tiles in the 128-byte
+//     swizzle that TMA writes, K-major (rows of 64 bf16 along K = 128
+//     bytes, 8-row atoms of 1024 bytes, the tile 1024-byte aligned) and
+//     MN-major (rows of 64 bf16 along M or N, boxes of 64 such columns);
 //   * wgmma.fence, commit_group and wait_group, and wgmma.mma_async
 //     m64n64k16 and m64n128k16 bf16 x bf16 -> fp32 with both operands read
-//     from shared memory;
+//     from shared memory, each K-major or MN-major (the transpose bits);
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a wait on a phase's parity;
 //   * cp.async.bulk.tensor.2d TMA loads completing on an mbarrier, TMA
@@ -48,6 +49,17 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
+// Descriptor of an MN-major tile in 128-byte swizzle at shared address
+// `addr` (1024-byte aligned: a k offset moves it by whole 8-row atoms), as
+// TMA writes boxes of 64 k-rows x 64 columns (128 bytes) one after another:
+// start address >> 4, leading offset 8192 bytes between the boxes of 64
+// columns along M or N, stride 1024 bytes between 8-row atoms along K,
+// layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
 __device__ __forceinline__ void commit() {
@@ -69,25 +81,26 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
 }
 
 // d (64 x 64, fp32, the accumulator layout above) += A (64 x 16) W^T
-// (16 x 64): bf16 operands in shared memory, both K-major, given by their
-// descriptors
+// (16 x 64): bf16 operands in shared memory given by their descriptors, A
+// K-major (TA 0) or MN-major (1), W K-major (TW 0) or MN-major (1)
+template <int TA = 0, int TW = 0>
 __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_w) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_w), "r"(1));
+      : "l"(desc_a), "l"(desc_w), "r"(1), "n"(TA), "n"(TW));
 }
 
 // d (64 x 128, fp32, the accumulator layout above) += A (64 x 16) W^T
-// (16 x 128): bf16 operands in shared memory, both K-major, given by their
-// descriptors
+// (16 x 128): as mma_m64n64k16
+template <int TA = 0, int TW = 0>
 __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_w) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -96,7 +109,7 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -105,7 +118,7 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_w), "r"(1));
+      : "l"(desc_a), "l"(desc_w), "r"(1), "n"(TA), "n"(TW));
 }
 
 // ---- mbarriers -------------------------------------------------------------

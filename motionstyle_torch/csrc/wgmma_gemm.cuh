@@ -1,59 +1,85 @@
-// The layer kernels' GEMM on Hopper (sm_90a): C = A W^T + bias with bf16
-// operands and fp32 accumulation, and the epilogue of the launch it serves.
-// The inference layer (fused_encoder.cu, kernel 1) and the training forwards
-// (fused_encoder_train.cu, kernels 5 and 8) instantiate this one body: its
-// ring, its producer/consumer split and its cluster LayerNorm exchange exist
-// only here. The epilogue is a parameter of the body: which launch (EPI:
-// qkv, FFN-up + gelu, out-projection + LayerNorm 1, FFN-down + LayerNorm 2,
-// or the store-probs forward's qkv) and a dropout site (Site: NoSite for
-// kernel 1; the training file's sites apply a keep mask to acc + bias and
+// The layer kernels' GEMM on Hopper (sm_90a): bf16 operands, fp32
+// accumulation, and the epilogue of the launch it serves. The inference layer
+// (fused_encoder.cu, kernel 1), the training forwards and the training
+// backward halves (fused_encoder_train.cu, kernels 5-9) instantiate this one
+// body: its ring, its producer/consumer split and its cluster LayerNorm
+// exchange exist only here. The epilogue is a parameter of the body: which
+// launch (EPI) and a dropout site (Site: NoSite for kernel 1 and the
+// launches without a site; the training file's sites apply a keep mask and
 // make LayerNorm 1 also keep its input a1 for the backward).
+//
+// Three operand layouts, each fixed by the epilogue (a_mn, w_mn):
+//   * C = A W^T, A (M, K) and W (N, K) both K-major: the forwards, and the
+//     backward's recompute of u (UP_BWD), LN2_BWD and kernel 7's qkv;
+//   * C = A W, W stored (K, N) (PyTorch's Linear weight used untransposed):
+//     TMA brings W in boxes of 64 k-rows x 64 columns that wgmma reads as an
+//     MN-major operand (its transpose bit): DU, LN1_BWD, dattn and dx;
+//   * C = X^T Y over all M rows (the weight gradients, fp32 out), X (M, P)
+//     and Y (M, Q): both operands MN-major, in boxes of 64 rows of M; rows
+//     past M come in as TMA's zeros. These outputs have a few dozen 128 x 128
+//     tiles, far from the card's SMs, so the plan cuts the M reduction into
+//     slices (blockIdx.z); each slice writes its fp32 tile into its own rows
+//     of a partial buffer the caller passes, and a last pass adds the slices
+//     in slice order. No atomics: two calls on the same inputs give the same
+//     bits.
 //
 // What bounds the GEMMs: at the DDPM chain's B=64, S=197 (M = 12608, D = 512,
 // F = 1024) kernel 1's four take 52.9 GFLOP, 20.1 + 13.4 us at 989 TFLOP/s
 // for the two narrow ones, and the two LayerNorm ones move 65 MB each (19.4
-// and 19.6 us at 3.35 TB/s): ~72 us together. A design with 16-row tiles
-// that re-read each weight from L2 for every 16 rows moved ~3.6 GB through
-// L2 per layer and ran at L2 speed, and mma.sync cannot reach the card's
-// bf16 rate. So every GEMM here (wgmma.cuh):
+// and 19.6 us at 3.35 TB/s): ~72 us together; the backward's GEMMs at the
+// training's B=64, S=77 take 2.6-7.8 GFLOP each, and its LayerNorm and gelu
+// epilogues move 20-45 MB. A design with 16-row tiles that re-read each
+// weight from L2 for every 16 rows moved ~3.6 GB through L2 per layer and ran
+// at L2 speed, and mma.sync cannot reach the card's bf16 rate. So every GEMM
+// here (wgmma.cuh):
 //   * runs wgmma m64nN k16 on bf16 tiles that TMA brings, in 128-byte swizzle,
 //     into a ring of 3-4 stages guarded by full/empty mbarriers: one producer
 //     warp keeps the loads in flight, one or two consumer warpgroups of 64
 //     rows each issue the products (k step 64, one swizzle row) and free a
 //     stage when the products that read it have retired;
 //   * takes its tile by M: 128 x 128 where that fills the card (the DDPM
-//     chain, the training forwards at B=64, S=77), else 64-row tiles and
-//     64-column slices (serving: M = 616 and 77), so the weights spread over
-//     the SMs and no launch runs on a handful of them;
+//     chain, the training at B=64, S=77), else 64-row tiles and 64-column
+//     slices (serving: M = 616 and 77; the finetune's unroll: M = 77), so
+//     the weights spread over the SMs and no launch runs on a handful of
+//     them;
 //   * runs its epilogue straight from the accumulator registers, with the
 //     bias, scale, rounding, gelu and dropout of the TPU kernels, into the
 //     ring (free after the k loop) in the 128-byte swizzle of the output's
 //     tensor map, then one thread a warpgroup stores its 64 rows by TMA:
 //     stores of 4 bytes a lane from the accumulator layout cost a third of
 //     a launch;
-//   * for the LayerNorm launches, a row's statistics need all D columns: the
-//     launch is a thread-block cluster along N (D / BN blocks, at most 8, one
-//     row tile), each block owning BN columns. The four lanes of a quad hold
-//     a row in the accumulator layout, so a row's partial sum over a block's
-//     columns is two shuffles; the blocks exchange those partials through
-//     distributed shared memory in two rounds, the mean, then the sum of
-//     squared deviations (the twin's two-pass variance), each summed over the
-//     cluster's ranks in rank order.
+//   * for the LayerNorm launches (forward and backward), a row's sums need
+//     all D columns: the launch is a thread-block cluster along N (D / BN
+//     blocks, at most 8, one row tile), each block owning BN columns. The
+//     four lanes of a quad hold a row in the accumulator layout, so a row's
+//     partial sum over a block's columns is two shuffles; the blocks exchange
+//     those partials through distributed shared memory, each round summed
+//     over the cluster's ranks in rank order: the forward's mean, then the
+//     sum of squared deviations (the twin's two-pass variance); LN2_BWD the
+//     same two, then the backward's two sums in one round; LN1_BWD those two;
+//   * the backward's bias and LayerNorm gradients are column sums over all M
+//     rows: a block sums its rows from the accumulator layout (a thread's
+//     two rows, then a shuffle tree over the 8 lanes that share a column,
+//     then the consumer warps in order through shared memory) and writes one
+//     row of a partial buffer; a last pass (the caller's) adds the blocks'
+//     rows in order.
 // A warpgroup's staged output rows take at most 6 bytes a column (LN1's h1 in
-// fp32 and bf16): 48 KB at BN = 128, so two warpgroups fill the 96 KB ring of
-// a 128 x 128 tile. The training LN1 writes 10 bytes a column (a1 too), so it
-// stages and stores a1 first, while the cluster exchanges the row sums, and
-// stages h1 over it once TMA has read it (a1 lies inside the warpgroup's own
-// rows, so only that warpgroup waits). Kernel 8's qkv stages each q column
-// twice (unscaled for qkv, scaled for q_s): 4 bytes a column.
-// No split-K and no atomics: every output's fp32 sum runs in one fixed order.
-// Columns past N (a last tile of 64 in a 128-wide one) come in as zeros and
-// are left out of the statistics; TMA drops the stores past M and N. Blocks
-// are not persistent (a tile each, two or three blocks an SM), so at the
-// DDPM shape the launches still run 1.5-4.5 waves with each block's
-// prologue and epilogue exposed. The launcher allocates nothing: the caller
-// passes every output. A failed tensor-map encode or a refused launch
-// returns its error code; nothing falls back to another path.
+// fp32 and bf16; UP_BWD's gp and gd; LN2_BWD's da2 and df): 48 KB at BN =
+// 128, so two warpgroups fill the 96 KB ring of a 128 x 128 tile. The
+// training LN1 writes 10 bytes a column (a1 too), so it stages and stores a1
+// first, while the cluster exchanges the row sums, and stages h1 over it once
+// TMA has read it (a1 lies inside the warpgroup's own rows, so only that
+// warpgroup waits). Kernel 8's qkv stages each q column twice (unscaled for
+// qkv, scaled for q_s): 4 bytes a column.
+// Apart from the weight gradients' slices, every output's fp32 sum runs in
+// one fixed order. Columns past N (a last tile of 64 in a 128-wide one) come
+// in as zeros and are left out of the statistics; TMA drops the stores past
+// M and N. Blocks are not persistent (a tile each, two or three blocks an
+// SM), so at the DDPM shape the launches still run 1.5-4.5 waves with each
+// block's prologue and epilogue exposed. The launcher allocates nothing: the
+// caller passes every output and partial buffer. A failed tensor-map encode
+// or a refused launch returns its error code; nothing falls back to another
+// path.
 //
 // Accumulator layout (wgmma.cuh): thread t of a warpgroup holds acc[4j + 2h],
 // acc[4j + 2h + 1] at row 16 (t / 32) + (t % 32) / 4 + 8h, columns 8j +
@@ -79,15 +105,65 @@ typedef __nv_bfloat162 bf162;
 constexpr int BK = 64;           // GEMM k step: one 128-byte swizzle row of bf16
 constexpr int MAX_D = 1024;      // widest row a LayerNorm cluster owns
 constexpr int MAX_CLUSTER = 8;   // blocks of a LayerNorm cluster (the portable limit)
+// a weight gradient's slices of M: at most MAX_SPLIT, each at least
+// MIN_SLICE_STEPS k steps of BK rows
+constexpr int MAX_SPLIT = 8;
+constexpr int MIN_SLICE_STEPS = 4;
+constexpr float LN_EPS = 1e-5f;
+constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi)
+constexpr float GELU_A = 0.044715f;
 
-// EPI_QKV: q*scale, k, v into three (M, D) planes; EPI_QKV_STORE (kernel 8):
-// q, k, v unscaled into qkv (M, 3D) and q*scale into q_s (M, D); EPI_GELU:
-// bf16(site(gelu_tanh(acc + b))); EPI_LN1: LN1(x + site(acc + b)), h1 in
-// fp32 and bf16 (and, for a training site, a1 = x + site(acc + b) in fp32);
-// EPI_LN2: LN2(h1 + site(acc + b)), fp32 or bf16.
-enum Epilogue { EPI_QKV = 0, EPI_GELU = 1, EPI_LN1 = 2, EPI_LN2 = 3, EPI_QKV_STORE = 4 };
+// The forwards' epilogues. EPI_QKV: q*scale, k, v into three (M, D) planes;
+// EPI_QKV_STORE (kernel 8, and kernel 7's recompute): q, k, v unscaled into
+// qkv (M, 3D) and q*scale into q_s (M, D); EPI_GELU: bf16(site(gelu_tanh(acc
+// + b))); EPI_LN1: LN1(x + site(acc + b)), h1 in fp32 and bf16 (and, for a
+// training site, a1 = x + site(acc + b) in fp32); EPI_LN2: LN2(h1 + site(acc
+// + b)), fp32 or bf16.
+// The backward's (kernels 6, 7, 9), with the twins' arithmetic and rounding:
+// EPI_UP_BWD: u = acc + b, gd = bf16(site(gelu_tanh(u))), gp = gelu'(u) in
+// fp32; EPI_DU: du = bf16(site(acc) gp), column sums of du; EPI_LN2_BWD: h1
+// recomputed from a1 and its statistics, a2 = h1 + site(acc + b), LayerNorm
+// 2's statistics and backward from dh2: da2 in fp32, df = bf16(site(da2)),
+// column sums of dh2 xhat2, dh2 and df; EPI_LN1_BWD: dh1 = da2 + acc,
+// LayerNorm 1's backward: da1 in fp32, column sums of dh1 xhat1 and dh1;
+// EPI_BF16: bf16(acc) (dattn); EPI_ADD_F32: acc + res in fp32 (dx);
+// EPI_WGRAD: acc in fp32, one slice of M of a weight gradient.
+enum Epilogue {
+  EPI_QKV = 0, EPI_GELU = 1, EPI_LN1 = 2, EPI_LN2 = 3, EPI_QKV_STORE = 4,
+  EPI_UP_BWD = 5, EPI_DU = 6, EPI_LN2_BWD = 7, EPI_LN1_BWD = 8, EPI_BF16 = 9, EPI_ADD_F32 = 10,
+  EPI_WGRAD = 11
+};
 
-__host__ __device__ constexpr bool owns_rows(int epi) { return epi == EPI_LN1 || epi == EPI_LN2; }
+__host__ __device__ constexpr bool owns_rows(int epi) {
+  return epi == EPI_LN1 || epi == EPI_LN2 || epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
+}
+
+__host__ __device__ constexpr bool backward(int epi) { return epi >= EPI_UP_BWD; }
+
+// the operand layouts: A stored (K, M) and W stored (K, N), read MN-major
+__host__ __device__ constexpr bool a_mn(int epi) { return epi == EPI_WGRAD; }
+
+__host__ __device__ constexpr bool w_mn(int epi) {
+  return epi == EPI_DU || epi == EPI_LN1_BWD || epi == EPI_BF16 || epi == EPI_ADD_F32 ||
+         epi == EPI_WGRAD;
+}
+
+// a LayerNorm launch's cluster exchanges, and the [MAX_CLUSTER][BM] slot
+// arrays they use (LN2_BWD: the mean in array 1, the variance in 2, the
+// backward's two sums in 0 and 1, which no block reads or writes by then)
+__host__ __device__ constexpr int cluster_rounds(int epi) {
+  return epi == EPI_LN2_BWD ? 3 : epi == EPI_LN1_BWD ? 1 : owns_rows(epi) ? 2 : 0;
+}
+
+__host__ __device__ constexpr int cluster_slots(int epi) {
+  return epi == EPI_LN2_BWD ? 3 : owns_rows(epi) ? 2 : 0;
+}
+
+// the column sums a block writes into Args::partial (DU: db1; LN2_BWD:
+// dscale2, dbias2, db2; LN1_BWD: dscale1, dbias1)
+__host__ __device__ constexpr int column_sums(int epi) {
+  return epi == EPI_DU ? 1 : epi == EPI_LN2_BWD ? 3 : epi == EPI_LN1_BWD ? 2 : 0;
+}
 
 struct Args {
   int M, N, K;
@@ -96,15 +172,25 @@ struct Args {
   float q_scale;      // EPI_QKV*: q's scale
   bool out_f32;       // EPI_LN2: the output is fp32 (else bf16)
   const bf16* res_bf16;  // EPI_LN1 residual (the layer input)
-  const float* res_f32;  // EPI_LN2 residual (h1)
-  const float* ln_s;
+  const float* res_f32;  // EPI_LN2 residual (h1); EPI_LN1_BWD da2; EPI_ADD_F32 da1
+  const float* ln_s;     // LayerNorm 2's (EPI_LN2) or 1's (the others) scale and bias
   const float* ln_b;
+  // the backward's epilogues
+  const float* a1;     // EPI_LN2_BWD, EPI_LN1_BWD: LayerNorm 1's input (M, N) fp32
+  const float* stats;  // (M, 2): its rows' mean and 1/std
+  const float* ln2_s;  // EPI_LN2_BWD: LayerNorm 2's scale
+  const float* dh;     // EPI_LN2_BWD: the layer output's gradient dh2 (M, N)
+  const float* gp;     // EPI_DU: gelu'(u) (M, N)
+  float* partial;      // column sums, [column_sums(EPI)][gridDim.x][N]
 };
 
 // The outputs, written by TMA from shared memory through these maps:
 // EPI_QKV q, k, v (bf16); EPI_QKV_STORE q_s, qkv (bf16); EPI_GELU ff (bf16);
 // EPI_LN1 h1 in fp32, then in bf16 (then a1 in fp32 for a training site);
-// EPI_LN2 the layer's output (fp32 or bf16). Unused maps repeat the first.
+// EPI_LN2 the layer's output (fp32 or bf16); EPI_UP_BWD gp (fp32), gd (bf16);
+// EPI_LN2_BWD da2 (fp32), df (bf16); EPI_DU du, EPI_BF16 dattn (bf16);
+// EPI_LN1_BWD da1, EPI_ADD_F32 dx (fp32); EPI_WGRAD the weight gradient, or
+// its slices one under another (fp32). Unused maps repeat the first.
 struct OutMaps {
   CUtensorMap o[3];
 };
@@ -117,7 +203,10 @@ struct OutMaps {
 // v = the values at (m, n), (m, n + 1), (m + 8, n), (m + 8, n + 1) (tile
 // row rr of the warpgroup, tile column c; rows at or past M are the zero
 // fill's and are never stored). Both are called by every thread of the
-// warpgroup alike. Kernel 1's site does nothing.
+// warpgroup alike. A site in prng mode (PRNG_MODE) also gives those four
+// values' keep bits (bits(m, n, M), bit e for v[e]) and applies bits it
+// gave before (apply_bits), so LN2_BWD generates site 2's bits once for its
+// two uses. Kernel 1's site does nothing.
 struct NoSite {
   static constexpr bool TRAIN = false;
   template <int BN>
@@ -127,19 +216,24 @@ struct NoSite {
 };
 
 // A BM x BN tile: one producer warp and BM / 64 consumer warpgroups; in
-// shared memory the ring of A (BM x 64) and W (BN x 64) tiles, its barriers
-// and, for the LayerNorm epilogues, the cluster's row partials [2 rounds]
-// [MAX_CLUSTER ranks][BM rows]; 1 KB of slack aligns the ring to the
-// swizzle's 1024 bytes. After the k loop the ring holds each warpgroup's
-// output rows for the TMA stores: 64 x BN values of at most 6 bytes
-// (above), 384 BN bytes a warpgroup.
+// shared memory the ring of A (BM x 64) and W (BN x 64) tiles, its barriers,
+// then for the LayerNorm epilogues the cluster's row partials
+// [cluster_slots][MAX_CLUSTER ranks][BM rows] and for the backward's column
+// sums [column_sums][BM / 16 warps][BN columns], the latter over the former
+// once the last exchange has been read (it fits: BN <= 2 MAX_CLUSTER BM /
+// (BM / 16)); 1 KB of slack aligns the ring to the swizzle's 1024 bytes, and
+// two 128 x 128 tiles of every launch fit an SM. After the k loop the ring
+// holds each warpgroup's output rows for the TMA stores: 64 x BN values of
+// at most 6 bytes (above), 384 BN bytes a warpgroup.
 __host__ __device__ constexpr int ring_stages(int bm) { return bm == 128 ? 3 : 4; }
 
 __host__ __device__ constexpr int tile_threads(int bm) { return bm / 64 * 128 + 32; }
 
 __host__ __device__ constexpr int tile_smem(int bm, int bn, int epi) {
   return 1024 + ring_stages(bm) * (bm + bn) * BK * 2 + 2 * ring_stages(bm) * 8 +
-         (owns_rows(epi) ? 2 * MAX_CLUSTER * bm * 4 : 0);
+         (cluster_slots(epi) * MAX_CLUSTER * bm > column_sums(epi) * (bm / 16) * bn
+              ? cluster_slots(epi) * MAX_CLUSTER * bm
+              : column_sums(epi) * (bm / 16) * bn) * 4;
 }
 
 template <int BM, int BN, int EPI>
@@ -152,6 +246,9 @@ struct Tile {
   static constexpr int SMEM = tile_smem(BM, BN, EPI);
   static constexpr int OUT_BYTES = BN * 64 * 6;  // one warpgroup's output rows
   static_assert(WG * OUT_BYTES <= STAGES * STAGE_BYTES, "output rows exceed the ring");
+  static_assert(column_sums(EPI) * (BM / 16) * BN <=
+                    (cluster_slots(EPI) > 0 ? cluster_slots(EPI) * MAX_CLUSTER * BM : 1 << 30),
+                "column sums exceed the cluster's slots");
   // two or three blocks per SM, so one block's epilogue overlaps another's k loop
   static constexpr int MIN_BLOCKS = BN == 64 ? 3 : 2;
 };
@@ -183,31 +280,396 @@ __device__ __forceinline__ void stage_f32(unsigned char* boxes, int r, int c, fl
   *reinterpret_cast<float2*>(out_slot(boxes, r, c, 4)) = make_float2(v0, v1);
 }
 
+// The warpgroup's 64 rows x BN columns at (row0, n0) of an (M, N) fp32
+// matrix into `boxes` in out_slot's fp32 layout, by coalesced 16-byte
+// cp.async (rows past M and columns past N zero-filled), committed as one
+// group: a thread then reads its accumulator positions with f32_at, and a
+// thread that stages fp32 outputs over them writes only positions it read.
 template <int BN>
-__device__ __forceinline__ void mma_k16(float (&d)[BN / 2], uint32_t a, uint32_t w) {
-  if constexpr (BN == 128)
-    wgmma::mma_m64n128k16(d, wgmma::desc_sw128(a), wgmma::desc_sw128(w));
-  else
-    wgmma::mma_m64n64k16(d, wgmma::desc_sw128(a), wgmma::desc_sw128(w));
+__device__ __forceinline__ void load_f32_async(unsigned char* boxes, const float* src, int row0,
+                                               int n0, int M, int N) {
+  constexpr int CHUNKS = BN / 4;  // 16-byte chunks of a tile row
+  for (int i = threadIdx.x & 127; i < 64 * CHUNKS; i += 128) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+    const bool ok = row0 + r < M && n0 + c < N;
+    mma::cp_async16(out_slot(boxes, r, c, 4), ok ? src + (size_t)(row0 + r) * N + n0 + c : src,
+                    ok);
+  }
+  mma::cp_async_commit();
 }
 
-// The C[BM x BN] tile of A W^T at rows blockIdx.x * BM, columns
-// blockIdx.y * BN, then the epilogue EPI with the dropout site `site`. A
-// (M, K) and W (N, K) come through their tensor maps (boxes of BM or BN rows
-// x 64 columns), the outputs leave through `out` (boxes of 64 rows x 128
-// bytes).
+__device__ __forceinline__ float2 f32_at(unsigned char* boxes, int r, int c) {
+  return *reinterpret_cast<const float2*>(out_slot(boxes, r, c, 4));
+}
+
+// acc += one k16 step of A and W at shared addresses a, w (TA, TW: stored
+// MN-major)
+template <int BN, bool TA, bool TW>
+__device__ __forceinline__ void mma_k16(float (&d)[BN / 2], uint32_t a, uint32_t w) {
+  const uint64_t da = TA ? wgmma::desc_sw128_mn(a) : wgmma::desc_sw128(a);
+  const uint64_t dw = TW ? wgmma::desc_sw128_mn(w) : wgmma::desc_sw128(w);
+  if constexpr (BN == 128)
+    wgmma::mma_m64n128k16<TA, TW>(d, da, dw);
+  else
+    wgmma::mma_m64n64k16<TA, TW>(d, da, dw);
+}
+
+// Sums v[q][h], this thread's partial of value q for tile row row + 8h over
+// its block's columns, over the quad (the row's four lanes), then over the
+// cluster's blocks in rank order through distributed shared memory: `slots`
+// holds Q arrays of [MAX_CLUSTER ranks][BM rows]. One cluster barrier; the
+// first one (every block has started) is the caller's.
+template <int BM, int Q>
+__device__ __forceinline__ void cluster_row_sums(float (&v)[Q][2], float* slots, int row,
+                                                 uint32_t rank, uint32_t cs) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[q][h] = quad_sum(v[q][h]);
+      if ((lane & 3) == 0)
+        for (uint32_t c = 0; c < cs; ++c)
+          wgmma::st_cluster(
+              wgmma::mapa(&slots[(q * MAX_CLUSTER + rank) * BM + row + 8 * h], c), v[q][h]);
+    }
+  }
+  wgmma::cluster_arrive();
+  wgmma::cluster_wait();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float total = 0.f;
+      for (uint32_t c = 0; c < cs; ++c) total += slots[(q * MAX_CLUSTER + c) * BM + row + 8 * h];
+      v[q][h] = total;
+    }
+  }
+}
+
+// Sums (v0, v1), this thread's values at tile columns c, c + 1 (its two rows
+// added), over the warp's 16 rows: a shuffle tree over the 8 lanes that share
+// the columns (every lane ends with the same sums); the lanes of the first
+// row write them into cols[warp][c].
+template <int BN>
+__device__ __forceinline__ void warp_column_sums(float v0, float v1, float* cols, int c) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+    v1 += __shfl_xor_sync(0xffffffffu, v1, o);
+  }
+  if ((threadIdx.x & 31) < 4)
+    *reinterpret_cast<float2*>(cols + (threadIdx.x >> 5) * BN + c) = make_float2(v0, v1);
+}
+
+// The block's Q column sums: cols[q][warp][c] summed over the consumer warps
+// in order, into partial[(q * gridDim.x + blockIdx.x) * N + n0 + c].
+template <int BM, int BN, int Q>
+__device__ __forceinline__ void store_column_sums(const float* cols, float* partial, int n0,
+                                                  int N) {
+  constexpr int WARPS = BM / 16, THREADS = BM / 64 * 128;
+  wgmma::named_barrier(1, THREADS);  // every warp's sums are written
+  for (int i = threadIdx.x; i < Q * BN; i += THREADS) {
+    const int q = i / BN, c = i % BN;
+    if (n0 + c >= N) continue;
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s += cols[(q * WARPS + w) * BN + c];
+    partial[((size_t)q * gridDim.x + blockIdx.x) * N + n0 + c] = s;
+  }
+}
+
+// A consumer thread's place in its tile: the tile's first row and column,
+// its warpgroup, its rows rr and rr + 8 of the warpgroup's 64 (tile rows
+// row, row + 8) and its columns 8j + col, + 1.
+struct Frag {
+  int m0, n0, wg, rr, row, col;
+};
+
+// The backward's epilogues (EPI_UP_BWD ... EPI_WGRAD, above) from the
+// accumulator: output rows staged in `boxes` (fp32) and `boxes16` (bf16),
+// the site's keep values in `keep`, the cluster's slots in `red`, the column
+// sums in `cols` (over the slots in the LayerNorm launches: written only
+// after the last exchange has been read).
+template <int BM, int BN, int EPI, class Site>
+__device__ __forceinline__ void backward_epilogue(float (&acc)[BN / 2], const Args& p,
+                                                  const Site& site, const Frag& f,
+                                                  unsigned char* boxes, unsigned char* boxes16,
+                                                  unsigned char* keep, float* red, float* cols) {
+  constexpr int WG = BM / 64, CS = BM / 16 * BN;  // CS: one quantity's column sums
+  const int M = p.M, N = p.N, rr = f.rr, mrow = f.m0 + f.row;
+  if constexpr (!owns_rows(EPI)) {
+    // every consumer is done with the ring before it holds keep values or output rows
+    wgmma::named_barrier(1, WG * 128);
+    // DU's gelu'(u) tile comes in beside the keep values, over the fp32 rows
+    if constexpr (EPI == EPI_DU) load_f32_async<BN>(boxes, p.gp, f.m0 + f.wg * 64, f.n0, M, N);
+    site.template load<BN>(keep, f.m0 + f.wg * 64, f.n0, M, N, f.wg);
+    if constexpr (EPI == EPI_DU) {
+      mma::cp_async_wait<0>();
+      wgmma::named_barrier(2 + f.wg, 128);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + f.col, n = f.n0 + c;
+      if (f.n0 + 8 * j >= N) continue;
+      float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+      if constexpr (EPI == EPI_UP_BWD) {
+        const float b[2] = {p.bias[n], p.bias[n + 1]};
+        float gp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float u = v[e] + b[e & 1];
+          const float t = tanhf(GELU_C * (u + GELU_A * u * u * u));
+          v[e] = 0.5f * u * (1.0f + t);
+          gp[e] = 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * GELU_C * (1.0f + 3.0f * GELU_A * u * u);
+        }
+        site.apply(v, keep, rr, c, mrow, n, M, N);
+        // gd is staged over the keep values this thread has just read
+        stage_f32(boxes, rr, c, gp[0], gp[1]);
+        stage_f32(boxes, rr + 8, c, gp[2], gp[3]);
+        stage_bf16(boxes16, rr, c, v[0], v[1]);
+        stage_bf16(boxes16, rr + 8, c, v[2], v[3]);
+      } else if constexpr (EPI == EPI_DU) {
+        site.apply(v, keep, rr, c, mrow, n, M, N);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 g = f32_at(boxes, rr + 8 * h, c);  // zero past M
+          v[2 * h] *= g.x;
+          v[2 * h + 1] *= g.y;
+          // du is staged over the keep values this thread has just read
+          stage_bf16(boxes16, rr + 8 * h, c, v[2 * h], v[2 * h + 1]);
+        }
+        warp_column_sums<BN>(v[0] + v[2], v[1] + v[3], cols, c);
+      } else if constexpr (EPI == EPI_ADD_F32) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mrow + 8 * h;
+          const float2 r = m < M ? *reinterpret_cast<const float2*>(p.res_f32 + (size_t)m * N + n)
+                                 : make_float2(0.f, 0.f);
+          stage_f32(boxes, rr + 8 * h, c, v[2 * h] + r.x, v[2 * h + 1] + r.y);
+        }
+      } else if constexpr (EPI == EPI_BF16) {
+        stage_bf16(boxes, rr, c, v[0], v[1]);
+        stage_bf16(boxes, rr + 8, c, v[2], v[3]);
+      } else {  // EPI_WGRAD
+        stage_f32(boxes, rr, c, v[0], v[1]);
+        stage_f32(boxes, rr + 8, c, v[2], v[3]);
+      }
+    }
+    if constexpr (EPI == EPI_DU) store_column_sums<BM, BN, 1>(cols, p.partial, f.n0, N);
+  } else {
+    const uint32_t rank = wgmma::cluster_rank(), cs = gridDim.y;
+    // LayerNorm 1's statistics of the thread's rows (rows past M: zeros)
+    float mu1[2], rs1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mrow + 8 * h;
+      mu1[h] = m < M ? p.stats[2 * m] : 0.f;
+      rs1[h] = m < M ? p.stats[2 * m + 1] : 0.f;
+    }
+    if constexpr (EPI == EPI_LN2_BWD) {
+      // the ring is free: a1's tile comes in over the fp32 rows, the keep
+      // values after them
+      wgmma::named_barrier(1, WG * 128);
+      load_f32_async<BN>(boxes, p.a1, f.m0 + f.wg * 64, f.n0, M, N);
+      site.template load<BN>(keep, f.m0 + f.wg * 64, f.n0, M, N, f.wg);
+      mma::cp_async_wait<0>();
+      wgmma::named_barrier(2 + f.wg, 128);
+      // a2 = h1 + site2(acc + b2) into acc, with h1 = LN1(a1) recomputed
+      uint64_t kept = 0;  // prng mode: site 2's keep bits (4j + e), for df below
+      float s[1][2] = {{0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + f.col, n = f.n0 + c;
+        if (f.n0 + 8 * j >= N) continue;
+        const float b0 = p.bias[n], b1 = p.bias[n + 1];
+        float v[4] = {acc[4 * j] + b0, acc[4 * j + 1] + b1, acc[4 * j + 2] + b0, acc[4 * j + 3] + b1};
+        if constexpr (Site::PRNG_MODE) {
+          const unsigned k4 = site.bits(mrow, n, M);
+          kept |= (uint64_t)k4 << (4 * j);
+          site.apply_bits(v, k4);
+        } else {
+          site.apply(v, keep, rr, c, mrow, n, M, N);
+        }
+        const float g0 = p.ln_s[n], g1 = p.ln_s[n + 1], e0 = p.ln_b[n], e1 = p.ln_b[n + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 a = f32_at(boxes, rr + 8 * h, c);  // zero past M
+          acc[4 * j + 2 * h] = (a.x - mu1[h]) * rs1[h] * g0 + e0 + v[2 * h];
+          acc[4 * j + 2 * h + 1] = (a.y - mu1[h]) * rs1[h] * g1 + e1 + v[2 * h + 1];
+          s[0][h] += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
+        }
+      }
+      // dh2's tile comes in over a1's while the cluster sums the rows
+      wgmma::named_barrier(2 + f.wg, 128);
+      load_f32_async<BN>(boxes, p.dh, f.m0 + f.wg * 64, f.n0, M, N);
+      // LayerNorm 2's mean, then its two-pass variance, over the cluster
+      float mu[2], rs[2];
+      wgmma::cluster_wait();  // every block of the cluster has started
+      cluster_row_sums<BM, 1>(s, red + MAX_CLUSTER * BM, f.row, rank, cs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mu[h] = s[0][h] / N;
+        s[0][h] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (f.n0 + 8 * j >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float d0 = acc[4 * j + 2 * h] - mu[h], d1 = acc[4 * j + 2 * h + 1] - mu[h];
+          s[0][h] += d0 * d0 + d1 * d1;
+        }
+      }
+      cluster_row_sums<BM, 1>(s, red + 2 * MAX_CLUSTER * BM, f.row, rank, cs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rs[h] = rsqrtf(s[0][h] / N + LN_EPS);
+      mma::cp_async_wait<0>();
+      wgmma::named_barrier(2 + f.wg, 128);  // dh2's tile has arrived
+      // xhat2 into acc; the row sums of dxh = dh2 ln2_s and dxh xhat2
+      float q[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + f.col, n = f.n0 + c;
+        if (f.n0 + 8 * j >= N) continue;
+        const float w0 = p.ln2_s[n], w1 = p.ln2_s[n + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 dh = f32_at(boxes, rr + 8 * h, c);
+          const float x0 = (acc[4 * j + 2 * h] - mu[h]) * rs[h];
+          const float x1 = (acc[4 * j + 2 * h + 1] - mu[h]) * rs[h];
+          acc[4 * j + 2 * h] = x0;
+          acc[4 * j + 2 * h + 1] = x1;
+          const float d0 = dh.x * w0, d1 = dh.y * w1;
+          q[0][h] += d0 + d1;
+          q[1][h] += d0 * x0 + d1 * x1;
+        }
+      }
+      cluster_row_sums<BM, 2>(q, red, f.row, rank, cs);
+      wgmma::named_barrier(1, WG * 128);  // the slots are read: they take the column sums
+      // da2 = rs2 (dxh - mean(dxh) - xhat2 mean(dxh xhat2)); df = site2(da2);
+      // the column sums of dh2 xhat2, dh2 and df
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + f.col, n = f.n0 + c;
+        if (f.n0 + 8 * j >= N) continue;
+        const float w0 = p.ln2_s[n], w1 = p.ln2_s[n + 1];
+        float da[4], cx0 = 0.f, cx1 = 0.f, cd0 = 0.f, cd1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 dh = f32_at(boxes, rr + 8 * h, c);  // da2 is staged over it below
+          const float m1 = q[0][h] / N, m2 = q[1][h] / N;
+          da[2 * h] = rs[h] * (dh.x * w0 - m1 - acc[4 * j + 2 * h] * m2);
+          da[2 * h + 1] = rs[h] * (dh.y * w1 - m1 - acc[4 * j + 2 * h + 1] * m2);
+          cx0 += dh.x * acc[4 * j + 2 * h];
+          cx1 += dh.y * acc[4 * j + 2 * h + 1];
+          cd0 += dh.x;
+          cd1 += dh.y;
+        }
+        warp_column_sums<BN>(cx0, cx1, cols, c);
+        warp_column_sums<BN>(cd0, cd1, cols + CS, c);
+        float df[4] = {da[0], da[1], da[2], da[3]};
+        if constexpr (Site::PRNG_MODE)
+          site.apply_bits(df, (unsigned)(kept >> (4 * j)) & 15u);
+        else
+          site.apply(df, keep, rr, c, mrow, n, M, N);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (mrow + 8 * h >= M) df[2 * h] = df[2 * h + 1] = 0.f;
+          stage_f32(boxes, rr + 8 * h, c, da[2 * h], da[2 * h + 1]);
+          // df is staged over the keep values this thread has just read
+          stage_bf16(boxes16, rr + 8 * h, c, df[2 * h], df[2 * h + 1]);
+        }
+        warp_column_sums<BN>(df[0] + df[2], df[1] + df[3], cols + 2 * CS, c);
+      }
+      store_column_sums<BM, BN, 3>(cols, p.partial, f.n0, N);
+    } else {  // EPI_LN1_BWD
+      // the ring is free: a1's tile comes in over the fp32 rows
+      wgmma::named_barrier(1, WG * 128);
+      load_f32_async<BN>(boxes, p.a1, f.m0 + f.wg * 64, f.n0, M, N);
+      mma::cp_async_wait<0>();
+      wgmma::named_barrier(2 + f.wg, 128);
+      // dh1 = da2 + acc into acc; the row sums of dxh = dh1 ln1_s and dxh
+      // xhat1
+      float q[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = f.n0 + 8 * j + f.col;
+        if (f.n0 + 8 * j >= N) continue;
+        const float w0 = p.ln_s[n], w1 = p.ln_s[n + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mrow + 8 * h;
+          const float2 r = m < M ? *reinterpret_cast<const float2*>(p.res_f32 + (size_t)m * N + n)
+                                 : make_float2(0.f, 0.f);
+          const float2 a = f32_at(boxes, rr + 8 * h, 8 * j + f.col);  // zero past M
+          const float g0 = r.x + acc[4 * j + 2 * h], g1 = r.y + acc[4 * j + 2 * h + 1];
+          acc[4 * j + 2 * h] = g0;
+          acc[4 * j + 2 * h + 1] = g1;
+          const float x0 = (a.x - mu1[h]) * rs1[h], x1 = (a.y - mu1[h]) * rs1[h];
+          const float d0 = g0 * w0, d1 = g1 * w1;
+          q[0][h] += d0 + d1;
+          q[1][h] += d0 * x0 + d1 * x1;
+        }
+      }
+      wgmma::cluster_wait();  // every block of the cluster has started
+      cluster_row_sums<BM, 2>(q, red, f.row, rank, cs);
+      wgmma::named_barrier(1, WG * 128);  // the slots are read: they take the column sums
+      // da1 = rs1 (dxh - mean(dxh) - xhat1 mean(dxh xhat1)); the column sums
+      // of dh1 xhat1 and dh1
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + f.col, n = f.n0 + c;
+        if (f.n0 + 8 * j >= N) continue;
+        const float w0 = p.ln_s[n], w1 = p.ln_s[n + 1];
+        float cx0 = 0.f, cx1 = 0.f, cd0 = 0.f, cd1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 a = f32_at(boxes, rr + 8 * h, c);  // da1 is staged over it below
+          const float m1 = q[0][h] / N, m2 = q[1][h] / N;
+          const float x0 = (a.x - mu1[h]) * rs1[h], x1 = (a.y - mu1[h]) * rs1[h];
+          const float g0 = acc[4 * j + 2 * h], g1 = acc[4 * j + 2 * h + 1];
+          stage_f32(boxes, rr + 8 * h, c, rs1[h] * (g0 * w0 - m1 - x0 * m2),
+                    rs1[h] * (g1 * w1 - m1 - x1 * m2));
+          cx0 += g0 * x0;
+          cx1 += g1 * x1;
+          cd0 += g0;
+          cd1 += g1;
+        }
+        warp_column_sums<BN>(cx0, cx1, cols, c);
+        warp_column_sums<BN>(cd0, cd1, cols + CS, c);
+      }
+      store_column_sums<BM, BN, 2>(cols, p.partial, f.n0, N);
+    }
+  }
+}
+
+// The C[BM x BN] tile at rows blockIdx.x * BM, columns blockIdx.y * BN of A
+// W^T, A W or X^T Y (the layout EPI fixes: a_mn, w_mn), then the epilogue
+// EPI with the dropout site `site`. A and W come through their tensor maps:
+// K-major in boxes of BM or BN rows x 64 columns, MN-major in boxes of 64
+// k-rows x 64 columns; the outputs leave through `out` (boxes of 64 rows x
+// 128 bytes). A weight gradient (EPI_WGRAD) takes the k steps of its slice
+// blockIdx.z of gridDim.z and writes rows blockIdx.z * M of its output.
 template <int BM, int BN, int EPI, class Site>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtensorMap* tm_w,
                                           const OutMaps& out, const Args& p, const Site& site) {
   using T = Tile<BM, BN, EPI>;
   // a training site's LN1 also writes its input a1 (out.o[2])
   constexpr bool keep_a1 = Site::TRAIN && EPI == EPI_LN1;
+  constexpr bool TA = a_mn(EPI), TW = w_mn(EPI);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (wgmma::smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE_BYTES);
   uint64_t* empty = full + T::STAGES;
   float* red = reinterpret_cast<float*>(empty + T::STAGES);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, nk = p.K / BK;
+  float* cols = red;  // the backward's column sums (over the LayerNorm launches' slots)
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  int k0 = 0, nk = p.K / BK;
+  if constexpr (EPI == EPI_WGRAD) {  // this slice's k steps (TMA fills the rows past K)
+    const int all = (p.K + BK - 1) / BK, per = (all + gridDim.z - 1) / gridDim.z;
+    k0 = blockIdx.z * per;
+    nk = min(per, all - k0);
+  }
   const int warp = threadIdx.x >> 5;
 
   if (threadIdx.x == 0) {
@@ -231,9 +693,22 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
       for (int kt = 0; kt < nk; ++kt) {
         wgmma::mbar_wait(&empty[s], ph ^ 1);
         unsigned char* stage = smem + s * T::STAGE_BYTES;
+        const int k = (k0 + kt) * BK;
         wgmma::mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
-        wgmma::tma_load_2d(stage, tm_a, &full[s], kt * BK, m0);
-        wgmma::tma_load_2d(stage + T::A_BYTES, tm_w, &full[s], kt * BK, n0);
+        if constexpr (TA) {
+#pragma unroll
+          for (int b = 0; b < BM / 64; ++b)
+            wgmma::tma_load_2d(stage + b * 8192, tm_a, &full[s], m0 + 64 * b, k);
+        } else {
+          wgmma::tma_load_2d(stage, tm_a, &full[s], k, m0);
+        }
+        if constexpr (TW) {
+#pragma unroll
+          for (int b = 0; b < BN / 64; ++b)
+            wgmma::tma_load_2d(stage + T::A_BYTES + b * 8192, tm_w, &full[s], n0 + 64 * b, k);
+        } else {
+          wgmma::tma_load_2d(stage + T::A_BYTES, tm_w, &full[s], k, n0);
+        }
         if (++s == T::STAGES) {
           s = 0;
           ph ^= 1;
@@ -241,9 +716,9 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
       }
     }
     __syncwarp();
-    if constexpr (owns_rows(EPI)) {  // the consumers' three cluster barriers
+    if constexpr (owns_rows(EPI)) {  // the consumers' cluster barriers
       wgmma::cluster_wait();
-      for (int round = 0; round < 2; ++round) {
+      for (int round = 0; round < cluster_rounds(EPI); ++round) {
         wgmma::cluster_arrive();
         wgmma::cluster_wait();
       }
@@ -265,8 +740,10 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
     const uint32_t w = ring + s * T::STAGE_BYTES + T::A_BYTES;
     wgmma::fence_operand(acc);
     wgmma::fence();
+    // a k16 step: 32 bytes along a K-major row, 16 rows (2048 bytes) of an MN-major box
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) mma_k16<BN>(acc, a + kk * 32, w + kk * 32);
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_k16<BN, TA, TW>(acc, a + kk * (TA ? 2048 : 32), w + kk * (TW ? 2048 : 32));
     wgmma::commit();
     // the previous step's products have retired: its stage may be refilled
     wgmma::wait<1>();
@@ -287,18 +764,26 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
   const int row = wg * 64 + rr;
   const int col = 2 * (lane & 3);
   // this warpgroup's output rows: fp32 rows (LN1's h1 and a1, an fp32 LN2
-  // output) in BN / 32 boxes, bf16 rows in BN / 64 boxes (after LN1's fp32
-  // ones; kernel 8's scaled q after its unscaled qkv)
+  // output, the backward's fp32 outputs) in BN / 32 boxes, bf16 rows in BN /
+  // 64 boxes (after the fp32 ones where a launch writes both; kernel 8's
+  // scaled q after its unscaled qkv)
   unsigned char* boxes = smem + wg * T::OUT_BYTES;
-  const bool f32 = EPI == EPI_LN1 || (EPI == EPI_LN2 && p.out_f32);
-  const bool bf = EPI != EPI_LN2 || !p.out_f32;
-  unsigned char* boxes16 = EPI == EPI_LN1 ? boxes + BN * 256 : boxes;
+  constexpr bool both = EPI == EPI_LN1 || EPI == EPI_UP_BWD || EPI == EPI_LN2_BWD;
+  // DU stages its bf16 rows after the fp32 ones too (its gelu' tile is there)
+  const bool f32 = both || (EPI == EPI_LN2 && p.out_f32) || EPI == EPI_LN1_BWD ||
+                   EPI == EPI_ADD_F32 || EPI == EPI_WGRAD;
+  const bool bf = (EPI != EPI_LN2 || !p.out_f32) && EPI != EPI_LN1_BWD && EPI != EPI_ADD_F32 &&
+                  EPI != EPI_WGRAD;
+  unsigned char* boxes16 = both || EPI == EPI_DU ? boxes + BN * 256 : boxes;
   // a training site's keep values of the warpgroup's rows (its mask tile in
   // masks mode) lie after the fp32 rows, where nothing is staged before the
   // site has been applied
   unsigned char* keep = boxes + BN * 256;
 
-  if constexpr (!owns_rows(EPI)) {
+  if constexpr (backward(EPI)) {
+    backward_epilogue<BM, BN, EPI>(acc, p, site, Frag{m0, n0, wg, rr, row, col}, boxes, boxes16,
+                                   keep, red, cols);
+  } else if constexpr (!owns_rows(EPI)) {
     // every consumer is done with the ring before it holds output rows
     wgmma::named_barrier(1, T::WG * 128);
     site.template load<BN>(keep, m0 + wg * 64, n0, p.M, p.N, wg);
@@ -336,7 +821,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
       wgmma::named_barrier(1, T::WG * 128);  // the ring is free for the keep values
       site.template load<BN>(keep, m0 + wg * 64, n0, p.M, p.N, wg);
     }
-    float part[2] = {0.f, 0.f};
+    float part[1][2] = {{0.f, 0.f}};
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + col;
@@ -365,7 +850,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
       for (int h = 0; h < 2; ++h) {
         acc[4 * j + 2 * h] = v[2 * h] + r[2 * h];
         acc[4 * j + 2 * h + 1] = v[2 * h + 1] + r[2 * h + 1];
-        part[h] += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
+        part[0][h] += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
       }
     }
     if constexpr (keep_a1) {
@@ -391,35 +876,24 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
     wgmma::cluster_wait();  // every block of the cluster has started
 #pragma unroll
     for (int round = 0; round < 2; ++round) {
-      float* slots = red + round * MAX_CLUSTER * BM;
+      cluster_row_sums<BM, 1>(part, red + round * MAX_CLUSTER * BM, row, rank, cs);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        part[h] = quad_sum(part[h]);
-        if ((lane & 3) == 0)
-          for (uint32_t c = 0; c < cs; ++c)
-            wgmma::st_cluster(wgmma::mapa(&slots[rank * BM + row + 8 * h], c), part[h]);
-      }
-      wgmma::cluster_arrive();
-      wgmma::cluster_wait();
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float total = 0.f;
-        for (uint32_t c = 0; c < cs; ++c) total += slots[c * BM + row + 8 * h];
         if (round == 0)
-          mu[h] = total / p.N;
+          mu[h] = part[0][h] / p.N;
         else
-          rs[h] = rsqrtf(total / p.N + 1e-5f);
+          rs[h] = rsqrtf(part[0][h] / p.N + LN_EPS);
       }
       if (round == 0) {  // the second round sums the squared deviations
 #pragma unroll
-        for (int h = 0; h < 2; ++h) part[h] = 0.f;
+        for (int h = 0; h < 2; ++h) part[0][h] = 0.f;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           if (n0 + 8 * j >= p.N) continue;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float d0 = acc[4 * j + 2 * h] - mu[h], d1 = acc[4 * j + 2 * h + 1] - mu[h];
-            part[h] += d0 * d0 + d1 * d1;
+            part[0][h] += d0 * d0 + d1 * d1;
           }
         }
       }
@@ -463,9 +937,11 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
         if (n < p.D) wgmma::tma_store_2d(&out.o[0], boxes + BN * 128 + b * 8192, n, r0);
       }
     } else {
+      // a weight gradient's slice z lies in rows z * M of its output
+      const int r32 = EPI == EPI_WGRAD ? r0 + (int)blockIdx.z * p.M : r0;
       for (int b = 0; b < (f32 ? BN / 32 : 0) && n0 + 32 * b < p.N; ++b)
-        wgmma::tma_store_2d(&out.o[0], boxes + b * 8192, n0 + 32 * b, r0);
-      const CUtensorMap* map = &out.o[EPI == EPI_LN1 ? 1 : 0];
+        wgmma::tma_store_2d(&out.o[0], boxes + b * 8192, n0 + 32 * b, r32);
+      const CUtensorMap* map = &out.o[both ? 1 : 0];
       for (int b = 0; b < (bf ? BN / 64 : 0) && n0 + 64 * b < p.N; ++b)
         wgmma::tma_store_2d(map, boxes16 + b * 8192, n0 + 64 * b, r0);
     }
@@ -495,10 +971,11 @@ inline int sm_count() {
   return n;
 }
 
-// A launch's tile (bm x bn), grid (gx row tiles, gy column tiles) and
-// cluster (blocks along gy; gy itself for the LayerNorm launches)
+// A launch's tile (bm x bn), grid (gx row tiles, gy column tiles, split
+// slices of K along z) and cluster (blocks along gy; gy itself for the
+// LayerNorm launches)
 struct Plan {
-  int bm, bn, gx, gy, cluster;
+  int bm, bn, gx, gy, cluster, split;
 };
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -509,22 +986,46 @@ inline Plan plan_for(int epi, int M, int N) {
   const bool big = cdiv(M, 128) * cdiv(N, 128) >= sm_count();
   const int bn = big || (owns_rows(epi) && cdiv(N, 64) > MAX_CLUSTER) ? 128 : 64;
   const int bm = big ? 128 : 64;
-  return {bm, bn, cdiv(M, bm), cdiv(N, bn), owns_rows(epi) ? cdiv(N, bn) : 1};
+  return {bm, bn, cdiv(M, bm), cdiv(N, bn), owns_rows(epi) ? cdiv(N, bn) : 1, 1};
+}
+
+// A weight gradient X^T Y, (P, Q) over K rows: 128 x 128 tiles where they
+// and their slices can fill the card (64 x 64 for a side under 128 or a
+// short K) and as many slices of K as bring the blocks to about one per SM,
+// at most MAX_SPLIT, each at least MIN_SLICE_STEPS k steps, none empty.
+inline Plan plan_wgrad(int P, int Q, int K) {
+  const int nk = cdiv(K, BK);
+  const bool big = P >= 128 && Q >= 128 &&
+                   cdiv(P, 128) * cdiv(Q, 128) * cdiv(nk, MIN_SLICE_STEPS) >= sm_count();
+  const int t = big ? 128 : 64, tiles = cdiv(P, t) * cdiv(Q, t);
+  int split = sm_count() / tiles;
+  if (split > MAX_SPLIT) split = MAX_SPLIT;
+  if (split > cdiv(nk, MIN_SLICE_STEPS)) split = cdiv(nk, MIN_SLICE_STEPS);
+  if (split < 1) split = 1;
+  return {t, t, cdiv(P, t), cdiv(Q, t), 1, cdiv(nk, cdiv(nk, split))};
+}
+
+inline Plan plan_of(int epi, int M, int N, int K) {
+  return epi == EPI_WGRAD ? plan_wgrad(M, N, K) : plan_for(epi, M, N);
+}
+
+// A launch's plan as `n` ints: the tile's rows and columns, the grid's x and
+// y, the cluster's size, threads per block and dynamic shared bytes, then
+// (n == 8) the slices of K.
+inline void plan_row(int epi, int M, int N, int K, int n, int* out) {
+  const Plan pl = plan_of(epi, M, N, K);
+  const int row[8] = {pl.bm, pl.bn, pl.gx, pl.gy, pl.cluster, tile_threads(pl.bm),
+                      tile_smem(pl.bm, pl.bn, epi), pl.split};
+  for (int j = 0; j < n; ++j) out[j] = row[j];
 }
 
 // The plan of a layer's four GEMM launches at M = B * S rows, in launch
 // order (qkv, out-projection + LN1, FFN-up, FFN-down + LN2): per launch
-// seven ints, the tile's rows and columns, the grid's x and y, the
-// cluster's size, threads per block and dynamic shared bytes.
+// seven ints, as plan_row gives them.
 inline void layer_plan(int M, int D, int F, int* out) {
   const int epis[4] = {EPI_QKV, EPI_LN1, EPI_GELU, EPI_LN2};
   const int ns[4] = {3 * D, D, F, D};
-  for (int i = 0; i < 4; ++i) {
-    const Plan pl = plan_for(epis[i], M, ns[i]);
-    const int row[7] = {pl.bm, pl.bn, pl.gx, pl.gy, pl.cluster, tile_threads(pl.bm),
-                        tile_smem(pl.bm, pl.bn, epis[i])};
-    for (int j = 0; j < 7; ++j) out[7 * i + j] = row[j];
-  }
+  for (int i = 0; i < 4; ++i) plan_row(epis[i], M, ns[i], 0, 7, out + 7 * i);
 }
 
 // Pick::kernel<BM, BN>() is the __global__ function of the launch at that
@@ -540,7 +1041,7 @@ cudaError_t launch_tiles(const Plan& pl, const CUtensorMap& ma, const CUtensorMa
   cudaError_t e = attention::allow_smem(kernel, T::SMEM, allowed);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(pl.gx, pl.gy, 1);
+  cfg.gridDim = dim3(pl.gx, pl.gy, pl.split);
   cfg.blockDim = dim3(T::THREADS, 1, 1);
   cfg.dynamicSmemBytes = T::SMEM;
   cfg.stream = st;
@@ -554,21 +1055,30 @@ cudaError_t launch_tiles(const Plan& pl, const CUtensorMap& ma, const CUtensorMa
   return cudaLaunchKernelEx(&cfg, kernel, ma, mw, out, p, extra...);
 }
 
-// A (M, K) and W (N, K) bf16, row-major; the outputs (OutMaps' order) with
-// their columns and element bytes. Returns a cudaError_t or the CUresult of
-// a failed tensor-map encode.
+// The launch of epilogue EPI: A and W bf16 row-major in the layout EPI fixes
+// (A (M, K) or, MN-major, (K, M); W (N, K) or (K, N)); the outputs
+// (OutMaps' order) with their columns and element bytes, M rows each (a
+// weight gradient of several slices: split * M rows). Returns a cudaError_t
+// or the CUresult of a failed tensor-map encode.
 template <int EPI, class Pick, class... Extra>
 int launch_gemm(const Args& p, const bf16* a, const bf16* w, int n_out, void* const* outs,
                 const int* out_cols, const int* out_bytes, cudaStream_t st,
                 const Extra&... extra) {
-  const Plan pl = plan_for(EPI, p.M, p.N);
+  const Plan pl = plan_of(EPI, p.M, p.N, p.K);
   CUtensorMap ma, mw;
   OutMaps out;
-  int e = wgmma::make_map(&ma, a, p.M, p.K, pl.bm, 2);
-  if (e == 0) e = wgmma::make_map(&mw, w, p.N, p.K, pl.bn, 2);
+  int e = a_mn(EPI) ? wgmma::make_map(&ma, a, p.K, p.M, 64, 2)
+                    : wgmma::make_map(&ma, a, p.M, p.K, pl.bm, 2);
+  if (e == 0)
+    e = w_mn(EPI) ? wgmma::make_map(&mw, w, p.K, p.N, 64, 2)
+                  : wgmma::make_map(&mw, w, p.N, p.K, pl.bn, 2);
   for (int i = 0; i < 3 && e == 0; ++i) {
-    const int k = i < n_out ? i : 0;
-    e = wgmma::make_map(&out.o[i], outs[k], p.M, out_cols[k], 64, out_bytes[k]);
+    if (i >= n_out) {  // an unused map repeats the first
+      out.o[i] = out.o[0];
+      continue;
+    }
+    e = wgmma::make_map(&out.o[i], outs[i], (uint64_t)p.M * pl.split, out_cols[i], 64,
+                        out_bytes[i]);
   }
   if (e != 0) return e;
   if (pl.bm == 128) return (int)launch_tiles<128, 128, EPI, Pick>(pl, ma, mw, out, p, st, extra...);

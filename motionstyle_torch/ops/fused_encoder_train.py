@@ -337,6 +337,94 @@ def bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, num_heads, masks=None
 
 
 # ---------------------------------------------------------------------------
+# the backward's GEMM plan (csrc/wgmma_gemm.cuh's plan_for and plan_wgrad) and
+# the partial buffers it needs
+# ---------------------------------------------------------------------------
+
+_BK, _MAX_CLUSTER, _MAX_SPLIT, _MIN_SLICE_STEPS = 64, 8, 8, 4
+
+# the backward's GEMM launches in fused_layer_train_backward_plan's order:
+# kernel 6's, then kernel 7's (kernel 9's are the same without the qkv)
+BACKWARD_GEMMS = ("up_bwd_gemm", "ln2_bwd_gemm", "du_bwd_gemm", "ln1_bwd_gemm", "dw2_gemm",
+                  "dw1_gemm", "dattn_bwd_gemm", "qkv_store_train_gemm", "dwqkv_gemm", "dwo_gemm",
+                  "dx_bwd_gemm")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan_for(M: int, N: int, owns_rows: bool, sms: int) -> dict:
+    """plan_for: 128 x 128 tiles where they fill the card's `sms` SMs, else
+    64-row tiles and 64-column slices (128 for a LayerNorm row wider than
+    8 x 64); a LayerNorm launch is a cluster of its column tiles."""
+    big = _cdiv(M, 128) * _cdiv(N, 128) >= sms
+    bn = 128 if big or (owns_rows and _cdiv(N, 64) > _MAX_CLUSTER) else 64
+    bm = 128 if big else 64
+    return dict(bm=bm, bn=bn, gx=_cdiv(M, bm), gy=_cdiv(N, bn),
+                cluster=_cdiv(N, bn) if owns_rows else 1, split=1)
+
+
+def _plan_wgrad(P: int, Q: int, K: int, sms: int) -> dict:
+    """plan_wgrad of the weight gradient X^T Y, (P, Q) over K rows: 128 x 128
+    tiles where they and their slices can fill the card (64 x 64 for a side
+    under 128 or a short K) and as many slices of K as bring the blocks to
+    about one per SM, at most 8, each at least 4 k steps of 64 rows, none
+    empty."""
+    nk = _cdiv(K, _BK)
+    big = (P >= 128 and Q >= 128
+           and _cdiv(P, 128) * _cdiv(Q, 128) * _cdiv(nk, _MIN_SLICE_STEPS) >= sms)
+    t = 128 if big else 64
+    tiles = _cdiv(P, t) * _cdiv(Q, t)
+    split = max(1, min(_MAX_SPLIT, sms // tiles, _cdiv(nk, _MIN_SLICE_STEPS)))
+    return dict(bm=t, bn=t, gx=_cdiv(P, t), gy=_cdiv(Q, t), cluster=1,
+                split=_cdiv(nk, _cdiv(nk, split)))
+
+
+def backward_plan(B: int, S: int, D: int, F: int, sms: int) -> list:
+    """The backward's GEMM launches (BACKWARD_GEMMS) as
+    fused_layer_train_backward_plan plans them on a card of `sms` SMs: each
+    a dict of its tile (bm, bn), grid (gx, gy), cluster and slices of K."""
+    M = B * S
+    return [_plan_for(M, F, False, sms), _plan_for(M, D, True, sms), _plan_for(M, F, False, sms),
+            _plan_for(M, D, True, sms), _plan_wgrad(D, F, M, sms), _plan_wgrad(F, D, M, sms),
+            _plan_for(M, D, False, sms), _plan_for(M, 3 * D, False, sms),
+            _plan_wgrad(3 * D, D, M, sms), _plan_wgrad(D, D, M, sms), _plan_for(M, D, False, sms)]
+
+
+def backward_partial_floats(B: int, S: int, D: int, F: int, sms: int) -> tuple:
+    """fp32 elements of the partial buffers the backward launchers fill
+    (csrc/fused_encoder_train.cu): the FFN half's column sums, R = ceil(M /
+    64) rows (as many as any plan's row tiles) of 5 D + F, then dW2's and
+    dW1's slices; the attention half's dWqkv and dWo slices. A weight
+    gradient of one slice is written in place and takes none."""
+    M = B * S
+
+    def slices(P, Q):
+        split = _plan_wgrad(P, Q, M, sms)["split"]
+        return split * P * Q if split > 1 else 0
+
+    return (_cdiv(M, 64) * (5 * D + F) + slices(D, F) + slices(F, D),
+            slices(3 * D, D) + slices(D, D))
+
+
+def weight_grad_slices_reference(x: torch.Tensor, y: torch.Tensor, split: int) -> torch.Tensor:
+    """x^T y (x (M, P), y (M, Q)) in the kernels' order of sums: the rows
+    cut into `split` slices of whole 64-row k steps, each slice an fp32
+    product, the slices added in slice order."""
+    per = _cdiv(_cdiv(x.shape[0], _BK), split) * _BK
+    out = None
+    for z in range(split):
+        part = x[z * per:(z + 1) * per].float().t() @ y[z * per:(z + 1) * per].float()
+        out = part if out is None else out + part
+    return out
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
@@ -490,7 +578,6 @@ def fused_layer_train_bwd_ffn(dh2, a1, p, masks=None, seeds=None, rate=0.0):
     B, S, D, F = _check_cuda_inputs(a1, p, None, masks, seeds, rate)
     lib = _build.load("fused_encoder_train")
     M, dev = B * S, a1.device
-    nb = -(-M // 16)
     f32 = dict(dtype=torch.float32, device=dev)
     bf = dict(dtype=_BF16, device=dev)
     dh2 = dh2.float().contiguous()
@@ -499,7 +586,7 @@ def fused_layer_train_bwd_ffn(dh2, a1, p, masks=None, seeds=None, rate=0.0):
     stats, h1 = torch.empty((M, 2), **f32), torch.empty((M, D), **bf)
     gd, gp = torch.empty((M, F), **bf), torch.empty((M, F), **f32)
     da2, df, du = torch.empty((M, D), **f32), torch.empty((M, D), **bf), torch.empty((M, F), **bf)
-    partial = torch.empty((nb * (5 * D + F),), **f32)
+    partial = torch.empty((backward_partial_floats(B, S, D, F, _sm_count(dev))[0],), **f32)
     da1 = torch.empty((B, S, D), **f32)
     g = {"linear1_weight": torch.empty((F, D), **f32), "linear1_bias": torch.empty((F,), **f32),
          "linear2_weight": torch.empty((D, F), **f32), "linear2_bias": torch.empty((D,), **f32),
@@ -524,16 +611,18 @@ def fused_layer_train_bwd_ffn(dh2, a1, p, masks=None, seeds=None, rate=0.0):
 fused_layer_train_bwd_ffn.launches = fused_layer_train_bwd_ffn.prng_launches = 0
 
 
-def _attn_bwd_buffers(B, S, D, H, dev) -> tuple:
+def _attn_bwd_buffers(B, S, D, H, F, dev) -> tuple:
     """Scratch shared by both attention halves (dproj, dattn, dqkv, the
-    partial column sums and the rows' softmax statistics) and their outputs
-    (dx, grads)."""
+    partial column sums, the weight gradients' slices and the rows' softmax
+    statistics) and their outputs (dx, grads)."""
     f32 = dict(dtype=torch.float32, device=dev)
     M, nb, nt = B * S, -(-B * S // 16), -(-S // 64)
+    slices = backward_partial_floats(B, S, D, F, _sm_count(dev))[1]
     scratch = (torch.empty((M, D), dtype=_BF16, device=dev),      # dproj
                torch.empty((M, D), dtype=_BF16, device=dev),      # dattn
                torch.empty((M, 3 * D), dtype=_BF16, device=dev),  # dqkv
                torch.empty((nb, D), **f32), torch.empty((B * nt, 3 * D), **f32),
+               torch.empty((max(slices, 1),), **f32),
                torch.empty((B * H * S, 3), **f32))
     dx = torch.empty((B, S, D), **f32)
     g = {"in_proj_weight": torch.empty((3 * D, D), **f32),
@@ -557,16 +646,18 @@ def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=Non
 
     B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks, seeds, rate)
     lib = _build.load("fused_encoder_train")
-    (dproj, dattn, dqkv, part_o, part_qkv, stats), dx, g = _attn_bwd_buffers(
-        B, S, D, num_heads, x.device)
+    (dproj, dattn, dqkv, part_o, part_qkv, part_w, stats), dx, g = _attn_bwd_buffers(
+        B, S, D, num_heads, F, x.device)
     xb = x.to(_BF16).contiguous()
     m0 = masks[0] if masks is not None else None
-    qs = torch.empty((4, B * S, D), dtype=_BF16, device=x.device)  # q_s q k v
+    # the recompute's q*scale and q, k, v (unscaled, as kernel 8 stores them)
+    q_s = torch.empty((B * S, D), dtype=_BF16, device=x.device)
+    qkv = torch.empty((B * S, 3 * D), dtype=_BF16, device=x.device)
     rc = lib.fused_layer_train_bwd_attn(
         _ptr(da1.float().contiguous()), _ptr(xb), _ptr(kmask), _ptr(attn.contiguous()),
         _ptr(m0), *_drop_args(seeds, rate), _ptr(p["in_proj_weight"]), _ptr(p["in_proj_bias"]),
-        _ptr(p["out_proj_weight"]), _ptr(dproj), _ptr(dattn), *(_ptr(t) for t in qs),
-        _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(stats), _ptr(dx),
+        _ptr(p["out_proj_weight"]), _ptr(dproj), _ptr(dattn), _ptr(q_s), _ptr(qkv),
+        _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(part_w), _ptr(stats), _ptr(dx),
         *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
     _raise_on(rc, "fused_layer_train_bwd_attn")
     _count(fused_layer_train_bwd_attn, seeds)
@@ -589,15 +680,16 @@ def fused_layer_train_bwd_attn_stored(da1, x, attn, probs, qkv, p, num_heads, ma
     B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks, seeds, rate)
     _check_stored(probs, qkv, B, S, D, num_heads, x.device)
     lib = _build.load("fused_encoder_train")
-    (dproj, dattn, dqkv, part_o, part_qkv, stats), dx, g = _attn_bwd_buffers(
-        B, S, D, num_heads, x.device)
+    (dproj, dattn, dqkv, part_o, part_qkv, part_w, stats), dx, g = _attn_bwd_buffers(
+        B, S, D, num_heads, F, x.device)
     xb = x.to(_BF16).contiguous()
     m0 = masks[0] if masks is not None else None
     rc = lib.fused_layer_train_bwd_attn_stored(
         _ptr(da1.float().contiguous()), _ptr(xb), _ptr(attn.contiguous()), _ptr(m0),
-        *_drop_args(seeds, rate), _ptr(probs), _ptr(qkv), _ptr(p["in_proj_weight"]), _ptr(p["out_proj_weight"]),
-        _ptr(dproj), _ptr(dattn), _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(stats),
-        _ptr(dx), *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
+        *_drop_args(seeds, rate), _ptr(probs), _ptr(qkv), _ptr(p["in_proj_weight"]),
+        _ptr(p["out_proj_weight"]), _ptr(dproj), _ptr(dattn), _ptr(dqkv), _ptr(part_o),
+        _ptr(part_qkv), _ptr(part_w), _ptr(stats), _ptr(dx),
+        *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
     _raise_on(rc, "fused_layer_train_bwd_attn_stored")
     _count(fused_layer_train_bwd_attn_stored, seeds)
     return dx, g

@@ -28,7 +28,10 @@ own process. Prints the card's name and power limit first.
 Every run also prints a digest of what it returned (SHA-256 of each
 tensor's bytes, in order), so two roots show which kernels give the same
 bits: the backward halves (kernels 6, 7, 9) take their inputs from the
-plain twins, the same in every root, so an unchanged kernel digests alike.
+plain twins, the same in every root, so an unchanged kernel digests alike;
+each backward half is also held to its twin on the same inputs (the worst
+rel L2 of dx or da1 and the gradient leaves), which is what a redesign that
+changes their order of sums is compared by.
 In prng mode at B=64 the FFN-half backward (kernel 6) also runs on the
 root's own forward's a1 and is held to its twin there (rel L2 of da1 and of
 the worst gradient leaf), which shows that the forward and the backward
@@ -125,7 +128,7 @@ def profile(root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
     p = cs.random_layer(gen, 512, 1024, dev)
-    runs = {}
+    runs, twins = {}, {}
     for b in (64, 1):
         x = torch.randn(b, 77, 512, generator=gen).to(dev, torch.bfloat16)
         dh2 = torch.randn(b, 77, 512, generator=gen).to(dev, torch.bfloat16)
@@ -138,9 +141,12 @@ def profile(root: str) -> None:
             lambda x=x, m=masks: ft.fused_layer_train_forward(x, p, 4, None, m))
         runs[f"B={b} bwd_ffn"] = (
             lambda d=dh2, a=a1, m=masks: ft.fused_layer_train_bwd_ffn(d, a, p, m))
+        twins[f"B={b} bwd_ffn"] = lambda d=dh2, a=a1, m=masks: ft.bwd_ffn_reference(d, a, p, m)
         runs[f"B={b} bwd_attn"] = (
             lambda d=da1, x=x, a=attn, m=masks: ft.fused_layer_train_bwd_attn(d, x, a, p, 4,
                                                                            None, m))
+        twins[f"B={b} bwd_attn"] = (
+            lambda d=da1, x=x, a=attn, m=masks: ft.bwd_attn_reference(d, x, a, p, 4, None, m))
         if hasattr(ft, "fused_layer_train_bwd_attn_stored"):
             _, _, _, probs, qkv = ft.fused_layer_train_forward_store_reference(x, p, 4, None,
                                                                                masks)
@@ -149,6 +155,9 @@ def profile(root: str) -> None:
             runs[f"B={b} bwd_attn_stored"] = (
                 lambda d=da1, x=x, a=attn, pr=probs, q=qkv, m=masks:
                 ft.fused_layer_train_bwd_attn_stored(d, x, a, pr, q, p, 4, m))
+            twins[f"B={b} bwd_attn_stored"] = (
+                lambda d=da1, x=x, a=attn, pr=probs, q=qkv, m=masks:
+                ft.bwd_attn_stored_reference(d, x, a, pr, q, p, 4, m))
         if b == 64 and hasattr(ft, "draw_dropout_seeds"):
             drop = dict(seeds=ft.draw_dropout_seeds(torch.Generator(device=dev).manual_seed(b),
                                                     1, b)[0], rate=0.1)
@@ -212,8 +221,15 @@ def profile(root: str) -> None:
                 torch.cuda.synchronize()
             events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
             total = sum(device_us(e) for e in events) / 20
+            out = fn()
+            vs_twin = ""
+            if name in twins:  # (dx or da1, grads by name) against the twin's
+                want = twins[name]()
+                rel = max([cs.rel_l2(out[0], want[0])]
+                          + [cs.rel_l2(out[1][k], want[1][k]) for k in want[1]])
+                vs_twin = f"; vs twin: worst rel_l2 {rel:.6g}"
             print(f"  {name}: {ms:.4f} ms per call (events); device {total:.1f} us; "
-                  f"digest {digest(fn())}", flush=True)
+                  f"digest {digest(out)}{vs_twin}", flush=True)
             for e in sorted(events, key=lambda e: -device_us(e)):
                 print(f"      {device_us(e) / 20:8.1f} us  {e.key[:100]}", flush=True)
     print(f"  DDPM chain B={DDPM_SHAPE[0]} T={DDPM_SHAPE[3]}, last {DDPM_STEPS} steps, fused "
