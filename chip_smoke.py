@@ -20,9 +20,13 @@ Phases, each printed on its own line with its seconds:
      launch; each GEMM launch's tile, grid and cluster beside its bound)
      beside nn.TransformerEncoderLayer and
      scaled_dot_product_attention; then the int8 layer (kernel 2) against
-     its twin at the serving shape with a key padding mask, S=197, D=128
-     and D=384; each with its time, the twin's, a library reference and the
-     card's bound.
+     its twin with a key padding mask at the serving shape, B=64 S=197, B=1,
+     S=1 and 197, D=128, D=384, D=64 with F=64 and D=1024 with F=2048: its
+     q, k, v planes bit-equal to the twin's, two calls bit-equal, its GEMM
+     plan equal to the wrapper's mirror; each with its time, the twin's, a
+     library reference and the card's bound, and kernel 2 timed launch by
+     launch at B=8, S=77 and B=64, S=197 (tile, grid, cluster, bound; no
+     WMMA GEMM or CUDA-core attention among them).
   4. attention_kernel: the standalone attention (kernel 4) against its plain
      version at B=8, S=77, D=512, 4 heads, at S=197 and 600, at D=128 and
      192 and at S=1, 33 and 513, fp32 and bf16 inputs, with a key padding
@@ -53,7 +57,9 @@ Phases, each printed on its own line with its seconds:
      prior through kernel 1, B=64, T=196, root_horizontal inpainting) with
      sample_loop(fused_update=True): 50 launches of kernel 3, every dumped
      x0's kept channels equal to the content; then fused and unfused
-     updates in turns, seconds per step and clips/s.
+     updates in turns, seconds per step and clips/s; then the same tail
+     with the prior under quant_int8 (kernel 2), seconds per step and
+     clips/s.
  11. train_kernel: the five training kernels (forward, FFN-half and
      attention-half backward, store-probs forward and stored attention-half
      backward) against their twins at the finetune's shapes (B=64 and B=1,
@@ -160,11 +166,16 @@ KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
 DDPM_LAYER = (64, 197)
 KERNEL_ATTENTION_SHAPES = ((*DDPM_LAYER, D, H, F), (B, 1, D, H, F), (B, 256, D, H, F),
                            (B, 257, D, H, F), (B, 600, D, H, F), (B, S, 192, 4, F))
-# the int8 layer (kernel 2) against its twin: the serving shape, then S = 197,
-# head width 32 and D = 384 with 6 heads; rel L2 on the fp32 output (the two
-# differ by summation order, and a code flip where that moves a value across
-# a rounding tie)
-INT8_SHAPES = ((B, S, D, H, F), (B, 197, D, H, F), (B, S, 128, 4, F), (B, S, 384, 6, 1536))
+# the int8 layer (kernel 2) against its twin: the serving shape, the DDPM
+# chain's B=64, S=197 (128-row tiles), serving bucket 1 (B=1), S=1 and 197,
+# head width 32, D = 384 with 6 heads, and at the edges of its GEMMs: D = 64
+# with F = 64 (K = 64 under a stage's 128 int8 values: TMA's zero fill) and
+# D = 1024 with F = 2048 (a LayerNorm cluster of 8 at BN = 128); rel L2 on
+# the fp32 output (the two differ by summation order, and a code flip where
+# that moves a value across a rounding tie)
+INT8_SHAPES = ((B, S, D, H, F), (*DDPM_LAYER, D, H, F), (1, S, D, H, F), (B, 1, D, H, F),
+               (B, 197, D, H, F), (B, S, 128, 4, F), (B, S, 384, 6, 1536), (B, S, 64, 1, 64),
+               (B, S, 1024, 8, 2048))
 INT8_REL_L2 = 2e-3
 
 
@@ -260,17 +271,18 @@ GEMM_LAUNCHES = ("qkv_gemm", "ln1_gemm", "ffn_up_gemm", "ln2_gemm")
 def print_gemm_registers(lib_path: str) -> None:
     """Each wgmma GEMM kernel's registers and spills as ptxas reported them
     (-v) in the build log beside the library: kernel 1's (qkv_gemm, ...),
-    the training forwards' (qkv_train_gemm, ...) and backward halves'
-    (up_bwd_gemm, ..., dw2_gemm, ...), the dropout site's prng mode as a
-    third template argument."""
+    kernel 2's (qkv_s8_gemm, ...), the training forwards' (qkv_train_gemm,
+    ...) and backward halves' (up_bwd_gemm, ..., dw2_gemm, ...), the dropout
+    site's prng mode as a third template argument."""
     import re
 
     with open(lib_path[:-3] + ".log") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"((?:qkv_store_train|qkv_train|ffn_up_train|ln1_train|ln2_train|up_bwd|"
-                      r"ln2_bwd|du_bwd|ln1_bwd|dattn_bwd|dx_bwd|dwqkv|dwo|dw1|dw2|qkv|ffn_up|ln1|"
-                      r"ln2)_gemm)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", line)
+                      r"ln2_bwd|du_bwd|ln1_bwd|dattn_bwd|dx_bwd|dwqkv|dwo|dw1|dw2|qkv_s8|ffn_up_s8|"
+                      r"ln1_s8|ln2_s8|qkv|ffn_up|ln1|ln2)_gemm)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?",
+                      line)
         if m and "Compiling entry function" in line:
             after = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", after)
@@ -293,15 +305,17 @@ def gemm_bounds(b: int, s: int, d: int, f: int) -> list:
             (2 * m * f * d, m * f * 2 + m * d * 4 + d * f * 2 + 3 * d * 4 + m * d * 2)]
 
 
-def gemm_plan(b: int, s: int, d: int, f: int, train: bool = False) -> list:
+def gemm_plan(b: int, s: int, d: int, f: int, train: bool = False, int8: bool = False) -> list:
     """The tile, grid and cluster of each GEMM launch, as the C launcher
     picks them on this card (fused_encoder_layer_plan; with train, the
-    training forward's fused_layer_train_forward_plan)."""
+    training forward's fused_layer_train_forward_plan; with int8, kernel 2's
+    fused_encoder_layer_int8_plan)."""
     import ctypes
 
     from motionstyle_torch import _build
 
     lib, fn = (("fused_encoder_train", "fused_layer_train_forward_plan") if train
+               else ("fused_encoder_int8", "fused_encoder_layer_int8_plan") if int8
                else ("fused_encoder", "fused_encoder_layer_plan"))
     out = (ctypes.c_int * 28)()
     rc = getattr(_build.load(lib), fn)(b, s, d, f, out)
@@ -487,20 +501,104 @@ def int8_layer_bound(b: int, s: int, d: int, h: int, f: int, masked: bool) -> tu
             ops, flops, nbytes)
 
 
+# kernel 2's launches in launch order, by the names the profiler gives them;
+# its two fp32 row-code launches (attn, then ff) share one name and one row
+INT8_LAUNCHES = ("quant_rows_kernel<__nv_bfloat16>", "qkv_s8_gemm", "forward_tc",
+                 "quant_rows_kernel<float>", "ln1_s8_gemm", "ffn_up_s8_gemm", "ln2_s8_gemm")
+
+
+def int8_gemm_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool = False) -> list:
+    """(int8 ops, bf16 flops, bytes) of each of kernel 2's launches in
+    INT8_LAUNCHES order (the row codes of attn and ff together): each input
+    read once (x or the activation a launch codes; a GEMM's row codes and
+    scales, int8 weight, fp32 column scales and vectors, residual; the
+    mask), each output written once (row codes and scales; q, k, v in bf16;
+    attn, h1 and ff in fp32 and h1's codes and scales; the bf16 out). The
+    operations add up to int8_layer_bound's; the bytes count what each
+    launch moves, the intermediates too."""
+    m = b * s
+
+    def codes(k):  # an (M, K) matrix's row codes and scales
+        return m * k + m * 4
+
+    return [(0, 0, m * d * 2 + codes(d)),
+            (2 * m * d * 3 * d, 0, codes(d) + 3 * d * d + 2 * 3 * d * 4 + 3 * m * d * 2),
+            (0, 4 * b * s * s * d, 3 * m * d * 2 + (b * s * 4 if masked else 0) + m * d * 4),
+            (0, 0, m * d * 4 + codes(d) + m * f * 4 + codes(f)),
+            (2 * m * d * d, 0, codes(d) + d * d + 4 * d * 4 + m * d * 2 + m * d * 4 + codes(d)),
+            (2 * m * d * f, 0, codes(d) + f * d + 2 * f * 4 + m * f * 4),
+            (2 * m * f * d, 0, codes(f) + d * f + 4 * d * 4 + m * d * 4 + m * d * 2)]
+
+
+def int8_plan(b: int, s: int, d: int, f: int) -> list:
+    """Kernel 2's GEMM plan as its C launcher picks it on this card
+    (fused_encoder_layer_int8_plan), checked against the wrapper's plain
+    mirror (ops.fused_encoder.int8_layer_plan)."""
+    import torch
+
+    from motionstyle_torch.ops.fused_encoder import int8_layer_plan
+
+    plans = gemm_plan(b, s, d, f, int8=True)
+    mirror = int8_layer_plan(b, s, d, f, torch.cuda.get_device_properties(0).multi_processor_count)
+    same = all((c["bm"], c["bn"], c["grid_x"], c["grid_y"], c["cluster"], c["threads"], c["smem"])
+               == (py["bm"], py["bn"], py["gx"], py["gy"], py["cluster"], py["threads"], py["smem"])
+               for c, py in zip(plans, mirror))
+    check(same, f"int8 plan B={b} S={s} D={d} F={f}: the C launcher's equals the wrapper's mirror")
+    return plans
+
+
+def print_int8_launches(rows: list, b: int, s: int, d: int, h: int, f: int) -> None:
+    """Each launch of kernel 2 with its device time (torch.profiler rows of
+    one call) beside its bound, the GEMMs with their plan, then the launches
+    together; none may be the WMMA GEMM or the CUDA-core attention."""
+    plan_of = dict(zip(("qkv_s8_gemm", "ln1_s8_gemm", "ffn_up_s8_gemm", "ln2_s8_gemm"),
+                       int8_plan(b, s, d, f)))
+    total_us = total_bound = 0.0
+    for name, (ops, flops, nbytes) in zip(INT8_LAUNCHES, int8_gemm_bounds(b, s, d, h, f)):
+        t_ops = (ops / PEAK_INT8_OPS + flops / PEAK_BF16_FLOPS) * 1e6
+        t_bytes = nbytes / PEAK_BYTES * 1e6
+        us = sum(u for k, u in rows if name in k)
+        total_us, total_bound = total_us + us, total_bound + max(t_ops, t_bytes)
+        plan = plan_of.get(name)
+        shape = ("" if plan is None else
+                 f"tile {plan['bm']}x{plan['bn']}, grid {plan['grid_x']}x{plan['grid_y']}, "
+                 f"cluster {plan['cluster']}, {plan['threads']} threads, {plan['smem']} B "
+                 f"shared; ")
+        print(f"  int8 B={b} S={s} {name}: {shape}device "
+              f"{f'{us:.6g} us' if rows else 'not measured'}, bound {max(t_ops, t_bytes):.6g} us "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {ops / 1e9:.4g} GOP int8, "
+              f"{flops / 1e9:.4g} GFLOP bf16, {nbytes / 1e6:.4g} MB)", flush=True)
+    others = [(k, u) for k, u in rows if not any(n in k for n in INT8_LAUNCHES)]
+    print(f"  int8 B={b} S={s} {len(INT8_LAUNCHES)} launch names: device "
+          f"{f'{total_us:.6g} us' if rows else 'not measured'}, bound {total_bound:.6g} us; "
+          f"other device rows: {others or 'none'}", flush=True)
+    check(bool(rows) and all(any(n in k for k, _ in rows) for n in INT8_LAUNCHES)
+          and not any("gemm_kernel<" in k or "forward_kernel<" in k for k, _ in rows),
+          f"int8 B={b} S={s}: the profile names every launch of the design, none the WMMA GEMM "
+          f"or the CUDA-core attention")
+
+
 def int8_kernel_phase(device) -> dict:
     """Kernel 2 against its twin on the card at INT8_SHAPES (a key padding
-    mask on the last clip); time, the twin's time and the bound at the
-    serving shape; the four torch._int_mm products and scaled_dot_product_
-    attention at the same shapes as a library reference (no one library
-    call computes the layer). Returns the kernel's record fields."""
+    mask on the last clip): the fp32 output within INT8_REL_L2, the q, k and
+    v planes its attention read bit-equal to the twin's int8_dot and
+    rounding (int8_qkv_reference), two calls bit-equal, and the C plan of its
+    GEMM launches equal to the wrapper's mirror; its time, the twin's and the
+    bound at the serving shape; each launch's device time beside its bound,
+    tile, grid and cluster at B=8, S=77 and B=64, S=197; the four
+    torch._int_mm products and scaled_dot_product_attention at the serving
+    shapes as a library reference (no one library call computes the layer).
+    Returns the kernel's record fields."""
     import torch
     import torch.nn.functional as Fn
 
     from motionstyle_torch.ops.fused_encoder import (
-        fused_encoder_layer_int8, fused_encoder_layer_int8_reference, quantize_layer_params)
+        fused_encoder_layer_int8, fused_encoder_layer_int8_reference, int8_qkv_reference,
+        quantize_layer_params)
 
     gen = torch.Generator().manual_seed(2)
     record = {}
+    n0 = fused_encoder_layer_int8.launches
     for b, s, d, h, f in INT8_SHAPES:
         p8 = quantize_layer_params({k: v.to(device)
                                     for k, v in random_params(gen, d, f).items()})
@@ -509,26 +607,37 @@ def int8_kernel_phase(device) -> dict:
         kpm = torch.ones(b, s, dtype=torch.bool)
         kpm[-1, s // 2:] = False
         kpm = kpm.to(device)
-        got = fused_encoder_layer_int8(x, p8, h, kpm)
+        got, planes = fused_encoder_layer_int8(x, p8, h, kpm, return_qkv=True)
+        again = fused_encoder_layer_int8(x, p8, h, kpm)
         torch.cuda.synchronize()
         want = fused_encoder_layer_int8_reference(x, p8, h, kpm)
+        want_planes = int8_qkv_reference(x, p8, h)
         err, rel = float((got - want).abs().max()), rel_l2(got, want)
         where = f"B={b} S={s} D={d} H={h} F={f} (masked)"
         print(f"  int8 layer {where}: max_abs {err:.6g} rel_l2 {rel:.6g}", flush=True)
         check(got.shape == want.shape and bool(torch.isfinite(got).all()) and rel <= INT8_REL_L2,
               f"int8 layer {where} finite and within rel_l2 {INT8_REL_L2}")
+        check(torch.equal(planes.view(torch.int16), want_planes.view(torch.int16)),
+              f"int8 layer {where}: q, k, v planes bit-equal to the twin's int8_dot + rounding")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"int8 layer {where}: two calls give the same bits")
+        int8_plan(b, s, d, f)
         if (b, s, d) == (B, S, D):
             record["max_abs_err"] = err
             p_serve = p8
 
     x = torch.randn(B, S, D, generator=gen).to(device, torch.bfloat16)
-    n0 = fused_encoder_layer_int8.launches
+    n1 = fused_encoder_layer_int8.launches
     fused_encoder_layer_int8(x, p_serve, H)
-    per_call = fused_encoder_layer_int8.launches - n0
+    per_call = fused_encoder_layer_int8.launches - n1
+    x64 = torch.randn(*DDPM_LAYER, D, generator=gen).to(device, torch.bfloat16)
     with torch.no_grad():
         record["ms"] = time_ms(lambda: fused_encoder_layer_int8(x, p_serve, H))
         record["plain_ms"] = time_ms(lambda: fused_encoder_layer_int8_reference(x, p_serve, H),
                                      iters=20)
+        rows = device_profile(lambda: fused_encoder_layer_int8(x, p_serve, H))
+        ms64 = time_ms(lambda: fused_encoder_layer_int8(x64, p_serve, H), iters=20)
+        rows64 = device_profile(lambda: fused_encoder_layer_int8(x64, p_serve, H), iters=10)
     fused_encoder_layer_int8.launches = n0  # checks and timings are not the main path's
     # the library reference: int8 x int8 -> int32 products at the layer's four
     # GEMM shapes and the bf16 attention at its shape, one call each
@@ -556,6 +665,12 @@ def int8_kernel_phase(device) -> dict:
           f"scaled_dot_product_attention {int_mm_ms:.6g} ms (no one library call computes "
           f"the layer); {per_call} wrapper launch per layer call (8 CUDA launches inside)",
           flush=True)
+    print_int8_launches(rows, B, S, D, H, F)
+    bound64, by64, ops64, flops64, nbytes64 = int8_layer_bound(*DDPM_LAYER, D, H, F, masked=False)
+    print(f"  int8 B={DDPM_LAYER[0]} S={DDPM_LAYER[1]}: kernel_ms {ms64:.6g} (events); bound_ms "
+          f"{bound64:.6g} ({by64}: {ops64 / 1e9:.4g} GOP int8, {flops64 / 1e9:.4g} GFLOP bf16, "
+          f"{nbytes64 / 1e6:.4g} MB)", flush=True)
+    print_int8_launches(rows64, *DDPM_LAYER, D, H, F)
     check(per_call == 1, "int8 layer: one counted launch per layer call")
     return record
 
@@ -2063,7 +2178,10 @@ def ddpm_fused_phase(card: str, device) -> int:
     run. Checks 50 launches of kernel 3, every dumped x0's kept channels
     bit-equal to the content and a finite result; then the same chain with
     fused_update=False and True in turns (fused, unfused, unfused, fused):
-    seconds per step and clips/s. Returns kernel 3's launches."""
+    seconds per step and clips/s; then the same tail with the prior under
+    quant_int8 (kernel 2, 8 launches a step; the JAX package measures its
+    int8 DDPM throughput, bench.py:714): seconds per step and clips/s, its
+    kept channels and a finite result. Returns kernel 3's launches."""
     import numpy as np
     import torch
 
@@ -2071,7 +2189,7 @@ def ddpm_fused_phase(card: str, device) -> int:
     from motionstyle_torch.diffusion import sampling
     from motionstyle_torch.diffusion.ddpm import Inpainting
     from motionstyle_torch.diffusion.schedule import make_schedule
-    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
     from motionstyle_torch.ops.sampler_update import fused_ddpm_update
 
     model, g, _ = golden_model(device, fused=True, dtype="bfloat16")
@@ -2088,9 +2206,9 @@ def ddpm_fused_phase(card: str, device) -> int:
     def model_fn(x, t, c):
         return model(x, t, c["enc_text"])
 
-    def chain(fused: bool, dump: bool = False):
+    def chain(fused: bool, dump: bool = False, fn=model_fn):
         return sampling.sample_loop(
-            sched, model_fn, cond, torch.Generator(device=device).manual_seed(0), shape=shape,
+            sched, fn, cond, torch.Generator(device=device).manual_seed(0), shape=shape,
             init_image=content, method="ddpm", skip_timesteps=DDPM_SKIP,
             inpainting=Inpainting(mask, content), dump_all_xstart=dump, fused_update=fused)
 
@@ -2128,6 +2246,35 @@ def ddpm_fused_phase(card: str, device) -> int:
               f"(kernel 1 denoiser): seconds per step {[round(p, 8) for p in per_step]}, "
               f"clips/s {[round(shape[0] / s_, 4) for s_ in secs[fused]]} over the chain, on "
               f"{card}", flush=True)
+
+    model8, _, _ = golden_model(device, fused=True, quant_int8=True, dtype="bfloat16")
+
+    def model8_fn(x, t, c):
+        return model8(x, t, c["enc_text"])
+
+    n8 = fused_encoder_layer_int8.launches
+    xs8 = chain(True, dump=True, fn=model8_fn)
+    torch.cuda.synchronize()
+    launches8 = fused_encoder_layer_int8.launches - n8
+    check(launches8 == 8 * steps, f"ddpm int8: kernel 2 launched 8 x {steps} steps")
+    check(bool(torch.isfinite(xs8).all()) and all(torch.equal(x0[keep], content[keep])
+                                                  for x0 in xs8),
+          "ddpm int8: finite, every dumped x0's kept channels bit-equal to the content")
+    t0 = time.perf_counter()
+    out8 = chain(True, fn=model8_fn)
+    torch.cuda.synchronize()
+    secs8 = time.perf_counter() - t0
+    check(bool(torch.isfinite(out8).all()), "ddpm int8 chain: finite")
+    with torch.no_grad():
+        rows8 = device_profile(lambda: model8_fn(x, t, cond), iters=10)
+    print(f"  ddpm step's denoiser (kernel 2, B={shape[0]} S={shape[3] + 1}): device time "
+          f"(torch.profiler) {sum(us for _, us in rows8):.6g} us per call; by kernel: " + "; ".join(
+              f"{us:.6g} us {name[:60]}" for name, us in rows8[:5]), flush=True)
+    print(f"  ddpm chain int8 (kernel 2 denoiser, fused_update=True), B={shape[0]} "
+          f"T={shape[3]}, {steps} steps: seconds per step {secs8 / steps:.8f}, clips/s "
+          f"{shape[0] / secs8:.4f} over the chain, on {card}; kernel 2 launches {launches8} in "
+          f"the checked run; mean |int8 - bf16| / mean |bf16| of the result "
+          f"{float((out8 - out).abs().mean() / out.abs().mean()):.6g}", flush=True)
     return launches
 
 
@@ -2158,7 +2305,7 @@ def main() -> int:
         for name, (path, secs) in zip(KERNEL_SOURCES, built):
             _build.load(name)
             print(f"  {os.path.relpath(path, ROOT)}: nvcc {secs:.3f} s", flush=True)
-        for name in ("fused_encoder", "fused_encoder_train"):  # the wgmma GEMMs
+        for name in ("fused_encoder", "fused_encoder_train", "fused_encoder_int8"):  # wgmma GEMMs
             print_gemm_registers(built[KERNEL_SOURCES.index(name)][0])
     with phase("kernel"):
         record = kernel_phase(device)

@@ -39,6 +39,7 @@ SIGNATURES = {
     ],
     "fused_encoder_int8": [
         ("fused_encoder_layer_int8_forward", [_VP] * 30 + [_INT] * 5 + [_VP]),
+        ("fused_encoder_layer_int8_plan", [_INT] * 4 + [_VP]),
     ],
     "attention": [
         ("attention_forward", [_VP, _INT] * 3 + [_VP] * 2 + [_INT] * 5 + [ctypes.c_float, _VP]),

@@ -1,31 +1,21 @@
-// Masked softmax attention forwards for the layer kernels. Two of them:
-//   * forward_kernel (launch_forward): one block per (batch row, head) and
-//     ATT_QT queries, products on the CUDA cores, fp32 out; the int8 layer
-//     (fused_encoder_int8.cu, kernel 2) launches it;
-//   * the tensor-core forward further down (launch_forward_tc), bf16 out,
-//     which the inference layer (fused_encoder.cu, kernel 1) and the
-//     training forwards (fused_encoder_train.cu, kernels 5 and 8; kernel 8
-//     also writes p) launch.
-// Both take any sequence length S >= 1 and any head width dh that is a
-// multiple of 16 up to 128, and compute the same numbers up to the order of
-// their fp32 sums. forward_kernel:
+// Masked softmax attention forward of the layer kernels on the tensor cores
+// (launch_forward_tc, further down), which the inference layers (kernel 1,
+// fused_encoder.cu, bf16 out; kernel 2, fused_encoder_int8.cu, fp32 out) and
+// the training forwards (fused_encoder_train.cu, kernels 5 and 8; kernel 8
+// also writes p) launch, and the row helpers the training file's CUDA-core
+// attention backward shares. It takes any sequence length S >= 1 and any
+// head width dh that is a multiple of 16 up to 128:
 //
 //   p   = softmax(bf16(q*scale) bf16(k)^T + mask)     fp32 statistics
-//   out = bf16(p) bf16(v)                              fp32 sums and out
+//   out = bf16(p) bf16(v)                              fp32 sums
 //
-// The keys are walked in tiles of ATT_KT held in shared memory, in two passes
 // so that the normalised probabilities are rounded to bf16 before p @ V, as
 // the Pallas bodies round them (an online softmax would round exp(s - m)
-// and rescale afterwards, which changes the numbers): pass 1 takes each
-// row's max and sum of exp(s - max) (the sum rescaled when a later tile
-// raises the max); pass 2 recomputes the scores and forms bf16(e / l) @ V.
-// With S <= ATT_KT the one tile is loaded once and its exp(s - max) are
-// computed once.
+// and rescale afterwards, which changes the numbers).
 //
 // q is pre-scaled, (B*S, ldq) bf16 with head h in columns [h*dh, (h+1)*dh);
 // k and v likewise with row stride ldkv; out (B*S, ldo); every row start
-// 16-byte aligned. kmask is (B, S)
-// additive fp32 (0 or -1e9) or null.
+// 16-byte aligned. kmask is (B, S) additive fp32 (0 or -1e9) or null.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,13 +31,6 @@ namespace attention {
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
-
-constexpr int ATT_THREADS = 256;  // 8 warps
-constexpr int ATT_WARPS = ATT_THREADS / 32;
-constexpr int ATT_QT = 32;                     // query rows per block
-constexpr int ATT_RPW = ATT_QT / ATT_WARPS;    // query rows per warp
-constexpr int ATT_KT = 128;                    // keys per tile
-constexpr int ATT_KPL = ATT_KT / 32;           // keys per lane
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -103,135 +86,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t row
   }
 }
 
-// EXACT: dh == MAXD, known when compiling (the common head widths 64 and 128)
-template <int MAXD, bool EXACT>
-__global__ void __launch_bounds__(ATT_THREADS)
-forward_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-               float* __restrict__ out, int ldo, int S, int H, int dh_arg) {
-  const int dh = EXACT ? MAXD : dh_arg;
-  constexpr int DPL = MAXD / 32;  // output dims per lane
-  static_assert(DPL == 2 || DPL == 4, "MAXD is 64 or 128");
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int ldk = smem_ld(dh), kt = min(S, ATT_KT);  // rows of the K and V tiles
-  bf16* Ks = reinterpret_cast<bf16*>(sm);
-  bf16* Vs = Ks + kt * ldk;
-  bf16* Qs = Vs + kt * ldk;                                // (ATT_QT, ldk) the block's q rows
-  float* Ps = reinterpret_cast<float*>(Qs + ATT_QT * ldk);  // (ATT_WARPS, ATT_KT)
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.y * ATT_QT;
-  const int nt = (S + ATT_KT - 1) / ATT_KT;
-  const size_t brow = (size_t)b * S;
-  const bool lane_on = lane * DPL < dh;
-
-  load_rows(Qs, q, brow + q0, min(ATT_QT, S - q0), ldq, h * dh, dh);
-  auto load_tile = [&](int t, bool with_v) {
-    const int j0 = t * ATT_KT, n = min(ATT_KT, S - j0);
-    __syncthreads();
-    load_rows(Ks, k, brow + j0, n, ldkv, h * dh, dh);
-    if (with_v) load_rows(Vs, v, brow + j0, n, ldkv, h * dh, dh);
-    __syncthreads();
-  };
-  // the scores of query row i (in Qs row r) against this lane's keys of tile t
-  auto scores = [&](int r, int t, float* s) {
-    const bf16* qr = Qs + r * ldk;
-#pragma unroll
-    for (int kk = 0; kk < ATT_KPL; ++kk) {
-      const int jl = lane + 32 * kk, j = t * ATT_KT + jl;
-      s[kk] = -INFINITY;
-      if (j < S) {
-        float a = dot_bf16(qr, Ks + jl * ldk, dh);
-        if (kmask != nullptr) a += kmask[brow + j];
-        s[kk] = a;
-      }
-    }
-  };
-
-  // pass 1: row max and sum of exp(s - max); with one tile exp(s - max)
-  // stays in registers for pass 2
-  float m[ATT_RPW], l[ATT_RPW], sc[ATT_RPW][ATT_KPL];
-#pragma unroll
-  for (int r = 0; r < ATT_RPW; ++r) m[r] = -INFINITY, l[r] = 0.f;
-  if (nt == 1) load_tile(0, true);
-  for (int t = 0; t < nt; ++t) {
-    if (nt > 1) load_tile(t, false);
-#pragma unroll
-    for (int rr = 0; rr < ATT_RPW; ++rr) {
-      const int r = warp + ATT_WARPS * rr;
-      if (q0 + r >= S) continue;  // warp-uniform
-      float* s = sc[rr];
-      scores(r, t, s);
-      float mx = -INFINITY;
-#pragma unroll
-      for (int kk = 0; kk < ATT_KPL; ++kk) mx = fmaxf(mx, s[kk]);
-      const float m_new = fmaxf(m[rr], warp_max(mx));
-      float e = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < ATT_KPL; ++kk) {
-        // exp(-inf) is 0 past S; with one tile m_new is the row's max, so
-        // the registers keep exp(s - max) for pass 2
-        const float ek = expf(s[kk] - m_new);
-        e += ek;
-        if (nt == 1) s[kk] = ek;
-      }
-      e = warp_sum(e);
-      l[rr] = (m[rr] == -INFINITY ? 0.f : l[rr] * expf(m[rr] - m_new)) + e;
-      m[rr] = m_new;
-    }
-  }
-
-  // pass 2: bf16(exp(s - max) / sum) @ V
-  float o[ATT_RPW][DPL];
-#pragma unroll
-  for (int rr = 0; rr < ATT_RPW; ++rr)
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) o[rr][d] = 0.f;
-  float* prow = Ps + warp * ATT_KT;
-  for (int t = 0; t < nt; ++t) {
-    if (nt > 1) load_tile(t, true);
-    const int n = min(ATT_KT, S - t * ATT_KT);
-#pragma unroll
-    for (int rr = 0; rr < ATT_RPW; ++rr) {
-      const int r = warp + ATT_WARPS * rr, i = q0 + r;
-      if (i >= S) continue;
-      float* s = sc[rr];
-      if (nt > 1) scores(r, t, s);
-#pragma unroll
-      for (int kk = 0; kk < ATT_KPL; ++kk) {
-        const int jl = lane + 32 * kk;
-        if (jl < n) {
-          prow[jl] = bf16_round((nt == 1 ? s[kk] : expf(s[kk] - m[rr])) / l[rr]);
-        }
-      }
-      __syncwarp();
-      if (lane_on) {
-        for (int jl = 0; jl < n; ++jl) {
-          const float pj = prow[jl];
-          const bf16* vr = Vs + jl * ldk + lane * DPL;
-#pragma unroll
-          for (int d = 0; d < DPL; d += 2) {
-            const float2 vf = __bfloat1622float2(*reinterpret_cast<const bf162*>(vr + d));
-            o[rr][d] = fmaf(pj, vf.x, o[rr][d]);
-            o[rr][d + 1] = fmaf(pj, vf.y, o[rr][d + 1]);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < ATT_RPW; ++rr) {
-    const int i = q0 + warp + ATT_WARPS * rr;
-    if (i >= S || !lane_on) continue;
-    float* og = out + (brow + i) * ldo + h * dh + lane * DPL;
-#pragma unroll
-    for (int d = 0; d < DPL; d += 2)
-      *reinterpret_cast<float2*>(og + d) = make_float2(o[rr][d], o[rr][d + 1]);
-  }
-}
-
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it must be
 // asked for). `allowed` is the caller's record for that kernel (a static of
 // its launcher), so the attribute is set once per size, not per launch.
@@ -244,47 +98,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return e;
 }
 
-template <int MAXD, bool EXACT>
-cudaError_t launch_forward_kernel(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                                  const float* kmask, float* out, int ldo, int B, int S, int H,
-                                  int dh, cudaStream_t st) {
-  // K and V tiles of min(S, ATT_KT) rows
-  const size_t smem = (size_t)2 * (S < ATT_KT ? S : ATT_KT) * smem_ld(dh) * sizeof(bf16) +
-                      (size_t)ATT_QT * smem_ld(dh) * sizeof(bf16) +
-                      (size_t)ATT_WARPS * ATT_KT * sizeof(float);
-  static size_t allowed = 48 * 1024;
-  cudaError_t e = allow_smem(forward_kernel<MAXD, EXACT>, smem, allowed);
-  if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (S + ATT_QT - 1) / ATT_QT);
-  forward_kernel<MAXD, EXACT><<<grid, ATT_THREADS, smem, st>>>(q, ldq, k, v, ldkv, kmask, out, ldo,
-                                                               S, H, dh);
-  return cudaGetLastError();
-}
-
-// head width dh: a multiple of 16, at most 128; fp32 out
-inline cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                                  const float* kmask, float* out, int ldo, int B, int S, int H,
-                                  int dh, cudaStream_t st) {
-  if (dh == 64)
-    return launch_forward_kernel<64, true>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
-  if (dh < 64)
-    return launch_forward_kernel<64, false>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
-  if (dh == 128)
-    return launch_forward_kernel<128, true>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
-  return launch_forward_kernel<128, false>(q, ldq, k, v, ldkv, kmask, out, ldo, B, S, H, dh, st);
-}
-
 // ---------------------------------------------------------------------------
-// Tensor-core forward (the attention launch of kernels 1, 5 and 8). The
-// same arithmetic as forward_kernel above, with q k^T and p v as bf16
-// mma.sync products:
+// Tensor-core forward (the attention launch of kernels 1, 2, 5 and 8), with
+// q k^T and p v as bf16 mma.sync products:
 //
 //   s   = bf16(q*scale) bf16(k)^T + mask   exact bf16 products, fp32 sums
 //   p   = bf16(exp(s - max) / sum)          max and sum exact over the row
-//   out = bf16(p v)                          fp32 sums
+//   out = p v                                fp32 sums; stored as bf16 (kernels
+//                                            1, 5, 8) or fp32 (kernel 2)
 //
 // Replaces the attention body of the Pallas TPU kernels
-// motionstyle/ops/fused_encoder.py::_layer_kernel (`_attention`, :54-81) and
+// motionstyle/ops/fused_encoder.py::_layer_kernel and _layer_kernel_int8
+// (`_attention`, :54-81; the int8 kernel keeps its output in fp32) and
 // motionstyle/ops/fused_encoder_train.py::_fwd_kernel and _fwd_store_kernel
 // (the latter also keeps p).
 // A warp owns 16 query rows of one (batch row, head); a block holds
@@ -299,7 +124,7 @@ inline cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const b
 //     of m16n8k16 is the A layout (two 8-key accumulators -> one 16-key A
 //     fragment, 4 registers a chunk), and feeds p v directly against V
 //     fragments read by ldmatrix.trans.
-//   * longer S: forward_tc_tiles, the two passes of forward_kernel: pass 1
+//   * longer S: forward_tc_tiles, two passes over the key tiles: pass 1
 //     takes each row's max and sum tile by tile (the sum rescaled when a
 //     later tile raises the max), pass 2 recomputes the tile's scores,
 //     normalises, rounds and multiplies.
@@ -320,8 +145,9 @@ inline cudaError_t launch_forward(const bf16* q, int ldq, const bf16* k, const b
 // Shared memory: the block's q rows plus two tiles, 52 KB at dh = 128 (the
 // tiled path two K + V stages, 87 KB).
 //
-// Same arguments as launch_forward (q pre-scaled bf16; any S >= 1; dh a
-// multiple of 16 up to 128), bf16 out, and with PROBS the probabilities
+// Arguments: q pre-scaled bf16 as above; any S >= 1; dh a multiple of 16 up
+// to 128; out bf16 or fp32 (OutT: the accumulator stored unrounded); with
+// PROBS the probabilities
 // (B, H, S, S) bf16 row-major: exactly the packed bf16 p that p v
 // multiplies, written from the A fragments on both paths (store_probs). PROBS
 // is a template parameter, so kernel 1's and kernel 5's launches carry no
@@ -352,9 +178,17 @@ __device__ __forceinline__ void pv_chunk(float (&o)[NDT][4], const uint32_t (&pa
   }
 }
 
-// the warp's rows g, g + 8 of its accumulators as bf16 into out
-template <int NDT>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, int ldo, size_t brow, int row0,
+__device__ __forceinline__ void store_pair(bf16* at, float v0, float v1) {
+  *reinterpret_cast<bf162*>(at) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ void store_pair(float* at, float v0, float v1) {
+  *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
+}
+
+// the warp's rows g, g + 8 of its accumulators into out (bf16 or fp32)
+template <int NDT, typename OutT>
+__device__ __forceinline__ void store_rows(OutT* __restrict__ out, int ldo, size_t brow, int row0,
                                            int S, int col0, int dh, const float (&o)[NDT][4],
                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -362,12 +196,10 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, int ldo, size
   for (int half = 0; half < 2; ++half) {
     const int i = row0 + g + 8 * half;
     if (i >= S) continue;
-    bf16* og = out + (brow + i) * ldo + col0 + 2 * t;
+    OutT* og = out + (brow + i) * ldo + col0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < NDT; ++n)
-      if (n * 8 < dh)
-        *reinterpret_cast<bf162*>(og + n * 8) =
-            __floats2bfloat162_rn(o[n][2 * half], o[n][2 * half + 1]);
+      if (n * 8 < dh) store_pair(og + n * 8, o[n][2 * half], o[n][2 * half + 1]);
   }
 }
 
@@ -395,11 +227,11 @@ __device__ __forceinline__ void store_probs(bf16* __restrict__ probs, size_t bh,
 }
 
 // S <= 16 NC: the whole score row in registers
-template <int NC, int DMAX, bool PROBS>
+template <int NC, int DMAX, bool PROBS, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS)
 forward_tc_regs(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-                bf16* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
+                OutT* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
                 int dh) {
   constexpr int KC = DMAX / 16, NDT = DMAX / 8;
   constexpr int NT = (NC * 16 + TC_KT - 1) / TC_KT;  // most key tiles
@@ -536,11 +368,11 @@ forward_tc_regs(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
 }
 
 // any S: two passes over the key tiles
-template <int DMAX, bool PROBS>
+template <int DMAX, bool PROBS, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS)
 forward_tc_tiles(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, int ldkv, const float* __restrict__ kmask,
-                 bf16* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
+                 OutT* __restrict__ out, int ldo, bf16* __restrict__ probs, int S, int H,
                  int dh) {
   constexpr int KC = DMAX / 16, NDT = DMAX / 8;
   extern __shared__ __align__(16) unsigned char sm[];
@@ -666,9 +498,9 @@ forward_tc_tiles(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k
   if (active) store_rows(out, ldo, brow, row0, S, h * dh, dh, o, lane);
 }
 
-template <typename Kernel>
+template <typename Kernel, typename OutT>
 cudaError_t launch_tc(Kernel kernel, size_t smem, size_t& allowed, const bf16* q, int ldq,
-                      const bf16* k, const bf16* v, int ldkv, const float* kmask, bf16* out,
+                      const bf16* k, const bf16* v, int ldkv, const float* kmask, OutT* out,
                       int ldo, bf16* probs, int B, int S, int H, int dh, cudaStream_t st) {
   cudaError_t e = allow_smem(kernel, smem, allowed);
   if (e != cudaSuccess) return e;
@@ -677,19 +509,19 @@ cudaError_t launch_tc(Kernel kernel, size_t smem, size_t& allowed, const bf16* q
   return cudaGetLastError();
 }
 
-template <int NC, int DMAX, bool PROBS>
+template <int NC, int DMAX, bool PROBS, typename OutT>
 cudaError_t launch_tc_regs(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                           const float* kmask, bf16* out, int ldo, bf16* probs, int B, int S,
+                           const float* kmask, OutT* out, int ldo, bf16* probs, int B, int S,
                            int H, int dh, cudaStream_t st) {
   static size_t allowed = 48 * 1024;
   const size_t smem = (size_t)(TC_QT + 2 * TC_KT) * smem_ld(dh) * sizeof(bf16);
-  return launch_tc(forward_tc_regs<NC, DMAX, PROBS>, smem, allowed, q, ldq, k, v, ldkv, kmask,
-                   out, ldo, probs, B, S, H, dh, st);
+  return launch_tc(forward_tc_regs<NC, DMAX, PROBS, OutT>, smem, allowed, q, ldq, k, v, ldkv,
+                   kmask, out, ldo, probs, B, S, H, dh, st);
 }
 
-template <int DMAX, bool PROBS>
+template <int DMAX, bool PROBS, typename OutT>
 cudaError_t launch_tc_dmax(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                           const float* kmask, bf16* out, int ldo, bf16* probs, int B, int S,
+                           const float* kmask, OutT* out, int ldo, bf16* probs, int B, int S,
                            int H, int dh, cudaStream_t st) {
   if (S <= 64)
     return launch_tc_regs<4, DMAX, PROBS>(q, ldq, k, v, ldkv, kmask, out, ldo, probs, B, S, H,
@@ -705,15 +537,16 @@ cudaError_t launch_tc_dmax(const bf16* q, int ldq, const bf16* k, const bf16* v,
                                            dh, st);
   static size_t allowed = 48 * 1024;
   const size_t smem = (size_t)(TC_QT + 4 * TC_KT) * smem_ld(dh) * sizeof(bf16);
-  return launch_tc(forward_tc_tiles<DMAX, PROBS>, smem, allowed, q, ldq, k, v, ldkv, kmask, out,
-                   ldo, probs, B, S, H, dh, st);
+  return launch_tc(forward_tc_tiles<DMAX, PROBS, OutT>, smem, allowed, q, ldq, k, v, ldkv, kmask,
+                   out, ldo, probs, B, S, H, dh, st);
 }
 
 // attention on the tensor cores: head width dh a multiple of 16, at most
-// 128; bf16 out; with PROBS also the bf16 probabilities into probs
-template <bool PROBS = false>
+// 128; out bf16 or fp32 (OutT); with PROBS also the bf16 probabilities into
+// probs
+template <bool PROBS = false, typename OutT>
 cudaError_t launch_forward_tc(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
-                              const float* kmask, bf16* out, int ldo, bf16* probs, int B, int S,
+                              const float* kmask, OutT* out, int ldo, bf16* probs, int B, int S,
                               int H, int dh, cudaStream_t st) {
   if (dh % 16 != 0 || dh < 16 || dh > 128 || PROBS != (probs != nullptr))
     return cudaErrorInvalidValue;

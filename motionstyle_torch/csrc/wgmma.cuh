@@ -6,7 +6,11 @@
 //     MN-major (rows of 64 bf16 along M or N, boxes of 64 such columns);
 //   * wgmma.fence, commit_group and wait_group, and wgmma.mma_async
 //     m64n64k16 and m64n128k16 bf16 x bf16 -> fp32 with both operands read
-//     from shared memory, each K-major or MN-major (the transpose bits);
+//     from shared memory, each K-major or MN-major (the transpose bits), and
+//     m64n64k32 and m64n128k32 s8 x s8 -> s32, both K-major (8-bit wgmma
+//     has no transpose bits; one 128-byte swizzle row holds 128 int8 values,
+//     so a k32 step is the 32 bytes a bf16 k16 step takes, and the same
+//     descriptors serve);
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a wait on a phase's parity;
 //   * cp.async.bulk.tensor.2d TMA loads completing on an mbarrier, TMA
@@ -15,14 +19,15 @@
 //   * thread-block cluster helpers: barrier.cluster arrive/wait, the block's
 //     rank in its cluster, mapa and st.shared::cluster for distributed
 //     shared memory;
-//   * on the host, 2-D tensor maps encoded by libcuda's
+//   * on the host, 2-D tensor maps (int8, bf16 or fp32) encoded by libcuda's
 //     cuTensorMapEncodeTiled, fetched through the runtime
 //     (cudaGetDriverEntryPointByVersion from CUDA 12.5, else
 //     cudaGetDriverEntryPoint), so that no library links against libcuda.
 //     A kernel takes a map as a `const __grid_constant__ CUtensorMap`
 //     parameter.
 //
-// wgmma accumulator layout (m64nN, PTX ISA "wgmma register fragments"):
+// wgmma accumulator layout (m64nN, PTX ISA "wgmma register fragments"; the
+// s32 accumulators of the s8 products lie as the fp32 ones):
 // thread t of the warpgroup, warp w = t / 32, lane l = t % 32, holds d[4j],
 // d[4j+1] at row 16 w + l / 4, columns 8 j + 2 (l % 4) and +1, and d[4j+2],
 // d[4j+3] at row 16 w + l / 4 + 8, the same columns (j < N / 8). The four
@@ -80,6 +85,12 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_operand(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (64 x 64, fp32, the accumulator layout above) += A (64 x 16) W^T
 // (16 x 64): bf16 operands in shared memory given by their descriptors, A
 // K-major (TA 0) or MN-major (1), W K-major (TW 0) or MN-major (1)
@@ -119,6 +130,44 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_w), "r"(1), "n"(TA), "n"(TW));
+}
+
+// d (64 x 64, s32, the accumulator layout above) += A (64 x 32) W^T
+// (32 x 64): s8 operands in shared memory given by their descriptors, both
+// K-major
+__device__ __forceinline__ void mma_m64n64k32_s8(int (&d)[32], uint64_t desc_a, uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_w), "r"(1));
+}
+
+// d (64 x 128, s32) += A (64 x 32) W^T (32 x 128): as mma_m64n64k32_s8
+__device__ __forceinline__ void mma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_w), "r"(1));
 }
 
 // ---- mbarriers -------------------------------------------------------------
@@ -273,26 +322,28 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Map of a row-major (rows, cols) bf16 (elem_bytes 2) or fp32 (4) matrix in
-// boxes of box_rows x 128 bytes (one swizzle row: 64 bf16 or 32 fp32) laid
-// out in shared memory in 128-byte swizzle; loads past the matrix fill
+// Map of a row-major (rows, cols) int8 (elem_bytes 1), bf16 (2) or fp32 (4)
+// matrix. box_cols 0: boxes of box_rows x 128 bytes (one swizzle row: 128
+// int8, 64 bf16 or 32 fp32 values) laid out in shared memory in 128-byte
+// swizzle; else plain boxes of box_rows x box_cols values, row after row
+// (box_cols * elem_bytes a multiple of 16). Loads past the matrix fill
 // zeros, stores past it are dropped. cols * elem_bytes must be a multiple
 // of 16 and `base` 16-byte aligned. Returns 0 or the encode's CUresult.
 inline int make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                    uint32_t box_rows, int elem_bytes) {
+                    uint32_t box_rows, int elem_bytes, uint32_t box_cols = 0) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), box_rows};
+  const cuuint32_t box[2] = {box_cols != 0 ? box_cols : (cuuint32_t)(128 / elem_bytes), box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return (int)encode(map,
-                     elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                     2, const_cast<void*>(base), dims, strides, box, elem,
+  const CUtensorMapDataType type = elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return (int)encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                     box_cols != 0 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace wgmma

@@ -1,12 +1,17 @@
 // The layer kernels' GEMM on Hopper (sm_90a): bf16 operands, fp32
 // accumulation, and the epilogue of the launch it serves. The inference layer
 // (fused_encoder.cu, kernel 1), the training forwards and the training
-// backward halves (fused_encoder_train.cu, kernels 5-9) instantiate this one
-// body: its ring, its producer/consumer split and its cluster LayerNorm
-// exchange exist only here. The epilogue is a parameter of the body: which
-// launch (EPI) and a dropout site (Site: NoSite for kernel 1 and the
-// launches without a site; the training file's sites apply a keep mask and
-// make LayerNorm 1 also keep its input a1 for the backward).
+// backward halves (fused_encoder_train.cu, kernels 5-9) and the int8 layer
+// (fused_encoder_int8.cu, kernel 2) instantiate this one body: its ring, its
+// producer/consumer split and its cluster LayerNorm exchange exist only here.
+// The epilogue is a parameter of the body: which launch (EPI) and a dropout
+// site (Site: NoSite for kernels 1 and 2 and the launches without a site; the
+// training file's sites apply a keep mask and make LayerNorm 1 also keep its
+// input a1 for the backward). The operand type follows the epilogue too: the
+// int8 launches (s8(EPI)) multiply s8 codes into s32 sums, 128 codes a
+// 128-byte swizzle row (so a stage holds 128 k values, four k32 products),
+// and dequantise in the epilogue; their k loop needs K only a multiple of 64
+// (TMA fills a last half stage with zeros, which add nothing to a sum).
 //
 // Three operand layouts, each fixed by the epilogue (a_mn, w_mn):
 //   * C = A W^T, A (M, K) and W (N, K) both K-major: the forwards, and the
@@ -38,10 +43,10 @@
 //     rows each issue the products (k step 64, one swizzle row) and free a
 //     stage when the products that read it have retired;
 //   * takes its tile by M: 128 x 128 where that fills the card (the DDPM
-//     chain, the training at B=64, S=77), else 64-row tiles and 64-column
-//     slices (serving: M = 616 and 77; the finetune's unroll: M = 77), so
-//     the weights spread over the SMs and no launch runs on a handful of
-//     them;
+//     chain, the training at B=64, S=77; the int8 launches but LN2 128 x
+//     64), else 64-row tiles and 64-column slices (serving: M = 616 and 77;
+//     the finetune's unroll: M = 77), so the weights spread over the SMs and
+//     no launch runs on a handful of them;
 //   * runs its epilogue straight from the accumulator registers, with the
 //     bias, scale, rounding, gelu and dropout of the TPU kernels, into the
 //     ring (free after the k loop) in the 128-byte swizzle of the output's
@@ -93,6 +98,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_fwd.cuh"  // attention::allow_smem
 #include "wgmma.cuh"
 
@@ -128,17 +135,28 @@ constexpr float GELU_A = 0.044715f;
 // LayerNorm 1's backward: da1 in fp32, column sums of dh1 xhat1 and dh1;
 // EPI_BF16: bf16(acc) (dattn); EPI_ADD_F32: acc + res in fp32 (dx);
 // EPI_WGRAD: acc in fp32, one slice of M of a weight gradient.
+// The int8 layer's (kernel 2), from the int32 sums dequantised as v =
+// fp32(acc) * row scale * column scale + bias in that order: EPI_QKV_S8 as
+// EPI_QKV; EPI_GELU_S8: gelu_tanh(v) in fp32; EPI_LN1_S8: LN1(x + v), h1 in
+// fp32 and its row codes and scales (the next GEMM's A); EPI_LN2_S8 as
+// EPI_LN2.
 enum Epilogue {
   EPI_QKV = 0, EPI_GELU = 1, EPI_LN1 = 2, EPI_LN2 = 3, EPI_QKV_STORE = 4,
   EPI_UP_BWD = 5, EPI_DU = 6, EPI_LN2_BWD = 7, EPI_LN1_BWD = 8, EPI_BF16 = 9, EPI_ADD_F32 = 10,
-  EPI_WGRAD = 11
+  EPI_WGRAD = 11, EPI_QKV_S8 = 12, EPI_GELU_S8 = 13, EPI_LN1_S8 = 14, EPI_LN2_S8 = 15
 };
 
 __host__ __device__ constexpr bool owns_rows(int epi) {
-  return epi == EPI_LN1 || epi == EPI_LN2 || epi == EPI_LN2_BWD || epi == EPI_LN1_BWD;
+  return epi == EPI_LN1 || epi == EPI_LN2 || epi == EPI_LN2_BWD || epi == EPI_LN1_BWD ||
+         epi == EPI_LN1_S8 || epi == EPI_LN2_S8;
 }
 
-__host__ __device__ constexpr bool backward(int epi) { return epi >= EPI_UP_BWD; }
+__host__ __device__ constexpr bool backward(int epi) {
+  return epi >= EPI_UP_BWD && epi <= EPI_WGRAD;
+}
+
+// the int8 layer's launches: s8 operands, s32 sums
+__host__ __device__ constexpr bool s8(int epi) { return epi >= EPI_QKV_S8; }
 
 // the operand layouts: A stored (K, M) and W stored (K, N), read MN-major
 __host__ __device__ constexpr bool a_mn(int epi) { return epi == EPI_WGRAD; }
@@ -150,9 +168,13 @@ __host__ __device__ constexpr bool w_mn(int epi) {
 
 // a LayerNorm launch's cluster exchanges, and the [MAX_CLUSTER][BM] slot
 // arrays they use (LN2_BWD: the mean in array 1, the variance in 2, the
-// backward's two sums in 0 and 1, which no block reads or writes by then)
+// backward's two sums in 0 and 1, which no block reads or writes by then;
+// LN1_S8: the mean in 0, the variance in 1, h1's row maxima in 0 again)
 __host__ __device__ constexpr int cluster_rounds(int epi) {
-  return epi == EPI_LN2_BWD ? 3 : epi == EPI_LN1_BWD ? 1 : owns_rows(epi) ? 2 : 0;
+  return epi == EPI_LN2_BWD || epi == EPI_LN1_S8 ? 3
+         : epi == EPI_LN1_BWD                   ? 1
+         : owns_rows(epi)                       ? 2
+                                                : 0;
 }
 
 __host__ __device__ constexpr int cluster_slots(int epi) {
@@ -175,13 +197,26 @@ struct Args {
   const float* res_f32;  // EPI_LN2 residual (h1); EPI_LN1_BWD da2; EPI_ADD_F32 da1
   const float* ln_s;     // LayerNorm 2's (EPI_LN2) or 1's (the others) scale and bias
   const float* ln_b;
-  // the backward's epilogues
-  const float* a1;     // EPI_LN2_BWD, EPI_LN1_BWD: LayerNorm 1's input (M, N) fp32
-  const float* stats;  // (M, 2): its rows' mean and 1/std
-  const float* ln2_s;  // EPI_LN2_BWD: LayerNorm 2's scale
-  const float* dh;     // EPI_LN2_BWD: the layer output's gradient dh2 (M, N)
-  const float* gp;     // EPI_DU: gelu'(u) (M, N)
-  float* partial;      // column sums, [column_sums(EPI)][gridDim.x][N]
+  union {
+    struct {  // the backward's epilogues
+      const float* a1;     // EPI_LN2_BWD, EPI_LN1_BWD: LayerNorm 1's input (M, N) fp32
+      const float* stats;  // (M, 2): its rows' mean and 1/std
+      const float* ln2_s;  // EPI_LN2_BWD: LayerNorm 2's scale
+      const float* dh;     // EPI_LN2_BWD: the layer output's gradient dh2 (M, N)
+      const float* gp;     // EPI_DU: gelu'(u) (M, N)
+      float* partial;      // column sums, [column_sums(EPI)][gridDim.x][N]
+    };
+    // the int8 epilogues: A's row scales (M,) and W's column scales (N,);
+    // EPI_LN1_S8 writes the row scales of h1's codes (M,). Over the
+    // backward's fields: the struct keeps its size, which a larger kernel
+    // parameter would cost the bf16 LayerNorm launches (spills, +5 us at
+    // B=64, S=197 on an H100; PERF.md).
+    struct {
+      const float* a_scale;
+      const float* w_scale;
+      float* out_scale;
+    };
+  };
 };
 
 // The outputs, written by TMA from shared memory through these maps:
@@ -190,7 +225,9 @@ struct Args {
 // EPI_LN2 the layer's output (fp32 or bf16); EPI_UP_BWD gp (fp32), gd (bf16);
 // EPI_LN2_BWD da2 (fp32), df (bf16); EPI_DU du, EPI_BF16 dattn (bf16);
 // EPI_LN1_BWD da1, EPI_ADD_F32 dx (fp32); EPI_WGRAD the weight gradient, or
-// its slices one under another (fp32). Unused maps repeat the first.
+// its slices one under another (fp32); EPI_QKV_S8 as EPI_QKV; EPI_GELU_S8 ff
+// (fp32); EPI_LN1_S8 h1 (fp32), then its codes (int8, plain boxes of BN
+// columns); EPI_LN2_S8 as EPI_LN2. Unused maps repeat the first.
 struct OutMaps {
   CUtensorMap o[3];
 };
@@ -262,6 +299,27 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The int8 layer's arithmetic (the Pallas kernel's rounding points, no FMA
+// contraction): a row's scale from its largest |h| (all-zero rows: 1e-8),
+// its code of h (h / s a true division, round half to even, clipped), and
+// the dequantised value of an int32 sum.
+__device__ __forceinline__ float row_scale(float amax) {
+  return fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+}
+
+__device__ __forceinline__ int quant(float h, float s) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(h, s)), -127.0f), 127.0f);
+}
+
+__device__ __forceinline__ float dequant(int acc, float sr, float sc, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sr), sc), b);
+}
+
 // Two values at (row r < 64, columns c, c + 1) of a warpgroup's output rows
 // in shared memory: boxes of 64 rows x 128 bytes (64 bf16 or 32 fp32
 // columns), each in the 128-byte swizzle its tensor map expects, so the
@@ -302,6 +360,15 @@ __device__ __forceinline__ float2 f32_at(unsigned char* boxes, int r, int c) {
   return *reinterpret_cast<const float2*>(out_slot(boxes, r, c, 4));
 }
 
+// acc += one k32 step of int8 A and W (both K-major) at shared addresses a, w
+template <int BN>
+__device__ __forceinline__ void mma_k32_s8(int (&d)[BN / 2], uint32_t a, uint32_t w) {
+  if constexpr (BN == 128)
+    wgmma::mma_m64n128k32_s8(d, wgmma::desc_sw128(a), wgmma::desc_sw128(w));
+  else
+    wgmma::mma_m64n64k32_s8(d, wgmma::desc_sw128(a), wgmma::desc_sw128(w));
+}
+
 // acc += one k16 step of A and W at shared addresses a, w (TA, TW: stored
 // MN-major)
 template <int BN, bool TA, bool TW>
@@ -318,8 +385,9 @@ __device__ __forceinline__ void mma_k16(float (&d)[BN / 2], uint32_t a, uint32_t
 // its block's columns, over the quad (the row's four lanes), then over the
 // cluster's blocks in rank order through distributed shared memory: `slots`
 // holds Q arrays of [MAX_CLUSTER ranks][BM rows]. One cluster barrier; the
-// first one (every block has started) is the caller's.
-template <int BM, int Q>
+// first one (every block has started) is the caller's. MAX: the maxima of
+// non-negative values instead of sums.
+template <int BM, int Q, bool MAX = false>
 __device__ __forceinline__ void cluster_row_sums(float (&v)[Q][2], float* slots, int row,
                                                  uint32_t rank, uint32_t cs) {
   const int lane = threadIdx.x & 31;
@@ -327,7 +395,7 @@ __device__ __forceinline__ void cluster_row_sums(float (&v)[Q][2], float* slots,
   for (int q = 0; q < Q; ++q) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      v[q][h] = quad_sum(v[q][h]);
+      v[q][h] = MAX ? quad_max(v[q][h]) : quad_sum(v[q][h]);
       if ((lane & 3) == 0)
         for (uint32_t c = 0; c < cs; ++c)
           wgmma::st_cluster(
@@ -341,7 +409,10 @@ __device__ __forceinline__ void cluster_row_sums(float (&v)[Q][2], float* slots,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float total = 0.f;
-      for (uint32_t c = 0; c < cs; ++c) total += slots[(q * MAX_CLUSTER + c) * BM + row + 8 * h];
+      for (uint32_t c = 0; c < cs; ++c) {
+        const float x = slots[(q * MAX_CLUSTER + c) * BM + row + 8 * h];
+        total = MAX ? fmaxf(total, x) : total + x;
+      }
       v[q][h] = total;
     }
   }
@@ -643,20 +714,201 @@ __device__ __forceinline__ void backward_epilogue(float (&acc)[BN / 2], const Ar
   }
 }
 
+// The int8 layer's epilogues (EPI_QKV_S8 ... EPI_LN2_S8) from the int32 sums
+// of the tile at (m0, n0), consumer warpgroup wg: v = dequant(acc, the row's
+// scale, the column's scale, the bias), then as the bf16 launches' QKV, GELU
+// (fp32 out) and LayerNorm epilogues, the rows staged in the ring and stored
+// by TMA. LN1_S8 also takes each row's max |h1| over the cluster in a third
+// round (a max gives the same bits in any order), codes its own columns into
+// plain rows of BN bytes after the fp32 rows, and the block of rank 0 writes
+// the rows' scales.
+template <int BM, int BN, int EPI>
+__device__ __forceinline__ void s8_epilogue(int (&acc)[BN / 2], const Args& p, const OutMaps& out,
+                                            unsigned char* smem, float* red, int m0, int n0,
+                                            int wg) {
+  using T = Tile<BM, BN, EPI>;
+  const int M = p.M, N = p.N;
+  const int lane = threadIdx.x & 31;
+  const int rr = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2), row = wg * 64 + rr;
+  const int col = 2 * (lane & 3);
+  unsigned char* boxes = smem + wg * T::OUT_BYTES;
+  // rows past M are TMA's zero fill: scale 0, never stored
+  float sr[2], v[BN / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + row + 8 * h;
+    sr[h] = m < M ? p.a_scale[m] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + col;
+    if (n0 + 8 * j >= N) continue;
+    const float c0 = p.w_scale[n], c1 = p.w_scale[n + 1], b0 = p.bias[n], b1 = p.bias[n + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[4 * j + 2 * h] = dequant(acc[4 * j + 2 * h], sr[h], c0, b0);
+      v[4 * j + 2 * h + 1] = dequant(acc[4 * j + 2 * h + 1], sr[h], c1, b1);
+    }
+  }
+  // fp32 rows (GELU's ff, LN1's h1, an fp32 LN2 output) in BN / 32 boxes, bf16
+  // rows in BN / 64
+  const bool f32 = EPI == EPI_GELU_S8 || EPI == EPI_LN1_S8 || (EPI == EPI_LN2_S8 && p.out_f32);
+
+  if constexpr (EPI == EPI_QKV_S8 || EPI == EPI_GELU_S8) {
+    // every consumer is done with the ring before it holds output rows
+    wgmma::named_barrier(1, T::WG * 128);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + col;
+      if (n >= N) continue;
+      // q's columns take the scale (the D-wide parts never split an 8-column group)
+      const float scale = EPI == EPI_QKV_S8 && n < p.D ? p.q_scale : 1.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = v[4 * j + 2 * h], v1 = v[4 * j + 2 * h + 1];
+        if constexpr (EPI == EPI_GELU_S8)
+          stage_f32(boxes, rr + 8 * h, 8 * j + col, gelu_tanh(v0), gelu_tanh(v1));
+        else
+          stage_bf16(boxes, rr + 8 * h, 8 * j + col, v0 * scale, v1 * scale);
+      }
+    }
+  } else {
+    // h = v + residual, kept in v; its row sums over this block's columns,
+    // then over the cluster
+    const uint32_t rank = wgmma::cluster_rank(), cs = gridDim.y;
+    float part[1][2] = {{0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + col;
+      if (n0 + 8 * j >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + row + 8 * h;
+        float r0 = 0.f, r1 = 0.f;
+        if (m < M) {
+          const size_t g = (size_t)m * N + n;
+          if constexpr (EPI == EPI_LN1_S8) {
+            const bf162 x = *reinterpret_cast<const bf162*>(p.res_bf16 + g);
+            r0 = __low2float(x);
+            r1 = __high2float(x);
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(p.res_f32 + g);
+            r0 = x.x;
+            r1 = x.y;
+          }
+        }
+        v[4 * j + 2 * h] = v[4 * j + 2 * h] + r0;
+        v[4 * j + 2 * h + 1] = v[4 * j + 2 * h + 1] + r1;
+        part[0][h] += v[4 * j + 2 * h] + v[4 * j + 2 * h + 1];
+      }
+    }
+    float mu[2], rs[2];
+    wgmma::cluster_wait();  // every block of the cluster has started
+    cluster_row_sums<BM, 1>(part, red, row, rank, cs);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mu[h] = part[0][h] / N;
+      part[0][h] = 0.f;
+    }
+    // the second round sums the squared deviations
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (n0 + 8 * j >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float d0 = v[4 * j + 2 * h] - mu[h], d1 = v[4 * j + 2 * h + 1] - mu[h];
+        part[0][h] += d0 * d0 + d1 * d1;
+      }
+    }
+    cluster_row_sums<BM, 1>(part, red + MAX_CLUSTER * BM, row, rank, cs);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rs[h] = rsqrtf(part[0][h] / N + LN_EPS);
+    wgmma::named_barrier(1, T::WG * 128);  // the ring is free for output rows
+    float amax[1][2] = {{0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + col;
+      if (n0 + 8 * j >= N) continue;
+      const float s0 = p.ln_s[n], s1 = p.ln_s[n + 1], c0 = p.ln_b[n], c1 = p.ln_b[n + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float y0 = (v[4 * j + 2 * h] - mu[h]) * rs[h] * s0 + c0;
+        const float y1 = (v[4 * j + 2 * h + 1] - mu[h]) * rs[h] * s1 + c1;
+        if (f32)
+          stage_f32(boxes, rr + 8 * h, 8 * j + col, y0, y1);
+        else
+          stage_bf16(boxes, rr + 8 * h, 8 * j + col, y0, y1);
+        v[4 * j + 2 * h] = y0;
+        v[4 * j + 2 * h + 1] = y1;
+        amax[0][h] = fmaxf(amax[0][h], fmaxf(fabsf(y0), fabsf(y1)));
+      }
+    }
+    if constexpr (EPI == EPI_LN1_S8) {
+      // the rows' max |h1| over the cluster (slot array 0 again: every block
+      // has read the means before it arrived for the variances), then this
+      // block's columns' codes: 64 rows of BN bytes after the fp32 rows
+      cluster_row_sums<BM, 1, true>(amax, red, row, rank, cs);
+      unsigned char* codes = boxes + BN * 256;
+      float sc[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) sc[h] = row_scale(amax[0][h]);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (n0 + 8 * j >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q0 = quant(v[4 * j + 2 * h], sc[h]), q1 = quant(v[4 * j + 2 * h + 1], sc[h]);
+          *reinterpret_cast<uint16_t*>(codes + (rr + 8 * h) * BN + 8 * j + col) =
+              (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+        }
+      }
+      if (rank == 0 && (lane & 3) == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (m0 + row + 8 * h < M) p.out_scale[m0 + row + 8 * h] = sc[h];
+      }
+    }
+  }
+
+  // this warpgroup's 64 rows leave by TMA
+  wgmma::fence_proxy_async();
+  wgmma::named_barrier(2 + wg, 128);
+  const int r0 = m0 + wg * 64;
+  if ((threadIdx.x & 127) == 0 && r0 < M) {
+    if constexpr (EPI == EPI_QKV_S8) {
+      for (int b = 0; b < BN / 64 && n0 + 64 * b < N; ++b) {
+        const int n = n0 + 64 * b, part = n / p.D;
+        wgmma::tma_store_2d(&out.o[part], boxes + b * 8192, n - part * p.D, r0);
+      }
+    } else {
+      const int width = f32 ? 32 : 64;  // columns a box
+      for (int b = 0; b < BN / width && n0 + width * b < N; ++b)
+        wgmma::tma_store_2d(&out.o[0], boxes + b * 8192, n0 + width * b, r0);
+      if constexpr (EPI == EPI_LN1_S8) wgmma::tma_store_2d(&out.o[1], boxes + BN * 256, n0, r0);
+    }
+    wgmma::tma_store_drain();
+  }
+}
+
 // The C[BM x BN] tile at rows blockIdx.x * BM, columns blockIdx.y * BN of A
-// W^T, A W or X^T Y (the layout EPI fixes: a_mn, w_mn), then the epilogue
-// EPI with the dropout site `site`. A and W come through their tensor maps:
-// K-major in boxes of BM or BN rows x 64 columns, MN-major in boxes of 64
-// k-rows x 64 columns; the outputs leave through `out` (boxes of 64 rows x
-// 128 bytes). A weight gradient (EPI_WGRAD) takes the k steps of its slice
-// blockIdx.z of gridDim.z and writes rows blockIdx.z * M of its output.
+// W^T, A W or X^T Y (the layout EPI fixes: a_mn, w_mn; the int8 launches
+// A W^T of s8 codes into s32 sums), then the epilogue EPI with the dropout
+// site `site` (the int8 launches': s8_epilogue). A and W come through their
+// tensor maps: K-major in boxes of BM or BN rows x 128 bytes (64 bf16 or 128
+// int8 columns), MN-major in boxes of 64 k-rows x 64 columns; the outputs
+// leave through `out` (boxes of 64 rows x 128 bytes; int8 codes in plain
+// boxes of 64 rows x BN bytes). A weight gradient (EPI_WGRAD) takes the k
+// steps of its slice blockIdx.z of gridDim.z and writes rows blockIdx.z * M
+// of its output.
 template <int BM, int BN, int EPI, class Site>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtensorMap* tm_w,
                                           const OutMaps& out, const Args& p, const Site& site) {
   using T = Tile<BM, BN, EPI>;
   // a training site's LN1 also writes its input a1 (out.o[2])
   constexpr bool keep_a1 = Site::TRAIN && EPI == EPI_LN1;
-  constexpr bool TA = a_mn(EPI), TW = w_mn(EPI);
+  constexpr bool TA = a_mn(EPI), TW = w_mn(EPI), I8 = s8(EPI);
+  // the k values a stage holds: one 128-byte swizzle row of bf16 or of int8
+  constexpr int KSTEP = I8 ? 2 * BK : BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (wgmma::smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE_BYTES);
@@ -664,7 +916,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
   float* red = reinterpret_cast<float*>(empty + T::STAGES);
   float* cols = red;  // the backward's column sums (over the LayerNorm launches' slots)
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  int k0 = 0, nk = p.K / BK;
+  // K need only be a multiple of 64 for int8: TMA fills a last half stage with zeros
+  int k0 = 0, nk = I8 ? (p.K + KSTEP - 1) / KSTEP : p.K / BK;
   if constexpr (EPI == EPI_WGRAD) {  // this slice's k steps (TMA fills the rows past K)
     const int all = (p.K + BK - 1) / BK, per = (all + gridDim.z - 1) / gridDim.z;
     k0 = blockIdx.z * per;
@@ -693,7 +946,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
       for (int kt = 0; kt < nk; ++kt) {
         wgmma::mbar_wait(&empty[s], ph ^ 1);
         unsigned char* stage = smem + s * T::STAGE_BYTES;
-        const int k = (k0 + kt) * BK;
+        const int k = (k0 + kt) * KSTEP;
         wgmma::mbar_arrive_expect_tx(&full[s], T::STAGE_BYTES);
         if constexpr (TA) {
 #pragma unroll
@@ -728,9 +981,9 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
 
   // consumer warpgroup wg: rows [wg * 64, +64) of the tile, all BN columns
   const int wg = warp >> 2;
-  float acc[BN / 2];
+  typename std::conditional<I8, int, float>::type acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   const uint32_t ring = wgmma::smem_u32(smem);
   int s = 0, prev = 0;
   uint32_t ph = 0;
@@ -740,10 +993,15 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
     const uint32_t w = ring + s * T::STAGE_BYTES + T::A_BYTES;
     wgmma::fence_operand(acc);
     wgmma::fence();
-    // a k16 step: 32 bytes along a K-major row, 16 rows (2048 bytes) of an MN-major box
+    // a k16 step (k32 of int8): 32 bytes along a K-major row, 16 rows (2048
+    // bytes) of an MN-major box
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      mma_k16<BN, TA, TW>(acc, a + kk * (TA ? 2048 : 32), w + kk * (TW ? 2048 : 32));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if constexpr (I8)
+        mma_k32_s8<BN>(acc, a + kk * 32, w + kk * 32);
+      else
+        mma_k16<BN, TA, TW>(acc, a + kk * (TA ? 2048 : 32), w + kk * (TW ? 2048 : 32));
+    }
     wgmma::commit();
     // the previous step's products have retired: its stage may be refilled
     wgmma::wait<1>();
@@ -757,195 +1015,201 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* tm_a, const CUtenso
   wgmma::wait<0>();
   wgmma::fence_operand(acc);
 
-  // this thread's accumulator: acc[4j + 2h], acc[4j + 2h + 1] at tile row
-  // row + 8h, columns 8j + col and +1; rr = row within the warpgroup's 64
-  const int lane = threadIdx.x & 31;
-  const int rr = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int row = wg * 64 + rr;
-  const int col = 2 * (lane & 3);
-  // this warpgroup's output rows: fp32 rows (LN1's h1 and a1, an fp32 LN2
-  // output, the backward's fp32 outputs) in BN / 32 boxes, bf16 rows in BN /
-  // 64 boxes (after the fp32 ones where a launch writes both; kernel 8's
-  // scaled q after its unscaled qkv)
-  unsigned char* boxes = smem + wg * T::OUT_BYTES;
-  constexpr bool both = EPI == EPI_LN1 || EPI == EPI_UP_BWD || EPI == EPI_LN2_BWD;
-  // DU stages its bf16 rows after the fp32 ones too (its gelu' tile is there)
-  const bool f32 = both || (EPI == EPI_LN2 && p.out_f32) || EPI == EPI_LN1_BWD ||
-                   EPI == EPI_ADD_F32 || EPI == EPI_WGRAD;
-  const bool bf = (EPI != EPI_LN2 || !p.out_f32) && EPI != EPI_LN1_BWD && EPI != EPI_ADD_F32 &&
-                  EPI != EPI_WGRAD;
-  unsigned char* boxes16 = both || EPI == EPI_DU ? boxes + BN * 256 : boxes;
-  // a training site's keep values of the warpgroup's rows (its mask tile in
-  // masks mode) lie after the fp32 rows, where nothing is staged before the
-  // site has been applied
-  unsigned char* keep = boxes + BN * 256;
-
-  if constexpr (backward(EPI)) {
-    backward_epilogue<BM, BN, EPI>(acc, p, site, Frag{m0, n0, wg, rr, row, col}, boxes, boxes16,
-                                   keep, red, cols);
-  } else if constexpr (!owns_rows(EPI)) {
-    // every consumer is done with the ring before it holds output rows
-    wgmma::named_barrier(1, T::WG * 128);
-    site.template load<BN>(keep, m0 + wg * 64, n0, p.M, p.N, wg);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + col;
-      if (n >= p.N) continue;
-      const float b0 = p.bias[n], b1 = p.bias[n + 1];
-      if constexpr (EPI == EPI_GELU) {
-        float v[4] = {gelu_tanh(acc[4 * j] + b0), gelu_tanh(acc[4 * j + 1] + b1),
-                      gelu_tanh(acc[4 * j + 2] + b0), gelu_tanh(acc[4 * j + 3] + b1)};
-        site.apply(v, keep, rr, 8 * j + col, m0 + row, n, p.M, p.N);
-        stage_bf16(boxes, rr, 8 * j + col, v[0], v[1]);
-        stage_bf16(boxes, rr + 8, 8 * j + col, v[2], v[3]);
-        continue;
-      }
-      // q's columns take the scale (the D-wide parts never split an 8-column group)
-      const float scale = (EPI == EPI_QKV || EPI == EPI_QKV_STORE) && n < p.D ? p.q_scale : 1.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
-        if constexpr (EPI == EPI_QKV_STORE) {
-          stage_bf16(boxes, rr + 8 * h, 8 * j + col, v0, v1);
-          if (n < p.D) stage_bf16(boxes + BN * 128, rr + 8 * h, 8 * j + col, v0 * scale, v1 * scale);
-        } else {
-          stage_bf16(boxes, rr + 8 * h, 8 * j + col, v0 * scale, v1 * scale);
-        }
-      }
-    }
+  if constexpr (I8) {
+    s8_epilogue<BM, BN, EPI>(acc, p, out, smem, red, m0, n0, wg);
   } else {
-    // h = site(acc + bias) + residual, kept in acc; its row sums over this
-    // block's columns, then over the cluster
-    const uint32_t rank = wgmma::cluster_rank(), cs = gridDim.y;
-    if constexpr (Site::TRAIN) {
-      wgmma::named_barrier(1, T::WG * 128);  // the ring is free for the keep values
+    // this thread's accumulator: acc[4j + 2h], acc[4j + 2h + 1] at tile row
+    // row + 8h, columns 8j + col and +1; rr = row within the warpgroup's 64
+    const int lane = threadIdx.x & 31;
+    const int rr = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+    const int row = wg * 64 + rr;
+    const int col = 2 * (lane & 3);
+    // this warpgroup's output rows: fp32 rows (LN1's h1 and a1, an fp32 LN2
+    // output, the backward's fp32 outputs) in BN / 32 boxes, bf16 rows in BN /
+    // 64 boxes (after the fp32 ones where a launch writes both; kernel 8's
+    // scaled q after its unscaled qkv)
+    unsigned char* boxes = smem + wg * T::OUT_BYTES;
+    constexpr bool both = EPI == EPI_LN1 || EPI == EPI_UP_BWD || EPI == EPI_LN2_BWD;
+    // DU stages its bf16 rows after the fp32 ones too (its gelu' tile is there)
+    const bool f32 = both || (EPI == EPI_LN2 && p.out_f32) || EPI == EPI_LN1_BWD ||
+                     EPI == EPI_ADD_F32 || EPI == EPI_WGRAD;
+    const bool bf = (EPI != EPI_LN2 || !p.out_f32) && EPI != EPI_LN1_BWD && EPI != EPI_ADD_F32 &&
+                    EPI != EPI_WGRAD;
+    unsigned char* boxes16 = both || EPI == EPI_DU ? boxes + BN * 256 : boxes;
+    // a training site's keep values of the warpgroup's rows (its mask tile in
+    // masks mode) lie after the fp32 rows, where nothing is staged before the
+    // site has been applied
+    unsigned char* keep = boxes + BN * 256;
+
+    if constexpr (backward(EPI)) {
+      backward_epilogue<BM, BN, EPI>(acc, p, site, Frag{m0, n0, wg, rr, row, col}, boxes, boxes16,
+                                     keep, red, cols);
+    } else if constexpr (!owns_rows(EPI)) {
+      // every consumer is done with the ring before it holds output rows
+      wgmma::named_barrier(1, T::WG * 128);
       site.template load<BN>(keep, m0 + wg * 64, n0, p.M, p.N, wg);
-    }
-    float part[1][2] = {{0.f, 0.f}};
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + col;
-      if (n0 + 8 * j >= p.N) continue;
-      const float b0 = p.bias[n], b1 = p.bias[n + 1];
-      float r[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + col;
+        if (n >= p.N) continue;
+        const float b0 = p.bias[n], b1 = p.bias[n + 1];
+        if constexpr (EPI == EPI_GELU) {
+          float v[4] = {gelu_tanh(acc[4 * j] + b0), gelu_tanh(acc[4 * j + 1] + b1),
+                        gelu_tanh(acc[4 * j + 2] + b0), gelu_tanh(acc[4 * j + 3] + b1)};
+          site.apply(v, keep, rr, 8 * j + col, m0 + row, n, p.M, p.N);
+          stage_bf16(boxes, rr, 8 * j + col, v[0], v[1]);
+          stage_bf16(boxes, rr + 8, 8 * j + col, v[2], v[3]);
+          continue;
+        }
+        // q's columns take the scale (the D-wide parts never split an 8-column group)
+        const float scale = (EPI == EPI_QKV || EPI == EPI_QKV_STORE) && n < p.D ? p.q_scale : 1.f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + row + 8 * h;
-        if (m < p.M) {
-          const size_t g = (size_t)m * p.N + n;
-          if constexpr (EPI == EPI_LN1) {
-            const bf162 x = *reinterpret_cast<const bf162*>(p.res_bf16 + g);
-            r[2 * h] = __low2float(x);
-            r[2 * h + 1] = __high2float(x);
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+          if constexpr (EPI == EPI_QKV_STORE) {
+            stage_bf16(boxes, rr + 8 * h, 8 * j + col, v0, v1);
+            if (n < p.D)
+              stage_bf16(boxes + BN * 128, rr + 8 * h, 8 * j + col, v0 * scale, v1 * scale);
           } else {
-            const float2 x = *reinterpret_cast<const float2*>(p.res_f32 + g);
-            r[2 * h] = x.x;
-            r[2 * h + 1] = x.y;
+            stage_bf16(boxes, rr + 8 * h, 8 * j + col, v0 * scale, v1 * scale);
           }
         }
       }
-      float v[4] = {acc[4 * j] + b0, acc[4 * j + 1] + b1, acc[4 * j + 2] + b0, acc[4 * j + 3] + b1};
-      site.apply(v, keep, rr, 8 * j + col, m0 + row, n, p.M, p.N);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        acc[4 * j + 2 * h] = v[2 * h] + r[2 * h];
-        acc[4 * j + 2 * h + 1] = v[2 * h + 1] + r[2 * h + 1];
-        part[0][h] += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
+    } else {
+      // h = site(acc + bias) + residual, kept in acc; its row sums over this
+      // block's columns, then over the cluster
+      const uint32_t rank = wgmma::cluster_rank(), cs = gridDim.y;
+      if constexpr (Site::TRAIN) {
+        wgmma::named_barrier(1, T::WG * 128);  // the ring is free for the keep values
+        site.template load<BN>(keep, m0 + wg * 64, n0, p.M, p.N, wg);
       }
-    }
-    if constexpr (keep_a1) {
-      // a1 leaves by TMA while the cluster exchanges the row sums (the ring
-      // is free: the keep values' load waited for every consumer)
+      float part[1][2] = {{0.f, 0.f}};
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + col;
         if (n0 + 8 * j >= p.N) continue;
+        const float b0 = p.bias[n], b1 = p.bias[n + 1];
+        float r[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          stage_f32(boxes, rr + 8 * h, 8 * j + col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + row + 8 * h;
+          if (m < p.M) {
+            const size_t g = (size_t)m * p.N + n;
+            if constexpr (EPI == EPI_LN1) {
+              const bf162 x = *reinterpret_cast<const bf162*>(p.res_bf16 + g);
+              r[2 * h] = __low2float(x);
+              r[2 * h + 1] = __high2float(x);
+            } else {
+              const float2 x = *reinterpret_cast<const float2*>(p.res_f32 + g);
+              r[2 * h] = x.x;
+              r[2 * h + 1] = x.y;
+            }
+          }
+        }
+        float v[4] = {acc[4 * j] + b0, acc[4 * j + 1] + b1, acc[4 * j + 2] + b0,
+                      acc[4 * j + 3] + b1};
+        site.apply(v, keep, rr, 8 * j + col, m0 + row, n, p.M, p.N);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[4 * j + 2 * h] = v[2 * h] + r[2 * h];
+          acc[4 * j + 2 * h + 1] = v[2 * h + 1] + r[2 * h + 1];
+          part[0][h] += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
+        }
       }
-      wgmma::fence_proxy_async();
-      wgmma::named_barrier(2 + wg, 128);
-      const int r0 = m0 + wg * 64;
-      if ((threadIdx.x & 127) == 0 && r0 < p.M) {
-        for (int b = 0; b < BN / 32 && n0 + 32 * b < p.N; ++b)
-          wgmma::tma_store_2d(&out.o[2], boxes + b * 8192, n0 + 32 * b, r0);
-        wgmma::tma_store_commit();
-      }
-    }
-    float mu[2], rs[2];
-    wgmma::cluster_wait();  // every block of the cluster has started
-#pragma unroll
-    for (int round = 0; round < 2; ++round) {
-      cluster_row_sums<BM, 1>(part, red + round * MAX_CLUSTER * BM, row, rank, cs);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (round == 0)
-          mu[h] = part[0][h] / p.N;
-        else
-          rs[h] = rsqrtf(part[0][h] / p.N + LN_EPS);
-      }
-      if (round == 0) {  // the second round sums the squared deviations
-#pragma unroll
-        for (int h = 0; h < 2; ++h) part[0][h] = 0.f;
+      if constexpr (keep_a1) {
+        // a1 leaves by TMA while the cluster exchanges the row sums (the ring
+        // is free: the keep values' load waited for every consumer)
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           if (n0 + 8 * j >= p.N) continue;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float d0 = acc[4 * j + 2 * h] - mu[h], d1 = acc[4 * j + 2 * h + 1] - mu[h];
-            part[0][h] += d0 * d0 + d1 * d1;
+          for (int h = 0; h < 2; ++h)
+            stage_f32(boxes, rr + 8 * h, 8 * j + col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+        wgmma::fence_proxy_async();
+        wgmma::named_barrier(2 + wg, 128);
+        const int r0 = m0 + wg * 64;
+        if ((threadIdx.x & 127) == 0 && r0 < p.M) {
+          for (int b = 0; b < BN / 32 && n0 + 32 * b < p.N; ++b)
+            wgmma::tma_store_2d(&out.o[2], boxes + b * 8192, n0 + 32 * b, r0);
+          wgmma::tma_store_commit();
+        }
+      }
+      float mu[2], rs[2];
+      wgmma::cluster_wait();  // every block of the cluster has started
+#pragma unroll
+      for (int round = 0; round < 2; ++round) {
+        cluster_row_sums<BM, 1>(part, red + round * MAX_CLUSTER * BM, row, rank, cs);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (round == 0)
+            mu[h] = part[0][h] / p.N;
+          else
+            rs[h] = rsqrtf(part[0][h] / p.N + LN_EPS);
+        }
+        if (round == 0) {  // the second round sums the squared deviations
+#pragma unroll
+          for (int h = 0; h < 2; ++h) part[0][h] = 0.f;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            if (n0 + 8 * j >= p.N) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float d0 = acc[4 * j + 2 * h] - mu[h], d1 = acc[4 * j + 2 * h + 1] - mu[h];
+              part[0][h] += d0 * d0 + d1 * d1;
+            }
           }
         }
       }
-    }
-    if constexpr (keep_a1) {
-      // a1's rows have been read out of this warpgroup's staging
-      if ((threadIdx.x & 127) == 0) wgmma::tma_store_wait_read();
-      wgmma::named_barrier(2 + wg, 128);
-    } else if constexpr (!Site::TRAIN) {
-      wgmma::named_barrier(1, T::WG * 128);  // the ring is free for output rows
-    }
+      if constexpr (keep_a1) {
+        // a1's rows have been read out of this warpgroup's staging
+        if ((threadIdx.x & 127) == 0) wgmma::tma_store_wait_read();
+        wgmma::named_barrier(2 + wg, 128);
+      } else if constexpr (!Site::TRAIN) {
+        wgmma::named_barrier(1, T::WG * 128);  // the ring is free for output rows
+      }
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + col;
-      if (n0 + 8 * j >= p.N) continue;
-      const float s0 = p.ln_s[n], s1 = p.ln_s[n + 1], c0 = p.ln_b[n], c1 = p.ln_b[n + 1];
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + col;
+        if (n0 + 8 * j >= p.N) continue;
+        const float s0 = p.ln_s[n], s1 = p.ln_s[n + 1], c0 = p.ln_b[n], c1 = p.ln_b[n + 1];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float y0 = (acc[4 * j + 2 * h] - mu[h]) * rs[h] * s0 + c0;
-        const float y1 = (acc[4 * j + 2 * h + 1] - mu[h]) * rs[h] * s1 + c1;
-        if (f32) stage_f32(boxes, rr + 8 * h, 8 * j + col, y0, y1);
-        if (bf) stage_bf16(boxes16, rr + 8 * h, 8 * j + col, y0, y1);
+        for (int h = 0; h < 2; ++h) {
+          const float y0 = (acc[4 * j + 2 * h] - mu[h]) * rs[h] * s0 + c0;
+          const float y1 = (acc[4 * j + 2 * h + 1] - mu[h]) * rs[h] * s1 + c1;
+          if (f32) stage_f32(boxes, rr + 8 * h, 8 * j + col, y0, y1);
+          if (bf) stage_bf16(boxes16, rr + 8 * h, 8 * j + col, y0, y1);
+        }
       }
     }
-  }
 
-  // this warpgroup's 64 rows leave by TMA, one box of 128-byte rows at a time
-  wgmma::fence_proxy_async();
-  wgmma::named_barrier(2 + wg, 128);
-  const int r0 = m0 + wg * 64;
-  if ((threadIdx.x & 127) == 0 && r0 < p.M) {
-    if constexpr (EPI == EPI_QKV) {
-      for (int b = 0; b < BN / 64 && n0 + 64 * b < p.N; ++b) {
-        const int n = n0 + 64 * b, part = n / p.D;
-        wgmma::tma_store_2d(&out.o[part], boxes + b * 8192, n - part * p.D, r0);
+    // this warpgroup's 64 rows leave by TMA, one box of 128-byte rows at a time
+    wgmma::fence_proxy_async();
+    wgmma::named_barrier(2 + wg, 128);
+    const int r0 = m0 + wg * 64;
+    if ((threadIdx.x & 127) == 0 && r0 < p.M) {
+      if constexpr (EPI == EPI_QKV) {
+        for (int b = 0; b < BN / 64 && n0 + 64 * b < p.N; ++b) {
+          const int n = n0 + 64 * b, part = n / p.D;
+          wgmma::tma_store_2d(&out.o[part], boxes + b * 8192, n - part * p.D, r0);
+        }
+      } else if constexpr (EPI == EPI_QKV_STORE) {
+        for (int b = 0; b < BN / 64 && n0 + 64 * b < p.N; ++b) {
+          const int n = n0 + 64 * b;
+          wgmma::tma_store_2d(&out.o[1], boxes + b * 8192, n, r0);
+          if (n < p.D) wgmma::tma_store_2d(&out.o[0], boxes + BN * 128 + b * 8192, n, r0);
+        }
+      } else {
+        // a weight gradient's slice z lies in rows z * M of its output
+        const int r32 = EPI == EPI_WGRAD ? r0 + (int)blockIdx.z * p.M : r0;
+        for (int b = 0; b < (f32 ? BN / 32 : 0) && n0 + 32 * b < p.N; ++b)
+          wgmma::tma_store_2d(&out.o[0], boxes + b * 8192, n0 + 32 * b, r32);
+        const CUtensorMap* map = &out.o[both ? 1 : 0];
+        for (int b = 0; b < (bf ? BN / 64 : 0) && n0 + 64 * b < p.N; ++b)
+          wgmma::tma_store_2d(map, boxes16 + b * 8192, n0 + 64 * b, r0);
       }
-    } else if constexpr (EPI == EPI_QKV_STORE) {
-      for (int b = 0; b < BN / 64 && n0 + 64 * b < p.N; ++b) {
-        const int n = n0 + 64 * b;
-        wgmma::tma_store_2d(&out.o[1], boxes + b * 8192, n, r0);
-        if (n < p.D) wgmma::tma_store_2d(&out.o[0], boxes + BN * 128 + b * 8192, n, r0);
-      }
-    } else {
-      // a weight gradient's slice z lies in rows z * M of its output
-      const int r32 = EPI == EPI_WGRAD ? r0 + (int)blockIdx.z * p.M : r0;
-      for (int b = 0; b < (f32 ? BN / 32 : 0) && n0 + 32 * b < p.N; ++b)
-        wgmma::tma_store_2d(&out.o[0], boxes + b * 8192, n0 + 32 * b, r32);
-      const CUtensorMap* map = &out.o[both ? 1 : 0];
-      for (int b = 0; b < (bf ? BN / 64 : 0) && n0 + 64 * b < p.N; ++b)
-        wgmma::tma_store_2d(map, boxes16 + b * 8192, n0 + 64 * b, r0);
+      wgmma::tma_store_drain();
     }
-    wgmma::tma_store_drain();
   }
 }
 
@@ -981,10 +1245,14 @@ struct Plan {
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // 128 x 128 tiles where they fill the card; else 64-row tiles and 64-column
-// slices (128 for a LayerNorm row wider than MAX_CLUSTER x 64)
+// slices (128 for a LayerNorm row wider than MAX_CLUSTER x 64). The int8
+// launches but LN2_S8 keep 64-column slices under 128-row tiles: their k
+// loops are four stages, the epilogue is most of a block's time, and three
+// blocks an SM hide it better; measured at B=64, S=197 on an H100 (PERF.md).
 inline Plan plan_for(int epi, int M, int N) {
   const bool big = cdiv(M, 128) * cdiv(N, 128) >= sm_count();
-  const int bn = big || (owns_rows(epi) && cdiv(N, 64) > MAX_CLUSTER) ? 128 : 64;
+  const bool narrow = s8(epi) && epi != EPI_LN2_S8;
+  const int bn = (big && !narrow) || (owns_rows(epi) && cdiv(N, 64) > MAX_CLUSTER) ? 128 : 64;
   const int bm = big ? 128 : 64;
   return {bm, bn, cdiv(M, bm), cdiv(N, bn), owns_rows(epi) ? cdiv(N, bn) : 1, 1};
 }
@@ -1020,10 +1288,11 @@ inline void plan_row(int epi, int M, int N, int K, int n, int* out) {
 }
 
 // The plan of a layer's four GEMM launches at M = B * S rows, in launch
-// order (qkv, out-projection + LN1, FFN-up, FFN-down + LN2): per launch
-// seven ints, as plan_row gives them.
-inline void layer_plan(int M, int D, int F, int* out) {
-  const int epis[4] = {EPI_QKV, EPI_LN1, EPI_GELU, EPI_LN2};
+// order (qkv, out-projection + LN1, FFN-up, FFN-down + LN2), of kernel 1 or
+// (int8) kernel 2: per launch seven ints, as plan_row gives them.
+inline void layer_plan(int M, int D, int F, int* out, bool int8 = false) {
+  const int epis[4] = {int8 ? EPI_QKV_S8 : EPI_QKV, int8 ? EPI_LN1_S8 : EPI_LN1,
+                       int8 ? EPI_GELU_S8 : EPI_GELU, int8 ? EPI_LN2_S8 : EPI_LN2};
   const int ns[4] = {3 * D, D, F, D};
   for (int i = 0; i < 4; ++i) plan_row(epis[i], M, ns[i], 0, 7, out + 7 * i);
 }
@@ -1055,33 +1324,40 @@ cudaError_t launch_tiles(const Plan& pl, const CUtensorMap& ma, const CUtensorMa
   return cudaLaunchKernelEx(&cfg, kernel, ma, mw, out, p, extra...);
 }
 
-// The launch of epilogue EPI: A and W bf16 row-major in the layout EPI fixes
-// (A (M, K) or, MN-major, (K, M); W (N, K) or (K, N)); the outputs
-// (OutMaps' order) with their columns and element bytes, M rows each (a
-// weight gradient of several slices: split * M rows). Returns a cudaError_t
-// or the CUresult of a failed tensor-map encode.
+// The launch of epilogue EPI: A and W row-major in the layout EPI fixes (A
+// (M, K) or, MN-major, (K, M); W (N, K) or (K, N)), bf16, or int8 codes for
+// the s8 launches; the outputs (OutMaps' order) with their columns and
+// element bytes (1: int8 codes), M rows each (a weight gradient of several
+// slices: split * M rows). Returns a cudaError_t or the CUresult of a failed
+// tensor-map encode.
 template <int EPI, class Pick, class... Extra>
-int launch_gemm(const Args& p, const bf16* a, const bf16* w, int n_out, void* const* outs,
+int launch_gemm(const Args& p, const void* a, const void* w, int n_out, void* const* outs,
                 const int* out_cols, const int* out_bytes, cudaStream_t st,
                 const Extra&... extra) {
   const Plan pl = plan_of(EPI, p.M, p.N, p.K);
+  const int eb = s8(EPI) ? 1 : 2;  // operand bytes
   CUtensorMap ma, mw;
   OutMaps out;
   int e = a_mn(EPI) ? wgmma::make_map(&ma, a, p.K, p.M, 64, 2)
-                    : wgmma::make_map(&ma, a, p.M, p.K, pl.bm, 2);
+                    : wgmma::make_map(&ma, a, p.M, p.K, pl.bm, eb);
   if (e == 0)
     e = w_mn(EPI) ? wgmma::make_map(&mw, w, p.K, p.N, 64, 2)
-                  : wgmma::make_map(&mw, w, p.N, p.K, pl.bn, 2);
+                  : wgmma::make_map(&mw, w, p.N, p.K, pl.bn, eb);
   for (int i = 0; i < 3 && e == 0; ++i) {
     if (i >= n_out) {  // an unused map repeats the first
       out.o[i] = out.o[0];
       continue;
     }
     e = wgmma::make_map(&out.o[i], outs[i], (uint64_t)p.M * pl.split, out_cols[i], 64,
-                        out_bytes[i]);
+                        out_bytes[i], out_bytes[i] == 1 ? pl.bn : 0);
   }
   if (e != 0) return e;
-  if (pl.bm == 128) return (int)launch_tiles<128, 128, EPI, Pick>(pl, ma, mw, out, p, st, extra...);
+  if (pl.bm == 128) {
+    if constexpr (s8(EPI))
+      if (pl.bn == 64)
+        return (int)launch_tiles<128, 64, EPI, Pick>(pl, ma, mw, out, p, st, extra...);
+    return (int)launch_tiles<128, 128, EPI, Pick>(pl, ma, mw, out, p, st, extra...);
+  }
   if (pl.bn == 64) return (int)launch_tiles<64, 64, EPI, Pick>(pl, ma, mw, out, p, st, extra...);
   if constexpr (owns_rows(EPI))
     return (int)launch_tiles<64, 128, EPI, Pick>(pl, ma, mw, out, p, st, extra...);

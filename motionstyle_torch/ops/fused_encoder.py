@@ -47,10 +47,13 @@ its four large matmuls done int8 x int8 -> int32 (`int8_dot`):
 Weights are quantized once from the fp32 parameters (quantize_weight), never
 from kernel 1's bf16 copies. On the card it is bound by operations: at B=8,
 S=77, D=512, F=1024 the four int8 GEMMs are ~2.6 GOP at 1,979 TOP/s and the
-attention products ~0.1 GFLOP at 989 TFLOP/s. `fused_encoder_layer_int8`
-launches the kernel for CUDA tensors (or raises), runs its twin
-`fused_encoder_layer_int8_reference` only for CPU tensors, and counts its
-launches in `fused_encoder_layer_int8.launches`.
+attention products ~0.1 GFLOP at 989 TFLOP/s. Its four GEMMs are kernel 1's
+wgmma GEMM on s8 operands (int32 sums; `int8_layer_plan` mirrors its
+tile plan), its attention kernel 1's tensor-core launch with an fp32
+output, and three launches write the row codes of x, attn and ff.
+`fused_encoder_layer_int8` launches the kernel for CUDA tensors (or raises),
+runs its twin `fused_encoder_layer_int8_reference` only for CPU tensors, and
+counts its launches in `fused_encoder_layer_int8.launches`.
 """
 from __future__ import annotations
 
@@ -222,6 +225,17 @@ def fused_encoder_layer_reference(x: torch.Tensor, p: dict, num_heads: int,
     return h2.to(x.dtype)
 
 
+def int8_qkv_reference(x: torch.Tensor, p: dict, num_heads: int) -> torch.Tensor:
+    """The q, k and v planes the int8 kernel hands its attention launch, as
+    the twin rounds them before its score product: (3, B*S, D) bf16, q taken
+    times 1/sqrt(dh) in fp32 first."""
+    B, S, D = x.shape
+    qkv = int8_dot(x.to(_BF16).float(), p["in_proj_weight"], p["in_proj_scale"],
+                   p["in_proj_bias"]).reshape(B * S, 3, D)
+    q = qkv[:, 0] * (1.0 / math.sqrt(D // num_heads))
+    return torch.stack([q, qkv[:, 1], qkv[:, 2]]).to(_BF16)
+
+
 def fused_encoder_layer_int8_reference(x: torch.Tensor, p: dict, num_heads: int,
                                        key_padding_mask: Optional[torch.Tensor] = None
                                        ) -> torch.Tensor:
@@ -240,6 +254,43 @@ def fused_encoder_layer_int8_reference(x: torch.Tensor, p: dict, num_heads: int,
 
 
 MAX_D, MAX_HEAD_WIDTH = 1024, 128  # the widest rows and heads the CUDA kernels take
+_MAX_CLUSTER = 8  # blocks of a LayerNorm cluster (csrc/wgmma_gemm.cuh)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan_for(M: int, N: int, owns_rows: bool, sms: int, narrow: bool = False) -> dict:
+    """csrc/wgmma_gemm.cuh's plan_for: 128 x 128 tiles where they fill the
+    card's `sms` SMs (narrow, the int8 launches but LN2: 128 x 64), else
+    64-row tiles and 64-column slices (128 for a LayerNorm row wider than 8 x
+    64); a LayerNorm launch is a cluster of its column tiles."""
+    big = _cdiv(M, 128) * _cdiv(N, 128) >= sms
+    bn = 128 if (big and not narrow) or (owns_rows and _cdiv(N, 64) > _MAX_CLUSTER) else 64
+    bm = 128 if big else 64
+    return dict(bm=bm, bn=bn, gx=_cdiv(M, bm), gy=_cdiv(N, bn),
+                cluster=_cdiv(N, bn) if owns_rows else 1, split=1)
+
+
+def int8_layer_plan(B: int, S: int, D: int, F: int, sms: int) -> list:
+    """The int8 layer's four GEMM launches (qkv, out-projection + LN1,
+    FFN-up, FFN-down + LN2) as fused_encoder_layer_int8_plan plans them on a
+    card of `sms` SMs: kernel 1's tiles, but 128 x 64 where kernel 1's are
+    128 x 128, LN2's excepted. Each a dict of its tile (bm, bn), grid (gx,
+    gy), cluster, threads per block and dynamic shared bytes (the ring of 3
+    or 4 stages of BM + BN rows of 128 bytes, its barriers, a LayerNorm
+    cluster's two [8][BM] fp32 slot arrays, and 1 KB to align the ring)."""
+    plans = []
+    for N, owns_rows, narrow in ((3 * D, False, True), (D, True, True), (F, False, True),
+                                 (D, True, False)):
+        pl = _plan_for(B * S, N, owns_rows, sms, narrow)
+        stages, slots = (3 if pl["bm"] == 128 else 4), (2 if owns_rows else 0)
+        plans.append(dict(bm=pl["bm"], bn=pl["bn"], gx=pl["gx"], gy=pl["gy"],
+                          cluster=pl["cluster"], threads=pl["bm"] // 64 * 128 + 32,
+                          smem=1024 + stages * (pl["bm"] + pl["bn"]) * 128 + 16 * stages
+                          + 4 * slots * _MAX_CLUSTER * pl["bm"]))
+    return plans
 
 
 def _check_cuda_inputs(x, p, num_heads, int8: bool = False):
@@ -340,15 +391,18 @@ fused_encoder_layer.launches = 0
 
 
 def fused_encoder_layer_int8(x: torch.Tensor, p: dict, num_heads: int,
-                             key_padding_mask: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             key_padding_mask: Optional[torch.Tensor] = None,
+                             return_qkv: bool = False):
     """Run one int8 encoder layer. x (B, S, D) bf16 or fp32; p from
     quantize_layer_params; key_padding_mask (B, S) with True = valid key.
     CUDA tensors launch the kernel; CPU tensors run the twin. Refuses inputs
-    that require grad while grad is enabled (refuse_grad)."""
+    that require grad while grad is enabled (refuse_grad). return_qkv (a
+    check's, not the model's): also return the q, k and v planes the
+    attention read, (3, B*S, D) bf16 (int8_qkv_reference's on the CPU)."""
     refuse_grad(x, *p.values())
     if x.device.type == "cpu":
-        return fused_encoder_layer_int8_reference(x, p, num_heads, key_padding_mask)
+        out = fused_encoder_layer_int8_reference(x, p, num_heads, key_padding_mask)
+        return (out, int8_qkv_reference(x, p, num_heads)) if return_qkv else out
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder_layer_int8 runs on cuda or cpu, not {x.device}")
     from motionstyle_torch import _build
@@ -383,7 +437,7 @@ def fused_encoder_layer_int8(x: torch.Tensor, p: dict, num_heads: int,
     if rc != 0:
         raise RuntimeError(f"fused_encoder_layer_int8 kernel failed: CUDA error {rc}")
     fused_encoder_layer_int8.launches += 1
-    return out
+    return (out, qkv) if return_qkv else out
 
 
 fused_encoder_layer_int8.launches = 0

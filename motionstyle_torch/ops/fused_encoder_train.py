@@ -53,8 +53,8 @@ from typing import Optional, Sequence
 import torch
 
 from motionstyle_torch.ops.fused_encoder import (
-    _bf16_dot, _check_cuda_inputs as _check_layer, _layernorm, additive_key_mask,
-    gelu_tanh, pack)
+    _bf16_dot, _cdiv, _check_cuda_inputs as _check_layer, _layernorm, _plan_for,
+    additive_key_mask, gelu_tanh, pack)
 
 _BF16 = torch.bfloat16
 _EPS = 1e-5
@@ -341,28 +341,13 @@ def bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, num_heads, masks=None
 # the partial buffers it needs
 # ---------------------------------------------------------------------------
 
-_BK, _MAX_CLUSTER, _MAX_SPLIT, _MIN_SLICE_STEPS = 64, 8, 8, 4
+_BK, _MAX_SPLIT, _MIN_SLICE_STEPS = 64, 8, 4
 
 # the backward's GEMM launches in fused_layer_train_backward_plan's order:
 # kernel 6's, then kernel 7's (kernel 9's are the same without the qkv)
 BACKWARD_GEMMS = ("up_bwd_gemm", "ln2_bwd_gemm", "du_bwd_gemm", "ln1_bwd_gemm", "dw2_gemm",
                   "dw1_gemm", "dattn_bwd_gemm", "qkv_store_train_gemm", "dwqkv_gemm", "dwo_gemm",
                   "dx_bwd_gemm")
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _plan_for(M: int, N: int, owns_rows: bool, sms: int) -> dict:
-    """plan_for: 128 x 128 tiles where they fill the card's `sms` SMs, else
-    64-row tiles and 64-column slices (128 for a LayerNorm row wider than
-    8 x 64); a LayerNorm launch is a cluster of its column tiles."""
-    big = _cdiv(M, 128) * _cdiv(N, 128) >= sms
-    bn = 128 if big or (owns_rows and _cdiv(N, 64) > _MAX_CLUSTER) else 64
-    bm = 128 if big else 64
-    return dict(bm=bm, bn=bn, gx=_cdiv(M, bm), gy=_cdiv(N, bn),
-                cluster=_cdiv(N, bn) if owns_rows else 1, split=1)
 
 
 def _plan_wgrad(P: int, Q: int, K: int, sms: int) -> dict:

@@ -7,6 +7,8 @@ from per-clip seeds, where the checkout has it), beside
 nn.TransformerEncoderLayer's train forward at B=64; the inference layer at
 B=8, S=77 and at the DDPM chain's B=64, S=197 (its attention launch apart),
 beside nn.TransformerEncoderLayer (eval) and scaled_dot_product_attention;
+the int8 serving layer (kernel 2) at B=8, S=77 (serving), B=1, S=77
+(serving bucket 1) and B=64, S=197 (the DDPM chain's shape);
 the standalone attention (kernel 4) at B=8, S=77 fp32 and bf16 and at B=2,
 S=600 fp32, beside scaled_dot_product_attention with the same mask; and the
 seconds per step of the 1000-step DDPM chain's last 50 steps through the
@@ -121,7 +123,8 @@ def profile(root: str) -> None:
     import chip_smoke as cs
     from motionstyle_torch.ops import attention as at
     from motionstyle_torch.ops import fused_encoder_train as ft
-    from motionstyle_torch.ops.fused_encoder import additive_key_mask, fused_encoder_layer
+    from motionstyle_torch.ops.fused_encoder import (
+        additive_key_mask, fused_encoder_layer, fused_encoder_layer_int8, quantize_layer_params)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,6 +212,14 @@ def profile(root: str) -> None:
             lambda hd=hd, m=mask, dt=dtype: Fn.scaled_dot_product_attention(
                 *hd, attn_mask=m[:, None, None, :].to(dt)))
 
+    # kernel 2 from its own generator, so the other runs' inputs (and digests)
+    # stay those of checkouts that did not time it
+    gen8 = torch.Generator().manual_seed(2)
+    p8 = quantize_layer_params({k: v.to(dev) for k, v in cs.random_params(gen8, 512, 1024).items()})
+    for b, s in ((8, 77), (1, 77), (64, 197)):
+        x8 = torch.randn(b, s, 512, generator=gen8).to(dev, torch.bfloat16)
+        runs[f"B={b} S={s} int8 layer"] = lambda x8=x8: fused_encoder_layer_int8(x8, p8, 4)
+
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
@@ -253,7 +264,8 @@ def main() -> int:
     print(card, flush=True)
     build = ("import sys; from concurrent.futures import ThreadPoolExecutor as Pool; "
              "sys.path.insert(0, sys.argv[1]); from motionstyle_torch import _build; "
-             "names = ('fused_encoder', 'fused_encoder_train', 'attention', 'sampler_update'); "
+             "names = ('fused_encoder', 'fused_encoder_train', 'fused_encoder_int8', 'attention', "
+             "'sampler_update'); "
              "list(Pool(len(names)).map(_build.build, names))")
     procs = [subprocess.Popen([sys.executable, "-c", build, r]) for r in roots]
     if any(p.wait() != 0 for p in procs):
