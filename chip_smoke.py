@@ -95,16 +95,34 @@ Phases, each printed on its own line with its seconds:
      under torch.profiler, its device time (kernel 4's apart) beside its host
      clock.
  14. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
-     prior, the same corpus) runs a few steps with --fused_train 1, then
-     with --fused_train_store 1; losses (the store run's first equal to the
-     recompute run's), the saved checkpoint, the style encoder's movement
-     and every kernel's launches are checked; then 2 steps with
-     --fused_train_prng 1 from the pretrain phase's mdm.pt, every training
-     launch in prng mode; then a short store run under torch.profiler.
- 15. demo: the demo CLI on the store run's model*.pt and args.json, 8
+     prior, the same corpus) runs a few steps with --fused_train 1, the same
+     with --parallel_finetune 1 (the Picard-parallel unroll), then
+     --fused_train_store 1 with and without --parallel_finetune 1 (in
+     turns: sequential, parallel, parallel, sequential); losses (the store
+     run's first equal to the recompute run's), the saved checkpoint, the
+     style encoder's movement, every kernel's launches (the parallel runs:
+     8 x (2 + Picard sweeps) forwards a step), seconds per step, sweeps per
+     step and peak memory; then 2 steps with --fused_train_prng 1 from the
+     pretrain phase's mdm.pt, every training launch in prng mode; then the
+     loss called directly at full width with dropout 0, parallel unroll
+     against sequential (rot_mse and every style-encoder gradient leaf);
+     then a short store run under torch.profiler.
+ 15. semantic: the semantic-discriminator CLI at full width (batch 64,
+     --fused_train 1) from the pretrain phase's prior for a few steps:
+     losses, seconds per step, the frozen prior and style encoder bit-equal,
+     kernels 5, 6 and 7 launched 8 times a step; then 2 finetune steps with
+     --semantic_guidance 1 from the new checkpoint.
+ 16. demo: the demo CLI on the store run's model*.pt and args.json, 8
      samples, --skip_render, with --fused 1 and with --quant_int8 1:
      results.npy, the kept root channels, the kernels' launches and the
      int8 result's deviation from the bf16 one.
+ 17. quality: the port's quality protocol (eval/quality_protocol.py) through
+     the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
+     protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
+     50, the --auto_stop arm) gated by that file's assertions, then the d512
+     semantic arm (prior 1500, discriminator 600, finetune 200, a rung every
+     25) gated by root error < 1e-4 and finite metrics; each arm's table and
+     every stage's seconds.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
 a CUDA device, or without the rest of the repository beside it, the script
@@ -1551,13 +1569,18 @@ def pretrain_phase(card: str, data_dir: str, tmp_root: str) -> tuple:
 def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict,
                    tmp_root: str, data_dir: str, prior_path: str) -> tuple:
     """The finetune CLI at full width, --fused 1 and a batch of 64, for a few
-    steps from the golden prior: first --fused_train 1 (kernels 5, 6, 7),
-    then --fused_train_store 1 (kernels 8, 6, 9) from the same seed and
-    corpus, both under tmp_root; then 2 steps of --fused_train_prng 1
-    (kernels 5, 6, 7 with kernel 10, no mask arrays) from the pretrain
-    phase's prior (prior_path). Returns each masks path's training kernel
-    launches, the prng run's counts, the function that builds the CLI's
-    arguments and the store run's last model*.pt."""
+    steps from the golden prior, four runs in turns from the same seed and
+    corpus: --fused_train 1 (kernels 5, 6, 7), the same with
+    --parallel_finetune 1 (the Picard-parallel unroll: kernel 5 in the
+    gradient-free sweeps, then one differentiable forward at B = 6 x 1), then
+    --fused_train_store 1 --parallel_finetune 1 and --fused_train_store 1
+    (kernels 8, 6, 9; the sweeps on kernel 5); then 2 steps of
+    --fused_train_prng 1 (kernels 5, 6, 7 with kernel 10, no mask arrays)
+    from the pretrain phase's prior (prior_path). Each run's counts are set
+    to 0 just before it and read just after. Returns each masks path's
+    training kernel launches, the parallel runs' launches, the prng run's
+    counts, the function that builds the CLI's arguments and the store run's
+    last model*.pt."""
     import csv
 
     import numpy as np
@@ -1575,25 +1598,28 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
 
     def finetune_args(data_dir: str, save_dir: str, num_steps: int, train_flag: str,
-                      prior: str = mdm_path) -> list:
+                      prior: str = mdm_path, extra=()) -> list:
         return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", prior,
                 "--save_dir", save_dir, "--fused", "1", train_flag, "1",
                 "--batch_size", str(FINETUNE_BATCH), "--layers", str(layers),
                 "--num_steps", str(num_steps), "--skip_render",
-                "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda"]
+                "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda",
+                *extra]
 
-    def run(train_flag: str, save_root: str, steps: int = steps, prior: str = mdm_path) -> tuple:
-        label = f"{train_flag} 1"
+    def run(train_flag: str, save_root: str, steps: int = steps, prior: str = mdm_path,
+            extra=()) -> dict:
+        label = " ".join([f"{train_flag} 1", *extra])
         torch.cuda.reset_peak_memory_stats()
         # the Xia loader draws captions and crops from Python's global random
-        # (as the reference's loader does): seed it so both runs see one batch
+        # (as the reference's loader does): seed it so every run sees one batch
         random.seed(seed)
         # the main path: every count from here to the end of the run
         for k in counted:
             k.launches = 0
         _zero_counts(ft)
         t0 = time.perf_counter()
-        save_dir = finetune_main(finetune_args(data_dir, save_root, steps, train_flag, prior))
+        save_dir = finetune_main(finetune_args(data_dir, save_root, steps, train_flag, prior,
+                                               extra))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in counted}
@@ -1604,13 +1630,15 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         ckpts = sorted(n for n in os.listdir(save_dir) if n.startswith("model"))
         sd = torch.load(os.path.join(save_dir, ckpts[-1]), map_location="cpu")
         trained = convert_encoder(sd, "seqTransEncoder", layers)
-        init = seeded_init_(StyleDiffusion(MDMConfig(njoints=181, nfeats=1)),
+        init = seeded_init_(StyleDiffusion(MDMConfig(njoints=181, nfeats=1, num_layers=layers)),
                             seed).style_encoder.state_dict()
         moved = max(float((trained[k] - init[k]).abs().max()) for k in init)
         losses = [float(r["loss"]) for r in rows]
         secs = [float(r["step_seconds"]) for r in rows]
+        sweeps = [int(float(r["picard_sweeps"])) for r in rows if r.get("picard_sweeps")]
         print(f"  {label}: {steps} steps in {wall:.4f} s (whole CLI run on {card}); losses "
-              f"{losses}; step seconds {secs}; peak memory {peak_gb:.4g} GB", flush=True)
+              f"{losses}; step seconds {secs}; peak memory {peak_gb:.4g} GB"
+              + (f"; Picard sweeps per step {sweeps}" if sweeps else ""), flush=True)
         check(len(losses) == steps and bool(np.isfinite(losses).all()),
               f"{label}: finetune losses finite")
         check(ckpts[-1] == f"model{steps:09d}.pt" and set(trained) == set(init),
@@ -1618,15 +1646,21 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         print(f"  {label}: style encoder moved by max_abs {moved:.6g} from its seeded start",
               flush=True)
         check(moved > 0.0, f"{label}: the style encoder's weights moved")
-        return launches, losses, secs, os.path.join(save_dir, ckpts[-1])
+        return dict(launches=launches, losses=losses, secs=secs, sweeps=sweeps, peak_gb=peak_gb,
+                    model_path=os.path.join(save_dir, ckpts[-1]), label=label)
 
     # DDIM-20 skip 700 of 1000: 6 unrolled steps, each recomputed under
     # checkpoint, plus the semantic branch's forward; 8 layers each
     unroll = 6
     fwd, bwd = layers * (1 + 2 * unroll) * steps, layers * (1 + unroll) * steps
-    launches, losses, secs, _ = run("--fused_train", os.path.join(tmp_root, "ft"))
-    launches_s, losses_s, secs_s, model_path = run("--fused_train_store",
-                                                   os.path.join(tmp_root, "ft_store"))
+    par = ["--parallel_finetune", "1"]
+    # in turns: sequential, parallel, parallel, sequential
+    rec = run("--fused_train", os.path.join(tmp_root, "ft"))
+    rec_p = run("--fused_train", os.path.join(tmp_root, "ft_par"), extra=par)
+    store_p = run("--fused_train_store", os.path.join(tmp_root, "ft_store_par"), extra=par)
+    store = run("--fused_train_store", os.path.join(tmp_root, "ft_store"))
+    launches, losses, secs = rec["launches"], rec["losses"], rec["secs"]
+    launches_s, losses_s, secs_s = store["launches"], store["losses"], store["secs"]
 
     want = dict.fromkeys(TRAIN_NAMES, 0)
     want.update(fused_layer_train_forward=fwd, fused_layer_train_bwd_ffn=bwd,
@@ -1636,9 +1670,10 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
           f"layer launches {launches['fused_encoder_layer']} (neutral generation 100 x 8, "
           f"final resample {unroll} x 8)", flush=True)
     check(train == want, f"--fused_train 1: training kernel launches == {want} over {steps} steps")
-    for name, got in (("--fused_train 1", launches), ("--fused_train_store 1", launches_s)):
-        check(got["fused_encoder_layer"] == layers * (100 + unroll),
-              f"{name}: inference kernel launches == 8 x (100 neutral DDPM steps + 6 DDIM steps)")
+    for r in (rec, rec_p, store_p, store):
+        check(r["launches"]["fused_encoder_layer"] == layers * (100 + unroll),
+              f"{r['label']}: inference kernel launches == 8 x (100 neutral DDPM steps + 6 DDIM "
+              "steps)")
     want_s = dict.fromkeys(TRAIN_NAMES, 0)
     want_s.update(fused_layer_train_forward_store=fwd, fused_layer_train_bwd_ffn=bwd,
                   fused_layer_train_bwd_attn_stored=bwd)
@@ -1648,6 +1683,25 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     check(train_s == want_s,
           f"--fused_train_store 1: training kernel launches == {want_s} over {steps} steps "
           f"(kernels 5 and 7 never)")
+    # the parallel unroll: per step the semantic branch's forward and the one
+    # differentiable forward (kernel 5, or 8 with store), each with its
+    # backward (kernels 6 and 7, or 6 and 9), and one kernel-5 forward per
+    # Picard sweep (no gradient, so never the store kernel)
+    for r, f_name, attn_name in ((rec_p, TRAIN_NAMES[0], TRAIN_NAMES[2]),
+                                 (store_p, TRAIN_NAMES[3], TRAIN_NAMES[4])):
+        swept = layers * sum(r["sweeps"])
+        want_p = dict.fromkeys(TRAIN_NAMES, 0)
+        want_p[f_name] = want_p.get(f_name, 0) + 2 * layers * steps
+        want_p[TRAIN_NAMES[0]] += swept
+        want_p[TRAIN_NAMES[1]] = want_p[attn_name] = 2 * layers * steps
+        got = {n: r["launches"][n] for n in TRAIN_NAMES}
+        print(f"  {r['label']}: training kernel launches {got} over {steps} steps (Picard "
+              f"sweeps {r['sweeps']})", flush=True)
+        check(len(r["sweeps"]) == steps and all(1 <= n <= 4 * unroll + 16 for n in r["sweeps"]),
+              f"{r['label']}: Picard sweeps per step recorded, each within 1 and max_sweeps "
+              f"({4 * unroll + 16})")
+        check(got == want_p, f"{r['label']}: training kernel launches == {want_p} (8 x (2 + "
+                             f"sweeps) forwards, 8 x 2 of each backward half)")
     # the store forward is bit-equal to the recompute forward, so the first
     # loss (before any update) is the same; later losses differ by the
     # stored backward's bf16 p in the softmax VJP
@@ -1669,12 +1723,19 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         print(f"  {label} per step: training kernel time (launches x the kernel times "
               f"measured above at B=64 and B=1) {kernel_s:.6g} s of a median {steady:.6g} s "
               f"step after the first ({100 * kernel_s / steady:.4g} %)", flush=True)
+    print("  finetune in turns (sequential, parallel, parallel, sequential), seconds per step "
+          "after the first, Picard sweeps per step, launches per step of kernels 1 and 5-9, "
+          f"peak memory, on {card}:", flush=True)
+    for r in (rec, rec_p, store_p, store):
+        per_step = {n: r["launches"][n] / steps for n in TRAIN_NAMES}
+        per_step["fused_encoder_layer (whole run)"] = r["launches"]["fused_encoder_layer"]
+        print(f"    {r['label']}: {r['secs'][1:]} (median {float(np.median(r['secs'][1:])):.6g} "
+              f"s); sweeps {r['sweeps'] or '-'}; {per_step}; {r['peak_gb']:.4g} GB", flush=True)
 
     # in-kernel dropout (kernel 10) from the port's own pretrained prior
     prng_steps = 2
-    launches_p, losses_p, _, _ = run("--fused_train_prng", os.path.join(tmp_root, "ft_prng"),
-                                     prng_steps, prior_path)
-    counts = launches_p["counts"]
+    prng = run("--fused_train_prng", os.path.join(tmp_root, "ft_prng"), prng_steps, prior_path)
+    counts = prng["launches"]["counts"]
     fwd_p, bwd_p = layers * (1 + 2 * unroll) * prng_steps, layers * (1 + unroll) * prng_steps
     want_p = {n: (0, 0) for n in TRAIN_NAMES}
     want_p.update({TRAIN_NAMES[0]: (fwd_p, fwd_p), TRAIN_NAMES[1]: (bwd_p, bwd_p),
@@ -1684,7 +1745,299 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     check(counts == want_p, f"--fused_train_prng 1: every launch of kernels 5, 6 and 7 in prng "
                             f"mode ({fwd_p}, {bwd_p}, {bwd_p} over {prng_steps} steps), no mask "
                             f"arrays, kernels 8 and 9 never")
-    return launches, launches_s, counts, finetune_args, model_path
+    parallel = {k.__name__: rec_p["launches"][k.__name__] + store_p["launches"][k.__name__]
+                for k in counted}
+    return launches, launches_s, parallel, counts, finetune_args, store["model_path"]
+
+
+# rot_mse and the style encoder's gradients, parallel unroll against
+# sequential at full width on the card: the Picard states agree to an RMS of
+# tol * tol_floor = 1e-3 (the DDIM threshold), under the bf16 rounding of the
+# kernels' input (4e-3 relative), so each x0 prediction differs by at most a
+# few bf16 flips through 8 layers: rot_mse within the stack's gate
+# (STACK_REL_L2, 2e-2) and each gradient leaf within 5e-2 rel L2 (GRAD_REL_L2
+# of one layer's backward, 1e-2, through 8 layers and 6 steps)
+PARALLEL_ROT_REL, PARALLEL_GRAD_REL = STACK_REL_L2, 5e-2
+
+
+def parallel_unroll_gate(golden_sd, device) -> None:
+    """The port's few_shot_style_finetune_loss called directly at full width
+    on one batch, the parallel unroll against the sequential one: the golden
+    prior, a seeded style encoder, dropout and cond_mask_prob 0 (the CLI has
+    no flag for them, as the JAX CLI has none), --fused_train's kernels and
+    the same pinned noise; rot_mse and every style-encoder gradient leaf."""
+    import torch
+
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.diffusion.schedule import make_schedule
+    from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
+    from motionstyle_torch.models.params import from_torch_state_dict, seeded_init_
+    from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
+
+    cfg = MDMConfig(njoints=181, nfeats=1, dropout=0.0, cond_mask_prob=0.0, fused=True,
+                    fused_train=True, dtype="bfloat16")
+    model = seeded_init_(StyleDiffusion(cfg), 10)
+    model.load_state_dict(from_torch_state_dict(golden_sd, cfg, part="mdm"), strict=False)
+    model = model.to(device).eval()
+    sched = make_schedule("cosine", 1000, "ddim20", device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    Bt, T = FINETUNE_BATCH, 76
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    inp = torch.as_tensor(get_inpainting_mask("root_horizontal", (1, 181, 1, T),
+                                              dataset="stylexia_posrot"),
+                          dtype=torch.float32, device=device)
+    mask = torch.ones((1, 1, 1, T), device=device)
+    mask[..., 60:] = 0.0
+    batch = {"x_start": randn(Bt, 181, 1, T), "content": randn(1, 181, 1, T),
+             "style_target": randn(1, 181, 1, T), "mask": mask, "inp_mask": inp,
+             "enc_text_style": randn(1, 512), "enc_text_t2m": randn(Bt, 512)}
+    noise = randn(1, 181, 1, T)
+    t = torch.zeros((Bt,), dtype=torch.int64, device=device)
+    out = {}
+    for parallel in (False, True):
+        trainer = StyleFinetuneTrainer(
+            FinetuneConfig(save_dir="unused", cond_mask_prob=0.0, semantic_guidance=False,
+                           parallel_unroll=parallel), model, sched)
+        model.zero_grad(set_to_none=True)
+        terms = trainer.loss_terms(batch, t, 0, noise=noise)
+        terms["loss"].backward()
+        out[parallel] = (terms["rot_mse"].detach().float(),
+                         {n: p.grad.detach().float().clone()
+                          for n, p in model.named_parameters() if p.grad is not None},
+                         int(terms.get("picard_sweeps", 0)))
+    (rot_s, g_s, _), (rot_p, g_p, sweeps) = out[False], out[True]
+    rot_rel = rel_l2(rot_p, rot_s)
+    grad_rel = {n: rel_l2(g_p[n], g_s[n]) for n in g_s}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"  parallel vs sequential unroll at full width (B={Bt}, 6 steps, {sweeps} Picard "
+          f"sweeps): rot_mse {rot_p.tolist()} against {rot_s.tolist()}, rel L2 {rot_rel:.6g}; "
+          f"gradient rel L2 max {grad_rel[worst]:.6g} ({worst}), median "
+          f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.6g} over {len(grad_rel)} leaves",
+          flush=True)
+    check(g_s.keys() == g_p.keys() and len(g_s) == 12 * FINETUNE_LAYERS,
+          "parallel unroll: gradients reach the style encoder's leaves only")
+    check(rot_rel <= PARALLEL_ROT_REL, f"parallel unroll: rot_mse within rel L2 "
+                                       f"{PARALLEL_ROT_REL} of the sequential unroll's")
+    check(grad_rel[worst] <= PARALLEL_GRAD_REL,
+          f"parallel unroll: every style-encoder gradient leaf within rel L2 {PARALLEL_GRAD_REL} "
+          "of the sequential unroll's")
+
+
+SEMANTIC_STEPS = 4
+
+
+@contextmanager
+def frozen_modules_watch(out: dict):
+    """Around a SemanticTrainer's life: a copy of every parameter it freezes
+    when it is built, held against the model when it saves (out["frozen"]:
+    the parameter count, out["changed"]: the names not bit-equal)."""
+    import torch
+
+    from motionstyle_torch.train import semantic
+
+    init, save = semantic.SemanticTrainer.__init__, semantic.SemanticTrainer.save
+
+    def watched_init(self, *a, **k):
+        init(self, *a, **k)
+        self._frozen_copy = {n: p.detach().clone() for n, p in self.model.named_parameters()
+                             if not p.requires_grad}
+
+    def watched_save(self):
+        params = dict(self.model.named_parameters())
+        out["frozen"] = len(self._frozen_copy)
+        out["changed"] = [n for n, v in self._frozen_copy.items()
+                          if not torch.equal(params[n].detach(), v)]
+        return save(self)
+
+    semantic.SemanticTrainer.__init__, semantic.SemanticTrainer.save = watched_init, watched_save
+    try:
+        yield
+    finally:
+        semantic.SemanticTrainer.__init__, semantic.SemanticTrainer.save = init, save
+
+
+def semantic_phase(card: str, data_dir: str, tmp_root: str, prior_path: str,
+                   finetune_args) -> dict:
+    """The semantic-discriminator CLI at full width (d=512, 8 layers, batch
+    64, --fused_train 1) for a few steps from the pretrain phase's prior:
+    seconds per step, losses, the prior's and the style encoder's parameters
+    bit-equal from the trainer's start to its save, kernels 5, 6 and 7
+    launched 8 times a step each (the prior's training forward and its
+    backward to mu). Then 2 finetune steps with --semantic_guidance 1 and
+    --semantic_discriminator_path at the new checkpoint. Returns each run's
+    launches of kernels 1 and 5-9, summed."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.cli.train_semantic_discriminator import main as sem_main
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+
+    layers, seed = FINETUNE_LAYERS, 10
+    counted = [getattr(ft, n) for n in TRAIN_NAMES] + [fused_encoder_layer]
+    total = dict.fromkeys((k.__name__ for k in counted), 0)
+    save_dir = os.path.join(tmp_root, "semantic")
+    watch = {}
+    random.seed(seed)
+    # the main path: every count from here to the end of the run
+    for k in counted:
+        k.launches = 0
+    _zero_counts(ft)
+    t0 = time.perf_counter()
+    with frozen_modules_watch(watch):
+        path = sem_main(["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path",
+                         prior_path, "--save_dir", save_dir, "--batch_size",
+                         str(FINETUNE_BATCH), "--layers", str(layers), "--num_steps",
+                         str(SEMANTIC_STEPS), "--log_interval", "1", "--seed", str(seed),
+                         "--fused_train", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k.__name__: k.launches for k in counted}
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["semantic_loss"]) for r in rows]
+    secs = [float(r["step_seconds"]) for r in rows]
+    print(f"  semantic discriminator --fused_train 1: {SEMANTIC_STEPS} steps in {wall:.4f} s "
+          f"(whole CLI run on {card}); losses {losses}; step seconds {secs}; median after the "
+          f"first {float(np.median(secs[1:])):.6g} s", flush=True)
+    check(len(losses) == SEMANTIC_STEPS and bool(np.isfinite(losses).all()),
+          "semantic: losses finite")
+    print(f"  semantic: {watch.get('frozen')} frozen parameters, changed {watch.get('changed')}",
+          flush=True)
+    check(watch.get("frozen", 0) > 0 and watch["changed"] == [],
+          "semantic: the prior's and the style encoder's parameters bit-equal after the steps")
+    sd = torch.load(path, map_location="cpu")
+    check({"muQuery", "sigmaQuery"} <= set(sd) and len(sd) == 2 + 12 * layers,
+          f"semantic: semantic_discriminator.pt holds the queries and a {layers}-layer encoder")
+    per_step = layers * SEMANTIC_STEPS
+    want = dict.fromkeys(TRAIN_NAMES, 0)
+    want.update({TRAIN_NAMES[0]: per_step, TRAIN_NAMES[1]: per_step, TRAIN_NAMES[2]: per_step})
+    print(f"  semantic: launches {got}", flush=True)
+    check({n: got[n] for n in TRAIN_NAMES} == want and got["fused_encoder_layer"] == 0,
+          f"semantic: kernels 5, 6, 7 launched {layers} times a step each (the prior's training "
+          "forward and backward), kernels 8, 9 and 1 never")
+    for n in total:
+        total[n] += got[n]
+
+    # the full reference loss: the finetune with semantic guidance from it
+    steps = 2
+    random.seed(seed)
+    for k in counted:
+        k.launches = 0
+    _zero_counts(ft)
+    t0 = time.perf_counter()
+    ft_dir = finetune_main(finetune_args(data_dir, os.path.join(tmp_root, "ft_semantic"), steps,
+                                         "--fused_train", prior_path,
+                                         ["--semantic_guidance", "1",
+                                          "--semantic_discriminator_path", path]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k.__name__: k.launches for k in counted}
+    with open(os.path.join(ft_dir, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    cos = [float(r["text_cosine"]) for r in rows]
+    losses = [float(r["loss"]) for r in rows]
+    print(f"  finetune --semantic_guidance 1 from the trained discriminator: {steps} steps in "
+          f"{wall:.4f} s; losses {losses}; text_cosine {cos}; launches {got}", flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses + cos).all()),
+          "semantic: the guided finetune's losses and text cosines finite")
+    for n in total:
+        total[n] += got[n]
+    return total
+
+
+# tests/test_quality.py's protocol (latent 64, 2 layers, T=100 cosine, prior
+# 1500 steps, finetune 250 at lr 1e-3 with checkpoints every 50, the ladder
+# and the auto arm), then QUALITY.md's d512 semantic arm (prior 1500,
+# discriminator 600, finetune 200 at lr 1e-3, a rung every 25)
+QUALITY_ARGS = dict(prior_steps=1500, finetune_steps=250, lr=1e-3, save_interval=50)
+SEMANTIC_ARM = dict(prior_steps=1500, semantic_steps=600, finetune_steps=200, lr=1e-3,
+                    save_interval=25)
+
+
+def quality_kernel1(finetunes: int, evaluations: int, demos: int, layers: int = 2) -> int:
+    """Kernel 1's launches in a quality arm at T=100: a finetune's neutral
+    generation (DDPM 99..90) and final resample (DDIM-20 skip 14: 6 steps),
+    6 denoiser calls an --auto_stop evaluation, 2 a demo (stopped at t=4)."""
+    return layers * (finetunes * (10 + 6) + evaluations * 6 + demos * 2)
+
+
+def quality_table(res: dict) -> str:
+    rows = {"pre": res["pre"], **{str(k): v for k, v in sorted(res["ladder"].items())}}
+    return "; ".join(f"{k}: ratio {r['style_dist_ratio']:.6g} content "
+                     f"{r['content_similarity']:.6g} root {r['root_horizontal_max_abs_err']:.3g}"
+                     for k, r in rows.items())
+
+
+def quality_phase(card: str, tmp_root: str) -> dict:
+    """The port's quality protocol (motionstyle_torch/eval/quality_protocol.py)
+    through the port's CLIs with --fused_train 1 and --fused 1: first
+    tests/test_quality.py's protocol, gated by its assertions unchanged, then
+    the d512 semantic arm, gated by root error < 1e-4 at every rung and finite
+    metrics. Prints every stage's wall time and each arm's ratio/content
+    table. Returns the launches of kernels 1 and 5-9 over the phase."""
+    import math
+
+    import torch
+
+    from motionstyle_torch.eval import quality_protocol as qp
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+
+    counted = [getattr(ft, n) for n in TRAIN_NAMES] + [fused_encoder_layer]
+    flags = dict(fused_train=True, fused=True, device="cuda")
+    # the main path: every count from here to the end of the phase
+    for k in counted:
+        k.launches = 0
+    _zero_counts(ft)
+    random.seed(10)
+    t0 = time.perf_counter()
+    res = qp.run_protocol(os.path.join(tmp_root, "quality"), ladder=True, auto_stop=True,
+                          **QUALITY_ARGS, **flags)
+    wall = time.perf_counter() - t0
+    arm64 = {k.__name__: k.launches for k in counted}
+    print(f"  quality (latent 64): {wall:.4f} s on {card}; stage seconds "
+          f"{json.dumps(res['seconds'])}; launches {arm64}", flush=True)
+    print(f"  quality (latent 64) table: {quality_table(res)}", flush=True)
+    auto, ladder = res["auto"], res["ladder"]
+    print("  quality (latent 64) auto_stop: selected " + str(auto.get("selected_step")) + "; "
+          + "; ".join(f"{s}: ratio {r['style_dist_ratio']:.6g} content "
+                      f"{r['content_similarity']:.6g}"
+                      for s, r in sorted(auto["trace"].items(), key=lambda kv: int(kv[0])))
+          + f"; demo check {auto.get('demo_report')}", flush=True)
+    # tests/test_quality.py's assertions, unchanged
+    for name, met in qp.quality_gate(res).items():
+        check(met, "quality: " + qp.GATE[name])
+    demos = 2 + (len(ladder) - 1) + (auto.get("demo_report") is not None)
+    check(arm64["fused_encoder_layer"] == quality_kernel1(2, len(auto["trace"]), demos),
+          f"quality (latent 64): kernel 1 launched in both finetunes, the {len(auto['trace'])} "
+          f"--auto_stop evaluations and the {demos} demos")
+
+    t0 = time.perf_counter()
+    arm = dict(SEMANTIC_ARM)
+    assets = qp.prepare_assets(os.path.join(tmp_root, "quality_d512"),
+                               prior_steps=arm.pop("prior_steps"), latent_dim=512, layers=2,
+                               semantic_steps=arm.pop("semantic_steps"), **flags)
+    prepared = time.perf_counter() - t0
+    res = qp.evaluate_transfer(assets, ladder=True, semantic_guidance=True, **arm)
+    wall = time.perf_counter() - t0
+    d512 = {k.__name__: k.launches - arm64[k.__name__] for k in counted}
+    print(f"  quality (d512 semantic arm): {wall:.4f} s on {card}; corpus, prior and "
+          f"discriminator {prepared:.4f} s; stage seconds {json.dumps(res['seconds'])}; "
+          f"launches {d512}", flush=True)
+    print(f"  quality (d512 semantic arm) table: {quality_table(res)}", flush=True)
+    reps = [res["pre"], *res["ladder"].values()]
+    check(d512["fused_encoder_layer"] == quality_kernel1(1, 0, 2 + len(res["ladder"]) - 1),
+          "quality (d512 semantic arm): kernel 1 launched in the finetune and every demo")
+    check(len(res["ladder"]) == SEMANTIC_ARM["finetune_steps"] // SEMANTIC_ARM["save_interval"]
+          and all(r["root_horizontal_max_abs_err"] < 1e-4 for r in reps)
+          and all(math.isfinite(v) for r in reps for v in r.values()),
+          "quality (d512 semantic arm): root error < 1e-4 and finite metrics at pre and every "
+          "rung")
+    return {k.__name__: k.launches for k in counted}
 
 
 def profile_finetune(args_of) -> None:
@@ -2337,18 +2690,27 @@ def main() -> int:
         with phase("pretrain_unfused"):
             pretrain_unfused_phase(card, data_dir, tmp)
         with phase("finetune"):
-            launches_recompute, launches_store, _, args_of, model_path = finetune_phase(
-                golden_sd, card, ms_b1, {n: r["ms"] for n, r in train_records.items()}, tmp,
-                data_dir, prior_path)
+            launches_recompute, launches_store, launches_par, _, args_of, model_path = \
+                finetune_phase(golden_sd, card, ms_b1,
+                               {n: r["ms"] for n, r in train_records.items()}, tmp, data_dir,
+                               prior_path)
+            parallel_unroll_gate(golden_sd, device)
             profile_finetune(args_of)
+        with phase("semantic"):
+            launches_sem = semantic_phase(card, data_dir, tmp, prior_path, args_of)
         with phase("demo"):
             demo_phase(model_path, data_dir, tmp, card)
-    # each kernel's launches on the path that runs it: kernels 5 and 7 on the
+        with phase("quality"):
+            launches_quality = quality_phase(card, tmp)
+    # each kernel's launches on the paths that run it: kernels 5 and 7 on the
     # recompute finetune, kernels 8 and 9 and the shared kernel 6 on the
-    # store-probs finetune
+    # store-probs finetune; then the parallel finetunes, the semantic phase
+    # and the quality phase, each counted from 0 around its own run
     recompute_only = ("fused_layer_train_forward", "fused_layer_train_bwd_attn")
+    new_paths = (launches_par, launches_sem, launches_quality)
     train_launches = {n: (launches_recompute if n in recompute_only else launches_store)[n]
-                      for n in TRAIN_NAMES}
+                      + sum(p[n] for p in new_paths) for n in TRAIN_NAMES}
+    launches += sum(p["fused_encoder_layer"] for p in new_paths)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",

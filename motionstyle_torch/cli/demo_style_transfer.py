@@ -25,8 +25,8 @@ Run:  python -m motionstyle_torch.cli.demo_style_transfer \\
 
 Not on this slice (each raises before any work, naming its ROADMAP item):
 rendering and BVH output, the humanml and bandai datasets, long-form
-transfer, style strength and mixes, the parallel sampler, the forecast
-sampler of the humanml branch, mesh serving and profiling.
+transfer, style strength and mixes, the parallel and forecast samplers of
+the humanml branch, mesh serving and profiling.
 """
 from __future__ import annotations
 
@@ -53,8 +53,10 @@ REFUSED = (
     ("long_frames", lambda v: v > 0, "long-form transfer (ROADMAP §1 item 6)"),
     ("style_mix", bool, "style mixes (ROADMAP §1 item 6)"),
     ("style_strength", lambda v: v != 1.0, "style strength (ROADMAP §1 item 6)"),
-    ("parallel_window", lambda v: v > 0, "the Picard-parallel sampler (ROADMAP §1 item 2)"),
-    # the JAX demo reaches the forecast sampler only on its humanml branch
+    # the JAX demo reaches the parallel and the forecast samplers only on its
+    # humanml branch (motionstyle/cli/demo_style_transfer.py:121-165)
+    ("parallel_window", lambda v: v > 0,
+     "the Picard-parallel sampler of the humanml branch (ROADMAP §1 item 10)"),
     ("forecast_stride", lambda v: v > 1,
      "the forecast sampler of the humanml branch (ROADMAP §1 item 10)"),
     ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),

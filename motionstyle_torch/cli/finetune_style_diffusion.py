@@ -4,7 +4,9 @@ Counterpart of motionstyle/cli/finetune_style_diffusion.py (parity:
 train/finetune_style_diffusion.py): args.json config of record, neutral
 content generated by the frozen prior (a 1000-step DDPM stopped at 900,
 keeping the last x0, :195-212), the semantic-guidance caption edit (:279-286),
-training through the few-shot loss, and a final DDIM resample (:307-343).
+training through the few-shot loss (with --parallel_finetune 1 through the
+Picard-parallel unroll), --auto_stop's operating-point selection
+(AutoStopEvaluator, auto_stop.json) and a final DDIM resample (:307-343).
 With --fused_train 1 every training forward of the style encoder runs the
 CUDA training kernels (with --fused_train_store 1, which implies it, the
 store-probs forward and the stored attention backward; with
@@ -17,10 +19,9 @@ Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --mdm_path prior.pt --fused 1 --fused_train 1 --skip_render \\
         --train_platform_type NoPlatform [--device cuda]
 
-Not on this slice (each raises, naming its ROADMAP item): LoRA, --auto_stop,
---parallel_finetune, mesh training, orbax checkpoints, rendering, and the
-humanml/bandai datasets. --quant_int8 is refused too: neither package trains
-through the int8 layer.
+Not on this slice (each raises, naming its ROADMAP item): LoRA, mesh
+training, orbax checkpoints, rendering, and the humanml/bandai datasets.
+--quant_int8 is refused too: neither package trains through the int8 layer.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from motionstyle_torch.data.collate import get_dataset_loader, lengths_to_mask, 
 from motionstyle_torch.data.masks import get_inpainting_mask
 from motionstyle_torch.diffusion import sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting
+from motionstyle_torch.eval.style_metrics import transfer_report
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
 from motionstyle_torch.train.platforms import get_platform
@@ -49,8 +51,6 @@ DATASET_DEFAULTS = {
 # flag -> (value that means "off", what it needs), checked before any work
 UNSUPPORTED = {
     "lora_rank": (0, "LoRA finetuning (ROADMAP §1 item 3)"),
-    "auto_stop": (0, "--auto_stop (ROADMAP §1 item 2: eval/style_metrics.py)"),
-    "parallel_finetune": (0, "the Picard-parallel unroll (ROADMAP §1 item 2)"),
     "data_parallel": (0, "mesh training (ROADMAP §1 item 11)"),
     "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
     "fsdp": (0, "mesh training (ROADMAP §1 item 11)"),
@@ -102,6 +102,82 @@ def edit_caption_with_style(caption: str, style_label: str) -> str:
     words.pop(-1)
     words.insert(-1, style_label)
     return " ".join(words)
+
+
+class AutoStopEvaluator:
+    """--auto_stop: the finetune picks its own operating point
+    (motionstyle/cli/finetune_style_diffusion.py:332-423). Every `interval`
+    steps a transfer onto the generated neutral content is sampled with the
+    live model in eval mode and pinned noise (a torch.Generator seeded with
+    seed + 0xA57 for every evaluation; the demo's DDIM path: skip rescaled,
+    dump_all_xstart, pick -5, or -1 with fewer than 5 live steps), scored
+    with transfer_report, and the run stops at the first step that is both
+    styled (ratio < --auto_stop_ratio) and content-preserving (content >
+    --auto_stop_content). Once styling begins (ratio < 0.98) without the gate
+    met, evaluations densify to --auto_stop_fine steps. An evaluation draws
+    from no generator of the trainer's and leaves the optimizer alone."""
+
+    NEAR_KNEE_RATIO = 0.98
+
+    def __init__(self, args, model, sched_ddim, ds, neutral, input_motions, inp_mask,
+                 enc_neutral, m_length):
+        self.ratio_gate = float(args.auto_stop_ratio)
+        self.content_gate = float(args.auto_stop_content)
+        self.coarse = int(args.auto_stop_interval or args.save_interval)
+        self.fine = max(1, int(args.auto_stop_fine))
+        self.interval = self.coarse
+        self.trace = {}
+        self.selected = None
+        self.m_length = int(m_length)
+        self.seed = args.seed + 0xA57  # pinned noise: the metric moves with the weights only
+        self.skip = int(args.skip_steps / args.diffusion_steps * sched_ddim.num_timesteps)
+        self.pick = -5 if sched_ddim.num_timesteps - self.skip >= 5 else -1
+        self.model, self.sched, self.ds = model, sched_ddim, ds
+        self.neutral, self.inp_mask, self.enc_neutral = neutral, inp_mask, enc_neutral
+        self.content_hml = self._hml(neutral)
+        self.style_hml = self._hml(input_motions)
+
+    def _hml(self, x) -> np.ndarray:
+        """(1, C, 1, T) -> the denormalised (m_length, C) clip."""
+        return self.ds.inv_transform(np.asarray(torch.as_tensor(x).detach().cpu())[0, :, 0, :].T
+                                     )[: self.m_length]
+
+    def due(self, step: int) -> bool:
+        return step % self.interval == 0
+
+    def _sample(self) -> torch.Tensor:
+        model, was_training = self.model, self.model.training
+        model.eval()
+        try:
+            gen = torch.Generator(device=self.sched.device).manual_seed(self.seed)
+            xs = sampling.sample_loop(
+                self.sched, lambda x, t, c: model(x, t, c.get("enc_text")),
+                {"enc_text": self.enc_neutral}, gen, shape=tuple(self.neutral.shape),
+                init_image=self.neutral, method="ddim", skip_timesteps=self.skip,
+                inpainting=Inpainting(self.inp_mask, self.neutral), dump_all_xstart=True)
+        finally:
+            model.train(was_training)
+        return xs[self.pick]
+
+    def evaluate(self, step: int):
+        """Score the live weights; returns (gate_met, report)."""
+        rep = transfer_report(self._hml(self._sample()), self.content_hml, self.style_hml)
+        self.trace[step] = {k: float(v) for k, v in rep.items()}
+        ok = (rep["style_dist_ratio"] < self.ratio_gate
+              and rep["content_similarity"] > self.content_gate)
+        if ok:
+            self.selected = step
+        elif rep["style_dist_ratio"] < self.NEAR_KNEE_RATIO:
+            self.interval = self.fine  # near the knee: densify
+        print(f"[auto_stop] step {step}: ratio {rep['style_dist_ratio']:.3f} content "
+              f"{rep['content_similarity']:.3f}" + (" -> STOP (gate met)" if ok else ""))
+        return ok, rep
+
+    def dump(self, save_dir: str):
+        with open(pjoin(save_dir, "auto_stop.json"), "w") as fw:
+            json.dump({"selected_step": self.selected, "ratio_gate": self.ratio_gate,
+                       "content_gate": self.content_gate, "trace": self.trace},
+                      fw, indent=2, sort_keys=True)
 
 
 def main(argv=None):
@@ -176,16 +252,22 @@ def main(argv=None):
         diffusion_steps=args.diffusion_steps, use_ddim=bool(args.use_ddim),
         semantic_guidance=bool(args.semantic_guidance), ls_weight=args.Ls,
         cond_mask_prob=args.cond_mask_prob, resume_checkpoint=args.resume_checkpoint,
-        seed=args.seed)
+        seed=args.seed, parallel_unroll=bool(args.parallel_finetune))
     trainer = StyleFinetuneTrainer(ft_cfg, model, sched, platform)
     print("Total params: %.2fM trainable" % (
         sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6))
     trainer.install_preemption_handler()
+    auto = None
+    if args.auto_stop:
+        auto = AutoStopEvaluator(args, model, sched_ddim, ds, neutral, input_motions, inp_mask,
+                                 enc_neutral, m_length)
 
     step = 0
-    while step < args.num_steps and not trainer.preempted:
+    while step < args.num_steps and not trainer.preempted \
+            and (auto is None or auto.selected is None):
         for motion_b, cond in data:
-            if step >= args.num_steps or trainer.preempted:
+            if step >= args.num_steps or trainer.preempted \
+                    or (auto is not None and auto.selected is not None):
                 break
             texts = list(cond["y"]["text"])
             if args.semantic_guidance:  # f_s_d.py:268-285
@@ -205,11 +287,19 @@ def main(argv=None):
             }
             t0 = time.perf_counter()
             terms = trainer.run_step(batch)
+            sweeps = f", {terms['picard_sweeps']:.0f} sweeps" if "picard_sweeps" in terms else ""
             print(f"step[{step}]: loss[{terms['loss']:0.5f}] "
-                  f"({time.perf_counter() - t0:.3f} s)")
+                  f"({time.perf_counter() - t0:.3f} s{sweeps})")
             logger.dumpkvs()
             step += 1
+            if auto is not None and auto.due(step) and step < args.num_steps \
+                    and not trainer.preempted:
+                auto.evaluate(step)
     trainer.finish()
+    if auto is not None:
+        if auto.selected is None and not trainer.preempted:
+            auto.evaluate(step)  # the budget ran out: record where the run ended
+        auto.dump(args.save_dir)
     trainer.restore_signal_handlers()
     platform.close()
     if trainer.preempted:

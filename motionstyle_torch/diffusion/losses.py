@@ -13,10 +13,19 @@ gaussian_diffusion.py:1317-1399, few_shot_style_finetune_losses):
   - rot_mse = masked L2 of all dumped x0 predictions against the style target;
   - loss = rot_mse.mean() + ls_weight * (1 - cos(text_features, mu)).
 
+parallel_unroll replaces the sequential unroll by the Picard-parallel one
+(losses.py:140-195): the chain's states solved gradient-free in a few
+batched sweeps (diffusion/parallel_sampling.py), then one differentiable
+forward over all S*B (state, t) rows. The sequential unroll detaches the
+carried sample between steps, so its gradients too flow only through each
+step's own forward at a detached input: the two agree up to the Picard
+tolerance (for DDIM with eta=0, the finetune's default, up to tol_floor).
+Its terms also hold "picard_sweeps", the sweeps the states took.
+
 As the reference and the JAX package, the t2m noise is uniform (th.rand_like,
 gaussian_diffusion.py:1332), not Gaussian. `noise_t2m` and `noise` pin the
 two draws (the unroll's initial noise), as sample_loop's `noise=` does, so a
-test replays the JAX package's draws. Not on this slice: parallel_unroll.
+test replays the JAX package's draws.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch
 
 from motionstyle_torch.diffusion import ddpm, sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
+from motionstyle_torch.diffusion.parallel_sampling import (
+    parallel_sample_loop, tile_cond, tile_inpainting)
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
 
 _COS_EPS = 1e-6
@@ -63,6 +74,7 @@ def few_shot_style_finetune_loss(
     ls_weight: float = 10.0,
     noise_t2m: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    parallel_unroll: bool = False,
 ) -> dict:
     """The loss terms. x_start: dataset batch (B, C, 1, T), the semantic
     branch's input; x_content_start: the neutral content (the unroll's warm
@@ -85,11 +97,17 @@ def few_shot_style_finetune_loss(
         method, skip = "ddim", int(skip_steps / sched.original_num_steps * sched.num_timesteps)
     else:
         method, skip = "ddpm", skip_steps
-    xstarts = sampling.sample_loop(
-        sched, model_fn, cond_style, generator, shape=tuple(x_content_start.shape),
-        noise=noise, init_image=x_content_start, method=method, skip_timesteps=skip,
-        clip_denoised=False, inpainting=inpainting_style, dump_all_xstart=True,
-        differentiable=True, remat=True)  # (steps, B, C, 1, T)
+    if parallel_unroll:
+        xstarts, sweeps = _parallel_unroll_xstarts(
+            sched, model_fn, cond_style, generator, init_image=x_content_start,
+            method=method, skip=skip, inpainting=inpainting_style, noise=noise)
+        terms["picard_sweeps"] = torch.tensor(float(sweeps))
+    else:
+        xstarts = sampling.sample_loop(
+            sched, model_fn, cond_style, generator, shape=tuple(x_content_start.shape),
+            noise=noise, init_image=x_content_start, method=method, skip_timesteps=skip,
+            clip_denoised=False, inpainting=inpainting_style, dump_all_xstart=True,
+            differentiable=True, remat=True)  # (steps, B, C, 1, T)
 
     flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))  # noqa: E731
     target = x_style_start[None].expand(xstarts.shape)
@@ -100,3 +118,29 @@ def few_shot_style_finetune_loss(
         loss = loss + terms["text_cosine"] * ls_weight
     terms["loss"] = loss
     return terms
+
+
+def _parallel_unroll_xstarts(sched: DiffusionSchedule, model_fn: ModelFn, cond: dict,
+                             generator: Optional[torch.Generator], *,
+                             init_image: torch.Tensor, method: str, skip: int,
+                             inpainting: Optional[Inpainting],
+                             noise: Optional[torch.Tensor] = None) -> tuple:
+    """The Picard-parallel replacement of the differentiable sequential
+    unroll: (1) the chain's per-step states from parallel_sample_loop
+    (window min(64, S), gradient-free), detached; (2) one differentiable
+    p_mean_variance over the S*B rows with cond and the inpainting tiled.
+    Returns the x0 predictions (S, B, C, 1, T) in execution order and the
+    number of Picard sweeps."""
+    shape = tuple(init_image.shape)
+    S = sched.num_timesteps - skip
+    _, sweeps, states = parallel_sample_loop(
+        sched, model_fn, cond, generator, shape=shape, noise=noise, init_image=init_image,
+        method=method, skip_timesteps=skip, inpainting=inpainting, window=min(64, S),
+        dump_states=True)
+    states = states.detach()
+    B = shape[0]
+    t_flat = torch.arange(S - 1, -1, -1, device=states.device).repeat_interleave(B)
+    pmv = ddpm.p_mean_variance(sched, model_fn, states.reshape((S * B,) + shape[1:]), t_flat,
+                               tile_cond(cond, S), clip_denoised=False,
+                               inpainting=tile_inpainting(inpainting, S))
+    return pmv.pred_xstart.reshape((S, B) + shape[1:]), sweeps

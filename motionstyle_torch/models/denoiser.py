@@ -236,13 +236,17 @@ class StyleDiffusion(nn.Module):
         return self.output_head(self.mdm.run_encoder(self.style_encoder, xseq,
                                                      deterministic, generator))
 
-    def encode_motion(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-        """MotionEncoder.forward :90-124 -> mu (B, d), deterministic and
-        unfused as the JAX package's finetune calls it; gradients reach x.
+    def encode_motion(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """MotionEncoder.forward :90-124 -> mu (B, d) through the plain
+        (unfused) layers, as the JAX package runs it; gradients reach x.
+        Deterministic as the finetune calls it; deterministic=False is the
+        semantic trainer's training forward (dropout from `generator`).
         x (B, C, F, T); frame_mask (B, T) with True = valid frame."""
         return _encode_motion_mu(self.mdm, self.mu_query, self.sigma_query,
-                                 self.motion_enc_encoder, x, frame_mask)
+                                 self.motion_enc_encoder, x, frame_mask, deterministic,
+                                 generator)
 
     @staticmethod
     def is_trainable(name: str) -> bool:
@@ -252,7 +256,9 @@ class StyleDiffusion(nn.Module):
 
 
 def _encode_motion_mu(mdm: MDM, mu_query, sigma_query, encoder: TransformerEncoder,
-                      x: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                      x: torch.Tensor, frame_mask: Optional[torch.Tensor],
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """[mu token; sigma token; frame tokens] + pe through the discriminator's
     encoder with a key-padding mask over the frames; returns the mu token
     (JAX _encode_motion_mu, denoiser.py:390-406)."""
@@ -262,12 +268,12 @@ def _encode_motion_mu(mdm: MDM, mu_query, sigma_query, encoder: TransformerEncod
     d = h.shape[-1]
     xseq = torch.cat([mu_query.to(dt).expand(B, 1, d), sigma_query.to(dt).expand(B, 1, d), h],
                      dim=1)
-    xseq = mdm.apply_pe(xseq)
+    xseq = mdm.apply_pe(xseq, deterministic, generator)
     if frame_mask is None:
         frame_mask = torch.ones((B, T), dtype=torch.bool, device=x.device)
     kpm = torch.cat([torch.ones((B, 2), dtype=torch.bool, device=x.device),
                      frame_mask.to(device=x.device, dtype=torch.bool)], dim=1)
-    return encoder(xseq, kpm, dtype=dt)[:, 0]
+    return encoder(xseq, kpm, dtype=dt, deterministic=deterministic, generator=generator)[:, 0]
 
 
 def mask_cond(enc_text: torch.Tensor, cond_mask_prob: float,

@@ -10,7 +10,8 @@ strips everything else at save time, training_loop.py:316-335);
 export_style_encoder writes one and convert_encoder reads one; export_mdm
 writes a prior and from_torch_state_dict reads one. A semantic
 discriminator checkpoint (--semantic_discriminator_path) holds muQuery,
-sigmaQuery and its own 'seqTransEncoder.layers.{i}.*'.
+sigmaQuery and its own 'seqTransEncoder.layers.{i}.*';
+export_semantic_discriminator writes one.
 
 flax trees: Dense kernels are (in, out) where torch weights are (out, in);
 LayerNorm 'scale' is torch's 'weight'; the packed in-projection is one
@@ -73,6 +74,19 @@ def export_style_encoder(model: nn.Module) -> Dict[str, torch.Tensor]:
     model*.pt holds once the frozen modules are stripped
     (training_loop.py:316-335)."""
     return export_encoder(model.style_encoder)
+
+
+def export_semantic_discriminator(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The semantic discriminator of a StyleDiffusion in the reference layout
+    (muQuery, sigmaQuery and its encoder as 'seqTransEncoder.layers.{i}.*'),
+    a --semantic_discriminator_path checkpoint for either package: the
+    counterpart of motionstyle/models/torch_import.py:225
+    export_semantic_discriminator. from_torch_state_dict(part='semantic')
+    reads it back."""
+    sd = export_encoder(model.motion_enc_encoder)
+    sd["muQuery"] = model.mu_query.detach().float().cpu().clone()
+    sd["sigmaQuery"] = model.sigma_query.detach().float().cpu().clone()
+    return sd
 
 
 def export_mdm(mdm: nn.Module) -> Dict[str, torch.Tensor]:

@@ -745,13 +745,16 @@ def fused_encoder_layer_train(x, params: dict, num_heads: int, masks=None,
     (autograd leaves or not); masks from make_dropout_masks or None, or seeds
     (B,) int32 with the rate for the in-kernel prng dropout (one or the
     other, :797-800); store_probs selects the store-probs forward and stored
-    backward."""
+    backward. Under torch.no_grad() (the parallel unroll's Picard sweeps)
+    nothing reads the stored probs, so the recompute forward runs: its out is
+    the store forward's, bit for bit."""
     B, S, _ = x.shape
     _check_dropout(masks, seeds, rate)
     kmask = additive_key_mask(key_padding_mask, B, S, x.device)
     m0, m1, m2 = masks if masks is not None else (None, None, None)
+    store = bool(store_probs) and torch.is_grad_enabled()
     return FusedLayerTrain.apply(x, kmask, m0, m1, m2, seeds, float(rate), num_heads,
-                                 bool(store_probs), *(params[k] for k in PARAM_KEYS))
+                                 store, *(params[k] for k in PARAM_KEYS))
 
 
 def fused_encoder_train(x: torch.Tensor, layers: Sequence[dict], num_heads: int,

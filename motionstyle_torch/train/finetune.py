@@ -13,7 +13,9 @@ config, draws each step's timesteps, the t2m noise and the unroll's initial
 noise. Each denoiser call re-seeds its own generators for dropout and the
 condition mask from (a per-step seed, the call's timestep), as the JAX
 trainer folds t into its dropout key; a step recomputed under
-torch.utils.checkpoint therefore draws the same masks again.
+torch.utils.checkpoint therefore draws the same masks again. A batched
+forward over several timesteps (the parallel unroll's) seeds its draws from
+its first row's timestep, as the JAX trainer's does.
 
 optax.adamw and torch.optim.AdamW compute the same update: decoupled decay
 lr * wd * param, bias-corrected moments, eps added to sqrt(v_hat). So the
@@ -64,6 +66,10 @@ class FinetuneConfig:
     cond_mask_prob: float = 0.1
     resume_checkpoint: str = ""
     seed: int = 10
+    # the Picard-parallel unroll (diffusion/losses.py _parallel_unroll_xstarts):
+    # the DDIM chain's states in batched sweeps, gradients through one
+    # batched forward
+    parallel_unroll: bool = False
 
 
 def parse_resume_step_from_filename(filename: str) -> int:
@@ -222,7 +228,8 @@ class StyleFinetuneTrainer(PreemptionMixin):
             semantic_guidance=cfg.semantic_guidance,
             motion_enc_fn=(lambda motion, cond: self.model.encode_motion(
                 motion, cond.get("frame_mask"))) if cfg.semantic_guidance else None,
-            text_features=batch.get("text_features"), ls_weight=cfg.ls_weight, **pinned)
+            text_features=batch.get("text_features"), ls_weight=cfg.ls_weight,
+            parallel_unroll=cfg.parallel_unroll, **pinned)
 
     def train_step(self, batch: dict, t: torch.Tensor, step_seed: int, **pinned) -> dict:
         """One AdamW step on the style encoder; returns the loss terms."""

@@ -467,7 +467,7 @@ def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lora_rank", "4"], ["--auto_stop", "1"], ["--parallel_finetune", "1"],
+    ["--lora_rank", "4"], ["--fsdp", "1"], ["--model_parallel", "2"],
     ["--data_parallel", "1"], ["--quant_int8", "1"], ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
     ["--render"], ["--train_platform_type", "TensorboardPlatform"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
@@ -481,11 +481,16 @@ def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """motionstyle_torch and chip_smoke.py import nothing of JAX or of the
-    JAX package."""
+    """motionstyle_torch (its quality protocol, semantic trainer, parallel
+    sampler and style metrics among them), chip_smoke.py and profile_layers.py
+    import nothing of JAX or of the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
-    files.append(os.path.join(root, "chip_smoke.py"))
+    files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
+                                              "quality_sweep.py")]
+    for new in ("eval/style_metrics.py", "eval/quality_protocol.py", "train/semantic.py",
+                "diffusion/parallel_sampling.py", "cli/train_semantic_discriminator.py"):
+        assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)
     offenders = [f for f in files if bad.search(open(f).read())]
