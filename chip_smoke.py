@@ -106,7 +106,12 @@ Phases, each printed on its own line with its seconds:
      pretrain phase's mdm.pt, every training launch in prng mode; then the
      loss called directly at full width with dropout 0, parallel unroll
      against sequential (rot_mse and every style-encoder gradient leaf);
-     then a short store run under torch.profiler.
+     then 2 steps without --skip_render (the noised and clean neutral
+     motions as BVH and video, the style example's reconstruction as video:
+     the files, each BVH read back, both IK fits on the card against the
+     same fits on the CPU, each stage's seconds) and 2 steps with
+     --quant_int8 1 (kernel 2 in the gradient-free forwards, kernels 1 and
+     5-9 never); then a short store run under torch.profiler.
  15. semantic: the semantic-discriminator CLI at full width (batch 64,
      --fused_train 1) from the pretrain phase's prior for a few steps:
      losses, seconds per step, the frozen prior and style encoder bit-equal,
@@ -115,7 +120,13 @@ Phases, each printed on its own line with its seconds:
  16. demo: the demo CLI on the store run's model*.pt and args.json, 8
      samples, --skip_render, with --fused 1 and with --quant_int8 1:
      results.npy, the kept root channels, the kernels' launches and the
-     int8 result's deviation from the bf16 one.
+     int8 result's deviation from the bf16 one; then --fused 1 with one
+     repetition and without --skip_render: three IK-fitted BVH files (read
+     back, finite, (frames, 20)), three renders (mp4, or gif without
+     ffmpeg), the IK's tensors on the card and each fit within POST_IK_REL
+     of the same fit on the CPU with its error no larger than the start's,
+     kernel 1's 16 launches, and the seconds of each foot-skate pass, IK fit
+     and render.
  17. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
@@ -1576,9 +1587,13 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     --fused_train_store 1 --parallel_finetune 1 and --fused_train_store 1
     (kernels 8, 6, 9; the sweeps on kernel 5); then 2 steps of
     --fused_train_prng 1 (kernels 5, 6, 7 with kernel 10, no mask arrays)
-    from the pretrain phase's prior (prior_path). Each run's counts are set
-    to 0 just before it and read just after. Returns each masks path's
-    training kernel launches, the parallel runs' launches, the prng run's
+    from the pretrain phase's prior (prior_path); then 2 steps of
+    --fused_train 1 without --skip_render (the post chain's files and stages,
+    check_post_outputs) and 2 with --quant_int8 1 (kernel 2 at inference,
+    the plain layers in training). Each run's counts are set to 0 just
+    before it and read just after. Returns each masks path's
+    training kernel launches, the launches of the parallel, rendering
+    (without --skip_render) and int8 (--quant_int8 1) runs, the prng run's
     counts, the function that builds the CLI's arguments and the store run's
     last model*.pt."""
     import csv
@@ -1586,29 +1601,31 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
     import numpy as np
     import torch
 
+    from motionstyle_torch.cli import finetune_style_diffusion as finetune_cli
     from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
     from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
     from motionstyle_torch.models.params import convert_encoder, seeded_init_
     from motionstyle_torch.ops import fused_encoder_train as ft
-    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
 
     steps, layers, seed = FINETUNE_STEPS, FINETUNE_LAYERS, 10
-    counted = [getattr(ft, n) for n in TRAIN_NAMES] + [fused_encoder_layer]
+    counted = [getattr(ft, n) for n in TRAIN_NAMES] + [fused_encoder_layer,
+                                                       fused_encoder_layer_int8]
     mdm_path = os.path.join(tmp_root, "mdm_golden.pt")
     torch.save({k: torch.as_tensor(v) for k, v in golden_sd.items()}, mdm_path)
 
     def finetune_args(data_dir: str, save_dir: str, num_steps: int, train_flag: str,
-                      prior: str = mdm_path, extra=()) -> list:
+                      prior: str = mdm_path, extra=(), skip_render: bool = True) -> list:
         return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", prior,
                 "--save_dir", save_dir, "--fused", "1", train_flag, "1",
                 "--batch_size", str(FINETUNE_BATCH), "--layers", str(layers),
-                "--num_steps", str(num_steps), "--skip_render",
+                "--num_steps", str(num_steps), *(["--skip_render"] if skip_render else []),
                 "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda",
                 *extra]
 
     def run(train_flag: str, save_root: str, steps: int = steps, prior: str = mdm_path,
-            extra=()) -> dict:
-        label = " ".join([f"{train_flag} 1", *extra])
+            extra=(), skip_render: bool = True) -> dict:
+        label = " ".join([f"{train_flag} 1", *extra] + ([] if skip_render else ["(render)"]))
         torch.cuda.reset_peak_memory_stats()
         # the Xia loader draws captions and crops from Python's global random
         # (as the reference's loader does): seed it so every run sees one batch
@@ -1619,7 +1636,7 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
         _zero_counts(ft)
         t0 = time.perf_counter()
         save_dir = finetune_main(finetune_args(data_dir, save_root, steps, train_flag, prior,
-                                               extra))
+                                               extra, skip_render))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in counted}
@@ -1647,7 +1664,8 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
               flush=True)
         check(moved > 0.0, f"{label}: the style encoder's weights moved")
         return dict(launches=launches, losses=losses, secs=secs, sweeps=sweeps, peak_gb=peak_gb,
-                    model_path=os.path.join(save_dir, ckpts[-1]), label=label)
+                    model_path=os.path.join(save_dir, ckpts[-1]), label=label,
+                    save_dir=save_dir)
 
     # DDIM-20 skip 700 of 1000: 6 unrolled steps, each recomputed under
     # checkpoint, plus the semantic branch's forward; 8 layers each
@@ -1747,6 +1765,38 @@ def finetune_phase(golden_sd, card: str, kernel_ms_b1: dict, kernel_ms_b64: dict
                             f"arrays, kernels 8 and 9 never")
     parallel = {k.__name__: rec_p["launches"][k.__name__] + store_p["launches"][k.__name__]
                 for k in counted}
+
+    # the post chain: 2 steps without --skip_render, IK on the card
+    post_steps = 2
+    with post_stage_watch(finetune_cli) as stages:
+        rendered = run("--fused_train", os.path.join(tmp_root, "ft_render"), post_steps,
+                       skip_render=False)
+    files = sorted(os.listdir(rendered["save_dir"]))
+    print(f"  {rendered['label']}: writes {files}", flush=True)
+    style_frames = clip_length(data_dir, STYLE_EXAMPLE)
+    check_post_outputs(rendered["save_dir"], FINETUNE_POST_FILES, stages,
+                       {f: style_frames for f in FINETUNE_POST_FILES if f.endswith(".bvh")},
+                       "finetune without --skip_render", fits=2, renders=3, passes=1)
+    fwd_r, bwd_r = layers * (1 + 2 * unroll) * post_steps, layers * (1 + unroll) * post_steps
+    want_r = dict.fromkeys(TRAIN_NAMES, 0)
+    want_r.update(fused_layer_train_forward=fwd_r, fused_layer_train_bwd_ffn=bwd_r,
+                  fused_layer_train_bwd_attn=bwd_r)
+    check({n: rendered["launches"][n] for n in TRAIN_NAMES} == want_r
+          and rendered["launches"]["fused_encoder_layer"] == layers * (100 + unroll),
+          f"{rendered['label']}: training kernel launches == {want_r}, kernel 1 8 x 106")
+    # fault E repaired: under --quant_int8 1 the gradient-free forwards run
+    # kernel 2 and the training forwards the plain layers (no kernel 5-9)
+    int8 = run("--fused_train", os.path.join(tmp_root, "ft_int8"), post_steps,
+               extra=["--quant_int8", "1"])
+    got8 = {n: int8["launches"][n] for n in TRAIN_NAMES + ("fused_encoder_layer_int8",
+                                                          "fused_encoder_layer")}
+    print(f"  {int8['label']}: launches {got8}; losses {int8['losses']}", flush=True)
+    check(got8 == dict(dict.fromkeys(TRAIN_NAMES, 0), fused_encoder_layer=0,
+                       fused_encoder_layer_int8=layers * (100 + unroll)),
+          f"{int8['label']}: kernel 2 launched 8 x (100 neutral DDPM steps + 6 DDIM steps), "
+          "kernels 1 and 5-9 never (the training forwards on the plain layers)")
+    for k in counted:
+        parallel[k.__name__] += rendered["launches"][k.__name__] + int8["launches"][k.__name__]
     return launches, launches_s, parallel, counts, finetune_args, store["model_path"]
 
 
@@ -2071,6 +2121,122 @@ def profile_finetune(args_of) -> None:
         print(f"    {event_device_us(e) / 1e3:10.3f} ms {e.count:7d} x  {e.key[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the post chain: foot-skate cleanup and renders on the host, IK on
+# the card
+# ---------------------------------------------------------------------------
+
+STYLE_EXAMPLE = "350angry_jumping.npy"  # the finetune's default style example
+FINETUNE_POST_FILES = ("generated_neutral_motion.bvh", "generated_neutral_motion00",
+                       "generated_noised_neutral_motion.bvh",
+                       "generated_noised_neutral_motion00", "style_example_rec00")
+DEMO_POST_FILES = ("input_content_motion.bvh", "input_style_example.bvh",
+                   "out_transferred_motion.bvh", "input_content_motion00",
+                   "input_style_motion00", "output_transferred_motion00_rep00")
+# the IK fit on the card against the same fit on the CPU: rel L2 of the
+# fitted joints (fp32 FK in another order through 100 Adam steps, whose
+# first steps divide by the gradient's own magnitude)
+POST_IK_REL = 1e-3
+
+
+def clip_length(data_dir: str, name: str) -> int:
+    """The frames a CLI takes from a clip of the corpus (the 76-frame window)."""
+    from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
+
+    ds = StyleMotionDataset(get_opt("stylexia_posrot", data_dir), split="test")
+    return int(ds.process_np_motion(os.path.join(ds.opt.motion_dir, name))[1])
+
+
+@contextmanager
+def post_stage_watch(module):
+    """Wrap the post chain's three entry points where a CLI module calls them
+    (remove_fs, fit_joints_bvh, plot_3d_motion): each call's seconds and each
+    fit's inputs and result, {name: [record, ...]}; restored on exit."""
+    import numpy as np
+
+    stages = {"remove_fs": [], "fit_joints_bvh": [], "plot_3d_motion": []}
+    saved = {n: getattr(module, n) for n in stages}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)  # a fit ends in a copy to the host: synchronised
+            rec = {"s": time.perf_counter() - t0}
+            if name == "fit_joints_bvh":  # (path, initial_data, skeleton, real_offsets, glb)
+                rec.update(data=np.array(a[1]), skeleton=a[2], offsets=a[3],
+                           target=np.array(a[4]), result=out)
+            stages[name].append(rec)
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield stages
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def check_ik_fits(fits: list, label: str) -> None:
+    """Each fit's tensors on the card, its joints within POST_IK_REL of the
+    same fit on the CPU, and its error to the target no larger than the
+    start's."""
+    import torch
+
+    from motionstyle_torch.core.features import recover_root_rot_pos
+    from motionstyle_torch.post.ik import fit_hmlvec_ik
+
+    for i, f in enumerate(fits):
+        res, skel, offs = f["result"], f["skeleton"], f["offsets"]
+        check(all(t.is_cuda for t in res), f"{label}: IK fit {i}'s tensors on the card")
+        cpu = fit_hmlvec_ik(torch.as_tensor(f["data"]), skel, offs, torch.as_tensor(f["target"]),
+                            iters=100)
+        j, data = skel.njoints, torch.as_tensor(f["data"])
+        q0, p0 = recover_root_rot_pos(data)
+        start = skel.forward_kinematics_real_cont6d(
+            data[..., 4 + (j - 1) * 3:].reshape(data.shape[:-1] + (j, 6)), p0, q0, offs)
+        card = skel.forward_kinematics_real_cont6d(res.cont6d.cpu(), res.r_pos.cpu(),
+                                                   res.r_rot_quat.cpu(), offs)
+        host = skel.forward_kinematics_real_cont6d(cpu.cont6d, cpu.r_pos, cpu.r_rot_quat, offs)
+        target = torch.as_tensor(f["target"])
+        rel = rel_l2(card, host)
+        before, after = (float((x - target).abs().mean()) for x in (start, card))
+        print(f"  {label}: IK fit {i} ({len(data)} frames, 100 Adam steps) {f['s']:.4f} s on "
+              f"{res.cont6d.device}; joints vs the CPU fit rel L2 {rel:.6g}; mean |error| "
+              f"{before:.6g} -> {after:.6g}", flush=True)
+        check(rel <= POST_IK_REL, f"{label}: IK fit {i} on the card within rel L2 "
+                                  f"{POST_IK_REL} of the CPU fit")
+        check(after <= before, f"{label}: IK fit {i}'s error after <= before")
+
+
+def check_post_outputs(out_dir: str, names, stages: dict, bvh_frames: dict, label: str,
+                       fits: int, renders: int, passes: int = 0) -> None:
+    """The post chain's files in out_dir (a .bvh as named, a render as .mp4
+    or .gif), each BVH read back as (frames, 20) and finite, the calls of each
+    stage, the IK fits (check_ik_fits) and each stage's seconds."""
+    import numpy as np
+
+    from motionstyle_torch.post.bvh import read_bvh
+
+    files = set(os.listdir(out_dir))
+    for name in names:
+        found = name in files if name.endswith(".bvh") else bool(
+            {name + ".mp4", name + ".gif"} & files)
+        check(found, f"{label}: writes {name}" + ("" if name.endswith(".bvh") else ".mp4/.gif"))
+    for name, frames in bvh_frames.items():
+        anim = read_bvh(os.path.join(out_dir, name))
+        check(anim.shape == (frames, 20) and bool(np.isfinite(anim.quats).all()
+                                                  and np.isfinite(anim.pos).all()),
+              f"{label}: {name} reads back as ({frames}, 20), finite")
+    got = {n: len(v) for n, v in stages.items()}
+    want = {"remove_fs": passes, "fit_joints_bvh": fits, "plot_3d_motion": renders}
+    check(got == want, f"{label}: post calls {want} (got {got})")
+    check_ik_fits(stages["fit_joints_bvh"], label)
+    print(f"  {label}: stage seconds: " + "; ".join(
+        f"{n} {[round(r['s'], 4) for r in v]}" for n, v in stages.items()), flush=True)
+
+
 DEMO_CONTENT = "103neutral_punching.npy"  # a neutral clip of write_xia_corpus's corpus
 DEMO_SAMPLES = 8
 RESULT_KEYS = {"motion", "text", "lengths", "num_samples", "num_repetitions", "hml"}
@@ -2084,10 +2250,14 @@ def demo_phase(model_path: str, data_dir: str, out_root: str, card: str) -> int:
     each run's kernel launches, and the int8 hml's mean relative deviation
     from the bf16 hml (the JAX package's own bound for an int8 sampling
     chain, tests/test_fused_encoder.py::test_int8_sampling_chain_bounded_
-    deviation). Returns kernel 2's launches in its run."""
+    deviation). Then once more with --fused 1 and without --skip_render:
+    the post chain's files and stages (check_post_outputs: three IK fits on
+    the card against the CPU's, two foot-skate passes, three renders).
+    Returns kernel 2's launches in its run."""
     import numpy as np
     import torch
 
+    from motionstyle_torch.cli import demo_style_transfer as demo_cli
     from motionstyle_torch.cli.demo_style_transfer import main as demo_main
     from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
     from motionstyle_torch.data.masks import get_inpainting_mask
@@ -2132,6 +2302,32 @@ def demo_phase(model_path: str, data_dir: str, out_root: str, card: str) -> int:
                 / np.abs(hml["--fused"]).mean())
     print(f"  demo: int8 hml against bf16 hml, mean relative deviation {dev:.6g}", flush=True)
     check(dev < 0.1, "demo: int8 hml within mean relative deviation 0.1 of the bf16 hml")
+
+    # the post chain: --fused 1, one repetition, without --skip_render
+    label = "demo --fused 1 (render)"
+    fused_encoder_layer.launches = fused_encoder_layer_int8.launches = 0
+    t0 = time.perf_counter()
+    with post_stage_watch(demo_cli) as stages:
+        out = demo_main(["--model_path", model_path, "--input_content", DEMO_CONTENT,
+                         "--data_dir", data_dir, "--num_samples", str(DEMO_SAMPLES),
+                         "--output_dir", os.path.join(out_root, "render"), "--fused", "1",
+                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (fused_encoder_layer.launches, fused_encoder_layer_int8.launches)
+    res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+    print(f"  {label}: whole CLI run {wall:.4f} s on {card}; writes {sorted(os.listdir(out))}; "
+          f"kernel launches (1, 2) {got}", flush=True)
+    check(got == (2 * FINETUNE_LAYERS * res["num_repetitions"], 0) and res["num_repetitions"] == 1,
+          f"{label}: kernel 1 launched {2 * FINETUNE_LAYERS} times in its one repetition, "
+          "kernel 2 never")
+    check(set(res) == RESULT_KEYS and bool(np.isfinite(res["hml"]).all()),
+          f"{label}: results.npy unchanged in schema, finite")
+    content_frames = clip_length(data_dir, DEMO_CONTENT)
+    check_post_outputs(out, DEMO_POST_FILES, stages, {
+        "input_content_motion.bvh": content_frames, "out_transferred_motion.bvh": content_frames,
+        "input_style_example.bvh": clip_length(data_dir, STYLE_EXAMPLE)}, label, fits=3,
+        renders=3, passes=2)
     return launches["--quant_int8"][0]
 
 
@@ -2704,13 +2900,15 @@ def main() -> int:
             launches_quality = quality_phase(card, tmp)
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
     # recompute finetune, kernels 8 and 9 and the shared kernel 6 on the
-    # store-probs finetune; then the parallel finetunes, the semantic phase
-    # and the quality phase, each counted from 0 around its own run
+    # store-probs finetune; then the parallel, rendering and int8 finetunes,
+    # the semantic phase and the quality phase, each counted from 0 around
+    # its own run
     recompute_only = ("fused_layer_train_forward", "fused_layer_train_bwd_attn")
     new_paths = (launches_par, launches_sem, launches_quality)
     train_launches = {n: (launches_recompute if n in recompute_only else launches_store)[n]
                       + sum(p[n] for p in new_paths) for n in TRAIN_NAMES}
     launches += sum(p["fused_encoder_layer"] for p in new_paths)
+    launches_int8 += launches_par["fused_encoder_layer_int8"]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",

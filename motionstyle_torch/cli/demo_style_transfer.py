@@ -1,8 +1,8 @@
 """Style-transfer demo CLI of the PyTorch port: transfer a finetuned style onto
-one content motion and write results.npy.
+one content motion and write results.npy, IK-fitted BVH and videos.
 
 Counterpart of motionstyle/cli/demo_style_transfer.py on its stylexia path
-with --skip_render (parity: sample/demo_style_transfer.py): the args.json
+(parity: sample/demo_style_transfer.py): the args.json
 beside --model_path supplies the run's model and data flags
 (parser_util.eval_inpainting_style_args), the content clip is z-normed and
 padded to the 76-frame window, the caption is 'A person is {content}
@@ -12,7 +12,14 @@ t=4 and picked as the JAX CLI picks (sampling.min_latency_plan: 2 denoiser
 calls at skip 14). The sample is denormalised and decoded to joints
 (core/features.py::recover_from_ric). results.npy has the JAX CLI's schema:
 motion (N, J, 3, T), text, lengths, num_samples, num_repetitions and the
-denormalised hml_vec under "hml".
+denormalised hml_vec under "hml". Without --skip_render it then writes what
+the JAX CLI writes (:414-475): the content clip and the style example as
+IK-fitted BVH (post/ik.py::fit_joints_bvh, 100 Adam steps on the run's
+device), the first sample foot-skate cleaned twice (post/footskate.py, on the
+host) and IK-fitted to out_transferred_motion.bvh, 2 + --num_repetitions
+videos (post/render.py: mp4, or gif without ffmpeg) and, with more than one
+repetition and ffmpeg, their hstack sample00.mp4. --skip_render returns
+before any of that.
 
 With --fused 1 every encoder layer runs the CUDA layer of kernel 1, with
 --quant_int8 1 the int8 CUDA layer of kernel 2. Noise comes from a
@@ -21,17 +28,18 @@ the JAX CLI's for the same seed.
 
 Run:  python -m motionstyle_torch.cli.demo_style_transfer \\
         --model_path save/ft/350angry_jumping/model000000024.pt \\
-        --input_content 306neutral_running.npy --skip_render [--quant_int8 1]
+        --input_content 306neutral_running.npy [--skip_render] [--quant_int8 1]
 
 Not on this slice (each raises before any work, naming its ROADMAP item):
-rendering and BVH output, the humanml and bandai datasets, long-form
-transfer, style strength and mixes, the parallel and forecast samplers of
-the humanml branch, mesh serving and profiling.
+the humanml and bandai datasets, long-form transfer, style strength and
+mixes, the parallel and forecast samplers of the humanml branch, mesh
+serving and profiling.
 """
 from __future__ import annotations
 
 import os
 import shutil
+import subprocess
 import time
 from os.path import join as pjoin
 
@@ -39,14 +47,19 @@ import numpy as np
 import torch
 
 from motionstyle_torch.cli import model_util
+from motionstyle_torch.cli.finetune_style_diffusion import skeleton_assets
 from motionstyle_torch.cli.parser_util import eval_inpainting_style_args
 from motionstyle_torch.core.features import recover_from_ric
 from motionstyle_torch.data.collate import get_dataset_loader
-from motionstyle_torch.data.masks import get_inpainting_mask
+from motionstyle_torch.data.masks import BVH_JOINT_NAMES, get_inpainting_mask
 from motionstyle_torch.diffusion import sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting
+from motionstyle_torch.post.footskate import remove_fs
+from motionstyle_torch.post.ik import fit_joints_bvh
+from motionstyle_torch.post.render import plot_3d_motion
 
-DATASETS = {"stylexia_posrot": dict(max_frames=76, joints=20, example="350angry_jumping.npy")}
+DATASETS = {"stylexia_posrot": dict(max_frames=76, joints=20, fps=20,
+                                    example="350angry_jumping.npy")}
 
 # flag, when it asks for something not ported, what it needs
 REFUSED = (
@@ -72,11 +85,6 @@ def check_supported(args) -> None:
         if asks(getattr(args, flag)):
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
-    if not args.skip_render:
-        raise NotImplementedError(
-            "rendering, BVH output and foot-skate cleanup are not ported to motionstyle_torch "
-            "(ROADMAP §1 item 1: the post chain, core/skeleton.py, core/params.py); "
-            "pass --skip_render")
     if args.dataset not in DATASETS:
         raise NotImplementedError(
             f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
@@ -129,7 +137,7 @@ def main(argv=None):
 
     if not args.style_example:
         args.style_example = spec["example"]
-    load_clip(args.style_example)  # read as the JAX CLI reads it; only its renders use it
+    input_motions, style_m_length = load_clip(args.style_example)  # for the outputs only
 
     texts = [caption(args, name)] * args.num_samples
     print(f'caption: "{texts[0]}"')
@@ -180,8 +188,66 @@ def main(argv=None):
         # the JAX CLI's extra key: the denormalised hml_vec outputs
         "hml": np.concatenate(all_hml, axis=0),
     })
+    if not args.skip_render:
+        write_outputs(args, ds, spec, out_path, content, m_length, input_motions,
+                      style_m_length, all_motions, all_hml, all_text, dev)
     print(f"[Done] Results are at [{os.path.abspath(out_path)}]")
     return out_path
+
+
+def write_outputs(args, ds, spec, out_path, content, m_length, input_motions, style_m_length,
+                  all_motions, all_hml, all_text, dev) -> None:
+    """The demo's BVH and video outputs (motionstyle/cli/demo_style_transfer.py
+    :414-475, stylexia): three IK fits on `dev`, two foot-skate passes and
+    2 + num_repetitions renders on the host."""
+    skel, real_offsets, chains, ee_names = skeleton_assets(args.dataset)
+    bones = BVH_JOINT_NAMES[args.dataset]
+
+    def joints_of(clip):
+        denorm = ds.inv_transform(clip[0, :, 0, :].T.cpu().numpy())
+        return denorm, recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32),
+                                        spec["joints"]).numpy()
+
+    content_denorm, content_joints = joints_of(content)
+    style_denorm, style_joints = joints_of(input_motions)
+    ref_motion = content_joints[:m_length]
+
+    print(f"saving visualizations to [{out_path}]...")
+    fit_joints_bvh(pjoin(out_path, "input_content_motion.bvh"), content_denorm[:m_length],
+                   skel, real_offsets, ref_motion, names=bones, device=dev)
+    fit_joints_bvh(pjoin(out_path, "input_style_example.bvh"), style_denorm[:style_m_length],
+                   skel, real_offsets, style_joints[:style_m_length], names=bones, device=dev)
+
+    length = int(m_length)
+    fs_motion = all_motions[0][0].transpose(2, 0, 1)[:length].copy()
+    fs_motion, _, _, _ = remove_fs(fs_motion, ref_motion, bones, ee_names, force_on_floor=True,
+                                   after_butterworth=True, use_vel3=True, vel3_thr=0.05)
+    fs_motion, _, _, _ = remove_fs(fs_motion, fs_motion, bones, ee_names, force_on_floor=True,
+                                   after_butterworth=True, use_vel3=True, vel3_thr=0.05)
+    fit_joints_bvh(pjoin(out_path, "out_transferred_motion.bvh"), all_hml[0][0, :length],
+                   skel, real_offsets, fs_motion, names=bones, device=dev)
+
+    rep_files = []
+    for title, motion, fname in (
+            ("Input Content Motion", content_joints[:m_length], "input_content_motion00.mp4"),
+            ("Input Style Motion", style_joints[:style_m_length], "input_style_motion00.mp4")):
+        p = pjoin(out_path, fname)
+        plot_3d_motion(p, chains, motion, title=title, dataset=args.dataset, fps=spec["fps"],
+                       vis_mode="gt")
+        rep_files.append(p)
+    for rep_i in range(args.num_repetitions):
+        caption_ = (f"style transferred motion: {all_text[rep_i * args.batch_size]}"
+                    if args.guidance_param else "style transferred motion")
+        p = pjoin(out_path, f"output_transferred_motion00_rep{rep_i:02d}.mp4")
+        plot_3d_motion(p, chains, fs_motion, title=caption_, dataset=args.dataset,
+                       fps=spec["fps"], vis_mode=args.inpainting_mask,
+                       painting_features=args.inpainting_mask.split(","))
+        rep_files.append(p)
+    if args.num_repetitions > 1 and shutil.which("ffmpeg"):
+        inputs = [a for f in rep_files for a in ("-i", f)]
+        subprocess.run(["ffmpeg", "-y", "-loglevel", "warning", *inputs, "-filter_complex",
+                        f"hstack=inputs={args.num_repetitions + 1}",
+                        pjoin(out_path, "sample00.mp4")], check=False)
 
 
 if __name__ == "__main__":

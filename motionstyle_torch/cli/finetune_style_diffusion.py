@@ -12,16 +12,22 @@ CUDA training kernels (with --fused_train_store 1, which implies it, the
 store-probs forward and the stored attention backward; with
 --fused_train_prng 1, which implies it too, the kernels' own Philox dropout
 from per-(clip, layer) seeds instead of mask arrays); with --fused 1 the
-prior's sampling runs the CUDA inference kernel.
+prior's sampling runs the CUDA inference kernel; with --quant_int8 1 the
+gradient-free forwards (neutral generation, --auto_stop's evaluations and the
+final resample) run the int8 CUDA layer and the training forwards the plain
+layers, as the JAX denoiser routes them (motionstyle/models/transformer.py:
+217-218). Without --skip_render the run also writes the neutral motion's
+noised and clean versions as IK-fitted BVH and video, and the style example's
+reconstruction as video (:213-252, :307-343): the IK runs on the run's device,
+foot-skate cleanup and rendering on the host (post/).
 
 Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --dataset stylexia_posrot --save_dir ./save/ft --data_dir .../style_xia \\
-        --mdm_path prior.pt --fused 1 --fused_train 1 --skip_render \\
+        --mdm_path prior.pt --fused 1 --fused_train 1 [--skip_render] \\
         --train_platform_type NoPlatform [--device cuda]
 
 Not on this slice (each raises, naming its ROADMAP item): LoRA, mesh
-training, orbax checkpoints, rendering, and the humanml/bandai datasets.
---quant_int8 is refused too: neither package trains through the int8 layer.
+training, orbax checkpoints and the humanml/bandai datasets.
 """
 from __future__ import annotations
 
@@ -35,17 +41,23 @@ import torch
 
 from motionstyle_torch.cli import model_util
 from motionstyle_torch.cli.parser_util import finetune_inpainting_style_args
+from motionstyle_torch.core import params as skel_params
+from motionstyle_torch.core.features import recover_from_ric
+from motionstyle_torch.core.skeleton import Skeleton
 from motionstyle_torch.data.collate import get_dataset_loader, lengths_to_mask, require_batches
-from motionstyle_torch.data.masks import get_inpainting_mask
+from motionstyle_torch.data.masks import BVH_JOINT_NAMES, get_inpainting_mask
 from motionstyle_torch.diffusion import sampling
-from motionstyle_torch.diffusion.ddpm import Inpainting
+from motionstyle_torch.diffusion.ddpm import Inpainting, q_sample
 from motionstyle_torch.eval.style_metrics import transfer_report
+from motionstyle_torch.post.footskate import remove_fs
+from motionstyle_torch.post.ik import fit_joints_bvh
+from motionstyle_torch.post.render import plot_3d_motion
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
 from motionstyle_torch.train.platforms import get_platform
 
 DATASET_DEFAULTS = {
-    "stylexia_posrot": dict(example="350angry_jumping.npy", max_frames=76),
+    "stylexia_posrot": dict(example="350angry_jumping.npy", max_frames=76, joints=20),
 }
 
 # flag -> (value that means "off", what it needs), checked before any work
@@ -67,21 +79,25 @@ def check_supported(args) -> None:
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
-    if args.quant_int8:
-        raise NotImplementedError(
-            "--quant_int8 1: int8 is an inference option (the demo and serve CLIs run the "
-            "int8 layer); the finetune's training forwards have no int8 path in either "
-            "package")
-    if not args.skip_render:
-        raise NotImplementedError(
-            "rendering is not ported to motionstyle_torch (ROADMAP §1 item 12: "
-            "post/render.py); pass --skip_render")
     if args.dataset not in DATASET_DEFAULTS:
         raise NotImplementedError(
             f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
             "(ROADMAP §1 item 10: humanml and bandai loaders)")
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
+
+
+def skeleton_assets(dataset: str):
+    """(Skeleton, metric offsets, kinematic chains, foot joint names) of a
+    dataset's skeleton (motionstyle/cli/finetune_style_diffusion.py:51-62;
+    the stylexia one, as DATASET_DEFAULTS)."""
+    if dataset != "stylexia_posrot":
+        raise NotImplementedError(
+            f"--dataset {dataset}: only stylexia_posrot is ported to motionstyle_torch "
+            "(ROADMAP §1 item 10: humanml and bandai loaders)")
+    return (Skeleton(skel_params.xia_raw_offsets, skel_params.xia_kinematic_chain),
+            skel_params.xia_real_offsets, skel_params.xia_kinematic_chain,
+            ["rtoes", "ltoes", "lfoot", "rfoot"])
 
 
 def style_caption(dataset: str, style_example: str):
@@ -235,6 +251,8 @@ def main(argv=None):
         method="ddpm", skip_timesteps=0, stop_timesteps=int(0.9 * args.diffusion_steps),
         inpainting=Inpainting(inp_mask, input_motions), dump_all_xstart=True)
     neutral = xstarts[-1]
+    if not args.skip_render:
+        render_neutral(args, ds, neutral, input_motions, inp_mask, m_length, sched_full)
 
     # ---- finetune ----
     if args.semantic_guidance and args.latent_dim != 512:
@@ -315,8 +333,45 @@ def main(argv=None):
         inpainting=Inpainting(inp_mask, input_motions))
     if not torch.isfinite(sample).all():
         raise RuntimeError("the final style resample is not finite")
+    if not args.skip_render:
+        rec = ds.inv_transform(sample[0, :, 0, :].T.cpu().numpy())
+        joints = recover_from_ric(torch.as_tensor(rec, dtype=torch.float32),
+                                  defaults["joints"]).numpy()
+        plot_3d_motion(pjoin(args.save_dir, "style_example_rec00.mp4"),
+                       skeleton_assets(args.dataset)[2], joints[:m_length], title=" ",
+                       dataset=args.dataset, fps=20, vis_mode="gt")
     print(f"[Done] checkpoints + outputs in {args.save_dir}")
     return args.save_dir
+
+
+def render_neutral(args, ds, neutral, input_motions, inp_mask, m_length, sched_full):
+    """The noised and the clean neutral motion as IK-fitted BVH (100 Adam
+    steps each, on the run's device) and video (f_s_d.py:213-252): the
+    noised one is q_sample at t = 0.701 T, with noise from a generator of
+    its own so that the run's other draws do not depend on rendering; the
+    clean one is foot-skate cleaned first."""
+    skel, real_offsets, chains, ee_names = skeleton_assets(args.dataset)
+    bones = BVH_JOINT_NAMES[args.dataset]
+    joint_num = DATASET_DEFAULTS[args.dataset]["joints"]
+    gen = torch.Generator(device=neutral.device).manual_seed(args.seed)
+    img = torch.randn(neutral.shape, generator=gen, device=neutral.device)
+    t_vis = torch.full((neutral.shape[0],), int(0.701 * args.diffusion_steps),
+                       dtype=torch.long, device=neutral.device)
+    noised = q_sample(sched_full, neutral, t_vis, img,
+                      inpainting=Inpainting(inp_mask, input_motions))
+    for tag, arr in (("generated_noised_neutral_motion", noised),
+                     ("generated_neutral_motion", neutral)):
+        denorm = ds.inv_transform(arr[0, :, 0, :].T.cpu().numpy())  # (T, D)
+        ref = recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32),
+                               joint_num).numpy()[:m_length]
+        if tag == "generated_neutral_motion":
+            ref, _, _, _ = remove_fs(ref, ref, bones, ee_names, force_on_floor=False,
+                                     interp_length=3, use_vel3=True, vel3_thr=0.03,
+                                     after_butterworth=True)
+        fit_joints_bvh(pjoin(args.save_dir, tag + ".bvh"), denorm[:m_length], skel,
+                       real_offsets, ref, names=bones, iter_num=100, device=neutral.device)
+        plot_3d_motion(pjoin(args.save_dir, tag + "00.mp4"), chains, ref,
+                       title=tag.replace("_", " "), dataset=args.dataset, fps=20, vis_mode="gt")
 
 
 if __name__ == "__main__":

@@ -32,6 +32,16 @@ class FeatureLayout:
             d += 3 * j + 4
         return d
 
+    @property
+    def ric_slice(self) -> slice:
+        return slice(4, 4 + 3 * (self.njoints - 1))
+
+    @property
+    def rot_slice(self) -> slice:
+        start = 4 + 3 * (self.njoints - 1)
+        return slice(start, start + 6 * (self.njoints if self.rot_includes_root
+                                         else self.njoints - 1))
+
 
 LAYOUTS = {
     "humanml": FeatureLayout(22, has_vel_fc=True, rot_includes_root=False),
@@ -65,6 +75,16 @@ SMPL_JOINT_NAMES = [
 ]
 SMPL_LOWER_BODY = ["pelvis", "left_hip", "right_hip", "left_knee", "right_knee", "left_ankle", "right_ankle", "left_foot", "right_foot"]
 SMPL_RIGHT_HAND = ["right_wrist", "right_elbow"]
+
+# BVH export joint names, in the same order (post/bvh.py's writers)
+XIA_BVH_JOINT_NAMES = list(XIA_JOINT_NAMES)
+BANDAI_BVH_JOINT_NAMES = list(BANDAI_JOINT_NAMES)
+SMPL_BVH_JOINT_NAMES = [
+    "Pelvis", "L_Hip", "R_Hip", "Spine1", "L_Knee", "R_Knee", "Spine2",
+    "L_Ankle", "R_Ankle", "Spine3", "L_Foot", "R_Foot", "Neck", "L_Collar",
+    "R_Collar", "Head", "L_Shoulder", "R_Shoulder", "L_Elbow", "R_Elbow",
+    "L_Wrist", "R_Wrist",
+]
 
 
 @dataclass(frozen=True)
@@ -135,6 +155,15 @@ MASK_SPECS = {
     "bandai-2_posrot": MaskSpec(LAYOUTS["bandai-2_posrot"], tuple(BANDAI_JOINT_NAMES), tuple(BANDAI_LOWER_BODY)),
     "humanml_posrot": MaskSpec(LAYOUTS["humanml_posrot"], tuple(SMPL_JOINT_NAMES), tuple(SMPL_LOWER_BODY), tuple(SMPL_RIGHT_HAND)),
     "humanml": MaskSpec(LAYOUTS["humanml"], tuple(SMPL_JOINT_NAMES), tuple(SMPL_LOWER_BODY), tuple(SMPL_RIGHT_HAND)),
+}
+
+
+BVH_JOINT_NAMES = {
+    "stylexia_posrot": XIA_BVH_JOINT_NAMES,
+    "bandai-1_posrot": BANDAI_BVH_JOINT_NAMES,
+    "bandai-2_posrot": BANDAI_BVH_JOINT_NAMES,
+    "humanml": SMPL_BVH_JOINT_NAMES,
+    "humanml_posrot": SMPL_BVH_JOINT_NAMES,
 }
 
 

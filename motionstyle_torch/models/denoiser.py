@@ -20,9 +20,10 @@ Training forwards: `deterministic=False` applies the JAX model's dropout
 sites) with masks drawn from an explicit torch.Generator. A caller that
 re-seeds the generator redraws the same masks, which a step recomputed under
 torch.utils.checkpoint needs. With cfg.fused_train the encoder stacks of a
-training forward run the CUDA training layer; with cfg.fused an inference
-forward runs the CUDA inference layer, and with cfg.quant_int8 (which implies
-it) the int8 CUDA layer.
+training forward run the CUDA training layer, except under cfg.quant_int8,
+where they run the plain layers as the JAX model's do; with cfg.fused an
+inference forward runs the CUDA inference layer, and with cfg.quant_int8
+(which implies it) the int8 CUDA layer.
 """
 from __future__ import annotations
 
@@ -179,7 +180,8 @@ class MDM(nn.Module):
         kernel with cfg.fused or cfg.quant_int8 at inference (the int8 one
         with cfg.quant_int8), the training kernels with cfg.fused_train in a
         training forward (store-probs with cfg.fused_train_store, in-kernel
-        dropout with cfg.fused_train_prng), else the plain layers."""
+        dropout with cfg.fused_train_prng) unless cfg.quant_int8, else the
+        plain layers."""
         cfg = self.cfg
         return encoder(xseq, dtype=cfg.torch_dtype, use_fused=cfg.fused or cfg.quant_int8,
                        fused_train=cfg.fused_train, deterministic=deterministic,

@@ -133,7 +133,10 @@ class TransformerEncoder(nn.Module):
             refuse_grad(x, *self.parameters())
             return fused_encoder(x, self.packed_layers(use_int8), self.nhead,
                                  key_padding_mask, int8=use_int8).to(x.dtype)
-        if fused_train and not deterministic:
+        # the int8 layer has no training kernels: with use_int8 a training
+        # forward takes the plain layers, as the JAX encoder does
+        # (motionstyle/models/transformer.py:217-218)
+        if fused_train and not deterministic and not use_int8:
             return fused_encoder_train(
                 x, [layer_params(layer) for layer in self.layers], self.nhead,
                 self.dropout, generator, key_padding_mask, store_probs,

@@ -1,8 +1,9 @@
 """The port's style-transfer demo CLI on the CPU against the JAX package's:
 one finetuned model*.pt (a port finetune run on the tiny Xia corpus of
 tests/test_torch_finetune.py, with a prior both packages load from
---mdm_path) through both CLIs, the results.npy schema, the flags the port
-refuses, the --quant_int8 config and the args.json round trip.
+--mdm_path) through both CLIs, the results.npy schema, the BVH and video
+outputs of a run without --skip_render, the flags the port refuses, the
+--quant_int8 config and the args.json round trip.
 
 The two packages draw their noise from different generators and seed their
 fallback CLIP text towers differently, so the test pins both, as it pins the
@@ -39,7 +40,7 @@ from motionstyle_torch.cli.finetune_style_diffusion import main as ft_main
 from motionstyle_torch.cli.parser_util import eval_inpainting_style_args
 from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
 from motionstyle_torch.diffusion import sampling
-from tests.test_torch_finetune import CLI_ARGS, xia_root  # noqa: F401
+from tests.test_torch_finetune import CLI_ARGS, short_post, xia_root  # noqa: F401
 from tests.test_torch_models import numpy_params, one_torch_thread  # noqa: F401
 
 N, C, T = 2, 181, 76
@@ -129,8 +130,63 @@ def test_demo_matches_the_jax_demo(flags, finetuned, xia_root, tmp_path,  # noqa
         assert err <= 2.0 ** -4 and rel <= 1e-2, (err, rel)
 
 
+def _anim_joints(anim):
+    """Global joints (T, J, 3) of a BVH read back, in bone-name order."""
+    from motionstyle_torch.core.rotations import quat_fk
+
+    order = sorted(range(len(anim.bones)), key=lambda j: anim.bones[j])
+    _, gp = quat_fk(torch.from_numpy(anim.quats), torch.from_numpy(anim.pos), anim.parents)
+    return gp.numpy()[:, order]
+
+
+BVH_ATOL = 1e-3  # global joints of the fitted BVH, port against JAX (metres)
+
+
+def test_demo_writes_the_jax_demos_outputs(finetuned, xia_root, tmp_path,  # noqa: F811
+                                           monkeypatch):
+    """Without --skip_render the port's demo writes the JAX demo's file set:
+    results.npy unchanged, three IK-fitted BVH files and 2 + 1 renders (mp4,
+    or gif without ffmpeg). Both at the suite's size (10 IK steps, 5 frames
+    a render); fp32, pinned noise and text features. Each BVH, read back by
+    its own package's read_bvh, has the same bones and frames, and its
+    global joints agree with the JAX file's within BVH_ATOL (the two fits
+    start from hml within 1e-4 and take the same Adam steps; the files keep
+    six decimals)."""
+    from motionstyle.post import bvh as jbvh, ik as jik, render as jrender
+    from motionstyle_torch.cli import demo_style_transfer as demo
+    from motionstyle_torch.post import bvh
+
+    ckpt, _ = finetuned
+    rs = np.random.RandomState(4)
+    noise = rs.randn(N, C, 1, T).astype(np.float32)
+    enc = (rs.randn(N, 512) * 0.1).astype(np.float32)
+    _pin(monkeypatch, sampling, torch.from_numpy, noise, enc)
+    _pin(monkeypatch, jsampling, jnp.asarray, noise, enc)
+    short_post(monkeypatch, demo, demo)
+    short_post(monkeypatch, jik, jrender)  # the JAX CLI imports them when it renders
+    argv = [a for a in _demo_args(ckpt, xia_root, tmp_path / "port", "--device", "cpu")
+            if a != "--skip_render"]
+    port_out = demo_main(argv)
+    jax_out = jdemo_main([a for a in _demo_args(ckpt, xia_root, tmp_path / "jax")
+                          if a != "--skip_render"])
+    files = sorted(os.listdir(port_out))
+    assert files == sorted(os.listdir(jax_out))
+    stems = sorted(f.rsplit(".", 1)[0] for f in files)
+    assert stems == sorted(["results", "input_content_motion", "input_style_example",
+                            "out_transferred_motion", "input_content_motion00",
+                            "input_style_motion00", "output_transferred_motion00_rep00"])
+    assert all(f.endswith((".npy", ".bvh", ".mp4", ".gif")) for f in files)
+    got, want = _results(port_out), _results(jax_out)
+    np.testing.assert_allclose(got["hml"], want["hml"], atol=1e-4)
+    for f in (f for f in files if f.endswith(".bvh")):
+        a, b = bvh.read_bvh(os.path.join(port_out, f)), jbvh.read_bvh(os.path.join(jax_out, f))
+        assert a.bones == b.bones and a.quats.shape == b.quats.shape
+        assert np.isfinite(a.quats).all() and np.isfinite(a.pos).all()
+        np.testing.assert_allclose(_anim_joints(a), _anim_joints(b), atol=BVH_ATOL, err_msg=f)
+
+
 @pytest.mark.parametrize("flag, item", [
-    (None, 1), (["--dataset", "humanml"], 10), (["--dataset", "bandai-2_posrot"], 10),
+    (["--dataset", "humanml"], 10), (["--dataset", "bandai-2_posrot"], 10),
     (["--long_frames", "200"], 6), (["--style_mix", "a.pt:1"], 6),
     (["--style_strength", "0.5"], 6), (["--parallel_window", "4"], 10),
     (["--forecast_stride", "2"], 10), (["--model_parallel", "2"], 11),
@@ -139,10 +195,9 @@ def test_demo_matches_the_jax_demo(flags, finetuned, xia_root, tmp_path,  # noqa
 def test_demo_refuses_what_is_not_ported(flag, item, finetuned, xia_root,  # noqa: F811
                                          tmp_path):
     """Each refusal names its ROADMAP item and comes before any work (no
-    output directory is made). flag None: running without --skip_render."""
+    output directory is made)."""
     ckpt, _ = finetuned
-    argv = _demo_args(ckpt, xia_root, tmp_path / "out", "--device", "cpu")
-    argv = [a for a in argv if a != "--skip_render"] if flag is None else argv + flag
+    argv = _demo_args(ckpt, xia_root, tmp_path / "out", "--device", "cpu") + flag
     with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
         demo_main(argv)
     assert not os.path.exists(tmp_path / "out")

@@ -468,28 +468,159 @@ def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypa
 
 @pytest.mark.parametrize("flag", [
     ["--lora_rank", "4"], ["--fsdp", "1"], ["--model_parallel", "2"],
-    ["--data_parallel", "1"], ["--quant_int8", "1"], ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
-    ["--render"], ["--train_platform_type", "TensorboardPlatform"]])
+    ["--data_parallel", "1"], ["--native_loader", "1"], ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
+    ["--prefetch", "2"], ["--train_platform_type", "TensorboardPlatform"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
     args = ["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root] + CLI_ARGS + flag
-    if flag == ["--render"]:
-        args = [a for a in args if a not in ("--skip_render", "--render")]
-    # --quant_int8 is no gap of the port: neither package trains through int8
-    match = "no int8 path" if flag == ["--quant_int8", "1"] else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft_main(args)
+
+
+def short_post(monkeypatch, fit_module, plot_module):
+    """The post chain at the suite's size where a CLI finds it: 10 IK steps
+    a fit (fit_module.fit_joints_bvh), 5 frames a render
+    (plot_module.plot_3d_motion)."""
+    fit, plot = fit_module.fit_joints_bvh, plot_module.plot_3d_motion
+
+    def short_fit(*a, **k):
+        return fit(*a, **dict(k, iter_num=10))
+
+    def short_plot(path, chains, joints, *a, **k):
+        return plot(path, chains, joints[:5], *a, **k)
+
+    monkeypatch.setattr(fit_module, "fit_joints_bvh", short_fit)
+    monkeypatch.setattr(plot_module, "plot_3d_motion", short_plot)
+
+
+def test_cli_finetune_writes_the_jax_runs_renders(xia_root, tmp_path, monkeypatch):
+    """Without --skip_render the port's finetune writes the JAX finetune's
+    files: the noised and clean neutral motions as BVH and video, and the
+    style example's reconstruction (videos as mp4, or gif without ffmpeg),
+    beside the checkpoints; each BVH reads back with 20 joints, finite, over
+    the style example's frames. Both at the suite's size (10 IK steps, 5
+    frames a render)."""
+    from motionstyle.cli.finetune_style_diffusion import main as jft_main
+    from motionstyle.post import ik as jik, render as jrender
+    from motionstyle_torch.cli import finetune_style_diffusion as ft_cli
+    from motionstyle_torch.post.bvh import read_bvh
+
+    short_post(monkeypatch, ft_cli, ft_cli)
+    short_post(monkeypatch, jik, jrender)  # the JAX CLI imports them when it renders
+    args = [a for a in CLI_ARGS if a != "--skip_render"] + ["--num_steps", "1"]
+    port = ft_main(["--save_dir", str(tmp_path / "port"), "--data_dir", xia_root] + args)
+    i = args.index("--device")
+    want = jft_main(["--save_dir", str(tmp_path / "jax"), "--data_dir", xia_root]
+                    + args[:i] + args[i + 2:])
+    files = sorted(os.listdir(port))
+    assert files == sorted(os.listdir(want))
+    renders = sorted(f for f in files if f.endswith((".bvh", ".mp4", ".gif")))
+    assert [f.rsplit(".", 1)[0] for f in renders] == [
+        "generated_neutral_motion", "generated_neutral_motion00",
+        "generated_noised_neutral_motion", "generated_noised_neutral_motion00",
+        "style_example_rec00"]
+    length = np.load(os.path.join(xia_root, "new_joint_vecs", "350angry_jumping.npy")).shape[0]
+    for f in (f for f in renders if f.endswith(".bvh")):
+        anim = read_bvh(os.path.join(port, f))
+        assert anim.shape == (min(length, 76), 20) and np.isfinite(anim.quats).all(), f
+
+
+TRAIN_TWINS = ("fused_layer_train_forward_reference", "fused_layer_train_forward_store_reference",
+               "bwd_ffn_reference", "bwd_attn_reference", "bwd_attn_stored_reference")
+
+
+def _count_twins(monkeypatch) -> dict:
+    """Count the calls of the training kernels' twins (kernels 5-9 on the
+    card) and of kernel 2's twin."""
+    from motionstyle_torch.ops import fused_encoder as fe
+
+    calls = dict.fromkeys(TRAIN_TWINS + ("fused_encoder_layer_int8_reference",), 0)
+    for module, names in ((ft, TRAIN_TWINS), (fe, ("fused_encoder_layer_int8_reference",))):
+        for name in names:
+            def counted(*a, _fn=getattr(module, name), _name=name, **k):
+                calls[_name] += 1
+                return _fn(*a, **k)
+
+            monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("cli", ["finetune", "pretrain"])
+def test_cli_quant_int8_trains_on_the_plain_layers(cli, xia_root, tmp_path, monkeypatch):
+    """--quant_int8 1 --fused_train 1: the training forwards take the plain
+    layers, as the JAX denoiser routes them (motionstyle/models/
+    transformer.py:217-218), so no twin of kernels 5-9 runs; the finetune's
+    gradient-free forwards (neutral generation, the final resample) run
+    kernel 2's twin."""
+    from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
+
+    calls = _count_twins(monkeypatch)
+    flags = ["--quant_int8", "1", "--fused_train", "1"]
+    if cli == "finetune":
+        save_dir = ft_main(["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root]
+                           + CLI_ARGS + flags)
+    else:
+        save_dir = str(tmp_path / "prior")
+        pretrain_main(["--dataset", "stylexia_posrot", "--data_dir", xia_root, "--save_dir",
+                       save_dir, "--batch_size", "2", "--layers", "1", "--latent_dim", "128",
+                       "--diffusion_steps", "40", "--num_steps", "2", "--log_interval", "1",
+                       "--device", "cpu"] + flags)
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        key = "loss" if cli == "finetune" else "prior_loss"
+        losses_ = [float(r[key]) for r in csv.DictReader(f)]
+    assert len(losses_) == 2 and np.isfinite(losses_).all()
+    assert all(calls[n] == 0 for n in TRAIN_TWINS), calls
+    if cli == "finetune":
+        # 1 layer: the neutral DDPM from t = 39 down to its stop at 0.9 x 40,
+        # then the final DDIM-20 resample after its skip of 28 / 40
+        assert calls["fused_encoder_layer_int8_reference"] == 4 + 6, calls
+
+
+INT8_LOSS_REL = 1e-2  # bf16 plain layers in both packages (tests/test_torch_int8.py's bound)
+
+
+def test_quant_int8_finetune_loss_matches_jax(tmp_path):
+    """Under quant_int8 and fused_train (bf16, as the CLIs set them) the
+    few-shot loss before any step matches the JAX package's, whose training
+    forwards run its plain layers too; the JAX draws pinned."""
+    jmodel, params, port = style_pair(41, latent_dim=D, clip_dim=D, dropout=0.0,
+                                      cond_mask_prob=0.0, quant_int8=True, fused=True,
+                                      fused_train=True, dtype="bfloat16")
+    batch = _batch(42)
+    t = np.asarray([2, 5], np.int32)
+    jt = _jtrainer(jmodel, params, tmp_path)
+    key = jax.random.PRNGKey(5)
+    want = jlosses.few_shot_style_finetune_loss(
+        jt.sched, lambda x, tt, c: jmodel.apply({"params": jt.params}, x, tt, c["enc_text"],
+                                                deterministic=False),
+        batch["x_start"], jnp.asarray(t), batch["content"], batch["style_target"], key,
+        mask=batch["mask"], cond_style={"enc_text": batch["enc_text_style"]},
+        cond_t2m={"enc_text": batch["enc_text_t2m"], "frame_mask": batch["frame_mask_t2m"]},
+        inpainting_style=JInpainting(batch["inp_mask"], batch["style_target"]),
+        inpainting_t2m_mask=batch["inp_mask_t2m"],
+        motion_enc_fn=lambda m, c: jmodel.apply({"params": jt.params}, m, c["frame_mask"],
+                                                method=jden.StyleDiffusion.encode_motion),
+        text_features=batch["text_features"])["loss"]
+    noise_t2m, noise = _jax_draws(key, batch["x_start"].shape, batch["content"].shape)
+    trainer = StyleFinetuneTrainer(FinetuneConfig(save_dir=str(tmp_path / "port")), port,
+                                   make_schedule("cosine", 1000, "ddim20", device="cpu"))
+    got = trainer.loss_terms(_port_batch(batch), torch.from_numpy(t).long(), 0,
+                             noise_t2m=_t(noise_t2m), noise=_t(noise))["loss"]
+    assert abs(float(got) - float(want)) <= INT8_LOSS_REL * abs(float(want)), (got, want)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """motionstyle_torch (its quality protocol, semantic trainer, parallel
-    sampler and style metrics among them), chip_smoke.py and profile_layers.py
-    import nothing of JAX or of the JAX package."""
+    sampler, style metrics and post chain among them), chip_smoke.py and
+    profile_layers.py import nothing of JAX or of the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
                                               "quality_sweep.py")]
     for new in ("eval/style_metrics.py", "eval/quality_protocol.py", "train/semantic.py",
-                "diffusion/parallel_sampling.py", "cli/train_semantic_discriminator.py"):
+                "diffusion/parallel_sampling.py", "cli/train_semantic_discriminator.py",
+                "core/params.py", "core/rotations.py", "core/skeleton.py", "core/features.py",
+                "data/masks.py", "post/footskate.py", "post/bvh.py", "post/ik.py",
+                "post/render.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)

@@ -136,6 +136,27 @@ def test_one_step_matches_jax(wd, tmp_path):
     assert all(not p.requires_grad for n, p in port.named_parameters() if not n.startswith("mdm."))
 
 
+def test_quant_int8_first_loss_matches_jax(tmp_path):
+    """Under quant_int8 and fused_train (bf16, as the CLIs set them) the
+    first step's loss matches the JAX trainer's: both packages' training
+    forwards take their plain layers (motionstyle/models/transformer.py:
+    217-218), within rel 1e-2 (bf16, tests/test_torch_int8.py's bound)."""
+    jmodel, params, port = _pair(13, quant_int8=True, fused=True, fused_train=True,
+                                 dtype="bfloat16")
+    batch = _batch(14)
+    t = np.asarray([3, 17, 40, 0], np.int32)
+    tw = np.ones(4, np.float32)
+    jt = _jtrainer(jmodel, params, tmp_path, lr=1e-4, cond_mask_prob=0.5)
+    rng = jax.random.PRNGKey(9)
+    noise, enc = _jax_pinned(jt, rng, batch)
+    jbatch = dict(jax.tree_util.tree_map(jnp.asarray, batch), t=jnp.asarray(t),
+                  t_weights=jnp.asarray(tw))
+    jloss = jt._train_step(jt.params, jt.opt_state, jt.ema, rng, jbatch)[3]
+    loss, _ = _trainer(port, tmp_path, lr=1e-4).train_step(
+        _tensors(batch), torch.from_numpy(t).long(), torch.from_numpy(tw), noise=noise, enc=enc)
+    assert abs(float(loss) - float(jloss)) <= 1e-2 * abs(float(jloss)), (loss, jloss)
+
+
 def test_grad_accum_equals_the_full_batch(tmp_path):
     """grad_accum=4 is the full-batch trajectory at dropout 0: the same draws
     of t, noise and condition mask, and equal-sized microbatch means."""
