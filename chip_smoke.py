@@ -127,7 +127,26 @@ Phases, each printed on its own line with its seconds:
      of the same fit on the CPU with its error no larger than the start's,
      kernel 1's 16 launches, and the seconds of each foot-skate pass, IK fit
      and render.
- 17. quality: the port's quality protocol (eval/quality_protocol.py) through
+ 17. styles: the serve CLI (--fused 1, --deterministic 1, full width) with
+     the recompute and store finetunes' checkpoints as two named styles (a,
+     b), 4 waves of 4 requests with the styles interleaved (p50, p95,
+     clips/s), then a 300-frame clip on /v1/stream (5 windows: the seconds
+     to the first chunk and to the whole) and /v1/sample: each style's
+     answers bit-equal to a single-style server's, kernel 1 launched 16
+     times per device batch (one style each), the drained stream equal to
+     /v1/sample with the content's root channels at every frame, and
+     --style_strength 0 answering with the base (the finetunes' seeded
+     start) bit for bit.
+ 18. export: cli.export_model at full width for cuda with --fused 1, then
+     --quant_int8 1, the second style stored beside the first (seconds, MB);
+     serve --artifact: kernel 1 (2) as 16 custom-operator nodes of the
+     loaded program and launched 16 times per batch, a live server and the
+     artifact in turns over the same waves, answers within EXPORT_ATOL and
+     both p50s.
+ 19. demo_long: the demo CLI with --long_frames 240 on a 260-frame clip the
+     smoke writes (4 windows, 2 samples, the post chain at 240 frames), then
+     --style_strength 0.5 and 1 (root-exact, different motions).
+ 20. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
      50, the --auto_stop arm) gated by that file's assertions, then the d512
@@ -141,6 +160,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import random
@@ -1383,7 +1403,7 @@ def serve_phase(golden_sd, card: str, flag: str, waves: int, value: int = 1, ker
             # no style checkpoint ships with the repo: a seeded style encoder
             "--model_path", os.path.join(tmp, "model000000000.pt"),
             "--max_wait_ms", "20", "--port", "0"])
-        engine, decode, handle = serve.build_engine(args)
+        engine, decode, handle, _ = serve.build_engine(args)
     check(engine.sampler.n_live_steps() == 2, "min-latency plan: 2 denoiser calls per batch")
     engine.warmup(decode({"content": np.zeros((nframes, njoints), np.float32)}))
     server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
@@ -2332,6 +2352,390 @@ def demo_phase(model_path: str, data_dir: str, out_root: str, card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the rest of serving: named styles, /v1/stream, exported artifacts, and the
+# demo's long-form and style-strength runs
+# ---------------------------------------------------------------------------
+
+STYLE_WAVES = 4  # waves of 4 concurrent requests, the named styles interleaved
+STREAM_FRAMES = 300  # 5 windows of 76 at overlap 10
+# an artifact's answers against live serving's, max abs on the served motion:
+# the loaded program runs the eager ops and the same kernels on the same
+# noise, so they are bit-equal where the export keeps the eager ops (0 on the
+# CPU, tests/test_torch_export.py); the bound leaves room for a library op
+# that the program runs in another algorithm
+EXPORT_ATOL = 1e-5
+DEMO_LONG_FRAMES = 240  # a long clip's frames the demo restyles: 4 windows
+
+
+def served(argv: list, device: str = "cuda") -> tuple:
+    """(engine, decode, handle, stream) of the serve CLI for argv on
+    `device`, warmed up."""
+    import numpy as np
+
+    from motionstyle_torch.cli import serve
+
+    engine, decode, handle, stream = serve.build_engine(serve.parse_args(
+        ["--dataset", "stylexia_posrot", "--max_wait_ms", "20", "--port", "0",
+         "--deterministic", "1", "--device", device, *argv]))
+    engine.warmup(decode({"content": np.zeros((76, 181), np.float32)}), log=False)
+    return engine, decode, handle, stream
+
+
+def count_device_batches(engine) -> list:
+    """Wrap engine._run so that each device batch appends its size to the
+    returned list: the batcher's own counter counts coalesced groups, which
+    the engine splits into one device batch per style."""
+    sizes, run = [], engine._run
+
+    def counted(items):
+        sizes.append(len(items))
+        return run(items)
+
+    engine._run = counted
+    return sizes
+
+
+def http_waves(base: str, contents: list, waves: int, styles: tuple) -> tuple:
+    """`waves` waves of 4 concurrent /v1/sample requests, request i of a wave
+    asking for styles[i % len(styles)] (None: the served model's own).
+    Returns ({(wave, i): motion}, {(wave, i): latency in ms}, wall seconds)."""
+    import numpy as np
+
+    results, latencies, lock = {}, {}, threading.Lock()
+
+    def client(wave, i):
+        payload = {"content": contents[i].tolist(), "text": "a person walks angrily",
+                   "seed": 100 * wave + i}
+        if styles[i % len(styles)] is not None:
+            payload["style"] = styles[i % len(styles)]
+        res, dt = _post(base, payload)
+        with lock:
+            results[(wave, i)] = np.asarray(res["motion"], np.float32)
+            latencies[(wave, i)] = dt * 1e3
+
+    t0 = time.perf_counter()
+    for wave in range(waves):
+        threads = [threading.Thread(target=client, args=(wave, i)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), f"wave {wave} answered")
+    return results, latencies, time.perf_counter() - t0
+
+
+def percentiles(latencies: dict) -> tuple:
+    import numpy as np
+
+    lat = np.asarray(list(latencies.values()))
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+
+
+def stream_request(base: str, content, seed: int, style) -> tuple:
+    """/v1/stream a long clip: ([(offset, (C, 1, t) chunk)], seconds to the
+    first chunk, seconds to the done line)."""
+    import numpy as np
+
+    payload = {"content": content.tolist(), "text": "a person walks angrily", "seed": seed,
+               "style": style}
+    req = urllib.request.Request(base + "/v1/stream", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    chunks, first, t0 = [], None, time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for raw in r:
+            obj = json.loads(raw)
+            if "error" in obj:
+                check(False, f"/v1/stream answers without an error line ({obj['error']})")
+            if obj.get("done"):
+                check(obj["chunks"] == len(chunks), "/v1/stream's done line counts its chunks")
+                break
+            if first is None:
+                first = time.perf_counter() - t0
+            chunks.append((obj["offset"], np.asarray(obj["motion"], np.float32)))
+    return chunks, first, time.perf_counter() - t0
+
+
+def styles_phase(mdm_path: str, card: str, style_paths: tuple, tmp_root: str,
+                 device: str = "cuda") -> int:
+    """Named styles and long-form streaming through the serve CLI at full
+    width (--fused 1, --deterministic 1): a server of the finetune phase's
+    two checkpoints (--model_path a, --styles a=a,b=b) answers STYLE_WAVES
+    waves of 4 requests with the styles interleaved, and a
+    STREAM_FRAMES-frame clip on /v1/stream and /v1/sample. Checks: each
+    style's answers bit-equal to a single-style server's for the same seeds;
+    kernel 1 launched 16 times per batch; the drained stream equal to
+    /v1/sample, its root channels the content's at every frame; under
+    --style_strength 0 every style answers with the base (the finetune's
+    seeded start, written as a checkpoint). Returns kernel 1's launches."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
+    from motionstyle_torch.models.params import export_style_encoder, seeded_init_
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+    from motionstyle_torch.serve.engine import Request
+    from motionstyle_torch.serve.server import MotionServer
+
+    a, b = style_paths
+    common = ["--mdm_path", mdm_path, "--fused", "1", "--model_path", a]
+    rng = np.random.RandomState(1)
+    contents = [rng.randn(76, 181).astype(np.float32) * 0.5 for _ in range(4)]
+    long_content = rng.randn(STREAM_FRAMES, 181).astype(np.float32) * 0.5
+    mask = np.asarray(get_inpainting_mask("root_horizontal", (1, 181, 1, 76),
+                                          dataset="stylexia_posrot"), np.float32)[0]
+    keep = mask[:, 0, 0] > 0
+    engine, decode, handle, stream = served(common + ["--styles", f"a={a},b={b}"], device)
+    server = MotionServer(engine, port=0, decode=decode, handle=handle,
+                          stream=stream).start_background()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        # the main path: every count from here to the end of the traffic
+        fused_encoder_layer.launches = fused_encoder_layer_int8.launches = 0
+        device_batches = count_device_batches(engine)
+        results, latencies, wall = http_waves(base, contents, STYLE_WAVES, ("a", "b"))
+        p50, p95 = percentiles(latencies)
+        chunks, first_s, stream_s = stream_request(base, long_content, 5, "a")
+        t0 = time.perf_counter()
+        whole, _ = _post(base, {"content": long_content.tolist(),
+                                "text": "a person walks angrily", "seed": 5, "style": "a"})
+        sample_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        batches = len(device_batches)
+        launches, stray = fused_encoder_layer.launches, fused_encoder_layer_int8.launches
+    finally:
+        server.close()
+    print(f"  styles a, b interleaved: {len(results)} requests in {wall:.4f} s: p50 "
+          f"{p50:.4f} ms, p95 {p95:.4f} ms, {len(results) / wall:.4f} clips/s on {card}",
+          flush=True)
+    print(f"  kernel 1 launches {launches} over {batches} device batches (one style each); "
+          f"kernel 2 {stray}", flush=True)
+    check(launches == 16 * batches and batches > 0 and stray == 0,
+          "styles and stream: kernel 1 launched 16 x batches (every style, every window), "
+          "kernel 2 never")
+
+    # each style's answers against a server of that style alone
+    for name, path in (("a", a), ("b", b)):
+        alone, dec1, _, _ = served(["--mdm_path", mdm_path, "--fused", "1", "--model_path", path],
+                                   device)
+        try:
+            diff = 0.0
+            for (wave, i), motion in results.items():
+                if ("a", "b")[i % 2] != name:
+                    continue
+                want = alone.sample(dec1({"content": contents[i], "seed": 100 * wave + i,
+                                          "text": "a person walks angrily"}))
+                diff = max(diff, float(np.abs(motion - want).max()))
+        finally:
+            alone.close()
+        print(f"  style {name} served with another style against alone: max_abs {diff:.6g}",
+              flush=True)
+        check(diff == 0.0, f"style {name}: answers bit-equal to a single-style server's "
+                           "(--deterministic 1)")
+    for (wave, i), motion in results.items():
+        if not (motion.shape == (181, 1, 76) and np.array_equal(
+                motion[keep], contents[i].T[:, None, :][keep])):
+            check(False, "styles: every answer (181, 1, 76) with the content's root channels")
+
+    # /v1/stream against /v1/sample
+    whole = np.asarray(whole["motion"], np.float32)
+    drained = np.concatenate([c for _, c in chunks], axis=-1)
+    offsets = [o for o, _ in chunks]
+    print(f"  /v1/stream of {STREAM_FRAMES} frames: {len(chunks)} chunks at offsets {offsets}; "
+          f"first chunk {first_s:.4f} s, whole stream {stream_s:.4f} s, /v1/sample of the same "
+          f"clip {sample_s:.4f} s, on {card}", flush=True)
+    check(len(chunks) == 5 and offsets == [0, 76, 142, 208, 274],
+          "/v1/stream: 5 windows of 76 at overlap 10")
+    check(drained.shape == whole.shape == (181, 1, STREAM_FRAMES)
+          and np.array_equal(drained, whole), "/v1/stream drained equals /v1/sample")
+    check(np.array_equal(whole[keep], long_content.T[:, None, :][keep]),
+          f"long-form: root channels equal the content's at all {STREAM_FRAMES} frames")
+
+    # --style_strength 0: every style answers with the base
+    base_path = os.path.join(tmp_root, "style_base", "model000000000.pt")
+    os.makedirs(os.path.dirname(base_path), exist_ok=True)
+    width = torch.load(a, map_location="cpu")["seqTransEncoder.layers.0.norm1.weight"].numel()
+    torch.save(export_style_encoder(seeded_init_(StyleDiffusion(MDMConfig(
+        njoints=181, nfeats=1, latent_dim=width, num_layers=FINETUNE_LAYERS)), 10)), base_path)
+    zero, dec0, _, _ = served(common + ["--styles", f"b={b}", "--style_strength", "0"], device)
+    ref, decr, _, _ = served(["--mdm_path", mdm_path, "--fused", "1", "--model_path", base_path],
+                             device)
+    try:
+        diff = 0.0
+        for style in (None, "b"):
+            for i, c in enumerate(contents[:2]):
+                got = zero.sample(dec0({"content": c, "seed": i, "style": style}))
+                want = ref.sample(decr({"content": c, "seed": i}))
+                diff = max(diff, float(np.abs(got - want).max()))
+    finally:
+        zero.close()
+        ref.close()
+    print(f"  --style_strength 0 against the base checkpoint: max_abs {diff:.6g}", flush=True)
+    check(diff == 0.0, "--style_strength 0: every style answers with the base, bit-equal")
+    return launches
+
+
+def export_phase(mdm_path: str, card: str, style_paths: tuple, tmp_root: str,
+                 device: str = "cuda") -> tuple:
+    """cli.export_model at full width for cuda, --fused 1 and then
+    --quant_int8 1, with the second finetuned style stored beside the first;
+    then serve --artifact. For each: the export's seconds and size; kernel 1
+    (or 2) as 16 custom-operator nodes of the loaded program and launched
+    16 times per served batch; a live server and the artifact's answer the
+    same waves (styles interleaved; live first, then the artifact), the
+    answers within EXPORT_ATOL and the two p50s. Returns kernel 1's and
+    kernel 2's launches from the artifacts' traffic."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli import export_model
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+    from motionstyle_torch.serve.export import custom_ops_in
+    from motionstyle_torch.serve.server import MotionServer
+
+    a, b = style_paths
+    rng = np.random.RandomState(2)
+    contents = [rng.randn(76, 181).astype(np.float32) * 0.5 for _ in range(4)]
+    out = {}
+    for flag, kernel, other, op in (
+            ("--fused", fused_encoder_layer, fused_encoder_layer_int8,
+             "motionstyle.fused_encoder_layer.default"),
+            ("--quant_int8", fused_encoder_layer_int8, fused_encoder_layer,
+             "motionstyle.fused_encoder_layer_int8.default")):
+        path = os.path.join(tmp_root, f"artifact_{flag[2:]}")
+        t0 = time.perf_counter()
+        export_model.main(["--model_path", a, "--mdm_path", mdm_path, flag, "1",
+                           "--platforms", device, "--styles", f"b={b}", "--output", path,
+                           "--device", device])
+        export_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(path) for f in fs)
+        print(f"  export {flag} 1: {export_s:.4f} s, {size / 1e6:.4f} MB "
+              f"({sorted(os.listdir(os.path.join(path, 'plans')))}) on {card}", flush=True)
+        runs = {}
+        for label, argv in (("live", ["--mdm_path", mdm_path, flag, "1", "--model_path", a,
+                                      "--styles", f"b={b}"]),
+                            ("artifact", ["--artifact", path])):
+            engine, decode, handle, _ = served(argv, device)
+            server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
+            try:
+                # the main path: every count from here to the end of the traffic
+                kernel.launches = other.launches = 0
+                device_batches = count_device_batches(engine)
+                results, latencies, wall = http_waves(f"http://127.0.0.1:{server.port}",
+                                                      contents, STYLE_WAVES, (None, "b"))
+                torch.cuda.synchronize()
+                runs[label] = dict(results=results, p50p95=percentiles(latencies), wall=wall,
+                                   batches=len(device_batches),
+                                   launches=(kernel.launches, other.launches))
+                if label == "artifact":
+                    nodes = custom_ops_in(engine.sampler.program)
+            finally:
+                server.close()
+            p50, p95 = runs[label]["p50p95"]
+            slowest = max(latencies, key=latencies.get)
+            print(f"  {label} {flag} 1, default and b interleaved: {len(results)} requests: p50 "
+                  f"{p50:.4f} ms, p95 {p95:.4f} ms, {len(results) / wall:.4f} clips/s; slowest "
+                  f"{latencies[slowest]:.4f} ms (wave {slowest[0]}, request {slowest[1]}); "
+                  f"launches (kernel, other) {runs[label]['launches']} over "
+                  f"{runs[label]['batches']} batches on {card}", flush=True)
+        art = runs["artifact"]
+        per_batch = 2 * FINETUNE_LAYERS  # 2 denoiser calls x the finetuned model's layers
+        check(nodes == [op] * per_batch,
+              f"artifact {flag} 1: the loaded program calls {op} {per_batch} times (2 denoiser "
+              f"calls x {FINETUNE_LAYERS} layers; got {len(nodes)})")
+        check(art["launches"] == (per_batch * art["batches"], 0) and art["batches"] > 0,
+              f"artifact {flag} 1: {kernel.__name__} launched {per_batch} x batches, "
+              f"{other.__name__} never")
+        diff = max(float(np.abs(art["results"][k] - runs["live"]["results"][k]).max())
+                   for k in art["results"])
+        print(f"  artifact {flag} 1 against live: max_abs {diff:.6g}", flush=True)
+        check(diff <= EXPORT_ATOL, f"artifact {flag} 1: answers within {EXPORT_ATOL} of live "
+                                   "serving's")
+        out[flag] = art["launches"][0]
+    return out["--fused"], out["--quant_int8"]
+
+
+def demo_long_phase(model_path: str, data_dir: str, out_root: str, card: str,
+                    device: str = "cuda") -> int:
+    """The demo CLI with --long_frames DEMO_LONG_FRAMES on a clip the smoke
+    writes (DEMO_LONG_FRAMES + 20 frames), --fused 1, 2 samples, without
+    --skip_render: results.npy over all the frames, the root channels the
+    content's at every frame, kernel 1 launched 16 times per window, the post
+    chain's outputs at that length; then --style_strength 0.5 and 1 on the
+    corpus's clip with --skip_render: both root-exact, different. Returns
+    kernel 1's launches."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli import demo_style_transfer as demo_cli
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.diffusion.longform import plan_windows
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+
+    rs = np.random.RandomState(3)
+    long_path = os.path.join(out_root, "long_content", "900neutral_walking.npy")
+    os.makedirs(os.path.dirname(long_path), exist_ok=True)
+    raw = (rs.randn(DEMO_LONG_FRAMES + 20, 181) * 0.5).astype(np.float32)
+    np.save(long_path, raw)
+    keep = np.asarray(get_inpainting_mask("root_horizontal", (1, 181, 1, 76),
+                                          dataset="stylexia_posrot"))[0, :, 0, 0] > 0
+    label = f"demo --long_frames {DEMO_LONG_FRAMES} (render)"
+    # the main path: every count from here to the end of the run
+    fused_encoder_layer.launches = 0
+    t0 = time.perf_counter()
+    with post_stage_watch(demo_cli) as stages:
+        out = demo_main(["--model_path", model_path, "--input_content", long_path,
+                         "--data_dir", data_dir, "--num_samples", "2", "--long_frames",
+                         str(DEMO_LONG_FRAMES), "--output_dir", os.path.join(out_root, "long"),
+                         "--fused", "1", "--device", device])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_encoder_layer.launches
+    res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+    windows = plan_windows(DEMO_LONG_FRAMES, 76, 10)[0]
+    root_err = float(np.abs(res["hml"][:, :, keep] - raw[:DEMO_LONG_FRAMES, keep]).max())
+    print(f"  {label}: whole CLI run {wall:.4f} s on {card}; {windows} windows; kernel 1 "
+          f"launches {launches}; root channels max_abs {root_err:.6g} from the content",
+          flush=True)
+    check(res["motion"].shape == (2, 20, 3, DEMO_LONG_FRAMES)
+          and res["hml"].shape == (2, DEMO_LONG_FRAMES, 181)
+          and (res["lengths"] == DEMO_LONG_FRAMES).all()
+          and bool(np.isfinite(res["motion"]).all() and np.isfinite(res["hml"]).all()),
+          f"{label}: results.npy over {DEMO_LONG_FRAMES} frames, finite")
+    check(root_err <= 1e-5, f"{label}: root channels equal the content's at every frame")
+    check(launches == 2 * FINETUNE_LAYERS * windows,
+          f"{label}: kernel 1 launched 2 x {FINETUNE_LAYERS} x {windows} windows")
+    check_post_outputs(out, DEMO_POST_FILES, stages, {
+        "input_content_motion.bvh": DEMO_LONG_FRAMES,
+        "out_transferred_motion.bvh": DEMO_LONG_FRAMES,
+        "input_style_example.bvh": clip_length(data_dir, STYLE_EXAMPLE)}, label, fits=3,
+        renders=3, passes=2)
+
+    hml = {}
+    for strength in ("0.5", "1"):
+        fused_encoder_layer.launches = 0
+        out = demo_main(["--model_path", model_path, "--input_content", DEMO_CONTENT,
+                         "--data_dir", data_dir, "--skip_render", "--num_samples", "2",
+                         "--style_strength", strength, "--output_dir",
+                         os.path.join(out_root, f"strength_{strength}"), "--fused", "1",
+                         "--device", device])
+        torch.cuda.synchronize()
+        launches += fused_encoder_layer.launches
+        check(fused_encoder_layer.launches == 2 * FINETUNE_LAYERS,
+              f"demo --style_strength {strength}: kernel 1 launched 2 x {FINETUNE_LAYERS}")
+        hml[strength] = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()["hml"]
+        check(bool(np.isfinite(hml[strength]).all()), f"demo --style_strength {strength}: finite")
+    moved = float(np.abs(hml["0.5"] - hml["1"]).max())
+    root = float(np.abs(hml["0.5"][..., keep] - hml["1"][..., keep]).max())
+    print(f"  demo --style_strength 0.5 against 1: max_abs {moved:.6g} (root channels "
+          f"{root:.6g})", flush=True)
+    check(moved > 0 and root == 0.0, "demo --style_strength 0.5: another motion, the same root")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # kernel 4 (standalone attention) and kernel 3 (fused DDPM update)
 # ---------------------------------------------------------------------------
 
@@ -2896,6 +3300,17 @@ def main() -> int:
             launches_sem = semantic_phase(card, data_dir, tmp, prior_path, args_of)
         with phase("demo"):
             demo_phase(model_path, data_dir, tmp, card)
+        # two styles finetuned from the golden prior: the recompute and the
+        # store runs of the finetune phase
+        style_paths = tuple(sorted(glob.glob(os.path.join(tmp, run, "*", "model*.pt")))[-1]
+                            for run in ("ft", "ft_store"))
+        mdm_path = os.path.join(tmp, "mdm_golden.pt")
+        with phase("styles"):
+            launches_styles = styles_phase(mdm_path, card, style_paths, tmp)
+        with phase("export"):
+            launches_art, launches_art8 = export_phase(mdm_path, card, style_paths, tmp)
+        with phase("demo_long"):
+            launches_demo_long = demo_long_phase(model_path, data_dir, tmp, card)
         with phase("quality"):
             launches_quality = quality_phase(card, tmp)
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
@@ -2909,6 +3324,10 @@ def main() -> int:
                       + sum(p[n] for p in new_paths) for n in TRAIN_NAMES}
     launches += sum(p["fused_encoder_layer"] for p in new_paths)
     launches_int8 += launches_par["fused_encoder_layer_int8"]
+    # the rest of serving: named styles and /v1/stream, the artifacts, the
+    # demo's long-form and style-strength runs
+    launches += launches_styles + launches_art + launches_demo_long
+    launches_int8 += launches_art8
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",

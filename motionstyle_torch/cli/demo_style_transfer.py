@@ -26,14 +26,21 @@ With --fused 1 every encoder layer runs the CUDA layer of kernel 1, with
 torch.Generator seeded with --seed on the device, so a sample differs from
 the JAX CLI's for the same seed.
 
+--style_strength scales the finetuned style's task vector and --style_mix
+blends several finetuned styles (model_util.apply_style_strength /
+apply_style_mix; the two are mutually exclusive). --long_frames N restyles
+the first N frames of a content clip longer than the window by chained
+windows (diffusion/longform.py, overlap 10): each window's generator is
+seeded from a base seed drawn from the demo's generator, and results.npy and
+the post chain cover all N frames.
+
 Run:  python -m motionstyle_torch.cli.demo_style_transfer \\
         --model_path save/ft/350angry_jumping/model000000024.pt \\
         --input_content 306neutral_running.npy [--skip_render] [--quant_int8 1]
 
-Not on this slice (each raises before any work, naming its ROADMAP item):
-the humanml and bandai datasets, long-form transfer, style strength and
-mixes, the parallel and forecast samplers of the humanml branch, mesh
-serving and profiling.
+Not ported (each raises before any work, naming its ROADMAP item): the
+humanml and bandai datasets (with the humanml branch's long-form content,
+parallel and forecast samplers), mesh serving and profiling.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from motionstyle_torch.data.collate import get_dataset_loader
 from motionstyle_torch.data.masks import BVH_JOINT_NAMES, get_inpainting_mask
 from motionstyle_torch.diffusion import sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting
+from motionstyle_torch.diffusion.longform import longform_sample
 from motionstyle_torch.post.footskate import remove_fs
 from motionstyle_torch.post.ik import fit_joints_bvh
 from motionstyle_torch.post.render import plot_3d_motion
@@ -63,9 +71,6 @@ DATASETS = {"stylexia_posrot": dict(max_frames=76, joints=20, fps=20,
 
 # flag, when it asks for something not ported, what it needs
 REFUSED = (
-    ("long_frames", lambda v: v > 0, "long-form transfer (ROADMAP §1 item 6)"),
-    ("style_mix", bool, "style mixes (ROADMAP §1 item 6)"),
-    ("style_strength", lambda v: v != 1.0, "style strength (ROADMAP §1 item 6)"),
     # the JAX demo reaches the parallel and the forecast samplers only on its
     # humanml branch (motionstyle/cli/demo_style_transfer.py:121-165)
     ("parallel_window", lambda v: v > 0,
@@ -128,6 +133,13 @@ def main(argv=None):
     print("creating model and diffusion...")
     bundle, sched_ddim, _ = model_util.creat_serval_diffusion(
         args, timestep_respacing="ddim20", device=args.device)
+    if args.style_mix:
+        if args.style_strength != 1.0:
+            raise SystemExit("--style_mix and --style_strength are mutually exclusive "
+                             "(give the mix entry a weight instead)")
+        model_util.apply_style_mix(bundle, args)
+    else:
+        model_util.apply_style_strength(bundle, args)
     dev, model = bundle.device, bundle.model
 
     def load_clip(fname):
@@ -150,6 +162,30 @@ def main(argv=None):
                            dtype=torch.float32, device=dev)
     inpainting = Inpainting(mask, content)
 
+    lf = args.long_frames
+    if 0 < lf <= spec["max_frames"]:
+        print(f"NOTE: --long_frames {lf} <= the model window {spec['max_frames']}; "
+              "running the plain path")
+        lf = 0
+    long_ctx = None
+    if lf > 0:
+        # long-form transfer: restyle the full content clip by chained
+        # windows instead of trimming it to the window (JAX :189-215)
+        cpath = (args.input_content if os.path.isfile(args.input_content)
+                 else pjoin(ds.opt.motion_dir, args.input_content))
+        raw = np.load(cpath)  # (L, D) unnormalised, not trimmed
+        if raw.shape[0] < lf:
+            raise SystemExit(f"--long_frames {lf} exceeds the content clip's "
+                             f"{raw.shape[0]} frames")
+        norm = ((raw - ds.mean) / ds.std).astype(np.float32)
+        long_content = np.tile(norm.T[None, :, None, :], (args.num_samples, 1, 1, 1))
+        long_mask = np.asarray(get_inpainting_mask(args.inpainting_mask, long_content.shape,
+                                                   dataset=args.dataset), np.float32)
+        m_length = lf
+        long_ctx = (long_content, long_mask)
+        print(f"long-form transfer: {raw.shape[0]}-frame content -> {lf} frames in "
+              f"windows of {spec['max_frames']}")
+
     def model_fn(x, t, cond):
         return model(x, t, cond["enc_text"])
 
@@ -163,13 +199,33 @@ def main(argv=None):
     for rep_i in range(args.num_repetitions):
         print(f"### Start sampling [repetitions #{rep_i}]")
         t0 = time.perf_counter()
-        dump = sampling.sample_loop(
-            sched_ddim, model_fn, {"enc_text": enc_text}, generator,
-            shape=tuple(content.shape), init_image=content, method="ddim",
-            skip_timesteps=skip, stop_timesteps=stop, inpainting=inpainting,
-            dump_all_xstart=True)
-        sample = dump[pick][:, :, 0, :].permute(0, 2, 1).cpu().numpy()
-        print(f"sampling took {time.perf_counter() - t0:.4f} s ({len(dump)} denoiser calls, "
+        if long_ctx is not None:
+            as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+
+            def run_window(init, inp, window_generator):
+                return sampling.sample_loop(
+                    sched_ddim, model_fn, {"enc_text": enc_text}, window_generator,
+                    shape=tuple(content.shape),
+                    init_image=None if init is None else as_t(init), method="ddim",
+                    skip_timesteps=skip, stop_timesteps=stop,
+                    inpainting=None if inp is None else Inpainting(as_t(inp.mask),
+                                                                   as_t(inp.motion)),
+                    dump_all_xstart=True)[pick]
+
+            full = longform_sample(run_window, m_length, spec["max_frames"], overlap=10,
+                                   seed=sampling.draw_base_seed(generator, dev),
+                                   content=long_ctx[0], content_mask=long_ctx[1], device=dev)
+            sample = full[:, :, 0, :].transpose(0, 2, 1)
+            calls = "long-form"
+        else:
+            dump = sampling.sample_loop(
+                sched_ddim, model_fn, {"enc_text": enc_text}, generator,
+                shape=tuple(content.shape), init_image=content, method="ddim",
+                skip_timesteps=skip, stop_timesteps=stop, inpainting=inpainting,
+                dump_all_xstart=True)
+            sample = dump[pick][:, :, 0, :].permute(0, 2, 1).cpu().numpy()
+            calls = f"{len(dump)} denoiser calls"
+        print(f"sampling took {time.perf_counter() - t0:.4f} s ({calls}, "
               f"batch {args.num_samples}, on {dev})")
         denorm = ds.inv_transform(sample)
         all_hml.append(denorm)
@@ -189,8 +245,10 @@ def main(argv=None):
         "hml": np.concatenate(all_hml, axis=0),
     })
     if not args.skip_render:
-        write_outputs(args, ds, spec, out_path, content, m_length, input_motions,
-                      style_m_length, all_motions, all_hml, all_text, dev)
+        content_src = long_ctx[0] if long_ctx is not None else content.cpu().numpy()
+        write_outputs(args, ds, spec, out_path, content_src, m_length,
+                      input_motions.cpu().numpy(), style_m_length, all_motions, all_hml,
+                      all_text, dev)
     print(f"[Done] Results are at [{os.path.abspath(out_path)}]")
     return out_path
 
@@ -199,12 +257,14 @@ def write_outputs(args, ds, spec, out_path, content, m_length, input_motions, st
                   all_motions, all_hml, all_text, dev) -> None:
     """The demo's BVH and video outputs (motionstyle/cli/demo_style_transfer.py
     :414-475, stylexia): three IK fits on `dev`, two foot-skate passes and
-    2 + num_repetitions renders on the host."""
+    2 + num_repetitions renders on the host. content and input_motions are
+    normalised (B, C, 1, T) numpy clips; a long-form content covers all
+    m_length frames."""
     skel, real_offsets, chains, ee_names = skeleton_assets(args.dataset)
     bones = BVH_JOINT_NAMES[args.dataset]
 
     def joints_of(clip):
-        denorm = ds.inv_transform(clip[0, :, 0, :].T.cpu().numpy())
+        denorm = ds.inv_transform(clip[0, :, 0, :].T)
         return denorm, recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32),
                                         spec["joints"]).numpy()
 

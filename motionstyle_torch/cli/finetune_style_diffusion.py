@@ -209,6 +209,9 @@ def main(argv=None):
     args.save_dir = pjoin(args.save_dir, os.path.basename(args.style_example)[:-4])
     os.makedirs(args.save_dir, exist_ok=True)
     model_util.warn_if_clip_fallback(args)
+    # which package wrote the run: a style base without a resume_checkpoint
+    # is this package's seeded init only (model_util._style_base)
+    args.package = model_util.PACKAGE
     with open(pjoin(args.save_dir, "args.json"), "w") as fw:
         json.dump(vars(args), fw, indent=4, sort_keys=True)
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))

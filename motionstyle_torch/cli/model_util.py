@@ -11,7 +11,10 @@ torch's generator, so they differ from the JAX package's PRNGKey draws.
 
 A semantic discriminator checkpoint (--semantic_discriminator_path) loads
 into the model's mu/sigma queries and motion encoder; without one they are
-seeded. Not on this slice: LoRA adapters, --style_strength/--style_mix.
+seeded. --style_strength and --style_mix rescale or blend the style encoder's
+task vector against the encoder the finetune started from (_style_base), and
+load_named_styles reads the serve CLI's --styles. LoRA adapter checkpoints
+are refused (ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from motionstyle_torch.diffusion.schedule import make_schedule
 from motionstyle_torch.models import clip_text
 from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
-from motionstyle_torch.models.params import from_torch_state_dict, seeded_init_
+from motionstyle_torch.models.params import (
+    convert_encoder, from_torch_state_dict, seeded_init_)
 
 DATASET_DIMS = {
     "humanml": (263, 1),
@@ -35,6 +39,9 @@ DATASET_DIMS = {
 }
 
 CLIP_SEED = 42  # the seeded text tower, as the JAX package's PRNGKey(42)
+
+# the value of "package" in the args.json of a run this package wrote
+PACKAGE = "motionstyle_torch"
 
 
 def resolve_device(device) -> torch.device:
@@ -115,6 +122,15 @@ class ModelBundle:
             return np.stack([self._memo[(t, dataset)] for t in texts])
 
 
+def refuse_adapter(sd: dict, path: str) -> None:
+    """A LoRA adapter checkpoint (adapter*.pt) is not a style encoder: refuse
+    it until adapters are ported."""
+    if any("lora" in k for k in sd):
+        raise NotImplementedError(
+            f"{path}: LoRA adapter checkpoints are not ported to motionstyle_torch "
+            "(ROADMAP §1 item 3)")
+
+
 def build_model(args, device="cuda") -> ModelBundle:
     dev = resolve_device(device)
     cfg = get_transfer_config(args)
@@ -131,9 +147,7 @@ def build_model(args, device="cuda") -> ModelBundle:
     if model_path and os.path.exists(model_path):
         print(f"load style diffusion model: {model_path}")
         style_sd = load_torch_state_dict(model_path)
-        if any("lora" in k for k in style_sd):
-            raise NotImplementedError("LoRA adapter checkpoints are not served by "
-                                      "the PyTorch port yet")
+        refuse_adapter(style_sd, model_path)
         model.load_state_dict(from_torch_state_dict(style_sd, cfg, part="style_encoder"),
                               strict=False)
     clip = clip_text.ClipTextEncoder()
@@ -179,3 +193,137 @@ def warn_if_clip_fallback(args) -> bool:
         print('Recorded as "clip_fallback": true in args.json.')
         print("=" * 70)
     return args.clip_fallback
+
+
+def _style_base(cfg: MDMConfig, model_path: str, seed: int) -> dict:
+    """The style encoder the finetune of `model_path` STARTED from, as a
+    TransformerEncoder state dict (fp32, CPU): the --resume_checkpoint that
+    the run's args.json records, else the seeded initialisation of a run
+    this package wrote (its args.json says "package": "motionstyle_torch";
+    the finetune starts the encoder from seeded_init_ with the run's seed).
+
+    A run without a resume_checkpoint that the JAX package wrote started
+    from the JAX package's threefry-seeded init, which differs from this
+    package's by design (ROADMAP §3 D): it is refused, because a task vector
+    against a wrong base would corrupt every strength and every mix."""
+    from motionstyle_torch.train.finetune import find_resume_checkpoint
+
+    args_path = os.path.join(os.path.dirname(model_path), "args.json")
+    saved = {}
+    if os.path.exists(args_path):
+        import json
+
+        with open(args_path) as f:
+            saved = json.load(f)
+    rc = saved.get("resume_checkpoint", "") or ""
+    if rc:
+        orig = rc
+        if os.path.isdir(rc):
+            rc = find_resume_checkpoint(rc, "model") or ""
+        if not (rc and os.path.exists(rc)):
+            # falling back to a seeded init here would silently corrupt every
+            # task vector: strength 0 would no longer recover the pre-finetune
+            # model and blends would mix against a wrong base
+            raise SystemExit(
+                f"style base: args.json records resume_checkpoint {orig!r} "
+                "but no checkpoint exists there; restore the warm-start "
+                "file (or fix args.json) before using --style_strength/"
+                "--style_mix")
+        print(f"style base: resume checkpoint {rc}")
+        return convert_encoder(load_torch_state_dict(rc), "seqTransEncoder", cfg.num_layers)
+    if saved.get("package") != PACKAGE:
+        raise SystemExit(
+            f"style base: {args_path} records no resume_checkpoint and was not "
+            "written by motionstyle_torch, so the finetune started from the JAX "
+            "package's seeded init, which this package cannot rebuild; finetune "
+            "from a --resume_checkpoint (or with this package) before using "
+            "--style_strength/--style_mix")
+    seed = saved.get("seed", seed)
+    print(f"style base: the seeded init of seed {seed}")
+    model = seeded_init_(StyleDiffusion(cfg), seed)
+    return {k: v.detach().float().clone() for k, v in model.style_encoder.state_dict().items()}
+
+
+def strength_of(base: dict, finetuned: dict, strength: float) -> dict:
+    """base + strength * (finetuned - base), leaf by leaf in fp32."""
+    return {k: base[k] + strength * (finetuned[k] - base[k]) for k in base}
+
+
+def apply_style_mix(bundle: ModelBundle, args) -> bool:
+    """Blend several finetuned styles into one encoder (task arithmetic):
+
+        style_encoder <- base + sum_i w_i * (finetuned_i - base)
+
+    --style_mix "ckptA.pt:0.6,ckptB.pt:0.4": each entry a style-finetuned
+    checkpoint sharing this model's prior and warm start. Replaces the
+    loaded model's own encoder (list it with a weight to keep it). The JAX
+    package's apply_style_mix (motionstyle/cli/model_util.py:222-253).
+    Returns True when a mix was applied."""
+    spec = getattr(args, "style_mix", "") or ""
+    if not spec:
+        return False
+    base = _style_base(bundle.cfg, getattr(args, "model_path", ""), args.seed)
+    total = {k: v.clone() for k, v in base.items()}
+    for entry in spec.split(","):
+        path, _, w = entry.rpartition(":")
+        if not path:
+            raise SystemExit(f"--style_mix entry {entry!r} is not path:weight")
+        weight = float(w)
+        sd = load_torch_state_dict(path)
+        refuse_adapter(sd, path)
+        ft = convert_encoder(sd, "seqTransEncoder", bundle.cfg.num_layers)
+        total = {k: total[k] + weight * (ft[k] - base[k]) for k in total}
+        print(f"style_mix: + {weight} x ({os.path.basename(path)} - base)")
+    # copied in place: the packed-kernel cache sees the new parameter versions
+    bundle.model.style_encoder.load_state_dict(total)
+    return True
+
+
+def apply_style_strength(bundle: ModelBundle, args) -> bool:
+    """Scale the learned style task vector in place:
+
+        style_encoder <- base + strength * (finetuned - base)
+
+    where base is the encoder the finetune started from (_style_base).
+    Strength 0 recovers the pre-finetune encoder bit for bit, 1 is a no-op,
+    > 1 exaggerates the style. The JAX package's apply_style_strength
+    (motionstyle/cli/model_util.py:256-283). Returns True when applied."""
+    strength = float(getattr(args, "style_strength", 1.0))
+    if strength == 1.0:
+        return False
+    base = _style_base(bundle.cfg, getattr(args, "model_path", ""), args.seed)
+    finetuned = {k: v.detach().float().cpu()
+                 for k, v in bundle.model.style_encoder.state_dict().items()}
+    bundle.model.style_encoder.load_state_dict(strength_of(base, finetuned, strength))
+    print(f"style_strength {strength}: style encoder = base + "
+          f"{strength} x (finetuned - base)")
+    return True
+
+
+def load_named_styles(args, spec: str, cfg: MDMConfig) -> dict:
+    """'name=ckpt[,name2=ckpt2]' -> {name: style-encoder state dict (fp32,
+    CPU)} for multi-style serving, each with the CLI's --style_strength
+    applied against its own run's base. Only the style encoder differs
+    between styles (the prior and the text tower are frozen), so only it is
+    loaded; the engine serves each through a view of the served model
+    (parallel/inference.py::Sampler.prepare_params). The JAX package's
+    load_named_styles (motionstyle/cli/model_util.py:350-373). An adapter
+    entry is refused (ROADMAP §1 item 3)."""
+    strength = float(getattr(args, "style_strength", 1.0))
+    styles = {}
+    for part in filter(None, (s.strip() for s in spec.split(","))):
+        name, _, path = part.partition("=")
+        name = name.strip()
+        if not path or not name:
+            raise SystemExit(f"--styles entries must be name=path: {part!r}")
+        if "/" in name:
+            raise SystemExit(f"style names must not contain '/': {name!r}")
+        if not os.path.exists(path):
+            raise SystemExit(f"style checkpoint not found: {path}")
+        sd = load_torch_state_dict(path)
+        refuse_adapter(sd, path)
+        state = convert_encoder(sd, "seqTransEncoder", cfg.num_layers)
+        if strength != 1.0:
+            state = strength_of(_style_base(cfg, path, args.seed), state, strength)
+        styles[name] = state
+    return styles

@@ -165,10 +165,14 @@ def add_sampling_options(parser):
     group.add_argument("--parallel_window", default=0, type=int, help="not ported")
     group.add_argument("--forecast_stride", default=1, type=int, help="not ported")
     group.add_argument("--forecast_order", default=1, type=int, choices=[0, 1, 2])
-    group.add_argument("--long_frames", default=0, type=int, help="not ported")
+    group.add_argument("--long_frames", default=0, type=int,
+                       help="restyle this many frames of a longer content clip by "
+                            "chained windows (0 = one window)")
     group.add_argument("--style_strength", default=1.0, type=float,
-                       help="not ported (1 = the finetuned style)")
-    group.add_argument("--style_mix", default="", type=str, help="not ported")
+                       help="scale the style task vector (0 = the base, 1 = the "
+                            "finetuned style, >1 exaggerated)")
+    group.add_argument("--style_mix", default="", type=str,
+                       help="blend finetuned styles 'ckptA.pt:0.6,ckptB.pt:0.4'")
     group.add_argument("--model_parallel", default=1, type=int, help="not ported")
     group.add_argument("--pipeline_parallel", default=1, type=int, help="not ported")
     group.add_argument("--pipeline_micro", default=0, type=int)

@@ -10,20 +10,28 @@ answer does not depend on co-batched traffic.
 
 With --fused 1 every encoder layer runs the CUDA layer of kernel 1; with
 --quant_int8 1 (which implies it) the int8 CUDA layer of kernel 2.
+--styles serves extra named styles from the same model (a request picks one
+with "style"); --style_strength scales every served style's task vector.
+--artifact serves an exported plan (cli/export_model.py) instead of a
+checkpoint.
 
 Run:  python -m motionstyle_torch.cli.serve --model_path save/.../model000000032.pt \\
-        --dataset stylexia_posrot --fused 1 [--quant_int8 1] [--port 8500]
+        --dataset stylexia_posrot --fused 1 [--quant_int8 1] [--port 8500] \\
+        [--styles angry=a/model000000024.pt,proud=p/model000000024.pt]
+      python -m motionstyle_torch.cli.serve --artifact artifacts/angry_jump
 
 Request:  POST /v1/sample
-  {"content": [[...T x C...]], "text": "a person walks angrily", "seed": 7}
+  {"content": [[...T x C...]], "text": "a person walks angrily", "seed": 7,
+   "style": "angry"}
   (or "content_b64": base64 of little-endian float32 (T, C))
 Response: {"motion": [[...C x 1 x T...]], "seed": 7}
 
-Not on this slice: /v1/stream and long-form content. --artifact, --styles,
---style_strength and --model_parallel are refused (NotImplementedError) when
-they ask for anything but their defaults; a request naming a "style" is
-refused as the JAX server refuses an unregistered one (HTTP 500, "unknown
-style").
+Content longer than the model window is served long-form: the transfer runs
+over chained windows (diffusion/longform.py), each window a normal engine
+request that coalesces with concurrent single-clip traffic; POST /v1/stream
+answers it window by window as NDJSON. The flags of the shared option groups
+that a server does not run are refused (REFUSED), each naming its ROADMAP
+item where one covers it.
 """
 from __future__ import annotations
 
@@ -31,23 +39,35 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-# flag, when it asks for something not ported, what it needs
+# flag, when it asks for something the server does not run, what it needs
 REFUSED = (
-    ("artifact", bool, "serving an exported artifact (ROADMAP §1 item 6)"),
-    ("styles", bool, "named styles (ROADMAP §1 item 6)"),
-    ("style_strength", lambda v: v != 1.0, "style strength (ROADMAP §1 item 6)"),
     ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
+    ("arch", lambda v: v != "trans_enc",
+     "another architecture (StyleDiffusion is trans_enc only; MDM's arms are "
+     "ROADMAP §1 item 8)"),
+    ("emb_trans_dec", bool, "the trans_dec embedding (ROADMAP §1 item 8)"),
+    ("profile", bool, "profiling (ROADMAP §1 item 12)"),
+    ("fused_train", bool, "the training layer in a server, which runs no training forward"),
+    ("fused_train_prng", bool,
+     "the training layer's in-kernel dropout in a server, which runs no training forward"),
+    ("fused_train_store", bool,
+     "the training layer's stored probabilities in a server, which runs no training "
+     "forward"),
 )
 
 DATASET_DIMS = {"stylexia_posrot": (181, 76), "bandai-1_posrot": (190, 196),
                 "bandai-2_posrot": (190, 196), "humanml": (263, 196),
                 "kit": (251, 196)}
 
+LONGFORM_OVERLAP = 10  # frames each long-form window shares with the last
+
 
 def build_sampler(args):
     """args -> (bundle, Sampler, item_shape, dump pick): the min-latency
-    serving plan on args.device; --fused and --quant_int8 reach the model's
-    config through model_util.get_transfer_config."""
+    serving plan on args.device, with --style_strength applied; --fused and
+    --quant_int8 reach the model's config through
+    model_util.get_transfer_config. The exporter (cli/export_model.py)
+    traces this same sampler."""
     from motionstyle_torch.cli import model_util
     from motionstyle_torch.diffusion.sampling import min_latency_plan
     from motionstyle_torch.parallel.inference import Sampler
@@ -55,6 +75,7 @@ def build_sampler(args):
     njoints, nframes = DATASET_DIMS[args.dataset]
     bundle, sched_ddim, _ = model_util.creat_serval_diffusion(
         args, args.timestep_respacing, device=args.device)
+    model_util.apply_style_strength(bundle, args)
     skip = int(args.skip_steps / args.diffusion_steps * sched_ddim.num_timesteps)
     stop, pick = min_latency_plan(sched_ddim.num_timesteps, skip)
 
@@ -84,63 +105,156 @@ def _payload_content(payload: dict, njoints: int) -> np.ndarray:
 
 
 def build_engine(args):
-    """args -> (engine, decode, handle): decode turns a JSON payload into an
-    engine Request, handle answers it."""
+    """args -> (engine, decode, handle, stream): decode turns a JSON payload
+    of exactly one window into an engine Request, handle answers a payload
+    of one window or more, stream yields its answer window by window."""
     from motionstyle_torch.data.masks import get_inpainting_mask
     from motionstyle_torch.serve.engine import Request, ServingEngine
 
     njoints, nframes = DATASET_DIMS[args.dataset]
-    bundle, sampler, item_shape, pick = build_sampler(args)
+    if args.artifact:
+        from motionstyle_torch.serve.export import load_artifact
+
+        art = load_artifact(args.artifact, args.device)
+        if art.meta["dataset"] != args.dataset:
+            raise SystemExit(f"artifact was exported for dataset "
+                             f"{art.meta['dataset']}, serving {args.dataset}")
+        sampler, pick = art.sampler, int(art.meta["dump_pick"])
+        item_shape = sampler.item_shape
+        encode_text = art.encode_text
+        if encode_text is None:
+            raise SystemExit("artifact has no text plan; re-export with "
+                             "--text_plan 1 to serve captions from it")
+        if art.meta["inpainting_mask"] != args.inpainting_mask:
+            print(f"using the artifact's recorded inpainting_mask="
+                  f"{art.meta['inpainting_mask']} (not --inpainting_mask "
+                  f"{args.inpainting_mask})")
+            args.inpainting_mask = art.meta["inpainting_mask"]
+        buckets = tuple(art.meta["buckets"])
+        args.max_batch = min(args.max_batch, buckets[-1])
+        styles = art.styles
+        if args.styles:
+            raise SystemExit("--styles is an export-time choice for artifacts; "
+                             "bake them in with export_model --styles (this "
+                             f"artifact has {sorted(styles) or 'none'})")
+    else:
+        from motionstyle_torch.cli import model_util
+
+        bundle, sampler, item_shape, pick = build_sampler(args)
+        encode_text = lambda texts: bundle.encode_text(texts, args.dataset)  # noqa: E731
+        buckets = (1, 2, 4, 8)
+        styles = (model_util.load_named_styles(args, args.styles, bundle.cfg)
+                  if args.styles else {})
+    if styles:
+        print(f"multi-style serving: {sorted(styles)} (one model, a style "
+              f"encoder each)")
     engine = ServingEngine(sampler, item_shape, max_batch=args.max_batch,
-                           max_wait_ms=args.max_wait_ms, buckets=(1, 2, 4, 8),
+                           max_wait_ms=args.max_wait_ms, buckets=buckets,
                            deterministic=bool(args.deterministic),
-                           max_queue=args.max_queue, dump_pick=pick)
+                           max_queue=args.max_queue, dump_pick=pick, styles=styles)
     mask = np.asarray(get_inpainting_mask(
         args.inpainting_mask, (1,) + item_shape, dataset=args.dataset), np.float32)[0]
+
+    from functools import lru_cache
+
+    @lru_cache(maxsize=1024)
+    def cached_encode_text(text: str) -> np.ndarray:
+        """Per-caption memo of the frozen text tower, shared across styles
+        (a style swaps only the style encoder)."""
+        out = np.asarray(encode_text([text]), np.float32)[0]
+        out.setflags(write=False)
+        return out
+
+    def _request_from(content: np.ndarray, payload: dict) -> Request:
+        """(nframes, C) content + payload fields -> engine Request."""
+        return Request({"enc_text": cached_encode_text(payload.get("text", ""))},
+                       init_image=content.T[:, None, :], inpainting_mask=mask,
+                       seed=payload.get("seed", 0), style=payload.get("style"))
 
     def decode(payload: dict) -> Request:
         content = _payload_content(payload, njoints)  # (T, C)
         if content.shape != (nframes, njoints):
             raise ValueError(f"content must be (frames={nframes}, channels={njoints}), "
                              f"got {content.shape}")
-        enc = bundle.encode_text([payload.get("text", "")], args.dataset)[0]
-        return Request({"enc_text": enc}, init_image=content.T[:, None, :],
-                       inpainting_mask=mask, seed=payload.get("seed", 0),
-                       style=payload.get("style"))
+        return _request_from(content, payload)
+
+    def _checked_content(payload: dict) -> np.ndarray:
+        content = _payload_content(payload, njoints)  # (T, C)
+        if content.ndim != 2 or content.shape[1] != njoints:
+            raise ValueError(f"content must be (frames, channels={njoints}), "
+                             f"got {content.shape}")
+        if content.shape[0] < nframes:
+            raise ValueError(f"content must be >= {nframes} frames long (got "
+                             f"{content.shape[0]}); pad short clips client-side")
+        return content
+
+    def _long_stream(payload: dict, content: np.ndarray):
+        """(offset, (C, 1, t) chunk) generator for content longer than the
+        window: each window is an engine request riding the dynamic batcher,
+        with the per-window seed longform.window_seed(seed, k)."""
+        from motionstyle_torch.diffusion.longform import longform_stream, window_seed
+
+        enc = cached_encode_text(payload.get("text", ""))
+        seed = int(payload.get("seed", 0))
+        window_idx = iter(range(1 << 20))
+
+        def run_window(init, inp, _generator):
+            k = next(window_idx)
+            return engine.sample(Request(
+                {"enc_text": enc}, init_image=np.asarray(init)[0],
+                inpainting_mask=np.asarray(inp.mask)[0], seed=window_seed(seed, k),
+                style=payload.get("style")))[None]
+
+        long_content = content.T[None, :, None, :]  # (1, C, 1, T)
+        # the mask at FULL length: a time-varying mask (prefix) differs per
+        # frame, and broadcasting frame 0's column would pin the whole clip
+        long_mask = np.asarray(get_inpainting_mask(
+            args.inpainting_mask, long_content.shape, dataset=args.dataset), np.float32)
+        for off, chunk in longform_stream(run_window, content.shape[0], nframes,
+                                          overlap=LONGFORM_OVERLAP, content=long_content,
+                                          content_mask=long_mask):
+            yield off, chunk[0]
 
     def handle(payload: dict) -> np.ndarray:
-        return engine.sample(decode(payload))
+        """Content of exactly `nframes` -> one batched request; longer
+        content -> long-form transfer."""
+        content = _checked_content(payload)
+        if content.shape[0] == nframes:
+            return engine.sample(_request_from(content, payload))
+        return np.concatenate([c for _, c in _long_stream(payload, content)], axis=-1)
 
-    return engine, decode, handle
+    def stream(payload: dict):
+        """/v1/stream: yield {"offset", "motion"} per completed window;
+        drained, the chunks equal handle()'s answer exactly (the same
+        per-window seeds); exact-length content is one chunk. With request
+        "encoding": "b64" chunks carry motion_b64/shape instead."""
+        from motionstyle_torch.serve.server import encode_motion
+
+        content = _checked_content(payload)
+        if content.shape[0] == nframes:
+            out = np.asarray(engine.sample(_request_from(content, payload)))
+            yield {"offset": 0, **encode_motion(out, payload)}
+            return
+        for off, chunk in _long_stream(payload, content):
+            yield {"offset": int(off), **encode_motion(chunk, payload)}
+
+    return engine, decode, handle, stream
 
 
 def build_parser() -> ArgumentParser:
+    from motionstyle_torch.cli.parser_util import (
+        add_base_options, add_diffusion_options, add_model_options)
+
     parser = ArgumentParser()
-    parser.add_argument("--device", default="cuda", type=str,
-                        help="torch device to serve on (cuda unless asked)")
-    parser.add_argument("--seed", default=10, type=int,
-                        help="seed of the initialisation fallback")
-    parser.add_argument("--noise_schedule", default="cosine", choices=["linear", "cosine"])
-    parser.add_argument("--diffusion_steps", default=1000, type=int)
-    parser.add_argument("--layers", default=8, type=int)
-    parser.add_argument("--latent_dim", default=512, type=int)
-    parser.add_argument("--mdm_path", default="", type=str,
-                        help="pretrained MDM prior checkpoint (.pt)")
-    parser.add_argument("--clip_weights", default="", type=str,
-                        help="optional CLIP text-tower .pt; seeded if absent")
-    parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
-                        help="transformer compute dtype; default float32, or "
-                             "bfloat16 with --fused 1 or --quant_int8 1")
-    parser.add_argument("--fused", default=0, type=int,
-                        help="run the encoder layers through the fused CUDA kernel")
-    parser.add_argument("--quant_int8", default=0, type=int,
-                        help="int8 serving: run the encoder layers through the int8 CUDA "
-                             "kernel (implies --fused 1)")
+    add_base_options(parser)
+    add_diffusion_options(parser)
+    add_model_options(parser)
     parser.add_argument("--dataset", default="stylexia_posrot", type=str)
     parser.add_argument("--model_path", default="", type=str,
-                        help="finetuned style checkpoint to serve")
+                        help="finetuned style checkpoint to serve live (or pass --artifact)")
     parser.add_argument("--artifact", default="", type=str,
-                        help="exported artifact directory to serve (not ported)")
+                        help="serve an exported artifact directory (cli/export_model.py): "
+                             "no checkpoint or model rebuild on this host")
     parser.add_argument("--inpainting_mask", default="root_horizontal", type=str)
     parser.add_argument("--skip_steps", default=700, type=int)
     parser.add_argument("--timestep_respacing", default="ddim20", type=str)
@@ -153,9 +267,11 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--max_queue", default=256, type=int,
                         help="bound the admission queue (0 = unbounded)")
     parser.add_argument("--style_strength", default=1.0, type=float,
-                        help="scale of the learned style task vector (not ported)")
+                        help="scale the learned style task vector (0 = no style, "
+                             "1 = finetuned, >1 exaggerated)")
     parser.add_argument("--styles", default="", type=str,
-                        help="extra named styles 'name=ckpt[,n2=ckpt2]' (not ported)")
+                        help="extra named styles 'name=ckpt[,n2=ckpt2]' served from the "
+                             "same model; requests pick one with 'style'")
     parser.add_argument("--deterministic", default=0, type=int,
                         help="serve every batch in the largest bucket shape")
     parser.add_argument("--max_body_mb", default=64.0, type=float)
@@ -166,15 +282,21 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
-def parse_args(argv=None):
-    args = build_parser().parse_args(argv)
+def check_supported(args) -> None:
+    """Raise NotImplementedError for a flag the server does not run."""
     for flag, asks, what in REFUSED:
         if asks(getattr(args, flag)):
             raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
-    if not args.model_path:
-        raise SystemExit("pass --model_path (a missing file serves a seeded "
-                         "style encoder)")
+                f"--{flag} {getattr(args, flag)}: {what} is not run by "
+                "motionstyle_torch's server")
+
+
+def parse_args(argv=None):
+    args = build_parser().parse_args(argv)
+    check_supported(args)
+    if not args.model_path and not args.artifact:
+        raise SystemExit("pass --model_path (live serving; a missing file serves a "
+                         "seeded style encoder) or --artifact (an exported plan)")
     return args
 
 
@@ -182,12 +304,13 @@ def main(argv=None):
     args = parse_args(argv)
     from motionstyle_torch.serve.server import MotionServer
 
-    engine, decode, handle = build_engine(args)
+    engine, decode, handle, stream = build_engine(args)
     if args.warmup:
         njoints, nframes = DATASET_DIMS[args.dataset]
         engine.warmup(decode({"content": np.zeros((nframes, njoints), np.float32)}))
     server = MotionServer(engine, host=args.host, port=args.port, decode=decode,
-                          handle=handle, max_body_bytes=int(args.max_body_mb * (1 << 20)),
+                          handle=handle, stream=stream,
+                          max_body_bytes=int(args.max_body_mb * (1 << 20)),
                           request_timeout_s=(args.request_timeout_s
                                              if args.request_timeout_s > 0 else None))
     import signal
@@ -206,7 +329,7 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, _graceful)
     print(f"serving {args.dataset} style transfer on "
-          f"http://{args.host}:{server.port} (POST /v1/sample)", flush=True)
+          f"http://{args.host}:{server.port} (POST /v1/sample, /v1/stream)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -238,11 +238,9 @@ class ClipTextEncoder(nn.Module):
         self.load_state_dict(picked)
 
 
-def encode_text(model: ClipTextEncoder, texts, dataset: str = "stylexia_posrot",
-                tokenizer=None) -> torch.Tensor:
-    """Host tokenize + device encode on the model's device. Mirrors
-    MDM.encode_text :298-313 (humanml/kit use a 22-token context zero-padded
-    to 77)."""
+def text_ids(texts, dataset: str = "stylexia_posrot", tokenizer=None) -> np.ndarray:
+    """(len(texts), 77) token ids as MDM.encode_text :298-313 builds them:
+    humanml/kit use a 22-token context zero-padded to 77."""
     if dataset in ("humanml", "kit"):
         context_length = 20 + 2
         ids = tokenize(texts, context_length=context_length, truncate=True,
@@ -252,6 +250,13 @@ def encode_text(model: ClipTextEncoder, texts, dataset: str = "stylexia_posrot",
             axis=1)
     else:
         ids = tokenize(texts, tokenizer=tokenizer)
+    return ids
+
+
+def encode_text(model: ClipTextEncoder, texts, dataset: str = "stylexia_posrot",
+                tokenizer=None) -> torch.Tensor:
+    """Host tokenize (text_ids) + device encode on the model's device."""
+    ids = text_ids(texts, dataset, tokenizer)
     device = model.text_projection.device
     with torch.no_grad():
         return model(torch.as_tensor(ids, device=device))

@@ -32,7 +32,8 @@ from torch import nn
 
 from motionstyle_torch.ops.attention import multihead_attention
 from motionstyle_torch.ops.fused_encoder import (
-    fused_encoder, layer_params, pack, quantize_layer_params, refuse_grad)
+    LAYER_KEYS, fused_encoder, layer_params, packed_params, refuse_grad,
+    traced_fused_encoder)
 from motionstyle_torch.ops.fused_encoder_train import fused_encoder_train, make_dropout_masks
 
 
@@ -99,19 +100,16 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward)
             for _ in range(num_layers))
-        self._packed = {}  # format -> (parameter versions, per-layer kernel params)
 
     def packed_layers(self, int8: bool = False) -> list:
         """The layers' parameters in the fused kernel's format: bf16 weights,
         or with int8 the int8 kernel's codes and scales quantized from the
-        fp32 parameters. Rebuilt whenever a parameter was replaced or changed
-        in place."""
-        key = tuple((p.data_ptr(), p._version, p.device) for p in self.parameters())
-        cached = self._packed.get(int8)
-        if cached is None or cached[0] != key:
-            convert = quantize_layer_params if int8 else pack
-            cached = self._packed[int8] = (key, [convert(layer_params(l)) for l in self.layers])
-        return cached[1]
+        fp32 parameters. Each layer's copy is made once for each set of its
+        parameters' tensor versions (packed_params, the cache the exported
+        program's operators read too), so it is rebuilt whenever a parameter
+        was replaced or changed in place."""
+        return [packed_params([p[k] for k in LAYER_KEYS], int8)
+                for p in map(layer_params, self.layers)]
 
     def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32, use_fused: bool = False,
@@ -131,6 +129,12 @@ class TransformerEncoder(nn.Module):
             raise ValueError("a training forward with dropout needs a torch.Generator")
         if use_fused and deterministic:
             refuse_grad(x, *self.parameters())
+            if torch.compiler.is_compiling():
+                # traced (torch.export with the parameters as inputs): the
+                # kernels' custom operators take the layers' own parameters
+                return traced_fused_encoder(x, [layer_params(l) for l in self.layers],
+                                            self.nhead, key_padding_mask,
+                                            int8=use_int8).to(x.dtype)
             return fused_encoder(x, self.packed_layers(use_int8), self.nhead,
                                  key_padding_mask, int8=use_int8).to(x.dtype)
         # the int8 layer has no training kernels: with use_int8 a training

@@ -54,6 +54,20 @@ output, and three launches write the row codes of x, attn and ff.
 `fused_encoder_layer_int8` launches the kernel for CUDA tensors (or raises),
 runs its twin `fused_encoder_layer_int8_reference` only for CPU tensors, and
 counts its launches in `fused_encoder_layer_int8.launches`.
+
+Both layers are also the custom operators motionstyle::fused_encoder_layer
+and motionstyle::fused_encoder_layer_int8 (torch.library.custom_op, each with
+a fake that gives a (B, S, D) tensor in x's dtype), so torch.export keeps
+them as opaque nodes of an exported program (serve/export.py). The
+operators take a layer's own fp32 parameters (layer_params, in LAYER_KEYS
+order) and convert them to the kernel's format once for each set of tensor
+versions (packed_params, the one cache of the kernel formats, which
+TransformerEncoder.packed_layers reads for an eager model too), so a program
+does not repeat the conversion at every call; then they make the same eager
+call, counter included. A traced model
+(TransformerEncoder under torch.export) calls traced_fused_encoder; an
+eager one launches the kernels directly. A process that loads an exported
+program must import this module first, so that the operators exist.
 """
 from __future__ import annotations
 
@@ -441,6 +455,58 @@ def fused_encoder_layer_int8(x: torch.Tensor, p: dict, num_heads: int,
 
 
 fused_encoder_layer_int8.launches = 0
+
+
+# the custom operators' flat list of a layer's fp32 parameters, in this order
+LAYER_KEYS = WEIGHT_KEYS + VECTOR_KEYS
+
+
+def packed_params(params: list, int8: bool) -> dict:
+    """A layer's fp32 parameters (LAYER_KEYS order) in kernel 1's format (pack)
+    or, with int8, kernel 2's (quantize_layer_params), converted once for
+    each set of tensor versions. The copies hang on the in-projection weight
+    (attribute _kernel_formats), so they live as long as the parameters they
+    were made from."""
+    versions = tuple((t.data_ptr(), t._version) for t in params)
+    formats = getattr(params[0], "_kernel_formats", {})
+    hit = formats.get(int8)
+    if hit is None or hit[0] != versions:
+        convert = quantize_layer_params if int8 else pack
+        hit = (versions, convert(dict(zip(LAYER_KEYS, params))))
+        params[0]._kernel_formats = {**formats, int8: hit}
+    return hit[1]
+
+
+@torch.library.custom_op("motionstyle::fused_encoder_layer", mutates_args=())
+def _layer_op(x: torch.Tensor, params: list[torch.Tensor], num_heads: int,
+              key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_encoder_layer(x, packed_params(params, False), num_heads, key_padding_mask)
+
+
+@torch.library.custom_op("motionstyle::fused_encoder_layer_int8", mutates_args=())
+def _layer_int8_op(x: torch.Tensor, params: list[torch.Tensor], num_heads: int,
+                   key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_encoder_layer_int8(x, packed_params(params, True), num_heads,
+                                    key_padding_mask)
+
+
+@_layer_op.register_fake
+@_layer_int8_op.register_fake
+def _layer_fake(x, params, num_heads, key_padding_mask):
+    return x.new_empty(x.shape)
+
+
+def traced_fused_encoder(x: torch.Tensor, layers: list, num_heads: int,
+                         key_padding_mask: Optional[torch.Tensor] = None,
+                         int8: bool = False) -> torch.Tensor:
+    """fused_encoder for a traced model: each layer's own parameters
+    (layer_params) go to kernel 1's (int8: kernel 2's) custom operator,
+    which a traced program keeps as one node a layer."""
+    op = (torch.ops.motionstyle.fused_encoder_layer_int8 if int8
+          else torch.ops.motionstyle.fused_encoder_layer)
+    for p in layers:
+        x = op(x, [p[k] for k in LAYER_KEYS], num_heads, key_padding_mask)
+    return x
 
 
 def fused_encoder(x: torch.Tensor, layers: list, num_heads: int,

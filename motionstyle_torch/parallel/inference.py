@@ -1,12 +1,13 @@
 """One-device batched sampler with the interface the serving engine uses.
 
 Counterpart of motionstyle/parallel/inference.py::ShardedSampler without the
-mesh: this slice runs on one card. The engine calls make_run,
-n_live_steps, needs_step_noise and __call__; multi-device sampling comes
-with a later slice (torch.distributed).
+mesh: one card. The engine calls make_run, n_live_steps, needs_step_noise,
+prepare_params and __call__; multi-device sampling comes with ROADMAP §1
+item 11 (torch.distributed).
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional
 
 import torch
@@ -18,6 +19,39 @@ from motionstyle_torch.diffusion.schedule import DiffusionSchedule
 
 def _as_tensor(a, device, dtype=torch.float32):
     return None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def item_noise(seeds, item_shape: tuple, device, n_steps: int = 0):
+    """(noise (B, ...), step_noise (S, B, ...) or None) from per-item seeds:
+    item i's initial noise and then its n_steps-step noise stack come from
+    its own torch.Generator on `device` seeded with seeds[i]."""
+    inits, steps = [], []
+    for seed in seeds:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        inits.append(torch.randn(item_shape, generator=gen, device=device))
+        if n_steps:
+            steps.append(torch.randn((n_steps,) + tuple(item_shape), generator=gen,
+                                     device=device))
+    return torch.stack(inits), (torch.stack(steps, dim=1) if steps else None)
+
+
+def style_view(model, encoder_state: dict):
+    """A StyleDiffusion that shares every module of `model` but its style
+    encoder, a new one loaded with encoder_state on model's device. With
+    the fused layers its kernel-format weights are packed here, so a
+    style's first request does not pay for it."""
+    src = model.style_encoder
+    encoder = type(src)(len(src.layers), src.layers[0].linear1.in_features, src.nhead,
+                        src.dim_feedforward, src.dropout)
+    encoder.load_state_dict(encoder_state)
+    encoder.to(next(src.parameters()).device).train(src.training)
+    cfg = model.cfg
+    if cfg.fused or cfg.quant_int8:
+        encoder.packed_layers(cfg.quant_int8)
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    view._modules["style_encoder"] = encoder
+    return view
 
 
 class Sampler:
@@ -52,14 +86,18 @@ class Sampler:
         torch.Generator seeded with seeds[i], so they depend on nothing
         else in the batch. Returns (noise (B, ...), step_noise (S, B, ...)
         or None)."""
-        inits, steps = [], []
-        for seed in seeds:
-            gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            inits.append(torch.randn(item_shape, generator=gen, device=self.device))
-            if self.needs_step_noise():
-                steps.append(torch.randn((self.n_live_steps(),) + tuple(item_shape),
-                                         generator=gen, device=self.device))
-        return torch.stack(inits), (torch.stack(steps, dim=1) if steps else None)
+        return item_noise(seeds, item_shape, self.device,
+                          self.n_live_steps() if self.needs_step_noise() else 0)
+
+    def prepare_params(self, encoder_state: dict):
+        """A named style's model for a per-call `params` override: a view of
+        the served model that shares its frozen prior and semantic modules
+        and holds its own copy of the style encoder, loaded with
+        `encoder_state` (a TransformerEncoder state dict) on this sampler's
+        device. Only the encoder is copied, so each style costs one encoder
+        of memory; the copy keeps its own packed-kernel cache, so kernels 1
+        and 2 read that style's weights."""
+        return style_view(self.params, encoder_state)
 
     def make_run(self, shape: tuple) -> Callable:
         """The sampler computation for one batch shape: `run(params,

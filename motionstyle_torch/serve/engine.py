@@ -23,6 +23,12 @@ Precision: across bucket shapes the library matmuls around the kernel may
 pick other algorithms, so the same request served in two bucket sizes can
 differ by rounding. deterministic=True collapses the buckets to the largest
 one, so every request is served in one shape.
+
+Named styles (styles=): each a style-encoder state dict that the sampler
+turns into a view of its model once (Sampler.prepare_params); a device batch
+serves exactly one style (the style is part of _compat_key), so a style's
+answer equals a single-style engine's within a bucket shape. The sampler may
+also be an exported artifact (serve/export.py::ExportedSampler).
 """
 from __future__ import annotations
 
@@ -31,7 +37,6 @@ from typing import Optional, Sequence
 import numpy as np
 
 from motionstyle_torch.diffusion.ddpm import Inpainting
-from motionstyle_torch.parallel.inference import Sampler
 from motionstyle_torch.serve.batcher import DynamicBatcher, bucket_for
 
 
@@ -52,20 +57,23 @@ class Request:
 
 
 class ServingEngine:
-    """Wraps a Sampler in a DynamicBatcher. item_shape: (C, F, T) of one
-    clip; dump_pick: which entry of a dump_all_xstart stack to serve (pair it
-    with the sampler's stop_timesteps via sampling.min_latency_plan)."""
+    """Wraps a Sampler (or an ExportedSampler) in a DynamicBatcher.
+    item_shape: (C, F, T) of one clip; dump_pick: which entry of a
+    dump_all_xstart stack to serve (pair it with the sampler's
+    stop_timesteps via sampling.min_latency_plan); styles: {name:
+    style-encoder state dict} served by a request's "style"."""
 
-    def __init__(self, sampler: Sampler, item_shape: tuple, max_batch: int = 8,
+    def __init__(self, sampler, item_shape: tuple, max_batch: int = 8,
                  max_wait_ms: float = 5.0, buckets: Sequence[int] = (1, 2, 4, 8),
                  deterministic: bool = False, max_queue: int = 0,
-                 dump_pick: int = -1):
+                 dump_pick: int = -1, styles: Optional[dict] = None):
         self.sampler = sampler
         self.item_shape = tuple(item_shape)
         self.dump_pick = dump_pick
         self.buckets = tuple(sorted(buckets))
-        # named styles: empty until the port serves --styles (ROADMAP §1 item 6)
-        self._styles: dict = {}
+        # named styles, each placed on the sampler's device once
+        self._styles = {name: sampler.prepare_params(state)
+                        for name, state in (styles or {}).items()}
         if deterministic:
             self.buckets = (self.buckets[-1],)
         self._batcher = DynamicBatcher(self._run_groups, max_batch=max_batch,
@@ -120,10 +128,10 @@ class ServingEngine:
 
     @staticmethod
     def _compat_key(r: Request):
-        """Requests sharing a device batch must agree on structure and cond
-        shapes."""
+        """Requests sharing a device batch must agree on structure, cond
+        shapes and style (a device batch runs one style's parameters)."""
         return (tuple((k, tuple(np.shape(v))) for k, v in sorted(r.cond.items())),
-                r.init_image is not None, r.inpainting_mask is not None)
+                r.init_image is not None, r.inpainting_mask is not None, r.style)
 
     def _run_groups(self, items: list) -> list:
         """Split a coalesced batch into compatible groups, run each, restore
@@ -157,7 +165,9 @@ class ServingEngine:
         if padded[0].inpainting_mask is not None:
             mask = np.stack([np.asarray(r.inpainting_mask, np.float32) for r in padded])
             batch["inpainting"] = Inpainting(mask=mask, motion=batch["init_image"])
-        out = self.sampler(batch).float().cpu().numpy()
+        style = padded[0].style  # _compat_key groups one style per batch
+        params = None if style is None else self._styles[style]
+        out = self.sampler(batch, params=params).float().cpu().numpy()
         if out.ndim == len(self.item_shape) + 2:
             out = out[self.dump_pick]  # dump_all_xstart stack (S, B, ...)
         return [out[i] for i in range(n)]

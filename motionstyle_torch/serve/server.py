@@ -1,7 +1,10 @@
 """HTTP serving frontend over the ServingEngine (stdlib only).
 
-Counterpart of motionstyle/serve/server.py for this slice. Endpoints:
+Counterpart of motionstyle/serve/server.py. Endpoints:
   POST /v1/sample   body: JSON request; returns {"motion": [[...]], ...}
+  POST /v1/stream   same body; NDJSON response: one {"offset", "motion"}
+                    line per completed long-form window (the first motion
+                    after one window's latency), then a {"done": true} line
   GET  /healthz     liveness
   GET  /stats       batcher counters and a sliding window of latency
                     percentiles, device batch time and queue depth
@@ -14,8 +17,10 @@ concurrency buys coalescing, not device-side parallelism.
 Hardening as in the JAX server: bodies above `max_body_bytes` are rejected
 413 before they are read; a POST without Content-Length is a 411; handle()
 runs on a bounded pool with a `request_timeout_s` deadline (504); socket
-reads carry an idle timeout; HTTP/1.1 keep-alive. /v1/stream and long-form
-content come with a later slice.
+reads carry an idle timeout; HTTP/1.1 keep-alive. Each /v1/stream chunk's
+computation runs under the same deadline (a first chunk past it is a 504, a
+later one an {"error"} line); /v1/stream responses send Connection: close,
+since they have no length.
 """
 from __future__ import annotations
 
@@ -60,21 +65,25 @@ class MotionServer:
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
                  port: int = 8500, decode: Callable = default_decode,
                  handle: Callable | None = None,
+                 stream: Callable | None = None,
                  max_body_bytes: int = 64 << 20,
                  request_timeout_s: float | None = 120.0,
                  read_timeout_s: float = 30.0,
                  max_workers: int = 32):
         """handle(payload) -> np.ndarray overrides the default
-        engine.sample(decode(payload)).
+        engine.sample(decode(payload)) (cli/serve.py's handler also serves
+        long-form content). stream(payload) -> iterator of JSON-able dicts
+        enables /v1/stream.
 
         max_body_bytes: request bodies above this are rejected 413 unread.
-        request_timeout_s: deadline for one handle()
+        request_timeout_s: deadline for one handle() or stream-chunk
         computation (None disables); expiry returns 504 and releases the
         client thread. max_workers bounds concurrently-running handlers
         (back-pressure above the batcher queue)."""
         self.engine = engine
         self.decode = decode
         self.handle = handle or (lambda payload: engine.sample(decode(payload)))
+        self.stream = stream
         self.max_body_bytes = int(max_body_bytes)
         self.request_timeout_s = request_timeout_s
         self._pool = cf.ThreadPoolExecutor(max_workers=max_workers,
@@ -95,7 +104,8 @@ class MotionServer:
 
         class Handler(BaseHTTPRequestHandler):
             # keep-alive: connection reuse amortizes TCP+thread setup across
-            # a client's requests (every response sets Content-Length)
+            # a client's requests (every response sets Content-Length but
+            # /v1/stream's, which closes the connection)
             protocol_version = "HTTP/1.1"
             timeout = read_timeout_s  # idle-socket read deadline
 
@@ -154,6 +164,55 @@ class MotionServer:
                     return True
                 return False
 
+            def _stream(self, payload: dict):
+                """NDJSON: chunk lines as windows complete, then a done line.
+                An error before the first chunk gets a JSON 500 (504 past the
+                deadline); after the headers are sent, an error becomes a
+                last {"error"} line. Each chunk's computation runs under the
+                request deadline."""
+                sentinel = object()
+                try:
+                    gen = iter(outer.stream(payload))
+                    first = run_bounded(next, gen, sentinel)
+                except TimeoutError as ex:
+                    self._json(504, {"error": str(ex)}, close=True)
+                    return
+                except Exception as ex:  # noqa: BLE001 — before the headers
+                    self._json(500, {"error": f"{type(ex).__name__}: {ex}"})
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                # NDJSON has no Content-Length: under HTTP/1.1 the close is
+                # the delimiter
+                self.send_header("Connection", "close")
+                self.close_connection = True
+                self.end_headers()
+
+                def line(obj):
+                    self.wfile.write((json.dumps(obj) + "\n").encode())
+                    self.wfile.flush()
+
+                try:
+                    n_chunks = 0
+                    if first is not sentinel:
+                        line(first)
+                        n_chunks = 1
+                        while True:
+                            obj = run_bounded(next, gen, sentinel)
+                            if obj is sentinel:
+                                break
+                            line(obj)
+                            n_chunks += 1
+                    line({"done": True, "chunks": n_chunks,
+                          "seed": payload.get("seed", 0)})
+                except BrokenPipeError:
+                    pass  # the client went away mid-stream
+                except Exception as ex:  # noqa: BLE001 — mid-stream
+                    try:
+                        line({"error": f"{type(ex).__name__}: {ex}"})
+                    except Exception:  # noqa: BLE001
+                        pass
+
             def do_POST(self):
                 if self._reject_body():
                     return
@@ -168,6 +227,12 @@ class MotionServer:
                             f"{type(payload).__name__}")
                 except Exception as ex:  # noqa: BLE001 — malformed JSON/body
                     self._json(400, {"error": f"{type(ex).__name__}: {ex}"})
+                    return
+                if self.path == "/v1/stream":
+                    if outer.stream is None:
+                        self._json(404, {"error": "streaming not configured"})
+                    else:
+                        self._stream(payload)
                     return
                 if self.path != "/v1/sample":
                     self._json(404, {"error": f"unknown path {self.path}"})

@@ -610,17 +610,20 @@ def test_quant_int8_finetune_loss_matches_jax(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """motionstyle_torch (its quality protocol, semantic trainer, parallel
-    sampler, style metrics and post chain among them), chip_smoke.py and
-    profile_layers.py import nothing of JAX or of the JAX package."""
+    sampler, style metrics, post chain, long-form sampler, named styles and
+    exporter among them), chip_smoke.py, profile_layers.py, quality_sweep.py
+    and serve_bench.py import nothing of JAX or of the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
-                                              "quality_sweep.py")]
+                                              "quality_sweep.py", "serve_bench.py")]
     for new in ("eval/style_metrics.py", "eval/quality_protocol.py", "train/semantic.py",
                 "diffusion/parallel_sampling.py", "cli/train_semantic_discriminator.py",
                 "core/params.py", "core/rotations.py", "core/skeleton.py", "core/features.py",
                 "data/masks.py", "post/footskate.py", "post/bvh.py", "post/ik.py",
-                "post/render.py"):
+                "post/render.py", "diffusion/longform.py", "serve/export.py",
+                "cli/export_model.py", "cli/serve.py", "serve/server.py", "serve/engine.py",
+                "parallel/inference.py", "cli/model_util.py", "ops/fused_encoder.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)

@@ -141,7 +141,7 @@ class TestServeCLI:
             "--layers", "1", "--latent_dim", "128", "--fused", "1",
             "--diffusion_steps", "40", "--skip_steps", "28", "--timestep_respacing",
             "ddim10", "--max_wait_ms", "200", "--deterministic", "1"])
-        engine, decode, handle = serve.build_engine(args)
+        engine, decode, handle, _ = serve.build_engine(args)
         assert engine.buckets == (8,)
         server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
         base = f"http://127.0.0.1:{server.port}"
@@ -221,7 +221,7 @@ class TestServeCLI:
             "--layers", "1", "--latent_dim", "128", "--quant_int8", "1",
             "--diffusion_steps", "40", "--skip_steps", "28", "--timestep_respacing",
             "ddim10", "--max_wait_ms", "50"])
-        engine, decode, handle = serve.build_engine(args)
+        engine, decode, handle, _ = serve.build_engine(args)
         cfg = engine.sampler.params.cfg
         assert cfg.quant_int8 and cfg.fused and cfg.dtype == "bfloat16"
         server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
@@ -248,7 +248,7 @@ class TestServeCLI:
             "--device", "cpu", "--model_path", str(tmp_path / "model000000001.pt"),
             "--layers", "1", "--latent_dim", "64", "--diffusion_steps", "40",
             "--skip_steps", "28", "--timestep_respacing", "ddim10"])
-        engine, decode, handle = serve.build_engine(args)
+        engine, decode, handle, _ = serve.build_engine(args)
         assert decode({"content": np.zeros((76, 181)), "style": "angry"}).style == "angry"
         server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
         try:
@@ -260,14 +260,20 @@ class TestServeCLI:
         assert code == 500 and "unknown style 'angry'" in err["error"]
 
     @pytest.mark.parametrize("flag, item", [
-        (["--artifact", "exported"], 6), (["--styles", "angry=a.pt"], 6),
-        (["--style_strength", "0.5"], 6), (["--model_parallel", "2"], 11)])
+        (["--model_parallel", "2"], r"ROADMAP §1 item 11\b"),
+        (["--arch", "trans_dec"], r"ROADMAP §1 item 8\b"),
+        (["--emb_trans_dec", "1"], r"ROADMAP §1 item 8\b"),
+        (["--profile", "trace"], r"ROADMAP §1 item 12\b"),
+        (["--fused_train", "1"], "runs no training forward"),
+        (["--fused_train_prng", "1"], "runs no training forward"),
+        (["--fused_train_store", "1"], "runs no training forward")])
     def test_refuses_what_is_not_ported(self, flag, item):
-        """Each JAX serve flag the port lacks is refused before any work and
-        names its ROADMAP item; at its default it parses."""
+        """Each flag of the shared option groups that the server does not run
+        is refused before any work, naming its ROADMAP item where one covers
+        it; at its default it parses."""
         from motionstyle_torch.cli import serve
 
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
+        with pytest.raises(NotImplementedError, match=item):
             serve.parse_args(["--model_path", "m.pt", *flag])
         args = serve.parse_args(["--model_path", "m.pt"])
         assert (args.artifact, args.styles, args.style_strength, args.model_parallel) == (
@@ -355,3 +361,377 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+class TestServerHardening:
+    """tests/test_serve.py::TestServerHardening against the port's
+    MotionServer: size limits, per-request and per-chunk deadlines,
+    malformed payloads, keep-alive reuse and /v1/stream's framing; every
+    case leaves the server alive (healthz 200 after each)."""
+
+    def _server(self, handle=None, stream=None, **kw):
+        from motionstyle_torch.serve.server import MotionServer
+
+        class _Eng:
+            def stats(self):
+                return {"ok": 1}
+
+            def close(self):
+                pass
+
+        return MotionServer(_Eng(), port=0, decode=lambda p: p,
+                            handle=handle or (lambda p: np.zeros((2, 2), np.float32)),
+                            stream=stream, **kw).start_background()
+
+    def _code(self, base, body: bytes, path="/v1/sample", timeout=30):
+        req = urllib.request.Request(base + path, data=body,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            e.read()
+            return e.code
+
+    def _alive(self, base):
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+            assert r.status == 200
+
+    def test_malformed_payloads_rejected_server_survives(self):
+        srv = self._server(handle=lambda p: np.asarray(p["content"], np.float32) * 2)
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            for body, want in ((b"not json at all", 400), (b"{", 400),
+                               (b"\xff\xfe\x00garbage", 400), (b"[1, 2, 3]", 400),
+                               (b'"just a string"', 400), (b'{"content": "not a number"}', 500),
+                               (b'{"wrong_key": 1}', 500), (b"", 500)):
+                assert self._code(base, body) == want, body
+                self._alive(base)
+            assert self._code(base, json.dumps({"content": [[1.0, 2.0]]}).encode()) == 200
+        finally:
+            srv.close()
+
+    def test_oversized_body_rejected_unread(self):
+        import http.client
+        import time
+
+        srv = self._server(max_body_bytes=1024)
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            t0 = time.perf_counter()
+            try:
+                code = self._code(base, b" " * (8 << 20))
+            except (urllib.error.URLError, ConnectionError, OSError):
+                code = 413  # the reset reached a client still uploading
+            assert code == 413 and time.perf_counter() - t0 < 10
+            self._alive(base)
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+            conn.putrequest("POST", "/v1/sample")
+            conn.putheader("Content-Type", "application/json")
+            conn.putheader("Content-Length", str(8 << 20))
+            conn.endheaders()
+            resp = conn.getresponse()
+            resp.read()
+            assert resp.status == 413
+            conn.close()
+        finally:
+            srv.close()
+
+    def test_missing_content_length_411(self):
+        import http.client
+
+        srv = self._server()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+            conn.putrequest("POST", "/v1/sample")
+            conn.putheader("Content-Type", "application/json")
+            conn.endheaders()
+            resp = conn.getresponse()
+            resp.read()
+            assert resp.status == 411
+            conn.close()
+        finally:
+            srv.close()
+
+    def test_request_timeout_returns_504(self):
+        import time
+
+        srv = self._server(handle=lambda p: time.sleep(30), request_timeout_s=0.3)
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            t0 = time.perf_counter()
+            assert self._code(base, b"{}") == 504 and time.perf_counter() - t0 < 10
+            self._alive(base)
+        finally:
+            srv.close()
+
+    def test_stream_first_chunk_timeout_504(self):
+        import time
+
+        def stream(p):
+            time.sleep(30)
+            yield {"offset": 0}
+
+        srv = self._server(stream=stream, request_timeout_s=0.3)
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            assert self._code(base, b"{}", path="/v1/stream") == 504
+            self._alive(base)
+        finally:
+            srv.close()
+
+    def test_stream_errors(self):
+        """An error before the first chunk is a JSON 500; after it, a last
+        {"error"} line; a later chunk past the deadline is an error line
+        too; no stream configured is a 404."""
+        import time
+
+        def failing(p):
+            if p.get("early"):
+                raise ValueError("bad content")
+            yield {"offset": 0}
+            if p.get("slow"):
+                time.sleep(30)
+            raise RuntimeError("window 2 failed")
+
+        srv = self._server(stream=failing, request_timeout_s=0.5)
+        bare = self._server()
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            assert self._code(base, b'{"early": 1}', path="/v1/stream") == 500
+            for body, want in ((b"{}", "RuntimeError: window 2 failed"),
+                               (b'{"slow": 1}', "TimeoutError")):
+                req = urllib.request.Request(base + "/v1/stream", data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    lines = [json.loads(line) for line in r.read().splitlines()]
+                assert lines[0] == {"offset": 0} and want in lines[-1]["error"]
+            self._alive(base)
+            assert self._code(f"http://127.0.0.1:{bare.port}", b"{}", path="/v1/stream") == 404
+        finally:
+            srv.close()
+            bare.close()
+
+    def test_keepalive_connection_reuse(self):
+        import http.client
+
+        srv = self._server()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+            for _ in range(3):
+                conn.request("POST", "/v1/sample", body=b"{}",
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                assert resp.status == 200 and resp.version == 11
+            conn.close()
+        finally:
+            srv.close()
+
+    def test_stream_closes_connection(self):
+        def stream(p):
+            yield {"offset": 0}
+
+        srv = self._server(stream=stream)
+        try:
+            req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/v1/stream", data=b"{}",
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                assert r.headers.get("Connection") == "close"
+                lines = [json.loads(line) for line in r.read().splitlines()]
+            assert lines[-1] == {"done": True, "chunks": 1, "seed": 0}
+        finally:
+            srv.close()
+
+
+TINY = ["--dataset", "stylexia_posrot", "--layers", "1", "--latent_dim", "32",
+        "--diffusion_steps", "40", "--skip_steps", "28", "--timestep_respacing", "ddim5",
+        "--max_wait_ms", "1", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def styled_server(tmp_path_factory):
+    """The serve CLI on a tiny seeded model with a second named style
+    ("fierce", another seed's encoder) behind MotionServer with /v1/stream."""
+    from motionstyle_torch.cli import serve
+    from motionstyle_torch.models.params import export_style_encoder
+    from motionstyle_torch.serve.server import MotionServer
+
+    root = tmp_path_factory.mktemp("styled_server")
+    style2 = root / "style2.pt"
+    torch.save(export_style_encoder(seeded_init_(StyleDiffusion(MDMConfig(
+        latent_dim=32, num_layers=1)), 5)), style2)
+    engine, decode, handle, stream = serve.build_engine(serve.parse_args(
+        ["--model_path", str(root / "model000000001.pt"), "--styles", f"fierce={style2}",
+         *TINY]))
+    server = MotionServer(engine, port=0, decode=decode, handle=handle,
+                          stream=stream).start_background()
+    yield f"http://127.0.0.1:{server.port}", handle, stream
+    server.close()
+
+
+def _root_mask(frames, name="root_horizontal"):
+    from motionstyle_torch.data.masks import get_inpainting_mask
+
+    return np.asarray(get_inpainting_mask(name, (1, 181, 1, frames),
+                                          dataset="stylexia_posrot"), np.float32)[0]
+
+
+class TestServeLongform:
+    def test_stream_equals_sample_over_http(self, styled_server):
+        """A 180-frame clip: /v1/stream's chunks (3 windows) drained equal
+        /v1/sample's answer, which keeps the content's root channels at
+        every frame; 76 frames stream as one chunk."""
+        base, _, _ = styled_server
+        content = np.random.RandomState(3).randn(180, 181).astype(np.float32)
+        body = {"content": content.tolist(), "text": "a person walks", "seed": 4}
+        code, whole = _post(base, "/v1/sample", json.dumps(body).encode())
+        assert code == 200
+        whole = np.asarray(whole["motion"], np.float32)
+        req = urllib.request.Request(base + "/v1/stream", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            lines = [json.loads(line) for line in r.read().splitlines()]
+        assert [ln["offset"] for ln in lines[:-1]] == [0, 76, 142]
+        assert lines[-1] == {"done": True, "chunks": 3, "seed": 4}
+        drained = np.concatenate([np.asarray(ln["motion"], np.float32) for ln in lines[:-1]],
+                                 axis=-1)
+        np.testing.assert_array_equal(drained, whole)
+        mask = _root_mask(180)
+        np.testing.assert_array_equal(whole * mask, content.T[:, None, :] * mask)
+        short = dict(body, content=content[:76].tolist())
+        req = urllib.request.Request(base + "/v1/stream", data=json.dumps(short).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            lines = [json.loads(line) for line in r.read().splitlines()]
+        assert len(lines) == 2 and lines[0]["offset"] == 0
+        code, err = _post(base, "/v1/stream", json.dumps(dict(body, content=[[0.0] * 5]))
+                          .encode())
+        assert code == 500 and "channels=181" in err["error"]
+
+    def test_style_rides_every_window(self, styled_server):
+        """tests/test_serve.py::TestServeLongformStyle: a long request's style
+        reaches every window, and streaming equals the batch path per style."""
+        _, handle, stream = styled_server
+        content = np.random.RandomState(11).randn(142, 181).astype(np.float32)
+        payload = {"content": content.tolist(), "text": "a person walks angrily", "seed": 4}
+        plain = np.asarray(handle(payload), np.float32)
+        styled = np.asarray(handle({**payload, "style": "fierce"}), np.float32)
+        mask = _root_mask(142)
+        for out in (plain, styled):
+            np.testing.assert_array_equal(out * mask, content.T[:, None, :] * mask)
+        diff = np.abs((styled - plain) * (1 - mask))
+        assert diff[..., :76].max() > 1e-4 and diff[..., 76:].max() > 1e-4
+        chunks = [np.asarray(c["motion"], np.float32)
+                  for c in stream({**payload, "style": "fierce"})]
+        np.testing.assert_array_equal(np.concatenate(chunks, axis=-1), styled)
+
+    def test_time_varying_mask_built_at_full_length(self, tmp_path):
+        """tests/test_serve.py::TestServeLongformMask: --inpainting_mask prefix
+        differs per frame, so the long mask is built at full length: the
+        prefix frames kept, the rest resampled."""
+        from motionstyle_torch.cli import serve
+
+        engine, _, handle, _ = serve.build_engine(serve.parse_args(
+            ["--model_path", str(tmp_path / "model000000001.pt"), "--inpainting_mask", "prefix",
+             *TINY]))
+        try:
+            content = np.random.RandomState(11).randn(142, 181).astype(np.float32)
+            out = np.asarray(handle({"content": content.tolist(), "text": "a person walks",
+                                     "seed": 4}), np.float32)
+        finally:
+            engine.close()
+        assert out.shape == (181, 1, 142)
+        mask = _root_mask(142, "prefix")
+        init = content.T[:, None, :]
+        np.testing.assert_array_equal(out * mask, init * mask)
+        assert np.abs((out - init) * (1 - mask)).max() > 1e-4
+
+    def test_reference_client(self, styled_server):
+        """examples/serve_client.py against the port's server: the b64 round
+        trip, and stream() chunks concatenating to sample()'s answer."""
+        from examples.serve_client import sample, stream
+
+        base, _, _ = styled_server
+        content = np.random.RandomState(2).randn(142, 181).astype(np.float32)
+        motion = sample(base, content, "a person walks", seed=5)
+        assert motion.shape == (181, 1, 142)
+        chunks = list(stream(base, content, "a person walks", seed=5))
+        assert [off for off, _ in chunks] == [0, 76]
+        np.testing.assert_array_equal(np.concatenate([c for _, c in chunks], axis=-1), motion)
+        fierce = sample(base, content[:76], "a person walks", seed=5, style="fierce")
+        assert np.abs(fierce - motion[..., :76]).max() > 1e-4
+
+
+@pytest.mark.parametrize("flag", [
+    ["--batch_size", "8"], ["--cond_mask_prob", "0.2"], ["--lambda_fc", "1"],
+    ["--lambda_rcxyz", "1"], ["--lambda_vel", "1"], ["--sigma_small", "0"],
+    ["--unconstrained"], ["--arch", "trans_enc"], ["--emb_trans_dec", "0"]])
+def test_jax_serve_flags_parse(flag):
+    """The JAX serve CLI's shared option groups parse in the port's (the
+    flags the server does not run are refused: test_refuses_what_is_not_ported)."""
+    from motionstyle_torch.cli import serve
+
+    args = serve.parse_args(["--model_path", "m.pt", *flag])
+    assert args.model_path == "m.pt"
+
+
+def test_cli_main_serves_long_content_and_styles(tmp_path):
+    """The `python -m motionstyle_torch.cli.serve` process (tests/test_serve.py
+    ::TestServeMain): warm-up before it announces itself, 76-frame and
+    180-frame content with a named style on /v1/sample and /v1/stream, and a
+    clean exit on SIGTERM."""
+    import os
+    import signal
+    import socket
+    import time
+
+    from motionstyle_torch.models.params import export_style_encoder
+
+    style2 = tmp_path / "style2.pt"
+    torch.save(export_style_encoder(seeded_init_(StyleDiffusion(MDMConfig(
+        latent_dim=32, num_layers=1)), 5)), style2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "motionstyle_torch.cli.serve", "--model_path",
+         str(tmp_path / "model000000001.pt"), "--styles", f"fierce={style2}",
+         "--max_batch", "2", "--port", str(port), *TINY],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 240
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                    assert json.load(r) == {"status": "ok"}
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert proc.poll() is None, "server died at startup"
+                assert time.time() < deadline, "server never became healthy"
+                time.sleep(0.5)
+        content = np.random.RandomState(1).randn(180, 181).astype(np.float32)
+        for frames in (76, 180):
+            body = json.dumps({"content": content[:frames].tolist(), "text": "x", "seed": 1,
+                               "style": "fierce"}).encode()
+            code, res = _post(base, "/v1/sample", body)
+            assert code == 200
+            motion = np.asarray(res["motion"], np.float32)
+            assert motion.shape == (181, 1, frames)
+            req = urllib.request.Request(base + "/v1/stream", data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                lines = [json.loads(line) for line in r.read().splitlines()]
+            np.testing.assert_array_equal(
+                np.concatenate([np.asarray(ln["motion"], np.float32) for ln in lines[:-1]],
+                               axis=-1), motion)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out[-2000:]
+        assert out.index("warmup: bucket") < out.index("serving "), out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
