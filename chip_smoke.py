@@ -117,7 +117,28 @@ Phases, each printed on its own line with its seconds:
      losses, seconds per step, the frozen prior and style encoder bit-equal,
      kernels 5, 6 and 7 launched 8 times a step; then 2 finetune steps with
      --semantic_guidance 1 from the new checkpoint.
- 16. demo: the demo CLI on the store run's model*.pt and args.json, 8
+ 16. lora: the finetune CLI at full width (batch 64, --fused_train 1
+     --lora_rank 8) for 3 steps, the same without LoRA, 2 steps resumed from
+     the first run's adapter (in turns: LoRA, plain, LoRA) and one step with
+     --fused_train_store 1: the style encoder bit-equal to its start, the
+     factors moved, model*.pt (the merge), adapter*.pt and opt*.pt written,
+     model*.pt bit-equal to the adapter merged on the card, kernels 5 / 6 /
+     7 (8 / 6 / 9) launched 104 / 56 / 56 times a step as without LoRA;
+     then the adapter as the demo's --model_path (bit-equal to the merged
+     model*.pt's demo), as a serve --styles entry beside a full checkpoint
+     and exported and served with --artifact (answers bit-equal, or within
+     EXPORT_ATOL for the artifact, of a server of model*.pt; 16 launches of
+     kernel 1 a device batch); seconds per step with and without LoRA,
+     adapter MB against the encoder's, peak memory.
+ 17. distill: cli.distill_prior at full width (batch 64) from the pretrain
+     phase's mdm.pt, --diffusion_steps 64 --stages 2, 3 steps a stage:
+     plain, under MOTIONSTYLE_PALLAS_ATTN=1 (kernel 4 launched 24 times a
+     step: 8 layers x 2 teacher forwards + 1 student forward; never
+     without the variable) and with --distill_guidance 2 under it: finite
+     losses, mdm_32step.pt and mdm_16step.pt loaded back through
+     --mdm_path, only the prior moved; the 16-step student and the 64-step
+     teacher sampled from the same noise (seconds a clip, rel L2).
+ 18. demo: the demo CLI on the store run's model*.pt and args.json, 8
      samples, --skip_render, with --fused 1 and with --quant_int8 1:
      results.npy, the kept root channels, the kernels' launches and the
      int8 result's deviation from the bf16 one; then --fused 1 with one
@@ -127,7 +148,7 @@ Phases, each printed on its own line with its seconds:
      of the same fit on the CPU with its error no larger than the start's,
      kernel 1's 16 launches, and the seconds of each foot-skate pass, IK fit
      and render.
- 17. styles: the serve CLI (--fused 1, --deterministic 1, full width) with
+ 19. styles: the serve CLI (--fused 1, --deterministic 1, full width) with
      the recompute and store finetunes' checkpoints as two named styles (a,
      b), 4 waves of 4 requests with the styles interleaved (p50, p95,
      clips/s), then a 300-frame clip on /v1/stream (5 windows: the seconds
@@ -137,16 +158,16 @@ Phases, each printed on its own line with its seconds:
      /v1/sample with the content's root channels at every frame, and
      --style_strength 0 answering with the base (the finetunes' seeded
      start) bit for bit.
- 18. export: cli.export_model at full width for cuda with --fused 1, then
+ 20. export: cli.export_model at full width for cuda with --fused 1, then
      --quant_int8 1, the second style stored beside the first (seconds, MB);
      serve --artifact: kernel 1 (2) as 16 custom-operator nodes of the
      loaded program and launched 16 times per batch, a live server and the
      artifact in turns over the same waves, answers within EXPORT_ATOL and
      both p50s.
- 19. demo_long: the demo CLI with --long_frames 240 on a 260-frame clip the
+ 21. demo_long: the demo CLI with --long_frames 240 on a 260-frame clip the
      smoke writes (4 windows, 2 samples, the post chain at 240 frames), then
      --style_strength 0.5 and 1 (root-exact, different motions).
- 20. quality: the port's quality protocol (eval/quality_protocol.py) through
+ 22. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
      50, the --auto_stop arm) gated by that file's assertions, then the d512
@@ -2019,6 +2040,464 @@ def semantic_phase(card: str, data_dir: str, tmp_root: str, prior_path: str,
     return total
 
 
+# ---------------------------------------------------------------------------
+# LoRA style adapters and progressive distillation of the prior
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 8
+LORA_STEPS = 6  # a run's steps; its median after the first times the arm
+DISTILL_STEPS = 3  # steps a stage; 2 stages: 64 -> 32 -> 16 DDIM steps
+DISTILL_SAMPLES = 8
+# kernel 4's distill run against the plain one: fp32 both, the same draws.
+# Each step's loss within DISTILL_LOSS_REL; each student's movement from
+# the prior within DISTILL_MOVE_REL (rel L2): Adam's first steps move each
+# weight by about lr·sign(g), so the weights whose gradient is rounding
+# noise (k's bias: softmax ignores it) take opposite signs in the two runs,
+# while a wrong attention gradient turns every weight under the attention.
+DISTILL_LOSS_REL, DISTILL_MOVE_REL = 1e-4, 0.1
+
+
+@contextmanager
+def lora_watch(out: dict):
+    """Around each StyleFinetuneTrainer's life: when it is built, copies of
+    its style encoder and its LoRA factors (out["start"]: the factors); when
+    it saves, the encoder's parameters that are not bit-equal to the copy
+    (out["base_changed"]) and the factors' largest movement
+    (out["factor_moved"])."""
+    import torch
+
+    from motionstyle_torch.train import finetune
+
+    trainer = finetune.StyleFinetuneTrainer
+    init, save = trainer.__init__, trainer.save
+
+    def watched_init(self, *a, **k):
+        init(self, *a, **k)
+        self._base_copy = {n: p.detach().clone()
+                           for n, p in self.model.style_encoder.named_parameters()}
+        out["start"] = self._factor_copy = {
+            (site, n): p.detach().clone() for site, pair in (self.lora or {}).items()
+            for n, p in pair.items()}
+
+    def watched_save(self):
+        params = dict(self.model.style_encoder.named_parameters())
+        out["base_changed"] = [n for n, v in self._base_copy.items()
+                               if not torch.equal(params[n].detach(), v)]
+        out["factor_moved"] = max((float((self.lora[s][n].detach() - v).abs().max())
+                                   for (s, n), v in self._factor_copy.items()), default=0.0)
+        return save(self)
+
+    trainer.__init__, trainer.save = watched_init, watched_save
+    try:
+        yield
+    finally:
+        trainer.__init__, trainer.save = init, save
+
+
+def lora_phase(mdm_path: str, card: str, data_dir: str, tmp_root: str, finetune_args,
+               style_path: str) -> dict:
+    """LoRA style adapters at full width (d=512, 8 layers, batch 64): the
+    finetune CLI with --fused_train 1 --lora_rank 8 for LORA_STEPS steps from
+    the golden prior (mdm_path), the same without LoRA, then LORA_STEPS
+    resumed from the first run's adapter, then the plain run again (the
+    turns: LoRA, plain, LoRA, plain), then one step with --fused_train_store
+    1 --lora_rank 8. Checks: the style
+    encoder's own parameters bit-equal from the trainer's start to each save,
+    the factors moved; model*.pt, adapter*.pt and opt*.pt written; model*.pt
+    bit-equal to the adapter merged onto the run's seeded start on the card
+    (model_util.style_encoder_state, the serving CLIs' path); kernels 5, 6
+    and 7 (8, 6 and 9 with store) launched 104 / 56 / 56 times a step, as
+    without LoRA; the resumed run started from the adapter's factors. Then
+    the adapter as the demo's --model_path (8 samples, bit-equal to the demo
+    of the merged model*.pt), as a --styles entry of the serve CLI beside
+    the full checkpoint style_path, and exported (cli.export_model) and
+    served with --artifact: answers bit-equal (merged on the card) or within
+    EXPORT_ATOL (the artifact) of a server of the merged model*.pt, kernel 1
+    launched 16 times a device batch. Prints seconds per step with and
+    without LoRA, the adapter's size against the encoder's, and peak memory.
+    Returns the launches of kernels 1, 2 and 5-9 on the phase's main
+    paths."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli import export_model, model_util
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.models import lora
+    from motionstyle_torch.models.denoiser import MDMConfig
+    from motionstyle_torch.models.params import convert_encoder
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+    from motionstyle_torch.serve.export import custom_ops_in
+
+    layers, seed, unroll = FINETUNE_LAYERS, 10, 6
+    counted = [getattr(ft, n) for n in TRAIN_NAMES] + [fused_encoder_layer,
+                                                       fused_encoder_layer_int8]
+    total = dict.fromkeys((k.__name__ for k in counted), 0)
+    rank = ["--lora_rank", str(LORA_RANK)]
+
+    def run(label, save_root, steps, train_flag="--fused_train", extra=()) -> dict:
+        watch = {}
+        torch.cuda.reset_peak_memory_stats()
+        random.seed(seed)  # the loader's crops and captions
+        # the main path: every count from here to the end of the run
+        for k in counted:
+            k.launches = 0
+        _zero_counts(ft)
+        t0 = time.perf_counter()
+        with lora_watch(watch):
+            save_dir = finetune_main(finetune_args(data_dir, save_root, steps, train_flag,
+                                                   extra=extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counted}
+        for n in total:
+            total[n] += launches[n]
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["loss"]) for r in rows]
+        secs = [float(r["step_seconds"]) for r in rows]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {label}: {steps} steps in {wall:.4f} s (whole CLI run on {card}); losses "
+              f"{losses}; step seconds {secs}; peak memory {peak:.4g} GB", flush=True)
+        check(len(losses) == steps and bool(np.isfinite(losses).all()),
+              f"{label}: losses finite")
+        return dict(label=label, save_dir=save_dir, launches=launches, secs=secs, peak=peak,
+                    watch=watch, losses=losses)
+
+    def want(steps: int, store: bool = False) -> dict:
+        fwd, bwd = layers * (1 + 2 * unroll) * steps, layers * (1 + unroll) * steps
+        out = dict.fromkeys(TRAIN_NAMES, 0)
+        f_name, attn_name = (TRAIN_NAMES[3], TRAIN_NAMES[4]) if store else (TRAIN_NAMES[0],
+                                                                            TRAIN_NAMES[2])
+        out.update({f_name: fwd, TRAIN_NAMES[1]: bwd, attn_name: bwd,
+                    "fused_encoder_layer": layers * (100 + unroll),
+                    "fused_encoder_layer_int8": 0})
+        return out
+
+    lora_run = run("--fused_train 1 --lora_rank 8", os.path.join(tmp_root, "ft_lora"),
+                   LORA_STEPS, extra=rank)
+    plain = run("--fused_train 1", os.path.join(tmp_root, "ft_plain"), LORA_STEPS)
+    resumed = run("--fused_train 1 --lora_rank 8 (resumed)", os.path.join(tmp_root, "ft_lora2"),
+                  LORA_STEPS, extra=[*rank, "--resume_checkpoint", lora_run["save_dir"]])
+    plain2 = run("--fused_train 1 (again)", os.path.join(tmp_root, "ft_plain2"), LORA_STEPS)
+    store = run("--fused_train_store 1 --lora_rank 8", os.path.join(tmp_root, "ft_lora_store"),
+                1, "--fused_train_store", rank)
+
+    # B = 0 at the start: the merge is the base, and the factors draw from a
+    # generator of their own, so the first step is the plain run's
+    first = [r["losses"][0] for r in (lora_run, plain, store)]
+    print(f"  first losses (LoRA, plain, LoRA store): {first}", flush=True)
+    check(first[0] == first[1] and abs(first[2] - first[0]) <= 1e-6 * abs(first[0]),
+          "lora: the first loss equals the plain run's (a fresh adapter merges to the base); "
+          "the store run's within rel 1e-6")
+    save_dir = lora_run["save_dir"]
+    step = f"{LORA_STEPS:09d}"
+    adapter = os.path.join(save_dir, f"adapter{step}.pt")
+    merged_path = os.path.join(save_dir, f"model{step}.pt")
+    files = sorted(os.listdir(save_dir))
+    check({f"model{step}.pt", f"adapter{step}.pt", f"opt{step}.pt"} <= set(files),
+          f"lora: writes model{step}.pt, adapter{step}.pt and opt{step}.pt ({files})")
+    for r in (lora_run, resumed, store):
+        w = r["watch"]
+        print(f"  {r['label']}: style encoder parameters changed {w.get('base_changed')}; "
+              f"factors moved by max_abs {w.get('factor_moved', 0.0):.6g}", flush=True)
+        check(w.get("base_changed") == [] and w.get("factor_moved", 0.0) > 0.0,
+              f"{r['label']}: the style encoder bit-equal to its start, the factors moved")
+    merged = convert_encoder(torch.load(merged_path, map_location="cpu"), "seqTransEncoder",
+                             layers)
+    cfg = MDMConfig(njoints=181, nfeats=1, latent_dim=merged["layers.0.norm1.weight"].numel(),
+                    num_layers=layers)
+    remerged = model_util.style_encoder_state(cfg, adapter, seed, "cuda")
+    check(merged.keys() == remerged.keys()
+          and all(torch.equal(merged[k], remerged[k]) for k in merged),
+          "lora: model*.pt bit-equal to adapter*.pt merged onto the run's seeded start on the "
+          "card")
+    opt = torch.load(os.path.join(save_dir, f"opt{step}.pt"), weights_only=False)
+    check(len(opt) == 1 + 2 * 2 * 4 * layers,
+          f"lora: opt*.pt holds Adam's count, mu and nu of the {2 * 4 * layers} factors")
+    factors, alpha = lora.import_lora(torch.load(adapter, map_location="cpu"))
+    start = resumed["watch"]["start"]
+    check(all(torch.equal(start[(s, n)].cpu(), factors[s][n]) for s in factors
+              for n in ("a", "b")),
+          "lora: the resumed run started from the adapter's factors, bit for bit")
+    for r, w, store_path in ((lora_run, want(LORA_STEPS), False), (plain, want(LORA_STEPS), False),
+                             (resumed, want(LORA_STEPS), False),
+                             (plain2, want(LORA_STEPS), False), (store, want(1, True), True)):
+        print(f"  {r['label']}: launches {r['launches']}", flush=True)
+        check(r["launches"] == w, f"{r['label']}: launches == {w} (kernels "
+                                  f"{'8, 6, 9' if store_path else '5, 6, 7'}: 104 / 56 / 56 a "
+                                  "step; kernel 1 8 x (100 + 6))")
+    n_factors = sum(p.numel() for pair in factors.values() for p in pair.values())
+    size = os.path.getsize(adapter) / 1e6, os.path.getsize(merged_path) / 1e6
+    print(f"  lora: rank {LORA_RANK}, alpha {alpha}: {n_factors} factors; adapter {size[0]:.4f} MB "
+          f"against the style encoder's {size[1]:.4f} MB ({size[1] / size[0]:.4g}x)", flush=True)
+    print(f"  lora in turns (LoRA, plain, LoRA resumed, plain), seconds per step after the "
+          f"first, peak memory, on {card}:", flush=True)
+    for r in (lora_run, plain, resumed, plain2, store):
+        tail = r["secs"][1:] or r["secs"]
+        print(f"    {r['label']}: {r['secs']} (median after the first "
+              f"{float(np.median(tail)):.6g} s); {r['peak']:.4g} GB", flush=True)
+    arms = {name: [x for r in runs for x in r["secs"][1:]]
+            for name, runs in (("LoRA", (lora_run, resumed)), ("plain", (plain, plain2)))}
+    med = {name: float(np.median(x)) for name, x in arms.items()}
+    print(f"  lora s/step, median of {len(arms['LoRA'])} steps an arm in turns: LoRA "
+          f"{med['LoRA']:.6g} (range {min(arms['LoRA']):.6g}-{max(arms['LoRA']):.6g}), plain "
+          f"{med['plain']:.6g} (range {min(arms['plain']):.6g}-{max(arms['plain']):.6g}): "
+          f"{100 * (med['LoRA'] / med['plain'] - 1):+.4g} % on {card}", flush=True)
+
+    # the adapter as the demo's --model_path, against the merged model*.pt
+    hml = {}
+    for label, path in (("adapter", adapter), ("merged", merged_path)):
+        fused_encoder_layer.launches = fused_encoder_layer_int8.launches = 0
+        t0 = time.perf_counter()
+        out = demo_main(["--model_path", path, "--input_content", DEMO_CONTENT, "--data_dir",
+                         data_dir, "--skip_render", "--num_samples", str(DEMO_SAMPLES),
+                         "--output_dir", os.path.join(tmp_root, f"demo_lora_{label}"),
+                         "--fused", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+        got = (fused_encoder_layer.launches, fused_encoder_layer_int8.launches)
+        if label == "adapter":
+            total["fused_encoder_layer"] += got[0]
+        print(f"  demo --model_path {os.path.basename(path)} --fused 1: whole CLI run "
+              f"{wall:.4f} s on {card}; kernel launches (1, 2) {got}", flush=True)
+        check(got == (2 * layers * res["num_repetitions"], 0)
+              and res["motion"].shape == (DEMO_SAMPLES, 20, 3, 76)
+              and bool(np.isfinite(res["hml"]).all()),
+              f"demo with the {label}: (8, 20, 3, 76) finite, kernel 1 launched 16 times a "
+              "repetition")
+        hml[label] = res["hml"]
+    check(np.array_equal(hml["adapter"], hml["merged"]),
+          "demo: the adapter's samples bit-equal to the merged model*.pt's")
+
+    # serving: the adapter as a --styles entry beside a full checkpoint, and
+    # exported with the adapter as --model_path; a server of model*.pt the yardstick
+    rng = np.random.RandomState(3)
+    contents = [rng.randn(76, 181).astype(np.float32) * 0.5 for _ in range(4)]
+    ref, dec_ref, _, _ = served(["--mdm_path", mdm_path, "--fused", "1", "--model_path",
+                                 merged_path])
+    try:
+        want_motion = [ref.sample(dec_ref({"content": c, "seed": i}))
+                       for i, c in enumerate(contents)]
+    finally:
+        ref.close()
+    export_dir = os.path.join(tmp_root, "artifact_lora")
+    t0 = time.perf_counter()
+    export_model.main(["--model_path", adapter, "--mdm_path", mdm_path, "--fused", "1",
+                       "--platforms", "cuda", "--output", export_dir, "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    for label, argv, style, atol in (
+            ("--styles lora=adapter", ["--mdm_path", mdm_path, "--fused", "1", "--model_path",
+                                       style_path, "--styles", f"lora={adapter}"], "lora", 0.0),
+            ("--artifact of the adapter", ["--artifact", export_dir], None, EXPORT_ATOL)):
+        engine, decode, _, _ = served(argv)
+        try:
+            # the main path: every count from here to the end of the requests
+            fused_encoder_layer.launches = fused_encoder_layer_int8.launches = 0
+            device_batches = count_device_batches(engine)
+            t0 = time.perf_counter()
+            got_motion = [engine.sample(decode({"content": c, "seed": i, "style": style}))
+                          for i, c in enumerate(contents)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = (fused_encoder_layer.launches, fused_encoder_layer_int8.launches)
+            nodes = custom_ops_in(engine.sampler.program) if style is None else None
+        finally:
+            engine.close()
+        total["fused_encoder_layer"] += got[0]
+        diff = max(float(np.abs(g - w).max()) for g, w in zip(got_motion, want_motion))
+        print(f"  serve {label}: {len(contents)} requests in {wall:.4f} s on {card}; max_abs "
+              f"{diff:.6g} from the merged model*.pt's server; kernel launches (1, 2) {got} "
+              f"over {len(device_batches)} device batches", flush=True)
+        check(diff <= atol, f"serve {label}: answers within {atol} of serving the merged "
+                            "model*.pt" + (" (bit-equal: both merged on the card)" if not atol
+                                           else ""))
+        check(got == (2 * layers * len(device_batches), 0) and len(device_batches) == 4,
+              f"serve {label}: kernel 1 launched {2 * layers} times a device batch")
+        if nodes is not None:
+            check(nodes == ["motionstyle.fused_encoder_layer.default"] * 2 * layers,
+                  f"the adapter's artifact calls kernel 1's operator {2 * layers} times")
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(export_dir) for f in fs)
+    print(f"  export of the adapter (--fused 1, cuda): {export_s:.4f} s, {size / 1e6:.4f} MB on "
+          f"{card}", flush=True)
+    return total
+
+
+@contextmanager
+def distill_watch(out: dict):
+    """Around each ProgressiveDistiller's life: a copy of the model's
+    parameters when it is built; at each save the parameters outside the
+    prior that are not bit-equal to the copy (out["changed"]) and the prior's
+    largest movement (out["mdm_moved"])."""
+    import torch
+
+    from motionstyle_torch.diffusion import distillation
+
+    cls = distillation.ProgressiveDistiller
+    init, save = cls.__init__, cls.save
+
+    def watched_init(self, *a, **k):
+        init(self, *a, **k)
+        self._copy = {n: p.detach().clone() for n, p in self.model.named_parameters()}
+
+    def watched_save(self, n_steps):
+        params = dict(self.model.named_parameters())
+        out["changed"] = [n for n, v in self._copy.items() if not n.startswith("mdm.")
+                          and not torch.equal(params[n].detach(), v)]
+        out["mdm_moved"] = max(float((params[n].detach() - v).abs().max())
+                               for n, v in self._copy.items() if n.startswith("mdm."))
+        return save(self, n_steps)
+
+    cls.__init__, cls.save = watched_init, watched_save
+    try:
+        yield
+    finally:
+        cls.__init__, cls.save = init, save
+
+
+def distill_phase(card: str, data_dir: str, tmp_root: str, prior_path: str) -> int:
+    """cli.distill_prior at full width (d=512, 8 layers, batch 64) from the
+    pretrain phase's mdm.pt with --diffusion_steps 64 --stages 2 and
+    DISTILL_STEPS steps a stage: once plain, once under
+    MOTIONSTYLE_PALLAS_ATTN=1 and once with --distill_guidance 2 under it.
+    Checks: finite losses; mdm_32step.pt and mdm_16step.pt written and loaded
+    back through --mdm_path; only the prior's weights moved; kernel 4
+    launched 8 layers x (2 teacher forwards + 1 student forward) = 24 times
+    a step under the variable (the guided teacher's two halves in one
+    forward of twice the batch), never without it. Then the stage-2 student
+    sampled on its 16-step DDIM grid and the teacher on 64 from the same
+    noise: seconds per clip of each and their rel L2. Kernel 4's run is held
+    to the plain one (the same seeds, j and noise draws): each step's loss
+    within DISTILL_LOSS_REL, each student's movement from the prior within
+    DISTILL_MOVE_REL. Returns kernel 4's launches."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli import model_util
+    from motionstyle_torch.cli.distill_prior import main as distill_main, parse_args
+    from motionstyle_torch.diffusion import sampling
+    from motionstyle_torch.diffusion.schedule import make_schedule
+    from motionstyle_torch.ops.attention import attention_kernel
+
+    layers, seed = FINETUNE_LAYERS, 10
+    total = 0
+
+    def argv(save_dir, *extra):
+        return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path",
+                prior_path, "--save_dir", save_dir, "--batch_size", str(FINETUNE_BATCH),
+                "--layers", str(layers), "--diffusion_steps", "64", "--stages", "2",
+                "--steps_per_stage", str(DISTILL_STEPS), "--log_interval", "1", "--seed",
+                str(seed), "--device", "cuda", *extra]
+
+    runs = {}
+    for label, variable, extra in (("plain", None, ()), (f"{PALLAS_ATTN}=1", "1", ()),
+                                   (f"--distill_guidance 2, {PALLAS_ATTN}=1", "1",
+                                    ("--distill_guidance", "2"))):
+        save_dir = os.path.join(tmp_root, f"distill_{len(runs)}")
+        watch = {}
+        random.seed(seed)  # the loader's crops and captions
+        with env_var(PALLAS_ATTN, variable), distill_watch(watch):
+            # the main path: every count from here to the end of the run
+            attention_kernel.launches = 0
+            t0 = time.perf_counter()
+            paths = distill_main(argv(save_dir, *extra))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = attention_kernel.launches
+        total += launches
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r[k]) for r in rows for k in ("distill_64_loss", "distill_32_loss")
+                  if r.get(k)]
+        secs = [float(r["step_seconds"]) for r in rows]
+        steps = 2 * DISTILL_STEPS
+        print(f"  distill {label}: {steps} steps in {wall:.4f} s (whole CLI run on {card}); "
+              f"losses {losses}; step seconds {secs}; kernel 4 launches {launches}; prior "
+              f"moved by max_abs {watch.get('mdm_moved', 0.0):.6g}, other parameters changed "
+              f"{watch.get('changed')}", flush=True)
+        check(len(losses) == steps and bool(np.isfinite(losses).all()),
+              f"distill {label}: losses finite")
+        check([os.path.basename(p) for p in paths] == ["mdm_32step.pt", "mdm_16step.pt"],
+              f"distill {label}: writes mdm_32step.pt and mdm_16step.pt")
+        check(watch.get("changed") == [] and watch.get("mdm_moved", 0.0) > 0.0,
+              f"distill {label}: only the prior's weights moved")
+        per_step = layers * (2 + 1)
+        check(launches == (per_step * steps if variable else 0),
+              f"distill {label}: kernel 4 launched "
+              + (f"{per_step} times a step ({layers} layers x (2 teacher forwards + 1 student "
+                 "forward))" if variable else "never without the variable"))
+        runs[label] = (paths, secs, losses)
+
+    # kernel 4 forward and backward inside the training step, held to the plain run
+    (plain_paths, _, plain_losses), (attn_paths, _, attn_losses) = (
+        runs["plain"], runs[f"{PALLAS_ATTN}=1"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(attn_losses, plain_losses))
+    print(f"  distill {PALLAS_ATTN}=1 against plain: losses max rel {loss_rel:.6g}",
+          flush=True)
+    check(loss_rel <= DISTILL_LOSS_REL,
+          f"distill: kernel 4's losses within rel {DISTILL_LOSS_REL} of the plain run's")
+    prior = torch.load(prior_path, map_location="cpu")
+    for plain_path, attn_path in zip(plain_paths, attn_paths):
+        want_sd, got_sd = (torch.load(q, map_location="cpu") for q in (plain_path, attn_path))
+        keys = [k for k in prior if k in want_sd and prior[k].is_floating_point()]
+        moved = rel_l2(torch.cat([(got_sd[k] - prior[k]).flatten() for k in keys]),
+                       torch.cat([(want_sd[k] - prior[k]).flatten() for k in keys]))
+        print(f"  distill {PALLAS_ATTN}=1 against plain: {os.path.basename(plain_path)}'s "
+              f"movement from the prior rel L2 {moved:.6g}", flush=True)
+        check(moved <= DISTILL_MOVE_REL,
+              f"distill: kernel 4's {os.path.basename(plain_path)} moved within rel L2 "
+              f"{DISTILL_MOVE_REL} of the plain run's")
+
+    # the students load back through --mdm_path; the stage-2 student on its
+    # 16-step grid against the teacher on 64, from the same noise
+    paths = plain_paths
+    models = {}
+    for name, path in (("teacher", prior_path), ("student 32", paths[0]),
+                       ("student 16", paths[1])):
+        args = parse_args(argv(os.path.join(tmp_root, "distill_load"), "--mdm_path", path))
+        args.semantic_discriminator_path = args.model_path = ""
+        bundle = model_util.build_model(args, device="cuda")
+        sd = torch.load(path, map_location="cpu")
+        loaded = bundle.model.mdm.state_dict()
+        check(all(torch.equal(loaded[k].cpu(), v) for k, v in sd.items()),
+              f"distill: {os.path.basename(path)} loads back through --mdm_path")
+        models[name] = bundle
+    enc = torch.as_tensor(models["teacher"].encode_text(["a person walks"] * DISTILL_SAMPLES,
+                                                         "stylexia_posrot"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((DISTILL_SAMPLES, 181, 1, 76), generator=gen, device="cuda")
+    out = {}
+    for name, n in (("teacher", 64), ("student 16", 16)):
+        model = models[name].model
+        sched = make_schedule("cosine", 64, None if n == 64 else f"ddim{n}", device="cuda")
+        fn = lambda x, t, c, m=model: m.denoise_prior(x, t, c["enc_text"])  # noqa: E731
+        sampling.sample_loop(sched, fn, {"enc_text": enc}, gen, noise=noise, method="ddim",
+                             shape=tuple(noise.shape))  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = sampling.sample_loop(sched, fn, {"enc_text": enc}, gen, noise=noise,
+                                         method="ddim", shape=tuple(noise.shape))
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / DISTILL_SAMPLES
+        print(f"  distill: {name} on its {n}-step DDIM grid: {secs:.6g} s a clip "
+              f"({DISTILL_SAMPLES} clips, 76 frames, on {card})", flush=True)
+        check(out[name].shape == noise.shape and bool(torch.isfinite(out[name]).all()),
+              f"distill: the {name}'s samples finite")
+    print(f"  distill: stage-2 student (16 steps) against the teacher (64 steps) from the same "
+          f"noise: rel L2 {rel_l2(out['student 16'], out['teacher']):.6g}", flush=True)
+    print("  distill seconds per step after the first: " + "; ".join(
+        f"{label} {float(np.median(secs[1:])):.6g}" for label, (_, secs, _) in runs.items())
+          + f" on {card}", flush=True)
+    return total
+
+
 # tests/test_quality.py's protocol (latent 64, 2 layers, T=100 cosine, prior
 # 1500 steps, finetune 250 at lr 1e-3 with checkpoints every 50, the ladder
 # and the auto arm), then QUALITY.md's d512 semantic arm (prior 1500,
@@ -3298,13 +3777,17 @@ def main() -> int:
             profile_finetune(args_of)
         with phase("semantic"):
             launches_sem = semantic_phase(card, data_dir, tmp, prior_path, args_of)
-        with phase("demo"):
-            demo_phase(model_path, data_dir, tmp, card)
         # two styles finetuned from the golden prior: the recompute and the
         # store runs of the finetune phase
         style_paths = tuple(sorted(glob.glob(os.path.join(tmp, run, "*", "model*.pt")))[-1]
                             for run in ("ft", "ft_store"))
         mdm_path = os.path.join(tmp, "mdm_golden.pt")
+        with phase("lora"):
+            launches_lora = lora_phase(mdm_path, card, data_dir, tmp, args_of, style_paths[0])
+        with phase("distill"):
+            launches_distill = distill_phase(card, data_dir, tmp, prior_path)
+        with phase("demo"):
+            demo_phase(model_path, data_dir, tmp, card)
         with phase("styles"):
             launches_styles = styles_phase(mdm_path, card, style_paths, tmp)
         with phase("export"):
@@ -3316,10 +3799,10 @@ def main() -> int:
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
     # recompute finetune, kernels 8 and 9 and the shared kernel 6 on the
     # store-probs finetune; then the parallel, rendering and int8 finetunes,
-    # the semantic phase and the quality phase, each counted from 0 around
-    # its own run
+    # the semantic, LoRA and quality phases, each counted from 0 around its
+    # own run
     recompute_only = ("fused_layer_train_forward", "fused_layer_train_bwd_attn")
-    new_paths = (launches_par, launches_sem, launches_quality)
+    new_paths = (launches_par, launches_sem, launches_lora, launches_quality)
     train_launches = {n: (launches_recompute if n in recompute_only else launches_store)[n]
                       + sum(p[n] for p in new_paths) for n in TRAIN_NAMES}
     launches += sum(p["fused_encoder_layer"] for p in new_paths)
@@ -3327,7 +3810,7 @@ def main() -> int:
     # the rest of serving: named styles and /v1/stream, the artifacts, the
     # demo's long-form and style-strength runs
     launches += launches_styles + launches_art + launches_demo_long
-    launches_int8 += launches_art8
+    launches_int8 += launches_art8 + launches_lora["fused_encoder_layer_int8"]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",
@@ -3350,14 +3833,16 @@ def main() -> int:
                         replaces=PRNG_REPLACES,
                         launches=sum(prng_counts[n][1] for n in TRAIN_NAMES),
                         **{k: train_records[PRNG_NAME][k] for k in keys}))
-    # kernel 3 on the fused DDPM chain, kernel 4 on the unfused server
+    # kernel 3 on the fused DDPM chain, kernel 4 on the unfused server and
+    # the distiller under the variable
     kernels.append(dict(name="fused_ddpm_update", route="cuda",
                         source="motionstyle_torch/csrc/sampler_update.cu",
                         replaces="motionstyle/ops/sampler_update.py:45", launches=launches_update,
                         **{k: record_update[k] for k in keys}))
     kernels.append(dict(name="attention_kernel", route="cuda",
                         source="motionstyle_torch/csrc/attention.cu",
-                        replaces="motionstyle/ops/attention.py:52", launches=launches_attn,
+                        replaces="motionstyle/ops/attention.py:52",
+                        launches=launches_attn + launches_distill,
                         **{k: record_attn[k] for k in keys}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

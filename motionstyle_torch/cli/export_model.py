@@ -14,7 +14,8 @@ symbolic batch dim per platform, with the parameters stored once beside it:
 platform. A --fused 1 or --quant_int8 1 plan calls kernel 1 or kernel 2 (as
 custom operators), which run on the card only, so it exports for cuda and
 refuses cpu, as the JAX CLI refuses cpu for a plan with Pallas calls. A plain
-plan may take both. The serving host needs torch and this package's ops
+plan may take both. --model_path and --styles take LoRA adapters too: the
+artifact holds the merged encoder. The serving host needs torch and this package's ops
 module (motionstyle_torch.ops.fused_encoder).
 """
 from __future__ import annotations
@@ -33,7 +34,9 @@ def build_parser() -> ArgumentParser:
     add_diffusion_options(parser)
     add_model_options(parser)
     parser.add_argument("--dataset", default="stylexia_posrot", type=str)
-    parser.add_argument("--model_path", required=True, type=str)
+    parser.add_argument("--model_path", required=True, type=str,
+                        help="finetuned style checkpoint (full model{step}.pt or LoRA "
+                             "adapter{step}.pt) baked into the artifact")
     parser.add_argument("--output", required=True, type=str,
                         help="artifact directory to write")
     parser.add_argument("--inpainting_mask", default="root_horizontal", type=str)
@@ -94,7 +97,7 @@ def main(argv=None):
         if args.text_plan:
             print(f"exporting the text plan for {platform} ...", flush=True)
             text_plans[platform], text_params = sx.export_text_plan(bundle.clip)
-    styles = (model_util.load_named_styles(args, args.styles, bundle.cfg)
+    styles = (model_util.load_named_styles(args, args.styles, bundle.cfg, bundle.device)
               if args.styles else {})
     if styles:
         print(f"storing styles {sorted(styles)} in params.pt")

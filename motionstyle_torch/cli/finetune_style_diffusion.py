@@ -19,15 +19,20 @@ layers, as the JAX denoiser routes them (motionstyle/models/transformer.py:
 217-218). Without --skip_render the run also writes the neutral motion's
 noised and clean versions as IK-fitted BVH and video, and the style example's
 reconstruction as video (:213-252, :307-343): the IK runs on the run's device,
-foot-skate cleanup and rendering on the host (post/).
+foot-skate cleanup and rendering on the host (post/). With --lora_rank r
+(and --lora_alpha) only rank-r adapter factors on the style encoder's dense
+weights train (models/lora.py), through whichever layers the flags above
+pick: each run writes the merged encoder as model{step}.pt beside the
+factors as adapter{step}.pt, and --resume_checkpoint takes an adapter file
+or the save dir holding one.
 
 Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --dataset stylexia_posrot --save_dir ./save/ft --data_dir .../style_xia \\
-        --mdm_path prior.pt --fused 1 --fused_train 1 [--skip_render] \\
+        --mdm_path prior.pt --fused 1 --fused_train 1 [--lora_rank 8] [--skip_render] \\
         --train_platform_type NoPlatform [--device cuda]
 
-Not on this slice (each raises, naming its ROADMAP item): LoRA, mesh
-training, orbax checkpoints and the humanml/bandai datasets.
+Not on this slice (each raises, naming its ROADMAP item): mesh training,
+orbax checkpoints and the humanml/bandai datasets.
 """
 from __future__ import annotations
 
@@ -62,7 +67,6 @@ DATASET_DEFAULTS = {
 
 # flag -> (value that means "off", what it needs), checked before any work
 UNSUPPORTED = {
-    "lora_rank": (0, "LoRA finetuning (ROADMAP §1 item 3)"),
     "data_parallel": (0, "mesh training (ROADMAP §1 item 11)"),
     "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
     "fsdp": (0, "mesh training (ROADMAP §1 item 11)"),
@@ -124,10 +128,11 @@ class AutoStopEvaluator:
     """--auto_stop: the finetune picks its own operating point
     (motionstyle/cli/finetune_style_diffusion.py:332-423). Every `interval`
     steps a transfer onto the generated neutral content is sampled with the
-    live model in eval mode and pinned noise (a torch.Generator seeded with
-    seed + 0xA57 for every evaluation; the demo's DDIM path: skip rescaled,
-    dump_all_xstart, pick -5, or -1 with fewer than 5 live steps), scored
-    with transfer_report, and the run stops at the first step that is both
+    live weights (the trainer's run_model on its effective_weights: with
+    LoRA the merged encoder) in eval mode and pinned noise (a
+    torch.Generator seeded with seed + 0xA57 for every evaluation; the
+    demo's DDIM path: skip rescaled, dump_all_xstart, pick -5, or -1 with
+    fewer than 5 live steps), scored with transfer_report, and the run stops at the first step that is both
     styled (ratio < --auto_stop_ratio) and content-preserving (content >
     --auto_stop_content). Once styling begins (ratio < 0.98) without the gate
     met, evaluations densify to --auto_stop_fine steps. An evaluation draws
@@ -135,7 +140,7 @@ class AutoStopEvaluator:
 
     NEAR_KNEE_RATIO = 0.98
 
-    def __init__(self, args, model, sched_ddim, ds, neutral, input_motions, inp_mask,
+    def __init__(self, args, trainer, sched_ddim, ds, neutral, input_motions, inp_mask,
                  enc_neutral, m_length):
         self.ratio_gate = float(args.auto_stop_ratio)
         self.content_gate = float(args.auto_stop_content)
@@ -148,7 +153,7 @@ class AutoStopEvaluator:
         self.seed = args.seed + 0xA57  # pinned noise: the metric moves with the weights only
         self.skip = int(args.skip_steps / args.diffusion_steps * sched_ddim.num_timesteps)
         self.pick = -5 if sched_ddim.num_timesteps - self.skip >= 5 else -1
-        self.model, self.sched, self.ds = model, sched_ddim, ds
+        self.trainer, self.sched, self.ds = trainer, sched_ddim, ds
         self.neutral, self.inp_mask, self.enc_neutral = neutral, inp_mask, enc_neutral
         self.content_hml = self._hml(neutral)
         self.style_hml = self._hml(input_motions)
@@ -162,12 +167,15 @@ class AutoStopEvaluator:
         return step % self.interval == 0
 
     def _sample(self) -> torch.Tensor:
-        model, was_training = self.model, self.model.training
+        trainer = self.trainer
+        model, was_training = trainer.model, trainer.model.training
         model.eval()
         try:
+            with torch.no_grad():
+                weights = trainer.effective_weights()
             gen = torch.Generator(device=self.sched.device).manual_seed(self.seed)
             xs = sampling.sample_loop(
-                self.sched, lambda x, t, c: model(x, t, c.get("enc_text")),
+                self.sched, lambda x, t, c: trainer.run_model(weights, x, t, c.get("enc_text")),
                 {"enc_text": self.enc_neutral}, gen, shape=tuple(self.neutral.shape),
                 init_image=self.neutral, method="ddim", skip_timesteps=self.skip,
                 inpainting=Inpainting(self.inp_mask, self.neutral), dump_all_xstart=True)
@@ -273,15 +281,15 @@ def main(argv=None):
         diffusion_steps=args.diffusion_steps, use_ddim=bool(args.use_ddim),
         semantic_guidance=bool(args.semantic_guidance), ls_weight=args.Ls,
         cond_mask_prob=args.cond_mask_prob, resume_checkpoint=args.resume_checkpoint,
-        seed=args.seed, parallel_unroll=bool(args.parallel_finetune))
+        seed=args.seed, parallel_unroll=bool(args.parallel_finetune),
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
     trainer = StyleFinetuneTrainer(ft_cfg, model, sched, platform)
-    print("Total params: %.2fM trainable" % (
-        sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6))
+    print("Total params: %.2fM trainable" % (sum(p.numel() for p, _ in trainer.params) / 1e6))
     trainer.install_preemption_handler()
     auto = None
     if args.auto_stop:
-        auto = AutoStopEvaluator(args, model, sched_ddim, ds, neutral, input_motions, inp_mask,
-                                 enc_neutral, m_length)
+        auto = AutoStopEvaluator(args, trainer, sched_ddim, ds, neutral, input_motions,
+                                 inp_mask, enc_neutral, m_length)
 
     step = 0
     while step < args.num_steps and not trainer.preempted \
@@ -321,6 +329,7 @@ def main(argv=None):
         if auto.selected is None and not trainer.preempted:
             auto.evaluate(step)  # the budget ran out: record where the run ended
         auto.dump(args.save_dir)
+    trainer.merge_into_model()  # with LoRA, what follows runs the merged style
     trainer.restore_signal_handlers()
     platform.close()
     if trainer.preempted:

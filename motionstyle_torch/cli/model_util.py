@@ -13,8 +13,10 @@ A semantic discriminator checkpoint (--semantic_discriminator_path) loads
 into the model's mu/sigma queries and motion encoder; without one they are
 seeded. --style_strength and --style_mix rescale or blend the style encoder's
 task vector against the encoder the finetune started from (_style_base), and
-load_named_styles reads the serve CLI's --styles. LoRA adapter checkpoints
-are refused (ROADMAP §1 item 3).
+load_named_styles reads the serve CLI's --styles. Wherever a style
+checkpoint is read (--model_path, a --styles entry, a --style_mix entry), a
+LoRA adapter file (adapter{step}.pt, models/lora.py) is taken too: its
+factors merged onto the base of the run that wrote it (apply_style_adapter).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from motionstyle_torch.diffusion.schedule import make_schedule
-from motionstyle_torch.models import clip_text
+from motionstyle_torch.models import clip_text, lora
 from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
 from motionstyle_torch.models.params import (
     convert_encoder, from_torch_state_dict, seeded_init_)
@@ -122,15 +124,6 @@ class ModelBundle:
             return np.stack([self._memo[(t, dataset)] for t in texts])
 
 
-def refuse_adapter(sd: dict, path: str) -> None:
-    """A LoRA adapter checkpoint (adapter*.pt) is not a style encoder: refuse
-    it until adapters are ported."""
-    if any("lora" in k for k in sd):
-        raise NotImplementedError(
-            f"{path}: LoRA adapter checkpoints are not ported to motionstyle_torch "
-            "(ROADMAP §1 item 3)")
-
-
 def build_model(args, device="cuda") -> ModelBundle:
     dev = resolve_device(device)
     cfg = get_transfer_config(args)
@@ -146,10 +139,7 @@ def build_model(args, device="cuda") -> ModelBundle:
     model_path = getattr(args, "model_path", "")
     if model_path and os.path.exists(model_path):
         print(f"load style diffusion model: {model_path}")
-        style_sd = load_torch_state_dict(model_path)
-        refuse_adapter(style_sd, model_path)
-        model.load_state_dict(from_torch_state_dict(style_sd, cfg, part="style_encoder"),
-                              strict=False)
+        model.style_encoder.load_state_dict(style_encoder_state(cfg, model_path, args.seed, dev))
     clip = clip_text.ClipTextEncoder()
     clip_w = getattr(args, "clip_weights", "")
     if clip_w and os.path.exists(clip_w):
@@ -201,11 +191,14 @@ def _style_base(cfg: MDMConfig, model_path: str, seed: int) -> dict:
     the run's args.json records, else the seeded initialisation of a run
     this package wrote (its args.json says "package": "motionstyle_torch";
     the finetune starts the encoder from seeded_init_ with the run's seed).
+    A LoRA run resumed from an adapter carried over the factors only, onto
+    the run's own start: its base is that start.
 
     A run without a resume_checkpoint that the JAX package wrote started
     from the JAX package's threefry-seeded init, which differs from this
     package's by design (ROADMAP §3 D): it is refused, because a task vector
-    against a wrong base would corrupt every strength and every mix."""
+    (or an adapter) against a wrong base would corrupt every strength, every
+    mix and every merge."""
     from motionstyle_torch.train.finetune import find_resume_checkpoint
 
     args_path = os.path.join(os.path.dirname(model_path), "args.json")
@@ -219,7 +212,9 @@ def _style_base(cfg: MDMConfig, model_path: str, seed: int) -> dict:
     if rc:
         orig = rc
         if os.path.isdir(rc):
-            rc = find_resume_checkpoint(rc, "model") or ""
+            # the file the trainer resumed from (train/finetune.py::_load_checkpoint)
+            rc = ((saved.get("lora_rank", 0) > 0 and find_resume_checkpoint(rc, "adapter"))
+                  or find_resume_checkpoint(rc, "model") or "")
         if not (rc and os.path.exists(rc)):
             # falling back to a seeded init here would silently corrupt every
             # task vector: strength 0 would no longer recover the pre-finetune
@@ -228,20 +223,52 @@ def _style_base(cfg: MDMConfig, model_path: str, seed: int) -> dict:
                 f"style base: args.json records resume_checkpoint {orig!r} "
                 "but no checkpoint exists there; restore the warm-start "
                 "file (or fix args.json) before using --style_strength/"
-                "--style_mix")
-        print(f"style base: resume checkpoint {rc}")
-        return convert_encoder(load_torch_state_dict(rc), "seqTransEncoder", cfg.num_layers)
+                "--style_mix or an adapter")
+        sd = load_torch_state_dict(rc)
+        if not lora.is_adapter_state_dict(sd):
+            print(f"style base: resume checkpoint {rc}")
+            return convert_encoder(sd, "seqTransEncoder", cfg.num_layers)
     if saved.get("package") != PACKAGE:
         raise SystemExit(
             f"style base: {args_path} records no resume_checkpoint and was not "
             "written by motionstyle_torch, so the finetune started from the JAX "
             "package's seeded init, which this package cannot rebuild; finetune "
             "from a --resume_checkpoint (or with this package) before using "
-            "--style_strength/--style_mix")
+            "--style_strength/--style_mix or an adapter")
     seed = saved.get("seed", seed)
     print(f"style base: the seeded init of seed {seed}")
     model = seeded_init_(StyleDiffusion(cfg), seed)
     return {k: v.detach().float().clone() for k, v in model.style_encoder.state_dict().items()}
+
+
+def apply_style_adapter(cfg: MDMConfig, adapter_sd: dict, path: str, seed: int,
+                        device="cpu") -> dict:
+    """The style encoder a LoRA adapter file gives, as a TransformerEncoder
+    state dict (fp32, CPU): its factors merged onto the encoder its run
+    started from (_style_base, as --style_strength and --style_mix take it),
+    the merge run on `device`; on the trainer's device it is bit-equal to
+    the merged model{step}.pt the run wrote. The file describes itself
+    (the rank from the factors' shapes, the scale from 'lora.alpha'). The
+    JAX package's apply_style_adapter (motionstyle/cli/model_util.py:286-299)."""
+    factors, alpha = lora.import_lora(adapter_sd)
+    dev = torch.device(device)
+    base = {k: v.to(dev) for k, v in _style_base(cfg, path, seed).items()}
+    merged = lora.merge_lora(base, {site: {k: v.to(dev) for k, v in pair.items()}
+                                    for site, pair in factors.items()}, alpha)
+    rank = lora.lora_rank(factors)
+    print(f"style adapter: merged rank-{rank} LoRA (alpha {alpha or rank}) onto the "
+          "recorded base")
+    return {k: v.float().cpu() for k, v in merged.items()}
+
+
+def style_encoder_state(cfg: MDMConfig, path: str, seed: int, device="cpu") -> dict:
+    """A style checkpoint as a TransformerEncoder state dict (fp32, CPU): a
+    finetuned encoder (model{step}.pt), or a LoRA adapter (adapter{step}.pt)
+    merged onto its run's base on `device` (apply_style_adapter)."""
+    sd = load_torch_state_dict(path)
+    if lora.is_adapter_state_dict(sd):
+        return apply_style_adapter(cfg, sd, path, seed, device)
+    return convert_encoder(sd, "seqTransEncoder", cfg.num_layers)
 
 
 def strength_of(base: dict, finetuned: dict, strength: float) -> dict:
@@ -255,7 +282,8 @@ def apply_style_mix(bundle: ModelBundle, args) -> bool:
         style_encoder <- base + sum_i w_i * (finetuned_i - base)
 
     --style_mix "ckptA.pt:0.6,ckptB.pt:0.4": each entry a style-finetuned
-    checkpoint sharing this model's prior and warm start. Replaces the
+    checkpoint sharing this model's prior and warm start, or an adapter of
+    such a run (merged onto its base on the model's device). Replaces the
     loaded model's own encoder (list it with a weight to keep it). The JAX
     package's apply_style_mix (motionstyle/cli/model_util.py:222-253).
     Returns True when a mix was applied."""
@@ -264,14 +292,13 @@ def apply_style_mix(bundle: ModelBundle, args) -> bool:
         return False
     base = _style_base(bundle.cfg, getattr(args, "model_path", ""), args.seed)
     total = {k: v.clone() for k, v in base.items()}
+    device = next(bundle.model.parameters()).device  # an adapter entry merges there
     for entry in spec.split(","):
         path, _, w = entry.rpartition(":")
         if not path:
             raise SystemExit(f"--style_mix entry {entry!r} is not path:weight")
         weight = float(w)
-        sd = load_torch_state_dict(path)
-        refuse_adapter(sd, path)
-        ft = convert_encoder(sd, "seqTransEncoder", bundle.cfg.num_layers)
+        ft = style_encoder_state(bundle.cfg, path, args.seed, device)
         total = {k: total[k] + weight * (ft[k] - base[k]) for k in total}
         print(f"style_mix: + {weight} x ({os.path.basename(path)} - base)")
     # copied in place: the packed-kernel cache sees the new parameter versions
@@ -300,15 +327,15 @@ def apply_style_strength(bundle: ModelBundle, args) -> bool:
     return True
 
 
-def load_named_styles(args, spec: str, cfg: MDMConfig) -> dict:
+def load_named_styles(args, spec: str, cfg: MDMConfig, device="cpu") -> dict:
     """'name=ckpt[,name2=ckpt2]' -> {name: style-encoder state dict (fp32,
     CPU)} for multi-style serving, each with the CLI's --style_strength
     applied against its own run's base. Only the style encoder differs
     between styles (the prior and the text tower are frozen), so only it is
     loaded; the engine serves each through a view of the served model
-    (parallel/inference.py::Sampler.prepare_params). The JAX package's
-    load_named_styles (motionstyle/cli/model_util.py:350-373). An adapter
-    entry is refused (ROADMAP §1 item 3)."""
+    (parallel/inference.py::Sampler.prepare_params). An entry may be a LoRA
+    adapter, merged onto its run's base on `device`. The JAX package's
+    load_named_styles (motionstyle/cli/model_util.py:350-373)."""
     strength = float(getattr(args, "style_strength", 1.0))
     styles = {}
     for part in filter(None, (s.strip() for s in spec.split(","))):
@@ -320,9 +347,7 @@ def load_named_styles(args, spec: str, cfg: MDMConfig) -> dict:
             raise SystemExit(f"style names must not contain '/': {name!r}")
         if not os.path.exists(path):
             raise SystemExit(f"style checkpoint not found: {path}")
-        sd = load_torch_state_dict(path)
-        refuse_adapter(sd, path)
-        state = convert_encoder(sd, "seqTransEncoder", cfg.num_layers)
+        state = style_encoder_state(cfg, path, args.seed, device)
         if strength != 1.0:
             state = strength_of(_style_base(cfg, path, args.seed), state, strength)
         styles[name] = state

@@ -116,8 +116,12 @@ def add_finetune_options(parser):
     group.add_argument("--fsdp", default=0, type=int, help="not ported")
     group.add_argument("--orbax_checkpoints", default=0, type=int, help="not ported")
     group.add_argument("--num_frames", default=60, type=int)
-    group.add_argument("--lora_rank", default=0, type=int, help="not ported")
-    group.add_argument("--lora_alpha", default=0.0, type=float, help="not ported")
+    group.add_argument("--lora_rank", default=0, type=int,
+                       help="> 0: train rank-r LoRA factors on the style encoder's dense "
+                            "weights instead of the encoder (models/lora.py); writes "
+                            "adapter{step}.pt beside the merged model{step}.pt")
+    group.add_argument("--lora_alpha", default=0.0, type=float,
+                       help="LoRA scale numerator (scale = alpha / rank); 0 = rank")
     group.add_argument("--resume_checkpoint", default="", type=str)
     group.add_argument("--dropout_rng_impl", default="rbg", choices=["rbg", "threefry"],
                        help="JAX-only; the port draws dropout from torch generators")

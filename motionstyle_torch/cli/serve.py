@@ -12,6 +12,8 @@ With --fused 1 every encoder layer runs the CUDA layer of kernel 1; with
 --quant_int8 1 (which implies it) the int8 CUDA layer of kernel 2.
 --styles serves extra named styles from the same model (a request picks one
 with "style"); --style_strength scales every served style's task vector.
+--model_path and each --styles entry take a finetuned encoder (model{step}.pt)
+or a LoRA adapter (adapter{step}.pt), merged onto its run's base on the card.
 --artifact serves an exported plan (cli/export_model.py) instead of a
 checkpoint.
 
@@ -143,7 +145,7 @@ def build_engine(args):
         bundle, sampler, item_shape, pick = build_sampler(args)
         encode_text = lambda texts: bundle.encode_text(texts, args.dataset)  # noqa: E731
         buckets = (1, 2, 4, 8)
-        styles = (model_util.load_named_styles(args, args.styles, bundle.cfg)
+        styles = (model_util.load_named_styles(args, args.styles, bundle.cfg, bundle.device)
                   if args.styles else {})
     if styles:
         print(f"multi-style serving: {sorted(styles)} (one model, a style "
@@ -251,7 +253,8 @@ def build_parser() -> ArgumentParser:
     add_model_options(parser)
     parser.add_argument("--dataset", default="stylexia_posrot", type=str)
     parser.add_argument("--model_path", default="", type=str,
-                        help="finetuned style checkpoint to serve live (or pass --artifact)")
+                        help="finetuned style checkpoint (full model{step}.pt or LoRA "
+                             "adapter{step}.pt) to serve live (or pass --artifact)")
     parser.add_argument("--artifact", default="", type=str,
                         help="serve an exported artifact directory (cli/export_model.py): "
                              "no checkpoint or model rebuild on this host")

@@ -24,9 +24,22 @@ trainer's layout (motionstyle/train/finetune.py:343-345), the flat leaf list
 of its optax.multi_transform state: Adam's count, mu and nu over the style
 encoder's leaves in flax's order and (in, out) kernel layout, then the LR
 schedule's count when the LR anneals. The frozen partition holds no leaves.
+
+LoRA (lora_rank > 0, models/lora.py): only the adapter factors train; the
+style encoder is frozen with the rest of the model, and AdamW runs over the
+factors alone. Each step merges base + (alpha/rank) A@B once and runs every
+forward of the step on the merged weights (torch.func.functional_call), so
+autograd carries the weight gradients of whichever layer runs (the plain
+layers or the training kernels 5-9) into A and B. save() writes the merged
+encoder as model{step:09d}.pt, the factors as adapter{step:09d}.pt (the JAX
+package's format) and their moments in opt{step:09d}.pt (the JAX trainer's
+layout over its 'lora_style' subtree: per site a then b, sites in flax
+order). A run resumes from an adapter file, or from a save dir's newest
+adapter{step}.pt, onto the base the caller built.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -34,11 +47,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from motionstyle_torch.diffusion import losses
 from motionstyle_torch.diffusion.ddpm import Inpainting
 from motionstyle_torch.diffusion.resample import UniformSampler
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+from motionstyle_torch.models import lora
 from motionstyle_torch.models.denoiser import StyleDiffusion, mask_cond
 from motionstyle_torch.models.params import (
     convert_encoder, encoder_leaves, export_style_encoder, flax_to_torch, torch_to_flax)
@@ -70,6 +85,11 @@ class FinetuneConfig:
     # the DDIM chain's states in batched sweeps, gradients through one
     # batched forward
     parallel_unroll: bool = False
+    # LoRA adapter finetuning (models/lora.py): rank > 0 trains low-rank
+    # factors on the style encoder's dense weights instead of the encoder;
+    # alpha 0 means alpha = rank (scale 1)
+    lora_rank: int = 0
+    lora_alpha: float = 0.0
 
 
 def parse_resume_step_from_filename(filename: str) -> int:
@@ -120,12 +140,14 @@ def load_optimizer_state_leaves(opt: torch.optim.Optimizer, params: list, leaves
                          f"(count, mu, nu[, schedule count]) was expected, got "
                          f"{len(leaves) if isinstance(leaves, list) else type(leaves)}")
     count = int(np.asarray(leaves[0]))
-    for i, (p, transposed) in enumerate(params):
-        mu = flax_to_torch(leaves[1 + i], transposed)
-        nu = flax_to_torch(leaves[1 + n + i], transposed)
+    moments = [(flax_to_torch(leaves[1 + i], transposed),
+                flax_to_torch(leaves[1 + n + i], transposed))
+               for i, (_, transposed) in enumerate(params)]
+    for i, ((p, _), (mu, nu)) in enumerate(zip(params, moments)):
         if mu.shape != p.shape or nu.shape != p.shape:
             raise ValueError(f"optimizer leaf {i}: moments of shape {tuple(mu.shape)} for "
                              f"a parameter of shape {tuple(p.shape)}")
+    for (p, _), (mu, nu) in zip(params, moments):  # all checked: nothing half-loaded
         opt.state[p] = {"step": torch.tensor(float(count)),
                         "exp_avg": mu.to(p.device), "exp_avg_sq": nu.to(p.device)}
     return int(np.asarray(leaves[-1])) if len(leaves) == 2 + 2 * n else count
@@ -170,15 +192,26 @@ class StyleFinetuneTrainer(PreemptionMixin):
         self._seeds = torch.Generator().manual_seed(cfg.seed)  # per-step seeds, on the host
         self._last_saved_step = None
         self._resolved_checkpoint = cfg.resume_checkpoint
+        self._pending_adapter = None
         if cfg.resume_checkpoint:
             self._load_checkpoint(cfg.resume_checkpoint)
 
+        self.lora = None
+        if cfg.lora_rank > 0:
+            self.lora = self._init_factors()
         trainable = []
         for name, p in model.named_parameters():
-            p.requires_grad_(model.is_trainable(name))
+            p.requires_grad_(self.lora is None and model.is_trainable(name))
             if p.requires_grad:
                 trainable.append(p)
-        self.opt = torch.optim.AdamW(trainable, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+        # (parameter, transposed) of what trains, in the JAX trainer's flax leaf
+        # order: the order of opt*.pt. AdamW keeps named_parameters' order, the
+        # order of a torch state_dict of the port's earlier layout.
+        self.params = self._encoder_params() if self.lora is None else [
+            (self.lora[site][name], False)
+            for site, _ in lora.adapter_sites(model.cfg.num_layers) for name in ("a", "b")]
+        self.opt = torch.optim.AdamW(trainable or [p for p, _ in self.params], lr=cfg.lr,
+                                     betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=cfg.weight_decay)
         self._lr_factor = linear_anneal(cfg.lr_anneal_steps)
         self.lr_schedule = torch.optim.lr_scheduler.LambdaLR(self.opt, self._lr_factor)
@@ -192,17 +225,71 @@ class StyleFinetuneTrainer(PreemptionMixin):
         self.sampler = UniformSampler(sched.num_timesteps)
 
     # ------------------------------------------------------------------
-    def _model_fn(self, step_seed: int):
-        """model_fn(x, t_orig, cond) of a training forward: condition dropout
-        and layer dropout from generators seeded by (step_seed, t_orig[0])."""
-        cfg, model, dev = self.cfg, self.model, self.device
+    def _init_factors(self) -> dict:
+        """The LoRA factors as parameters on the model's device: fresh
+        (lora.init_lora from a generator of their own, seeded from the config,
+        so the steps' draws are those of a run without LoRA) or the resumed
+        adapter's, whose rank must be the config's."""
+        cfg = self.cfg
+        factors = lora.init_lora(self.model.style_encoder.state_dict(), cfg.lora_rank,
+                                 torch.Generator().manual_seed(_mix(cfg.seed, 3)))
+        if self._pending_adapter is not None:
+            factors, saved_alpha = lora.import_lora(self._pending_adapter)
+            got = lora.lora_rank(factors)
+            if got != cfg.lora_rank:
+                raise ValueError(f"resume adapter has rank {got} but --lora_rank is "
+                                 f"{cfg.lora_rank}; pass the matching rank")
+            if saved_alpha and not cfg.lora_alpha:
+                self.cfg = dataclasses.replace(cfg, lora_alpha=saved_alpha)
+            self._pending_adapter = None
+        return {site: {k: torch.nn.Parameter(v.to(self.device)) for k, v in pair.items()}
+                for site, pair in factors.items()}
+
+    @property
+    def lora_alpha(self) -> float:
+        return self.cfg.lora_alpha or self.cfg.lora_rank
+
+    def effective_weights(self) -> dict:
+        """{'style_encoder.<key>': tensor} to run the model with (run_model):
+        with LoRA each adapted weight merged with its factors (attached to
+        the factors' autograd when grad is enabled); empty without LoRA."""
+        if self.lora is None:
+            return {}
+        encoder = self.model.style_encoder
+        base = {key: encoder.get_parameter(key).detach()
+                for _, key in lora.adapter_sites(self.model.cfg.num_layers)}
+        merged = lora.merge_lora(base, self.lora, self.lora_alpha)
+        return {f"style_encoder.{k}": v for k, v in merged.items()}
+
+    def run_model(self, weights: dict, *args, **kwargs):
+        """The model's forward with `weights` (effective_weights) in place of
+        its own parameters. The model ties no weights, so the swap skips the
+        search for tied ones (about 2 ms of host time a call at d=512)."""
+        if not weights:
+            return self.model(*args, **kwargs)
+        return functional_call(self.model, weights, args, kwargs, tie_weights=False)
+
+    def merge_into_model(self) -> None:
+        """Write the merged weights into the model's style encoder, so that
+        what runs after training (the final resample) runs the merged style.
+        A no-op without LoRA."""
+        with torch.no_grad():
+            for name, v in self.effective_weights().items():
+                self.model.get_parameter(name).copy_(v)
+
+    def _model_fn(self, step_seed: int, weights: Optional[dict] = None):
+        """model_fn(x, t_orig, cond) of a training forward on `weights`
+        (effective_weights; the model's own without): condition dropout and
+        layer dropout from generators seeded by (step_seed, t_orig[0])."""
+        cfg, dev = self.cfg, self.device
 
         def fn(x, t_orig, cond):
             t0 = int(t_orig[0])
             gen_cond = torch.Generator(device=dev).manual_seed(_mix(step_seed, 1, t0))
             gen_drop = torch.Generator(device=dev).manual_seed(_mix(step_seed, 2, t0))
             enc = mask_cond(cond["enc_text"], cfg.cond_mask_prob, gen_cond)
-            return model(x, t_orig, enc, deterministic=False, generator=gen_drop)
+            return self.run_model(weights, x, t_orig, enc, deterministic=False,
+                                  generator=gen_drop)
 
         return fn
 
@@ -211,10 +298,11 @@ class StyleFinetuneTrainer(PreemptionMixin):
         batch: x_start, content, style_target, mask, inp_mask,
         enc_text_style, enc_text_t2m, text_features, and optionally
         inp_mask_t2m and frame_mask_t2m, as tensors on the model's device.
-        pinned: noise_t2m / noise for the loss (tests replay other draws)."""
+        pinned: noise_t2m / noise for the loss (tests replay other draws).
+        With LoRA the encoder is merged here, once for the whole loss."""
         cfg = self.cfg
         return losses.few_shot_style_finetune_loss(
-            self.sched, self._model_fn(step_seed), batch["x_start"], t,
+            self.sched, self._model_fn(step_seed, self.effective_weights()), batch["x_start"], t,
             batch["content"], batch["style_target"], self.generator,
             mask=batch["mask"],
             cond_style={"enc_text": batch["enc_text_style"]},
@@ -232,7 +320,8 @@ class StyleFinetuneTrainer(PreemptionMixin):
             parallel_unroll=cfg.parallel_unroll, **pinned)
 
     def train_step(self, batch: dict, t: torch.Tensor, step_seed: int, **pinned) -> dict:
-        """One AdamW step on the style encoder; returns the loss terms."""
+        """One AdamW step on the style encoder (with LoRA, on the factors);
+        returns the loss terms."""
         self.opt.zero_grad(set_to_none=True)
         terms = self.loss_terms(batch, t, step_seed, **pinned)
         terms["loss"].backward()
@@ -279,12 +368,20 @@ class StyleFinetuneTrainer(PreemptionMixin):
 
     def save(self):
         """The style encoder in the reference layout (frozen modules stripped,
-        training_loop.py:316-335) and the optimizer state in the JAX trainer's
-        layout (optimizer_leaves)."""
+        training_loop.py:316-335; with LoRA the merged encoder, and the
+        factors as adapter{step:09d}.pt) and the optimizer state in the JAX
+        trainer's layout (optimizer_leaves)."""
         os.makedirs(self.cfg.save_dir, exist_ok=True)
         step = self.step + self.resume_step
         path = os.path.join(self.cfg.save_dir, self.ckpt_file_name())
-        torch.save(export_style_encoder(self.model), path)
+        sd = export_style_encoder(self.model)
+        if self.lora is not None:
+            with torch.no_grad():
+                sd.update({f"seqTransEncoder.{k[len('style_encoder.'):]}": v.float().cpu()
+                           for k, v in self.effective_weights().items()})
+            torch.save(lora.export_lora(self.lora, self.lora_alpha),
+                       os.path.join(self.cfg.save_dir, f"adapter{step:09d}.pt"))
+        torch.save(sd, path)
         torch.save(self.optimizer_leaves(),
                    os.path.join(self.cfg.save_dir, f"opt{step:09d}.pt"))
         self._last_saved_step = step
@@ -292,13 +389,26 @@ class StyleFinetuneTrainer(PreemptionMixin):
 
     def _load_checkpoint(self, path: str):
         if os.path.isdir(path):
-            found = find_resume_checkpoint(path, "model")
+            # a LoRA run resumed from its own save dir restores the factors
+            # (adapter{step}.pt) onto the base the caller built
+            found = self.cfg.lora_rank > 0 and find_resume_checkpoint(path, "adapter")
+            found = found or find_resume_checkpoint(path, "model")
             if found is None:
                 return
             path = found
         self._resolved_checkpoint = path
         logger.log(f"loading model from checkpoint: {path}...")
         sd = torch.load(path, map_location="cpu")
+        if lora.is_adapter_state_dict(sd):
+            if self.cfg.lora_rank <= 0:
+                raise ValueError(
+                    f"{path} is a LoRA adapter checkpoint; pass --lora_rank matching it "
+                    "(a full-encoder resume cannot consume factors)")
+            self._pending_adapter = sd  # imported once the factors are built
+            base = os.path.basename(path)
+            self.resume_step = parse_resume_step_from_filename(
+                "model" + base[len("adapter"):]) if base.startswith("adapter") else 0
+            return
         self.resume_step = parse_resume_step_from_filename(path)
         self.model.style_encoder.load_state_dict(
             convert_encoder(sd, "seqTransEncoder", self.model.cfg.num_layers))
@@ -311,15 +421,15 @@ class StyleFinetuneTrainer(PreemptionMixin):
 
     def optimizer_leaves(self) -> list:
         """The optimizer state in the JAX trainer's flat layout
-        (optimizer_state_leaves over the style encoder)."""
+        (optimizer_state_leaves over the style encoder, or the factors)."""
         return optimizer_state_leaves(
-            self.opt, self._encoder_params(),
+            self.opt, self.params,
             self.lr_schedule.last_epoch if self.cfg.lr_anneal_steps else None)
 
     def load_optimizer_leaves(self, leaves: list):
         """Restore AdamW's moments and step and the LR schedule's position
         from the JAX trainer's flat leaf list (optimizer_leaves' format)."""
-        position = load_optimizer_state_leaves(self.opt, self._encoder_params(), leaves)
+        position = load_optimizer_state_leaves(self.opt, self.params, leaves)
         set_schedule_position(self.lr_schedule, position, self._lr_factor)
 
     def _load_optimizer_state(self):
@@ -333,5 +443,12 @@ class StyleFinetuneTrainer(PreemptionMixin):
             self.opt.load_state_dict(state["optimizer"])
             self.lr_schedule.load_state_dict(state["lr_schedule"])
         else:
-            self.load_optimizer_leaves(state)
+            try:
+                self.load_optimizer_leaves(state)
+            except ValueError as e:
+                # another run's layout (a LoRA run resumed from a full run's
+                # model*.pt): fresh moments, as the JAX trainer's tolerant
+                # load leaves them (training_loop.py:138-141)
+                logger.log(f"could not load optimizer state: {e}")
+                return
         logger.log(f"loaded optimizer state from {opt_path}")

@@ -16,6 +16,7 @@ import torch
 from motionstyle.core import features as jfeatures
 from motionstyle.core import rotations as jrot
 from motionstyle_torch.core import features, rotations as rot
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 ORDERS = ("xyz", "yzx", "zxy", "xzy", "yxz", "zyx")
 

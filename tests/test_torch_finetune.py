@@ -39,7 +39,8 @@ from motionstyle_torch.diffusion.schedule import make_schedule
 from motionstyle_torch.models.params import (
     convert_encoder, encoder_from_jax, export_style_encoder)
 from motionstyle_torch.ops import fused_encoder_train as ft
-from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
+from motionstyle_torch.train.finetune import (
+    FinetuneConfig, StyleFinetuneTrainer, linear_anneal, set_schedule_position)
 from tests.test_torch_models import one_torch_thread, style_pair  # noqa: F401
 
 LOSS_REL, GRAD_REL, STEP_ATOL = 1e-5, 1e-3, 2e-4
@@ -328,21 +329,35 @@ def test_optimizer_state_crosses_from_the_port_to_jax(anneal, tmp_path):
 
 
 def test_optimizer_state_of_the_old_port_layout_still_loads(tmp_path):
-    """A file in the port's earlier layout (a torch state_dict) loads."""
+    """A file in the port's earlier layout (a torch AdamW state_dict over the
+    style encoder in named_parameters order) loads: each parameter gets its
+    own moments, and the LR schedule its position."""
     sched = make_schedule("cosine", 1000, "ddim20", device="cpu")
     _, _, a = _pair(73)
     tr = StyleFinetuneTrainer(FinetuneConfig(save_dir=str(tmp_path), lr_anneal_steps=10), a, sched)
-    for p in tr.opt.param_groups[0]["params"]:
-        tr.opt.state[p] = {"step": torch.tensor(2.0), "exp_avg": torch.ones_like(p),
-                           "exp_avg_sq": torch.ones_like(p)}
     tr.step = 2
     tr.save()
-    torch.save({"optimizer": tr.opt.state_dict(), "lr_schedule": tr.lr_schedule.state_dict()},
+    names = [n for n, _ in a.named_parameters() if a.is_trainable(n)]
+    old = torch.optim.AdamW([a.get_parameter(n) for n in names], lr=tr.cfg.lr,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=tr.cfg.weight_decay)
+    for i, n in enumerate(names):  # moments that name their parameter
+        p = a.get_parameter(n)
+        old.state[p] = {"step": torch.tensor(2.0), "exp_avg": torch.full_like(p, 1.0 + i),
+                        "exp_avg_sq": torch.full_like(p, 1000.0 + i)}
+    old_schedule = torch.optim.lr_scheduler.LambdaLR(old, linear_anneal(10))
+    set_schedule_position(old_schedule, 2, linear_anneal(10))
+    torch.save({"optimizer": old.state_dict(), "lr_schedule": old_schedule.state_dict()},
                tmp_path / "opt000000002.pt")
     _, _, b = _pair(74)
     tr2 = StyleFinetuneTrainer(FinetuneConfig(save_dir=str(tmp_path / "next"), lr_anneal_steps=10,
                                               resume_checkpoint=str(tmp_path)), b, sched)
-    assert all(float(tr2.opt.state[p]["step"]) == 2 for p in tr2.opt.param_groups[0]["params"])
+    assert tr2.resume_step == 2 and tr2.lr_schedule.last_epoch == 2
+    for i, n in enumerate(names):
+        p = b.get_parameter(n)
+        st = tr2.opt.state[p]
+        assert float(st["step"]) == 2, n
+        assert torch.equal(st["exp_avg"], torch.full_like(p, 1.0 + i)), n
+        assert torch.equal(st["exp_avg_sq"], torch.full_like(p, 1000.0 + i)), n
 
 
 @pytest.mark.parametrize("fused_train", [False, True])
@@ -467,7 +482,7 @@ def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lora_rank", "4"], ["--fsdp", "1"], ["--model_parallel", "2"],
+    ["--profile", "trace"], ["--fsdp", "1"], ["--model_parallel", "2"],
     ["--data_parallel", "1"], ["--native_loader", "1"], ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
     ["--prefetch", "2"], ["--train_platform_type", "TensorboardPlatform"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
@@ -610,9 +625,10 @@ def test_quant_int8_finetune_loss_matches_jax(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """motionstyle_torch (its quality protocol, semantic trainer, parallel
-    sampler, style metrics, post chain, long-form sampler, named styles and
-    exporter among them), chip_smoke.py, profile_layers.py, quality_sweep.py
-    and serve_bench.py import nothing of JAX or of the JAX package."""
+    sampler, style metrics, post chain, long-form sampler, named styles,
+    exporter, LoRA adapters and distiller among them), chip_smoke.py,
+    profile_layers.py, quality_sweep.py and serve_bench.py import nothing of
+    JAX or of the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
@@ -623,7 +639,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "data/masks.py", "post/footskate.py", "post/bvh.py", "post/ik.py",
                 "post/render.py", "diffusion/longform.py", "serve/export.py",
                 "cli/export_model.py", "cli/serve.py", "serve/server.py", "serve/engine.py",
-                "parallel/inference.py", "cli/model_util.py", "ops/fused_encoder.py"):
+                "parallel/inference.py", "cli/model_util.py", "ops/fused_encoder.py",
+                "models/lora.py", "diffusion/distillation.py", "cli/distill_prior.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)

@@ -16,6 +16,7 @@ import torch
 import chip_smoke
 from motionstyle.ops.fused_encoder import _int8_dot as jint8_dot
 from motionstyle_torch.ops import fused_encoder as fe
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's streaming multiprocessors
 

@@ -32,6 +32,7 @@ from motionstyle_torch.core.skeleton import Skeleton
 from motionstyle_torch.data.masks import XIA_BVH_JOINT_NAMES
 from motionstyle_torch.post import bvh, footskate, ik
 from motionstyle_torch.post.render import plot_3d_motion
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 XIA = Skeleton(params.xia_raw_offsets, params.xia_kinematic_chain)
 JXIA = JSkeleton(jparams.xia_raw_offsets, jparams.xia_kinematic_chain)

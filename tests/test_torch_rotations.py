@@ -17,6 +17,7 @@ import torch
 
 from motionstyle.core import rotations as jrot
 from motionstyle_torch.core import rotations as rot
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 ORDERS = ("xyz", "yzx", "zxy", "xzy", "yxz", "zyx")
 

@@ -31,6 +31,7 @@ from motionstyle_torch.diffusion.schedule import make_schedule
 from motionstyle_torch.models.params import from_jax_params, from_torch_state_dict
 from motionstyle_torch.train.semantic import SemanticConfig, SemanticTrainer, is_trainable
 from tests.test_torch_finetune import _pair, xia_root  # noqa: F401
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 LOSS_REL, STEP_ATOL = 1e-5, 2e-4
 C, T, B = 12, 8, 3

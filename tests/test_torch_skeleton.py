@@ -19,6 +19,7 @@ from motionstyle.data import masks as jmasks
 from motionstyle_torch.core import features, params
 from motionstyle_torch.core.skeleton import Skeleton
 from motionstyle_torch.data import masks
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 XIA = Skeleton(params.xia_raw_offsets, params.xia_kinematic_chain)
 JXIA = JSkeleton(jparams.xia_raw_offsets, jparams.xia_kinematic_chain)

@@ -188,22 +188,35 @@ def test_named_styles_spec(runs, tmp_path):
             model_util.load_named_styles(args, spec, cfg)
 
 
-def test_adapter_entries_are_refused(runs, tmp_path):
-    """An adapter (LoRA factors) in --styles, --style_mix or --model_path is
-    refused, naming ROADMAP §1 item 3."""
+def test_adapter_entries_are_merged_onto_their_runs_base(runs, tmp_path):
+    """An adapter (LoRA factors in the JAX package's format) in --styles or
+    --style_mix: merged onto the base its run recorded, as the JAX package's
+    apply_style_adapter merges it (tests/test_torch_lora.py takes one as
+    --model_path)."""
+    from motionstyle_torch.models import lora
+
     cfg, _ = _cfgs()
-    adapter = tmp_path / "adapter000000002.pt"
-    torch.save({"lora.alpha": torch.tensor(4.0),
-                "seqTransEncoder.layers.0.linear1.lora_a": torch.zeros(4, WIDTH)}, adapter)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3\b"):
-        model_util.load_named_styles(_args(runs["rc"]), f"a={adapter}", cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3\b"):
-        model_util.apply_style_mix(_port_bundle(runs["rc"]),
-                                   _args(runs["rc"], style_mix=f"{adapter}:1.0"))
-    args = SimpleNamespace(dataset="stylexia_posrot", latent_dim=WIDTH, layers=LAYERS, seed=0,
-                           model_path=str(adapter), mdm_path="", clip_weights="")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 3\b"):
-        model_util.build_model(args, device="cpu")
+    base = convert_encoder(model_util.load_torch_state_dict(runs["base"]), "seqTransEncoder",
+                           LAYERS)
+    gen = torch.Generator().manual_seed(5)
+    factors = {site: {"a": torch.randn(base[key].shape[1], 2, generator=gen) * 0.1,
+                      "b": torch.randn(2, base[key].shape[0], generator=gen) * 0.1}
+               for site, key in lora.adapter_sites(LAYERS)}
+    adapter = os.path.join(os.path.dirname(runs["rc"]), "adapter000000002.pt")
+    torch.save(lora.export_lora(factors, 4.0), adapter)
+    want = lora.merge_lora(base, factors, 4.0)
+    got = model_util.load_named_styles(_args(runs["rc"]), f"a={adapter}", cfg)["a"]
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    port = _port_bundle(runs["rc"])
+    assert model_util.apply_style_mix(port, _args(runs["rc"], style_mix=f"{adapter}:0.5"))
+    for k, v in _port_state(port).items():
+        torch.testing.assert_close(v, base[k] + 0.5 * (want[k] - base[k]), rtol=0, atol=0)
+    jbundle = SimpleNamespace(cfg=_cfgs()[1], params={"params": {}})
+    jmodel_util.apply_style_adapter(jbundle, _args(adapter),
+                                    jmodel_util.load_torch_state_dict(adapter))
+    jtree = jbundle.params["params"]["style_encoder"]
+    for k, v in encoder_from_jax(jax.tree_util.tree_map(np.asarray, jtree)).items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=STRENGTH_ATOL, err_msg=k)
 
 
 # -- the engine's named styles (tests/test_serve.py::TestMultiStyle) --------

@@ -12,6 +12,7 @@ import torch
 
 import chip_smoke
 from motionstyle_torch.ops import fused_encoder_train as ft
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 SMS = 132  # an H100 SXM's streaming multiprocessors
 

@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 from motionstyle_torch.ops import fused_encoder_train as ft
 from motionstyle_torch.ops.fused_encoder import additive_key_mask, pack
+from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 
 def _intermediates(b, s, d, f, store):
