@@ -15,13 +15,16 @@ Phases, each printed on its own line with its seconds:
      D=128 with head width 32, D=384 with 6 heads), at the edges of its
      GEMMs' tiles and clusters (D=64, D=1024 with 8 heads, M=3), at the
      DDPM chain's B=64, S=197, at S=1, 256, 257 and 600 (the edges of its
-     attention's register-resident and two-pass paths) and at head width
-     48; kernel 1 timed at B=8, S=77 and B=64, S=197 (device time per
-     launch; each GEMM launch's tile, grid and cluster beside its bound)
-     beside nn.TransformerEncoderLayer and
-     scaled_dot_product_attention; then the int8 layer (kernel 2) against
-     its twin with a key padding mask at the serving shape, B=64 S=197, B=1,
-     S=1 and 197, D=128, D=384, D=64 with F=64 and D=1024 with F=2048: its
+     attention's register-resident and two-pass paths), at head width 48
+     at the humanml demo's guided batch B=16, S=197 and at the humanml and
+     bandai finetunes' neutral chain B=1, S=197 (both GEMM plans on the card
+     equal to the wrapper's mirror, layer_plan); kernel 1 timed at
+     B=8, S=77, B=16, S=197 and B=64, S=197 (device time per launch; each
+     GEMM launch's tile, grid and cluster beside its bound) beside
+     nn.TransformerEncoderLayer and scaled_dot_product_attention; then the int8 layer (kernel 2) against
+     its twin with a key padding mask at the serving shape, B=64 S=197, the
+     humanml demo's guided batch B=16 S=197 (--quant_int8 1), B=1, S=1 and
+     197, D=128, D=384, D=64 with F=64 and D=1024 with F=2048: its
      q, k, v planes bit-equal to the twin's, two calls bit-equal, its GEMM
      plan equal to the wrapper's mirror; each with its time, the twin's, a
      library reference and the card's bound, and kernel 2 timed launch by
@@ -39,62 +42,75 @@ Phases, each printed on its own line with its seconds:
      with MOTIONSTYLE_PALLAS_ATTN=1 (kernel 4, 8 launches); then at 599
      frames (S=600), B=2, where the default dispatch takes kernel 4, against
      the same weights' forward on the CPU.
-  6. serve: the serving CLI's engine (--fused 1, full width: d=512, 8
+  6. arch: MDM's other architectures at full width (d=512, 8 layers,
+     humanml's 263 features, T=196, B=8): trans_dec, trans_dec with
+     emb_trans_dec and gru on the card against the same seeded weights on
+     the CPU (fp32, TF32 off: rel L2 <= 1e-5); trans_dec again under
+     MOTIONSTYLE_PALLAS_ATTN=1, kernel 4 launched 8 times a forward (its
+     self-attention; the cross-attention has Sq != Sk and stays plain)
+     within the golden phase's atol of the plain run; DiffuseTransfer from
+     tests/goldens/diffuse_transfer.npz against its golden (atol 2e-4); SMPL
+     LBS and rotation2xyz of random_smpl_model, card against CPU; each
+     forward's seconds.
+  7. serve: the serving CLI's engine (--fused 1, full width: d=512, 8
      layers) behind MotionServer on localhost answers /healthz and
      /v1/sample requests; results are checked and the kernel launches
      counted.
-  7. serve_int8: the same with --quant_int8 1, one wave of 4 requests;
+  8. serve_int8: the same with --quant_int8 1, one wave of 4 requests;
      kernel 2 launched 16 times per batch, kernel 1 never.
-  8. serve_unfused: the same with --fused 0 (the fp32 plain layers) under
+  9. serve_unfused: the same with --fused 0 (the fp32 plain layers) under
      MOTIONSTYLE_PALLAS_ATTN=1, one wave: kernel 4 launched 16 times per
      batch, kernels 1 and 2 never.
-  9. sampler_update: the fused DDPM update (kernel 3) against its plain
+ 10. sampler_update: the fused DDPM update (kernel 3) against its plain
      version at B=64, C=181, T=196 with a root_horizontal mask: x0 and the
      sigma-0 sample bit-equal, sigma 1 within 2e-6, kept channels
      noise-free, the noise's moments, seed behaviour; its time, the plain
      version's, an unfused update's and the bound.
- 10. ddpm_fused: the 50-step tail of the 1000-step DDPM chain (the golden
+ 11. ddpm_fused: the 50-step tail of the 1000-step DDPM chain (the golden
      prior through kernel 1, B=64, T=196, root_horizontal inpainting) with
      sample_loop(fused_update=True): 50 launches of kernel 3, every dumped
      x0's kept channels equal to the content; then fused and unfused
      updates in turns, seconds per step and clips/s; then the same tail
      with the prior under quant_int8 (kernel 2), seconds per step and
      clips/s.
- 11. train_kernel: the five training kernels (forward, FFN-half and
+ 12. train_kernel: the five training kernels (forward, FFN-half and
      attention-half backward, store-probs forward and stored attention-half
      backward) against their twins at the finetune's shapes (B=64 and B=1,
      S=77, full width, dropout masks at rate 0.1 and 0), past the old caps
      (S=197, D=384), at the edges of the forwards' wgmma GEMM tiles and
      clusters (D=64 with one head and F=64, D=1024 with 8 heads, B=3 S=1)
-     and at S=257 and 300 (the tensor-core attention's tiled route, which
-     writes kernel 8's probs there); the store forward's out, a1 and attn
+     at S=257 and 300 (the tensor-core attention's tiled route, which
+     writes kernel 8's probs there) and at the humanml trainers' B=64,
+     S=197 (the CUDA-core attention backward over 197 keys, 19.9 MB of
+     stored probs a layer); the store forward's out, a1 and attn
      bit-equal to the forward's, its probs against probs_twin; their
      times, the twins', a library layer's and the card's bounds, and
      kernels 5-9 launch by launch (device time, tile, grid, cluster, the
      weight gradients' slices, bound) at B=64 and B=1 and in prng mode at
      B=64, none of them the WMMA gemm_kernel; two calls of kernels 6, 7
      and 9 on the same inputs bit-equal, and the backward's plan on the card
-     equal to the wrapper's mirror at every shape; then the same in prng mode (kernel 10: the dropout bits
+     equal to the wrapper's mirror at every shape; then the same in prng
+     mode (kernel 10: the dropout bits
      regenerated inside the kernels from per-clip seeds, also at rate 0.5),
      with determinism and seed sensitivity, rate 1e-9 against the
      deterministic layer, the keep fraction at rate 0.5, a finite difference
      through the layer with store off and on, and the prng times beside the
      masks times, in turns; prng mode is also checked at the pretrain's
      microbatch (B=32).
- 12. pretrain: the prior pretraining CLI at full width (batch 64) on a
+ 13. pretrain: the prior pretraining CLI at full width (batch 64) on a
      synthetic Xia corpus written from a seed: 4 steps with --fused_train 1,
      4 with --fused_train_prng 1 (like for like: the seconds per step of the
      two dropout modes), then 4 with --fused_train_prng 1 --grad_accum 2
      --ema_rate 0.999 --schedule_sampler loss_second_moment; losses, the
      written mdm.pt, model_pretrained.pt and mdm_ema.pt, seconds per step and
      every kernel's launches, with no mask arrays drawn in the prng runs.
- 13. pretrain_unfused: the same CLI with --fused_train 0, 2 steps without
+ 14. pretrain_unfused: the same CLI with --fused_train 0, 2 steps without
      MOTIONSTYLE_PALLAS_ATTN and 2 with it =1 from the same seed: kernel 4
      launched 8 times per forward with it, never without; the first losses
      within rel 1e-4; seconds per step of both; the second step of each
      under torch.profiler, its device time (kernel 4's apart) beside its host
      clock.
- 14. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
+ 15. finetune: the finetune CLI (--fused 1, batch 64, full width, the golden
      prior, the same corpus) runs a few steps with --fused_train 1, the same
      with --parallel_finetune 1 (the Picard-parallel unroll), then
      --fused_train_store 1 with and without --parallel_finetune 1 (in
@@ -112,12 +128,12 @@ Phases, each printed on its own line with its seconds:
      same fits on the CPU, each stage's seconds) and 2 steps with
      --quant_int8 1 (kernel 2 in the gradient-free forwards, kernels 1 and
      5-9 never); then a short store run under torch.profiler.
- 15. semantic: the semantic-discriminator CLI at full width (batch 64,
+ 16. semantic: the semantic-discriminator CLI at full width (batch 64,
      --fused_train 1) from the pretrain phase's prior for a few steps:
      losses, seconds per step, the frozen prior and style encoder bit-equal,
      kernels 5, 6 and 7 launched 8 times a step; then 2 finetune steps with
      --semantic_guidance 1 from the new checkpoint.
- 16. lora: the finetune CLI at full width (batch 64, --fused_train 1
+ 17. lora: the finetune CLI at full width (batch 64, --fused_train 1
      --lora_rank 8) for 3 steps, the same without LoRA, 2 steps resumed from
      the first run's adapter (in turns: LoRA, plain, LoRA) and one step with
      --fused_train_store 1: the style encoder bit-equal to its start, the
@@ -130,7 +146,7 @@ Phases, each printed on its own line with its seconds:
      EXPORT_ATOL for the artifact, of a server of model*.pt; 16 launches of
      kernel 1 a device batch); seconds per step with and without LoRA,
      adapter MB against the encoder's, peak memory.
- 17. distill: cli.distill_prior at full width (batch 64) from the pretrain
+ 18. distill: cli.distill_prior at full width (batch 64) from the pretrain
      phase's mdm.pt, --diffusion_steps 64 --stages 2, 3 steps a stage:
      plain, under MOTIONSTYLE_PALLAS_ATTN=1 (kernel 4 launched 24 times a
      step: 8 layers x 2 teacher forwards + 1 student forward; never
@@ -138,7 +154,7 @@ Phases, each printed on its own line with its seconds:
      losses, mdm_32step.pt and mdm_16step.pt loaded back through
      --mdm_path, only the prior moved; the 16-step student and the 64-step
      teacher sampled from the same noise (seconds a clip, rel L2).
- 18. demo: the demo CLI on the store run's model*.pt and args.json, 8
+ 19. demo: the demo CLI on the store run's model*.pt and args.json, 8
      samples, --skip_render, with --fused 1 and with --quant_int8 1:
      results.npy, the kept root channels, the kernels' launches and the
      int8 result's deviation from the bf16 one; then --fused 1 with one
@@ -148,7 +164,7 @@ Phases, each printed on its own line with its seconds:
      of the same fit on the CPU with its error no larger than the start's,
      kernel 1's 16 launches, and the seconds of each foot-skate pass, IK fit
      and render.
- 19. styles: the serve CLI (--fused 1, --deterministic 1, full width) with
+ 20. styles: the serve CLI (--fused 1, --deterministic 1, full width) with
      the recompute and store finetunes' checkpoints as two named styles (a,
      b), 4 waves of 4 requests with the styles interleaved (p50, p95,
      clips/s), then a 300-frame clip on /v1/stream (5 windows: the seconds
@@ -158,16 +174,33 @@ Phases, each printed on its own line with its seconds:
      /v1/sample with the content's root channels at every frame, and
      --style_strength 0 answering with the base (the finetunes' seeded
      start) bit for bit.
- 20. export: cli.export_model at full width for cuda with --fused 1, then
+ 21. export: cli.export_model at full width for cuda with --fused 1, then
      --quant_int8 1, the second style stored beside the first (seconds, MB);
      serve --artifact: kernel 1 (2) as 16 custom-operator nodes of the
      loaded program and launched 16 times per batch, a live server and the
      artifact in turns over the same waves, answers within EXPORT_ATOL and
      both p50s.
- 21. demo_long: the demo CLI with --long_frames 240 on a 260-frame clip the
+ 22. demo_long: the demo CLI with --long_frames 240 on a 260-frame clip the
      smoke writes (4 windows, 2 samples, the post chain at 240 frames), then
      --style_strength 0.5 and 1 (root-exact, different motions).
- 22. quality: the port's quality protocol (eval/quality_protocol.py) through
+ 23. humanml: the humanml data path at full width (batch 64, 196-frame
+     clips: S=197, 263 features) on a synthetic HumanML3D-layout corpus
+     that eval/quality_protocol.make_corpus writes from a seed:
+     prepare_dataset on tests/goldens/prepare_xia.bvh against its golden;
+     pretrain_prior --dataset humanml, 3 steps --fused_train 1, then 2
+     --fused_train_prng 1; from that prior finetune_style_diffusion
+     --dataset humanml, 2 steps --fused_train 1 and 1 --fused_train_store 1
+     (the neutral content the prior's whole 1000-step chain at B=1: 8000
+     kernel-1 launches, read from the counter); the humanml demo (8
+     samples, the content generated by the prior's guided 1000-step chain
+     at B=16): --fused 1, --quant_int8 1, --forecast_stride 4,
+     --parallel_window 64 and --long_frames 240, each --skip_render, then
+     one render run (no BVH, three renders); one serve wave of 4 humanml
+     requests; a 1-step bandai-2 finetune and its demo. Each checks finite
+     losses and outputs, the files, the kept root channels equal to the
+     content's (the generated content's on humanml) and every kernel's
+     launches, with seconds per step and stage and peak memory.
+ 24. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
      50, the --auto_stop arm) gated by that file's assertions, then the d512
@@ -224,11 +257,17 @@ PRETRAIN_ACCUM = 2
 # --latent_dim 128 with 4 heads); D = 384 with 6 heads and F = 1536 (a
 # LayerNorm cluster of 3 or 6); and at the edges of the GEMMs' tiles and
 # clusters: D = 64 (one head, F = 64: a cluster of one, a half-empty tile),
-# D = 1024 with 8 heads and F = 2048 (the largest cluster) and B=3, S=1
-# (M = 3: one tile, nearly all rows TMA's zero fill)
+# D = 1024 with 8 heads and F = 2048 (the largest cluster), B=3, S=1
+# (M = 3: one tile, nearly all rows TMA's zero fill); the humanml demo's
+# guided batch, B=16, S=197 (8 samples, the cond and uncond halves of
+# classifier-free guidance), and the humanml and bandai finetunes' neutral
+# chain and final resample, B=1, S=197; the GEMM plans of these two held to
+# the wrapper's mirror (ops/fused_encoder.py::layer_plan)
+GUIDED_LAYER = (16, 197)
+NEUTRAL_LAYER = (1, 197)
 KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
                        (B, S, 384, 6, 1536), (B, S, 64, 1, 64), (B, S, 1024, 8, 2048),
-                       (3, 1, D, H, F))
+                       (3, 1, D, H, F), (*GUIDED_LAYER, D, H, F), (*NEUTRAL_LAYER, D, H, F))
 # the inference layer at the DDPM chain's shape (bench.py's B=64, T=196: S=197),
 # at the edges of its attention's two paths: S=1 and 256 (the score row in
 # registers), 257 and 600 (two passes over the key tiles), and at head width
@@ -237,13 +276,15 @@ DDPM_LAYER = (64, 197)
 KERNEL_ATTENTION_SHAPES = ((*DDPM_LAYER, D, H, F), (B, 1, D, H, F), (B, 256, D, H, F),
                            (B, 257, D, H, F), (B, 600, D, H, F), (B, S, 192, 4, F))
 # the int8 layer (kernel 2) against its twin: the serving shape, the DDPM
-# chain's B=64, S=197 (128-row tiles), serving bucket 1 (B=1), S=1 and 197,
+# chain's B=64, S=197 (128-row tiles), the humanml demo's guided batch under
+# --quant_int8 1 (B=16, S=197), serving bucket 1 (B=1), S=1 and 197,
 # head width 32, D = 384 with 6 heads, and at the edges of its GEMMs: D = 64
 # with F = 64 (K = 64 under a stage's 128 int8 values: TMA's zero fill) and
 # D = 1024 with F = 2048 (a LayerNorm cluster of 8 at BN = 128); rel L2 on
 # the fp32 output (the two differ by summation order, and a code flip where
 # that moves a value across a rounding tie)
-INT8_SHAPES = ((B, S, D, H, F), (*DDPM_LAYER, D, H, F), (1, S, D, H, F), (B, 1, D, H, F),
+INT8_SHAPES = ((B, S, D, H, F), (*DDPM_LAYER, D, H, F), (*GUIDED_LAYER, D, H, F),
+               (1, S, D, H, F), (B, 1, D, H, F),
                (B, 197, D, H, F), (B, S, 128, 4, F), (B, S, 384, 6, 1536), (B, S, 64, 1, 64),
                (B, S, 1024, 8, 2048))
 INT8_REL_L2 = 2e-3
@@ -487,6 +528,14 @@ def kernel_phase(device) -> dict:
               f"layer B={b} S={s} D={d} H={h} F={f} within max_abs {LAYER_MAX_ABS} and "
               f"rel_l2 {LAYER_REL_L2}")
 
+    for b, s in (GUIDED_LAYER, NEUTRAL_LAYER):
+        layer_plan_check(b, s, D, F)
+    x = torch.randn(*GUIDED_LAYER, D, generator=gen).to(device, torch.bfloat16)
+    with torch.no_grad():
+        print(f"  B={GUIDED_LAYER[0]} S={GUIDED_LAYER[1]} (the humanml demo's guided batch): "
+              f"kernel 1 device time {device_us(lambda: fused_encoder_layer(x, p, H))} a "
+              "layer", flush=True)
+
     layers = [random_layer(gen, D, F, device) for _ in range(8)]
     x = torch.randn(B, S, D, generator=gen).to(device, torch.bfloat16)
     got, want = x, x
@@ -598,6 +647,27 @@ def int8_gemm_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool = Fals
             (2 * m * d * d, 0, codes(d) + d * d + 4 * d * 4 + m * d * 2 + m * d * 4 + codes(d)),
             (2 * m * d * f, 0, codes(d) + f * d + 2 * f * 4 + m * f * 4),
             (2 * m * f * d, 0, codes(f) + d * f + 4 * d * 4 + m * d * 4 + m * d * 2)]
+
+
+def layer_plan_check(b: int, s: int, d: int, f: int) -> list:
+    """Kernel 1's GEMM plan as its C launcher picks it on this card
+    (fused_encoder_layer_plan), checked against the wrapper's plain mirror
+    (ops.fused_encoder.layer_plan): tile, grid and cluster of each launch."""
+    import torch
+
+    from motionstyle_torch.ops.fused_encoder import layer_plan
+
+    plans = gemm_plan(b, s, d, f)
+    mirror = layer_plan(b, s, d, f, torch.cuda.get_device_properties(0).multi_processor_count)
+    same = all((c["bm"], c["bn"], c["grid_x"], c["grid_y"], c["cluster"])
+               == (py["bm"], py["bn"], py["gx"], py["gy"], py["cluster"])
+               for c, py in zip(plans, mirror))
+    print(f"  layer plan B={b} S={s}: " + "; ".join(
+        f"{n} {c['bm']}x{c['bn']} grid {c['grid_x']}x{c['grid_y']} cluster {c['cluster']}"
+        for n, c in zip(GEMM_LAUNCHES, plans)), flush=True)
+    check(same, f"layer plan B={b} S={s} D={d} F={f}: the C launcher's equals the wrapper's "
+                "mirror")
+    return plans
 
 
 def int8_plan(b: int, s: int, d: int, f: int) -> list:
@@ -752,12 +822,15 @@ TRAIN_BATCHES, TRAIN_RATES = (64, 1), (0.1, 0.0)
 # {128, 256, 512}, head width 64 or 128); then, for the forwards' wgmma
 # GEMMs, the edges of their tiles and clusters as kernel 1's: D = 64 with one
 # head and F = 64 (a cluster of one, a half-empty tile), D = 1024 with 8
-# heads and F = 2048 (the largest cluster), B=3, S=1 (M = 3); and S = 257
+# heads and F = 2048 (the largest cluster), B=3, S=1 (M = 3); S = 257
 # and 300, where the tensor-core attention takes its two-pass tiled route
-# and writes kernel 8's probs from there
+# and writes kernel 8's probs from there; and the humanml trainers' B=64,
+# S=197 (its CUDA-core attention backward over 197 keys, kernel 8's stored
+# probs 64 x 4 x 197^2 x 2 B = 19.9 MB a layer)
+HUMANML_TRAIN = (64, 197)
 TRAIN_EXTRA_SHAPES = ((16, 197, D, H, F), (16, S, 384, 6, 1536), (8, S, 64, 1, 64),
                       (8, S, 1024, 8, 2048), (3, 1, D, H, F), (4, 257, D, H, F),
-                      (4, 300, D, H, F))
+                      (4, 300, D, H, F), (*HUMANML_TRAIN, D, H, F))
 GRAD_REL_L2, GRAD_MAX_REL = 1e-2, 3e-2
 TRAIN_NAMES = tuple(TRAIN_KERNELS)
 # kernel 10: the dropout that kernels 5-9 generate in prng mode (no launch of
@@ -1224,14 +1297,18 @@ def train_kernel_phase(device) -> tuple:
     # the prng pretrain run's microbatch, the shape of kernel 10's main path
     check_train_kernels(p, FINETUNE_BATCH // PRETRAIN_ACCUM, S, D, H, F, 0.1, gen, device,
                         records, prng=True)
+    humanml_inputs = {}
     for b, s, d, h, f in TRAIN_EXTRA_SHAPES:
         layer = random_layer(gen, d, f, device)
         for prng in (False, True):
-            check_train_kernels(layer, b, s, d, h, f, 0.1, gen, device, records, prng=prng)
+            inputs = check_train_kernels(layer, b, s, d, h, f, 0.1, gen, device, records,
+                                         prng=prng)
+            if (b, s, d) == (*HUMANML_TRAIN, D):
+                humanml_inputs[prng] = (layer, inputs)
     check_prng_limits(p, gen, device)
     prng_finite_difference(device)
 
-    def runs_at(inputs):
+    def runs_at(inputs, p=p):
         x, dh2, drop, a1, attn, da1, probs, qkv = inputs
         return {
             "fused_layer_train_forward": (
@@ -1251,6 +1328,14 @@ def train_kernel_phase(device) -> tuple:
                                                              **drop),
                 lambda: ft.bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, H, **drop)),
         }
+
+    # the humanml trainers' shape: each kernel's device time, masks and prng mode
+    with torch.no_grad():
+        for prng, (layer, inputs) in sorted(humanml_inputs.items()):
+            print(f"  B={HUMANML_TRAIN[0]} S={HUMANML_TRAIN[1]} "
+                  f"({'prng' if prng else 'masks'}) device time: " + "; ".join(
+                      f"{n} {device_us(kern)}"
+                      for n, (kern, _) in runs_at(inputs, layer).items()), flush=True)
 
     counts0 = {n: (getattr(ft, n).launches, getattr(ft, n).prng_launches) for n in TRAIN_NAMES}
     # the unroll's shape (B=1): kernel times only, for the finetune's breakdown
@@ -3224,6 +3309,549 @@ ATTN_REL_L2 = 1e-5  # kernel 4 vs its plain version: fp32 sums in another order
 # (B, S, D, H) of kernel 4's checks: the serving shape, S = 197 and 600, head
 # width 32 (D = 128) and 48 (D = 192, not a multiple of 32) and ragged S (1,
 # 33, 513)
+# ---------------------------------------------------------------------------
+# the other architectures and the body model (ROADMAP §1 item 8), and the
+# humanml and bandai data path (item 10)
+# ---------------------------------------------------------------------------
+
+ARCH_BATCH, ARCH_FRAMES, HML_FEATS = 8, 196, 263  # humanml's clip: S = 197
+ARCH_REL_L2 = 1e-5  # fp32 on the card (TF32 off) against the same weights on the CPU
+DT_GOLDEN = os.path.join(ROOT, "tests", "goldens", "diffuse_transfer.npz")
+DT_KW = dict(njoints=32, nfeats=1, latent_dim=64, ff_size=128, num_layers=2, num_heads=4,
+             clip_dim=64, dropout=0.1)  # tests/test_models.py's DiffuseTransfer config
+
+
+def _timed(fn):
+    """(result, seconds) of fn() with the card synchronised around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def arch_phase(card: str, device) -> int:
+    """MDM's other architectures at full width (d=512, 8 layers, 4 heads,
+    ff 1024, humanml's 263 features, T=196, B=8) on the card against the same
+    seeded weights on the CPU in fp32: trans_dec, trans_dec with
+    emb_trans_dec and gru (rel L2 <= ARCH_REL_L2); trans_dec again under
+    MOTIONSTYLE_PALLAS_ATTN=1, its self-attention through kernel 4 (8
+    launches a forward; the cross-attention has Sq != Sk and stays plain)
+    within GOLDEN_ATOL of the plain run; DiffuseTransfer from
+    diffuse_transfer.npz against its golden output (GOLDEN_ATOL); SMPL LBS
+    and rotation2xyz of random_smpl_model over B x T frames, card against
+    CPU. Each forward's seconds (the second call). Returns kernel 4's
+    launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.models import rotation2xyz, smpl
+    from motionstyle_torch.models.denoiser import MDM, DiffuseTransfer, MDMConfig
+    from motionstyle_torch.models.params import assemble_diffuse_transfer_params, seeded_init_
+    from motionstyle_torch.ops.attention import attention_kernel
+
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy((rs.randn(ARCH_BATCH, HML_FEATS, 1, ARCH_FRAMES) * 0.5)
+                         .astype(np.float32))
+    t = torch.from_numpy(rs.randint(0, 1000, ARCH_BATCH)).long()
+    enc = torch.from_numpy((rs.randn(ARCH_BATCH, 512) * 0.1).astype(np.float32))
+    xd, td, encd = x.to(device), t.to(device), enc.to(device)
+    launches = 0
+    for arch, emb in (("trans_dec", False), ("trans_dec", True), ("gru", False)):
+        label = arch + (" emb_trans_dec" if emb else "")
+        cpu = seeded_init_(MDM(MDMConfig(njoints=HML_FEATS, nfeats=1, arch=arch,
+                                         emb_trans_dec=emb)), 3).eval()
+        on_card = copy.deepcopy(cpu).to(device)
+        with torch.no_grad(), env_var(PALLAS_ATTN, None):
+            want, cpu_s = _timed(lambda: cpu(x, t, enc))
+            attention_kernel.launches = 0
+            on_card(xd, td, encd)
+            got, secs = _timed(lambda: on_card(xd, td, encd))
+            stray = attention_kernel.launches
+        rel = rel_l2(got.cpu(), want)
+        print(f"  MDM {label} (d=512, 8 layers, B={ARCH_BATCH}, T={ARCH_FRAMES}): card vs CPU "
+              f"rel L2 {rel:.6g}; forward {secs:.6f} s on {card} (CPU {cpu_s:.4f} s)",
+              flush=True)
+        check(got.shape == (ARCH_BATCH, HML_FEATS, 1, ARCH_FRAMES)
+              and bool(torch.isfinite(got).all()) and rel <= ARCH_REL_L2 and stray == 0,
+              f"MDM {label} on the card within rel L2 {ARCH_REL_L2} of the CPU, no kernel-4 "
+              "launch without the variable")
+        if arch == "trans_dec" and not emb:
+            with torch.no_grad(), env_var(PALLAS_ATTN, "1"):
+                attention_kernel.launches = 0
+                through, secs_k = _timed(lambda: on_card(xd, td, encd))
+                n = attention_kernel.launches
+            err = float((through - got).abs().max())
+            print(f"  MDM trans_dec with {PALLAS_ATTN}=1: attention_kernel launches {n}; "
+                  f"max_abs {err:.6g} from the plain run; forward {secs_k:.6f} s (first call)",
+                  flush=True)
+            check(n == 8 and err <= GOLDEN_ATOL,
+                  f"trans_dec self-attention through kernel 4 (8 launches a forward) within "
+                  f"atol {GOLDEN_ATOL} of the plain run")
+            launches += n
+
+    g = np.load(DT_GOLDEN)
+    sd = {k[len("sd__"):]: g[k] for k in g.files if k.startswith("sd__")}
+    model = DiffuseTransfer(MDMConfig(**DT_KW)).eval()
+    model.load_state_dict(assemble_diffuse_transfer_params(model.cfg, sd))
+    model = model.to(device)
+    args = [torch.as_tensor(g[k], device=device) for k in ("x", "t", "mu", "style_code",
+                                                           "content_code")]
+    args[1] = args[1].long()
+    with torch.no_grad():
+        out, secs = _timed(lambda: model(*args))
+    err = float(np.abs(out.cpu().numpy() - g["out"]).max())
+    print(f"  DiffuseTransfer (golden, 2 layers, latent 64): max_abs {err:.6g} from the "
+          f"reference output; forward {secs:.6f} s", flush=True)
+    check(err <= GOLDEN_ATOL, f"DiffuseTransfer on the card within atol {GOLDEN_ATOL} of its "
+                              "golden")
+
+    body = smpl.random_smpl_model(np.random.RandomState(0))
+    frames = ARCH_BATCH * ARCH_FRAMES
+    q = rs.randn(frames, 24, 4).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    from motionstyle_torch.core.rotations import quaternion_to_matrix
+
+    mats = quaternion_to_matrix(torch.from_numpy(q))
+    betas = torch.from_numpy((rs.randn(frames, 10) * 0.5).astype(np.float32))
+    want_v, want_j = smpl.lbs(body, betas, mats)
+    smpl.lbs(body, betas.to(device), mats.to(device))
+    (got_v, got_j), secs = _timed(lambda: smpl.lbs(body, betas.to(device), mats.to(device)))
+    rel_v, rel_j = rel_l2(got_v.cpu(), want_v), rel_l2(got_j.cpu(), want_j)
+    x6 = torch.from_numpy(rs.randn(ARCH_BATCH, 25, 6, ARCH_FRAMES).astype(np.float32))
+    r2x = rotation2xyz.Rotation2xyz(smpl.SMPL(body))
+    want_x = r2x(x6, None, "rot6d", True, True, "vibe", True)
+    got_x, secs_x = _timed(lambda: r2x(x6.to(device), None, "rot6d", True, True, "vibe", True))
+    rel_x = rel_l2(got_x.cpu(), want_x)
+    print(f"  SMPL LBS over {frames} frames: vertices rel L2 {rel_v:.6g}, joints {rel_j:.6g} "
+          f"({secs:.6f} s on the card); rotation2xyz rot6d -> vibe joints "
+          f"{tuple(got_x.shape)} rel L2 {rel_x:.6g} ({secs_x:.6f} s)", flush=True)
+    check(max(rel_v, rel_j, rel_x) <= ARCH_REL_L2 and got_v.is_cuda and got_x.is_cuda,
+          f"SMPL LBS and rotation2xyz on the card within rel L2 {ARCH_REL_L2} of the CPU")
+    return launches
+
+
+# the humanml phase: a synthetic HumanML3D-layout corpus (eval/quality_protocol
+# make_corpus: 196-frame clips, texts/ and the split files), enough for
+# batches of 64; its clip names are {content}_{style}_{idx:06d}.npy from 600
+HML_CLIPS_PER_PAIR = 17  # 4 (style, content) pairs: 68 clips
+HML_STYLE = f"jumping_angry_{600 + 3 * HML_CLIPS_PER_PAIR:06d}.npy"
+HML_CONTENT = "walking_neutral_000600.npy"
+HML_TEXT = "a person is walking angry"
+HML_PRETRAIN_STEPS, HML_PRNG_STEPS = 3, 2
+HML_FINETUNE_STEPS, HML_STORE_STEPS = 2, 1
+HML_CHAIN = 1000  # the humanml content's DDPM steps (the prior's whole chain)
+XIA_CHAIN = HML_CHAIN // 10  # the posrot neutral chain: stopped at 0.9 T
+HML_TRANSFER = 6  # DDIM-20 skip 14: the transfer's and the final resample's steps
+HML_LONG_FRAMES = 240  # 2 windows of 196 at overlap 10
+BANDAI_CLIPS_PER_PAIR = 16
+
+
+@contextmanager
+def root_watch():
+    """Wrap sampling.sample_loop (every module calls it by attribute): each
+    call with an inpainting target appends (seconds, shape, steps, the kept
+    channels' largest difference from the target over the output or each
+    dumped x0); restored on exit."""
+    import torch
+
+    from motionstyle_torch.diffusion import sampling
+
+    calls, orig = [], sampling.sample_loop
+
+    def watched(sched, model_fn, cond, generator=None, **kw):
+        t0 = time.perf_counter()
+        out = orig(sched, model_fn, cond, generator, **kw)
+        inp = kw.get("inpainting")
+        if inp is not None:
+            torch.cuda.synchronize()
+            keep = inp.mask.expand(kw.get("shape") or tuple(out.shape[-4:])) > 0
+            motion = inp.motion.expand(keep.shape)
+            outs = out if kw.get("dump_all_xstart") else out[None]
+            err = max(float((o[keep] - motion[keep]).abs().max()) for o in outs)
+            calls.append(dict(s=time.perf_counter() - t0, shape=tuple(keep.shape),
+                              steps=sched.num_timesteps - kw.get("skip_timesteps", 0)
+                              - (kw.get("stop_timesteps") or 0), err=err))
+        return out
+
+    sampling.sample_loop = watched
+    try:
+        yield calls
+    finally:
+        sampling.sample_loop = orig
+
+
+def _train_counts_want(layers: int, steps: int, prng: bool, store: bool,
+                       pretrain: bool) -> dict:
+    """The training kernels' expected (launches, prng launches): a pretrain
+    step one forward and one backward a layer; a finetune step the semantic
+    branch's forward and 6 unrolled forwards each recomputed under
+    checkpoint, with 7 backwards. A pretrain run also counts its mask draws
+    (one a layer and step in masks mode, none in prng mode)."""
+    fwd = layers * steps if pretrain else layers * (1 + 2 * HML_TRANSFER) * steps
+    bwd = layers * steps if pretrain else layers * (1 + HML_TRANSFER) * steps
+    want = {n: (0, 0) for n in TRAIN_NAMES}
+    fwd_name, ffn, attn, fwd_store, attn_stored = TRAIN_NAMES
+    for n, k in (((fwd_store if store else fwd_name), fwd), (ffn, bwd),
+                 ((attn_stored if store else attn), bwd)):
+        want[n] = (k, k if prng else 0)
+    if pretrain:
+        want["make_dropout_masks"] = 0 if prng else fwd
+    return want
+
+
+def humanml_phase(card: str, tmp_root: str) -> dict:
+    """The humanml data path at full width (d=512, 8 layers, batch 64,
+    196-frame clips: S=197, 263 features) on a synthetic HumanML3D-layout
+    corpus written from a seed: prepare_dataset on the golden
+    prepare_xia.bvh; pretrain_prior --dataset humanml, 3 steps
+    --fused_train 1 then 2 --fused_train_prng 1; from that prior
+    finetune_style_diffusion --dataset humanml, 2 steps --fused_train 1 and
+    1 --fused_train_store 1 (each neutral content the prior's whole
+    1000-step chain at B=1); the humanml demo (8 samples, content from the
+    prior's guided 1000-step chain at B=16: --fused 1, --quant_int8 1,
+    --forecast_stride 4, --parallel_window 64, --long_frames 240, each
+    --skip_render, then one render run); one serve wave of 4 humanml
+    requests; then a 1-step bandai-2 finetune and its demo. Each run's
+    counts are set to 0 just before it and read just after: finite losses
+    and outputs, the files, the kept root channels equal to the content's,
+    every kernel's launches, seconds per step and stage, peak memory.
+    Returns each kernel's launches over the phase."""
+    import csv
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli import demo_style_transfer as demo_cli
+    from motionstyle_torch.cli import prepare_dataset
+    from motionstyle_torch.cli import serve
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
+    from motionstyle_torch.data.datasets import Text2MotionDataset, get_opt
+    from motionstyle_torch.data.masks import get_inpainting_mask
+    from motionstyle_torch.diffusion.forecast_sampling import forecast_plan
+    from motionstyle_torch.diffusion.longform import plan_windows
+    from motionstyle_torch.eval.quality_protocol import make_corpus
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+    from motionstyle_torch.serve.server import MotionServer
+
+    layers, seed, batch = FINETUNE_LAYERS, 10, FINETUNE_BATCH
+    totals = dict.fromkeys(("fused_encoder_layer", "fused_encoder_layer_int8", PRNG_NAME)
+                           + TRAIN_NAMES, 0)
+    k1, k2 = fused_encoder_layer, fused_encoder_layer_int8
+
+    def zero():
+        k1.launches = k2.launches = 0
+        _zero_counts(ft)
+
+    def tally(counts=None):
+        totals["fused_encoder_layer"] += k1.launches
+        totals["fused_encoder_layer_int8"] += k2.launches
+        if counts is not None:
+            for n in TRAIN_NAMES:
+                totals[n] += counts[n][0]
+                totals[PRNG_NAME] += counts[n][1]
+
+    # prepare_dataset: the golden BVH through the CLI, against its golden
+    t0 = time.perf_counter()
+    raw = os.path.join(tmp_root, "raw_bvh")
+    os.makedirs(raw)
+    shutil.copy(os.path.join(ROOT, "tests", "goldens", "prepare_xia.bvh"),
+                os.path.join(raw, "650angry_jumping.bvh"))
+    written = prepare_dataset.main(["--dataset", "stylexia_posrot", "--bvh_dir", raw, "--out",
+                                    os.path.join(tmp_root, "prepared")])
+    golden = np.load(os.path.join(ROOT, "tests", "goldens", "prepare_xia.npz"))["data"]
+    got = np.load(written[0])
+    err = float(np.abs(got - golden).max())
+    print(f"  prepare_dataset on prepare_xia.bvh: {got.shape}, max_abs {err:.6g} from the "
+          f"golden; {time.perf_counter() - t0:.4f} s", flush=True)
+    check(got.shape == golden.shape and err <= 2e-3,
+          "prepare_dataset writes the golden features within atol 2e-3 "
+          "(tests/test_prepare_dataset.py's bound)")
+
+    hml_root = os.path.join(tmp_root, "humanml")
+    t0 = time.perf_counter()
+    make_corpus(hml_root, clips_per_pair=HML_CLIPS_PER_PAIR, seed=seed, dataset="humanml")
+    n_train = len(Text2MotionDataset(get_opt("humanml", hml_root)))
+    print(f"  humanml corpus: {n_train} clips of 196 frames x {HML_FEATS} "
+          f"({time.perf_counter() - t0:.4f} s)", flush=True)
+    check(n_train >= batch, f"humanml corpus holds a batch of {batch}")
+
+    # pretrain
+    priors = []
+    for label, flags, steps, prng in (("--fused_train 1", ["--fused_train", "1"],
+                                       HML_PRETRAIN_STEPS, False),
+                                      ("--fused_train_prng 1", ["--fused_train_prng", "1"],
+                                       HML_PRNG_STEPS, True)):
+        save_dir = os.path.join(tmp_root, f"hml_prior_{len(priors)}")
+        random.seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        pretrain_main(["--dataset", "humanml", "--data_dir", hml_root, "--save_dir", save_dir,
+                       "--batch_size", str(batch), "--layers", str(layers), "--num_steps",
+                       str(steps), "--num_frames", "196", "--log_interval", "1", "--seed",
+                       str(seed), *flags, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _prior_counts(ft)
+        tally(counts)
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["prior_loss"]) for r in rows]
+        secs = [float(r["step_seconds"]) for r in rows]
+        want = _train_counts_want(layers, steps, prng, False, True)
+        print(f"  humanml pretrain {label}: {steps} steps in {wall:.4f} s on {card}; losses "
+              f"{losses}; step seconds {secs}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.4g} GB; (launches, prng launches) "
+              f"{counts}", flush=True)
+        check(len(losses) == steps and bool(np.isfinite(losses).all())
+              and os.path.exists(os.path.join(save_dir, "mdm.pt")),
+              f"humanml pretrain {label}: losses finite, mdm.pt written")
+        check(counts == want, f"humanml pretrain {label}: kernels 5, 6, 7 launched {layers} "
+                              f"times a step at B={batch}, S=197"
+                              + (", all in prng mode, no mask arrays" if prng else ""))
+        priors.append(os.path.join(save_dir, "mdm.pt"))
+
+    # finetune from the first prior
+    model_paths = []
+    for label, flag, steps, store in (("--fused_train 1", "--fused_train", HML_FINETUNE_STEPS,
+                                       False),
+                                      ("--fused_train_store 1", "--fused_train_store",
+                                       HML_STORE_STEPS, True)):
+        random.seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        with root_watch() as chains:
+            save_dir = finetune_main([
+                "--dataset", "humanml", "--data_dir", hml_root, "--mdm_path", priors[0],
+                "--save_dir", os.path.join(tmp_root, f"hml_ft_{len(model_paths)}"),
+                "--style_example", HML_STYLE, "--fused", "1", flag, "1", "--batch_size",
+                str(batch), "--layers", str(layers), "--num_steps", str(steps), "--skip_render",
+                "--train_platform_type", "NoPlatform", "--seed", str(seed), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _prior_counts(ft)
+        launches_1 = k1.launches
+        tally(counts)
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["loss"]) for r in rows]
+        secs = [float(r["step_seconds"]) for r in rows]
+        neutral = [c for c in chains if c["steps"] == HML_CHAIN]
+        want = _train_counts_want(layers, steps, False, store, False)
+        print(f"  humanml finetune {label}: {steps} steps in {wall:.4f} s on {card}; losses "
+              f"{losses}; step seconds {secs}; neutral chain ({HML_CHAIN} DDPM steps, B=1) "
+              f"{[round(c['s'], 4) for c in neutral]} s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.4g} GB; kernel 1 launches "
+              f"{launches_1}; (launches, prng launches) {counts}", flush=True)
+        check(len(losses) == steps and bool(np.isfinite(losses).all())
+              and os.path.exists(os.path.join(save_dir, f"model{steps:09d}.pt")),
+              f"humanml finetune {label}: losses finite, model{steps:09d}.pt written")
+        check(len(neutral) == 1 and all(c["err"] == 0.0 for c in chains),
+              f"humanml finetune {label}: the neutral content is the whole {HML_CHAIN}-step "
+              "chain and every sample keeps the inpainted root channels exactly")
+        check(launches_1 == layers * (HML_CHAIN + HML_TRANSFER) and k2.launches == 0,
+              f"humanml finetune {label}: kernel 1 launched {layers} x ({HML_CHAIN} neutral + "
+              f"{HML_TRANSFER} resample) times (read from its counter), kernel 2 never")
+        check({k: counts[k] for k in TRAIN_NAMES} == want,
+              f"humanml finetune {label}: training kernel launches {want}")
+        model_paths.append(os.path.join(save_dir, f"model{steps:09d}.pt"))
+
+    # the demo on the store run's model: content from the prior
+    ds = Text2MotionDataset(get_opt("humanml", hml_root))
+    keep = np.asarray(get_inpainting_mask("root_horizontal", (1, HML_FEATS, 1, 196),
+                                          dataset="humanml"))[0, :, 0, 0] > 0
+    captured = []
+    orig_prior = demo_cli.prior_content
+
+    def capture(*a, **k):
+        content, long_content = orig_prior(*a, **k)
+        captured.append(long_content if long_content is not None
+                        else content.float().cpu().numpy())
+        return content, long_content
+
+    demo_cli.prior_content = capture
+    par_sweeps = []
+    orig_par = demo_cli.parallel_sample_loop
+
+    def counted_par(*a, **k):
+        out, sweeps = orig_par(*a, **k)
+        par_sweeps.append(int(sweeps))
+        return out, sweeps
+
+    demo_cli.parallel_sample_loop = counted_par
+    evals = int(forecast_plan(HML_CHAIN, 4)[0].sum())
+    windows = plan_windows(HML_LONG_FRAMES, 196, 10)[0]
+    try:
+        for label, flags, kernel in (
+                ("--fused 1", ["--fused", "1"], k1), ("--quant_int8 1", ["--quant_int8", "1"], k2),
+                ("--forecast_stride 4", ["--fused", "1", "--forecast_stride", "4"], k1),
+                ("--parallel_window 64", ["--fused", "1", "--parallel_window", "64"], k1),
+                (f"--long_frames {HML_LONG_FRAMES}",
+                 ["--fused", "1", "--long_frames", str(HML_LONG_FRAMES)], k1)):
+            captured.clear()
+            par_sweeps.clear()
+            zero()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = demo_main(["--model_path", model_paths[-1], "--input_content", HML_CONTENT,
+                             "--style_example", HML_STYLE, "--input_text", HML_TEXT,
+                             "--data_dir", hml_root, "--skip_render", "--num_samples",
+                             str(DEMO_SAMPLES), "--output_dir",
+                             os.path.join(tmp_root, "hml_demo", label.split()[0][2:]), *flags,
+                             "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            other = k2 if kernel is k1 else k1
+            n, stray = kernel.launches, other.launches
+            tally()
+            res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+            frames = HML_LONG_FRAMES if "--long_frames" in flags else 196
+            content = ds.inv_transform(captured[0][:, :, 0, :].transpose(0, 2, 1))[:, :frames]
+            root_err = float(np.abs(res["hml"][:, :frames][..., keep]
+                                    - content[..., keep]).max())
+            prior_calls = {"--forecast_stride 4": evals,
+                           "--parallel_window 64": sum(par_sweeps)}.get(label, HML_CHAIN)
+            reps = windows if "--long_frames" in flags else 1
+            want = layers * reps * (prior_calls + HML_TRANSFER)
+            print(f"  humanml demo {label}: whole CLI run {wall:.4f} s on {card}; "
+                  f"{kernel.__name__} launches {n} (prior forwards {prior_calls} a window at "
+                  f"B={2 * DEMO_SAMPLES}, guided; {reps} window(s)), {other.__name__} {stray}; "
+                  f"root channels max_abs {root_err:.6g} from the generated content; peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 1e9:.4g} GB"
+                  + (f"; Picard sweeps {par_sweeps}" if par_sweeps else ""), flush=True)
+            check(set(res) == RESULT_KEYS and res["hml"].shape == (DEMO_SAMPLES, frames, HML_FEATS)
+                  and res["motion"].shape == (DEMO_SAMPLES, 22, 3, frames)
+                  and bool(np.isfinite(res["hml"]).all() and np.isfinite(res["motion"]).all()),
+                  f"humanml demo {label}: results.npy ({DEMO_SAMPLES}, {frames}, {HML_FEATS}), "
+                  "finite")
+            check(root_err <= 1e-4, f"humanml demo {label}: the root_horizontal channels "
+                                    "equal the generated content's")
+            check(n == want and stray == 0,
+                  f"humanml demo {label}: {kernel.__name__} launched {want} times (read from "
+                  f"its counter), {other.__name__} never")
+        # one render run: no BVH on humanml; three renders, three foot-skate passes
+        zero()
+        label = "humanml demo --fused 1 (render)"
+        t0 = time.perf_counter()
+        with post_stage_watch(demo_cli) as stages:
+            out = demo_main(["--model_path", model_paths[-1], "--input_content", HML_CONTENT,
+                             "--style_example", HML_STYLE, "--input_text", HML_TEXT,
+                             "--data_dir", hml_root, "--num_samples", "1", "--output_dir",
+                             os.path.join(tmp_root, "hml_demo", "render"), "--fused", "1",
+                             "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tally()
+        print(f"  {label}: whole CLI run {wall:.4f} s on {card}; writes "
+              f"{sorted(os.listdir(out))}", flush=True)
+        check(not [f for f in os.listdir(out) if f.endswith(".bvh")],
+              f"{label}: no BVH on humanml")
+        check_post_outputs(out, ("input_content_motion00", "input_style_motion00",
+                                 "output_transferred_motion00_rep00"), stages, {}, label,
+                           fits=0, renders=3, passes=3)
+    finally:
+        demo_cli.prior_content = orig_prior
+        demo_cli.parallel_sample_loop = orig_par
+
+    # one serve wave of 4 humanml requests
+    zero()
+    engine, decode, handle, _ = serve.build_engine(serve.parse_args([
+        "--dataset", "humanml", "--mdm_path", priors[0], "--model_path", model_paths[-1],
+        "--fused", "1", "--max_wait_ms", "20", "--port", "0", "--device", "cuda"]))
+    engine.warmup(decode({"content": np.zeros((196, HML_FEATS), np.float32)}), log=False)
+    sizes = count_device_batches(engine)
+    server = MotionServer(engine, port=0, decode=decode, handle=handle).start_background()
+    rng = np.random.RandomState(3)
+    contents = [(rng.randn(196, HML_FEATS) * 0.5).astype(np.float32) for _ in range(4)]
+    try:
+        zero()
+        results, latencies, wall = http_waves(f"http://127.0.0.1:{server.port}", contents, 1,
+                                              (None,))
+        torch.cuda.synchronize()
+        n = k1.launches
+    finally:
+        server.close()
+    tally()
+    mask = np.asarray(get_inpainting_mask("root_horizontal", (1, HML_FEATS, 1, 196),
+                                          dataset="humanml"))[0, :, 0, 0] > 0
+    ok = all(m.shape == (HML_FEATS, 1, 196) and bool(np.isfinite(m).all())
+             and np.array_equal(m[mask], contents[i].T[:, None, :][mask])
+             for (_, i), m in results.items())
+    print(f"  humanml serve: 4 requests in {wall:.4f} s on {card}, p50 "
+          f"{percentiles(latencies)[0]:.4f} ms; device batches {sizes}; kernel 1 launches {n}",
+          flush=True)
+    check(len(results) == 4 and ok, "humanml serve: 4 answers (263, 1, 196), finite, the "
+                                    "content's root channels exact")
+    check(n == 16 * len(sizes) and sizes, "humanml serve: kernel 1 launched 16 times a device "
+                                          "batch")
+
+    # bandai-2: a 1-step finetune (a seeded prior) and its demo
+    b_root = os.path.join(tmp_root, "bandai-2")
+    make_corpus(b_root, clips_per_pair=BANDAI_CLIPS_PER_PAIR, seed=seed,
+                dataset="bandai-2_posrot")
+    style = f"dataset-2_jumping_angry_{600 + 3 * BANDAI_CLIPS_PER_PAIR:03d}.npy"
+    random.seed(seed)
+    zero()
+    t0 = time.perf_counter()
+    with root_watch() as chains:
+        save_dir = finetune_main([
+            "--dataset", "bandai-2_posrot", "--data_dir", b_root, "--save_dir",
+            os.path.join(tmp_root, "bandai_ft"), "--style_example", style, "--fused", "1",
+            "--fused_train", "1", "--batch_size", str(batch), "--layers", str(layers),
+            "--num_steps", "1", "--skip_render", "--train_platform_type", "NoPlatform",
+            "--seed", str(seed), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _prior_counts(ft)
+    n = k1.launches
+    tally(counts)
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    print(f"  bandai-2 finetune --fused_train 1: 1 step in {wall:.4f} s on {card}; losses "
+          f"{losses}; kernel 1 launches {n}; (launches, prng launches) {counts}", flush=True)
+    check(len(losses) == 1 and bool(np.isfinite(losses).all())
+          and all(c["err"] == 0.0 for c in chains) and n == layers * (XIA_CHAIN + HML_TRANSFER)
+          and {k: counts[k] for k in TRAIN_NAMES} == _train_counts_want(layers, 1, False, False,
+                                                                     False),
+          f"bandai-2 finetune: loss finite, root channels kept, kernel 1 launched {layers} x "
+          f"({XIA_CHAIN} + {HML_TRANSFER}) times, kernels 5, 6, 7 as a finetune step")
+    zero()
+    content = "dataset-2_walking_neutral_600.npy"
+    out = demo_main(["--model_path", os.path.join(save_dir, "model000000001.pt"),
+                     "--input_content", content, "--style_example", style, "--data_dir",
+                     b_root, "--skip_render", "--num_samples", str(DEMO_SAMPLES),
+                     "--output_dir", os.path.join(tmp_root, "bandai_demo"), "--fused", "1",
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    n = k1.launches
+    tally()
+    res = np.load(os.path.join(out, "results.npy"), allow_pickle=True).item()
+    from motionstyle_torch.data.datasets import StyleMotionDataset
+
+    bds = StyleMotionDataset(get_opt("bandai-2_posrot", b_root), split="test")
+    clip, length = bds.process_np_motion(os.path.join(bds.opt.motion_dir, content))
+    bkeep = np.asarray(get_inpainting_mask("root_horizontal", (1, 190, 1, 196),
+                                           dataset="bandai-2_posrot"))[0, :, 0, 0] > 0
+    root_err = float(np.abs(res["hml"][..., bkeep] - bds.inv_transform(clip)[:, bkeep]).max())
+    print(f"  bandai-2 demo --fused 1: caption {res['text'][0]!r}; kernel 1 launches {n}; root "
+          f"channels max_abs {root_err:.6g} from the content", flush=True)
+    check(res["hml"].shape == (DEMO_SAMPLES, 196, 190) and bool(np.isfinite(res["hml"]).all())
+          and root_err <= 1e-5 and n == 2 * layers,
+          "bandai-2 demo: (8, 196, 190) finite, the content's root channels, kernel 1 "
+          f"launched {2 * layers} times")
+    return totals
+
+
 ATTN_SHAPES = ((B, S, D, H), (B, 197, D, H), (2, 600, D, H), (B, S, 128, 4), (B, S, 192, 4),
                (4, 1, D, H), (4, 33, D, H), (2, 513, D, H))
 PALLAS_ATTN = "MOTIONSTYLE_PALLAS_ATTN"
@@ -3747,6 +4375,8 @@ def main() -> int:
     with phase("golden"):
         golden_sd = golden_phase(device)
         golden_attention_phase(device)
+    with phase("arch"):
+        launches_arch = arch_phase(card, device)
     with phase("serve"):
         launches = serve_phase(golden_sd, card, "--fused", waves=4)
     with phase("serve_int8"):
@@ -3794,6 +4424,8 @@ def main() -> int:
             launches_art, launches_art8 = export_phase(mdm_path, card, style_paths, tmp)
         with phase("demo_long"):
             launches_demo_long = demo_long_phase(model_path, data_dir, tmp, card)
+        with phase("humanml"):
+            launches_hml = humanml_phase(card, tmp)
         with phase("quality"):
             launches_quality = quality_phase(card, tmp)
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
@@ -3811,6 +4443,11 @@ def main() -> int:
     # demo's long-form and style-strength runs
     launches += launches_styles + launches_art + launches_demo_long
     launches_int8 += launches_art8 + launches_lora["fused_encoder_layer_int8"]
+    # the humanml and bandai data path: kernels 1, 2 and 5-10 on its CLIs
+    launches += launches_hml["fused_encoder_layer"]
+    launches_int8 += launches_hml["fused_encoder_layer_int8"]
+    for n in TRAIN_NAMES:
+        train_launches[n] += launches_hml[n]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",
@@ -3831,7 +4468,8 @@ def main() -> int:
     kernels.append(dict(name=PRNG_NAME, route="cuda",
                         source="motionstyle_torch/csrc/fused_encoder_train.cu",
                         replaces=PRNG_REPLACES,
-                        launches=sum(prng_counts[n][1] for n in TRAIN_NAMES),
+                        launches=sum(prng_counts[n][1] for n in TRAIN_NAMES)
+                        + launches_hml[PRNG_NAME],
                         **{k: train_records[PRNG_NAME][k] for k in keys}))
     # kernel 3 on the fused DDPM chain, kernel 4 on the unfused server and
     # the distiller under the variable
@@ -3842,7 +4480,7 @@ def main() -> int:
     kernels.append(dict(name="attention_kernel", route="cuda",
                         source="motionstyle_torch/csrc/attention.cu",
                         replaces="motionstyle/ops/attention.py:52",
-                        launches=launches_attn + launches_distill,
+                        launches=launches_attn + launches_distill + launches_arch,
                         **{k: record_attn[k] for k in keys}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

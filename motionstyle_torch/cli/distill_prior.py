@@ -24,10 +24,10 @@ Run:  python -m motionstyle_torch.cli.distill_prior \\
 Sample a stage-K student on its grid: --mdm_path save/distilled/mdm_8step.pt
 with make_schedule(..., 64, "ddim8") and sampling.sample_loop(method="ddim").
 
---num_frames is accepted and, as in the JAX package, has no effect on the
-style datasets (their loader crops to the dataset's own length). Not on this
-slice (each raises, naming its ROADMAP item): the humanml and bandai
-datasets, the native loader, --prefetch and --profile.
+Every dataset the loaders take is taken (stylexia_posrot, bandai-1_posrot,
+bandai-2_posrot, humanml, kit); --num_frames goes to the loader as the JAX
+CLI passes it, and no dataset reads it. Not on this slice (each raises,
+naming its ROADMAP item): the native loader, --prefetch and --profile.
 """
 from __future__ import annotations
 
@@ -45,7 +45,6 @@ from motionstyle_torch.data.collate import get_dataset_loader, require_batches
 from motionstyle_torch.diffusion.distillation import DistillConfig, ProgressiveDistiller
 from motionstyle_torch.train import logging as logger
 
-PORTED_DATASETS = ("stylexia_posrot",)
 # flag -> (value that means "off", what it needs), checked before any work
 REFUSED = {
     "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
@@ -71,17 +70,14 @@ def parse_args(argv=None):
                              "fixed scale; the student then samples guided outputs with a "
                              "plain conditional forward (guidance_param 1.0)")
     parser.add_argument("--num_frames", default=60, type=int,
-                        help="no effect on the style datasets, as in the JAX package")
+                        help="passed to the loader as the JAX CLI passes it; no "
+                             "dataset reads it")
     parser.add_argument("--log_interval", default=50, type=int)
     return parser.parse_args(argv)
 
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for what this slice of the port does not run."""
-    if args.dataset not in PORTED_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
-            "(ROADMAP §1 item 10: humanml and bandai loaders)")
     for flag, (off, what) in REFUSED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
@@ -110,8 +106,8 @@ def main(argv=None):
         json.dump(vars(args), fw, indent=4, sort_keys=True)
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))
 
-    loader = require_batches(get_dataset_loader(args.dataset, args.batch_size, split="train",
-                                                data_root=args.data_dir or None),
+    loader = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
+                                                split="train", data_root=args.data_dir or None),
                              "distill_prior")
     bundle, _, _ = model_util.creat_serval_diffusion(args, device=args.device)
     if not args.mdm_path:

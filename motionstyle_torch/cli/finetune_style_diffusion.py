@@ -1,9 +1,13 @@
 """Few-shot style finetune CLI of the PyTorch port.
 
 Counterpart of motionstyle/cli/finetune_style_diffusion.py (parity:
-train/finetune_style_diffusion.py): args.json config of record, neutral
-content generated by the frozen prior (a 1000-step DDPM stopped at 900,
-keeping the last x0, :195-212), the semantic-guidance caption edit (:279-286),
+train/finetune_style_diffusion.py) on every dataset it takes: stylexia_posrot,
+bandai-2_posrot (and bandai-1_posrot, which takes bandai-2's defaults, where
+the JAX CLI has none and raises KeyError) and humanml. args.json config of
+record, neutral content generated by the frozen prior (a 1000-step DDPM
+stopped at 900, keeping the last x0, :195-212; on humanml the whole chain,
+keeping the final sample, :155-167), the semantic-guidance caption edit
+(:279-286; on humanml the style word spliced after each /VERB token),
 training through the few-shot loss (with --parallel_finetune 1 through the
 Picard-parallel unroll), --auto_stop's operating-point selection
 (AutoStopEvaluator, auto_stop.json) and a final DDIM resample (:307-343).
@@ -19,7 +23,8 @@ layers, as the JAX denoiser routes them (motionstyle/models/transformer.py:
 217-218). Without --skip_render the run also writes the neutral motion's
 noised and clean versions as IK-fitted BVH and video, and the style example's
 reconstruction as video (:213-252, :307-343): the IK runs on the run's device,
-foot-skate cleanup and rendering on the host (post/). With --lora_rank r
+foot-skate cleanup and rendering on the host (post/); the noised neutral is
+q_sample at 0.701 T (0.301 T on humanml). With --lora_rank r
 (and --lora_alpha) only rank-r adapter factors on the style encoder's dense
 weights train (models/lora.py), through whichever layers the flags above
 pick: each run writes the merged encoder as model{step}.pt beside the
@@ -32,7 +37,7 @@ Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --train_platform_type NoPlatform [--device cuda]
 
 Not on this slice (each raises, naming its ROADMAP item): mesh training,
-orbax checkpoints and the humanml/bandai datasets.
+orbax checkpoints, the native and prefetching loaders and --profile.
 """
 from __future__ import annotations
 
@@ -62,7 +67,12 @@ from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTraine
 from motionstyle_torch.train.platforms import get_platform
 
 DATASET_DEFAULTS = {
-    "stylexia_posrot": dict(example="350angry_jumping.npy", max_frames=76, joints=20),
+    "humanml": dict(example="M008551.npy", joints=22, max_frames=196),
+    "bandai-2_posrot": dict(example="dataset-2_walk-turn-right_feminine_018.npy",
+                            joints=21, max_frames=196),
+    "bandai-1_posrot": dict(example="dataset-1_walk-turn-right_feminine_018.npy",
+                            joints=21, max_frames=196),
+    "stylexia_posrot": dict(example="350angry_jumping.npy", joints=20, max_frames=76),
 }
 
 # flag -> (value that means "off", what it needs), checked before any work
@@ -83,22 +93,21 @@ def check_supported(args) -> None:
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
-    if args.dataset not in DATASET_DEFAULTS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
-            "(ROADMAP §1 item 10: humanml and bandai loaders)")
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 
 
 def skeleton_assets(dataset: str):
     """(Skeleton, metric offsets, kinematic chains, foot joint names) of a
-    dataset's skeleton (motionstyle/cli/finetune_style_diffusion.py:51-62;
-    the stylexia one, as DATASET_DEFAULTS)."""
-    if dataset != "stylexia_posrot":
-        raise NotImplementedError(
-            f"--dataset {dataset}: only stylexia_posrot is ported to motionstyle_torch "
-            "(ROADMAP §1 item 10: humanml and bandai loaders)")
+    dataset's skeleton (motionstyle/cli/finetune_style_diffusion.py:51-62)."""
+    if dataset == "humanml":
+        return (Skeleton(skel_params.smpl_raw_offsets, skel_params.t2m_kinematic_chain),
+                skel_params.smpl_real_offsets, skel_params.t2m_kinematic_chain,
+                ["R_Ankle", "L_Ankle", "L_Foot", "R_Foot"])
+    if dataset.startswith("bandai"):
+        return (Skeleton(skel_params.bandai_raw_offsets, skel_params.bandai_kinematic_chain),
+                skel_params.bandai_real_offsets, skel_params.bandai_kinematic_chain,
+                ["Toes_R", "Toes_L", "Foot_L", "Foot_R"])
     return (Skeleton(skel_params.xia_raw_offsets, skel_params.xia_kinematic_chain),
             skel_params.xia_real_offsets, skel_params.xia_kinematic_chain,
             ["rtoes", "ltoes", "lfoot", "rfoot"])
@@ -107,6 +116,15 @@ def skeleton_assets(dataset: str):
 def style_caption(dataset: str, style_example: str):
     """Neutral-content caption + style word; parity: f_s_d.py:113-138."""
     style_example = os.path.basename(style_example) if style_example else ""
+    if dataset == "humanml":
+        return "a figure skips in a circle", "happily"
+    if dataset.startswith("bandai"):
+        if not style_example:
+            return "a person walks turn right normal", "feminine"
+        contents = style_example.split("_")[-3].split("-")
+        style_label = style_example.split("_")[-2]
+        contents[0] += "s"
+        return "a person " + " ".join(contents) + " normal", style_label
     if not style_example:
         return "a person is jumping neutral", "angry"
     contents = style_example.split("_")[-1][:-4]
@@ -114,10 +132,17 @@ def style_caption(dataset: str, style_example: str):
     return "a person is " + contents + " neutral", style_label
 
 
-def edit_caption_with_style(caption: str, style_label: str) -> str:
-    """Semantic-guidance caption edit for the posrot datasets: drop the
-    trailing style word, insert the style before the last word; parity:
-    f_s_d.py:279-286."""
+def edit_caption_with_style(caption: str, style_label: str, dataset: str,
+                            tokens: str = None) -> str:
+    """Semantic-guidance caption edit (f_s_d.py:268-286): on humanml with the
+    caption's tokens, the style word spliced after each /VERB token; else
+    the trailing word dropped and the style inserted before the last one."""
+    if dataset == "humanml" and tokens:
+        words = caption.split(" ")
+        verb_idx = [i - 1 for i, tok in enumerate(tokens.split("_")) if "/VERB" in tok]
+        for j, idx in enumerate(verb_idx):
+            words.insert(idx + 1 + j, style_label)
+        return " ".join(words)
     words = caption.split(" ")
     words.pop(-1)
     words.insert(-1, style_label)
@@ -227,8 +252,8 @@ def main(argv=None):
     platform.report_args(args, name="Args")
 
     print("creating data loader...")
-    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, split="train",
-                                              data_root=args.data_dir or None),
+    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
+                                              split="train", data_root=args.data_dir or None),
                            "finetune_style_diffusion")
 
     print("creating model and diffusion...")
@@ -255,13 +280,24 @@ def main(argv=None):
     enc_neutral = as_t(bundle.encode_text([caption], args.dataset))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     prior_fn = lambda x, t, c: model.denoise_prior(x, t, c.get("enc_text"))  # noqa: E731
-    # stop at 0.9T (the reference hardcodes 900 for T=1000, f_s_d.py:195)
-    xstarts = sampling.sample_loop(
-        sched_full, prior_fn, {"enc_text": enc_neutral}, gen,
-        shape=(1, cfg.njoints, cfg.nfeats, max_frames), init_image=input_motions,
-        method="ddpm", skip_timesteps=0, stop_timesteps=int(0.9 * args.diffusion_steps),
-        inpainting=Inpainting(inp_mask, input_motions), dump_all_xstart=True)
-    neutral = xstarts[-1]
+    shape = (1, cfg.njoints, cfg.nfeats, max_frames)
+    t0 = time.perf_counter()
+    if args.dataset == "humanml":
+        # the whole chain, keeping its final sample: no early stop, no x0
+        # pick (f_s_d.py:155-167)
+        neutral = sampling.sample_loop(
+            sched_full, prior_fn, {"enc_text": enc_neutral}, gen, shape=shape,
+            init_image=input_motions, method="ddpm",
+            inpainting=Inpainting(inp_mask, input_motions))
+    else:
+        # stop at 0.9T (the reference hardcodes 900 for T=1000, f_s_d.py:195)
+        xstarts = sampling.sample_loop(
+            sched_full, prior_fn, {"enc_text": enc_neutral}, gen, shape=shape,
+            init_image=input_motions, method="ddpm", skip_timesteps=0,
+            stop_timesteps=int(0.9 * args.diffusion_steps),
+            inpainting=Inpainting(inp_mask, input_motions), dump_all_xstart=True)
+        neutral = xstarts[-1]
+    print(f"neutral content took {time.perf_counter() - t0:.3f} s")
     if not args.skip_render:
         render_neutral(args, ds, neutral, input_motions, inp_mask, m_length, sched_full)
 
@@ -270,7 +306,7 @@ def main(argv=None):
         raise ValueError(
             "semantic guidance compares the 512-d CLIP text embedding against the motion "
             "encoder's latent; pass --semantic_guidance 0 for other widths")
-    edited_caption = edit_caption_with_style(caption, style_label)
+    edited_caption = edit_caption_with_style(caption, style_label, args.dataset)
     print(f'finetuning with style caption "{edited_caption}" ...')
     text_features = as_t(bundle.encode_text([edited_caption], args.dataset))
     ft_cfg = FinetuneConfig(
@@ -299,8 +335,10 @@ def main(argv=None):
                     or (auto is not None and auto.selected is not None):
                 break
             texts = list(cond["y"]["text"])
-            if args.semantic_guidance:  # f_s_d.py:268-285
-                texts = [edit_caption_with_style(t, style_label) for t in texts]
+            if args.semantic_guidance:  # f_s_d.py:268-285; humanml splices by tokens
+                tokens = cond["y"].get("tokens", [None] * len(texts))
+                texts = [edit_caption_with_style(t, style_label, args.dataset, tokens=tk)
+                         for t, tk in zip(texts, tokens)]
             batch = {
                 "x_start": motion_b.astype(np.float32),
                 "content": neutral,
@@ -359,7 +397,8 @@ def main(argv=None):
 def render_neutral(args, ds, neutral, input_motions, inp_mask, m_length, sched_full):
     """The noised and the clean neutral motion as IK-fitted BVH (100 Adam
     steps each, on the run's device) and video (f_s_d.py:213-252): the
-    noised one is q_sample at t = 0.701 T, with noise from a generator of
+    noised one is q_sample at t = 0.701 T (0.301 T on humanml,
+    f_s_d.py:169/216), with noise from a generator of
     its own so that the run's other draws do not depend on rendering; the
     clean one is foot-skate cleaned first."""
     skel, real_offsets, chains, ee_names = skeleton_assets(args.dataset)
@@ -367,7 +406,8 @@ def render_neutral(args, ds, neutral, input_motions, inp_mask, m_length, sched_f
     joint_num = DATASET_DEFAULTS[args.dataset]["joints"]
     gen = torch.Generator(device=neutral.device).manual_seed(args.seed)
     img = torch.randn(neutral.shape, generator=gen, device=neutral.device)
-    t_vis = torch.full((neutral.shape[0],), int(0.701 * args.diffusion_steps),
+    frac = 0.301 if args.dataset == "humanml" else 0.701
+    t_vis = torch.full((neutral.shape[0],), int(frac * args.diffusion_steps),
                        dtype=torch.long, device=neutral.device)
     noised = q_sample(sched_full, neutral, t_vis, img,
                       inpainting=Inpainting(inp_mask, input_motions))

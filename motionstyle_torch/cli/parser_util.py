@@ -166,9 +166,14 @@ def add_sampling_options(parser):
     group.add_argument("--num_samples", default=1, type=int)
     group.add_argument("--num_repetitions", default=1, type=int)
     group.add_argument("--guidance_param", default=2.5, type=float)
-    group.add_argument("--parallel_window", default=0, type=int, help="not ported")
-    group.add_argument("--forecast_stride", default=1, type=int, help="not ported")
-    group.add_argument("--forecast_order", default=1, type=int, choices=[0, 1, 2])
+    group.add_argument("--parallel_window", default=0, type=int,
+                       help="if >0, the humanml demo's prior content uses the "
+                            "Picard-parallel sampler with this many timesteps a forward")
+    group.add_argument("--forecast_stride", default=1, type=int,
+                       help="if >1, the humanml demo's prior content calls the denoiser "
+                            "every Nth step and forecasts its x0 in between")
+    group.add_argument("--forecast_order", default=1, type=int, choices=[0, 1, 2],
+                       help="forecast extrapolation order (only with --forecast_stride >1)")
     group.add_argument("--long_frames", default=0, type=int,
                        help="restyle this many frames of a longer content clip by "
                             "chained windows (0 = one window)")
@@ -252,4 +257,19 @@ def eval_inpainting_style_args(argv=None):
     add_generate_options(parser)
     add_style_inpainting_options(parser)
     add_sampling_options(parser)
-    return parse_and_load_from_model(parser, argv)
+    return validate_sampling_args(parse_and_load_from_model(parser, argv))
+
+
+def validate_sampling_args(args):
+    """Fail on contradictory sampler opt-ins (motionstyle/cli/parser_util.py:
+    350-364): --parallel_window and --forecast_stride, or two mesh layouts."""
+    if args.parallel_window > 0 and args.forecast_stride > 1:
+        raise SystemExit("--parallel_window and --forecast_stride are mutually exclusive "
+                         "sampler opt-ins; pass at most one")
+    layouts = [f"--{n} {getattr(args, n)}" for n in
+               ("model_parallel", "pipeline_parallel", "sequence_parallel")
+               if getattr(args, n, 1) > 1]
+    if len(layouts) > 1:
+        raise SystemExit(f"{' and '.join(layouts)} are mutually exclusive mesh layouts; "
+                         "pass at most one")
+    return args

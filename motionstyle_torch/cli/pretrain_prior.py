@@ -18,13 +18,15 @@ Run:  python -m motionstyle_torch.cli.pretrain_prior \\
         --save_dir ./save/prior --num_steps 600 --batch_size 64 \\
         --fused_train_prng 1 [--device cuda]
 
---num_frames is accepted and, as in the JAX package, has no effect on the
-style datasets (their loader crops to the dataset's own length).
+Every dataset the loaders take is taken (stylexia_posrot, bandai-1_posrot,
+bandai-2_posrot, humanml, kit); --num_frames goes to the loader as the JAX
+CLI passes it (motionstyle/cli/pretrain_prior.py:110-115), and no dataset
+reads it.
 --dropout_rng_impl is accepted for the JAX package's sake only: the port
 draws every dropout mask and seed from torch generators. Not on this slice
-(each raises, naming its ROADMAP item): the humanml and bandai datasets,
-mesh training (--data_parallel, --model_parallel, --pipeline_parallel,
---fsdp), the native loader and --prefetch, and --profile.
+(each raises, naming its ROADMAP item): mesh training (--data_parallel,
+--model_parallel, --pipeline_parallel, --fsdp), the native loader and
+--prefetch, and --profile.
 """
 from __future__ import annotations
 
@@ -44,7 +46,6 @@ from motionstyle_torch.diffusion.resample import SCHEDULE_SAMPLERS
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.pretrain import PretrainConfig, PriorTrainer
 
-PORTED_DATASETS = ("stylexia_posrot",)
 # flag -> (value that means "off", what it needs), checked before any work
 REFUSED = {
     "data_parallel": (0, "mesh training (ROADMAP §1 item 11)"),
@@ -69,7 +70,8 @@ def parse_args(argv=None):
     parser.add_argument("--num_steps", default=600, type=int,
                         help="the TOTAL step budget: a resumed run does the remainder")
     parser.add_argument("--num_frames", default=60, type=int,
-                        help="no effect on the style datasets, as in the JAX package")
+                        help="passed to the loader as the JAX CLI passes it; no "
+                             "dataset reads it")
     parser.add_argument("--log_interval", default=50, type=int)
     parser.add_argument("--save_interval", default=0, type=int)
     parser.add_argument("--lr_anneal_steps", default=0, type=int,
@@ -101,10 +103,6 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for what this slice of the port does not run."""
-    if args.dataset not in PORTED_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
-            "(ROADMAP §1 item 10: humanml and bandai loaders)")
     for flag, (off, what) in REFUSED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
@@ -125,8 +123,8 @@ def main(argv=None):
         json.dump(vars(args), fw, indent=4, sort_keys=True)
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))
 
-    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, split="train",
-                                              data_root=args.data_dir or None),
+    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
+                                              split="train", data_root=args.data_dir or None),
                            "pretrain_prior")
     bundle, _, sched_full = model_util.creat_serval_diffusion(args, device=args.device)
     cfg = PretrainConfig(save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,

@@ -44,10 +44,10 @@ import numpy as np
 # flag, when it asks for something the server does not run, what it needs
 REFUSED = (
     ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
+    # StyleDiffusion is trans_enc only in both packages
+    # (motionstyle/cli/model_util.py:44-51); --emb_trans_dec has no effect on it
     ("arch", lambda v: v != "trans_enc",
-     "another architecture (StyleDiffusion is trans_enc only; MDM's arms are "
-     "ROADMAP §1 item 8)"),
-    ("emb_trans_dec", bool, "the trans_dec embedding (ROADMAP §1 item 8)"),
+     "another architecture (StyleDiffusion implements arch='trans_enc' only)"),
     ("profile", bool, "profiling (ROADMAP §1 item 12)"),
     ("fused_train", bool, "the training layer in a server, which runs no training forward"),
     ("fused_train_prng", bool,

@@ -14,11 +14,12 @@ Run:  python -m motionstyle_torch.cli.train_semantic_discriminator \\
         --mdm_path save/prior/mdm.pt --save_dir ./save/semantic \\
         --num_steps 600 --batch_size 16 [--fused_train 1] [--device cuda]
 
---num_frames is accepted and, as in the JAX package, has no effect on the
-style datasets; --dropout_rng_impl is accepted for the JAX package's sake
-only (the port draws from torch generators). Not on this slice (each raises,
-naming its ROADMAP item): the humanml and bandai datasets, the native loader
-and --prefetch, and --profile. The JAX CLI takes no mesh flags.
+Every dataset the loaders take is taken; --num_frames goes to the loader as
+the JAX CLI passes it, and no dataset reads it; --dropout_rng_impl is
+accepted for the JAX package's sake only (the port draws from torch
+generators). Not on this slice (each raises, naming its ROADMAP item): the
+native loader and --prefetch, and --profile. The JAX CLI takes no mesh
+flags.
 """
 from __future__ import annotations
 
@@ -36,7 +37,6 @@ from motionstyle_torch.data.collate import get_dataset_loader, require_batches
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.semantic import SemanticConfig, SemanticTrainer
 
-PORTED_DATASETS = ("stylexia_posrot",)
 # flag -> (value that means "off", what it needs), checked before any work
 REFUSED = {
     "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
@@ -56,7 +56,8 @@ def parse_args(argv=None):
     parser.add_argument("--weight_decay", default=0.0, type=float)
     parser.add_argument("--num_steps", default=600, type=int)
     parser.add_argument("--num_frames", default=60, type=int,
-                        help="no effect on the style datasets, as in the JAX package")
+                        help="passed to the loader as the JAX CLI passes it; no "
+                             "dataset reads it")
     parser.add_argument("--log_interval", default=50, type=int)
     parser.add_argument("--save_interval", default=0, type=int)
     parser.add_argument("--dropout_rng_impl", default="rbg", choices=["rbg", "threefry"],
@@ -67,10 +68,6 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for what this slice of the port does not run."""
-    if args.dataset not in PORTED_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: only stylexia_posrot is ported to motionstyle_torch "
-            "(ROADMAP §1 item 10: humanml and bandai loaders)")
     for flag, (off, what) in REFUSED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
@@ -93,8 +90,8 @@ def main(argv=None):
         json.dump(vars(args), fw, indent=4, sort_keys=True)
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))
 
-    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, split="train",
-                                              data_root=args.data_dir or None),
+    data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
+                                              split="train", data_root=args.data_dir or None),
                            "train_semantic_discriminator")
     bundle, _, sched_full = model_util.creat_serval_diffusion(args, device=args.device)
     cfg = SemanticConfig(save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,

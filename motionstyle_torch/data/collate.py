@@ -1,28 +1,73 @@
-"""Batch assembly for the style dataset: (motion (B, C, 1, T), cond {'y':
-{...}}) numpy batches from a shuffled iterator (counterpart of
-motionstyle/data/collate.py; parity: data_loaders/tensors.py
-lengths_to_mask :3, collate :22, t2m_style_collate :90, get_data.py:43-53).
+"""Batch assembly: (motion (B, C, 1, T), cond {'y': {...}}) numpy batches
+from a shuffled iterator, for the style datasets and HumanML3D (counterpart
+of motionstyle/data/collate.py; parity: data_loaders/tensors.py
+lengths_to_mask :3, collate :22, t2m_collate :78, t2m_style_collate :90, and
+the DataLoader wrapper get_data.py:43-53). The native batch loader and the
+prefetching loader (--native_loader, --prefetch) are not ported (ROADMAP §1
+item 12): the CLIs refuse those flags.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
+from motionstyle_torch.data.datasets import StyleMotionDataset, Text2MotionDataset, get_opt
 
 
-def lengths_to_mask(lengths, max_len: int) -> np.ndarray:
+def lengths_to_mask(lengths: np.ndarray, max_len: int) -> np.ndarray:
     return (np.arange(max_len)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)
 
 
-def t2m_style_collate(batch: list) -> tuple:
-    """Style dataset items -> (motion (B, C, 1, T) float32, cond): mask
-    (B, 1, 1, T), lengths, text, style."""
-    motion = np.stack([np.asarray(b[1], dtype=np.float32).T[:, None, :] for b in batch])
-    lengths = np.asarray([b[2] for b in batch])
-    cond = {"y": {"mask": lengths_to_mask(lengths, motion.shape[-1])[:, None, None, :],
-                  "lengths": lengths, "text": [b[0] for b in batch],
-                  "style": [b[3] for b in batch]}}
+def collate(samples: list) -> tuple:
+    """samples: list of dicts with 'inp' (C, 1, T) [+ text/lengths/...].
+
+    Returns (motion (B, C, 1, T) float32, cond {'y': {mask, lengths, ...}}).
+    mask has shape (B, 1, 1, T) for broadcasting, like tensors.py:32.
+    """
+    samples = [s for s in samples if s is not None]
+    motion = np.stack([np.asarray(s["inp"], dtype=np.float32) for s in samples])
+    if "lengths" in samples[0]:
+        lengths = np.asarray([s["lengths"] for s in samples])
+    else:
+        lengths = np.asarray([s["inp"].shape[-1] for s in samples])
+    mask = lengths_to_mask(lengths, motion.shape[-1])[:, None, None, :]
+    cond = {"y": {"mask": mask, "lengths": lengths}}
+    for key in ("text", "tokens", "file_name", "style", "action_text"):
+        if key in samples[0]:
+            cond["y"][key] = [s[key] for s in samples]
+    if "action" in samples[0]:
+        cond["y"]["action"] = np.asarray([s["action"] for s in samples])[:, None]
     return motion, cond
+
+
+def t2m_collate(batch: list) -> tuple:
+    """HumanML3D item tuples -> batch; parity: tensors.py:78-87."""
+    return collate(
+        [
+            {
+                "inp": np.asarray(b[1], dtype=np.float32).T[:, None, :],  # (T,D)->(D,1,T)
+                "text": b[0],
+                "lengths": b[2],
+                "tokens": b[3],
+                "file_name": b[4],
+            }
+            for b in batch
+        ]
+    )
+
+
+def t2m_style_collate(batch: list) -> tuple:
+    """Style dataset item tuples -> batch; parity: tensors.py:90-97."""
+    return collate(
+        [
+            {
+                "inp": np.asarray(b[1], dtype=np.float32).T[:, None, :],
+                "text": b[0],
+                "lengths": b[2],
+                "style": b[3],
+            }
+            for b in batch
+        ]
+    )
 
 
 class DataLoader:
@@ -47,20 +92,36 @@ class DataLoader:
             self._rng.shuffle(idx)
         stop = len(idx) - (self.batch_size - 1 if self.drop_last else 0)
         for s in range(0, stop, self.batch_size):
-            yield self.collate_fn([self.dataset[int(i)] for i in idx[s: s + self.batch_size]])
+            chunk = idx[s : s + self.batch_size]
+            yield self.collate_fn([self.dataset[int(i)] for i in chunk])
 
 
-def get_dataset_loader(name: str, batch_size: int, split: str = "train", shuffle: bool = True,
-                       data_root=None) -> DataLoader:
-    dataset = StyleMotionDataset(get_opt(name, data_root), split=split)
-    return DataLoader(dataset, batch_size, t2m_style_collate, shuffle=shuffle, drop_last=True)
+def get_dataset(name: str, num_frames: int, split: str = "train", data_root=None):
+    opt = get_opt(name, data_root)
+    if name in ("humanml", "t2m", "kit"):
+        return Text2MotionDataset(opt, split=split)
+    if name in ("bandai-1_posrot", "bandai-2_posrot", "stylexia_posrot"):
+        return StyleMotionDataset(opt, split=split)
+    raise ValueError(f"Unsupported dataset name [{name}]")
+
+
+def get_dataset_loader(name: str, batch_size: int, num_frames: int, split: str = "train",
+                       shuffle: bool = True, data_root=None) -> DataLoader:
+    """Parity: get_data.py:43-53, the in-process numpy iterator."""
+    dataset = get_dataset(name, num_frames, split, data_root)
+    # kit items carry (caption, motion, len, tokens, name) like t2m
+    collate_fn = t2m_collate if name in ("humanml", "t2m", "kit") else t2m_style_collate
+    return DataLoader(dataset, batch_size, collate_fn, shuffle=shuffle, drop_last=True)
 
 
 def require_batches(loader: DataLoader, what: str) -> DataLoader:
-    """Fail loudly when a training loader yields no full batches (a
-    `while steps: for batch in loader` loop would otherwise spin forever)."""
+    """Fail loudly when a training loader yields no full batches — a
+    `while steps: for batch in loader` loop would otherwise spin forever
+    (e.g. humanml without train.txt/texts/, or batch_size > dataset)."""
     if len(loader) == 0:
         raise SystemExit(
-            f"{what}: dataset yields no full batches ({len(loader.dataset)} items, "
-            f"batch_size {loader.batch_size}); lower --batch_size")
+            f"{what}: dataset yields no full batches ({len(loader.dataset)} "
+            f"items, batch_size {loader.batch_size}). For humanml-style "
+            "datasets check <data_root>/train.txt and <data_root>/texts/; "
+            "otherwise lower --batch_size")
     return loader

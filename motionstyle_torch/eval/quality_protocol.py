@@ -15,20 +15,28 @@ the JAX package's runner (QUALITY.md, tests/test_quality.py).
      (--mdm_path + --resume_checkpoint warm start), and optionally a second
      one with --auto_stop 1;
   4. transfers onto a held-out content clip by cli/demo_style_transfer.py,
-     from the warm start, from every saved checkpoint (the ladder) and from
-     the auto arm's selected checkpoint;
+     from the warm start, from every saved checkpoint (the ladder), from
+     the auto arm's selected checkpoint and at each --strengths value (on
+     humanml the demo generates its content from the prior, and the
+     pre-finetune transfer is the content anchor);
   5. each scored with eval/style_metrics.transfer_report.
 
+evaluate_mixing (--mixing) finetunes two styles from one warm start and
+scores --style_mix blends against both examples; evaluate_longform restyles
+a long procedural clip through --long_frames and scores it window by
+window and at the seams. The corpus generator writes every family the JAX
+tool writes: stylexia_posrot, bandai-2_posrot and humanml (the
+Text2MotionDatasetV2 layout, with texts/ and the split files).
+
 Run:  python -m motionstyle_torch.eval.quality_protocol [--quick] [--semantic]
-        [--auto_stop] [--fused_train 1] [--fused 1] [--device cuda] [--work DIR]
+        [--auto_stop] [--mixing] [--strengths 0,0.5,1] [--dataset humanml]
+        [--fused_train 1] [--fused 1] [--device cuda] [--work DIR]
 
 On the card the CLIs run the CUDA kernels their flags ask for (--fused_train:
 the prior's, the discriminator's and the finetune's training forwards and
 backwards; --fused: the demos' and --auto_stop's inference forwards).
 chip_smoke.py's quality phase runs tests/test_quality.py's protocol and its
-assertions through this module. Not on this slice (each raises, naming its
-ROADMAP item): the bandai and humanml families (item 10), the style-strength
-sweep, style mixing and long-form content (item 6).
+assertions through this module.
 """
 from __future__ import annotations
 
@@ -46,13 +54,23 @@ T_FRAMES = 76
 DIM = 181
 POSE_START = 4
 
-# Dataset-family profiles (channel count, window length, the filename scheme
-# the dataset parses style/content from): stylexia only, the one dataset the
-# port loads; the bandai and humanml families wait for ROADMAP §1 item 10.
+# Dataset-family profiles: both style families share the root4-first hml_vec
+# structure (data/masks.py layouts); they differ in channel count, window
+# length and the filename scheme the dataset parses style/content from
+# (data/datasets.py StyleMotionDataset.__init__).
 PROFILES = {
     "stylexia_posrot": dict(
         dim=181, frames=76,
         fname=lambda idx, style, content: f"{idx:03d}{style}_{content}.npy"),
+    "bandai-2_posrot": dict(
+        dim=190, frames=196,
+        fname=lambda idx, style, content: f"dataset-2_{content}_{style}_{idx:03d}.npy"),
+    # humanml: the Text2MotionDatasetV2 corpus format (texts/{name}.txt with
+    # caption#tokens#f_tag#to_tag lines + {split}.txt); the captions carry the
+    # style/content identity instead of the filename
+    "humanml": dict(
+        dim=263, frames=196, writer="t2m",
+        fname=lambda idx, style, content: f"{content}_{style}_{idx:06d}.npy"),
 }
 
 CONTENTS = {
@@ -148,7 +166,6 @@ def make_corpus(root: str, clips_per_pair: int = 8, seed: int = 0,
                 styles: dict = None, contents: dict = None,
                 dataset: str = "stylexia_posrot") -> list:
     """Write the corpus + Mean/Std npy files; returns the filenames."""
-    require_ported(dataset)
     profile = PROFILES[dataset]
     vec_dir = pjoin(root, "new_joint_vecs")
     os.makedirs(vec_dir, exist_ok=True)
@@ -170,14 +187,23 @@ def make_corpus(root: str, clips_per_pair: int = 8, seed: int = 0,
     np.save(pjoin(root, "Mean.npy"), stacked.mean(axis=0).astype(np.float32))
     np.save(pjoin(root, "Std.npy"),
             np.maximum(stacked.std(axis=0), 1e-3).astype(np.float32))
+    if profile.get("writer") == "t2m":
+        # the Text2MotionDatasetV2 scan: texts/{name}.txt + {split}.txt; the
+        # caption carries the (content, style) identity
+        os.makedirs(pjoin(root, "texts"), exist_ok=True)
+        stems = []
+        for name in names:
+            stem = name[:-4]
+            content, style = stem.split("_")[0], stem.split("_")[1]
+            cap = f"a person is {content} {style}"
+            toks = "_".join(f"{w}/OTHER" for w in cap.split())
+            with open(pjoin(root, "texts", f"{stem}.txt"), "w") as f:
+                f.write(f"{cap}#{toks}#0.0#0.0\n")
+            stems.append(stem)
+        for split in ("train", "test"):
+            with open(pjoin(root, f"{split}.txt"), "w") as f:
+                f.write("\n".join(stems) + "\n")
     return names
-
-
-def require_ported(dataset: str) -> None:
-    if dataset not in PROFILES:
-        raise NotImplementedError(
-            f"dataset {dataset}: the port's protocol runs stylexia_posrot only (ROADMAP §1 "
-            "item 10: the bandai and humanml loaders)")
 
 
 def _flag(on) -> str:
@@ -200,7 +226,6 @@ def prepare_assets(work: str, *, prior_steps: int = 500, batch_size: int = 16,
     (neutral generation, --auto_stop's samples) and the demos."""
     from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
 
-    require_ported(dataset)
     if os.path.exists(work):
         shutil.rmtree(work)
     data_root = pjoin(work, "data")
@@ -253,15 +278,13 @@ def evaluate_transfer(assets: dict, *, finetune_steps: int = 24,
     under "auto" and, when it selected a step, a demo-path check of the
     selected checkpoint onto the held-out content ("demo_report").
     semantic_guidance needs assets prepared with semantic_steps > 0 at
-    latent_dim 512. Each result's "seconds" holds the wall time of every
-    stage. strengths (the style-strength sweep) waits for ROADMAP §1 item 6."""
+    latent_dim 512. strengths runs the demo of the final checkpoint at each
+    --style_strength, the result's "strength_sweep" {strength: report}. Each
+    result's "seconds" holds the wall time of every stage."""
     from motionstyle_torch.cli.demo_style_transfer import main as demo_main
     from motionstyle_torch.cli.finetune_style_diffusion import main as ft_main
     from motionstyle_torch.eval.style_metrics import transfer_report
 
-    if strengths:
-        raise NotImplementedError("strengths: --style_strength is not ported to "
-                                  "motionstyle_torch (ROADMAP §1 item 6)")
     work, data_root = assets["work"], assets["data_root"]
     diffusion_steps, seed, device = assets["diffusion_steps"], assets["seed"], assets["device"]
     skip = int(0.7 * diffusion_steps)
@@ -290,13 +313,22 @@ def evaluate_transfer(assets: dict, *, finetune_steps: int = 24,
         seconds[os.path.basename(save_dir)] = time.perf_counter() - t0
         return out
 
-    def demo(model_path: str, out: str) -> str:
+    base_demo_args = []
+    if assets["dataset"] == "humanml":
+        # the humanml demo generates its content from the frozen prior; pass
+        # a corpus caption (the filename-parse branch is xia/bandai only)
+        stem = content_clip[:-4]
+        base_demo_args = ["--input_text",
+                          f"a person is {stem.split('_')[0]} {stem.split('_')[1]}"]
+
+    def demo(model_path: str, out: str, extra=()) -> str:
         t0 = time.perf_counter()
         out_dir = demo_main([
             "--model_path", model_path, "--input_content", content_clip,
             "--style_example", style_example, "--data_dir", data_root,
             "--output_dir", pjoin(work, out), "--skip_render", "--seed", str(seed),
-            "--fused", _flag(assets["fused"]), "--device", device])
+            "--fused", _flag(assets["fused"]), "--device", device]
+            + base_demo_args + list(extra))
         seconds[out] = time.perf_counter() - t0
         return out_dir
 
@@ -314,13 +346,20 @@ def evaluate_transfer(assets: dict, *, finetune_steps: int = 24,
         os.makedirs(pre_dir)
         shutil.copy(pjoin(ft_dir, "args.json"), pjoin(pre_dir, "args.json"))
         shutil.copy(assets["warm_path"], pjoin(pre_dir, "model000000000.pt"))
-    content = np.load(pjoin(data_root, "new_joint_vecs", content_clip))
     style_ex = np.load(pjoin(data_root, "new_joint_vecs", style_example))
+    out_pre = demo(pjoin(pre_dir, "model000000000.pt"), f"demo_pre_{tag}")
+    if assets["dataset"] == "humanml":
+        # the content is generated from the frozen prior inside the demo; with
+        # one seed the pre- and post-finetune runs transfer the same content,
+        # so the pre output is the content anchor
+        content = load_hml(out_pre)
+    else:
+        content = np.load(pjoin(data_root, "new_joint_vecs", content_clip))
 
-    def score(model_path: str, out: str) -> dict:
-        return transfer_report(load_hml(demo(model_path, out)), content, style_ex)
+    def score(model_path: str, out: str, extra=()) -> dict:
+        return transfer_report(load_hml(demo(model_path, out, extra)), content, style_ex)
 
-    rep_pre = score(pjoin(pre_dir, "model000000000.pt"), f"demo_pre_{tag}")
+    rep_pre = transfer_report(load_hml(out_pre), content, style_ex)
     rep_post = score(final_ckpt, f"demo_post_{tag}")
     ladder_reports = {}
     if ladder:
@@ -342,9 +381,16 @@ def evaluate_transfer(assets: dict, *, finetune_steps: int = 24,
             # content (the in-train evaluation transfers onto the neutral one)
             auto_report["demo_report"] = score(pjoin(ft_auto, _checkpoints(ft_auto)[-1]),
                                                f"demo_auto_{tag}")
+    strength_reports = {}
+    for a in strengths:
+        if a == 1.0:
+            strength_reports[a] = rep_post  # strength 1 is the finetuned model
+            continue
+        strength_reports[a] = score(final_ckpt, f"demo_{tag}_a{a}",
+                                    ["--style_strength", str(a)])
     return {
         "pre": rep_pre, "post": rep_post, "ladder": ladder_reports, "auto": auto_report,
-        "seconds": seconds,
+        "strength_sweep": strength_reports, "seconds": seconds,
         "config": dict(prior_steps=assets["prior_steps"], finetune_steps=finetune_steps,
                        lr=lr, diffusion_steps=diffusion_steps,
                        latent_dim=assets["latent_dim"], layers=assets["layers"], seed=seed,
@@ -354,14 +400,121 @@ def evaluate_transfer(assets: dict, *, finetune_steps: int = 24,
     }
 
 
-def evaluate_mixing(*_, **__):
-    raise NotImplementedError("style mixing (--style_mix) is not ported to motionstyle_torch "
-                              "(ROADMAP §1 item 6)")
+MIX_STYLES = dict(STYLES, proud=dict(amp=0.45, freq_s=16.0))
 
 
-def evaluate_longform(*_, **__):
-    raise NotImplementedError("long-form content (--long_frames) is not ported to "
-                              "motionstyle_torch (ROADMAP §1 item 6)")
+def evaluate_mixing(work: str, *, prior_steps: int = 1500, finetune_steps: int = 200,
+                    lr: float = 1e-3, seed: int = 10,
+                    weights=((1.0, 0.0), (0.5, 0.5), (0.0, 1.0)),
+                    fused_train: bool = False, fused: bool = False, device: str = "cuda",
+                    **asset_kw) -> dict:
+    """Style mixing (--style_mix): finetune two styles from one warm start,
+    blend their task vectors at several weights and score each blend's
+    style distance to both style examples (tools/quality_protocol.py:433).
+    A working mix interpolates: pure A is close to A and far from B, pure B
+    the reverse, 50/50 between. The content is a held-out neutral walking
+    clip throughout."""
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.cli.finetune_style_diffusion import main as ft_main
+    from motionstyle_torch.eval.style_metrics import transfer_report
+
+    assets = prepare_assets(work, prior_steps=prior_steps, seed=seed, styles=MIX_STYLES,
+                            fused_train=fused_train, fused=fused, device=device, **asset_kw)
+    data_root = assets["data_root"]
+    skip = int(0.7 * assets["diffusion_steps"])
+    examples = {"angry": "624angry_jumping.npy", "proud": "640proud_jumping.npy"}
+    ckpts = {}
+    for style, example in examples.items():
+        ft_dir = ft_main([
+            "--dataset", "stylexia_posrot", "--data_dir", data_root,
+            "--save_dir", pjoin(work, f"ft_{style}"), "--style_example", example,
+            "--mdm_path", assets["mdm_path"], "--resume_checkpoint", assets["warm_path"],
+            "--num_steps", str(finetune_steps), "--lr", str(lr),
+            "--batch_size", str(assets["batch_size"]),
+            "--overwrite", "--train_platform_type", "NoPlatform", "--skip_render",
+            "--layers", str(assets["layers"]), "--latent_dim", str(assets["latent_dim"]),
+            "--diffusion_steps", str(assets["diffusion_steps"]), "--skip_steps", str(skip),
+            "--semantic_guidance", "0", "--seed", str(seed),
+            "--fused_train", _flag(fused_train), "--fused", _flag(fused), "--device", device,
+        ])
+        ckpts[style] = pjoin(ft_dir, _checkpoints(ft_dir)[-1])
+
+    content_clip = "600neutral_walking.npy"
+    content = np.load(pjoin(data_root, "new_joint_vecs", content_clip))
+    ex_clips = {s: np.load(pjoin(data_root, "new_joint_vecs", f)) for s, f in examples.items()}
+    out = {}
+    for wa, wb in weights:
+        out_dir = demo_main([
+            "--model_path", ckpts["angry"], "--input_content", content_clip,
+            "--style_example", examples["angry"], "--data_dir", data_root,
+            "--output_dir", pjoin(work, f"demo_mix_{wa}_{wb}"), "--skip_render",
+            "--seed", str(seed), "--style_mix", f"{ckpts['angry']}:{wa},{ckpts['proud']}:{wb}",
+            "--fused", _flag(fused), "--device", device,
+        ])
+        d = np.load(pjoin(out_dir, "results.npy"), allow_pickle=True).item()
+        hml = d["hml"][0][: int(d["lengths"][0])]
+        out[(wa, wb)] = {s: transfer_report(hml, content, ex_clips[s])["style_dist_to_example"]
+                         for s in examples}
+        out[(wa, wb)]["root_err"] = transfer_report(
+            hml, content, ex_clips["angry"])["root_horizontal_max_abs_err"]
+    return {"weights": out, "ckpts": ckpts,
+            "config": dict(prior_steps=prior_steps, finetune_steps=finetune_steps, lr=lr,
+                           seed=seed)}
+
+
+def evaluate_longform(work: str, ft_dir: str, *, n_frames: int = 274, seed: int = 10,
+                      fused: bool = False, device: str = "cuda") -> dict:
+    """Long-form transfer quality (--long_frames; tools/quality_protocol.py
+    :499): a long procedural neutral-walking content (the same generator,
+    more cycles) restyled through the demo CLI's windowed path, scored (a)
+    over its whole length, (b) window by window (stylisation must not decay
+    across windows) and (c) at the decoded root's seams (no teleports at a
+    window boundary)."""
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.core.features import recover_root_rot_pos
+    from motionstyle_torch.diffusion.longform import plan_windows
+    from motionstyle_torch.eval.style_metrics import transfer_report
+
+    import torch
+
+    data_root = pjoin(work, "data")
+    long_name = f"699neutral_walking_long{n_frames}.npy"
+    clip = make_clip("neutral", "walking", seed=seed * 10007 + 699, n_frames=n_frames)
+    np.save(pjoin(data_root, "new_joint_vecs", long_name), clip)
+    out_dir = demo_main([
+        "--model_path", pjoin(ft_dir, _checkpoints(ft_dir)[-1]),
+        "--input_content", long_name, "--style_example", "624angry_jumping.npy",
+        "--data_dir", data_root, "--output_dir", pjoin(work, "demo_longform"),
+        "--skip_render", "--seed", str(seed), "--long_frames", str(n_frames),
+        "--fused", _flag(fused), "--device", device,
+    ])
+    d = np.load(pjoin(out_dir, "results.npy"), allow_pickle=True).item()
+    hml = d["hml"][0][:n_frames]
+    style_ex = np.load(pjoin(data_root, "new_joint_vecs", "624angry_jumping.npy"))
+    overall = transfer_report(hml, clip, style_ex)
+
+    window, overlap = T_FRAMES, 10
+    n_windows, stride = plan_windows(n_frames, window, overlap)
+    per_window = []
+    for k in range(n_windows):
+        seg = slice(k * stride, min(k * stride + window, n_frames))
+        per_window.append(round(float(transfer_report(
+            hml[seg], clip[seg], style_ex)["style_dist_to_example"]), 4))
+
+    _, pos = recover_root_rot_pos(torch.as_tensor(hml, dtype=torch.float32))
+    step = np.linalg.norm(np.diff(pos.numpy(), axis=0), axis=-1)
+    # one seam per consecutive pair of windows, centred in each overlap; the
+    # interior excludes the seams' neighbourhoods, so a teleport shows
+    seams = [window - overlap // 2 + k * stride for k in range(n_windows - 1)]
+    seams = [s for s in seams if s - 5 < len(step)]
+    seam_mask = np.zeros(len(step), dtype=bool)
+    for s in seams:
+        seam_mask[max(0, s - 5):s + 5] = True
+    seam_steps = [float(step[max(0, s - 5):s + 5].max()) for s in seams]
+    return {"overall": overall, "per_window_style_dist": per_window,
+            "seam_max_step": round(max(seam_steps), 5) if seam_steps else 0.0,
+            "interior_max_step": round(float(step[~seam_mask].max()), 5),
+            "n_frames": n_frames}
 
 
 def run_protocol(work: str, *, prior_steps: int = 1500, finetune_steps: int = 200,
@@ -374,8 +527,13 @@ def run_protocol(work: str, *, prior_steps: int = 1500, finetune_steps: int = 20
                  dataset: str = "stylexia_posrot",
                  fused_train: bool = False, fused: bool = False,
                  auto_stop: bool = False, device: str = "cuda") -> dict:
-    """The whole protocol at tests/test_quality.py's defaults."""
-    require_ported(dataset)
+    """The whole protocol at tests/test_quality.py's defaults; on bandai and
+    humanml the default clips are renamed to the family's scheme, as the JAX
+    tool does."""
+    if dataset != "stylexia_posrot" and style_example == "624angry_jumping.npy":
+        fname = PROFILES[dataset]["fname"]
+        style_example = fname(624, "angry", "jumping")
+        content_clip = fname(600, "neutral", "walking")
     assets = prepare_assets(work, prior_steps=prior_steps, batch_size=batch_size,
                             diffusion_steps=diffusion_steps, latent_dim=latent_dim,
                             layers=layers, seed=seed, dataset=dataset,
@@ -454,12 +612,15 @@ def main(argv=None):
     p.add_argument("--finetune_steps", default=0, type=int)
     p.add_argument("--lr", default=0.0, type=float)
     p.add_argument("--seed", default=10, type=int)
-    p.add_argument("--dataset", default="stylexia_posrot")
+    p.add_argument("--dataset", default="stylexia_posrot", choices=sorted(PROFILES))
     p.add_argument("--strengths", default="", type=str,
-                   help="not ported (ROADMAP §1 item 6)")
+                   help="comma-separated style_strength values to sweep on the final "
+                        "checkpoint (e.g. '0,0.25,0.5,1,1.5')")
     p.add_argument("--auto_stop", action="store_true",
                    help="also run the --auto_stop finetune arm and report its selected step")
-    p.add_argument("--mixing", action="store_true", help="not ported (ROADMAP §1 item 6)")
+    p.add_argument("--mixing", action="store_true",
+                   help="style mixing: two finetunes from one warm start, blended at "
+                        "several --style_mix weights")
     p.add_argument("--semantic", action="store_true",
                    help="the full reference loss at latent 512: train the semantic "
                         "discriminator, then finetune with --semantic_guidance 1")
@@ -469,12 +630,9 @@ def main(argv=None):
                    help="the CUDA inference kernel in the demos and --auto_stop's samples")
     p.add_argument("--device", default="cuda", type=str)
     args = p.parse_args(argv)
-    require_ported(args.dataset)
     if not args.work:
         args.work = tempfile.mkdtemp(prefix="quality_protocol_")
         print(f"working directory: {args.work}")
-    if args.mixing:
-        evaluate_mixing()
     strengths = tuple(float(s) for s in args.strengths.split(",") if s)
     kw = dict(prior_steps=200, finetune_steps=8) if args.quick else {}
     if args.prior_steps:
@@ -485,6 +643,16 @@ def main(argv=None):
         kw["lr"] = args.lr
     flags = dict(fused_train=bool(args.fused_train), fused=bool(args.fused),
                  device=args.device)
+    if args.mixing:
+        result = evaluate_mixing(args.work, seed=args.seed,
+                                 prior_steps=kw.get("prior_steps", 1500),
+                                 finetune_steps=kw.get("finetune_steps", 200),
+                                 lr=kw.get("lr", 1e-3), **flags)
+        print("style mixing (wa, wb) -> dist to angry / dist to proud / root err:")
+        for (wa, wb), r in result["weights"].items():
+            print(f"  ({wa}, {wb}): {r['angry']:.4f} / {r['proud']:.4f} / "
+                  f"{r['root_err']:.2e}")
+        return result
     if args.semantic:
         assets = prepare_assets(args.work, prior_steps=kw.get("prior_steps", 1500),
                                 latent_dim=512, layers=2, seed=args.seed,
@@ -509,6 +677,12 @@ def main(argv=None):
             print(f"  demo check @selected: ratio {r['style_dist_ratio']:.3f} "
                   f"content {r['content_similarity']:.3f} "
                   f"root_err {r['root_horizontal_max_abs_err']:.2e}")
+    if result.get("strength_sweep"):
+        print("\nstrength sweep (style_strength -> style_dist / content_sim / root_err):")
+        for a in sorted(result["strength_sweep"]):
+            r = result["strength_sweep"][a]
+            print(f"  a={a}: {r['style_dist_to_example']:.4f} / "
+                  f"{r['content_similarity']:.4f} / {r['root_horizontal_max_abs_err']:.2e}")
     print("stage seconds: " + json.dumps(result["seconds"]))
     return result
 

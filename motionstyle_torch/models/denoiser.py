@@ -1,4 +1,5 @@
-"""MDM denoiser and the style-transfer model in PyTorch (trans_enc arch).
+"""MDM denoiser, the style-transfer model and the humanml residual-code model
+in PyTorch.
 
 Counterpart of motionstyle/models/denoiser.py. Module and parameter names
 follow the reference's state dict (mdm_forstyledataset.py), so a prior
@@ -24,18 +25,29 @@ training forward run the CUDA training layer, except under cfg.quant_int8,
 where they run the plain layers as the JAX model's do; with cfg.fused an
 inference forward runs the CUDA inference layer, and with cfg.quant_int8
 (which implies it) the int8 CUDA layer.
+
+MDM also takes the reference's other architectures (cfg.arch, JAX
+denoiser.py:136-149, :180-203): 'trans_dec', the post-LN decoder over the
+frame tokens with the condition embedding as its one-token memory (with
+cfg.emb_trans_dec the condition token leads the sequence too), and 'gru', a
+GRU over the frame tokens plus the condition embedding. StyleDiffusion stays
+trans_enc only, as in the JAX package. DiffuseTransfer is the humanml
+variant (DiffuseTrasnfer, sic, :628-760): the condition is the CLIP text
+plus the residual style_code - content_code, through its own
+transfer_encoder (plain layers, as the JAX module runs it).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from motionstyle_torch.models.transformer import TransformerEncoder, dense
+from motionstyle_torch.models.transformer import (
+    GRUStack, TransformerDecoder, TransformerEncoder, dense)
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -80,6 +92,10 @@ class MDMConfig:
     # per-(clip, layer) seeds (Philox, kernel 10) instead of reading mask
     # arrays; the draws differ from the masks mode's, the statistics agree
     fused_train_prng: bool = False
+    # 'trans_enc' | 'trans_dec' | 'gru' (the reference's --arch)
+    arch: str = "trans_enc"
+    # trans_dec: the condition token also leads the decoder's sequence
+    emb_trans_dec: bool = False
 
     def __post_init__(self):
         # either variant of the fused training layer implies it, as the JAX
@@ -126,7 +142,9 @@ class TimestepEmbedder(nn.Module):
 class MDM(nn.Module):
     """The text-conditioned motion diffusion denoiser (predicts x0)."""
 
-    def __init__(self, cfg: MDMConfig):
+    def __init__(self, cfg: MDMConfig, stack: bool = True):
+        """stack=False leaves out the sequence model (encoder, decoder or
+        GRU): DiffuseTransfer borrows only the embeddings and heads."""
         super().__init__()
         self.cfg = cfg
         d = cfg.latent_dim
@@ -136,8 +154,20 @@ class MDM(nn.Module):
         self.input_process = _InputProcess(cfg.input_feats, d)
         self.embed_timestep = TimestepEmbedder(d)
         self.embed_text = nn.Linear(cfg.clip_dim, d)
-        self.seqTransEncoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
-                                                  cfg.ff_size, cfg.dropout)
+        if cfg.arch not in ("trans_enc", "trans_dec", "gru"):
+            raise ValueError("Please choose correct architecture [trans_enc, trans_dec, gru]")
+        if cfg.arch == "gru" and cfg.dtype != "float32":
+            # the JAX GRU's scan carries the compute dtype while its cell
+            # computes in fp32, so it runs in float32 only
+            raise ValueError("arch='gru' runs in dtype float32 only")
+        if stack and cfg.arch == "trans_enc":
+            self.seqTransEncoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
+                                                      cfg.ff_size, cfg.dropout)
+        elif stack and cfg.arch == "trans_dec":
+            self.seqTransDecoder = TransformerDecoder(cfg.num_layers, d, cfg.num_heads,
+                                                      cfg.ff_size, cfg.dropout)
+        elif stack:
+            self.gru = GRUStack(d, d, cfg.num_layers)
         self.output_process = _OutputProcess(d, cfg.input_feats)
 
     def frames_to_tokens(self, x: torch.Tensor) -> torch.Tensor:
@@ -160,17 +190,28 @@ class MDM(nn.Module):
             xseq = xseq * ((bits < keep).to(xseq.dtype) / keep)
         return xseq
 
+    def embed_frames(self, x: torch.Tensor, timesteps: torch.Tensor,
+                     enc_text: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(condition embedding (B, d): the timestep's + the text's, frame
+        tokens (B, T, d)), in the compute dtype."""
+        dt = self.cfg.torch_dtype
+        emb = self.embed_timestep(timesteps, self.pe, dt)
+        if enc_text is not None:
+            emb = emb + dense(self.embed_text, enc_text, dt)
+        return emb, dense(self.input_process.poseEmbedding, self.frames_to_tokens(x), dt)
+
     def embed_tokens(self, x: torch.Tensor, timesteps: torch.Tensor,
                      enc_text: Optional[torch.Tensor], deterministic: bool = True,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[cond token; frame tokens] + pe, in the compute dtype."""
-        dt = self.cfg.torch_dtype
-        emb = self.embed_timestep(timesteps, self.pe, dt)  # (B, d)
-        if enc_text is not None:
-            emb = emb + dense(self.embed_text, enc_text, dt)
-        h = dense(self.input_process.poseEmbedding, self.frames_to_tokens(x), dt)
-        xseq = torch.cat([emb[:, None, :], h], dim=1)
-        return self.apply_pe(xseq, deterministic, generator)
+        emb, h = self.embed_frames(x, timesteps, enc_text)
+        return self.lead_with_condition(emb, h, deterministic, generator)
+
+    def lead_with_condition(self, emb: torch.Tensor, h: torch.Tensor,
+                            deterministic: bool = True,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[emb; h] + pe: the condition token leads the frame tokens."""
+        return self.apply_pe(torch.cat([emb[:, None, :], h], dim=1), deterministic, generator)
 
     def run_encoder(self, encoder: TransformerEncoder, xseq: torch.Tensor,
                     deterministic: bool = True,
@@ -197,10 +238,24 @@ class MDM(nn.Module):
                 enc_text: Optional[torch.Tensor] = None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, C, F, T), timesteps (B,), enc_text (B, clip_dim) pre-masked.
-        Parity: MDM.forward :315-364 (trans_enc)."""
-        xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
-        return self.output_head(self.run_encoder(self.seqTransEncoder, xseq,
-                                                 deterministic, generator))
+        Parity: MDM.forward :315-364 (JAX :168-203)."""
+        cfg = self.cfg
+        if cfg.arch == "trans_enc":
+            xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
+            return self.output_head(self.run_encoder(self.seqTransEncoder, xseq,
+                                                     deterministic, generator))
+        dt = cfg.torch_dtype
+        emb, h = self.embed_frames(x, timesteps, enc_text)
+        if cfg.arch == "trans_dec":
+            xseq = (self.lead_with_condition(emb, h, deterministic, generator)
+                    if cfg.emb_trans_dec else self.apply_pe(h, deterministic, generator))
+            out = self.seqTransDecoder(xseq, emb[:, None, :], dt, deterministic, generator)
+            if cfg.emb_trans_dec:
+                out = out[:, 1:]
+        else:  # gru
+            out = self.gru(self.apply_pe(h + emb[:, None, :], deterministic, generator))
+        out = dense(self.output_process.poseFinal, out, dt)
+        return self.tokens_to_frames(out).float()
 
 
 class StyleDiffusion(nn.Module):
@@ -255,6 +310,52 @@ class StyleDiffusion(nn.Module):
         """True for the trainable parameters (parameters_wo_enc :588): the
         style encoder's only (JAX trainable_param_filter, :417-419)."""
         return name.startswith("style_encoder.")
+
+
+class DiffuseTransfer(nn.Module):
+    """humanml variant: the condition is the CLIP text plus the residual
+    style_code - content_code (DiffuseTrasnfer, sic, :628-760; JAX :327-388).
+    Holds the prior's embeddings and heads ('mdm', without its stack), the
+    semantic discriminator ('mu_query', 'sigma_query', 'motion_enc_encoder')
+    and the trainable 'transfer_encoder'."""
+
+    def __init__(self, cfg: MDMConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.latent_dim
+        self.mdm = MDM(cfg, stack=False)
+        self.mu_query = nn.Parameter(torch.zeros(1, d))
+        self.sigma_query = nn.Parameter(torch.zeros(1, d))
+        self.motion_enc_encoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
+                                                     cfg.ff_size, cfg.dropout)
+        self.transfer_encoder = TransformerEncoder(cfg.num_layers, d, cfg.num_heads,
+                                                   cfg.ff_size, cfg.dropout)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, enc_text: torch.Tensor,
+                style_code: torch.Tensor, content_code: torch.Tensor,
+                deterministic: bool = True, uncond: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Denoise x_t on text + the style-content residual (:733-760):
+        input_mu = enc_text + (style_code - content_code); uncond zeroes the
+        whole condition (force_mask); a training forward drops it per clip
+        with cfg.cond_mask_prob (mask_cond, bits from `generator`)."""
+        input_mu = enc_text + (style_code - content_code)
+        if uncond:
+            input_mu = torch.zeros_like(input_mu)
+        elif not deterministic and self.cfg.cond_mask_prob > 0.0:
+            input_mu = mask_cond(input_mu, self.cfg.cond_mask_prob, generator)
+        xseq = self.mdm.embed_tokens(x, timesteps, input_mu, deterministic, generator)
+        out = self.transfer_encoder(xseq, dtype=self.cfg.torch_dtype,
+                                    deterministic=deterministic, generator=generator)
+        return self.mdm.output_head(out)
+
+    def encode_motion(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The semantic discriminator's mu (B, d), as StyleDiffusion's."""
+        return _encode_motion_mu(self.mdm, self.mu_query, self.sigma_query,
+                                 self.motion_enc_encoder, x, frame_mask, deterministic,
+                                 generator)
 
 
 def _encode_motion_mu(mdm: MDM, mu_query, sigma_query, encoder: TransformerEncoder,

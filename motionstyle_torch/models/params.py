@@ -19,6 +19,12 @@ LayerNorm 'scale' is torch's 'weight'; the packed in-projection is one
 mdm_leaves list an encoder's and a prior's leaves in jax's flattening order
 with that mapping; the weights and the optimizer's moments
 (train/finetune.py, train/pretrain.py) cross over through them.
+from_jax_params also carries the other architectures' trees (a decoder's
+'seqTransDecoder', whose cross-attention keeps the JAX module's q_proj and
+packed kv_proj; a GRU's 'gru', already in torch's layout) and DiffuseTransfer's
+('transfer_encoder'). assemble_diffuse_transfer_params reads a reference
+DiffuseTrasnfer state dict; checkpoint import stays trans_enc only, as in the
+JAX package (torch_import.py:66-76).
 """
 from __future__ import annotations
 
@@ -106,8 +112,9 @@ def from_torch_state_dict(sd: Dict[str, np.ndarray], cfg: MDMConfig,
     'mu_query', 'sigma_query' and 'motion_enc_encoder.*'. Load with
     load_state_dict(..., strict=False)."""
     if part == "mdm":
-        if any(k.startswith(("seqTransDecoder", "gru")) for k in sd):
-            raise NotImplementedError("checkpoint import supports arch='trans_enc' only")
+        if cfg.arch != "trans_enc" or any(k.startswith(("seqTransDecoder", "gru")) for k in sd):
+            raise NotImplementedError(
+                f"checkpoint import supports arch='trans_enc' only (cfg.arch={cfg.arch!r})")
         out = {f"mdm.{k}": _tensor(v) for k, v in sd.items() if k not in _BUFFERS}
     elif part in ("style_encoder", "semantic"):
         dest = "style_encoder" if part == "style_encoder" else "motion_enc_encoder"
@@ -206,41 +213,110 @@ def encoder_from_jax(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+# A decoder layer's leaves beyond an encoder layer's: the cross-attention
+# (q_proj, the packed kv_proj, out_proj) and norm3.
+_DECODER_LAYER_LEAVES = _LAYER_LEAVES + tuple(
+    (("multihead_attn", proj, leaf), f"multihead_attn.{proj}.{name}", leaf == "kernel")
+    for proj in ("q_proj", "kv_proj", "out_proj")
+    for leaf, name in (("kernel", "weight"), ("bias", "bias"))) + (
+    (("norm3", "scale"), "norm3.weight", False), (("norm3", "bias"), "norm3.bias", False))
+
+
+def _layers_from_jax(tree: dict, prefix: str, leaves) -> Dict[str, torch.Tensor]:
+    out = {}
+    n = 0
+    while f"layers_{n}" in tree:
+        for path, key, transposed in leaves:
+            leaf = tree[f"layers_{n}"]
+            for k in path:
+                leaf = leaf[k]
+            out[f"{prefix}layers.{n}.{key}"] = flax_to_torch(leaf, transposed)
+        n += 1
+    return out
+
+
 def _mdm_from_jax(tree: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """An MDM tree of any architecture (or without its stack, as
+    DiffuseTransfer's) -> port state-dict entries under `prefix`."""
     out = {}
     for path, key in _MDM_DENSE:
         sub = tree
         for k in path:
             sub = sub[k]
         out.update(_dense(sub, prefix + key))
-    out.update(encoder_from_jax(tree["seqTransEncoder"], f"{prefix}seqTransEncoder."))
+    if "seqTransEncoder" in tree:
+        out.update(encoder_from_jax(tree["seqTransEncoder"], f"{prefix}seqTransEncoder."))
+    if "seqTransDecoder" in tree:
+        out.update(_layers_from_jax(tree["seqTransDecoder"], f"{prefix}seqTransDecoder.",
+                                    _DECODER_LAYER_LEAVES))
+    if "gru" in tree:  # weight_ih_l{k} etc., torch's layout and names already
+        out.update({f"{prefix}gru.{k}": _tensor(v) for k, v in tree["gru"].items()})
     return out
+
+
+def _depth(out: Dict[str, torch.Tensor]) -> int:
+    """Layers named by a port state dict: the stacks' 'layers.{i}', or a
+    GRU's 'weight_ih_l{i}'."""
+    grus = [int(m.group(1)) for k in out if (m := re.search(r"gru\.weight_ih_l(\d+)$", k))]
+    return max(_num_layers(out), 1 + max(grus, default=-1))
 
 
 def from_jax_params(tree: dict, cfg: MDMConfig) -> Dict[str, torch.Tensor]:
     """The JAX package's flax params (numpy leaves, optionally under
     'params') -> the port's state dict: a StyleDiffusion tree ('mdm',
     'style_encoder', the semantic discriminator's 'motion_enc_encoder',
-    'mu_query' and 'sigma_query') or an MDM tree ('input_process', ...)."""
+    'mu_query' and 'sigma_query'), a DiffuseTransfer tree ('mdm' without its
+    stack, the discriminator and 'transfer_encoder') or an MDM tree of any
+    architecture ('input_process', ...)."""
     tree = tree.get("params", tree)
     if "mdm" in tree:
         out = _mdm_from_jax(tree["mdm"], "mdm.")
-        out.update(encoder_from_jax(tree["style_encoder"], "style_encoder."))
+        second = "transfer_encoder" if "transfer_encoder" in tree else "style_encoder"
+        out.update(encoder_from_jax(tree[second], f"{second}."))
         out.update(encoder_from_jax(tree["motion_enc_encoder"], "motion_enc_encoder."))
         out["mu_query"] = _tensor(tree["mu_query"])
         out["sigma_query"] = _tensor(tree["sigma_query"])
     else:
         out = _mdm_from_jax(tree, "")
-    n_layers = _num_layers(out)
+    n_layers = _depth(out)
     if n_layers != cfg.num_layers:
-        raise ValueError(f"tree has {n_layers} encoder layers, the config {cfg.num_layers}")
+        raise ValueError(f"tree has {n_layers} layers, the config {cfg.num_layers}")
+    return out
+
+
+def assemble_diffuse_transfer_params(cfg: MDMConfig, sd: Dict[str, np.ndarray],
+                                     seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A reference DiffuseTrasnfer (sic, :628-760) state dict -> a port
+    DiffuseTransfer's whole state dict (counterpart of
+    motionstyle/models/torch_import.py:152-195). `seqTransEncoder.*` is the
+    trainable transfer encoder; `motion_enc.*` the frozen MotionEncoder
+    (muQuery, sigmaQuery, its own seqTransEncoder, and the inner mdm_model
+    whose embeddings and heads the transfer forward borrows; its encoder
+    stack is not used and not loaded). A subtree the state dict lacks keeps
+    the seeded initialisation (seeded_init_ with `seed`)."""
+    from motionstyle_torch.models.denoiser import DiffuseTransfer
+
+    out = seeded_init_(DiffuseTransfer(cfg), seed).state_dict()
+    head = "motion_enc.mdm_model."
+    for _, key in _MDM_DENSE:
+        if f"{head}{key}.weight" in sd:
+            for leaf in ("weight", "bias"):
+                out[f"mdm.{key}.{leaf}"] = _tensor(sd[f"{head}{key}.{leaf}"])
+    if "motion_enc.muQuery" in sd:
+        out["mu_query"] = _tensor(sd["motion_enc.muQuery"]).reshape(1, -1)
+        out["sigma_query"] = _tensor(sd["motion_enc.sigmaQuery"]).reshape(1, -1)
+    for prefix, dest in (("motion_enc.seqTransEncoder", "motion_enc_encoder"),
+                         ("seqTransEncoder", "transfer_encoder")):
+        if f"{prefix}.layers.0.norm1.weight" in sd:
+            out.update({f"{dest}.{k}": v
+                        for k, v in convert_encoder(sd, prefix, cfg.num_layers).items()})
     return out
 
 
 @torch.no_grad()
 def seeded_init_(module: nn.Module, seed: int, stds: dict | None = None) -> nn.Module:
     """Deterministic initialisation from a seed, independent of the device
-    and of torch's global RNG: Linear and packed in-projection weights
+    and of torch's global RNG: Linear, packed in-projection and GRU weights
     lecun-normal (std 1/sqrt(fan_in)), biases 0, LayerNorm 1 and 0, other
     parameters normal with the std `stds` gives their name, else 1 (flax's
     defaults for these modules).
@@ -250,11 +326,11 @@ def seeded_init_(module: nn.Module, seed: int, stds: dict | None = None) -> nn.M
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "bias" or leaf.endswith("_bias"):
+        if leaf.startswith("bias") or leaf.endswith("_bias"):
             p.zero_()
         elif p.ndim == 1:  # LayerNorm scale
             p.fill_(1.0)
-        elif leaf in ("weight", "in_proj_weight"):
+        elif leaf in ("weight", "in_proj_weight") or leaf.startswith("weight_"):
             std = p.shape[1] ** -0.5
             p.copy_(torch.randn(p.shape, generator=gen) * std)
         else:

@@ -21,6 +21,17 @@ flax's Dense(dtype=...) does. The encoder routes as the JAX encoder does
 training forward runs the differentiable CUDA training layer
 (ops/fused_encoder_train.py), with store_probs its store-probs kernels and
 with in_kernel_prng its in-kernel Philox dropout.
+
+The other MDM architectures (motionstyle/models/transformer.py:82-189): the
+post-LN decoder (TransformerDecoderLayer: self-attention, cross-attention to
+the memory, FFN, norm1-3, dropout on each residual branch and inside the
+FFN) and a multi-layer GRU (GRUStack). The decoder's self-attention goes
+through ops/attention.multihead_attention, so on the card it reaches kernel 4
+where the JAX package reaches its Pallas attention (S > 512 or
+MOTIONSTYLE_PALLAS_ATTN=1); its cross-attention has Sq != Sk and stays on
+the plain version, as in the JAX package. GRUStack is torch.nn.GRU (its
+parameter names are the JAX module's) run in fp32; the JAX package has no
+kernel for it.
 """
 from __future__ import annotations
 
@@ -152,3 +163,92 @@ class TransformerEncoder(nn.Module):
                                            self.dim_feedforward, dtype=torch.float32)
             x = layer(x, key_padding_mask, dtype, masks)
         return x
+
+
+def _dropout(t: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+             ) -> torch.Tensor:
+    """Inverted dropout at `rate` with bits from `generator`."""
+    keep = 1.0 - rate
+    bits = torch.rand(t.shape, generator=generator, device=t.device)
+    return t * ((bits < keep).to(t.dtype) / keep)
+
+
+class MultiheadCrossAttention(nn.Module):
+    """Cross-attention with a q projection and a packed kv projection (the
+    JAX module's layout, models/transformer.py:82-97)."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.kv_proj = nn.Linear(embed_dim, 2 * embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+        q = dense(self.q_proj, x, dtype)
+        k, v = dense(self.kv_proj, memory, dtype).split(x.shape[-1], -1)
+        return dense(self.out_proj, multihead_attention(q, k, v, self.num_heads), dtype)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-LN decoder block: x = norm1(x + self_attn(x)); x = norm2(x +
+    cross_attn(x, memory)); x = norm3(x + ffn(x)); in a training forward,
+    dropout on each residual branch and after gelu (JAX :100-135)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.dropout = dropout
+        self.self_attn = MultiheadSelfAttention(d_model, nhead)
+        self.multihead_attn = MultiheadCrossAttention(d_model, nhead)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, dtype: torch.dtype = torch.float32,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        drop = (lambda t: t) if deterministic or self.dropout <= 0.0 else \
+            (lambda t: _dropout(t, self.dropout, generator))  # noqa: E731
+        a = drop(self.self_attn(x, None, dtype))
+        x = self.norm1((x.to(dtype) + a).float()).to(dtype)
+        c = drop(self.multihead_attn(x, memory, dtype))
+        x = self.norm2((x + c).float()).to(dtype)
+        h = drop(F.gelu(dense(self.linear1, x, dtype), approximate="none"))
+        h = drop(dense(self.linear2, h, dtype))
+        return self.norm3((x + h).float()).to(dtype)
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int = 1024, dropout: float = 0.1):
+        super().__init__()
+        self.dropout = dropout
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, nhead, dim_feedforward, dropout)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, dtype: torch.dtype = torch.float32,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if not deterministic and self.dropout > 0.0 and generator is None:
+            raise ValueError("a training forward with dropout needs a torch.Generator")
+        for layer in self.layers:
+            x = layer(x, memory, dtype, deterministic, generator)
+        return x
+
+
+class GRUStack(nn.GRU):
+    """Multi-layer unidirectional GRU over (B, T, D) -> (B, T, H) from a zero
+    state: torch's GRU cell math, as the JAX GRUStack's scan computes it
+    (:138-167), with its parameter names (weight_ih_l{k}, weight_hh_l{k},
+    bias_ih_l{k}, bias_hh_l{k}), in fp32."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int):
+        super().__init__(input_size, hidden_size, num_layers, batch_first=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())[0]

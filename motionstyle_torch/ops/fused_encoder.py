@@ -287,6 +287,15 @@ def _plan_for(M: int, N: int, owns_rows: bool, sms: int, narrow: bool = False) -
                 cluster=_cdiv(N, bn) if owns_rows else 1, split=1)
 
 
+def layer_plan(B: int, S: int, D: int, F: int, sms: int) -> list:
+    """Kernel 1's four GEMM launches (qkv, out-projection + LN1, FFN-up,
+    FFN-down + LN2) as fused_encoder_layer_plan plans them on a card of
+    `sms` SMs: each a dict of its tile (bm, bn), grid (gx, gy) and
+    cluster."""
+    return [_plan_for(B * S, N, owns_rows, sms)
+            for N, owns_rows in ((3 * D, False), (D, True), (F, False), (D, True))]
+
+
 def int8_layer_plan(B: int, S: int, D: int, F: int, sms: int) -> list:
     """The int8 layer's four GEMM launches (qkv, out-projection + LN1,
     FFN-up, FFN-down + LN2) as fused_encoder_layer_int8_plan plans them on a

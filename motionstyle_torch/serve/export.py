@@ -52,10 +52,6 @@ CUSTOM_OP_NAMESPACE = "motionstyle"
 MAX_BATCH = 1024
 
 
-def current_platform() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def platform_record(platform: str) -> dict:
     """meta.json's record of one platform: cuda with the compute capability
     of the card it was traced on, or cpu."""
@@ -298,10 +294,12 @@ class Artifact:
         self.styles = styles or {}
 
 
-def load_artifact(path: str, device=None) -> Artifact:
-    """Load an artifact on `device` (the card when there is one, else the
-    CPU). Refuses a JAX StableHLO artifact, another format version, and a
-    platform or CUDA compute capability it was not exported for."""
+def load_artifact(path: str, device="cuda") -> Artifact:
+    """Load an artifact on `device`: the card unless the caller asks for
+    another device, and without a card it raises, as the CLIs'
+    resolve_device does (no silent fallback to the CPU). Refuses a JAX
+    StableHLO artifact, another format version, and a platform or CUDA
+    compute capability it was not exported for."""
     # the custom operators of kernels 1 and 2 must exist before a program
     # that calls them is deserialised
     import motionstyle_torch.ops.fused_encoder  # noqa: F401
@@ -318,12 +316,15 @@ def load_artifact(path: str, device=None) -> Artifact:
     if meta.get("format_version") != FORMAT_VERSION:
         raise ValueError(f"artifact format version {meta.get('format_version')} != "
                          f"supported {FORMAT_VERSION}")
-    device = torch.device(device or current_platform())
+    device = torch.device(device or "cuda")
     records = {r["platform"]: r for r in meta["platforms"]}
     if device.type not in records:
         raise ValueError(f"artifact was exported for {sorted(records)}; this process "
                          f"serves on {device.type}")
     if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to load the artifact on "
+                               "the CPU")
         want = records["cuda"]["capability"]
         major, minor = torch.cuda.get_device_capability(device)
         if f"{major}.{minor}" != want:

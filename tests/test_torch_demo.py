@@ -40,7 +40,9 @@ from motionstyle_torch.cli.finetune_style_diffusion import main as ft_main
 from motionstyle_torch.cli.parser_util import eval_inpainting_style_args
 from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
 from motionstyle_torch.diffusion import sampling
-from tests.test_torch_finetune import CLI_ARGS, short_post, xia_root  # noqa: F401
+from tests.test_torch_finetune import (  # noqa: F401
+    CLI_ARGS, bandai_root, family_args, hml_root, jax_prior, pin_samplers, short_post, xia_root)
+from tests.test_torch_finetune import FAMILY_STYLE
 from tests.test_torch_models import numpy_params, one_torch_thread  # noqa: F401
 
 N, C, T = 2, 181, 76
@@ -292,9 +294,7 @@ def test_demo_style_arithmetic_matches_the_jax_demo(kind, based_run, xia_root, t
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--dataset", "humanml"], 10), (["--dataset", "bandai-2_posrot"], 10),
-    (["--parallel_window", "4"], 10),
-    (["--forecast_stride", "2"], 10), (["--model_parallel", "2"], 11),
+    (["--model_parallel", "2"], 11),
     (["--pipeline_parallel", "2"], 11), (["--sequence_parallel", "2"], 11),
     (["--profile", "trace"], 12)])
 def test_demo_refuses_what_is_not_ported(flag, item, finetuned, xia_root,  # noqa: F811
@@ -349,3 +349,99 @@ def test_args_json_round_trip(tmp_path):
         {k: v for k, v in want.items() if k != "device"}
     with pytest.raises(FileNotFoundError, match="args.json"):
         eval_inpainting_style_args(["--model_path", str(tmp_path / "none" / "model.pt")])
+
+
+# ---------------------------------------------------------------------------
+# the humanml and bandai demos (ROADMAP §1 item 10)
+# ---------------------------------------------------------------------------
+
+FAMILY_CONTENT = {"humanml": "walking_neutral_000600.npy",
+                  "bandai-2_posrot": "dataset-2_walking_neutral_600.npy"}
+
+
+@pytest.fixture(scope="module")
+def family_runs(hml_root, bandai_root, tmp_path_factory):  # noqa: F811
+    """dataset -> (model*.pt, data root): one port finetune step on each
+    family's corpus from a prior the JAX package writes, at diffusion_steps
+    20 (args.json carries it to the demos)."""
+    out = {}
+    for dataset, root in (("humanml", hml_root), ("bandai-2_posrot", bandai_root)):
+        base = tmp_path_factory.mktemp(dataset.replace("-", "_"))
+        prior = jax_prior(str(base / "prior.pt"), model_util.DATASET_DIMS[dataset][0])
+        save_dir = ft_main(["--save_dir", str(base / "ft"), "--data_dir", root, "--mdm_path",
+                            prior, "--device", "cpu"] + family_args(dataset))
+        out[dataset] = sorted(glob.glob(os.path.join(save_dir, "model*.pt")))[-1], root
+    return out
+
+
+def _pin_family(monkeypatch):
+    """The same numpy-made noise, per-step noise and text features in every
+    sampler both demo CLIs reach (the prior's chain, the Picard-parallel and
+    forecast samplers, each long-form window, the transfer)."""
+    from motionstyle.diffusion import forecast_sampling as jforecast
+    from motionstyle.diffusion import parallel_sampling as jparallel
+    from motionstyle_torch.cli import demo_style_transfer as pdemo
+
+    pin_samplers(monkeypatch, {(sampling, "sample_loop"): torch.from_numpy,
+                               (jsampling, "sample_loop"): jnp.asarray,
+                               (pdemo, "parallel_sample_loop"): torch.from_numpy,
+                               (jparallel, "parallel_sample_loop"): jnp.asarray,
+                               (pdemo, "forecast_sample_loop"): torch.from_numpy,
+                               (jforecast, "forecast_sample_loop"): jnp.asarray})
+
+
+@pytest.mark.parametrize("dataset, flags", [
+    ("humanml", []), ("humanml", ["--forecast_stride", "4"]),
+    ("humanml", ["--parallel_window", "8"]), ("humanml", ["--long_frames", "240"]),
+    ("bandai-2_posrot", [])],
+    ids=["humanml", "humanml_forecast", "humanml_parallel", "humanml_long", "bandai"])
+def test_family_demo_matches_the_jax_demo(dataset, flags, family_runs, tmp_path, monkeypatch):
+    """The humanml demo generates its content from the frozen prior (a
+    20-step DDPM chain under guidance 2.5, or the forecast or Picard-parallel
+    sampler, or 240 frames by window continuation) and keeps the guided
+    transfer's final sample; the bandai demo restyles a corpus clip with the
+    bandai caption. Noise and text pinned: results.npy equals the JAX CLI's
+    (schema, captions, lengths; hml at atol 1e-4, the fp32 path's bound)."""
+    ckpt, root = family_runs[dataset]
+    _pin_family(monkeypatch)
+    argv = ["--model_path", ckpt, "--input_content", FAMILY_CONTENT[dataset], "--data_dir",
+            root, "--skip_render", "--num_samples", "2", "--style_example",
+            FAMILY_STYLE[dataset]] + flags
+    port = _results(demo_main(argv + ["--output_dir", str(tmp_path / "port"),
+                                      "--device", "cpu"]))
+    want = _results(jdemo_main(argv + ["--output_dir", str(tmp_path / "jax")]))
+    assert port.keys() == want.keys()
+    for k in port:
+        if isinstance(want[k], np.ndarray):
+            assert port[k].shape == want[k].shape and port[k].dtype == want[k].dtype, k
+        else:
+            assert port[k] == want[k], k
+    frames = 240 if "--long_frames" in flags else (
+        196 if dataset == "humanml" else port["lengths"][0])
+    dims = model_util.DATASET_DIMS[dataset][0]
+    assert port["hml"].shape[0] == 2 and port["hml"].shape[2] == dims
+    assert port["hml"].shape[1] >= frames and np.isfinite(port["hml"]).all()
+    if dataset.startswith("bandai"):
+        assert port["text"][0] == "A person walkings angry"
+    np.testing.assert_allclose(port["hml"], want["hml"], atol=1e-4)
+
+
+def test_humanml_demo_writes_the_jax_demos_outputs(family_runs, tmp_path, monkeypatch):
+    """Without --skip_render on humanml: no BVH (:436-451), the three
+    renders (the prior-made content foot-skate cleaned before it is the
+    contact reference, :427-433), and the same results as the JAX demo's."""
+    from motionstyle_torch.cli import demo_style_transfer as pdemo
+
+    ckpt, root = family_runs["humanml"]
+    _pin_family(monkeypatch)
+    short_post(monkeypatch, pdemo, pdemo)
+    argv = ["--model_path", ckpt, "--input_content", FAMILY_CONTENT["humanml"], "--data_dir",
+            root, "--num_samples", "1", "--style_example", FAMILY_STYLE["humanml"]]
+    out = demo_main(argv + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
+    names = sorted(os.listdir(out))
+    assert not [n for n in names if n.endswith(".bvh")]
+    assert {n.rsplit(".", 1)[0] for n in names} >= {
+        "results", "input_content_motion00", "input_style_motion00",
+        "output_transferred_motion00_rep00"}
+    jout = jdemo_main(argv + ["--output_dir", str(tmp_path / "jax"), "--skip_render"])
+    np.testing.assert_allclose(_results(out)["hml"], _results(jout)["hml"], atol=1e-4)

@@ -15,6 +15,7 @@ atol 2e-5 (as the JAX test); the port against JAX fp32 atol 2e-4
 (tests/test_models.py:35), the loss rel 1e-5 and gradients max-rel 1e-3 per
 leaf (tests/test_torch_finetune.py:45).
 """
+import csv
 import json
 import os
 
@@ -282,6 +283,9 @@ def distill_root(tmp_path_factory):
     return str(root)
 
 
+from tests.test_torch_finetune import bandai_root, hml_root  # noqa: E402,F401
+
+
 def _cli(root, save, *extra):
     return ["--dataset", "stylexia_posrot", "--data_dir", root, "--save_dir", str(save),
             "--layers", "1", "--latent_dim", "32", "--diffusion_steps", "8",
@@ -341,7 +345,26 @@ def test_cli_refuses_the_forward_only_layers(flag, distill_root, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--native_loader", "1"], ["--prefetch", "2"],
-                                  ["--profile", "trace"], ["--dataset", "humanml"]])
+                                  ["--profile", "trace"]])
 def test_cli_refuses_what_is_not_ported(flag, distill_root, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         distill_main(_cli(distill_root, tmp_path / "x") + flag)
+
+
+@pytest.mark.parametrize("dataset", ["humanml", "bandai-2_posrot"])
+def test_cli_distills_on_every_family(dataset, hml_root, bandai_root, tmp_path):  # noqa: F811
+    """The humanml and bandai corpora through the distiller (196-frame clips):
+    one stage, finite losses, the student loads back through --mdm_path at
+    the family's width."""
+    root = hml_root if dataset == "humanml" else bandai_root
+    argv = _cli(root, tmp_path / "d", "--stages", "1", "--steps_per_stage", "2",
+                "--batch_size", "2")
+    argv[argv.index("stylexia_posrot")] = dataset
+    paths = distill_main(argv)
+    assert [os.path.basename(p) for p in paths] == ["mdm_4step.pt"]
+    sd = torch.load(paths[0])
+    assert sd["output_process.poseFinal.weight"].shape[0] == {"humanml": 263}.get(dataset, 190)
+    assert all(torch.isfinite(v).all() for v in sd.values())
+    with open(os.path.join(tmp_path / "d", "progress.csv")) as f:
+        assert np.isfinite([float(v) for r in csv.DictReader(f) for k, v in r.items()
+                            if "loss" in k]).all()

@@ -134,6 +134,28 @@ def test_platform_and_format_gates(tiny, tmp_path):
             sx.load_artifact(str(copy), "cpu")
 
 
+def test_load_without_a_device_runs_on_the_card_or_raises(tmp_path, tiny, monkeypatch):
+    """load_artifact(path) asks for the card: without one it raises instead
+    of serving on the CPU; load_artifact(path, "cpu") serves as before."""
+    import json
+    import shutil
+
+    sampler, path = tiny
+    both = tmp_path / "both"
+    shutil.copytree(path, both)
+    meta = json.loads((both / "meta.json").read_text())
+    meta["platforms"].append({"platform": "cuda", "capability": "9.0"})
+    (both / "meta.json").write_text(json.dumps(meta))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for p in (path, str(both)):
+        with pytest.raises((RuntimeError, ValueError), match="no CUDA device|serves on cuda"):
+            sx.load_artifact(p)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sx.load_artifact(str(both))
+    got = sx.load_artifact(str(both), "cpu").sampler(_batch(2, 5))
+    torch.testing.assert_close(got, sampler(_batch(2, 5)), rtol=0, atol=EXPORT_ATOL)
+
+
 def test_rejects_pinned_noise_and_bad_shapes(tiny):
     _, path = tiny
     art = sx.load_artifact(path, "cpu")
@@ -272,7 +294,7 @@ def test_cli_refusals():
             export_model.parse_args(base + flags)
     args = export_model.parse_args(base + ["--platforms", "cuda,cpu"])
     assert args.platforms == ["cuda", "cpu"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8\b"):
+    with pytest.raises(NotImplementedError, match="arch='trans_enc' only"):
         export_model.parse_args(base + ["--arch", "gru"])
 
 

@@ -483,7 +483,7 @@ def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypa
 
 @pytest.mark.parametrize("flag", [
     ["--profile", "trace"], ["--fsdp", "1"], ["--model_parallel", "2"],
-    ["--data_parallel", "1"], ["--native_loader", "1"], ["--orbax_checkpoints", "1"], ["--dataset", "humanml"], ["--dataset", "bandai-2_posrot"],
+    ["--data_parallel", "1"], ["--native_loader", "1"], ["--orbax_checkpoints", "1"],
     ["--prefetch", "2"], ["--train_platform_type", "TensorboardPlatform"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
     args = ["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root] + CLI_ARGS + flag
@@ -626,7 +626,8 @@ def test_quant_int8_finetune_loss_matches_jax(tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """motionstyle_torch (its quality protocol, semantic trainer, parallel
     sampler, style metrics, post chain, long-form sampler, named styles,
-    exporter, LoRA adapters and distiller among them), chip_smoke.py,
+    exporter, LoRA adapters, distiller, SMPL body model, other architectures
+    and the humanml and bandai data path among them), chip_smoke.py,
     profile_layers.py, quality_sweep.py and serve_bench.py import nothing of
     JAX or of the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -640,9 +641,205 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "post/render.py", "diffusion/longform.py", "serve/export.py",
                 "cli/export_model.py", "cli/serve.py", "serve/server.py", "serve/engine.py",
                 "parallel/inference.py", "cli/model_util.py", "ops/fused_encoder.py",
-                "models/lora.py", "diffusion/distillation.py", "cli/distill_prior.py"):
+                "models/lora.py", "diffusion/distillation.py", "cli/distill_prior.py",
+                "models/smpl.py", "models/rotation2xyz.py", "models/transformer.py",
+                "models/denoiser.py", "models/params.py", "data/datasets.py",
+                "data/collate.py", "data/preprocess.py", "cli/prepare_dataset.py",
+                "cli/finetune_style_diffusion.py", "cli/demo_style_transfer.py",
+                "cli/pretrain_prior.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)
     offenders = [f for f in files if bad.search(open(f).read())]
     assert len(files) > 20 and not offenders, offenders
+
+
+# ---------------------------------------------------------------------------
+# the humanml and bandai finetunes (ROADMAP §1 item 10)
+# ---------------------------------------------------------------------------
+
+FAMILY_STYLE = {"humanml": "jumping_angry_000606.npy",
+                "bandai-2_posrot": "dataset-2_jumping_angry_606.npy",
+                "bandai-1_posrot": "dataset-2_jumping_angry_606.npy"}
+
+
+def family_root(tmp_path_factory, dataset: str) -> str:
+    """A procedural corpus of the family (eval/quality_protocol.make_corpus:
+    196-frame clips; humanml with texts/ and the split files), 8 clips."""
+    from motionstyle_torch.eval.quality_protocol import make_corpus
+
+    root = str(tmp_path_factory.mktemp(dataset.replace("-", "_")) / "data")
+    make_corpus(root, clips_per_pair=2, seed=1,
+                dataset="bandai-2_posrot" if dataset.startswith("bandai") else dataset)
+    return root
+
+
+@pytest.fixture(scope="module")
+def hml_root(tmp_path_factory):
+    return family_root(tmp_path_factory, "humanml")
+
+
+@pytest.fixture(scope="module")
+def bandai_root(tmp_path_factory):
+    return family_root(tmp_path_factory, "bandai-2_posrot")
+
+
+def jax_prior(path: str, njoints: int, latent_dim: int = 64) -> str:
+    """A 1-layer prior the JAX package writes (export_mdm of numpy-made
+    weights), so both packages' CLIs load the same weights."""
+    from motionstyle.models.torch_import import export_mdm as jexport_mdm
+    from tests.test_torch_models import numpy_params
+
+    jcfg = jden.MDMConfig(njoints=njoints, nfeats=1, latent_dim=latent_dim, ff_size=1024,
+                          num_layers=1, num_heads=4, clip_dim=512)
+    tree = jden.StyleDiffusion(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, njoints, 1, 8)), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, 512)), method=jden.StyleDiffusion.full_init)
+    torch.save({k: torch.as_tensor(np.asarray(v))
+                for k, v in jexport_mdm(numpy_params(tree, 3), 1).items()}, path)
+    return path
+
+
+def family_args(dataset: str, diffusion_steps: int = 20) -> list:
+    return ["--dataset", dataset, "--style_example", FAMILY_STYLE[dataset], "--num_steps", "1",
+            "--batch_size", "2", "--overwrite", "--train_platform_type", "NoPlatform",
+            "--skip_render", "--layers", "1", "--latent_dim", "64", "--diffusion_steps",
+            str(diffusion_steps), "--skip_steps", str(int(0.7 * diffusion_steps)),
+            "--semantic_guidance", "0"]
+
+
+def pin_samplers(monkeypatch, modules: dict, seed: int = 11) -> None:
+    """Wrap each (module, sampler name) to take numpy-made initial noise,
+    for a DDPM chain per-step noise too, one draw per shape and step count,
+    and numpy-made text features in place of cond['enc_text']: the same
+    arrays in both packages (their generators and seeded text towers
+    differ; the text tower's parity is tests/test_torch_models.py's)."""
+    tables = {}
+    enc = {}
+
+    def noise_for(shape, steps):
+        key = (tuple(shape), steps)
+        if key not in tables:
+            rs = np.random.RandomState(seed + len(tables))
+            tables[key] = (rs.randn(*shape).astype(np.float32),
+                           rs.randn(steps, *shape).astype(np.float32) if steps else None)
+        return tables[key]
+
+    for (module, name), to_array in modules.items():
+        orig = getattr(module, name)
+
+        def pinned(sched, model_fn, cond, rng, *a, _orig=orig, _to=to_array, **kw):
+            steps = (sched.num_timesteps - kw.get("skip_timesteps", 0)
+                     - (kw.get("stop_timesteps") or 0))
+            noise, step = noise_for(kw["shape"],
+                                    steps if kw.get("method", "ddpm") == "ddpm" else 0)
+            kw["noise"] = _to(noise)
+            if step is not None:
+                kw["step_noise"] = _to(step)
+            if "enc_text" in cond:
+                shape = tuple(cond["enc_text"].shape)
+                if shape not in enc:
+                    enc[shape] = (np.random.RandomState(seed - 1).randn(*shape) * 0.1
+                                  ).astype(np.float32)
+                cond = dict(cond, enc_text=_to(enc[shape]))
+            return _orig(sched, model_fn, cond, rng, *a, **kw)
+
+        monkeypatch.setattr(module, name, pinned)
+
+
+@pytest.mark.parametrize("dataset", ["humanml", "bandai-2_posrot"])
+def test_cli_family_finetune_matches_the_jax_cli(dataset, hml_root, bandai_root, tmp_path,
+                                                 monkeypatch):
+    """One finetune step through both CLIs on the family's corpus, the noise
+    of the prior's neutral chain pinned (on humanml the whole 20-step chain,
+    keeping its final sample; on bandai the chain stopped at 0.9 T): every
+    array of the trainer's batch (the neutral content at atol 1e-4, the
+    rest exactly) and the captions equal the JAX CLI's; the port's step is
+    finite and writes its checkpoint. The JAX trainer's step is not run (its
+    dropout draws differ from the port's)."""
+    from motionstyle.cli import finetune_style_diffusion as jft
+    from motionstyle.diffusion import sampling as jsampling
+    from motionstyle_torch.cli import finetune_style_diffusion as pft
+
+    root = hml_root if dataset == "humanml" else bandai_root
+    njoints = model_util.DATASET_DIMS[dataset][0]
+    prior = jax_prior(str(tmp_path / "prior.pt"), njoints)
+    pin_samplers(monkeypatch, {(sampling, "sample_loop"): torch.from_numpy,
+                               (jsampling, "sample_loop"): jnp.asarray})
+    batches = {"port": [], "jax": []}
+    port_step = StyleFinetuneTrainer.run_step
+
+    def port_record(self, batch):
+        batches["port"].append(batch)
+        return port_step(self, batch)
+
+    def jax_record(self, batch):
+        batches["jax"].append(batch)
+        return {"loss": 0.0}
+
+    monkeypatch.setattr(StyleFinetuneTrainer, "run_step", port_record)
+    monkeypatch.setattr(jft.StyleFinetuneTrainer, "run_step", jax_record)
+    captions = {"port": [], "jax": []}
+    for mod, key in ((pft, "port"), (jft, "jax")):
+        orig = mod.style_caption
+        monkeypatch.setattr(mod, "style_caption", lambda *a, _o=orig, _k=key:
+                            captions[_k].append(_o(*a)) or captions[_k][-1])
+    common = ["--data_dir", root, "--mdm_path", prior] + family_args(dataset)
+    import random
+
+    random.seed(3)
+    save_dir = ft_main(["--save_dir", str(tmp_path / "port"), "--device", "cpu"] + common)
+    random.seed(3)
+    jft.main(["--save_dir", str(tmp_path / "jax")] + common)
+    assert captions["port"] == captions["jax"] and len(batches["port"]) == 1
+    got, want = batches["port"][0], batches["jax"][0]
+    for k in ("content", "style_target", "mask", "inp_mask", "x_start", "inp_mask_t2m",
+              "frame_mask_t2m"):
+        g = np.asarray(torch.as_tensor(got[k]).float()) if k != "frame_mask_t2m" \
+            else np.asarray(got[k])
+        w = np.asarray(want[k])
+        assert g.shape == w.shape, k
+        np.testing.assert_allclose(g, w.astype(g.dtype), atol=1e-4 if k == "content" else 0,
+                                   err_msg=k)
+    frames = 196
+    assert got["content"].shape == (1, njoints, 1, frames)
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        assert np.isfinite([float(r["loss"]) for r in csv.DictReader(f)]).all()
+    assert os.path.exists(os.path.join(save_dir, "model000000001.pt"))
+
+
+@pytest.mark.parametrize("dataset, example, want", [
+    ("humanml", "M008551.npy", ("a figure skips in a circle", "happily")),
+    ("bandai-2_posrot", "dataset-2_walk-turn-right_feminine_018.npy",
+     ("a person walks turn right normal", "feminine")),
+    ("bandai-1_posrot", "", ("a person walks turn right normal", "feminine")),
+    ("stylexia_posrot", "/abs/path/350angry_jumping.npy", ("a person is jumping neutral",
+                                                           "angry"))])
+def test_style_caption_and_its_edit_match_jax(dataset, example, want):
+    """The neutral caption and the semantic-guidance edit of each family,
+    humanml's token splice after every /VERB included."""
+    from motionstyle.cli import finetune_style_diffusion as jft
+    from motionstyle_torch.cli import finetune_style_diffusion as pft
+
+    assert pft.style_caption(dataset, example) == jft.style_caption(dataset, example) == want
+    cases = [("a man walks and then runs forward", None),
+             ("a man walks and then runs forward",
+              "a/DET_man/NOUN_walk/VERB_and/CCONJ_then/ADV_run/VERB_forward/ADV")]
+    for caption, tokens in cases:
+        assert pft.edit_caption_with_style(caption, "angry", dataset, tokens=tokens) == \
+            jft.edit_caption_with_style(caption, "angry", dataset, tokens=tokens)
+    if dataset == "humanml":  # one style word a /VERB token
+        assert pft.edit_caption_with_style(cases[1][0], "angry", dataset,
+                                           tokens=cases[1][1]).split().count("angry") == 2
+
+
+def test_skeleton_assets_match_jax():
+    from motionstyle.cli import finetune_style_diffusion as jft
+    from motionstyle_torch.cli import finetune_style_diffusion as pft
+
+    for dataset in ("humanml", "bandai-1_posrot", "bandai-2_posrot", "stylexia_posrot"):
+        (skel, real, chains, feet), (jskel, jreal, jchains, jfeet) = \
+            pft.skeleton_assets(dataset), jft.skeleton_assets(dataset)
+        assert np.array_equal(skel.raw_offsets, np.asarray(jskel.raw_offsets))
+        assert np.array_equal(real, jreal) and chains == jchains and feet == jfeet
+        assert tuple(skel.parents) == tuple(jskel.parents)

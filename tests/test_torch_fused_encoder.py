@@ -195,3 +195,21 @@ def test_gemm_registers_read_from_the_build_log(tmp_path, capsys):
     chip_smoke.print_gemm_registers(str(tmp_path / "lib.so"))
     assert capsys.readouterr().out.strip() == (
         "ln2_gemm<64, 128>: 116 registers, 8 B spill stores, 4 B spill loads")
+
+
+@pytest.mark.parametrize("b, s, want", [
+    (8, 77, [(64, 64, 10, 24, 1), (64, 64, 10, 8, 8), (64, 64, 10, 16, 1), (64, 64, 10, 8, 8)]),
+    (16, 197, [(128, 128, 25, 12, 1), (64, 64, 50, 8, 8), (128, 128, 25, 8, 1),
+               (64, 64, 50, 8, 8)]),
+    (64, 197, [(128, 128, 99, 12, 1), (128, 128, 99, 4, 4), (128, 128, 99, 8, 1),
+               (128, 128, 99, 4, 4)])])
+def test_layer_plan_mirror(b, s, want):
+    """Kernel 1's plan as its C launcher takes it on an H100's 132 SMs, (bm,
+    bn, grid x, grid y, cluster) a launch (qkv, LN1, FFN-up, LN2): 64-row
+    tiles and 64-column slices where 128 x 128 tiles would not fill the card
+    (the serving M = 616, and the LayerNorm launches at the humanml demo's
+    guided B=16, S=197), 128 x 128 where they do, a LayerNorm launch a
+    cluster of its column tiles. chip_smoke.layer_plan_check holds the C
+    launcher to it on the card."""
+    plans = fe.layer_plan(b, s, 512, 1024, 132)
+    assert [(p["bm"], p["bn"], p["gx"], p["gy"], p["cluster"]) for p in plans] == want

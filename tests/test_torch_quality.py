@@ -415,16 +415,72 @@ def test_make_corpus_writes_the_jax_tools_files(tmp_path):
             assert a.read() == b.read(), rel
 
 
-@pytest.mark.parametrize("call", [
-    lambda: qp.make_corpus("unused", dataset="humanml"),
-    lambda: qp.run_protocol("unused", dataset="bandai-2_posrot", device="cpu"),
-    lambda: qp.evaluate_transfer({"work": "", "data_root": "", "diffusion_steps": 10, "seed": 0,
-                                  "device": "cpu"}, strengths=(0.5,)),
-    lambda: qp.evaluate_mixing("unused"),
-    lambda: qp.evaluate_longform("unused", "unused")])
-def test_protocol_refuses_what_is_not_ported(call):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item (10|6)\b"):
-        call()
+@pytest.mark.parametrize("dataset", ["humanml", "bandai-2_posrot"])
+def test_make_corpus_writes_every_family_as_the_jax_tool(dataset, tmp_path):
+    """The bandai and humanml families byte for byte (humanml's texts/ and
+    split files too)."""
+    from tools.quality_protocol import make_corpus as jmake_corpus
+
+    names = qp.make_corpus(str(tmp_path / "port"), clips_per_pair=2, seed=4, dataset=dataset)
+    assert names == jmake_corpus(str(tmp_path / "jax"), clips_per_pair=2, seed=4,
+                                 dataset=dataset)
+    files = sorted(os.path.relpath(p, tmp_path / "jax")
+                   for p in glob.glob(str(tmp_path / "jax" / "**" / "*"), recursive=True)
+                   if os.path.isfile(p))
+    assert len(files) == len(names) + 2 + (len(names) + 2 if dataset == "humanml" else 0)
+    for rel in files:
+        with open(tmp_path / "port" / rel, "rb") as a, open(tmp_path / "jax" / rel, "rb") as b:
+            assert a.read() == b.read(), rel
+
+
+TINY = dict(prior_steps=3, batch_size=4, diffusion_steps=20, latent_dim=32, layers=1,
+            device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tiny_assets(tmp_path_factory):
+    """A stylexia corpus and a 3-step prior at latent 32, for the arms."""
+    return qp.prepare_assets(str(tmp_path_factory.mktemp("q_tiny") / "w"), **TINY)
+
+
+@pytest.mark.parametrize("arm", ["humanml", "strengths", "mixing", "longform"])
+def test_protocol_runs_every_family_and_arm(arm, tiny_assets, tmp_path):
+    """The arms the JAX tool has: the humanml family (the demo's content made
+    by the prior, the pre-finetune transfer its anchor), the style-strength
+    sweep, style mixing and long-form content, at tiny budgets: each
+    report finite and root-exact where the arm keeps the content's root."""
+    def finite(rep):
+        return all(np.isfinite(v) for v in rep.values())
+
+    if arm == "humanml":
+        res = qp.run_protocol(str(tmp_path / "h"), dataset="humanml", finetune_steps=1,
+                              lr=1e-3, seed=3, **TINY)
+        assert res["config"]["style_example"] == "jumping_angry_000624.npy"
+        assert finite(res["pre"]) and finite(res["post"])
+        assert res["pre"]["root_horizontal_max_abs_err"] == 0.0  # its own anchor
+        assert res["post"]["root_horizontal_max_abs_err"] < 1e-4
+    elif arm == "strengths":
+        res = qp.evaluate_transfer(tiny_assets, finetune_steps=2, lr=1e-3,
+                                   strengths=(0.0, 0.5, 1.0), tag="a")
+        sweep = res["strength_sweep"]
+        assert sorted(sweep) == [0.0, 0.5, 1.0] and sweep[1.0] is res["post"]
+        assert all(finite(r) and r["root_horizontal_max_abs_err"] < 1e-4 for r in sweep.values())
+        assert sweep[0.0]["style_dist_to_example"] != sweep[1.0]["style_dist_to_example"]
+    elif arm == "mixing":
+        kw = {k: v for k, v in TINY.items() if k not in ("prior_steps", "device")}
+        res = qp.evaluate_mixing(str(tmp_path / "m"), prior_steps=3, finetune_steps=2, seed=3,
+                                 device="cpu", **kw)
+        assert sorted(res["weights"]) == [(0.0, 1.0), (0.5, 0.5), (1.0, 0.0)]
+        for r in res["weights"].values():
+            assert np.isfinite([r["angry"], r["proud"]]).all() and r["root_err"] < 1e-4
+    else:
+        ft = qp.evaluate_transfer(tiny_assets, finetune_steps=1, lr=1e-3, tag="l")
+        ft_dir = os.path.join(tiny_assets["work"], "ft_l", "624angry_jumping")
+        assert finite(ft["post"])
+        res = qp.evaluate_longform(tiny_assets["work"], ft_dir, n_frames=150, device="cpu")
+        assert res["n_frames"] == 150 and len(res["per_window_style_dist"]) == 3
+        assert finite(res["overall"]) and res["overall"]["root_horizontal_max_abs_err"] < 1e-4
+        assert np.isfinite([res["seam_max_step"], res["interior_max_step"]]).all()
 
 
 def test_protocol_end_to_end_at_quick_budgets(one_torch_thread, tmp_path):  # noqa: F811

@@ -261,8 +261,8 @@ class TestServeCLI:
 
     @pytest.mark.parametrize("flag, item", [
         (["--model_parallel", "2"], r"ROADMAP §1 item 11\b"),
-        (["--arch", "trans_dec"], r"ROADMAP §1 item 8\b"),
-        (["--emb_trans_dec", "1"], r"ROADMAP §1 item 8\b"),
+        (["--arch", "trans_dec"], "arch='trans_enc' only"),
+        (["--arch", "gru"], "arch='trans_enc' only"),
         (["--profile", "trace"], r"ROADMAP §1 item 12\b"),
         (["--fused_train", "1"], "runs no training forward"),
         (["--fused_train_prng", "1"], "runs no training forward"),
