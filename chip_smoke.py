@@ -200,7 +200,30 @@ Phases, each printed on its own line with its seconds:
      losses and outputs, the files, the kept root channels equal to the
      content's (the generated content's on humanml) and every kernel's
      launches, with seconds per step and stage and peak memory.
- 24. quality: the port's quality protocol (eval/quality_protocol.py) through
+ 24. eval: the T2M evaluation stack (item 9) on the humanml phase's corpus
+     and first prior and the distill phase's student: train_evaluator
+     --dataset humanml (196-frame clips, batch 32, 20 AE + 40 match steps:
+     finite losses, s/step), its finest.tar in the port's wrapper on the
+     card and on the CPU (co-embeddings at B=64, T=196 within rel L2 1e-5,
+     TF32 switched on outside the wrapper's fp32 scope); eval_metrics on the
+     prior (--split train, batch 32, 64 samples, guided: B=64, S=197) with
+     the full 1000-step DDPM through kernel 1 (--fused 1), DDIM-50 through
+     kernel 2 (--quant_int8 1), DDIM-10 through kernel 4 (--fused 0 under
+     MOTIONSTYLE_PALLAS_ATTN=1), then --forecast_stride 4 with
+     multimodality (32 samples x 3 repeats) over 2 replications: each dict
+     finite with the JAX CLI's keys, the sampler called as the protocol
+     asks (the batches for 64 samples, the multimodality batches 3 times,
+     per replication), each call on 32 clips at a (B, S) where the kernel
+     phases hold the run's kernel against its twin (kernel 1 at B=64 with
+     S=197 and S=77, kernel 2 at B=64, S=197, kernel 4 at B=64, S=197),
+     the kernel launched 8 x calls x steps (read from the counter, the
+     steps from the run's grid) and no other kernel, seconds and clips/s;
+     an evaluator trained on Xia, and with it the distill
+     phase's 16-step student (ddim16 of 64) against its 64-step teacher;
+     train_t2m_generator --dataset humanml at its default widths, 3 length
+     and 3 CompV6 steps, --run_eval over 8 captions against the humanml
+     evaluator: finite losses, t2m_generator.pkl, finite metrics, no kernel.
+ 25. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
      50, the --auto_stop arm) gated by that file's assertions, then the d512
@@ -261,13 +284,16 @@ PRETRAIN_ACCUM = 2
 # (M = 3: one tile, nearly all rows TMA's zero fill); the humanml demo's
 # guided batch, B=16, S=197 (8 samples, the cond and uncond halves of
 # classifier-free guidance), and the humanml and bandai finetunes' neutral
-# chain and final resample, B=1, S=197; the GEMM plans of these two held to
-# the wrapper's mirror (ops/fused_encoder.py::layer_plan)
+# chain and final resample, B=1, S=197; the eval phase's guided batch on
+# Xia (eval_metrics --batch_size 32: B = 2 x 32, S=77); the GEMM plans of
+# these three held to the wrapper's mirror (ops/fused_encoder.py::layer_plan)
 GUIDED_LAYER = (16, 197)
 NEUTRAL_LAYER = (1, 197)
+EVAL_XIA_LAYER = (64, S)
 KERNEL_EXTRA_SHAPES = ((B, 197, D, H, F), (B, 300, D, H, F), (B, S, 128, 4, F),
                        (B, S, 384, 6, 1536), (B, S, 64, 1, 64), (B, S, 1024, 8, 2048),
-                       (3, 1, D, H, F), (*GUIDED_LAYER, D, H, F), (*NEUTRAL_LAYER, D, H, F))
+                       (3, 1, D, H, F), (*GUIDED_LAYER, D, H, F), (*NEUTRAL_LAYER, D, H, F),
+                       (*EVAL_XIA_LAYER, D, H, F))
 # the inference layer at the DDPM chain's shape (bench.py's B=64, T=196: S=197),
 # at the edges of its attention's two paths: S=1 and 256 (the score row in
 # registers), 257 and 600 (two passes over the key tiles), and at head width
@@ -528,7 +554,7 @@ def kernel_phase(device) -> dict:
               f"layer B={b} S={s} D={d} H={h} F={f} within max_abs {LAYER_MAX_ABS} and "
               f"rel_l2 {LAYER_REL_L2}")
 
-    for b, s in (GUIDED_LAYER, NEUTRAL_LAYER):
+    for b, s in (GUIDED_LAYER, NEUTRAL_LAYER, EVAL_XIA_LAYER):
         layer_plan_check(b, s, D, F)
     x = torch.randn(*GUIDED_LAYER, D, generator=gen).to(device, torch.bfloat16)
     with torch.no_grad():
@@ -3852,8 +3878,371 @@ def humanml_phase(card: str, tmp_root: str) -> dict:
     return totals
 
 
-ATTN_SHAPES = ((B, S, D, H), (B, 197, D, H), (2, 600, D, H), (B, S, 128, 4), (B, S, 192, 4),
-               (4, 1, D, H), (4, 33, D, H), (2, 513, D, H))
+# ---------------------------------------------------------------------------
+# the T2M evaluation stack (ROADMAP §1 item 9)
+# ---------------------------------------------------------------------------
+
+# the JAX CLI's metric keys in its order (motionstyle/eval/motion_loaders.py:
+# 275-293), then multimodality with --mm_num_samples, and with
+# --replication_times > 1 each key's _conf
+EVAL_KEYS = ("matching_score_gt", "matching_score", "R_precision_top_1_gt", "R_precision_top_1",
+             "R_precision_top_2_gt", "R_precision_top_2", "R_precision_top_3_gt",
+             "R_precision_top_3", "FID", "diversity_gt", "diversity")
+EVAL_BATCH, EVAL_SAMPLES = 32, 64  # the guided forward: B = 2 x 32, S = 197
+EVAL_AE_STEPS, EVAL_MATCH_STEPS = 20, 40
+EVAL_EMB_REL = 1e-5  # the evaluator's embeddings, card against CPU
+EVAL_INT8_GRID, EVAL_ATTN_GRID = 50, 10  # DDIM grids of the kernel-2 and kernel-4 runs
+EVAL_STUDENT_STEPS = 16  # the distill phase's stage-2 student: ddim16 of 64
+T2M_STEPS, T2M_EVAL_SAMPLES = 3, 8
+
+
+@contextmanager
+def eval_watch():
+    """Record every evaluator-trainer update (seconds, logs), every CompV6
+    and length-estimator step, and every sampler call of eval_metrics
+    (seconds to a synchronised end, kind, steps); restored on exit."""
+    import torch
+
+    from motionstyle_torch.diffusion import forecast_sampling, sampling
+    from motionstyle_torch.eval import t2m_generator, trainers
+
+    rec = {"ae": [], "match": [], "gen": [], "len": [], "sample": []}
+    saved = []
+
+    def wrap(owner, name, key, sampler=False):
+        orig = getattr(owner, name)
+
+        def watched(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if sampler:
+                torch.cuda.synchronize()
+                sched = a[0]
+                steps = sched.num_timesteps
+                if key == "forecast":
+                    from motionstyle_torch.diffusion.forecast_sampling import forecast_plan
+
+                    steps = int(forecast_plan(steps, k["stride"])[0].sum())
+                rec["sample"].append(dict(kind=key, s=time.perf_counter() - t0, steps=steps,
+                                          clips=k["shape"][0], frames=k["shape"][-1]))
+            else:
+                rec[key].append(dict(s=time.perf_counter() - t0, **out))
+            return out
+
+        saved.append((owner, name, orig))
+        setattr(owner, name, watched)
+
+    wrap(trainers.MovementAETrainer, "update", "ae")
+    wrap(trainers.TextMotionMatchTrainer, "update", "match")
+    wrap(t2m_generator.CompV6Generator, "train_step", "gen")
+    wrap(t2m_generator.LengthEstTrainer, "update", "len")
+    wrap(sampling, "sample_loop", "ddpm_or_ddim", sampler=True)
+    wrap(forecast_sampling, "forecast_sample_loop", "forecast", sampler=True)
+    try:
+        yield rec
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+
+
+def eval_kernel_counts() -> dict:
+    """Every kernel's launch counter, read."""
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.attention import attention_kernel
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+    from motionstyle_torch.ops.sampler_update import fused_ddpm_update
+
+    out = {f.__name__: f.launches for f in (fused_encoder_layer, fused_encoder_layer_int8,
+                                            attention_kernel, fused_ddpm_update)}
+    out.update({n: sum(c) for n, c in _prior_counts(ft).items() if n in TRAIN_NAMES})
+    return out
+
+
+def eval_zero_counts() -> None:
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.attention import attention_kernel
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer, fused_encoder_layer_int8
+    from motionstyle_torch.ops.sampler_update import fused_ddpm_update
+
+    for f in (fused_encoder_layer, fused_encoder_layer_int8, attention_kernel, fused_ddpm_update):
+        f.launches = 0
+    _zero_counts(ft)
+
+
+def check_launches(label: str, counts: dict, want: dict) -> None:
+    """Each kernel's launches equal `want` (every kernel not named: 0)."""
+    full = {n: want.get(n, 0) for n in counts}
+    check(counts == full, f"{label}: launches {want or 'none'} (read from the counters), no "
+                          "other kernel launched")
+
+
+def eval_embeddings_check(path: str, card: str) -> None:
+    """finest.tar in the port's wrapper on the card and on the CPU: the
+    motion and text embeddings at B=64, T=196 within EVAL_EMB_REL, with
+    TF32 switched on for the process around it (the wrapper's true_fp32
+    scope must hold the card to the CPU's yardstick)."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.eval.evaluators import EvaluatorWrapper, WordVectorizer
+    from motionstyle_torch.eval.motion_loaders import embed_texts
+
+    rs = np.random.RandomState(5)
+    motions = (rs.randn(64, 196, HML_FEATS) * 0.5).astype(np.float32)
+    m_lens = rs.randint(40, 197, size=64)
+    words = ("walk", "run", "jump", "slowly", "angry", "left", "person", "kick", "turn")
+    tokens = [[f"{words[j]}/OTHER" for j in rs.randint(0, len(words), size=rs.randint(0, 18))]
+              for _ in range(64)]
+    we, po, cl = embed_texts(WordVectorizer(), tokens)
+    out = {}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in ("cuda", "cpu"):
+            w = EvaluatorWrapper("humanml", checkpoint_path=path, device=dev)
+            t0 = time.perf_counter()
+            out[dev] = [torch.from_numpy(e) for e in w.get_co_embeddings(we, po, cl, motions,
+                                                                         m_lens)]
+            print(f"  evaluator on {dev}: co-embeddings of 64 clips x 196 frames in "
+                  f"{time.perf_counter() - t0:.4f} s", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    rels = [rel_l2(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    print(f"  evaluator card against CPU (TF32 on outside its scope): text rel L2 "
+          f"{rels[0]:.6g}, motion rel L2 {rels[1]:.6g} on {card}", flush=True)
+    check(max(rels) <= EVAL_EMB_REL and all(bool(torch.isfinite(e).all()) for e in out["cuda"]),
+          f"evaluator: finest.tar's embeddings on the card within rel L2 {EVAL_EMB_REL} of the "
+          "CPU's, finite")
+
+
+def eval_expected_calls(n_loader: int, mm: tuple = (0, 0), reps: int = 1, seed: int = 10) -> int:
+    """The sampler calls of one eval_metrics run by the T2M protocol
+    (--num_samples EVAL_SAMPLES, --batch_size EVAL_BATCH, --seed `seed`, a
+    loader of `n_loader` batches): each replication samples the
+    ceil(EVAL_SAMPLES / EVAL_BATCH) batches it needs, and mm[1] times each
+    of them that is among the min(mm[0] // EVAL_BATCH + 1, nbatch)
+    multimodality batches drawn with RandomState(seed + replication)."""
+    import numpy as np
+
+    nbatch = min(n_loader, EVAL_SAMPLES // EVAL_BATCH + 1)
+    visited = min(nbatch, -(-EVAL_SAMPLES // EVAL_BATCH))
+    calls = 0
+    for rep in range(reps):
+        chosen = set()
+        if mm[0] > 0 and mm[1] > 0:
+            chosen = set(np.random.RandomState(seed + rep).choice(
+                nbatch, min(mm[0] // EVAL_BATCH + 1, nbatch), replace=False).tolist())
+        calls += sum(mm[1] if i in chosen else 1 for i in range(visited))
+    return calls
+
+
+def eval_held_shapes(kernel: str) -> set:
+    """The (B, S) at which the kernel phases hold `kernel` against its twin
+    at the denoiser's D, H, F."""
+    if kernel == "attention_kernel":
+        return {(b, s) for b, s, d, h in ATTN_SHAPES if (d, h) == (D, H)}
+    shapes = INT8_SHAPES if kernel == "fused_encoder_layer_int8" else (
+        KERNEL_EXTRA_SHAPES + KERNEL_ATTENTION_SHAPES)
+    return {(b, s) for b, s, d, h, f in shapes if (d, h, f) == (D, H, F)}
+
+
+def eval_metrics_run(label: str, card: str, argv: list, layers: int, want_kernel: str,
+                     steps: int, n_loader: int, mm: tuple = (0, 0), reps: int = 1,
+                     env=None) -> tuple:
+    """One eval_metrics run on the card: the counters zeroed just before and
+    read just after; the dict finite with the JAX CLI's keys; the sampler
+    called eval_expected_calls times, each call on EVAL_BATCH clips for
+    `steps` guided forwards (B = 2 x EVAL_BATCH) at a (B, S) where the kernel
+    phases hold `want_kernel` against its twin; `want_kernel` launched
+    layers x calls x steps times, no other kernel. Returns (metrics,
+    launches of want_kernel)."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.eval_metrics import main as eval_main
+
+    random.seed(10)
+    with env_var(PALLAS_ATTN, env), eval_watch() as rec:
+        eval_zero_counts()
+        t0 = time.perf_counter()
+        out = eval_main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = eval_kernel_counts()
+    calls = rec["sample"]
+    forwards = sum(c["steps"] for c in calls)
+    clips = sum(c["clips"] for c in calls)
+    sample_s = sum(c["s"] for c in calls)
+    keys = list(EVAL_KEYS) + (["multimodality"] if mm[0] else [])
+    keys += [f"{k}_conf" for k in keys] if reps > 1 else []
+    print(f"  eval_metrics {label}: whole CLI run {wall:.4f} s on {card}; {len(calls)} sampler "
+          f"calls ({sorted({c['kind'] for c in calls})}, {forwards} guided forwards of B="
+          f"{2 * calls[0]['clips'] if calls else 0}), sampling {sample_s:.4f} s, "
+          f"{clips / max(sample_s, 1e-9):.6g} clips/s; launches {counts}; metrics "
+          f"{json.dumps(out)}", flush=True)
+    check(list(out) == keys and all(np.isfinite(v) for v in out.values()),
+          f"eval_metrics {label}: the metric dict is finite with the JAX CLI's keys")
+    n_calls = eval_expected_calls(n_loader, mm, reps)
+    shapes = {(2 * c["clips"], c["frames"] + 1) for c in calls}
+    check(len(calls) == n_calls and all(c["clips"] == EVAL_BATCH and c["steps"] == steps
+                                        for c in calls),
+          f"eval_metrics {label}: {n_calls} sampler calls by the protocol, each on "
+          f"{EVAL_BATCH} clips for {steps} forwards")
+    check(shapes <= eval_held_shapes(want_kernel),
+          f"eval_metrics {label}: {want_kernel} ran at {sorted(shapes)}, each held against its "
+          "twin by the kernel phases")
+    check_launches(f"eval_metrics {label}", counts, {want_kernel: layers * n_calls * steps})
+    return out, counts[want_kernel]
+
+
+def eval_phase(card: str, tmp_root: str, xia_dir: str, teacher: str) -> dict:
+    """The T2M evaluation stack on the card (ROADMAP §1 item 9), on the
+    humanml phase's corpus and prior and the distill phase's student:
+    train_evaluator (humanml, 196-frame clips, batch 32, EVAL_AE_STEPS and
+    EVAL_MATCH_STEPS; its finest.tar on the card against the CPU);
+    eval_metrics with the prior's full 1000-step guided DDPM through kernel
+    1 (--fused 1, B=2x32, S=197), a DDIM-50 grid through kernel 2
+    (--quant_int8 1), a DDIM-10 grid through kernel 4 (--fused 0 under
+    MOTIONSTYLE_PALLAS_ATTN=1), the forecast sampler with multimodality over
+    two replications; the stage-2 student (16 DDIM steps) against its
+    64-step teacher on Xia with an evaluator trained there; and
+    train_t2m_generator with --run_eval against the humanml evaluator.
+    Returns each kernel's launches over the phase."""
+    import contextlib
+    import io
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli import train_t2m_generator
+    from motionstyle_torch.cli.train_evaluator import main as train_evaluator_main
+    from motionstyle_torch.data.collate import get_dataset_loader
+
+    layers = FINETUNE_LAYERS
+    hml_root = os.path.join(tmp_root, "humanml")
+    prior = os.path.join(tmp_root, "hml_prior_0", "mdm.pt")
+    totals = dict.fromkeys(("fused_encoder_layer", "fused_encoder_layer_int8",
+                            "attention_kernel"), 0)
+
+    def train_evaluator(name, dataset, root, frames):
+        np.random.seed(10)
+        with eval_watch() as rec:
+            eval_zero_counts()
+            t0 = time.perf_counter()
+            path = train_evaluator_main([
+                "--dataset", dataset, "--data_dir", root, "--save_dir",
+                os.path.join(tmp_root, name), "--batch_size", str(EVAL_BATCH), "--num_frames",
+                str(frames), "--ae_steps", str(EVAL_AE_STEPS), "--match_steps",
+                str(EVAL_MATCH_STEPS), "--log_interval", "10", "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = eval_kernel_counts()
+        losses = [r["loss"] for r in rec["ae"] + rec["match"]]
+        ae_s = float(np.median([r["s"] for r in rec["ae"][1:]]))
+        match_s = float(np.median([r["s"] for r in rec["match"][1:]]))
+        print(f"  train_evaluator {dataset}: {len(rec['ae'])} AE + {len(rec['match'])} match "
+              f"steps at batch {EVAL_BATCH} in {wall:.4f} s on {card}; s/step after the first "
+              f"(median): AE {ae_s:.6g}, match {match_s:.6g}; AE losses "
+              f"{[round(r['loss'], 5) for r in rec['ae'][::5]]}, match losses "
+              f"{[round(r['loss'], 5) for r in rec['match'][::10]]}", flush=True)
+        check(len(rec["ae"]) == EVAL_AE_STEPS and len(rec["match"]) == EVAL_MATCH_STEPS
+              and bool(np.isfinite(losses).all()) and os.path.exists(path),
+              f"train_evaluator {dataset}: losses finite, finest.tar written")
+        check_launches(f"train_evaluator {dataset}", counts, {})
+        return path
+
+    # 1. an evaluator for humanml, checked card against CPU
+    finest = train_evaluator("eval_ev_hml", "humanml", hml_root, 196)
+    eval_embeddings_check(finest, card)
+
+    base = ["--dataset", "humanml", "--data_dir", hml_root, "--split", "train", "--mdm_path",
+            prior, "--evaluator_checkpoint", finest, "--layers", str(layers), "--batch_size",
+            str(EVAL_BATCH), "--num_samples", str(EVAL_SAMPLES), "--seed", "10"]
+    hml_batches = len(get_dataset_loader("humanml", EVAL_BATCH, 196, split="train",
+                                         data_root=hml_root))
+    # 2-4. the prior through kernels 1, 2 and 4, each in its own run
+    _, n = eval_metrics_run("--fused 1 (1000-step DDPM)", card, base + ["--fused", "1"],
+                            layers, "fused_encoder_layer", 1000, hml_batches)
+    totals["fused_encoder_layer"] += n
+    _, n = eval_metrics_run(f"--quant_int8 1 (DDIM-{EVAL_INT8_GRID})", card, base + [
+        "--quant_int8", "1", "--use_ddim", "1", "--timestep_respacing",
+        f"ddim{EVAL_INT8_GRID}"], layers, "fused_encoder_layer_int8", EVAL_INT8_GRID,
+        hml_batches)
+    totals["fused_encoder_layer_int8"] += n
+    _, n = eval_metrics_run(f"--fused 0, {PALLAS_ATTN}=1 (DDIM-{EVAL_ATTN_GRID})", card, base + [
+        "--fused", "0", "--use_ddim", "1", "--timestep_respacing", f"ddim{EVAL_ATTN_GRID}"],
+        layers, "attention_kernel", EVAL_ATTN_GRID, hml_batches, env="1")
+    totals["attention_kernel"] += n
+    # 5. multimodality and replications, on the forecast sampler: 1000 steps
+    # with a forward on every 4th and on the last
+    forecast_forwards = len(range(0, 1000, 4)) + (999 % 4 != 0)
+    _, n = eval_metrics_run("--forecast_stride 4, multimodality, 2 replications", card, base + [
+        "--fused", "1", "--forecast_stride", "4", "--mm_num_samples", "32", "--mm_num_repeats",
+        "3", "--replication_times", "2"], layers, "fused_encoder_layer", forecast_forwards,
+        hml_batches, mm=(32, 3), reps=2)
+    totals["fused_encoder_layer"] += n
+
+    # 6. the distilled student against its teacher on Xia, an evaluator of Xia's
+    xia_finest = train_evaluator("eval_ev_xia", "stylexia_posrot", xia_dir, 76)
+    xia_batches = len(get_dataset_loader("stylexia_posrot", EVAL_BATCH, 76, split="train",
+                                         data_root=xia_dir))
+    student = os.path.join(tmp_root, "distill_0", f"mdm_{EVAL_STUDENT_STEPS}step.pt")
+    scored = {}
+    for name, path, grid in (("student", student, EVAL_STUDENT_STEPS),
+                             ("teacher", teacher, 64)):
+        scored[name], n = eval_metrics_run(
+            f"Xia {name} (DDIM-{grid} of 64)", card,
+            ["--dataset", "stylexia_posrot", "--data_dir", xia_dir, "--split", "train",
+             "--mdm_path", path, "--evaluator_checkpoint", xia_finest, "--layers", str(layers),
+             "--diffusion_steps",
+             "64", "--timestep_respacing", f"ddim{grid}", "--use_ddim", "1", "--fused", "1",
+             "--batch_size", str(EVAL_BATCH), "--num_samples", str(EVAL_SAMPLES), "--seed",
+             "10"], layers, "fused_encoder_layer", grid, xia_batches)
+        totals["fused_encoder_layer"] += n
+    print("  distilled student against its teacher (Xia, the same evaluator, loader and "
+          "seed): " + "; ".join(f"{k} {scored['student'][k]} vs {scored['teacher'][k]}"
+                                 for k in ("FID", "R_precision_top_1", "matching_score",
+                                           "diversity")), flush=True)
+
+    # 7. the T2M generator, scored against the humanml evaluator
+    printed = io.StringIO()
+    np.random.seed(10)
+    with eval_watch() as rec, contextlib.redirect_stdout(printed):
+        eval_zero_counts()
+        t0 = time.perf_counter()
+        path = train_t2m_generator.main([
+            "--dataset", "humanml", "--data_dir", hml_root, "--save_dir",
+            os.path.join(tmp_root, "eval_t2m"), "--gen_steps", str(T2M_STEPS), "--len_steps",
+            str(T2M_STEPS), "--log_interval", "1", "--run_eval", "--num_eval_samples",
+            str(T2M_EVAL_SAMPLES), "--evaluator_checkpoint", finest, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = eval_kernel_counts()
+    metrics = json.loads(printed.getvalue().strip().splitlines()[-1])
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    losses = [r["loss"] for r in rec["gen"] + rec["len"]]
+    print(f"  train_t2m_generator: {T2M_STEPS} length + {T2M_STEPS} CompV6 steps (hidden "
+          f"1024, text_hidden 512, dim_z 128, batch 16, 64 frames) and --run_eval over "
+          f"{T2M_EVAL_SAMPLES} captions in {wall:.4f} s on {card}; CompV6 s/step "
+          f"{[round(r['s'], 4) for r in rec['gen']]}; losses {[round(v, 4) for v in losses]}; "
+          f"metrics {json.dumps(metrics)}", flush=True)
+    check(len(rec["gen"]) == len(rec["len"]) == T2M_STEPS and bool(np.isfinite(losses).all())
+          and set(ckpt) >= {"generator", "length_estimator", "dim_pose"}
+          and ckpt["dim_pose"] == HML_FEATS,
+          "train_t2m_generator: losses finite, t2m_generator.pkl written in the JAX layout")
+    check(list(metrics) == list(EVAL_KEYS) and all(np.isfinite(v) for v in metrics.values()),
+          "train_t2m_generator --run_eval: the metric dict is finite with the JAX CLI's keys")
+    check_launches("train_t2m_generator", counts, {})
+    return totals
+
+
+# kernel 4 against its twin: the serving shape, S=197, the eval phase's
+# guided humanml batch under --fused 0 (DDPM_LAYER: B = 2 x 32, S=197),
+# S=600, head widths 32 and 48, and the edges of its key tiles
+ATTN_SHAPES = ((B, S, D, H), (B, 197, D, H), (*DDPM_LAYER, D, H), (2, 600, D, H),
+               (B, S, 128, 4), (B, S, 192, 4), (4, 1, D, H), (4, 33, D, H), (2, 513, D, H))
 PALLAS_ATTN = "MOTIONSTYLE_PALLAS_ATTN"
 
 
@@ -4426,6 +4815,8 @@ def main() -> int:
             launches_demo_long = demo_long_phase(model_path, data_dir, tmp, card)
         with phase("humanml"):
             launches_hml = humanml_phase(card, tmp)
+        with phase("eval"):
+            launches_eval = eval_phase(card, tmp, data_dir, prior_path)
         with phase("quality"):
             launches_quality = quality_phase(card, tmp)
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
@@ -4448,6 +4839,9 @@ def main() -> int:
     launches_int8 += launches_hml["fused_encoder_layer_int8"]
     for n in TRAIN_NAMES:
         train_launches[n] += launches_hml[n]
+    # the T2M evaluation stack: kernels 1, 2 and 4 in eval_metrics's sampling
+    launches += launches_eval["fused_encoder_layer"]
+    launches_int8 += launches_eval["fused_encoder_layer_int8"]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",
@@ -4480,7 +4874,8 @@ def main() -> int:
     kernels.append(dict(name="attention_kernel", route="cuda",
                         source="motionstyle_torch/csrc/attention.cu",
                         replaces="motionstyle/ops/attention.py:52",
-                        launches=launches_attn + launches_distill + launches_arch,
+                        launches=launches_attn + launches_distill + launches_arch
+                        + launches_eval["attention_kernel"],
                         **{k: record_attn[k] for k in keys}))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

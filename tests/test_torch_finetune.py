@@ -626,8 +626,9 @@ def test_quant_int8_finetune_loss_matches_jax(tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """motionstyle_torch (its quality protocol, semantic trainer, parallel
     sampler, style metrics, post chain, long-form sampler, named styles,
-    exporter, LoRA adapters, distiller, SMPL body model, other architectures
-    and the humanml and bandai data path among them), chip_smoke.py,
+    exporter, LoRA adapters, distiller, SMPL body model, other architectures,
+    the humanml and bandai data path and the T2M evaluation stack among
+    them), chip_smoke.py,
     profile_layers.py, quality_sweep.py and serve_bench.py import nothing of
     JAX or of the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -646,7 +647,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models/denoiser.py", "models/params.py", "data/datasets.py",
                 "data/collate.py", "data/preprocess.py", "cli/prepare_dataset.py",
                 "cli/finetune_style_diffusion.py", "cli/demo_style_transfer.py",
-                "cli/pretrain_prior.py"):
+                "cli/pretrain_prior.py", "utils.py", "eval/metrics.py", "eval/evaluators.py",
+                "eval/motion_loaders.py", "eval/trainers.py", "eval/t2m_generator.py",
+                "cli/eval_metrics.py", "cli/train_evaluator.py", "cli/train_t2m_generator.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)
