@@ -223,7 +223,26 @@ Phases, each printed on its own line with its seconds:
      train_t2m_generator --dataset humanml at its default widths, 3 length
      and 3 CompV6 steps, --run_eval over 8 captions against the humanml
      evaluator: finite losses, t2m_generator.pkl, finite metrics, no kernel.
- 25. quality: the port's quality protocol (eval/quality_protocol.py) through
+ 25. item12: the host pieces (ROADMAP item 12) at full width: whether
+     tensorboardX imports; the finetune CLI (batch 64, --fused_train_store 1,
+     4 steps) at its default --train_platform_type (or NoPlatform, after
+     checking that the default raises ImportError naming tensorboardX where
+     it is missing) with --native_loader 1 --prefetch 2 --profile DIR: 104 /
+     56 / 56 launches of kernels 8 / 6 / 9 a step, finite losses, the event
+     file's Loss/loss, the trace's 10 largest device entries and its
+     host-to-device and device-to-host copies; the numpy loader and native +
+     prefetch in turns (numpy, native, native, numpy), the loop's seconds a
+     step between step starts; the native batches of 64 against the numpy
+     twin's (float32 rounding) and through PrefetchLoader (bit-equal, in
+     order), each assembly's host ms and the g++ flags that took; the demo
+     with --profile (a trace, 16 kernel-1 launches); Joints2SMPL at SMPL's
+     size (6890 vertices, 24 joints, 10 betas) on a seeded 196-frame FK clip
+     of 22 joints, 150 iterations, on the card and on the CPU (seconds, the
+     joint error before and after, rel L2 of the joints, gated at
+     POST_IK_REL, and of pose, betas and camera); fit_seq (--chunk 64
+     --save_obj 1) and render_mesh --results at their CLI defaults; joints2bvh,
+     motions2hik, plot_3d_array and render_mesh_frames.
+ 26. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
      50, the --auto_stop arm) gated by that file's assertions, then the d512
@@ -4727,6 +4746,467 @@ def ddpm_fused_phase(card: str, device) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the remaining host pieces (ROADMAP item 12): the trainer platforms,
+# --profile, the native loader with --prefetch, and the SMPLify chain
+# ---------------------------------------------------------------------------
+
+ITEM12_STEPS = 4  # finetune steps a run: 3 intervals between step starts
+SMPL_FRAMES, SMPL_ITERS, SMPL_VERTS = 196, 150, 6890  # a humanml clip; SMPL's mesh
+# the card's mean joint error against the CPU fit's: two fp32 Adam runs of
+# 170 steps drift apart by rounding (pose rel L2 7e-3 on the card, as the
+# port's and the JAX fit drift on the CPU), not in what they reach
+SMPL_ERROR_REL = 1e-2
+
+
+def read_event_scalars(log_dir: str) -> list:
+    """(tag, step, value) of every scalar in a directory's TensorBoard event
+    files (TFRecord framing: length, its crc, an Event proto, its crc)."""
+    import struct
+
+    from tensorboardX.proto import event_pb2
+
+    out = []
+    for name in sorted(os.listdir(log_dir)):
+        if "tfevents" in name:
+            with open(os.path.join(log_dir, name), "rb") as f:
+                data = f.read()
+            pos = 0
+            while pos < len(data):
+                (n,) = struct.unpack("<Q", data[pos:pos + 8])
+                event = event_pb2.Event.FromString(data[pos + 12:pos + 12 + n])
+                pos += 12 + n + 4
+                out += [(v.tag, event.step, v.simple_value) for v in event.summary.value]
+    return out
+
+
+def trace_summary(path: str, top: int = 10) -> tuple:
+    """A Chrome trace's device entries (kernels, copies, memsets): the `top`
+    largest by summed duration as (name, count, ms), the count and ms of the
+    host-to-device and device-to-host copies, the number of events, the
+    device entries' summed ms and the trace's span in ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            n, us = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+    rows = sorted(((k, n, us / 1e3) for k, (n, us) in by_name.items()), key=lambda r: -r[2])
+    copies = {d: (sum(n for k, n, _ in rows if d in k), sum(ms for k, _, ms in rows if d in k))
+              for d in ("HtoD", "DtoH")}
+    timed = [e for e in events if e.get("ph") == "X" and "ts" in e]
+    span_ms = (max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in timed)
+               - min(float(e["ts"]) for e in timed)) / 1e3 if timed else 0.0
+    return rows[:top], copies, len(events), sum(ms for _, _, ms in rows), span_ms
+
+
+@contextmanager
+def step_starts(trainer_cls):
+    """The host clock at the entry of every trainer step: the intervals
+    between them are whole loop iterations (the next batch's assembly, its
+    text features and the step)."""
+    starts: list = []
+    run_step = trainer_cls.run_step
+
+    def timed(self, batch):
+        starts.append(time.perf_counter())
+        return run_step(self, batch)
+
+    trainer_cls.run_step = timed
+    try:
+        yield starts
+    finally:
+        trainer_cls.run_step = run_step
+
+
+@contextmanager
+def native_collate_calls():
+    """Count the native loader's calls of the C++ batch assembly."""
+    from motionstyle_torch.native import loader as native_loader
+
+    calls = {"n": 0}
+    collate = native_loader.window_normalize_collate
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return collate(*a, **k)
+
+    native_loader.window_normalize_collate = counted
+    try:
+        yield calls
+    finally:
+        native_loader.window_normalize_collate = collate
+
+
+def item12_finetune(label: str, argv: list, card: str) -> dict:
+    """One finetune CLI run (store path: kernels 8, 6, 9) with its counts set
+    to 0 just before it and read just after: 104 / 56 / 56 launches of
+    kernels 8 / 6 / 9 a step and no other training kernel, finite losses.
+    Returns the launches, losses, loop intervals and the save dir."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.train.finetune import StyleFinetuneTrainer
+
+    random.seed(10)  # the loader's crops and captions
+    # the main path: every count from here to the end of the run
+    _zero_counts(ft)
+    fused_encoder_layer.launches = 0
+    with step_starts(StyleFinetuneTrainer) as starts, native_collate_calls() as native:
+        t0 = time.perf_counter()
+        save_dir = finetune_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _prior_counts(ft)
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    loops = [float(x) for x in np.diff(starts)]
+    steps = ITEM12_STEPS
+    fwd, ffn, attn = ("fused_layer_train_forward_store", "fused_layer_train_bwd_ffn",
+                      "fused_layer_train_bwd_attn_stored")
+    want = {n: (0, 0) for n in TRAIN_NAMES}
+    want.update({fwd: (104 * steps, 0), ffn: (56 * steps, 0), attn: (56 * steps, 0)})
+    got = {n: counts[n] for n in TRAIN_NAMES}
+    print(f"  {label}: {steps} steps, whole CLI run {wall:.4f} s on {card}; losses {losses}; "
+          f"loop seconds between step starts {[round(x, 6) for x in loops]}; native batch "
+          f"assemblies {native['n']}; kernel 1 launches {fused_encoder_layer.launches}; "
+          f"(launches, prng launches) {got}", flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"{label}: losses finite")
+    check(got == want, f"{label}: kernels 8 / 6 / 9 launched 104 / 56 / 56 times a step, "
+                       "kernels 5 and 7 never")
+    check(fused_encoder_layer.launches > 0, f"{label}: kernel 1 launched (neutral content, "
+                                            "final resample)")
+    return dict(launches={n: c[0] for n, c in got.items()}, k1=fused_encoder_layer.launches,
+                losses=losses, loops=loops, native=native["n"], save_dir=save_dir)
+
+
+def native_batches_check(data_dir: str, card: str) -> None:
+    """The native loader's batch of FINETUNE_BATCH clips against the numpy
+    twin's (DataLoader + t2m_style_collate) on one seed: the motion equal to
+    float32 rounding (rtol 1e-5, atol 1e-6), masks, lengths, captions and
+    styles equal; PrefetchLoader's batches bit-equal to the native loader's,
+    in order; each assembly's host milliseconds (median of 20)."""
+    import numpy as np
+
+    from motionstyle_torch.data.collate import DataLoader, t2m_style_collate
+    from motionstyle_torch.data.datasets import StyleMotionDataset, get_opt
+    from motionstyle_torch.native.loader import NativeStyleLoader, PrefetchLoader
+
+    ds = StyleMotionDataset(get_opt("stylexia_posrot", data_dir), split="train")
+    batches = {}
+    for name, make in (("native", lambda: NativeStyleLoader(ds, FINETUNE_BATCH, seed=5)),
+                       ("numpy", lambda: DataLoader(ds, FINETUNE_BATCH, t2m_style_collate,
+                                                    seed=5)),
+                       ("prefetch", lambda: PrefetchLoader(
+                           NativeStyleLoader(ds, FINETUNE_BATCH, seed=5), depth=2))):
+        random.seed(3)
+        batches[name] = list(make()) + list(make())  # two epochs
+    nat, ref, pre = batches["native"], batches["numpy"], batches["prefetch"]
+    err = max(float(np.abs(m - r).max()) for (m, _), (r, _) in zip(nat, ref))
+    same = all(np.allclose(m, r, rtol=1e-5, atol=1e-6)
+               and all(np.array_equal(c["y"][k], rc["y"][k]) for k in ("mask", "lengths"))
+               and c["y"]["text"] == rc["y"]["text"] and c["y"]["style"] == rc["y"]["style"]
+               for (m, c), (r, rc) in zip(nat, ref))
+    check(len(nat) == len(ref) == len(pre) > 0 and same,
+          f"native batches of {FINETUNE_BATCH} equal the numpy twin's to float32 rounding "
+          f"(max_abs {err:.3g})")
+    check(all(np.array_equal(m, p) and c["y"]["text"] == pc["y"]["text"]
+              for (m, c), (p, pc) in zip(nat, pre)),
+          "PrefetchLoader's batches bit-equal to the native loader's, in order")
+    idx = np.arange(FINETUNE_BATCH)
+    loader = NativeStyleLoader(ds, FINETUNE_BATCH)
+    ms = {}
+    for name, fn in (("native", lambda: loader._assemble(idx)),
+                     ("numpy", lambda: t2m_style_collate([ds[int(i)] for i in idx]))):
+        secs = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        ms[name] = 1e3 * float(np.median(secs))
+    print(f"  batch assembly of {FINETUNE_BATCH} clips (76 x 181), host ms (median of 20): "
+          f"native {ms['native']:.4f}, numpy twin {ms['numpy']:.4f}; on {card}'s host",
+          flush=True)
+
+
+def seeded_fk_clip(smpl, frames: int):
+    """A (frames, 22, 3) joint clip from a seeded smooth pose track through
+    the body model's own forward kinematics, lifted 0.9 above the origin."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.core import rotations as rot
+    from motionstyle_torch.models.smpl import lbs
+
+    r = np.random.RandomState(0)
+    t = np.arange(frames)[:, None] / 20.0
+    pose = (r.rand(1, 72) * 0.3 * np.sin((r.rand(1, 72) * 2 + 0.5) * t
+                                         + r.rand(1, 72) * 6.28)).astype(np.float32)
+    with torch.no_grad():
+        _, joints = lbs(smpl.model, torch.zeros(frames, 10),
+                        rot.axis_angle_to_matrix(torch.from_numpy(pose).reshape(frames, 24, 3)),
+                        skin=False)
+    return joints[:, :22].numpy() + np.array([0.0, 0.9, 0.0], np.float32)
+
+
+def smplify_check(smpl, clip, card: str) -> tuple:
+    """Joints2SMPL on the card at SMPL_ITERS and the same fit on the CPU:
+    seconds a fit, the mean joint error before (the rest pose at the torso
+    camera) and after, pose / betas / camera rel L2 card against CPU, gated
+    as check_ik_fits gates the IK: the fitted joints within POST_IK_REL of
+    the CPU's and the error no larger than the start's; and the card's error
+    within SMPL_ERROR_REL of the CPU's (the same fit quality). Returns the
+    card's
+    (pose tensor, fitted pose / betas / camera, fitter)."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.core import rotations as rot
+    from motionstyle_torch.models.smpl import lbs
+    from motionstyle_torch.post.smplify import Joints2SMPL
+
+    def joints_of(fit):
+        T = len(clip)
+        with torch.no_grad():
+            _, j = lbs(smpl.model, torch.as_tensor(fit["betas"]),
+                       rot.axis_angle_to_matrix(torch.as_tensor(fit["pose"]).reshape(T, 24, 3)),
+                       skin=False)
+        return j[:, :22].numpy() + fit["cam"][:, None]
+
+    fits, secs = {}, {}  # "card" / "cpu" -> (pose tensor, warm start, fitter), seconds
+    for name, dev in (("card", "cuda"), ("cpu", "cpu")):
+        j2s = Joints2SMPL(smpl, num_smplify_iters=SMPL_ITERS, device=dev)
+        t0 = time.perf_counter()
+        out, fit = j2s.joint2smpl(clip)  # ends in a copy to the host: synchronised
+        secs[name] = time.perf_counter() - t0
+        fits[name] = (out, fit, j2s)
+    rest = joints_of({"pose": np.zeros((len(clip), 72), np.float32),
+                      "betas": np.zeros((len(clip), 10), np.float32),
+                      "cam": np.zeros((len(clip), 3), np.float32)})
+    torso = [2, 1, 17, 16]
+    rest += (clip[:, torso] - rest[:, torso]).mean(axis=1, keepdims=True)
+    before = float(np.abs(rest - clip).mean())
+    after = {d: float(np.abs(joints_of(f[1]) - clip).mean()) for d, f in fits.items()}
+    rel = {k: rel_l2(torch.as_tensor(fits["card"][1][k]), torch.as_tensor(fits["cpu"][1][k]))
+           for k in ("pose", "betas", "cam")}
+    host, dev = joints_of(fits["cpu"][1]), joints_of(fits["card"][1])
+    jrel = rel_l2(torch.as_tensor(dev), torch.as_tensor(host))
+    # about their mean too: the synthetic body's joints sit within
+    # millimetres of each other, far from the origin, so this one shows the
+    # fp32 drift of two Adam runs through an ill-conditioned fit
+    mean = host.mean(axis=(0, 1))
+    crel = rel_l2(torch.as_tensor(dev - mean), torch.as_tensor(host - mean))
+    print(f"  SMPLify ({len(clip)} frames, 22 joints, {SMPL_VERTS} vertices, 20 + {SMPL_ITERS} "
+          f"Adam steps): {secs['card']:.4f} s a fit on {card}, {secs['cpu']:.4f} s on the CPU; "
+          f"mean |joint error| {before:.6g} -> {after['card']:.6g} (CPU {after['cpu']:.6g}); "
+          f"card against CPU rel L2: joints {jrel:.6g} (about their mean {crel:.6g}), pose "
+          f"{rel['pose']:.6g}, betas "
+          f"{rel['betas']:.6g}, cam {rel['cam']:.6g}", flush=True)
+    check(jrel <= POST_IK_REL, f"SMPLify: the fitted joints on the card within rel L2 "
+                               f"{POST_IK_REL} of the CPU fit's")
+    check(after["card"] <= before, "SMPLify: the joint error after <= before")
+    check(abs(after["card"] - after["cpu"]) <= SMPL_ERROR_REL * after["cpu"],
+          f"SMPLify: the card's joint error within {SMPL_ERROR_REL:g} of the CPU's")
+    out, fit, j2s = fits["card"]
+    check(out.shape == (1, 25, 6, len(clip)) and bool(np.isfinite(out).all()),
+          "SMPLify: a finite (1, 25, 6, T) pose tensor")
+    return out, fit, j2s
+
+
+def item12_phase(card: str, data_dir: str, tmp_root: str, mdm_path: str) -> dict:
+    """ROADMAP item 12 at full width: probe tensorboardX; the finetune CLI at
+    its default platform (or NoPlatform, after checking that the default
+    raises ImportError naming tensorboardX where it is missing) with
+    --native_loader 1 --prefetch 2 --profile DIR --fused_train_store 1: the
+    trace's largest device entries and its copies; then the numpy loader and
+    native + prefetch in turns (numpy, native, native, numpy) for the loop's
+    seconds a step; the native batches against the numpy twin's; a traced
+    demo; SMPLify at SMPL's size on a seeded FK clip, card against CPU, then
+    fit_seq and render_mesh at their CLI defaults and joints2bvh,
+    motions2hik, plot_3d_array and render_mesh_frames. Returns the launches
+    of kernels 1, 8, 6 and 9 in its runs."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.cli.fit_seq import main as fit_seq_main
+    from motionstyle_torch.cli.render_mesh import main as render_mesh_main
+    from motionstyle_torch.core import params, rotations as rot
+    from motionstyle_torch.models.smpl import SMPL, lbs, random_smpl_model
+    from motionstyle_torch.native import build as native_build
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.post.bvh import read_bvh
+    from motionstyle_torch.post.motions2hik import motions2hik
+    from motionstyle_torch.post.render import plot_3d_array, render_mesh_frames
+    from motionstyle_torch.post.vis_utils import joints2bvh
+    from motionstyle_torch.train.platforms import get_platform
+    from motionstyle_torch.utils import TRACE_FILE
+
+    root = os.path.join(tmp_root, "item12")
+    try:
+        import tensorboardX
+
+        tbx = tensorboardX.__version__
+    except ImportError as ex:
+        tbx = None
+        print(f"  tensorboardX on this machine: missing ({ex})", flush=True)
+    if tbx is None:
+        try:
+            get_platform("TensorboardPlatform", os.path.join(root, "tb_probe"))
+            raised = ""
+        except ImportError as ex:
+            raised = str(ex)
+        check("tensorboardX" in raised, "the default platform raises ImportError naming "
+                                        "tensorboardX")
+        platform = ["--train_platform_type", "NoPlatform"]
+        print("  the finetune below runs with --train_platform_type NoPlatform: no "
+              "tensorboardX", flush=True)
+    else:
+        platform = []
+        print(f"  tensorboardX on this machine: {tbx}; the finetune below runs at the "
+              "default --train_platform_type (TensorboardPlatform)", flush=True)
+
+    def argv(save_dir: str, *extra) -> list:
+        return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", mdm_path,
+                "--save_dir", os.path.join(root, save_dir), "--fused", "1", "--fused_train", "1",
+                "--fused_train_store", "1", "--batch_size", str(FINETUNE_BATCH), "--layers",
+                str(FINETUNE_LAYERS), "--num_steps", str(ITEM12_STEPS), "--skip_render",
+                "--seed", "10", "--device", "cuda", *extra]
+
+    native = ["--native_loader", "1", "--prefetch", "2"]
+    trace_dir = os.path.join(root, "trace_finetune")
+    runs = [item12_finetune("finetune (default platform, native + prefetch, traced)",
+                            argv("traced", *platform, *native, "--profile", trace_dir), card)]
+    check(runs[0]["native"] > 0, "the traced finetune assembled its batches natively")
+    if tbx is not None:
+        events = read_event_scalars(runs[0]["save_dir"])
+        check(sorted(s for t, s, _ in events if t == "Loss/loss") == list(range(ITEM12_STEPS)),
+              f"TensorboardPlatform wrote Loss/loss at steps 0-{ITEM12_STEPS - 1} "
+              f"({len(events)} scalars)")
+    path = os.path.join(trace_dir, TRACE_FILE)
+    top, copies, n_events, device_ms, span_ms = trace_summary(path)
+    print(f"  finetune trace {path}: {os.path.getsize(path) / 1e6:.4g} MB, {n_events} events; "
+          f"device entries {device_ms:.4f} ms over the trace's {span_ms:.4f} ms "
+          f"({100 * device_ms / max(span_ms, 1e-9):.4g} % busy, overlaps counted twice); "
+          f"host-to-device copies {copies['HtoD'][0]} ({copies['HtoD'][1]:.4f} ms), "
+          f"device-to-host {copies['DtoH'][0]} ({copies['DtoH'][1]:.4f} ms); the "
+          f"{len(top)} largest device entries:" if top else
+          f"  finetune trace {path}: {n_events} events, no device entry recorded (device "
+          "time not measured)", flush=True)
+    for name, n, ms in top:
+        print(f"    {ms:10.4f} ms {n:7d} x  {name[:90]}", flush=True)
+    check(n_events > 0, "the finetune's trace parses and holds events")
+
+    # the loop's seconds a step, numpy loader and native + prefetch in turns
+    loops = {"numpy": [], "native": []}
+    for label in ("numpy", "native", "native", "numpy"):
+        extra = native if label == "native" else []
+        runs.append(item12_finetune(f"finetune ({label} loader, NoPlatform)",
+                                    argv(f"{label}_{len(runs)}", "--train_platform_type",
+                                         "NoPlatform", *extra), card))
+        loops[label] += runs[-1]["loops"][1:]  # the first interval holds the warm-up
+        check((runs[-1]["native"] > 0) == (label == "native"),
+              f"the {label} loader's run assembled its batches "
+              f"{'natively' if extra else 'in numpy'}")
+    print("  finetune loop seconds a step (median of the intervals between step starts after "
+          f"each run's first, runs in turns numpy, native, native, numpy): numpy loader {np.median(loops['numpy']):.6g}"
+          f" {[round(x, 6) for x in loops['numpy']]}, native + prefetch "
+          f"{np.median(loops['native']):.6g} {[round(x, 6) for x in loops['native']]} on "
+          f"{card}; the runs' first losses {[r['losses'][0] for r in runs]}", flush=True)
+    native_batches_check(data_dir, card)
+    print(f"  native ingest library: {native_build.last_build['path']}, g++ flags "
+          f"{' '.join(native_build.last_build['flags'])}; the host's CPUs: {os.cpu_count()} "
+          f"({len(os.sched_getaffinity(0))} usable; the C++ pass starts up to that many "
+          "threads a batch)", flush=True)
+
+    # a traced demo on the traced finetune's checkpoint
+    model = sorted(glob.glob(os.path.join(runs[0]["save_dir"], "model*.pt")))[-1]
+    fused_encoder_layer.launches = 0
+    demo_trace = os.path.join(root, "trace_demo")
+    demo_main(["--model_path", model, "--input_content", DEMO_CONTENT, "--data_dir", data_dir,
+               "--skip_render", "--num_samples", str(DEMO_SAMPLES), "--output_dir",
+               os.path.join(root, "demo"), "--fused", "1", "--device", "cuda",
+               "--profile", demo_trace])
+    torch.cuda.synchronize()
+    demo_k1 = fused_encoder_layer.launches
+    top, _, n_events, _, _ = trace_summary(os.path.join(demo_trace, TRACE_FILE), top=3)
+    print(f"  demo --profile: kernel 1 launches {demo_k1}; trace {n_events} events; largest "
+          f"device entries {[(name[:40], n, round(ms, 4)) for name, n, ms in top]}", flush=True)
+    check(n_events > 0 and demo_k1 == 2 * FINETUNE_LAYERS,
+          f"demo --profile: a trace that parses; kernel 1 launched {2 * FINETUNE_LAYERS} times")
+
+    # SMPLify at SMPL's size, then the CLIs and the other exports
+    smpl = SMPL(random_smpl_model(np.random.RandomState(0), n_verts=SMPL_VERTS))
+    clip = seeded_fk_clip(smpl, SMPL_FRAMES)
+    out, fit, j2s = smplify_check(smpl, clip, card)
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    np.save(os.path.join(clips, "clip.npy"), clip)
+    t0 = time.perf_counter()
+    params_path, = fit_seq_main(["--data_folder", clips, "--files", "clip.npy", "--save_folder",
+                                 os.path.join(root, "fit"), "--chunk", "64", "--save_obj", "1"])
+    fit_s = time.perf_counter() - t0
+    d = np.load(params_path, allow_pickle=True).item()
+    objs = os.listdir(os.path.join(root, "fit", "clip_obj"))
+    print(f"  fit_seq --chunk 64 --save_obj 1: {fit_s:.4f} s; pose {d['pose'].shape}, motion "
+          f"{d['motion'].shape}; {len(objs)} OBJ files", flush=True)
+    check(d["pose"].shape == (SMPL_FRAMES, 72) and d["motion"].shape == (1, 25, 6, SMPL_FRAMES)
+          and bool(np.isfinite(d["pose"]).all()) and len(objs) == SMPL_FRAMES,
+          f"fit_seq: smpl_params.npy of {SMPL_FRAMES} frames and an OBJ a frame")
+    results = os.path.join(root, "mesh", "results.npy")
+    os.makedirs(os.path.dirname(results))
+    np.save(results, {"motion": clip.transpose(1, 2, 0)[None], "text": ["a person moves"],
+                      "lengths": np.asarray([SMPL_FRAMES]), "num_samples": 1,
+                      "num_repetitions": 1})
+    t0 = time.perf_counter()
+    obj_dir = render_mesh_main(["--results", results])
+    mesh_s = time.perf_counter() - t0
+    objs = os.listdir(obj_dir)
+    mp = np.load(os.path.join(root, "mesh", "sample00_rep00_smpl_params.npy"),
+                 allow_pickle=True).item()
+    print(f"  render_mesh --results: {mesh_s:.4f} s; {len(objs)} OBJ files; vertices "
+          f"{mp['vertices'].shape}", flush=True)
+    check(len(objs) == SMPL_FRAMES and mp["length"] == SMPL_FRAMES
+          and bool(np.isfinite(mp["vertices"]).all()),
+          f"render_mesh: {SMPL_FRAMES} OBJ files and finite vertices")
+    bvh = os.path.join(root, "fit.bvh")
+    t0 = time.perf_counter()
+    joints2bvh(bvh, clip, params.smpl_real_offsets, params.t2m_kinematic_chain, j2s)
+    bvh_s = time.perf_counter() - t0
+    anim = read_bvh(bvh)
+    hik = motions2hik(out)
+    t0 = time.perf_counter()
+    frames = plot_3d_array((clip, "smplify", params.t2m_kinematic_chain))
+    T = 20  # the card fit's first frames as a point-cloud video
+    with torch.no_grad():
+        verts, _ = lbs(smpl.model, torch.as_tensor(fit["betas"][:T]), rot.axis_angle_to_matrix(
+            torch.as_tensor(fit["pose"][:T]).reshape(T, 24, 3)))
+    gif = render_mesh_frames(verts.numpy().transpose(1, 2, 0),
+                             save_path=os.path.join(root, "mesh.mp4"))
+    from PIL import Image
+
+    with Image.open(gif) as im:
+        gif_frames = im.n_frames
+    print(f"  joints2bvh {bvh_s:.4f} s ({anim.shape}); motions2hik thetas "
+          f"{np.asarray(hik['thetas']).shape}; plot_3d_array {frames.shape}; render_mesh_frames "
+          f"{gif_frames} frames of {verts.shape[1]} vertices; renders {time.perf_counter() - t0:.4f}"
+          " s", flush=True)
+    check(anim.shape == (SMPL_FRAMES, 22) and np.asarray(hik["thetas"]).shape == (
+        1, SMPL_FRAMES, 24, 3) and frames.shape == (SMPL_FRAMES, 300, 300, 3)
+          and gif_frames == T, "joints2bvh, motions2hik, plot_3d_array and render_mesh_frames "
+                               "give every frame")
+    launches = {"fused_encoder_layer": sum(r["k1"] for r in runs) + demo_k1}
+    for n in TRAIN_NAMES:
+        launches[n] = sum(r["launches"][n] for r in runs)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4817,6 +5297,8 @@ def main() -> int:
             launches_hml = humanml_phase(card, tmp)
         with phase("eval"):
             launches_eval = eval_phase(card, tmp, data_dir, prior_path)
+        with phase("item12"):
+            launches_item12 = item12_phase(card, data_dir, tmp, mdm_path)
         with phase("quality"):
             launches_quality = quality_phase(card, tmp)
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
@@ -4842,6 +5324,11 @@ def main() -> int:
     # the T2M evaluation stack: kernels 1, 2 and 4 in eval_metrics's sampling
     launches += launches_eval["fused_encoder_layer"]
     launches_int8 += launches_eval["fused_encoder_layer_int8"]
+    # the host pieces: kernels 8, 6, 9 and 1 in the item12 finetunes, 1 in its
+    # traced demo
+    launches += launches_item12["fused_encoder_layer"]
+    for n in TRAIN_NAMES:
+        train_launches[n] += launches_item12[n]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",

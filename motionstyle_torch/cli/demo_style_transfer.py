@@ -48,8 +48,9 @@ Run:  python -m motionstyle_torch.cli.demo_style_transfer \\
         --model_path save/ft/350angry_jumping/model000000024.pt \\
         --input_content 306neutral_running.npy [--skip_render] [--quant_int8 1]
 
-Not ported (each raises before any work, naming its ROADMAP item): mesh
-serving and profiling.
+--profile DIR writes a torch.profiler trace of the sampling repetitions
+(utils.profile_trace), as the JAX CLI traces them (:338-392). Not ported
+(each raises before any work, naming its ROADMAP item): mesh serving.
 """
 from __future__ import annotations
 
@@ -76,6 +77,7 @@ from motionstyle_torch.diffusion.parallel_sampling import parallel_sample_loop
 from motionstyle_torch.post.footskate import remove_fs
 from motionstyle_torch.post.ik import fit_joints_bvh
 from motionstyle_torch.post.render import plot_3d_motion
+from motionstyle_torch.utils import profile_trace
 
 # per dataset: the window, the joints of its skeleton, fps, the default style
 # example (motionstyle/cli/demo_style_transfer.py:37-41, :74-76)
@@ -98,7 +100,6 @@ REFUSED = (
     ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
     ("pipeline_parallel", lambda v: v > 1, "pipeline-parallel serving (ROADMAP §1 item 11)"),
     ("sequence_parallel", lambda v: v > 1, "sequence-parallel serving (ROADMAP §1 item 11)"),
-    ("profile", bool, "profiling (ROADMAP §1 item 12)"),
 )
 
 
@@ -294,46 +295,47 @@ def main(argv=None):
         stop = None
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     all_motions, all_hml, all_lengths, all_text = [], [], [], []
-    for rep_i in range(args.num_repetitions):
-        print(f"### Start sampling [repetitions #{rep_i}]")
-        t0 = time.perf_counter()
-        if long_ctx is not None:
-            as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    with profile_trace(args.profile, enabled=bool(args.profile)):
+        for rep_i in range(args.num_repetitions):
+            print(f"### Start sampling [repetitions #{rep_i}]")
+            t0 = time.perf_counter()
+            if long_ctx is not None:
+                as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
 
-            def run_window(init, inp, window_generator):
+                def run_window(init, inp, window_generator):
+                    res = sampling.sample_loop(
+                        sched_ddim, model_fn, {"enc_text": enc_text}, window_generator,
+                        shape=tuple(content.shape),
+                        init_image=None if init is None else as_t(init), method="ddim",
+                        skip_timesteps=skip, stop_timesteps=stop,
+                        inpainting=None if inp is None else Inpainting(as_t(inp.mask),
+                                                                       as_t(inp.motion)),
+                        dump_all_xstart=dump_all_xstart)
+                    return res[pick] if dump_all_xstart else res
+
+                full = longform_sample(run_window, m_length, max_frames, overlap=10,
+                                       seed=sampling.draw_base_seed(generator, dev),
+                                       content=long_ctx[0], content_mask=long_ctx[1], device=dev)
+                sample = full[:, :, 0, :].transpose(0, 2, 1)
+                calls = "long-form"
+            else:
                 res = sampling.sample_loop(
-                    sched_ddim, model_fn, {"enc_text": enc_text}, window_generator,
-                    shape=tuple(content.shape),
-                    init_image=None if init is None else as_t(init), method="ddim",
-                    skip_timesteps=skip, stop_timesteps=stop,
-                    inpainting=None if inp is None else Inpainting(as_t(inp.mask),
-                                                                   as_t(inp.motion)),
+                    sched_ddim, model_fn, {"enc_text": enc_text}, generator,
+                    shape=tuple(content.shape), init_image=content, method="ddim",
+                    skip_timesteps=skip, stop_timesteps=stop, inpainting=inpainting,
                     dump_all_xstart=dump_all_xstart)
-                return res[pick] if dump_all_xstart else res
-
-            full = longform_sample(run_window, m_length, max_frames, overlap=10,
-                                   seed=sampling.draw_base_seed(generator, dev),
-                                   content=long_ctx[0], content_mask=long_ctx[1], device=dev)
-            sample = full[:, :, 0, :].transpose(0, 2, 1)
-            calls = "long-form"
-        else:
-            res = sampling.sample_loop(
-                sched_ddim, model_fn, {"enc_text": enc_text}, generator,
-                shape=tuple(content.shape), init_image=content, method="ddim",
-                skip_timesteps=skip, stop_timesteps=stop, inpainting=inpainting,
-                dump_all_xstart=dump_all_xstart)
-            out = res[pick] if dump_all_xstart else res
-            sample = out[:, :, 0, :].permute(0, 2, 1).cpu().numpy()
-            calls = f"{len(res)} denoiser calls" if dump_all_xstart else "the whole chain"
-        print(f"sampling took {time.perf_counter() - t0:.4f} s ({calls}, "
-              f"batch {args.num_samples}, on {dev})")
-        denorm = ds.inv_transform(sample)
-        all_hml.append(denorm)
-        joints = recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32), spec["joints"])
-        all_motions.append(joints.numpy().transpose(0, 2, 3, 1))  # B J 3 T
-        all_lengths.append(np.full(args.num_samples, m_length))
-        all_text += texts
-        print(f"created {len(all_motions) * args.batch_size} samples")
+                out = res[pick] if dump_all_xstart else res
+                sample = out[:, :, 0, :].permute(0, 2, 1).cpu().numpy()
+                calls = f"{len(res)} denoiser calls" if dump_all_xstart else "the whole chain"
+            print(f"sampling took {time.perf_counter() - t0:.4f} s ({calls}, "
+                  f"batch {args.num_samples}, on {dev})")
+            denorm = ds.inv_transform(sample)
+            all_hml.append(denorm)
+            joints = recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32), spec["joints"])
+            all_motions.append(joints.numpy().transpose(0, 2, 3, 1))  # B J 3 T
+            all_lengths.append(np.full(args.num_samples, m_length))
+            all_text += texts
+            print(f"created {len(all_motions) * args.batch_size} samples")
 
     npy_path = pjoin(out_path, "results.npy")
     print(f"saving results file to [{npy_path}]")

@@ -26,8 +26,10 @@ with make_schedule(..., 64, "ddim8") and sampling.sample_loop(method="ddim").
 
 Every dataset the loaders take is taken (stylexia_posrot, bandai-1_posrot,
 bandai-2_posrot, humanml, kit); --num_frames goes to the loader as the JAX
-CLI passes it, and no dataset reads it. Not on this slice (each raises,
-naming its ROADMAP item): the native loader, --prefetch and --profile.
+CLI passes it, and no dataset reads it. --native_loader 1 and --prefetch N
+take the C++ batch assembly and a prefetching thread (native/loader.py);
+--profile DIR writes a torch.profiler trace of the stages' step loops
+(utils.profile_trace), which the JAX CLI parses and ignores.
 """
 from __future__ import annotations
 
@@ -44,13 +46,7 @@ from motionstyle_torch.cli.parser_util import (
 from motionstyle_torch.data.collate import get_dataset_loader, require_batches
 from motionstyle_torch.diffusion.distillation import DistillConfig, ProgressiveDistiller
 from motionstyle_torch.train import logging as logger
-
-# flag -> (value that means "off", what it needs), checked before any work
-REFUSED = {
-    "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
-    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
-    "profile": ("", "profiling (ROADMAP §1 item 12)"),
-}
+from motionstyle_torch.utils import profile_trace
 
 
 def parse_args(argv=None):
@@ -78,10 +74,6 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for what this slice of the port does not run."""
-    for flag, (off, what) in REFUSED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 
@@ -107,7 +99,9 @@ def main(argv=None):
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))
 
     loader = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
-                                                split="train", data_root=args.data_dir or None),
+                                                split="train", data_root=args.data_dir or None,
+                                                native=bool(args.native_loader),
+                                                prefetch=args.prefetch),
                              "distill_prior")
     bundle, _, _ = model_util.creat_serval_diffusion(args, device=args.device)
     if not args.mdm_path:
@@ -132,11 +126,13 @@ def main(argv=None):
     paths = []
     data = EncodedBatches()
     n = args.diffusion_steps
-    for _ in range(args.stages):
-        loss = distiller.run_stage(n, data)
-        n //= 2
-        paths.append(distiller.save(n))
-        print(f"[stage done] {2 * n}-step teacher -> {n}-step student (final loss {loss:.5f})")
+    with profile_trace(args.profile, enabled=bool(args.profile)):
+        for _ in range(args.stages):
+            loss = distiller.run_stage(n, data)
+            n //= 2
+            paths.append(distiller.save(n))
+            print(f"[stage done] {2 * n}-step teacher -> {n}-step student "
+                  f"(final loss {loss:.5f})")
     print(f"[Done] distilled checkpoints: {paths}")
     return paths
 

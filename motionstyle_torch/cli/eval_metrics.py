@@ -27,8 +27,9 @@ Run:  python -m motionstyle_torch.cli.eval_metrics \\
         [--evaluator_checkpoint save/evaluator/finest.tar] \\
         [--num_samples 256] [--mm_num_samples 32] [--device cuda]
 
-Not on this slice (each raises, naming its ROADMAP item): the native loader,
---prefetch.
+--native_loader 1 and --prefetch N take the C++ batch assembly of the style
+datasets and a prefetching thread (native/loader.py) for the ground-truth
+loader, as the flags' help says; the JAX CLI parses them and ignores them.
 """
 from __future__ import annotations
 
@@ -50,11 +51,6 @@ from motionstyle_torch.eval.motion_loaders import (
     tokens_or_fallback)
 from motionstyle_torch.utils import fixseed
 
-# flag -> (value that means "off", what it needs), checked before any work
-REFUSED = {
-    "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
-    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
-}
 # the window of each dataset (motionstyle/cli/eval_metrics.py:96)
 LONG_WINDOW = ("humanml", "bandai-1_posrot", "bandai-2_posrot")
 
@@ -99,10 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for what this slice of the port does not run."""
-    for flag, (off, what) in REFUSED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 
@@ -125,7 +117,8 @@ def main(argv=None):
 
     max_frames = 196 if args.dataset in LONG_WINDOW else 76
     loader = get_dataset_loader(args.dataset, args.batch_size, max_frames, split=args.split,
-                                data_root=args.data_dir or None)
+                                data_root=args.data_dir or None,
+                                native=bool(args.native_loader), prefetch=args.prefetch)
     if len(loader) == 0:
         raise SystemExit(
             f"{args.dataset} split '{args.split}' yields no batches — metrics over nothing "

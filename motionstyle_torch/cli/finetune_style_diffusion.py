@@ -34,10 +34,15 @@ or the save dir holding one.
 Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
         --dataset stylexia_posrot --save_dir ./save/ft --data_dir .../style_xia \\
         --mdm_path prior.pt --fused 1 --fused_train 1 [--lora_rank 8] [--skip_render] \\
-        --train_platform_type NoPlatform [--device cuda]
+        [--train_platform_type NoPlatform] [--native_loader 1 --prefetch 2] \\
+        [--profile trace_dir] [--device cuda]
 
-Not on this slice (each raises, naming its ROADMAP item): mesh training,
-orbax checkpoints, the native and prefetching loaders and --profile.
+--train_platform_type reports the losses to TensorBoard (the default, through
+tensorboardX), ClearML or nowhere (train/platforms.py); --native_loader 1
+assembles the batches in C++ and --prefetch N keeps N ready in a thread
+(native/loader.py); --profile DIR writes a torch.profiler trace of the step
+loop (utils.profile_trace). Not on this slice (each raises, naming its
+ROADMAP item): mesh training and orbax checkpoints.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ from motionstyle_torch.post.render import plot_3d_motion
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
 from motionstyle_torch.train.platforms import get_platform
+from motionstyle_torch.utils import profile_trace
 
 DATASET_DEFAULTS = {
     "humanml": dict(example="M008551.npy", joints=22, max_frames=196),
@@ -81,9 +87,6 @@ UNSUPPORTED = {
     "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
     "fsdp": (0, "mesh training (ROADMAP §1 item 11)"),
     "orbax_checkpoints": (0, "sharded checkpoints (ROADMAP §1 item 11)"),
-    "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
-    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
-    "profile": ("", "profiling (ROADMAP §1 item 12)"),
 }
 
 
@@ -253,7 +256,9 @@ def main(argv=None):
 
     print("creating data loader...")
     data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
-                                              split="train", data_root=args.data_dir or None),
+                                              split="train", data_root=args.data_dir or None,
+                                              native=bool(args.native_loader),
+                                              prefetch=args.prefetch),
                            "finetune_style_diffusion")
 
     print("creating model and diffusion...")
@@ -327,41 +332,43 @@ def main(argv=None):
         auto = AutoStopEvaluator(args, trainer, sched_ddim, ds, neutral, input_motions,
                                  inp_mask, enc_neutral, m_length)
 
-    step = 0
-    while step < args.num_steps and not trainer.preempted \
-            and (auto is None or auto.selected is None):
-        for motion_b, cond in data:
-            if step >= args.num_steps or trainer.preempted \
-                    or (auto is not None and auto.selected is not None):
-                break
-            texts = list(cond["y"]["text"])
-            if args.semantic_guidance:  # f_s_d.py:268-285; humanml splices by tokens
-                tokens = cond["y"].get("tokens", [None] * len(texts))
-                texts = [edit_caption_with_style(t, style_label, args.dataset, tokens=tk)
-                         for t, tk in zip(texts, tokens)]
-            batch = {
-                "x_start": motion_b.astype(np.float32),
-                "content": neutral,
-                "style_target": input_motions,
-                "mask": mask,
-                "inp_mask": inp_mask,
-                "enc_text_style": enc_neutral,
-                "enc_text_t2m": bundle.encode_text(texts, args.dataset),  # memoised
-                "inp_mask_t2m": get_inpainting_mask(args.inpainting_mask, motion_b.shape,
-                                                    dataset=args.dataset).astype(np.float32),
-                "frame_mask_t2m": cond["y"]["mask"][:, 0, 0, :].astype(bool),
-                "text_features": text_features,
-            }
-            t0 = time.perf_counter()
-            terms = trainer.run_step(batch)
-            sweeps = f", {terms['picard_sweeps']:.0f} sweeps" if "picard_sweeps" in terms else ""
-            print(f"step[{step}]: loss[{terms['loss']:0.5f}] "
-                  f"({time.perf_counter() - t0:.3f} s{sweeps})")
-            logger.dumpkvs()
-            step += 1
-            if auto is not None and auto.due(step) and step < args.num_steps \
-                    and not trainer.preempted:
-                auto.evaluate(step)
+    with profile_trace(args.profile, enabled=bool(args.profile)):
+        step = 0
+        while step < args.num_steps and not trainer.preempted \
+                and (auto is None or auto.selected is None):
+            for motion_b, cond in data:
+                if step >= args.num_steps or trainer.preempted \
+                        or (auto is not None and auto.selected is not None):
+                    break
+                texts = list(cond["y"]["text"])
+                if args.semantic_guidance:  # f_s_d.py:268-285; humanml splices by tokens
+                    tokens = cond["y"].get("tokens", [None] * len(texts))
+                    texts = [edit_caption_with_style(t, style_label, args.dataset, tokens=tk)
+                             for t, tk in zip(texts, tokens)]
+                batch = {
+                    "x_start": motion_b.astype(np.float32),
+                    "content": neutral,
+                    "style_target": input_motions,
+                    "mask": mask,
+                    "inp_mask": inp_mask,
+                    "enc_text_style": enc_neutral,
+                    "enc_text_t2m": bundle.encode_text(texts, args.dataset),  # memoised
+                    "inp_mask_t2m": get_inpainting_mask(args.inpainting_mask, motion_b.shape,
+                                                        dataset=args.dataset).astype(np.float32),
+                    "frame_mask_t2m": cond["y"]["mask"][:, 0, 0, :].astype(bool),
+                    "text_features": text_features,
+                }
+                t0 = time.perf_counter()
+                terms = trainer.run_step(batch)
+                sweeps = (f", {terms['picard_sweeps']:.0f} sweeps"
+                          if "picard_sweeps" in terms else "")
+                print(f"step[{step}]: loss[{terms['loss']:0.5f}] "
+                      f"({time.perf_counter() - t0:.3f} s{sweeps})")
+                logger.dumpkvs()
+                step += 1
+                if auto is not None and auto.due(step) and step < args.num_steps \
+                        and not trainer.preempted:
+                    auto.evaluate(step)
     trainer.finish()
     if auto is not None:
         if auto.selected is None and not trainer.preempted:

@@ -36,7 +36,8 @@ def add_base_options(parser):
     group = parser.add_argument_group("base")
     group.add_argument("--device", default="cuda", type=str,
                        help="torch device to run on (cuda unless asked)")
-    group.add_argument("--profile", default="", type=str, help="not ported")
+    group.add_argument("--profile", default="", type=str,
+                       help="write a torch.profiler trace of the hot loop to this directory")
     group.add_argument("--seed", default=10, type=int, help="For fixing random seed.")
     group.add_argument("--batch_size", default=64, type=int, help="Batch size during training.")
 
@@ -93,8 +94,12 @@ def add_data_options(parser):
                        choices=["humanml", "bandai-2_posrot", "bandai-1_posrot",
                                 "stylexia_posrot"], type=str)
     group.add_argument("--data_dir", default="", type=str)
-    group.add_argument("--native_loader", default=0, type=int, help="not ported")
-    group.add_argument("--prefetch", default=0, type=int, help="not ported")
+    group.add_argument("--native_loader", default=0, type=int,
+                       help="assemble batches with the C++ ingest library "
+                            "(motionstyle_torch/native; raises when it does not build)")
+    group.add_argument("--prefetch", default=0, type=int,
+                       help="overlap batch assembly with the device step by "
+                            "keeping N batches ready in a background thread")
 
 
 def add_finetune_options(parser):

@@ -23,10 +23,12 @@ bandai-2_posrot, humanml, kit); --num_frames goes to the loader as the JAX
 CLI passes it (motionstyle/cli/pretrain_prior.py:110-115), and no dataset
 reads it.
 --dropout_rng_impl is accepted for the JAX package's sake only: the port
-draws every dropout mask and seed from torch generators. Not on this slice
-(each raises, naming its ROADMAP item): mesh training (--data_parallel,
---model_parallel, --pipeline_parallel, --fsdp), the native loader and
---prefetch, and --profile.
+draws every dropout mask and seed from torch generators. --native_loader 1
+and --prefetch N take the C++ batch assembly and a prefetching thread
+(native/loader.py); --profile DIR writes a torch.profiler trace of the step
+loop (utils.profile_trace), which the JAX CLI parses and ignores. Not on this
+slice (each raises, naming its ROADMAP item): mesh training (--data_parallel,
+--model_parallel, --pipeline_parallel, --fsdp).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from motionstyle_torch.data.collate import get_dataset_loader, require_batches
 from motionstyle_torch.diffusion.resample import SCHEDULE_SAMPLERS
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.pretrain import PretrainConfig, PriorTrainer
+from motionstyle_torch.utils import profile_trace
 
 # flag -> (value that means "off", what it needs), checked before any work
 REFUSED = {
@@ -52,9 +55,6 @@ REFUSED = {
     "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
     "pipeline_parallel": (1, "pipeline-parallel training (ROADMAP §1 item 11)"),
     "fsdp": (0, "sharded training (ROADMAP §1 item 11)"),
-    "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
-    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
-    "profile": ("", "profiling (ROADMAP §1 item 12)"),
 }
 
 
@@ -124,7 +124,9 @@ def main(argv=None):
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))
 
     data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
-                                              split="train", data_root=args.data_dir or None),
+                                              split="train", data_root=args.data_dir or None,
+                                              native=bool(args.native_loader),
+                                              prefetch=args.prefetch),
                            "pretrain_prior")
     bundle, _, sched_full = model_util.creat_serval_diffusion(args, device=args.device)
     cfg = PretrainConfig(save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,
@@ -139,27 +141,28 @@ def main(argv=None):
 
     # --num_steps is the TOTAL budget: a resumed run does the remainder
     trainer.install_preemption_handler()
-    while trainer.step + trainer.resume_step < args.num_steps:
-        for motion, cond in data:
-            if trainer.step + trainer.resume_step >= args.num_steps or trainer.preempted:
-                break
-            t0 = time.perf_counter()
-            batch = {
-                "x_start": motion.astype(np.float32),
-                "enc_text": bundle.encode_text(list(cond["y"]["text"]), args.dataset),
-                "mask": cond["y"]["mask"][:, :1, :1, :].astype(np.float32),
-            }
-            loss = trainer.run_step(batch)  # a 0-d tensor on the device
-            step = trainer.step + trainer.resume_step - 1
-            if args.log_interval and step % args.log_interval == 0:
-                print(f"prior step[{step}]: loss[{float(loss):0.5f}] "
-                      f"({time.perf_counter() - t0:.3f} s)")
-                logger.dumpkvs()
-        if trainer.preempted:
-            path = trainer.save_step()
-            trainer.restore_signal_handlers()
-            print(f"[Preempted] prior checkpoint saved: {path}")
-            return args.save_dir
+    with profile_trace(args.profile, enabled=bool(args.profile)):
+        while trainer.step + trainer.resume_step < args.num_steps:
+            for motion, cond in data:
+                if trainer.step + trainer.resume_step >= args.num_steps or trainer.preempted:
+                    break
+                t0 = time.perf_counter()
+                batch = {
+                    "x_start": motion.astype(np.float32),
+                    "enc_text": bundle.encode_text(list(cond["y"]["text"]), args.dataset),
+                    "mask": cond["y"]["mask"][:, :1, :1, :].astype(np.float32),
+                }
+                loss = trainer.run_step(batch)  # a 0-d tensor on the device
+                step = trainer.step + trainer.resume_step - 1
+                if args.log_interval and step % args.log_interval == 0:
+                    print(f"prior step[{step}]: loss[{float(loss):0.5f}] "
+                          f"({time.perf_counter() - t0:.3f} s)")
+                    logger.dumpkvs()
+            if trainer.preempted:
+                path = trainer.save_step()
+                trainer.restore_signal_handlers()
+                print(f"[Preempted] prior checkpoint saved: {path}")
+                return args.save_dir
     trainer.restore_signal_handlers()
     mdm_path, warm_path = trainer.save()
     print(f"[Done] prior saved: {mdm_path} + {warm_path}")

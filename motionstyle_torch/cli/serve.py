@@ -48,7 +48,9 @@ REFUSED = (
     # (motionstyle/cli/model_util.py:44-51); --emb_trans_dec has no effect on it
     ("arch", lambda v: v != "trans_enc",
      "another architecture (StyleDiffusion implements arch='trans_enc' only)"),
-    ("profile", bool, "profiling (ROADMAP §1 item 12)"),
+    # --profile traces a CLI's hot loop; a server runs until stopped, and the
+    # JAX server parses the flag and ignores it
+    ("profile", bool, "profiling, which needs a bounded hot loop that a server lacks"),
     ("fused_train", bool, "the training layer in a server, which runs no training forward"),
     ("fused_train_prng", bool,
      "the training layer's in-kernel dropout in a server, which runs no training forward"),

@@ -17,9 +17,10 @@ Run:  python -m motionstyle_torch.cli.train_semantic_discriminator \\
 Every dataset the loaders take is taken; --num_frames goes to the loader as
 the JAX CLI passes it, and no dataset reads it; --dropout_rng_impl is
 accepted for the JAX package's sake only (the port draws from torch
-generators). Not on this slice (each raises, naming its ROADMAP item): the
-native loader and --prefetch, and --profile. The JAX CLI takes no mesh
-flags.
+generators). --native_loader 1 and --prefetch N take the C++ batch assembly
+and a prefetching thread (native/loader.py); --profile DIR writes a
+torch.profiler trace of the step loop (utils.profile_trace), which the JAX
+CLI parses and ignores. The JAX CLI takes no mesh flags.
 """
 from __future__ import annotations
 
@@ -36,13 +37,7 @@ from motionstyle_torch.cli.parser_util import (
 from motionstyle_torch.data.collate import get_dataset_loader, require_batches
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.semantic import SemanticConfig, SemanticTrainer
-
-# flag -> (value that means "off", what it needs), checked before any work
-REFUSED = {
-    "native_loader": (0, "the native batch loader (ROADMAP §1 item 12)"),
-    "prefetch": (0, "the prefetching loader (ROADMAP §1 item 12)"),
-    "profile": ("", "profiling (ROADMAP §1 item 12)"),
-}
+from motionstyle_torch.utils import profile_trace
 
 
 def parse_args(argv=None):
@@ -68,10 +63,6 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     """Raise NotImplementedError for what this slice of the port does not run."""
-    for flag, (off, what) in REFUSED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 
@@ -91,7 +82,9 @@ def main(argv=None):
     logger.configure(args.save_dir, format_strs=("stdout", "csv"))
 
     data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
-                                              split="train", data_root=args.data_dir or None),
+                                              split="train", data_root=args.data_dir or None,
+                                              native=bool(args.native_loader),
+                                              prefetch=args.prefetch),
                            "train_semantic_discriminator")
     bundle, _, sched_full = model_util.creat_serval_diffusion(args, device=args.device)
     cfg = SemanticConfig(save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,
@@ -103,20 +96,21 @@ def main(argv=None):
         sum(p.numel() for p in bundle.model.parameters() if p.requires_grad) / 1e6))
 
     step = 0
-    while step < args.num_steps:
-        for motion, cond in data:
-            if step >= args.num_steps:
-                break
-            batch = {
-                "x_start": motion.astype(np.float32),
-                "frame_mask": cond["y"]["mask"][:, 0, 0, :].astype(bool),
-                "mask": cond["y"]["mask"][:, :1, :1, :].astype(np.float32),
-            }
-            loss = trainer.run_step(batch)
-            if args.log_interval and step % args.log_interval == 0:
-                print(f"semantic step[{step}]: loss[{loss:0.5f}]")
-                logger.dumpkvs()
-            step += 1
+    with profile_trace(args.profile, enabled=bool(args.profile)):
+        while step < args.num_steps:
+            for motion, cond in data:
+                if step >= args.num_steps:
+                    break
+                batch = {
+                    "x_start": motion.astype(np.float32),
+                    "frame_mask": cond["y"]["mask"][:, 0, 0, :].astype(bool),
+                    "mask": cond["y"]["mask"][:, :1, :1, :].astype(np.float32),
+                }
+                loss = trainer.run_step(batch)
+                if args.log_interval and step % args.log_interval == 0:
+                    print(f"semantic step[{step}]: loss[{loss:0.5f}]")
+                    logger.dumpkvs()
+                step += 1
     path = trainer.save()
     print(f"[Done] semantic discriminator saved: {path}")
     return path

@@ -2,9 +2,9 @@
 from a shuffled iterator, for the style datasets and HumanML3D (counterpart
 of motionstyle/data/collate.py; parity: data_loaders/tensors.py
 lengths_to_mask :3, collate :22, t2m_collate :78, t2m_style_collate :90, and
-the DataLoader wrapper get_data.py:43-53). The native batch loader and the
-prefetching loader (--native_loader, --prefetch) are not ported (ROADMAP §1
-item 12): the CLIs refuse those flags.
+the DataLoader wrapper get_data.py:43-53). With native=True the style
+datasets assemble their batches in C++ (native/loader.py, --native_loader),
+and prefetch=N keeps N batches ready in a background thread (--prefetch).
 """
 from __future__ import annotations
 
@@ -106,12 +106,35 @@ def get_dataset(name: str, num_frames: int, split: str = "train", data_root=None
 
 
 def get_dataset_loader(name: str, batch_size: int, num_frames: int, split: str = "train",
-                       shuffle: bool = True, data_root=None) -> DataLoader:
-    """Parity: get_data.py:43-53, the in-process numpy iterator."""
+                       shuffle: bool = True, data_root=None, native: bool = False,
+                       prefetch: int = 0):
+    """Parity: get_data.py:43-53, the in-process numpy iterator; `native`
+    swaps in the C++ batch assembly of the style datasets
+    (motionstyle_torch/native/loader.py) and `prefetch` overlaps assembly
+    with the device step, as motionstyle/data/collate.py:106-139 does. Where
+    the JAX package warns and uses numpy when its library is unavailable, a
+    native loader that does not build or load raises here with the reason."""
     dataset = get_dataset(name, num_frames, split, data_root)
-    # kit items carry (caption, motion, len, tokens, name) like t2m
-    collate_fn = t2m_collate if name in ("humanml", "t2m", "kit") else t2m_style_collate
-    return DataLoader(dataset, batch_size, collate_fn, shuffle=shuffle, drop_last=True)
+    loader = None
+    if native:
+        if name not in ("bandai-1_posrot", "bandai-2_posrot", "stylexia_posrot"):
+            print(f"WARNING: --native_loader covers the style datasets only; "
+                  f"'{name}' uses the numpy path")
+        else:
+            from motionstyle_torch.native.ingest import load_library
+            from motionstyle_torch.native.loader import NativeStyleLoader
+
+            load_library()  # raises with the compiler's message
+            loader = NativeStyleLoader(dataset, batch_size, shuffle=shuffle, drop_last=True)
+    if loader is None:
+        # kit items carry (caption, motion, len, tokens, name) like t2m
+        collate_fn = t2m_collate if name in ("humanml", "t2m", "kit") else t2m_style_collate
+        loader = DataLoader(dataset, batch_size, collate_fn, shuffle=shuffle, drop_last=True)
+    if prefetch > 0:
+        from motionstyle_torch.native.loader import PrefetchLoader
+
+        loader = PrefetchLoader(loader, depth=prefetch)
+    return loader
 
 
 def require_batches(loader: DataLoader, what: str) -> DataLoader:

@@ -6,8 +6,9 @@ Parity targets:
   - StyleXia / BandaiDataset caption synthesis + window slicing + z-norm
     (data_loaders/humanml/data/dataset.py:207-553)
   - Text2MotionDatasetV2 (HumanML3D) caption/token sampling + unit-length
-    crop (dataset.py:558-739), without the GloVe word vectors (the T2M
-    evaluator's, ROADMAP §1 item 9)
+    crop (dataset.py:558-739), without the GloVe word vectors: the T2M
+    evaluator embeds the captions itself (eval/evaluators.py::WordVectorizer,
+    eval/motion_loaders.py::embed_texts), as in the JAX package
   - process_np_motion / inv_transform (dataset.py:484-519, 641-684)
   - get_opt's per-dataset table and opt.txt parsing (get_opt.py:29-106)
   - the stylexia test split (dataset/stylexia_split.py — data, not code)
@@ -256,7 +257,7 @@ class StyleMotionDataset(_BaseMotionDataset):
     def sample_spec(self, item):
         """The per-item RANDOM decisions only (caption pick, unit-length
         crop, window start) — no array work. Shared by __getitem__ and the
-        JAX package's native batch loader, so both consume the `random`
+        native batch loader (native/loader.py), so both consume the `random`
         stream identically; parity: dataset.py:522-553."""
         d = self.data_dict[self.name_list[item]]
         motion, m_length = d["motion"], d["length"]
@@ -289,7 +290,9 @@ class Text2MotionDataset(_BaseMotionDataset):
     """HumanML3D-style dataset (caption files with tokens + f/to tags).
 
     Parity: Text2MotionDatasetV2 (dataset.py:558-739), minus the GloVe word
-    vectors (only the T2M evaluator needs them, ROADMAP §1 item 9).
+    vectors: only the T2M evaluator needs them, and it embeds the captions
+    itself (eval/evaluators.py::WordVectorizer, eval/motion_loaders.py::
+    embed_texts).
     """
 
     def __init__(self, opt: DataOpt, split: str = "train", mode: str = "train",

@@ -159,23 +159,27 @@ def _on(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def lbs(model: SMPLModel, betas: torch.Tensor, pose_mats: torch.Tensor,
-        transl: Optional[torch.Tensor] = None) -> tuple:
+        transl: Optional[torch.Tensor] = None, skin: bool = True) -> tuple:
     """Linear blend skinning on pose_mats' device. betas (B, n_betas);
     pose_mats (B, 24, 3, 3), the global orientation at 0. Returns (vertices
-    (B, V, 3), joints (B, 24, 3))."""
+    (B, V, 3), joints (B, 24, 3)); with skin=False (vertices None, joints):
+    the joints alone, which do not depend on the pose blendshapes or the
+    skinning (a fit's loss reads only them), their rest positions regressed
+    from the template and the shape directions instead of from every
+    vertex."""
     B = pose_mats.shape[0]
     parents = [int(p) for p in model.parents]
     betas = betas.to(pose_mats)
 
     # shape blendshapes and the rest joints
-    v_shaped = _on(model.v_template, pose_mats) + torch.einsum(
-        "bl,vcl->bvc", betas, _on(model.shapedirs, pose_mats))
-    j_rest = torch.einsum("jv,bvc->bjc", _on(model.j_regressor, pose_mats), v_shaped)
-
-    # pose blendshapes: the 23 body joints' rotations minus the identity
-    ident = torch.eye(3, dtype=pose_mats.dtype, device=pose_mats.device)
-    pose_feature = (pose_mats[:, 1:] - ident).reshape(B, -1)  # (B, 207)
-    v_posed = v_shaped + (pose_feature @ _on(model.posedirs, pose_mats)).reshape(B, -1, 3)
+    j_reg, shapedirs = _on(model.j_regressor, pose_mats), _on(model.shapedirs, pose_mats)
+    if skin:
+        v_shaped = _on(model.v_template, pose_mats) + torch.einsum("bl,vcl->bvc", betas,
+                                                                   shapedirs)
+        j_rest = torch.einsum("jv,bvc->bjc", j_reg, v_shaped)
+    else:  # J (v_template + S betas) = J v_template + (J S) betas: no (B, V, 3) array
+        j_rest = (j_reg @ _on(model.v_template, pose_mats))[None] + torch.einsum(
+            "bl,jcl->bjc", betas, torch.einsum("jv,vcl->jcl", j_reg, shapedirs))
 
     # the rigid transform chain
     rel_j = torch.cat([j_rest[:, :1], j_rest[:, 1:] - j_rest[:, parents[1:]]], dim=1)
@@ -188,6 +192,13 @@ def lbs(model: SMPLModel, betas: torch.Tensor, pose_mats: torch.Tensor,
         transforms.append(transforms[parents[i]] @ local[:, i])
     A = torch.stack(transforms, dim=1)  # (B, 24, 4, 4)
     posed_joints = A[:, :, :3, 3]
+    if not skin:
+        return None, posed_joints if transl is None else posed_joints + transl[:, None]
+
+    # pose blendshapes: the 23 body joints' rotations minus the identity
+    ident = torch.eye(3, dtype=pose_mats.dtype, device=pose_mats.device)
+    pose_feature = (pose_mats[:, 1:] - ident).reshape(B, -1)  # (B, 207)
+    v_posed = v_shaped + (pose_feature @ _on(model.posedirs, pose_mats)).reshape(B, -1, 3)
 
     # remove the rest-pose joint location from each transform
     j_h = torch.cat([j_rest, j_rest.new_zeros((B, 24, 1))], dim=-1)

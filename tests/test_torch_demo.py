@@ -295,8 +295,7 @@ def test_demo_style_arithmetic_matches_the_jax_demo(kind, based_run, xia_root, t
 
 @pytest.mark.parametrize("flag, item", [
     (["--model_parallel", "2"], 11),
-    (["--pipeline_parallel", "2"], 11), (["--sequence_parallel", "2"], 11),
-    (["--profile", "trace"], 12)])
+    (["--pipeline_parallel", "2"], 11), (["--sequence_parallel", "2"], 11)])
 def test_demo_refuses_what_is_not_ported(flag, item, finetuned, xia_root,  # noqa: F811
                                          tmp_path):
     """Each refusal names its ROADMAP item and comes before any work (no
@@ -306,6 +305,23 @@ def test_demo_refuses_what_is_not_ported(flag, item, finetuned, xia_root,  # noq
     with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
         demo_main(argv)
     assert not os.path.exists(tmp_path / "out")
+
+
+def test_demo_profile_writes_a_trace(finetuned, xia_root, tmp_path):  # noqa: F811
+    """--profile DIR traces the sampling repetitions (the JAX demo's
+    jax.profiler trace, :338-392) as a torch.profiler Chrome trace, and the
+    results are the run's without it."""
+    import json
+
+    ckpt, _ = finetuned
+    plain = _results(demo_main(_demo_args(ckpt, xia_root, tmp_path / "plain", "--device",
+                                          "cpu")))
+    traced = _results(demo_main(_demo_args(ckpt, xia_root, tmp_path / "out", "--device", "cpu",
+                                           "--profile", str(tmp_path / "trace"))))
+    with open(tmp_path / "trace" / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("linear" in n or "addmm" in n for n in names)
+    np.testing.assert_array_equal(traced["hml"], plain["hml"])
 
 
 def test_quant_int8_implies_fused_and_bf16(finetuned):

@@ -284,6 +284,7 @@ def distill_root(tmp_path_factory):
 
 
 from tests.test_torch_finetune import bandai_root, hml_root  # noqa: E402,F401
+from tests.test_torch_finetune import check_item12_flag, run_losses  # noqa: E402
 
 
 def _cli(root, save, *extra):
@@ -344,11 +345,22 @@ def test_cli_refuses_the_forward_only_layers(flag, distill_root, tmp_path):
     assert not os.path.exists(tmp_path / "fused" / "mdm_4step.pt")
 
 
-@pytest.mark.parametrize("flag", [["--native_loader", "1"], ["--prefetch", "2"],
-                                  ["--profile", "trace"]])
-def test_cli_refuses_what_is_not_ported(flag, distill_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        distill_main(_cli(distill_root, tmp_path / "x") + flag)
+def _one_stage(root, save):
+    return _cli(root, save, "--stages", "1", "--steps_per_stage", "2")
+
+
+@pytest.fixture(scope="module")
+def plain_distill(distill_root, tmp_path_factory):
+    return run_losses(distill_main, _one_stage(distill_root, tmp_path_factory.mktemp("d_plain")),
+                      "distill_8_loss")[1]
+
+
+@pytest.mark.parametrize("flag", ["--native_loader", "--prefetch", "--profile"])
+def test_cli_runs_the_host_pieces(flag, distill_root, tmp_path, monkeypatch, plain_distill):
+    """--native_loader 1, --prefetch 2 and --profile DIR on the distiller
+    (check_item12_flag): the same stage losses as without, a parsing trace."""
+    check_item12_flag(flag, distill_main, _one_stage(distill_root, tmp_path / "x"),
+                      "distill_8_loss", tmp_path, monkeypatch, plain_distill)
 
 
 @pytest.mark.parametrize("dataset", ["humanml", "bandai-2_posrot"])

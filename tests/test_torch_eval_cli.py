@@ -195,9 +195,7 @@ def test_cli_declares_the_jax_flags(name, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("flag,value,item", [("--native_loader", "1", "item 12"),
-                                             ("--prefetch", "2", "item 12"),
-                                             ("--arch", "gru", "trans_enc")])
+@pytest.mark.parametrize("flag,value,item", [("--arch", "gru", "trans_enc")])
 def test_refused_flags_raise(flag, value, item, hml_root):
     with pytest.raises(NotImplementedError, match=item):
         eval_metrics.main(["--dataset", "humanml", "--data_dir", hml_root, flag, value,
@@ -233,12 +231,36 @@ def xia_test_root(tmp_path_factory):
     return str(root)
 
 
+def _xia_args(root, *extra) -> list:
+    return ["--dataset", "stylexia_posrot", "--data_dir", root, "--layers", "1",
+            "--latent_dim", "64", "--diffusion_steps", "40", "--num_samples", "2",
+            "--batch_size", "2", "--replication_times", "1", "--guidance_param", "1.0",
+            "--device", "cpu", *extra]
+
+
 @pytest.mark.parametrize("extra", [(), ("--forecast_stride", "4")], ids=["ddpm", "forecast"])
 def test_metrics_pipeline_end_to_end(extra, xia_test_root):
-    out = eval_metrics.main([
-        "--dataset", "stylexia_posrot", "--data_dir", xia_test_root, "--layers", "1",
-        "--latent_dim", "64", "--diffusion_steps", "40", "--num_samples", "2",
-        "--batch_size", "2", "--replication_times", "1", "--guidance_param", "1.0",
-        "--device", "cpu", *extra])
+    out = eval_metrics.main(_xia_args(xia_test_root, *extra))
     assert {"FID", "matching_score", "diversity"}.issubset(out), out
     assert all(np.isfinite(v) for v in out.values()), out
+
+
+@pytest.mark.parametrize("flag", ["--native_loader", "--prefetch"])
+def test_loader_flags_score_the_same(flag, xia_test_root, monkeypatch):
+    """--native_loader 1 (the ground truth assembled in C++) and --prefetch 2
+    on the Xia test split: the metrics of the run without the flag."""
+    from motionstyle_torch.native import loader as native_loader
+
+    calls = {"n": 0}
+    collate = native_loader.window_normalize_collate
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return collate(*a, **k)
+
+    monkeypatch.setattr(native_loader, "window_normalize_collate", counted)
+    want = eval_metrics.main(_xia_args(xia_test_root))
+    got = eval_metrics.main(_xia_args(xia_test_root, flag, "1" if flag == "--native_loader"
+                                      else "2"))
+    assert (calls["n"] > 0) == (flag == "--native_loader")
+    assert_metrics_close(got, want)

@@ -482,13 +482,94 @@ def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("flag", [
-    ["--profile", "trace"], ["--fsdp", "1"], ["--model_parallel", "2"],
-    ["--data_parallel", "1"], ["--native_loader", "1"], ["--orbax_checkpoints", "1"],
-    ["--prefetch", "2"], ["--train_platform_type", "TensorboardPlatform"]])
+    ["--fsdp", "1"], ["--model_parallel", "2"], ["--data_parallel", "1"],
+    ["--orbax_checkpoints", "1"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
     args = ["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root] + CLI_ARGS + flag
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft_main(args)
+
+
+def run_losses(main, argv: list, loss_key: str, seed: int = 0) -> tuple:
+    """Run a training CLI with the loaders' `random` stream seeded; returns
+    (its save dir, the losses of its progress.csv)."""
+    import random
+
+    random.seed(seed)
+    main(argv)
+    csv_path, = glob.glob(os.path.join(argv[argv.index("--save_dir") + 1], "**",
+                                       "progress.csv"), recursive=True)
+    save_dir = os.path.dirname(csv_path)
+    with open(csv_path) as f:
+        return save_dir, [float(r[loss_key]) for r in csv.DictReader(f)
+                          if r.get(loss_key) not in (None, "")]
+
+
+def check_item12_flag(flag: str, main, argv: list, loss_key: str, tmp_path, monkeypatch,
+                      plain: list) -> str:
+    """A training CLI with one flag of the host pieces (--profile DIR,
+    --native_loader 1 or --prefetch 2) against its run without it (`plain`,
+    its losses): the trace parses; the native run assembles its batches in
+    C++ and trains to the same losses within rel 1e-5 (the twin divides by
+    std where the library multiplies by its inverse); the prefetching run to
+    the same losses bit for bit. Returns the run's save dir."""
+    import json
+
+    from motionstyle_torch.native import loader as native_loader
+
+    calls = {"n": 0}
+    collate = native_loader.window_normalize_collate
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return collate(*a, **k)
+
+    monkeypatch.setattr(native_loader, "window_normalize_collate", counted)
+    extra = {"--profile": [str(tmp_path / "trace")], "--native_loader": ["1"],
+             "--prefetch": ["2"]}[flag]
+    save_dir, losses = run_losses(main, argv + [flag, *extra], loss_key)
+    assert len(losses) == len(plain) > 0 and np.isfinite(losses).all()
+    assert (calls["n"] > 0) == (flag == "--native_loader")
+    if flag == "--profile":
+        with open(tmp_path / "trace" / "trace.json") as f:
+            assert len(json.load(f)["traceEvents"]) > 0
+    if flag == "--native_loader":
+        np.testing.assert_allclose(losses, plain, rtol=1e-5)
+    else:
+        assert losses == plain
+    return save_dir
+
+
+@pytest.fixture(scope="module")
+def plain_finetune(xia_root, tmp_path_factory):
+    return run_losses(ft_main, ["--save_dir", str(tmp_path_factory.mktemp("ft_plain")),
+                                "--data_dir", xia_root] + CLI_ARGS, "loss")[1]
+
+
+@pytest.mark.parametrize("flag", ["--profile", "--native_loader", "--prefetch",
+                                  "--train_platform_type"])
+def test_cli_runs_the_host_pieces(flag, xia_root, tmp_path, monkeypatch, plain_finetune):
+    """The flags of ROADMAP item 12 on the finetune CLI. Without
+    --train_platform_type the run takes the parsers' default,
+    TensorboardPlatform: an event file of every step's loss terms under
+    Loss/, the values progress.csv holds."""
+    argv = ["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root] + CLI_ARGS
+    if flag != "--train_platform_type":
+        save_dir = check_item12_flag(flag, ft_main, argv, "loss", tmp_path, monkeypatch,
+                                     plain_finetune)
+        assert not any("tfevents" in n for n in os.listdir(save_dir))
+        return
+    i = argv.index("--train_platform_type")
+    del argv[i:i + 2]
+    assert finetune_inpainting_style_args(argv).train_platform_type == "TensorboardPlatform"
+    save_dir, losses = run_losses(ft_main, argv, "loss")
+    assert losses == plain_finetune
+    from tests.test_torch_platforms import read_events
+
+    events = read_events(save_dir)
+    assert sorted((s, t) for t, s, _ in events) == [
+        (s, f"Loss/{k}") for s in range(2) for k in ("loss", "rot_mse")]
+    np.testing.assert_allclose([v for t, _, v in events if t == "Loss/loss"], losses, rtol=1e-6)
 
 
 def short_post(monkeypatch, fit_module, plot_module):
@@ -627,10 +708,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """motionstyle_torch (its quality protocol, semantic trainer, parallel
     sampler, style metrics, post chain, long-form sampler, named styles,
     exporter, LoRA adapters, distiller, SMPL body model, other architectures,
-    the humanml and bandai data path and the T2M evaluation stack among
-    them), chip_smoke.py,
-    profile_layers.py, quality_sweep.py and serve_bench.py import nothing of
-    JAX or of the JAX package."""
+    the humanml and bandai data path, the T2M evaluation stack, the trainer
+    platforms, the native loader and the SMPLify chain among them),
+    chip_smoke.py, profile_layers.py, quality_sweep.py and serve_bench.py
+    import nothing of JAX or of the JAX package; the native loader builds its
+    own copy of the C++ source into the port's own build directory."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
@@ -649,12 +731,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "cli/finetune_style_diffusion.py", "cli/demo_style_transfer.py",
                 "cli/pretrain_prior.py", "utils.py", "eval/metrics.py", "eval/evaluators.py",
                 "eval/motion_loaders.py", "eval/trainers.py", "eval/t2m_generator.py",
-                "cli/eval_metrics.py", "cli/train_evaluator.py", "cli/train_t2m_generator.py"):
+                "cli/eval_metrics.py", "cli/train_evaluator.py", "cli/train_t2m_generator.py",
+                "train/platforms.py", "native/build.py", "native/ingest.py",
+                "native/loader.py", "post/smplify.py", "post/vis_utils.py",
+                "post/motions2hik.py", "cli/fit_seq.py", "cli/render_mesh.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)
     offenders = [f for f in files if bad.search(open(f).read())]
     assert len(files) > 20 and not offenders, offenders
+    from motionstyle_torch.native import build
+
+    port = os.path.join(root, "motionstyle_torch") + os.sep
+    assert build.SRC.startswith(port) and build.BUILD_DIR.startswith(port)
+    assert os.path.exists(build.SRC)
 
 
 # ---------------------------------------------------------------------------

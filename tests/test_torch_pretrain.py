@@ -408,6 +408,7 @@ def xia_root(tmp_path_factory):
 
 
 from tests.test_torch_finetune import bandai_root, hml_root  # noqa: E402,F401
+from tests.test_torch_finetune import check_item12_flag, run_losses  # noqa: E402
 
 
 def _cli(xia_root, save_dir, *extra):
@@ -451,10 +452,25 @@ def test_cli_trains_with_the_prng_layer_and_writes_ema(xia_root, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--pipeline_parallel", "2"], ["--fsdp", "1"], ["--data_parallel", "1"],
-    ["--model_parallel", "2"], ["--native_loader", "1"], ["--prefetch", "2"]])
+    ["--model_parallel", "2"]])
 def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pretrain_main(_cli(xia_root, str(tmp_path / "p"), "--num_steps", "1", *flag))
+
+
+@pytest.fixture(scope="module")
+def plain_pretrain(xia_root, tmp_path_factory):
+    return run_losses(pretrain_main, _cli(xia_root, str(tmp_path_factory.mktemp("p_plain")),
+                                          "--num_steps", "2"), "prior_loss")[1]
+
+
+@pytest.mark.parametrize("flag", ["--native_loader", "--prefetch", "--profile"])
+def test_cli_runs_the_host_pieces(flag, xia_root, tmp_path, monkeypatch, plain_pretrain):
+    """--native_loader 1, --prefetch 2 and --profile DIR on the pretrain CLI
+    (check_item12_flag): the same losses as without, a parsing trace."""
+    check_item12_flag(flag, pretrain_main, _cli(xia_root, str(tmp_path / "p"), "--num_steps",
+                                                "2"), "prior_loss", tmp_path, monkeypatch,
+                      plain_pretrain)
 
 
 @pytest.mark.parametrize("dataset", ["humanml", "bandai-1_posrot", "bandai-2_posrot"])

@@ -31,6 +31,7 @@ from motionstyle_torch.diffusion.schedule import make_schedule
 from motionstyle_torch.models.params import from_jax_params, from_torch_state_dict
 from motionstyle_torch.train.semantic import SemanticConfig, SemanticTrainer, is_trainable
 from tests.test_torch_finetune import _pair, bandai_root, hml_root, xia_root  # noqa: F401
+from tests.test_torch_finetune import check_item12_flag, run_losses
 from tests.test_torch_models import one_torch_thread  # noqa: F401
 
 LOSS_REL, STEP_ATOL = 1e-5, 2e-4
@@ -128,14 +129,25 @@ def test_device_defaults_to_cuda():
     assert parse_args(["--save_dir", "x"]).device == "cuda"
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--native_loader", "1"], 12), (["--prefetch", "2"], 12), (["--profile", "trace"], 12)])
-def test_cli_refuses_what_is_not_ported(flag, item, xia_root, tmp_path):  # noqa: F811
-    argv = ["--dataset", "stylexia_posrot", "--data_dir", xia_root, "--save_dir",
-            str(tmp_path / "sem"), "--device", "cpu"] + flag
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
-        sem_main(argv)
-    assert not os.path.exists(tmp_path / "sem")
+def _sem_cli(root, save_dir) -> list:
+    return ["--dataset", "stylexia_posrot", "--data_dir", root, "--save_dir", save_dir,
+            "--batch_size", "2", "--num_steps", "2", "--log_interval", "1", "--layers", "1",
+            "--latent_dim", "512", "--diffusion_steps", "40", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def plain_semantic(xia_root, tmp_path_factory):  # noqa: F811
+    return run_losses(sem_main, _sem_cli(xia_root, str(tmp_path_factory.mktemp("sem_plain"))),
+                      "semantic_loss")[1]
+
+
+@pytest.mark.parametrize("flag", ["--native_loader", "--prefetch", "--profile"])
+def test_cli_runs_the_host_pieces(flag, xia_root, tmp_path, monkeypatch,  # noqa: F811
+                                  plain_semantic):
+    """--native_loader 1, --prefetch 2 and --profile DIR on the semantic CLI
+    (check_item12_flag): the same losses as without, a parsing trace."""
+    check_item12_flag(flag, sem_main, _sem_cli(xia_root, str(tmp_path / "sem")),
+                      "semantic_loss", tmp_path, monkeypatch, plain_semantic)
 
 
 def test_cli_trains_a_discriminator_the_finetune_loads(xia_root, tmp_path):  # noqa: F811
