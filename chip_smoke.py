@@ -242,7 +242,22 @@ Phases, each printed on its own line with its seconds:
      POST_IK_REL, and of pose, betas and camera); fit_seq (--chunk 64
      --save_obj 1) and render_mesh --results at their CLI defaults; joints2bvh,
      motions2hik, plot_3d_array and render_mesh_frames.
- 26. quality: the port's quality protocol (eval/quality_protocol.py) through
+ 26. item11: scale-out (ROADMAP item 11) at full width on the one card.
+     Which collectives gloo takes on CUDA tensors there (printed first). (a)
+     torchrun --standalone --nproc_per_node 2 of the finetune CLI with
+     --data_parallel 1 --fused 1 --fused_train 1 at a global batch of 64:
+     two ranks share the card over gloo; each rank launches kernels 5 / 6 /
+     7 104 / 56 / 56 times a step; the losses within rtol 1e-3 of a world-1
+     run of the same command (tests/test_fsdp.py:281). (b) the finetune
+     trainer with fsdp on a world-1 NCCL mesh and --fused_train's kernels,
+     against the plain trainer: losses within rtol 1e-3; its DCP checkpoint
+     restored into a plain trainer, parameters and Adam moments bit-equal.
+     (c) the demo at --model_parallel 2 over two ranks on the card (plain
+     layers split over 'model', gloo's CUDA all-reduce), within atol 1e-4 of
+     the world-1 demo (tests/test_parallel.py:97); without a CUDA all-reduce
+     in gloo it prints why and runs no such arm. Each arm's seconds. No
+     scaling is measured: the ranks share one card.
+ 27. quality: the port's quality protocol (eval/quality_protocol.py) through
      the port's CLIs with --fused_train 1 --fused 1: tests/test_quality.py's
      protocol (latent 64, prior 1500 steps, finetune 250 with a rung every
      50, the --auto_stop arm) gated by that file's assertions, then the d512
@@ -5207,6 +5222,279 @@ def item12_phase(card: str, data_dir: str, tmp_root: str, mdm_path: str) -> dict
     return launches
 
 
+ITEM11_STEPS = 3
+ITEM11_FT_WANT = (104, 56, 56)  # kernels 5 / 6 / 7 a step of the 8-layer recompute finetune
+ITEM11_TIMEOUT = 420  # seconds one torchrun may take
+ITEM11_DEMO_ATOL = 1e-4  # tests/test_parallel.py:97
+ITEM11_FT_NAMES = ("fused_layer_train_forward", "fused_layer_train_bwd_ffn",
+                   "fused_layer_train_bwd_attn")
+
+
+def cuda_collectives() -> dict:
+    """{collective: True or the error} for a CUDA tensor in the default
+    group's backend (gloo where ranks share the card)."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for name, call in (("all_reduce", lambda t: dist.all_reduce(t)),
+                       ("broadcast", lambda t: dist.broadcast(t, 0)),
+                       ("all_gather", lambda t: dist.all_gather(
+                           [torch.empty_like(t) for _ in range(dist.get_world_size())], t))):
+        try:
+            call(torch.ones(4, device="cuda"))
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as ex:  # noqa: BLE001 — what the backend refuses is the answer
+            out[name] = (str(ex).splitlines() or [type(ex).__name__])[0][:160]
+    return out
+
+
+def item11_rank(spec_path: str) -> int:
+    """One torchrun rank of the item11 phase: each of the spec's runs (the
+    finetune CLI, the demo) in this process, in turn, its kernel counts set
+    to 0 just before it and read just after; the infos with each run's
+    seconds go to <out>.rank<r>.json. The demo's run is left out, with the
+    reason, where gloo takes no all-reduce of CUDA tensors."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+    from motionstyle_torch.parallel import mesh as mesh_lib
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    info = {"rank": rank, "runs": []}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with mesh_lib.distributed("cuda"):
+        import torch.distributed as dist
+
+        info["backend"] = dist.get_backend()
+        info["collectives"] = cuda_collectives()
+        for run in spec["runs"]:
+            if run["kind"] == "demo" and info["collectives"]["all_reduce"] is not True:
+                info["runs"].append({"kind": "demo", "skipped": "gloo takes no all_reduce on "
+                                     "CUDA tensors here"})
+                continue
+            random.seed(10)  # the loader's crops and captions, as the world-1 run's
+            _zero_counts(ft)
+            fused_encoder_layer.launches = 0
+            t0 = time.perf_counter()
+            out = (finetune_main if run["kind"] == "finetune" else demo_main)(run["argv"])
+            torch.cuda.synchronize()
+            info["runs"].append({
+                "kind": run["kind"], "out": out, "seconds": time.perf_counter() - t0,
+                "counts": {n: c[0] for n, c in _prior_counts(ft).items() if n in TRAIN_NAMES},
+                "k1": fused_encoder_layer.launches})
+    with open(f"{spec['out']}.rank{rank}.json", "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def torchrun(spec: dict, nproc: int = 2) -> tuple:
+    """Run item11_rank on nproc ranks under torchrun (its own process group,
+    killed whole on a timeout); returns (each rank's info, seconds)."""
+    with open(spec["out"] + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), os.path.abspath(__file__), "--item11-rank", spec["out"] + ".spec.json"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=ITEM11_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        import signal
+
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"torchrun of {[r['kind'] for r in spec['runs']]} on {nproc} ranks exited 0 "
+                   f"(got {rc})")
+    infos = []
+    for r in range(nproc):
+        with open(f"{spec['out']}.rank{r}.json") as f:
+            infos.append(json.load(f))
+    return infos, secs
+
+
+def csv_losses(save_dir: str) -> list:
+    import csv
+
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        return [float(r["loss"]) for r in csv.DictReader(f)]
+
+
+def fsdp_arm(card: str, tmp_root: str) -> dict:
+    """(b): the finetune trainer at full width with fsdp on a world-1 NCCL
+    mesh and the training kernels, 3 steps against the plain trainer's
+    (rtol 1e-3); its DCP checkpoint restored into a plain trainer,
+    parameters and Adam moments bit-equal. Returns kernels 5-7's launches
+    in the FSDP run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from motionstyle_torch.diffusion.schedule import make_schedule
+    from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.parallel import mesh as mesh_lib
+    from motionstyle_torch.train.finetune import FinetuneConfig, StyleFinetuneTrainer
+
+    rs = np.random.RandomState(11)
+    B, C, T = FINETUNE_BATCH, 181, 76
+    inp = np.zeros((1, C, 1, T), np.float32)
+    inp[:, :3] = 1.0
+    batches = [{"x_start": rs.randn(B, C, 1, T).astype(np.float32),
+                "content": rs.randn(1, C, 1, T).astype(np.float32),
+                "style_target": rs.randn(1, C, 1, T).astype(np.float32),
+                "mask": np.ones((1, 1, 1, T), np.float32), "inp_mask": inp,
+                "enc_text_style": rs.randn(1, 512).astype(np.float32),
+                "enc_text_t2m": rs.randn(B, 512).astype(np.float32),
+                "inp_mask_t2m": np.repeat(inp, B, 0),
+                "frame_mask_t2m": np.ones((B, T), bool),
+                "text_features": rs.randn(1, 512).astype(np.float32)}
+               for _ in range(ITEM11_STEPS)]
+    sched = make_schedule("cosine", 1000, "ddim20", device="cuda")
+
+    def trainer(name, mesh=None, fsdp=False):
+        torch.manual_seed(0)
+        model = StyleDiffusion(MDMConfig(fused_train=True)).cuda()
+        cfg = FinetuneConfig(save_dir=os.path.join(tmp_root, "item11", name), seed=10,
+                             save_interval=10 ** 9, lr=1e-4)
+        return StyleFinetuneTrainer(cfg, model, sched, mesh=mesh, fsdp=fsdp)
+
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp_root, "item11_pg"),
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh(1, device="cuda")
+        t0 = time.perf_counter()
+        fs = trainer("fsdp", mesh, fsdp=True)
+        sharded = [type(p).__name__ for p, _ in fs.params[:1]]
+        _zero_counts(ft)
+        got = [fs.run_step(dict(b))["loss"] for b in batches]
+        torch.cuda.synchronize()
+        counts = {n: c[0] for n, c in _prior_counts(ft).items() if n in TRAIN_NAMES}
+        fs_secs = time.perf_counter() - t0
+        plain = trainer("plain")
+        want = [plain.run_step(dict(b))["loss"] for b in batches]
+        print(f"  (b) fsdp trainer on a world-1 {dist.get_backend()} mesh, parameters "
+              f"{sharded[0]}: losses {got}; plain trainer {want}; kernels 5-7 launches "
+              f"{counts}; {fs_secs:.4f} s on {card}", flush=True)
+        check(np.allclose(got, want, rtol=1e-3), "(b) fsdp losses within rtol 1e-3 of the "
+                                                 "plain trainer's")
+        check(all(counts[n] == w * ITEM11_STEPS for n, w in zip(ITEM11_FT_NAMES, ITEM11_FT_WANT)),
+              "(b) kernels 5 / 6 / 7 launched 104 / 56 / 56 times a step under fsdp")
+        path = fs.save_dcp(ITEM11_STEPS)
+        other = trainer("restored")
+        check(other.load_sharded(path) == ITEM11_STEPS, "(b) the DCP step restored")
+        a, b = fs.optimizer_leaves(), other.optimizer_leaves()
+        same = len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+        pa = {k: mesh_lib.full_tensor(v).cpu() for k, v in
+              fs.model.style_encoder.state_dict().items()}
+        pb = {k: v.cpu() for k, v in other.model.style_encoder.state_dict().items()}
+        same_p = pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+        print(f"  (b) {path}: {len(a)} optimizer leaves, {len(pa)} parameters restored into a "
+              "plain trainer", flush=True)
+        check(same and same_p, "(b) the DCP checkpoint restores parameters and Adam moments "
+                               "bit-equal")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def item11_phase(card: str, data_dir: str, tmp_root: str, mdm_path: str,
+                 model_path: str) -> dict:
+    """ROADMAP item 11 at full width on the one card (see the module
+    docstring's phase 26). Returns the launches of kernels 1 and 5-7."""
+    import numpy as np
+    import torch
+
+    from motionstyle_torch.cli.demo_style_transfer import main as demo_main
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.ops import fused_encoder_train as ft
+    from motionstyle_torch.ops.fused_encoder import fused_encoder_layer
+
+    root = os.path.join(tmp_root, "item11")
+    os.makedirs(root, exist_ok=True)
+
+    def ft_argv(save_dir: str, *extra) -> list:
+        return ["--dataset", "stylexia_posrot", "--data_dir", data_dir, "--mdm_path", mdm_path,
+                "--save_dir", os.path.join(root, save_dir), "--fused", "1", "--fused_train", "1",
+                "--batch_size", str(FINETUNE_BATCH), "--layers", str(FINETUNE_LAYERS),
+                "--num_steps", str(ITEM11_STEPS), "--skip_render", "--seed", "10",
+                "--train_platform_type", "NoPlatform", "--device", "cuda", *extra]
+
+    # (a) and (c): one torchrun of two ranks sharing the card, the data-
+    # parallel finetune, then the demo's tensor parallelism
+    demo = ["--model_path", model_path, "--input_content", DEMO_CONTENT, "--data_dir", data_dir,
+            "--skip_render", "--num_samples", str(DEMO_SAMPLES), "--seed", "10",
+            "--device", "cuda"]
+    infos, secs = torchrun({"out": os.path.join(root, "ranks"), "runs": [
+        {"kind": "finetune", "argv": ft_argv("dp", "--data_parallel", "1")},
+        {"kind": "demo", "argv": demo + ["--output_dir", os.path.join(root, "demo_tp"),
+                                         "--model_parallel", "2"]}]})
+    print(f"  torch.distributed backend with 2 ranks on the card: {infos[0]['backend']}; "
+          f"collectives on CUDA tensors: {infos[0]['collectives']}; torchrun {secs:.4f} s",
+          flush=True)
+    ranks_ft = [i["runs"][0] for i in infos]
+    losses2 = csv_losses(ranks_ft[0]["out"])
+    random.seed(10)
+    _zero_counts(ft)
+    fused_encoder_layer.launches = 0
+    t0 = time.perf_counter()
+    one = finetune_main(ft_argv("one"))
+    torch.cuda.synchronize()
+    one_secs = time.perf_counter() - t0
+    one_counts = {n: c[0] for n, c in _prior_counts(ft).items() if n in TRAIN_NAMES}
+    k1_one = fused_encoder_layer.launches
+    losses1 = csv_losses(one)
+    print(f"  (a) finetune --data_parallel 1 on 2 ranks (global batch {FINETUNE_BATCH}): "
+          f"in-rank CLI {[round(r['seconds'], 4) for r in ranks_ft]} s; losses {losses2}; "
+          f"world-1 run {one_secs:.4f} s, losses {losses1}; per-rank kernels 5-7 launches "
+          f"{[r['counts'] for r in ranks_ft]}, kernel 1 {[r['k1'] for r in ranks_ft]}; on "
+          f"{card}", flush=True)
+    check(len(losses2) == len(losses1) == ITEM11_STEPS and
+          np.allclose(losses2, losses1, rtol=1e-3),
+          "(a) the 2-rank losses within rtol 1e-3 of the world-1 run's")
+    for r, run in enumerate(ranks_ft):
+        check(all(run["counts"][n] == w * ITEM11_STEPS
+                  for n, w in zip(ITEM11_FT_NAMES, ITEM11_FT_WANT)),
+              f"(a) rank {r} launched kernels 5 / 6 / 7 104 / 56 / 56 times a step")
+    launches = {n: sum(r["counts"][n] for r in ranks_ft) + one_counts[n] for n in TRAIN_NAMES}
+    launches["fused_encoder_layer"] = sum(r["k1"] for r in ranks_ft) + k1_one
+
+    # (b) fsdp on a world-1 NCCL mesh
+    t0 = time.perf_counter()
+    for n, c in fsdp_arm(card, tmp_root).items():
+        launches[n] += c
+    print(f"  (b) arm {time.perf_counter() - t0:.4f} s on {card}", flush=True)
+
+    # (c) the demo's tensor parallelism over the two ranks
+    ranks_demo = [i["runs"][1] for i in infos]
+    if "skipped" in ranks_demo[0]:
+        print(f"  (c) not run: {ranks_demo[0]['skipped']} "
+              f"({infos[0]['collectives']['all_reduce']})", flush=True)
+        return launches
+    t0 = time.perf_counter()
+    want = np.load(os.path.join(demo_main(demo + ["--output_dir", os.path.join(root, "demo1")]),
+                                "results.npy"), allow_pickle=True).item()["hml"]
+    one_secs = time.perf_counter() - t0
+    got = np.load(os.path.join(ranks_demo[0]["out"], "results.npy"),
+                  allow_pickle=True).item()["hml"]
+    err = float(np.abs(got - want).max())
+    print(f"  (c) demo --model_parallel 2 on 2 ranks: in-rank CLI "
+          f"{[round(r['seconds'], 4) for r in ranks_demo]} s; world-1 demo {one_secs:.4f} s; "
+          f"hml {got.shape} max_abs {err:.6g} on {card}", flush=True)
+    check(got.shape == want.shape and err <= ITEM11_DEMO_ATOL,
+          f"(c) the tensor-parallel demo within atol {ITEM11_DEMO_ATOL} of the world-1 demo")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5299,6 +5587,8 @@ def main() -> int:
             launches_eval = eval_phase(card, tmp, data_dir, prior_path)
         with phase("item12"):
             launches_item12 = item12_phase(card, data_dir, tmp, mdm_path)
+        with phase("item11"):
+            launches_item11 = item11_phase(card, data_dir, tmp, mdm_path, model_path)
         with phase("quality"):
             launches_quality = quality_phase(card, tmp)
     # each kernel's launches on the paths that run it: kernels 5 and 7 on the
@@ -5329,6 +5619,11 @@ def main() -> int:
     launches += launches_item12["fused_encoder_layer"]
     for n in TRAIN_NAMES:
         train_launches[n] += launches_item12[n]
+    # scale-out: kernels 5-7 on every rank of the data-parallel finetune, its
+    # world-1 twin and the fsdp trainer; kernel 1 in the finetunes' sampling
+    launches += launches_item11["fused_encoder_layer"]
+    for n in TRAIN_NAMES:
+        train_launches[n] += launches_item11[n]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name="fused_encoder_layer", route="cuda",
@@ -5373,4 +5668,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--item11-rank":
+        sys.exit(item11_rank(sys.argv[2]))
     sys.exit(main())

@@ -49,8 +49,21 @@ Run:  python -m motionstyle_torch.cli.demo_style_transfer \\
         --input_content 306neutral_running.npy [--skip_render] [--quant_int8 1]
 
 --profile DIR writes a torch.profiler trace of the sampling repetitions
-(utils.profile_trace), as the JAX CLI traces them (:338-392). Not ported
-(each raises before any work, naming its ROADMAP item): mesh serving.
+(utils.profile_trace), as the JAX CLI traces them (:338-392).
+
+Mesh serving (parallel/), under torchrun, one process per rank, as the JAX
+CLI serves on a mesh (:227-336): --model_parallel N runs the transfer
+through ShardedSampler on a (data x model) mesh with the encoder layers
+split over N ranks (with --fused 1 or --quant_int8 1 the kernels run
+instead on every rank with the whole weights, as GSPMD gathers them for the
+JAX CLI's Pallas call); --pipeline_parallel N GPipe-schedules the style
+encoder over N stages (--pipeline_micro microbatches); --sequence_parallel N
+splits the frames over N ranks. The data dim takes the largest divisor of
+the sample count that the rest of the world allows, and must fill the world.
+Every rank samples; rank 0 alone writes the outputs.
+
+    torchrun --standalone --nproc_per_node 2 -m motionstyle_torch.cli.\
+        demo_style_transfer --model_path ... --model_parallel 2
 """
 from __future__ import annotations
 
@@ -74,6 +87,7 @@ from motionstyle_torch.diffusion.ddpm import Inpainting, cfg_model_fn
 from motionstyle_torch.diffusion.forecast_sampling import forecast_sample_loop
 from motionstyle_torch.diffusion.longform import longform_sample
 from motionstyle_torch.diffusion.parallel_sampling import parallel_sample_loop
+from motionstyle_torch.parallel import mesh as mesh_lib
 from motionstyle_torch.post.footskate import remove_fs
 from motionstyle_torch.post.ik import fit_joints_bvh
 from motionstyle_torch.post.render import plot_3d_motion
@@ -95,22 +109,70 @@ PRIOR_GUIDANCE = 2.5  # the humanml content's classifier-free guidance (:144-176
 # transfer's (the JAX CLI folds 1 into its key, :126)
 PRIOR_SEED = 0x5EED
 
-# flag, when it asks for something not ported, what it needs
-REFUSED = (
-    ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
-    ("pipeline_parallel", lambda v: v > 1, "pipeline-parallel serving (ROADMAP §1 item 11)"),
-    ("sequence_parallel", lambda v: v > 1, "sequence-parallel serving (ROADMAP §1 item 11)"),
-)
+LAYOUTS = ("model_parallel", "pipeline_parallel", "sequence_parallel")
 
 
 def check_supported(args) -> None:
-    """Raise NotImplementedError for what this slice of the port does not run."""
-    for flag, asks, what in REFUSED:
-        if asks(getattr(args, flag)):
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
+    """Raise NotImplementedError for what the port does not run; a mesh
+    layout that does not divide the world raises the JAX CLI's ValueError
+    (:241-247, :273-283, :315-320) before any work."""
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
+    world = mesh_lib.world_size()
+    for flag in LAYOUTS:
+        n = getattr(args, flag)
+        if n > 1 and world % n != 0:
+            raise ValueError(f"--{flag} {n} does not divide the visible device count {world}")
+
+
+def sharded_sampler(args, model, sched_ddim, skip: int, stop, dump_all_xstart: bool,
+                    dev):
+    """The JAX CLI's mesh serving (:227-336): a ShardedSampler over the
+    (data x model|pipe|seq) mesh that --model_parallel, --pipeline_parallel
+    or --sequence_parallel asks for, or None without one."""
+    import math
+
+    from motionstyle_torch.parallel.inference import ShardedSampler
+    from motionstyle_torch.parallel.pipeline import pipelined_style_model_fn_builder
+    from motionstyle_torch.parallel.sequence import seq_parallel_style_model_fn_builder
+
+    flag = next((f for f in LAYOUTS if getattr(args, f) > 1), None)
+    if flag is None:
+        return None
+    par, world = getattr(args, flag), mesh_lib.world_size()
+    guided = args.dataset == "humanml" and args.guidance_param not in (0, 1)
+    dp = math.gcd(world // par, max(1, args.num_samples))
+    axis = flag.split("_")[0]
+    mesh = mesh_lib.make_mesh(dp * par, device=args.device, **{flag: par})
+    if flag == "pipeline_parallel":
+        if model.cfg.num_layers % par:
+            raise ValueError(f"--pipeline_parallel {par} does not divide the encoder depth "
+                             f"{model.cfg.num_layers}")
+        per_shard = max(1, args.num_samples * (2 if guided else 1) // dp)
+        n_micro = min(args.pipeline_micro or per_shard, per_shard)
+        while per_shard % n_micro:
+            n_micro -= 1
+        inner = pipelined_style_model_fn_builder(model, mesh, n_micro)
+        mesh_lib.say(f"serving over a ({dp} data x {par} pipe) mesh, {n_micro} microbatches")
+    elif flag == "sequence_parallel":
+        inner = seq_parallel_style_model_fn_builder(model, mesh)
+        mesh_lib.say(f"serving over a ({dp} data x {par} seq) mesh")
+    else:
+        inner = lambda params: (  # noqa: E731
+            lambda x, t, c: params(x, t, c.get("enc_text")))
+        mesh_lib.say(f"serving over a ({dp} data x {par} {axis}) mesh")
+
+    def builder(params):
+        fn = inner(params)
+        if not guided:
+            return fn
+        # the guidance scale of the rank's rows
+        return lambda x, t, c: cfg_model_fn(fn, torch.full(
+            (x.shape[0],), args.guidance_param, device=dev))(x, t, c)
+
+    return ShardedSampler(mesh, sched_ddim, builder, model, method="ddim",
+                          skip_timesteps=skip, stop_timesteps=stop,
+                          dump_all_xstart=dump_all_xstart)
 
 
 def caption(args, name: str) -> str:
@@ -183,8 +245,14 @@ def prior_content(args, sched_full, model, enc_text, shape, lf: int, dev) -> tup
 
 def main(argv=None):
     args = eval_inpainting_style_args(argv)
-    check_supported(args)
+    with mesh_lib.distributed(args.device):
+        check_supported(args)
+        return run(args)
+
+
+def run(args):
     spec = DATASETS[args.dataset]
+    main_rank = mesh_lib.is_main()
     max_frames = spec["max_frames"]
     humanml = args.dataset == "humanml"
     name = os.path.basename(os.path.dirname(args.model_path))
@@ -196,9 +264,10 @@ def main(argv=None):
     out_path = pjoin(args.output_dir or os.path.dirname(args.model_path), run_name)
     if args.input_text:
         out_path += "_" + args.input_text.replace(" ", "_").replace(".", "")
-    if os.path.exists(out_path):
-        shutil.rmtree(out_path)
-    os.makedirs(out_path)
+    if main_rank:
+        if os.path.exists(out_path):
+            shutil.rmtree(out_path)
+        os.makedirs(out_path)
 
     print("creating data loader...")
     args.batch_size = args.num_samples
@@ -232,7 +301,7 @@ def main(argv=None):
 
     lf = args.long_frames
     if lf > 0:
-        for bad in ("parallel_window", "forecast_stride"):
+        for bad in ("parallel_window", "forecast_stride") + LAYOUTS:
             if getattr(args, bad) not in (0, 1):
                 raise SystemExit(f"--long_frames is incompatible with --{bad}")
         if lf <= max_frames:
@@ -294,6 +363,7 @@ def main(argv=None):
     if not dump_all_xstart:
         stop = None
     generator = torch.Generator(device=dev).manual_seed(args.seed)
+    sharded = sharded_sampler(args, model, sched_ddim, skip, stop, dump_all_xstart, dev)
     all_motions, all_hml, all_lengths, all_text = [], [], [], []
     with profile_trace(args.profile, enabled=bool(args.profile)):
         for rep_i in range(args.num_repetitions):
@@ -319,16 +389,21 @@ def main(argv=None):
                 sample = full[:, :, 0, :].transpose(0, 2, 1)
                 calls = "long-form"
             else:
-                res = sampling.sample_loop(
-                    sched_ddim, model_fn, {"enc_text": enc_text}, generator,
-                    shape=tuple(content.shape), init_image=content, method="ddim",
-                    skip_timesteps=skip, stop_timesteps=stop, inpainting=inpainting,
-                    dump_all_xstart=dump_all_xstart)
+                if sharded is not None:
+                    res = sharded({"init_image": content, "cond": {"enc_text": enc_text},
+                                   "inpainting": inpainting}, generator)
+                else:
+                    res = sampling.sample_loop(
+                        sched_ddim, model_fn, {"enc_text": enc_text}, generator,
+                        shape=tuple(content.shape), init_image=content, method="ddim",
+                        skip_timesteps=skip, stop_timesteps=stop, inpainting=inpainting,
+                        dump_all_xstart=dump_all_xstart)
                 out = res[pick] if dump_all_xstart else res
                 sample = out[:, :, 0, :].permute(0, 2, 1).cpu().numpy()
                 calls = f"{len(res)} denoiser calls" if dump_all_xstart else "the whole chain"
-            print(f"sampling took {time.perf_counter() - t0:.4f} s ({calls}, "
-                  f"batch {args.num_samples}, on {dev})")
+            if main_rank:
+                print(f"sampling took {time.perf_counter() - t0:.4f} s ({calls}, "
+                      f"batch {args.num_samples}, on {dev})")
             denorm = ds.inv_transform(sample)
             all_hml.append(denorm)
             joints = recover_from_ric(torch.as_tensor(denorm, dtype=torch.float32), spec["joints"])
@@ -337,6 +412,8 @@ def main(argv=None):
             all_text += texts
             print(f"created {len(all_motions) * args.batch_size} samples")
 
+    if not main_rank:
+        return out_path
     npy_path = pjoin(out_path, "results.npy")
     print(f"saving results file to [{npy_path}]")
     np.save(npy_path, {

@@ -85,6 +85,7 @@ def main(argv=None):
     from motionstyle_torch.serve import export as sx
 
     t0 = time.perf_counter()
+    args.model_parallel = 1  # artifacts target one serving card (JAX :66)
     buckets = sorted({int(b) for b in args.buckets.split(",")})
     plans, text_plans = {}, {}
     for platform in args.platforms:

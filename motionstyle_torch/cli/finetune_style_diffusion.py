@@ -41,8 +41,23 @@ Run:  python -m motionstyle_torch.cli.finetune_style_diffusion \\
 tensorboardX), ClearML or nowhere (train/platforms.py); --native_loader 1
 assembles the batches in C++ and --prefetch N keeps N ready in a thread
 (native/loader.py); --profile DIR writes a torch.profiler trace of the step
-loop (utils.profile_trace). Not on this slice (each raises, naming its
-ROADMAP item): mesh training and orbax checkpoints.
+loop (utils.profile_trace).
+
+Scale-out (parallel/mesh.py), under torchrun, one process per rank, each on
+the card LOCAL_RANK names (NCCL, or gloo where ranks share a card):
+--data_parallel 1 splits the batch over the ranks (the style pair whole on
+every rank), --model_parallel N splits the encoder layers over N of them
+(plain layers: --fused_train is refused with it, as the JAX CLI refuses
+it), --fsdp 1 shards the style encoder and its moments over 'data' (one
+FSDP2 unit, the encoder stack, so the training kernels get whole weights),
+--orbax_checkpoints 1 also writes dcp_{step}/ (train/checkpoints.py). Every
+rank runs the whole CLI; rank 0 alone writes args.json, logs, progress.csv,
+model*.pt, opt*.pt and the renders, every rank its DCP shards. Each rank
+builds the same global batch from the same seeded loader and trains on its
+rows of it.
+
+    torchrun --standalone --nproc_per_node 2 -m motionstyle_torch.cli.\
+        finetune_style_diffusion ... --data_parallel 1 --fused_train 1
 """
 from __future__ import annotations
 
@@ -64,6 +79,7 @@ from motionstyle_torch.data.masks import BVH_JOINT_NAMES, get_inpainting_mask
 from motionstyle_torch.diffusion import sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting, q_sample
 from motionstyle_torch.eval.style_metrics import transfer_report
+from motionstyle_torch.parallel import mesh as mesh_lib
 from motionstyle_torch.post.footskate import remove_fs
 from motionstyle_torch.post.ik import fit_joints_bvh
 from motionstyle_torch.post.render import plot_3d_motion
@@ -81,21 +97,8 @@ DATASET_DEFAULTS = {
     "stylexia_posrot": dict(example="350angry_jumping.npy", joints=20, max_frames=76),
 }
 
-# flag -> (value that means "off", what it needs), checked before any work
-UNSUPPORTED = {
-    "data_parallel": (0, "mesh training (ROADMAP §1 item 11)"),
-    "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
-    "fsdp": (0, "mesh training (ROADMAP §1 item 11)"),
-    "orbax_checkpoints": (0, "sharded checkpoints (ROADMAP §1 item 11)"),
-}
-
-
 def check_supported(args) -> None:
-    """Raise NotImplementedError for what this slice of the port does not run."""
-    for flag, (off, what) in UNSUPPORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
+    """Raise NotImplementedError for what the port does not run."""
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 
@@ -235,23 +238,32 @@ class AutoStopEvaluator:
 def main(argv=None):
     args = finetune_inpainting_style_args(argv)
     check_supported(args)
+    with mesh_lib.distributed(args.device):
+        return run(args)
+
+
+def run(args):
     defaults = DATASET_DEFAULTS[args.dataset]
     if not args.style_example:
         args.style_example = defaults["example"]
     max_frames = defaults["max_frames"]
+    main_rank = mesh_lib.is_main()
 
     if os.path.exists(args.save_dir) and not args.overwrite and os.listdir(args.save_dir):
         raise FileExistsError(f"save_dir [{args.save_dir}] already exists.")
+    mesh_lib.barrier()  # every rank has looked before rank 0 writes
     args.save_dir = pjoin(args.save_dir, os.path.basename(args.style_example)[:-4])
     os.makedirs(args.save_dir, exist_ok=True)
     model_util.warn_if_clip_fallback(args)
     # which package wrote the run: a style base without a resume_checkpoint
     # is this package's seeded init only (model_util._style_base)
     args.package = model_util.PACKAGE
-    with open(pjoin(args.save_dir, "args.json"), "w") as fw:
-        json.dump(vars(args), fw, indent=4, sort_keys=True)
-    logger.configure(args.save_dir, format_strs=("stdout", "csv"))
-    platform = get_platform(args.train_platform_type, args.save_dir)
+    if main_rank:
+        with open(pjoin(args.save_dir, "args.json"), "w") as fw:
+            json.dump(vars(args), fw, indent=4, sort_keys=True)
+    logger.configure(args.save_dir, format_strs=("stdout", "csv") if main_rank else ())
+    platform = get_platform(args.train_platform_type if main_rank else "NoPlatform",
+                            args.save_dir)
     platform.report_args(args, name="Args")
 
     print("creating data loader...")
@@ -303,7 +315,7 @@ def main(argv=None):
             inpainting=Inpainting(inp_mask, input_motions), dump_all_xstart=True)
         neutral = xstarts[-1]
     print(f"neutral content took {time.perf_counter() - t0:.3f} s")
-    if not args.skip_render:
+    if not args.skip_render and main_rank:
         render_neutral(args, ds, neutral, input_motions, inp_mask, m_length, sched_full)
 
     # ---- finetune ----
@@ -323,8 +335,15 @@ def main(argv=None):
         semantic_guidance=bool(args.semantic_guidance), ls_weight=args.Ls,
         cond_mask_prob=args.cond_mask_prob, resume_checkpoint=args.resume_checkpoint,
         seed=args.seed, parallel_unroll=bool(args.parallel_finetune),
-        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
-    trainer = StyleFinetuneTrainer(ft_cfg, model, sched, platform)
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+        orbax_checkpoints=bool(args.orbax_checkpoints))
+    mesh = mesh_lib.cli_training_mesh(bool(args.data_parallel), args.model_parallel,
+                                      args.batch_size, label="finetune",
+                                      fused_train=cfg.fused_train, device=args.device)
+    if args.fsdp and mesh is None:
+        raise SystemExit("--fsdp needs a mesh: pass --data_parallel 1")
+    trainer = StyleFinetuneTrainer(ft_cfg, model, sched, platform, mesh=mesh,
+                                   fsdp=bool(args.fsdp))
     print("Total params: %.2fM trainable" % (sum(p.numel() for p, _ in trainer.params) / 1e6))
     trainer.install_preemption_handler()
     auto = None
@@ -362,8 +381,9 @@ def main(argv=None):
                 terms = trainer.run_step(batch)
                 sweeps = (f", {terms['picard_sweeps']:.0f} sweeps"
                           if "picard_sweeps" in terms else "")
-                print(f"step[{step}]: loss[{terms['loss']:0.5f}] "
-                      f"({time.perf_counter() - t0:.3f} s{sweeps})")
+                if main_rank:
+                    print(f"step[{step}]: loss[{terms['loss']:0.5f}] "
+                          f"({time.perf_counter() - t0:.3f} s{sweeps})")
                 logger.dumpkvs()
                 step += 1
                 if auto is not None and auto.due(step) and step < args.num_steps \
@@ -373,7 +393,8 @@ def main(argv=None):
     if auto is not None:
         if auto.selected is None and not trainer.preempted:
             auto.evaluate(step)  # the budget ran out: record where the run ended
-        auto.dump(args.save_dir)
+        if main_rank:
+            auto.dump(args.save_dir)
     trainer.merge_into_model()  # with LoRA, what follows runs the merged style
     trainer.restore_signal_handlers()
     platform.close()
@@ -390,7 +411,7 @@ def main(argv=None):
         inpainting=Inpainting(inp_mask, input_motions))
     if not torch.isfinite(sample).all():
         raise RuntimeError("the final style resample is not finite")
-    if not args.skip_render:
+    if not args.skip_render and main_rank:
         rec = ds.inv_transform(sample[0, :, 0, :].T.cpu().numpy())
         joints = recover_from_ric(torch.as_tensor(rec, dtype=torch.float32),
                                   defaults["joints"]).numpy()

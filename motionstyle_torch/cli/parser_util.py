@@ -3,8 +3,8 @@ motionstyle/cli/parser_util.py: finetune_inpainting_style_args,
 eval_inpainting_style_args with the args.json round trip, and their option
 groups; parity: utils/parser_util.py). Flag names, groups and defaults are
 the JAX package's, so one command line drives either package; --device names
-a torch device ('cuda' unless asked). Flags of parts that are not ported yet
-are parsed and refused by the CLIs (check_supported).
+a torch device ('cuda' unless asked). The CLIs refuse what they do not run
+(check_supported).
 """
 from __future__ import annotations
 
@@ -115,11 +115,22 @@ def add_finetune_options(parser):
     group.add_argument("--log_interval", default=1, type=int)
     group.add_argument("--save_interval", default=100, type=int)
     group.add_argument("--num_steps", default=24, type=int)
-    group.add_argument("--parallel_finetune", default=0, type=int, help="not ported")
-    group.add_argument("--data_parallel", default=0, type=int, help="not ported")
-    group.add_argument("--model_parallel", default=1, type=int, help="not ported")
-    group.add_argument("--fsdp", default=0, type=int, help="not ported")
-    group.add_argument("--orbax_checkpoints", default=0, type=int, help="not ported")
+    group.add_argument("--parallel_finetune", default=0, type=int,
+                       help="1 = the Picard-parallel DDIM unroll in the finetune loss")
+    group.add_argument("--data_parallel", default=0, type=int,
+                       help="1 = split the batch over the ranks torchrun starts ('data' "
+                            "dim of parallel/mesh.py); equal to one rank's steps")
+    group.add_argument("--model_parallel", default=1, type=int,
+                       help="tensor-parallel degree: split the encoder layers Megatron-style "
+                            "over a 'model' dim of this many ranks (it must divide the "
+                            "heads); composes with --data_parallel")
+    group.add_argument("--fsdp", default=0, type=int,
+                       help="1 = shard the trained weights and Adam's moments over 'data' "
+                            "(FSDP2); needs --data_parallel 1")
+    group.add_argument("--orbax_checkpoints", default=0, type=int,
+                       help="1 = also write the whole trainer state as a sharded DCP "
+                            "checkpoint dcp_{step}/ (train/checkpoints.py; the port's "
+                            "format, not the JAX package's orbax)")
     group.add_argument("--num_frames", default=60, type=int)
     group.add_argument("--lora_rank", default=0, type=int,
                        help="> 0: train rank-r LoRA factors on the style encoder's dense "
@@ -132,7 +143,9 @@ def add_finetune_options(parser):
                        help="JAX-only; the port draws dropout from torch generators")
     group.add_argument("--skip_render", action="store_true",
                        help="skip the BVH/mp4 visualization outputs")
-    group.add_argument("--auto_stop", default=0, type=int, help="not ported")
+    group.add_argument("--auto_stop", default=0, type=int,
+                       help="1 = pick the operating point by the style metrics "
+                            "(AutoStopEvaluator, auto_stop.json)")
     group.add_argument("--auto_stop_ratio", default=0.90, type=float)
     group.add_argument("--auto_stop_content", default=0.6, type=float)
     group.add_argument("--auto_stop_interval", default=0, type=int)
@@ -187,10 +200,17 @@ def add_sampling_options(parser):
                             "finetuned style, >1 exaggerated)")
     group.add_argument("--style_mix", default="", type=str,
                        help="blend finetuned styles 'ckptA.pt:0.6,ckptB.pt:0.4'")
-    group.add_argument("--model_parallel", default=1, type=int, help="not ported")
-    group.add_argument("--pipeline_parallel", default=1, type=int, help="not ported")
-    group.add_argument("--pipeline_micro", default=0, type=int)
-    group.add_argument("--sequence_parallel", default=1, type=int, help="not ported")
+    group.add_argument("--model_parallel", default=1, type=int,
+                       help="tensor-parallel serving: the sampler on a (data x model) mesh "
+                            "of the ranks torchrun starts, the layers split over 'model'")
+    group.add_argument("--pipeline_parallel", default=1, type=int,
+                       help="pipeline-parallel serving: the style encoder's layers in this "
+                            "many GPipe stages on a (data x pipe) mesh")
+    group.add_argument("--pipeline_micro", default=0, type=int,
+                       help="microbatches per pipeline (0 = the per-data-shard batch)")
+    group.add_argument("--sequence_parallel", default=1, type=int,
+                       help="sequence-parallel serving: the frame axis over a (data x seq) "
+                            "mesh, k and v all-gathered")
     group.add_argument("--skip_render", action="store_true")
     return group
 

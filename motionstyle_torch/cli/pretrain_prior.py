@@ -26,9 +26,19 @@ reads it.
 draws every dropout mask and seed from torch generators. --native_loader 1
 and --prefetch N take the C++ batch assembly and a prefetching thread
 (native/loader.py); --profile DIR writes a torch.profiler trace of the step
-loop (utils.profile_trace), which the JAX CLI parses and ignores. Not on this
-slice (each raises, naming its ROADMAP item): mesh training (--data_parallel,
---model_parallel, --pipeline_parallel, --fsdp).
+loop (utils.profile_trace), which the JAX CLI parses and ignores.
+
+Scale-out (parallel/mesh.py), under torchrun, one process per rank:
+--data_parallel 1 splits the batch over the ranks; --model_parallel N splits
+the encoder layers over N of them; --pipeline_parallel N GPipe-schedules the
+prior's encoder stack over N stages (parallel/pipeline.py), each batch in
+--pipeline_micro microbatches (0: the largest divisor of the shard's batch
+up to 2N); --fsdp 1 shards the prior and its moments over 'data'. The JAX
+CLI's exits hold: --model_parallel and --pipeline_parallel exclude each
+other, --fused_train takes data parallelism only, --fsdp needs
+--data_parallel 1 and no pipeline. Rank 0 alone writes the files; mdm*.pt
+and opt*.pt stay layout-independent, so a pipelined run resumes on a plain
+one and back.
 """
 from __future__ import annotations
 
@@ -45,18 +55,10 @@ from motionstyle_torch.cli.parser_util import (
     add_base_options, add_data_options, add_diffusion_options, add_model_options)
 from motionstyle_torch.data.collate import get_dataset_loader, require_batches
 from motionstyle_torch.diffusion.resample import SCHEDULE_SAMPLERS
+from motionstyle_torch.parallel import mesh as mesh_lib
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.pretrain import PretrainConfig, PriorTrainer
 from motionstyle_torch.utils import profile_trace
-
-# flag -> (value that means "off", what it needs), checked before any work
-REFUSED = {
-    "data_parallel": (0, "mesh training (ROADMAP §1 item 11)"),
-    "model_parallel": (1, "mesh training (ROADMAP §1 item 11)"),
-    "pipeline_parallel": (1, "pipeline-parallel training (ROADMAP §1 item 11)"),
-    "fsdp": (0, "sharded training (ROADMAP §1 item 11)"),
-}
-
 
 def parse_args(argv=None):
     parser = ArgumentParser()
@@ -86,11 +88,19 @@ def parse_args(argv=None):
     parser.add_argument("--dropout_rng_impl", default="rbg", choices=["rbg", "threefry"],
                         help="the JAX package's dropout bit generator; the port draws "
                              "from torch generators whatever it says")
-    parser.add_argument("--data_parallel", default=0, type=int, help="not ported")
-    parser.add_argument("--model_parallel", default=1, type=int, help="not ported")
-    parser.add_argument("--pipeline_parallel", default=1, type=int, help="not ported")
-    parser.add_argument("--pipeline_micro", default=0, type=int)
-    parser.add_argument("--fsdp", default=0, type=int, help="not ported")
+    parser.add_argument("--data_parallel", default=0, type=int,
+                        help="1 = split the batch over the ranks torchrun starts")
+    parser.add_argument("--model_parallel", default=1, type=int,
+                        help="tensor-parallel degree over a 'model' dim of the ranks")
+    parser.add_argument("--pipeline_parallel", default=1, type=int,
+                        help="GPipe stages of the prior's encoder over a 'pipe' dim of the "
+                             "ranks (parallel/pipeline.py); excludes --model_parallel and "
+                             "--fused_train")
+    parser.add_argument("--pipeline_micro", default=0, type=int,
+                        help="microbatches per pipeline (0 = auto)")
+    parser.add_argument("--fsdp", default=0, type=int,
+                        help="1 = shard the prior and Adam's moments over 'data' (needs "
+                             "--data_parallel 1)")
     parser.add_argument("--ema_rate", default=0.0, type=float,
                         help="EMA rate of the prior's weights (e.g. 0.9999); writes "
                              "mdm_ema.pt and ema{step:09d}.pt; 0 = off")
@@ -102,11 +112,7 @@ def parse_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise NotImplementedError for what this slice of the port does not run."""
-    for flag, (off, what) in REFUSED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: {what} is not ported to motionstyle_torch")
+    """Raise NotImplementedError for what the port does not run."""
     if args.arch != "trans_enc":
         raise NotImplementedError(f"--arch {args.arch}: StyleDiffusion is trans_enc only")
 
@@ -114,14 +120,21 @@ def check_supported(args) -> None:
 def main(argv=None):
     args = parse_args(argv)
     check_supported(args)
+    with mesh_lib.distributed(args.device):
+        return run(args)
+
+
+def run(args):
     # the factory expects the style-inpainting arg surface
     args.semantic_discriminator_path = ""
     args.model_path = ""
+    main_rank = mesh_lib.is_main()
 
     os.makedirs(args.save_dir, exist_ok=True)
-    with open(pjoin(args.save_dir, "args.json"), "w") as fw:
-        json.dump(vars(args), fw, indent=4, sort_keys=True)
-    logger.configure(args.save_dir, format_strs=("stdout", "csv"))
+    if main_rank:
+        with open(pjoin(args.save_dir, "args.json"), "w") as fw:
+            json.dump(vars(args), fw, indent=4, sort_keys=True)
+    logger.configure(args.save_dir, format_strs=("stdout", "csv") if main_rank else ())
 
     data = require_batches(get_dataset_loader(args.dataset, args.batch_size, args.num_frames,
                                               split="train", data_root=args.data_dir or None,
@@ -129,13 +142,21 @@ def main(argv=None):
                                               prefetch=args.prefetch),
                            "pretrain_prior")
     bundle, _, sched_full = model_util.creat_serval_diffusion(args, device=args.device)
+    mesh = mesh_lib.cli_training_mesh(bool(args.data_parallel), args.model_parallel,
+                                      args.batch_size, label="pretraining",
+                                      fused_train=bundle.cfg.fused_train,
+                                      pipeline_parallel=args.pipeline_parallel,
+                                      device=args.device)
     cfg = PretrainConfig(save_dir=args.save_dir, lr=args.lr, weight_decay=args.weight_decay,
                          num_steps=args.num_steps, log_interval=args.log_interval,
                          save_interval=args.save_interval, cond_mask_prob=args.cond_mask_prob,
                          seed=args.seed, lr_anneal_steps=args.lr_anneal_steps,
                          grad_accum=args.grad_accum, resume_checkpoint=args.resume_checkpoint,
-                         schedule_sampler=args.schedule_sampler, ema_rate=args.ema_rate)
-    trainer = PriorTrainer(cfg, bundle.model, sched_full)
+                         schedule_sampler=args.schedule_sampler, ema_rate=args.ema_rate,
+                         pipeline_micro=args.pipeline_micro)
+    if args.fsdp and mesh is None:
+        raise SystemExit("--fsdp needs a mesh: pass --data_parallel 1")
+    trainer = PriorTrainer(cfg, bundle.model, sched_full, mesh=mesh, fsdp=bool(args.fsdp))
     print("Total prior params: %.2fM" % (
         sum(p.numel() for p in bundle.model.mdm.parameters()) / 1e6))
 
@@ -155,8 +176,9 @@ def main(argv=None):
                 loss = trainer.run_step(batch)  # a 0-d tensor on the device
                 step = trainer.step + trainer.resume_step - 1
                 if args.log_interval and step % args.log_interval == 0:
-                    print(f"prior step[{step}]: loss[{float(loss):0.5f}] "
-                          f"({time.perf_counter() - t0:.3f} s)")
+                    if main_rank:
+                        print(f"prior step[{step}]: loss[{float(loss):0.5f}] "
+                              f"({time.perf_counter() - t0:.3f} s)")
                     logger.dumpkvs()
             if trainer.preempted:
                 path = trainer.save_step()

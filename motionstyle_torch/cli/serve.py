@@ -1,5 +1,6 @@
 """Style-transfer serving CLI for the PyTorch port: an HTTP endpoint over the
-dynamic-batching engine, running the demo's min-latency plan on one card.
+dynamic-batching engine, running the demo's min-latency plan on one card or,
+under torchrun, on a mesh of ranks.
 
 Counterpart of motionstyle/cli/serve.py. Requests carrying a normalised
 content motion and a caption are coalesced into padded device batches,
@@ -32,18 +33,31 @@ Content longer than the model window is served long-form: the transfer runs
 over chained windows (diffusion/longform.py), each window a normal engine
 request that coalesces with concurrent single-clip traffic; POST /v1/stream
 answers it window by window as NDJSON. The flags of the shared option groups
-that a server does not run are refused (REFUSED), each naming its ROADMAP
-item where one covers it.
+that a server does not run are refused (REFUSED).
+
+On a mesh (torchrun, one process per rank; the JAX server's mesh over every
+device): the ranks form a (data x model) mesh with --model_parallel N ranks
+on 'model' (the encoder layers split Megatron-style; with --fused or
+--quant_int8 the kernels run on every rank with the whole weights) and the
+rest on 'data', each data rank sampling its rows of a device batch. Rank 0
+runs HTTP and the engine and broadcasts each device batch to the other
+ranks (a header, then the tensors: Leader); they run the same sampler call
+(follow) until rank 0's sentinel ends them.
+
+    torchrun --standalone --nproc_per_node 2 -m motionstyle_torch.cli.serve \
+        --model_path ... --model_parallel 2
 """
 from __future__ import annotations
 
 from argparse import ArgumentParser
 
 import numpy as np
+import torch
+
+from motionstyle_torch.parallel import mesh as mesh_lib
 
 # flag, when it asks for something the server does not run, what it needs
 REFUSED = (
-    ("model_parallel", lambda v: v > 1, "model-parallel serving (ROADMAP §1 item 11)"),
     # StyleDiffusion is trans_enc only in both packages
     # (motionstyle/cli/model_util.py:44-51); --emb_trans_dec has no effect on it
     ("arch", lambda v: v != "trans_enc",
@@ -74,9 +88,12 @@ def build_sampler(args):
     traces this same sampler."""
     from motionstyle_torch.cli import model_util
     from motionstyle_torch.diffusion.sampling import min_latency_plan
-    from motionstyle_torch.parallel.inference import Sampler
+    from motionstyle_torch.parallel.inference import Sampler, ShardedSampler
 
     njoints, nframes = DATASET_DIMS[args.dataset]
+    mp, ndev = max(1, args.model_parallel), mesh_lib.world_size()
+    if ndev % mp:
+        raise SystemExit(f"--model_parallel {mp} does not divide {ndev} devices")
     bundle, sched_ddim, _ = model_util.creat_serval_diffusion(
         args, args.timestep_respacing, device=args.device)
     model_util.apply_style_strength(bundle, args)
@@ -86,9 +103,89 @@ def build_sampler(args):
     def builder(model):
         return lambda x, t_orig, cond: model(x, t_orig, cond.get("enc_text"))
 
-    sampler = Sampler(sched_ddim, builder, bundle.model, method="ddim",
-                      skip_timesteps=skip, stop_timesteps=stop, dump_all_xstart=True)
+    kw = dict(method="ddim", skip_timesteps=skip, stop_timesteps=stop, dump_all_xstart=True)
+    if ndev == 1:
+        return bundle, Sampler(sched_ddim, builder, bundle.model, **kw), \
+            (njoints, 1, nframes), pick
+    mesh = mesh_lib.make_mesh(ndev, model_parallel=mp, device=args.device)
+    mesh_lib.say(f"serving over a ({ndev // mp} data x {mp} model) mesh")
+    sampler = ShardedSampler(mesh, sched_ddim, builder, bundle.model, **kw)
     return bundle, sampler, (njoints, 1, nframes), pick
+
+
+class Leader:
+    """Rank 0's sampler on a mesh: each call first broadcasts the device
+    batch, a header object (the cond keys, the item seeds, the style's name
+    and the shape of each array that follows) and then each array as a
+    tensor on the sampler's device, for follow() to run the same call on
+    the other ranks. styles: {name: style-encoder state}, the engine's."""
+
+    def __init__(self, sampler, styles: dict):
+        self.sampler = sampler
+        self.device = sampler.device
+        self._views = {id(state): (name, sampler.prepare_params(state))
+                       for name, state in styles.items()}
+        self._names = {id(view): name for name, view in self._views.values()}
+
+    def prepare_params(self, state):
+        return self._views[id(state)][1]
+
+    def __call__(self, batch: dict, generator=None, params=None):
+        import torch.distributed as dist
+
+        cond = batch.get("cond", {})
+        arrays = [cond[k] for k in sorted(cond)]
+        arrays += [batch["init_image"]] if "init_image" in batch else []
+        arrays += [batch["inpainting"].mask] if "inpainting" in batch else []
+        arrays = [torch.as_tensor(np.asarray(a, np.float32)).to(self.device) for a in arrays]
+        header = {"cond": sorted(cond), "item_seeds": batch.get("item_seeds"),
+                  "shape": batch.get("shape"), "init": "init_image" in batch,
+                  "mask": "inpainting" in batch, "style": self._names.get(id(params)),
+                  "shapes": [tuple(a.shape) for a in arrays]}
+        dist.broadcast_object_list([header], src=0)
+        for a in arrays:
+            dist.broadcast(a.contiguous(), src=0)
+        return self.sampler(batch, generator, params)
+
+    def close(self):
+        """The sentinel that ends follow() on the other ranks."""
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([None], src=0)
+
+
+def follow(sampler, styles: dict) -> int:
+    """The other ranks' loop: receive each device batch that rank 0's Leader
+    broadcasts and run the same sampler call, until the sentinel. Returns
+    the number of batches run."""
+    import torch.distributed as dist
+
+    from motionstyle_torch.diffusion.ddpm import Inpainting
+
+    prepared = {name: sampler.prepare_params(state) for name, state in styles.items()}
+    n = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        header = box[0]
+        if header is None:
+            return n
+        arrays = [torch.empty(s, dtype=torch.float32, device=sampler.device)
+                  for s in header["shapes"]]
+        for a in arrays:
+            dist.broadcast(a, src=0)
+        k = len(header["cond"])
+        batch = {"cond": dict(zip(header["cond"], arrays[:k])),
+                 "item_seeds": header["item_seeds"]}
+        rest = arrays[k:]
+        if header["init"]:
+            batch["init_image"] = rest.pop(0)
+        else:
+            batch["shape"] = header["shape"]
+        if header["mask"]:
+            batch["inpainting"] = Inpainting(rest.pop(0), batch["init_image"])
+        sampler(batch, None, prepared[header["style"]] if header["style"] else None)
+        n += 1
 
 
 def _payload_content(payload: dict, njoints: int) -> np.ndarray:
@@ -149,6 +246,8 @@ def build_engine(args):
         buckets = (1, 2, 4, 8)
         styles = (model_util.load_named_styles(args, args.styles, bundle.cfg, bundle.device)
                   if args.styles else {})
+        if mesh_lib.world_size() > 1:
+            sampler = Leader(sampler, styles)
     if styles:
         print(f"multi-style serving: {sorted(styles)} (one model, a style "
               f"encoder each)")
@@ -264,7 +363,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--skip_steps", default=700, type=int)
     parser.add_argument("--timestep_respacing", default="ddim20", type=str)
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="model-parallel serving across cards (not ported)")
+                        help="tensor-parallel degree of a (data x model) mesh of the ranks "
+                             "torchrun starts")
     parser.add_argument("--host", default="127.0.0.1", type=str)
     parser.add_argument("--port", default=8500, type=int)
     parser.add_argument("--max_batch", default=8, type=int)
@@ -307,6 +407,32 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    with mesh_lib.distributed(args.device) as world:
+        if world > 1 and args.artifact:
+            raise SystemExit("an artifact serves on one card: run it without torchrun")
+        if mesh_lib.is_main():
+            serve(args)
+        else:
+            follow_rank(args)
+
+
+def follow_rank(args) -> None:
+    """A rank other than 0: the same sampler and styles, fed by rank 0. It
+    leaves SIGTERM (which torchrun sends every rank) to rank 0, whose drain
+    ends with the sentinel."""
+    import signal
+
+    from motionstyle_torch.cli import model_util
+
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    bundle, sampler, _, _ = build_sampler(args)
+    styles = (model_util.load_named_styles(args, args.styles, bundle.cfg, bundle.device)
+              if args.styles else {})
+    n = follow(sampler, styles)
+    print(f"rank {mesh_lib.rank()}: served {n} device batches", flush=True)
+
+
+def serve(args) -> None:
     from motionstyle_torch.serve.server import MotionServer
 
     engine, decode, handle, stream = build_engine(args)
@@ -341,6 +467,8 @@ def main(argv=None):
         server.close()
     for t in closers:
         t.join()
+    if isinstance(engine.sampler, Leader):
+        engine.sampler.close()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ import torch
 from motionstyle_torch.diffusion import ddpm, sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn, PMeanVariance
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+from motionstyle_torch.parallel.mesh import draw_rows
 
 
 def forecast_plan(num_steps: int, stride: int) -> tuple:
@@ -84,7 +85,7 @@ def forecast_sample_loop(
     device = sched.device
     if noise is None:
         assert shape is not None, "need shape when noise is not given"
-        img = torch.randn(shape, generator=generator, device=device)
+        img = draw_rows(lambda s: torch.randn(s, generator=generator, device=device), shape)
     else:
         img = noise.to(device=device, dtype=torch.float32)
         shape = tuple(img.shape)
@@ -128,7 +129,8 @@ def forecast_sample_loop(
         if step_noise is not None:
             noise_step = step_noise[i].to(device)
         else:
-            noise_step = torch.randn(shape, generator=generator, device=device)
+            noise_step = draw_rows(lambda s: torch.randn(s, generator=generator, device=device),
+                                   shape)
         if method == "ddim":
             x = sampling._ddim_update(sched, pmv, x, t, noise_step, inpainting, eta)
         else:

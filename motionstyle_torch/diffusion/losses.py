@@ -38,6 +38,7 @@ from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
 from motionstyle_torch.diffusion.parallel_sampling import (
     parallel_sample_loop, tile_cond, tile_inpainting)
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+from motionstyle_torch.parallel.mesh import draw_rows
 
 _COS_EPS = 1e-6
 
@@ -75,22 +76,27 @@ def few_shot_style_finetune_loss(
     noise_t2m: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     parallel_unroll: bool = False,
+    model_fn_t2m: Optional[ModelFn] = None,
 ) -> dict:
     """The loss terms. x_start: dataset batch (B, C, 1, T), the semantic
     branch's input; x_content_start: the neutral content (the unroll's warm
     start); x_style_start: the style example (the target). t: (B,) respaced
     timesteps for the semantic branch. skip_steps is in original timesteps
     and, with use_ddim, rescaled onto the respaced grid as the reference
-    does (:1345). Unpinned draws come from `generator`."""
+    does (:1345). Unpinned draws come from `generator`. model_fn_t2m runs
+    the semantic branch's forward in model_fn's place when given (a data
+    rank seeds that forward from the global batch's first timestep)."""
     terms: dict = {}
     if semantic_guidance:
         if motion_enc_fn is None or text_features is None:
             raise ValueError("semantic guidance needs motion_enc_fn and text_features")
         if noise_t2m is None:
-            noise_t2m = torch.rand(x_start.shape, generator=generator, device=x_start.device)
+            noise_t2m = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                                           device=x_start.device), x_start.shape)
         inp_t2m = None if inpainting_t2m_mask is None else Inpainting(inpainting_t2m_mask, x_start)
         x_t = ddpm.q_sample(sched, x_start, t, noise_t2m, inpainting=inp_t2m)
-        mu = motion_enc_fn(model_fn(x_t, sched.timestep_map[t], cond_t2m), cond_t2m)
+        mu = motion_enc_fn((model_fn_t2m or model_fn)(x_t, sched.timestep_map[t], cond_t2m),
+                           cond_t2m)
         terms["text_cosine"] = cosine_guidance_loss(text_features, mu)
 
     if use_ddim:

@@ -32,6 +32,7 @@ from motionstyle_torch.diffusion import ddpm
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
 from motionstyle_torch.diffusion.sampling import _ddim_update, _ddpm_update, timestep_indices
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+from motionstyle_torch.parallel.mesh import draw_rows
 
 
 def tile_batch(a: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
@@ -90,7 +91,7 @@ def parallel_sample_loop(
     device = sched.device
     if noise is None:
         assert shape is not None, "need shape when noise is not given"
-        img = torch.randn(shape, generator=generator, device=device)
+        img = draw_rows(lambda s: torch.randn(s, generator=generator, device=device), shape)
     else:
         img = noise.to(device=device, dtype=torch.float32)
         shape = tuple(img.shape)
@@ -116,7 +117,8 @@ def parallel_sample_loop(
     elif deterministic:
         table = None
     else:
-        table = torch.randn((S,) + shape, generator=generator, device=device)
+        table = draw_rows(lambda s: torch.randn(s, generator=generator, device=device),
+                          (S,) + shape, dim=1)
 
     # per-position posterior variance for the convergence threshold
     sigma2_all = torch.where(idx_t != 0, torch.exp(sched.posterior_log_variance_clipped[idx_t]),

@@ -37,6 +37,7 @@ from motionstyle_torch.diffusion import ddpm
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
 from motionstyle_torch.ops.sampler_update import fused_ddpm_update
+from motionstyle_torch.parallel.mesh import draw_rows
 
 
 def timestep_indices(num_timesteps: int, skip_timesteps: int,
@@ -146,7 +147,7 @@ def sample_loop(
         device = sched.device
         if noise is None:
             assert shape is not None, "need shape when noise is not given"
-            img = torch.randn(shape, generator=generator, device=device)
+            img = draw_rows(lambda s: torch.randn(s, generator=generator, device=device), shape)
         else:
             img = noise.to(device=device, dtype=torch.float32)
             shape = tuple(img.shape)
@@ -188,7 +189,8 @@ def sample_loop(
             elif method == "ddim" and eta == 0.0:
                 noise_step = torch.zeros_like(x)  # multiplied by sigma = 0
             else:
-                noise_step = torch.randn(shape, generator=generator, device=device)
+                noise_step = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                                             device=device), shape)
             if const_noise:
                 noise_step = noise_step[:1].expand(shape)
 

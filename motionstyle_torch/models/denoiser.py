@@ -48,6 +48,7 @@ from torch import nn
 
 from motionstyle_torch.models.transformer import (
     GRUStack, TransformerDecoder, TransformerEncoder, dense)
+from motionstyle_torch.parallel.mesh import draw_rows
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -186,7 +187,8 @@ class MDM(nn.Module):
         xseq = xseq + self.pe.to(xseq.dtype)[None, : xseq.shape[1]]
         if not deterministic and self.cfg.dropout > 0.0:
             keep = 1.0 - self.cfg.dropout
-            bits = torch.rand(xseq.shape, generator=generator, device=xseq.device)
+            bits = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                                      device=xseq.device), xseq.shape)
             xseq = xseq * ((bits < keep).to(xseq.dtype) / keep)
         return xseq
 
@@ -385,6 +387,7 @@ def mask_cond(enc_text: torch.Tensor, cond_mask_prob: float,
     probability cond_mask_prob (parity: mask_cond :288-296, JAX :409-415)."""
     if cond_mask_prob <= 0.0:
         return enc_text
-    keep = torch.rand((enc_text.shape[0], 1), generator=generator,
-                      device=enc_text.device) < 1.0 - cond_mask_prob
+    keep = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                              device=enc_text.device),
+                     (enc_text.shape[0], 1)) < 1.0 - cond_mask_prob
     return enc_text * keep.to(enc_text.dtype)

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from motionstyle_torch.models.denoiser import MDMConfig
+from motionstyle_torch.parallel.mesh import full_tensor
 
 # recomputed buffers of the reference prior, never loaded
 _BUFFERS = ("sequence_pos_encoder.pe", "embed_timestep.sequence_pos_encoder.pe")
@@ -66,7 +67,11 @@ def convert_encoder(sd: Dict[str, np.ndarray], prefix: str, num_layers: int
 
 
 def _cpu_state(module: nn.Module, prefix: str = "") -> Dict[str, torch.Tensor]:
-    return {prefix + k: v.detach().float().cpu().clone() for k, v in module.state_dict().items()}
+    """Whole fp32 CPU copies; an FSDP shard is gathered first (so on a mesh
+    every rank calls this) and a tensor-parallel layer's state_dict gathers
+    its own (parallel/mesh.py)."""
+    return {prefix + k: full_tensor(v).detach().float().cpu().clone()
+            for k, v in module.state_dict().items()}
 
 
 def export_encoder(encoder: nn.Module) -> Dict[str, torch.Tensor]:

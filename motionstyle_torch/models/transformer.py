@@ -138,7 +138,10 @@ class TransformerEncoder(nn.Module):
         drop = not deterministic and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("a training forward with dropout needs a torch.Generator")
-        if use_fused and deterministic:
+        # tensor-parallel layers (parallel/mesh.py) are plain: the kernels
+        # carry no collectives, as the JAX encoder's carry none (:207-218)
+        plain = any(getattr(layer, "tensor_parallel", False) for layer in self.layers)
+        if use_fused and deterministic and not plain:
             refuse_grad(x, *self.parameters())
             if torch.compiler.is_compiling():
                 # traced (torch.export with the parameters as inputs): the
@@ -151,7 +154,7 @@ class TransformerEncoder(nn.Module):
         # the int8 layer has no training kernels: with use_int8 a training
         # forward takes the plain layers, as the JAX encoder does
         # (motionstyle/models/transformer.py:217-218)
-        if fused_train and not deterministic and not use_int8:
+        if fused_train and not deterministic and not use_int8 and not plain:
             return fused_encoder_train(
                 x, [layer_params(layer) for layer in self.layers], self.nhead,
                 self.dropout, generator, key_padding_mask, store_probs,

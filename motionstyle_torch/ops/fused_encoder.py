@@ -76,6 +76,8 @@ from typing import Optional
 
 import torch
 
+from motionstyle_torch.parallel.mesh import refuse_dtensor
+
 _NEG = -1e9
 _BF16 = torch.bfloat16
 
@@ -476,6 +478,7 @@ def packed_params(params: list, int8: bool) -> dict:
     each set of tensor versions. The copies hang on the in-projection weight
     (attribute _kernel_formats), so they live as long as the parameters they
     were made from."""
+    refuse_dtensor(*params)
     versions = tuple((t.data_ptr(), t._version) for t in params)
     formats = getattr(params[0], "_kernel_formats", {})
     hit = formats.get(int8)

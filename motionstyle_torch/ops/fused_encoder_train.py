@@ -55,6 +55,7 @@ import torch
 from motionstyle_torch.ops.fused_encoder import (
     _bf16_dot, _cdiv, _check_cuda_inputs as _check_layer, _layernorm, _plan_for,
     additive_key_mask, gelu_tanh, pack)
+from motionstyle_torch.parallel.mesh import draw_rows, refuse_dtensor
 
 _BF16 = torch.bfloat16
 _EPS = 1e-5
@@ -79,7 +80,8 @@ def make_dropout_masks(generator: torch.Generator, shape, rate: float,
     scale = torch.tensor(1.0 / keep, dtype=dtype)
 
     def mk(d):
-        bits = torch.rand((B, S, d), generator=generator, device=generator.device)
+        bits = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                                  device=generator.device), (B, S, d))
         return ((bits < keep).to(dtype) * scale.to(bits.device)).contiguous()
 
     return mk(D), mk(dim_feedforward), mk(D)
@@ -146,8 +148,9 @@ def draw_dropout_seeds(generator: torch.Generator, num_layers: int, batch: int) 
     """(num_layers, batch) int32 seeds over the full 32-bit range on the
     generator's device, as the JAX stack's jax.random.bits(...).astype(int32)
     (:839-846)."""
-    return torch.randint(-2 ** 31, 2 ** 31, (num_layers, batch), generator=generator,
-                         device=generator.device, dtype=torch.int64).to(torch.int32)
+    return draw_rows(lambda shape: torch.randint(-2 ** 31, 2 ** 31, shape, generator=generator,
+                                                 device=generator.device, dtype=torch.int64),
+                     (num_layers, batch), dim=1).to(torch.int32)
 
 
 def _check_dropout(masks, seeds, rate: float):
@@ -769,6 +772,7 @@ def fused_encoder_train(x: torch.Tensor, layers: Sequence[dict], num_heads: int,
     make_dropout_masks is never called."""
     if dropout > 0.0 and generator is None:
         raise ValueError("dropout > 0 needs a torch.Generator")
+    refuse_dtensor(*(t for params in layers for t in params.values()))
     B, S, D = x.shape
     seeds = None
     if dropout > 0.0 and in_kernel_prng:

@@ -1,20 +1,41 @@
-"""One-device batched sampler with the interface the serving engine uses.
+"""Batched samplers with the interface the serving engine uses.
 
-Counterpart of motionstyle/parallel/inference.py::ShardedSampler without the
-mesh: one card. The engine calls make_run, n_live_steps, needs_step_noise,
-prepare_params and __call__; multi-device sampling comes with ROADMAP §1
-item 11 (torch.distributed).
+Counterpart of motionstyle/parallel/inference.py. The engine calls make_run,
+n_live_steps, needs_step_noise, prepare_params and __call__:
+
+  - Sampler: one card;
+  - ShardedSampler: the same over a mesh (parallel/mesh.py). Each data rank
+    samples its rows of the batch and the results are all-gathered, so
+    every rank returns the whole batch; its draws are its rows of the
+    global batch's (mesh.batch_rows), so the samples equal one device's.
+    With 'model' > 1 the encoder layers are split Megatron-style
+    (mesh.TensorParallelEncoderLayer). Under cfg.fused or cfg.quant_int8
+    the kernels run instead on every rank with the whole weights (kernel 1
+    or 2 on each data rank's rows), as GSPMD gathers the weights of the
+    JAX package's Pallas call under --model_parallel. parallel_window
+    serves through the Picard sampler, forecast_stride through the
+    forecast sampler. A DDPM chain with fused_update (kernel 3) draws its
+    noise in the kernel from each element's place in the rank's own rows,
+    so there a data rank's noise is not its rows of one device's;
+  - data_parallel_sample: one sample_loop call with the batch over 'data'.
+
+Every rank of the mesh must make the same calls in the same order: the
+server's rank 0 broadcasts each device batch to the others
+(cli/serve.py).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from motionstyle_torch.diffusion import sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
+from motionstyle_torch.parallel import mesh as mesh_lib
 
 
 def _as_tensor(a, device, dtype=torch.float32):
@@ -133,3 +154,145 @@ class Sampler:
             self.params if params is None else params, init_image, cond, inpainting,
             _as_tensor(batch.get("noise"), dev), _as_tensor(batch.get("step_noise"), dev),
             batch.get("item_seeds"), generator)
+
+
+# the forecast sampler takes these of sample_loop's kwargs (JAX :48-52)
+FORECAST_KWARGS = {"method", "skip_timesteps", "stop_timesteps", "clip_denoised", "eta",
+                   "sigma_small", "order", "step_noise", "remat"}
+
+
+def place_for_serving(model, mesh):
+    """The model laid out for sampling on `mesh`: with 'model' > 1 a copy
+    whose encoder layers are split over that dim, unless the model runs
+    the fused kernels (cfg.fused or cfg.quant_int8), which take the whole
+    weights on every rank. Without a model dim, the model itself."""
+    if model is None or mesh is None or mesh_lib.axis_size(mesh, "model") == 1:
+        return model
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and (cfg.fused or cfg.quant_int8):
+        return model
+    return mesh_lib.shard_tensor_parallel(copy.deepcopy(model),
+                                          mesh_lib.axis_group(mesh, "model"))
+
+
+def _gather_rows(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Every data rank's rows (along dim) in rank order, on every rank."""
+    n = mesh_lib.axis_size(mesh, "data")
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=mesh_lib.axis_group(mesh, "data"))
+    return torch.cat(parts, dim=dim)
+
+
+class ShardedSampler(Sampler):
+    """Data-parallel (and tensor-parallel) batched sampler over a mesh; with
+    mesh=None it runs on one card. model_fn_builder(params) ->
+    model_fn(x, t_orig, cond); `params` is the model module."""
+
+    def __init__(self, mesh, sched: DiffusionSchedule, model_fn_builder: Callable, params,
+                 parallel_window: int = 0, forecast_stride: int = 1, **sample_kwargs):
+        """parallel_window > 0: each call runs the Picard-parallel sampler
+        (diffusion/parallel_sampling.py) with that window; forecast_stride >
+        1: the forecast sampler (diffusion/forecast_sampling.py), which
+        takes a subset of sample_loop's kwargs (checked here)."""
+        if parallel_window > 0 and forecast_stride > 1:
+            raise ValueError("parallel_window and forecast_stride are mutually exclusive")
+        if forecast_stride > 1:
+            unsupported = set(sample_kwargs) - FORECAST_KWARGS
+            if unsupported:
+                raise ValueError(
+                    f"forecast_stride does not support kwargs {sorted(unsupported)}")
+        super().__init__(sched, model_fn_builder, place_for_serving(params, mesh),
+                         **sample_kwargs)
+        self.mesh = mesh
+        self.parallel_window = parallel_window
+        self.forecast_stride = forecast_stride
+
+    @classmethod
+    def min_latency(cls, mesh, sched: DiffusionSchedule, model_fn_builder: Callable, params):
+        """The demo's DDIM skip-14 inpainting chain stopped at t=4 (the
+        dump[-5] pick in 2 denoiser calls, sampling.min_latency_plan); take
+        [-1] of the returned x0 stack."""
+        return cls(mesh, sched, model_fn_builder, params, method="ddim",
+                   skip_timesteps=14, stop_timesteps=4, dump_all_xstart=True)
+
+    def prepare_params(self, encoder_state: dict):
+        """A named style's model (Sampler.prepare_params) laid out on the
+        mesh as the served model is."""
+        view = style_view(self.params, encoder_state)
+        if mesh_lib.tensor_parallel_layers(self.params):
+            mesh_lib.shard_tensor_parallel(view.style_encoder,
+                                           mesh_lib.axis_group(self.mesh, "model"))
+        return view
+
+    def _loop(self, model_fn, cond, generator, shape, init_image, inpainting, noise,
+              step_noise):
+        kw = self.sample_kwargs
+        if self.parallel_window > 0:
+            from motionstyle_torch.diffusion.parallel_sampling import parallel_sample_loop
+
+            if noise is not None or step_noise is not None:
+                raise ValueError("per-item pinned noise is not supported with parallel_window")
+            sample, _ = parallel_sample_loop(
+                self.sched, model_fn, cond, generator, shape=shape, init_image=init_image,
+                inpainting=inpainting, window=self.parallel_window,
+                **{k: v for k, v in kw.items() if k != "remat"})
+            return sample
+        if self.forecast_stride > 1:
+            from motionstyle_torch.diffusion.forecast_sampling import forecast_sample_loop
+
+            return forecast_sample_loop(
+                self.sched, model_fn, cond, generator, shape=shape, init_image=init_image,
+                inpainting=inpainting, stride=self.forecast_stride, noise=noise,
+                **{k: v for k, v in kw.items() if k != "remat"},
+                **({} if step_noise is None else {"step_noise": step_noise}))
+        return sampling.sample_loop(
+            self.sched, model_fn, cond, generator, shape=shape, init_image=init_image,
+            inpainting=inpainting, noise=noise, step_noise=step_noise, **kw)
+
+    def make_run(self, shape: tuple) -> Callable:
+        """run(params, init_image, cond, inpainting, noise, step_noise,
+        item_seeds, generator) over the whole batch of `shape`: each data
+        rank takes its rows, draws them as the global batch's rows (or from
+        their items' seeds) and the results are gathered."""
+        shape = tuple(shape)
+        rows = mesh_lib.data_rows(self.mesh, shape[0]) if self.mesh is not None \
+            else (0, shape[0])
+        a, b = rows
+        dump = bool(self.sample_kwargs.get("dump_all_xstart"))
+
+        def mine(x, dim=0):
+            return None if x is None else x.narrow(dim, a, b - a)
+
+        def run(params, init_image, cond, inpainting, noise, step_noise, item_seeds,
+                generator):
+            local = (b - a,) + shape[1:]
+            if item_seeds is not None:
+                noise, step_noise = self.item_noise(list(item_seeds)[a:b], shape[1:])
+            else:
+                noise, step_noise = mine(noise), mine(step_noise, 1)
+            if inpainting is not None:
+                inpainting = Inpainting(*(mine(t) if t.shape[0] == shape[0] else t
+                                          for t in inpainting))
+            drawing = contextlib.nullcontext() if b - a == shape[0] else \
+                mesh_lib.batch_rows(a, b, shape[0])
+            with drawing:
+                out = self._loop(self.model_fn_builder(params),
+                                 {k: mine(v) for k, v in cond.items()}, generator, local,
+                                 mine(init_image), inpainting, noise, step_noise)
+            return out if self.mesh is None else _gather_rows(out, self.mesh, 1 if dump else 0)
+
+        return run
+
+
+def data_parallel_sample(mesh, sched: DiffusionSchedule, model_fn, cond: dict,
+                         generator: Optional[torch.Generator], shape: tuple, **kwargs):
+    """One sample_loop with the batch over the mesh's 'data' dim; every rank
+    returns the whole batch, equal to one device's."""
+    batch = {"shape": shape, "cond": cond}
+    for name in ("init_image", "inpainting"):
+        if kwargs.get(name) is not None:
+            batch[name] = kwargs[name]
+        kwargs.pop(name, None)
+    return ShardedSampler(mesh, sched, lambda params: model_fn, None, **kwargs)(batch, generator)

@@ -39,6 +39,7 @@ adapter{step}.pt, onto the base the caller built.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -57,6 +58,8 @@ from motionstyle_torch.models import lora
 from motionstyle_torch.models.denoiser import StyleDiffusion, mask_cond
 from motionstyle_torch.models.params import (
     convert_encoder, encoder_leaves, export_style_encoder, flax_to_torch, torch_to_flax)
+from motionstyle_torch.parallel import mesh as mesh_lib
+from motionstyle_torch.train import checkpoints
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.preemption import PreemptionMixin
 
@@ -90,6 +93,9 @@ class FinetuneConfig:
     # alpha 0 means alpha = rank (scale 1)
     lora_rank: int = 0
     lora_alpha: float = 0.0
+    # also write the whole trainer state (parameters, Adam's moments, step)
+    # as a sharded DCP checkpoint dcp_{step:09d}/ (train/checkpoints.py)
+    orbax_checkpoints: bool = False
 
 
 def parse_resume_step_from_filename(filename: str) -> int:
@@ -114,26 +120,31 @@ def find_resume_checkpoint(save_dir: str, mode: str = "model") -> Optional[str]:
 
 
 def optimizer_state_leaves(opt: torch.optim.Optimizer, params: list,
-                           schedule_count: Optional[int] = None) -> list:
+                           schedule_count: Optional[int] = None, full=None) -> list:
     """An AdamW's state as the JAX trainers flatten their optax.adamw state:
     [Adam count, mu leaves..., nu leaves..., (the LR schedule's count)] as
     numpy arrays, int32 counts and fp32 moments in flax's layout. params:
-    (parameter, transposed) in flax leaf order."""
+    (parameter, transposed) in flax leaf order. full(i, t): the whole
+    tensor of parameter i's moment t on a mesh (a collective)."""
+    full = full or (lambda i, t: t)
     states = [opt.state.get(p, {}) for p, _ in params]
     count = int(states[0]["step"]) if "step" in states[0] else 0
-    moments = [torch_to_flax(st.get(name, torch.zeros_like(p)), transposed)
+    moments = [torch_to_flax(full(i, st.get(name, torch.zeros_like(p))), transposed)
                for name in ("exp_avg", "exp_avg_sq")
-               for (p, transposed), st in zip(params, states)]
+               for i, ((p, transposed), st) in enumerate(zip(params, states))]
     leaves = [np.asarray(count, np.int32)] + moments
     if schedule_count is not None:
         leaves.append(np.asarray(schedule_count, np.int32))
     return leaves
 
 
-def load_optimizer_state_leaves(opt: torch.optim.Optimizer, params: list, leaves: list) -> int:
+def load_optimizer_state_leaves(opt: torch.optim.Optimizer, params: list, leaves: list,
+                                local=None, shapes=None) -> int:
     """Restore an AdamW's moments and step from optimizer_state_leaves'
     format; returns the LR schedule's count (the Adam count when the leaves
-    hold none)."""
+    hold none). On a mesh, shapes[i] is parameter i's whole shape and
+    local(i, t) its part of the whole moment t."""
+    local = local or (lambda i, t: t.to(params[i][0].device))
     n = len(params)
     if not isinstance(leaves, list) or len(leaves) not in (1 + 2 * n, 2 + 2 * n):
         raise ValueError(f"an optimizer state of {1 + 2 * n} or {2 + 2 * n} leaves "
@@ -144,12 +155,13 @@ def load_optimizer_state_leaves(opt: torch.optim.Optimizer, params: list, leaves
                 flax_to_torch(leaves[1 + n + i], transposed))
                for i, (_, transposed) in enumerate(params)]
     for i, ((p, _), (mu, nu)) in enumerate(zip(params, moments)):
-        if mu.shape != p.shape or nu.shape != p.shape:
+        shape = tuple(shapes[i]) if shapes else tuple(p.shape)
+        if tuple(mu.shape) != shape or tuple(nu.shape) != shape:
             raise ValueError(f"optimizer leaf {i}: moments of shape {tuple(mu.shape)} for "
-                             f"a parameter of shape {tuple(p.shape)}")
-    for (p, _), (mu, nu) in zip(params, moments):  # all checked: nothing half-loaded
+                             f"a parameter of shape {shape}")
+    for i, ((p, _), (mu, nu)) in enumerate(zip(params, moments)):  # all checked
         opt.state[p] = {"step": torch.tensor(float(count)),
-                        "exp_avg": mu.to(p.device), "exp_avg_sq": nu.to(p.device)}
+                        "exp_avg": local(i, mu), "exp_avg_sq": local(i, nu)}
     return int(np.asarray(leaves[-1])) if len(leaves) == 2 + 2 * n else count
 
 
@@ -175,12 +187,165 @@ def _mix(*parts: int) -> int:
     return h
 
 
-class StyleFinetuneTrainer(PreemptionMixin):
+class MeshMixin:
+    """What the finetune and pretrain trainers share on a mesh
+    (parallel/mesh.py): the placement of the model, the rank's rows of a
+    batch and its draws, the gradient mean over 'data', the whole tensors
+    of sharded parameters and moments for model*.pt and opt*.pt, and the
+    sharded DCP checkpoint (train/checkpoints.py). Without a mesh each is a
+    no-op. Every rank calls save() and the gathers in it; global rank 0
+    alone writes files.
+
+    The subclass sets self.mesh, self.fsdp, self.model, self.opt,
+    self.params ((parameter, transposed) in flax order), self._unit (the
+    module its parameters live in, the FSDP unit; None for LoRA factors)
+    and self._keys (their names in _unit)."""
+
+    mesh = None
+    fsdp = False
+    _unit = None
+    _keys: list = []
+    _shapes: list = []
+
+    def _place(self, unit: torch.nn.Module, keys: list) -> None:
+        """Make every rank's model rank 0's, then lay it out on the mesh:
+        tensor-parallel layers over 'model', with fsdp `unit` one FSDP2
+        unit over 'data'. Records each trained parameter's whole shape."""
+        self._unit, self._keys = unit, keys
+        named = dict(unit.named_parameters())
+        self._shapes = [tuple(named[k].shape) for k in keys]
+        if self.mesh is None:
+            return
+        mesh_lib.replicate(self.model)
+        mesh_lib.shard_params(self.model, self.mesh, fsdp=self.fsdp, unit=unit)
+
+    @property
+    def dp(self) -> int:
+        return mesh_lib.axis_size(self.mesh, "data")
+
+    def _rows(self, batch_size: int) -> Optional[tuple]:
+        """(start, stop, batch_size): this rank's rows over 'data', or None
+        with one data rank."""
+        if self.dp == 1:
+            return None
+        return mesh_lib.data_rows(self.mesh, batch_size) + (batch_size,)
+
+    @staticmethod
+    def _drawing(rows):
+        return contextlib.nullcontext() if rows is None else mesh_lib.batch_rows(*rows)
+
+    def _sync_grads(self) -> None:
+        """The gradient mean over 'data' (FSDP reduce-scatters its own)."""
+        if self.mesh is not None and not self.fsdp:
+            mesh_lib.sync_grads([p for g in self.opt.param_groups for p in g["params"]],
+                                self.mesh)
+
+    def _data_mean(self, terms: dict) -> dict:
+        """Each term's mean over the data ranks: the global batch's value."""
+        if self.dp == 1:
+            return terms
+        keys = sorted(terms)
+        flat = torch.stack([terms[k].detach().float().mean() for k in keys])
+        torch.distributed.all_reduce(flat, group=mesh_lib.axis_group(self.mesh, "data"))
+        return dict(zip(keys, flat / self.dp))
+
+    def _any_rank(self, flag: bool) -> bool:
+        """flag on any rank (the preemption signal reaches ranks at different
+        steps; all must save at the same step boundary)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return bool(t.item())
+
+    def _full(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        if self._unit is None or self.mesh is None:
+            return t
+        return mesh_lib.gather_full(self._unit, self._keys[i], t)
+
+    def _local(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        p = self.params[i][0]
+        if self._unit is None or self.mesh is None:
+            return t.to(p.device)
+        return mesh_lib.local_like(self._unit, self._keys[i], p, t)
+
+    def _init_moments(self) -> None:
+        """Zero moments at Adam count 0 where a parameter has none yet (the
+        state AdamW's first step would make)."""
+        for p, _ in self.params:
+            if not self.opt.state.get(p):
+                self.opt.state[p] = {"step": torch.tensor(0.0),
+                                     "exp_avg": torch.zeros_like(p),
+                                     "exp_avg_sq": torch.zeros_like(p)}
+
+    def _dcp_view(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """What the DCP checkpoint holds of parameter i's tensor t: t itself
+        (a replicated tensor, or an FSDP DTensor whose shards each rank
+        writes), or for a tensor-parallel shard the whole gathered tensor."""
+        if self._unit is not None and self.mesh is not None and \
+                mesh_lib.owner_of(self._unit, self._keys[i])[0] is not None:
+            return mesh_lib.gather_full(self._unit, self._keys[i], t)
+        return t.detach()
+
+    def sharded_state(self) -> tuple:
+        """(params, opt_state) for save_sharded: the trained parameters by
+        name, and per name Adam's moments, with the Adam and LR-schedule
+        counts under '_counts'."""
+        self._init_moments()
+        params, opt = {}, {}
+        for i, (p, _) in enumerate(self.params):
+            st = self.opt.state[p]
+            params[self._keys[i]] = self._dcp_view(i, p)
+            opt[self._keys[i]] = {k: self._dcp_view(i, st[k]) for k in ("exp_avg", "exp_avg_sq")}
+        count = self.opt.state[self.params[0][0]]["step"]
+        opt["_counts"] = {"adam": torch.as_tensor(count).detach().clone().float(),
+                          "schedule": torch.tensor(float(self.lr_schedule.last_epoch))}
+        return params, opt
+
+    def save_dcp(self, step: int) -> str:
+        params, opt = self.sharded_state()
+        return checkpoints.save_sharded(self.cfg.save_dir, step, params, opt)
+
+    def load_sharded(self, path: Optional[str] = None) -> int:
+        """Restore parameters, Adam's moments and counts from a DCP
+        checkpoint (default: the newest in save_dir) saved at any world size
+        or layout; the run continues from its step. Returns the step."""
+        path = path or checkpoints.latest_sharded(self.cfg.save_dir)
+        if path is None:
+            raise FileNotFoundError(f"no {checkpoints.PREFIX}* checkpoint in {self.cfg.save_dir}")
+        params, opt = self.sharded_state()
+        like = {"params": params, "opt_state": opt, "step": torch.tensor(0, dtype=torch.int64)}
+        checkpoints.restore_sharded(path, like)
+        with torch.no_grad():
+            for i, (p, _) in enumerate(self.params):
+                st, key = self.opt.state[p], self._keys[i]
+                for dst, src in ((p, params[key]), (st["exp_avg"], opt[key]["exp_avg"]),
+                                 (st["exp_avg_sq"], opt[key]["exp_avg_sq"])):
+                    if src.data_ptr() != dst.data_ptr():  # a gathered tensor-parallel copy
+                        dst.copy_(self._local(i, src))
+                st["step"] = opt["_counts"]["adam"].clone()
+        set_schedule_position(self.lr_schedule, int(opt["_counts"]["schedule"]), self._lr_factor)
+        self.step, self.resume_step = 0, int(like["step"])
+        return self.resume_step
+
+
+class StyleFinetuneTrainer(MeshMixin, PreemptionMixin):
     """Drives few-shot style finetuning of a StyleDiffusion model in place."""
 
     def __init__(self, cfg: FinetuneConfig, model: StyleDiffusion, sched: DiffusionSchedule,
-                 train_platform=None):
+                 train_platform=None, mesh=None, fsdp: bool = False):
+        """mesh: a parallel.mesh DeviceMesh to train on (data parallel, with
+        'model' > 1 tensor parallel too); fsdp: shard the style encoder and
+        its moments over 'data' (one FSDP2 unit, the encoder stack, whose
+        forward gathers the weights the training kernels read)."""
         self.cfg = cfg
+        self.mesh = mesh
+        self.fsdp = bool(fsdp and mesh is not None)
+        if mesh is not None and cfg.lora_rank > 0 and (
+                self.fsdp or mesh_lib.axis_size(mesh, "model") > 1):
+            raise ValueError("--lora_rank trains on --data_parallel only: the factors are "
+                             "merged into whole weights, which --fsdp and --model_parallel "
+                             "shard")
         self.model = model
         self.sched = sched
         self.platform = train_platform
@@ -199,11 +364,14 @@ class StyleFinetuneTrainer(PreemptionMixin):
         self.lora = None
         if cfg.lora_rank > 0:
             self.lora = self._init_factors()
-        trainable = []
         for name, p in model.named_parameters():
             p.requires_grad_(self.lora is None and model.is_trainable(name))
-            if p.requires_grad:
-                trainable.append(p)
+        if self.lora is None:
+            self._place(model.style_encoder,
+                        [key for _, key, _ in encoder_leaves(model.cfg.num_layers)])
+        elif mesh is not None:
+            mesh_lib.replicate(model)
+        trainable = [p for p in model.parameters() if p.requires_grad]
         # (parameter, transposed) of what trains, in the JAX trainer's flax leaf
         # order: the order of opt*.pt. AdamW keeps named_parameters' order, the
         # order of a torch state_dict of the port's earlier layout.
@@ -277,14 +445,18 @@ class StyleFinetuneTrainer(PreemptionMixin):
             for name, v in self.effective_weights().items():
                 self.model.get_parameter(name).copy_(v)
 
-    def _model_fn(self, step_seed: int, weights: Optional[dict] = None):
+    def _model_fn(self, step_seed: int, weights: Optional[dict] = None,
+                  t0: Optional[int] = None):
         """model_fn(x, t_orig, cond) of a training forward on `weights`
         (effective_weights; the model's own without): condition dropout and
-        layer dropout from generators seeded by (step_seed, t_orig[0])."""
+        layer dropout from generators seeded by (step_seed, t_orig[0]), or
+        by (step_seed, t0) when given: the global batch's first timestep,
+        which a data rank's own rows may not hold."""
         cfg, dev = self.cfg, self.device
+        fixed = t0
 
         def fn(x, t_orig, cond):
-            t0 = int(t_orig[0])
+            t0 = int(t_orig[0]) if fixed is None else fixed
             gen_cond = torch.Generator(device=dev).manual_seed(_mix(step_seed, 1, t0))
             gen_drop = torch.Generator(device=dev).manual_seed(_mix(step_seed, 2, t0))
             enc = mask_cond(cond["enc_text"], cfg.cond_mask_prob, gen_cond)
@@ -293,16 +465,20 @@ class StyleFinetuneTrainer(PreemptionMixin):
 
         return fn
 
-    def loss_terms(self, batch: dict, t: torch.Tensor, step_seed: int, **pinned) -> dict:
+    def loss_terms(self, batch: dict, t: torch.Tensor, step_seed: int,
+                   t0_t2m: Optional[int] = None, **pinned) -> dict:
         """The few-shot loss of one batch at semantic-branch timesteps t.
         batch: x_start, content, style_target, mask, inp_mask,
         enc_text_style, enc_text_t2m, text_features, and optionally
         inp_mask_t2m and frame_mask_t2m, as tensors on the model's device.
         pinned: noise_t2m / noise for the loss (tests replay other draws).
-        With LoRA the encoder is merged here, once for the whole loss."""
+        With LoRA the encoder is merged here, once for the whole loss.
+        t0_t2m: the seeding timestep of the semantic branch's forward (on a
+        mesh, the global batch's first; default t[0]'s)."""
         cfg = self.cfg
+        weights = self.effective_weights()
         return losses.few_shot_style_finetune_loss(
-            self.sched, self._model_fn(step_seed, self.effective_weights()), batch["x_start"], t,
+            self.sched, self._model_fn(step_seed, weights), batch["x_start"], t,
             batch["content"], batch["style_target"], self.generator,
             mask=batch["mask"],
             cond_style={"enc_text": batch["enc_text_style"]},
@@ -317,14 +493,22 @@ class StyleFinetuneTrainer(PreemptionMixin):
             motion_enc_fn=(lambda motion, cond: self.model.encode_motion(
                 motion, cond.get("frame_mask"))) if cfg.semantic_guidance else None,
             text_features=batch.get("text_features"), ls_weight=cfg.ls_weight,
-            parallel_unroll=cfg.parallel_unroll, **pinned)
+            parallel_unroll=cfg.parallel_unroll,
+            model_fn_t2m=None if t0_t2m is None else self._model_fn(step_seed, weights, t0_t2m),
+            **pinned)
 
-    def train_step(self, batch: dict, t: torch.Tensor, step_seed: int, **pinned) -> dict:
+    def train_step(self, batch: dict, t: torch.Tensor, step_seed: int,
+                   rows: Optional[tuple] = None, t0_t2m: Optional[int] = None,
+                   **pinned) -> dict:
         """One AdamW step on the style encoder (with LoRA, on the factors);
-        returns the loss terms."""
+        returns the loss terms. On a mesh, batch and t are the rank's rows
+        (start, stop, global size) of the global batch; its draws are its
+        rows of the global batch's, the backward's recompute included."""
         self.opt.zero_grad(set_to_none=True)
-        terms = self.loss_terms(batch, t, step_seed, **pinned)
-        terms["loss"].backward()
+        with self._drawing(rows):
+            terms = self.loss_terms(batch, t, step_seed, t0_t2m, **pinned)
+            terms["loss"].backward()
+        self._sync_grads()
         self.opt.step()
         self.lr_schedule.step()
         return {k: v.detach() for k, v in terms.items()}
@@ -333,10 +517,17 @@ class StyleFinetuneTrainer(PreemptionMixin):
         t0 = time.perf_counter()
         batch = {k: None if v is None else torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
-        t, _ = self.sampler.sample(self.generator, batch["x_start"].shape[0],
-                                   data_range=self.t_range)
+        B = batch["x_start"].shape[0]
+        t, _ = self.sampler.sample(self.generator, B, data_range=self.t_range)
         step_seed = int(torch.randint(0, _SEED_MOD, (1,), generator=self._seeds))
-        terms = self.train_step(batch, t, step_seed)
+        rows, t0_t2m = self._rows(B), None
+        if rows is not None:
+            # the rank's rows of the global batch; the B=1 style pair whole
+            t0_t2m = int(self.sched.timestep_map[t[0]])
+            t = t[rows[0]:rows[1]]
+            batch = mesh_lib.shard_batch(batch, self.mesh, replicate_indivisible=True)
+        terms = self._data_mean(self.train_step(batch, t, step_seed, rows, t0_t2m))
+        self.preempted = self._any_rank(self.preempted)
         out = {k: float(v.float().mean()) for k, v in terms.items()}  # waits for the card
         self._log_terms(out)
         logger.logkv("step_seconds", time.perf_counter() - t0)
@@ -371,10 +562,16 @@ class StyleFinetuneTrainer(PreemptionMixin):
         training_loop.py:316-335; with LoRA the merged encoder, and the
         factors as adapter{step:09d}.pt) and the optimizer state in the JAX
         trainer's layout (optimizer_leaves)."""
-        os.makedirs(self.cfg.save_dir, exist_ok=True)
         step = self.step + self.resume_step
         path = os.path.join(self.cfg.save_dir, self.ckpt_file_name())
-        sd = export_style_encoder(self.model)
+        sd = export_style_encoder(self.model)  # on a mesh, gathered on every rank
+        leaves = self.optimizer_leaves()
+        if self.cfg.orbax_checkpoints:
+            self.save_dcp(step)
+        self._last_saved_step = step
+        if not mesh_lib.is_main():
+            return
+        os.makedirs(self.cfg.save_dir, exist_ok=True)
         if self.lora is not None:
             with torch.no_grad():
                 sd.update({f"seqTransEncoder.{k[len('style_encoder.'):]}": v.float().cpu()
@@ -382,9 +579,7 @@ class StyleFinetuneTrainer(PreemptionMixin):
             torch.save(lora.export_lora(self.lora, self.lora_alpha),
                        os.path.join(self.cfg.save_dir, f"adapter{step:09d}.pt"))
         torch.save(sd, path)
-        torch.save(self.optimizer_leaves(),
-                   os.path.join(self.cfg.save_dir, f"opt{step:09d}.pt"))
-        self._last_saved_step = step
+        torch.save(leaves, os.path.join(self.cfg.save_dir, f"opt{step:09d}.pt"))
         logger.log(f"saved checkpoint {path}")
 
     def _load_checkpoint(self, path: str):
@@ -424,12 +619,13 @@ class StyleFinetuneTrainer(PreemptionMixin):
         (optimizer_state_leaves over the style encoder, or the factors)."""
         return optimizer_state_leaves(
             self.opt, self.params,
-            self.lr_schedule.last_epoch if self.cfg.lr_anneal_steps else None)
+            self.lr_schedule.last_epoch if self.cfg.lr_anneal_steps else None, self._full)
 
     def load_optimizer_leaves(self, leaves: list):
         """Restore AdamW's moments and step and the LR schedule's position
         from the JAX trainer's flat leaf list (optimizer_leaves' format)."""
-        position = load_optimizer_state_leaves(self.opt, self.params, leaves)
+        position = load_optimizer_state_leaves(self.opt, self.params, leaves, self._local,
+                                               self._shapes or None)
         set_schedule_position(self.lr_schedule, position, self._lr_factor)
 
     def _load_optimizer_state(self):

@@ -40,6 +40,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,12 +50,14 @@ from motionstyle_torch.diffusion.resample import (
     LossSecondMomentResampler, create_named_schedule_sampler)
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
 from motionstyle_torch.models.denoiser import StyleDiffusion, mask_cond
-from motionstyle_torch.models.params import (
-    export_encoder, export_mdm, from_torch_state_dict, mdm_leaves)
+from motionstyle_torch.models.params import export_mdm, from_torch_state_dict, mdm_leaves
+from motionstyle_torch.parallel import mesh as mesh_lib
+from motionstyle_torch.parallel.pipeline import (
+    StagePipeline, default_micro, gather_stage_layers, sync_replicated_grads)
 from motionstyle_torch.train import logging as logger
 from motionstyle_torch.train.finetune import (
-    find_resume_checkpoint, linear_anneal, load_optimizer_state_leaves, optimizer_state_leaves,
-    set_schedule_position)
+    MeshMixin, find_resume_checkpoint, linear_anneal, load_optimizer_state_leaves,
+    optimizer_state_leaves, set_schedule_position)
 from motionstyle_torch.train.preemption import PreemptionMixin
 
 @dataclass
@@ -72,6 +75,7 @@ class PretrainConfig:
     resume_checkpoint: str = ""  # a mdm{step:09d}.pt, or the directory holding them
     schedule_sampler: str = "uniform"  # or "loss_second_moment"
     ema_rate: float = 0.0  # 0 = no EMA
+    pipeline_micro: int = 0  # microbatches per pipeline on a 'pipe' mesh; 0 = auto
 
 
 def per_sample_loss(out: torch.Tensor, x_start: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -82,10 +86,26 @@ def per_sample_loss(out: torch.Tensor, x_start: torch.Tensor, mask: torch.Tensor
     return sse / n
 
 
-class PriorTrainer(PreemptionMixin):
+class PriorTrainer(MeshMixin, PreemptionMixin):
     """Trains the MDM prior ('mdm') of a StyleDiffusion model in place."""
 
-    def __init__(self, cfg: PretrainConfig, model: StyleDiffusion, sched: DiffusionSchedule):
+    def __init__(self, cfg: PretrainConfig, model: StyleDiffusion, sched: DiffusionSchedule,
+                 mesh=None, fsdp: bool = False):
+        """mesh: a parallel.mesh DeviceMesh: data parallel, with 'model' > 1
+        tensor parallel, with 'pipe' > 1 the prior's encoder stack
+        GPipe-scheduled over its stages (parallel/pipeline.py); fsdp: the
+        prior and its moments sharded over 'data' (one FSDP2 unit, the
+        prior, whose forward gathers the weights the training kernels
+        read)."""
+        self.mesh = mesh
+        self.fsdp = bool(fsdp and mesh is not None)
+        self.pipe = mesh_lib.axis_size(mesh, "pipe")
+        if self.pipe > 1 and self.fsdp:
+            raise ValueError("--fsdp composes with the (data x model) mesh, "
+                             "not with --pipeline_parallel; drop one flag")
+        if self.pipe > 1 and model.cfg.fused_train:
+            raise ValueError("--fused_train is data-parallel only: the CUDA layer "
+                             "kernels carry no 'pipe' collectives; drop one flag")
         self.sampler = create_named_schedule_sampler(cfg.schedule_sampler, sched.num_timesteps)
         self.cfg = cfg
         self.model = model
@@ -101,6 +121,11 @@ class PriorTrainer(PreemptionMixin):
 
         for name, p in model.named_parameters():
             p.requires_grad_(name.startswith("mdm."))
+        keys = [key for _, key, _ in mdm_leaves(model.cfg.num_layers)]
+        if self.pipe > 1:
+            self._place_pipeline(keys)
+        else:
+            self._place(model.mdm, keys)
         named = dict(model.mdm.named_parameters())
         # (parameter, transposed) in the JAX trainer's flax leaf order
         self.params = [(named[key], transposed)
@@ -132,7 +157,8 @@ class PriorTrainer(PreemptionMixin):
         # q_sample and the condition mask once at full batch, so grad_accum
         # changes only the granularity of the model's forward and backward
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=self.generator, device=self.device)
+            noise = mesh_lib.draw_rows(lambda shape: torch.randn(
+                shape, generator=self.generator, device=self.device), x_start.shape)
         x_t = ddpm.q_sample(self.sched, x_start, t, noise)
         if enc is None:
             enc = mask_cond(batch["enc_text"], cfg.cond_mask_prob, self.generator)
@@ -142,18 +168,99 @@ class PriorTrainer(PreemptionMixin):
         per_sample = []
         for i in range(accum):
             mb = slice(i * n, (i + 1) * n)
-            out = self.model.denoise_prior(x_t[mb], t[mb], enc[mb], deterministic=False,
-                                           generator=self.generator)
-            ps = per_sample_loss(out, x_start[mb], batch["mask"][mb])
-            micro = (ps * t_weights[mb]).mean()
-            (micro / accum).backward()
+            # on a mesh a microbatch draws its dropout as the rank's rows of
+            # the global microbatch's (rows other than one device's micro i
+            # holds, so the draws differ from its, as grad_accum's own do)
+            with self._drawing(None if self.dp == 1 or accum == 1 else
+                               (self.dp_rank * n, (self.dp_rank + 1) * n, n * self.dp)):
+                out = self.denoise(x_t[mb], t[mb], enc[mb])
+                ps = micro = None
+                if out is not None:  # on a 'pipe' mesh, the last stage only
+                    ps = per_sample_loss(out, x_start[mb], batch["mask"][mb])
+                    micro = (ps * t_weights[mb]).mean()
+                    (micro / accum).backward()
+                if self.pipe > 1:
+                    self._stages.backward()
+                    ps, micro = self._from_last_stage(ps, micro, n)
             loss = loss + micro.detach()
             per_sample.append(ps.detach())
+        if self.pipe > 1:
+            sync_replicated_grads([p for key, p in self.model.mdm.named_parameters()
+                                   if not key.startswith("seqTransEncoder.")], self.mesh)
+        self._sync_grads()
         self.opt.step()
         self.lr_schedule.step()
         if cfg.ema_rate > 0:
             self._update_ema()
         return loss / accum, torch.cat(per_sample)
+
+    @property
+    def dp_rank(self) -> int:
+        return mesh_lib.axis_rank(self.mesh, "data")
+
+    def denoise(self, x_t, t, enc):
+        """The prior's training forward; on a 'pipe' mesh GPipe-scheduled,
+        its output on the last stage and None on the others."""
+        if self.pipe > 1:
+            return self._pipelined_prior(x_t, t, enc)
+        return self.model.denoise_prior(x_t, t, enc, deterministic=False,
+                                        generator=self.generator)
+
+    # ------------------------------------------------------------------
+    # pipeline parallelism (parallel/pipeline.py)
+    def _place_pipeline(self, keys: list) -> None:
+        """Every rank keeps the whole prior, rank 0's; the stage's layers
+        are the ones that run and update here."""
+        self._unit, self._keys = self.model.mdm, keys
+        named = dict(self.model.mdm.named_parameters())
+        self._shapes = [tuple(named[k].shape) for k in keys]
+        mesh_lib.replicate(self.model)
+        self._stages = None
+
+    def _pipelined_prior(self, x_t, t, enc):
+        """The prior's embedding and head around its encoder stack, the stack
+        GPipe-scheduled over 'pipe' (the JAX trainer's pp_denoise_prior):
+        microbatches --pipeline_micro, or the largest divisor of the shard's
+        batch up to 2 * stages."""
+        mdm, mcfg = self.model.mdm, self.model.cfg
+        xseq = mdm.embed_tokens(x_t, t, enc, deterministic=False, generator=self.generator)
+        seed = None
+        if mcfg.dropout > 0:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                                     device=self.device))
+        n_micro = self.cfg.pipeline_micro or default_micro(xseq.shape[0], self.pipe)
+        self._stages = StagePipeline(mdm.seqTransEncoder, self.mesh, n_micro)
+        dt = mcfg.torch_dtype
+        out = self._stages.forward(xseq.to(dt), None, dt, dropout_seed=seed)
+        return None if out is None else mdm.output_head(out.to(xseq.dtype))
+
+    def _from_last_stage(self, ps, micro, n: int) -> tuple:
+        """(per-sample losses, the microbatch's loss) of the last stage on
+        every stage."""
+        buf = torch.cat([ps.detach(), micro.detach()[None]]) if self._stages.last else \
+            torch.empty(n + 1, device=self.device)
+        buf = self._stages.broadcast(buf, buf)
+        return buf[:n], buf[n]
+
+    def _gather_stages(self, tensors: Optional[dict] = None) -> None:
+        """Each encoder layer's parameters and Adam moments (or, with
+        `tensors`, those entries of an mdm-keyed dict: the EMA) from the
+        stage that owns it onto every stage."""
+        enc = self.model.mdm.seqTransEncoder
+        if tensors is not None:
+            gather_stage_layers(enc, self.mesh, tensors, prefix="seqTransEncoder.")
+            return
+        gather_stage_layers(enc, self.mesh)
+        self._init_moments()
+        for name in ("exp_avg", "exp_avg_sq"):
+            moments = {key: self.opt.state[p][name] for (p, _), key in zip(self.params, self._keys)
+                       if key.startswith("seqTransEncoder.")}
+            gather_stage_layers(enc, self.mesh, moments, prefix="seqTransEncoder.")
+
+    def sharded_state(self) -> tuple:
+        if self.pipe > 1:
+            self._gather_stages()
+        return super().sharded_state()
 
     @torch.no_grad()
     def _update_ema(self):
@@ -174,8 +281,20 @@ class PriorTrainer(PreemptionMixin):
             t_prev, losses_prev = self._pending
             self.sampler.update_with_local_losses(t_prev.cpu().numpy(), losses_prev.cpu().numpy())
             self._pending = None
-        t, t_weights = self.sampler.sample(self.generator, batch["x_start"].shape[0])
-        loss, per_sample = self.train_step(batch, t, t_weights)
+        B = batch["x_start"].shape[0]
+        t, t_weights = self.sampler.sample(self.generator, B)
+        rows = self._rows(B)
+        if rows is None:
+            loss, per_sample = self.train_step(batch, t, t_weights)
+        else:
+            batch = mesh_lib.shard_batch(batch, self.mesh)
+            with self._drawing(rows):
+                loss, per_sample = self.train_step(batch, t[rows[0]:rows[1]],
+                                                   t_weights[rows[0]:rows[1]])
+            loss = self._data_mean({"loss": loss})["loss"]
+            # the sampler's history takes the global batch (mesh.py:198-204)
+            per_sample = mesh_lib.all_gather_batch(per_sample, self.mesh)
+        self.preempted = self._any_rank(self.preempted)
         if isinstance(self.sampler, LossSecondMomentResampler):
             self._pending = (t, per_sample)
         self.step += 1
@@ -189,39 +308,61 @@ class PriorTrainer(PreemptionMixin):
 
     # ------------------------------------------------------------------
     def optimizer_leaves(self) -> list:
-        """The optimizer state in the JAX trainer's flat layout over 'mdm'."""
+        """The optimizer state in the JAX trainer's flat layout over 'mdm'
+        (on a 'pipe' mesh, each layer's moments from its stage)."""
+        if self.pipe > 1:
+            self._gather_stages()
         return optimizer_state_leaves(
             self.opt, self.params,
-            self.lr_schedule.last_epoch if self.cfg.lr_anneal_steps else None)
+            self.lr_schedule.last_epoch if self.cfg.lr_anneal_steps else None, self._full)
 
     def save_step(self) -> str:
         """mdm{step:09d}.pt, opt{step:09d}.pt and, with ema_rate,
         ema{step:09d}.pt, from which a run resumes."""
-        os.makedirs(self.cfg.save_dir, exist_ok=True)
         step = self.step + self.resume_step
         path = os.path.join(self.cfg.save_dir, f"mdm{step:09d}.pt")
-        torch.save(export_mdm(self.model.mdm), path)
-        torch.save(self.optimizer_leaves(), os.path.join(self.cfg.save_dir, f"opt{step:09d}.pt"))
+        files = {f"mdm{step:09d}.pt": self._prior_state(),
+                 f"opt{step:09d}.pt": self.optimizer_leaves()}
         if self.cfg.ema_rate > 0:
-            torch.save(self._ema_state(), os.path.join(self.cfg.save_dir, f"ema{step:09d}.pt"))
+            files[f"ema{step:09d}.pt"] = self._ema_state()
+        self._write(files)
         logger.log(f"saved prior step checkpoint {path}")
         return path
+
+    def _write(self, files: dict) -> None:
+        """torch.save each {name: object} into save_dir, on global rank 0
+        only (every rank gathered the objects)."""
+        if not mesh_lib.is_main():
+            return
+        os.makedirs(self.cfg.save_dir, exist_ok=True)
+        for name, obj in files.items():
+            torch.save(obj, os.path.join(self.cfg.save_dir, name))
 
     def save(self) -> tuple:
         """mdm.pt (for --mdm_path), model_pretrained.pt (the prior's encoder,
         a style-encoder warm start) and, with ema_rate, mdm_ema.pt."""
-        os.makedirs(self.cfg.save_dir, exist_ok=True)
         mdm_path = os.path.join(self.cfg.save_dir, "mdm.pt")
-        torch.save(export_mdm(self.model.mdm), mdm_path)
         warm_path = os.path.join(self.cfg.save_dir, "model_pretrained.pt")
-        torch.save(export_encoder(self.model.mdm.seqTransEncoder), warm_path)
+        prior = self._prior_state()
+        files = {"mdm.pt": prior, "model_pretrained.pt":
+                 {k: v for k, v in prior.items() if k.startswith("seqTransEncoder.")}}
         if self.cfg.ema_rate > 0:
-            torch.save(self._ema_state(), os.path.join(self.cfg.save_dir, "mdm_ema.pt"))
+            files["mdm_ema.pt"] = self._ema_state()
+        self._write(files)
         logger.log(f"saved prior checkpoints {mdm_path} / {warm_path}")
         return mdm_path, warm_path
 
+    def _prior_state(self) -> dict:
+        """The prior in the reference layout, whole on every rank."""
+        if self.pipe > 1:
+            self._gather_stages()
+        return export_mdm(self.model.mdm)
+
     def _ema_state(self) -> dict:
-        return {k: v.detach().float().cpu().clone() for k, v in self.ema.items()}
+        if self.pipe > 1:
+            self._gather_stages(self.ema)
+        return {k: mesh_lib.gather_full(self.model.mdm, k, v).float().cpu().clone()
+                for k, v in self.ema.items()}
 
     def _load_prior(self, path: str) -> dict:
         """A reference-layout prior checkpoint as the MDM's state dict."""
@@ -253,7 +394,8 @@ class PriorTrainer(PreemptionMixin):
         path = self._sibling("opt")
         try:
             leaves = torch.load(path, map_location="cpu", weights_only=False)
-            position = load_optimizer_state_leaves(self.opt, self.params, leaves)
+            position = load_optimizer_state_leaves(self.opt, self.params, leaves, self._local,
+                                                   self._shapes or None)
             logger.log(f"loaded optimizer state from {path}")
         except (OSError, ValueError, RuntimeError) as e:
             logger.log(f"optimizer state unavailable ({e}): fresh moments, LR schedule at "

@@ -298,11 +298,14 @@ def test_demo_style_arithmetic_matches_the_jax_demo(kind, based_run, xia_root, t
     (["--pipeline_parallel", "2"], 11), (["--sequence_parallel", "2"], 11)])
 def test_demo_refuses_what_is_not_ported(flag, item, finetuned, xia_root,  # noqa: F811
                                          tmp_path):
-    """Each refusal names its ROADMAP item and comes before any work (no
-    output directory is made)."""
+    """The mesh layouts (ROADMAP item 11) are ported
+    (tests/test_torch_mesh.py, test_torch_pipeline.py,
+    test_torch_sequence.py); on one rank each raises the JAX CLI's
+    ValueError, before any work (no output directory is made)."""
     ckpt, _ = finetuned
     argv = _demo_args(ckpt, xia_root, tmp_path / "out", "--device", "cpu") + flag
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP §1 item {item}\b"):
+    with pytest.raises(ValueError, match=rf"{flag[0]} 2 does not divide the visible device "
+                                         "count 1"):
         demo_main(argv)
     assert not os.path.exists(tmp_path / "out")
 

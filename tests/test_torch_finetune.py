@@ -484,10 +484,29 @@ def test_cli_finetune_prng_from_the_ports_own_prior(xia_root, tmp_path, monkeypa
 @pytest.mark.parametrize("flag", [
     ["--fsdp", "1"], ["--model_parallel", "2"], ["--data_parallel", "1"],
     ["--orbax_checkpoints", "1"]])
-def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
-    args = ["--save_dir", str(tmp_path / "ft"), "--data_dir", xia_root] + CLI_ARGS + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft_main(args)
+def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path, capsys):
+    """The scale-out flags are ported (tests/test_torch_mesh.py and its
+    siblings run them on several ranks); on one rank each does what the JAX
+    CLI does on one device: --fsdp without a mesh and --model_parallel 2
+    exit before training, --data_parallel 1 trains on one device, and
+    --orbax_checkpoints 1 also writes the DCP checkpoint."""
+    save_dir = str(tmp_path / "ft")
+    args = ["--save_dir", save_dir, "--data_dir", xia_root] + CLI_ARGS + flag
+    if flag[0] == "--fsdp":
+        with pytest.raises(SystemExit, match="--fsdp needs a mesh"):
+            ft_main(args)
+        return
+    if flag[0] == "--model_parallel":
+        with pytest.raises(ValueError, match="--model_parallel 2 does not divide"):
+            ft_main(args)
+        return
+    run_dir = ft_main(args)
+    names = os.listdir(run_dir)
+    assert "model000000002.pt" in names
+    if flag[0] == "--data_parallel":
+        assert "running single-device" in capsys.readouterr().out
+    else:
+        assert "dcp_000000002" in names
 
 
 def run_losses(main, argv: list, loss_key: str, seed: int = 0) -> tuple:
@@ -709,14 +728,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     sampler, style metrics, post chain, long-form sampler, named styles,
     exporter, LoRA adapters, distiller, SMPL body model, other architectures,
     the humanml and bandai data path, the T2M evaluation stack, the trainer
-    platforms, the native loader and the SMPLify chain among them),
-    chip_smoke.py, profile_layers.py, quality_sweep.py and serve_bench.py
-    import nothing of JAX or of the JAX package; the native loader builds its
+    platforms, the native loader, the SMPLify chain and the scale-out
+    modules among them), chip_smoke.py, profile_layers.py, quality_sweep.py,
+    serve_bench.py and the multi-rank tests' rank bodies
+    (tests/torch_dist_ranks.py) import nothing of JAX or of the JAX package; the native loader builds its
     own copy of the C++ source into the port's own build directory."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
-                                              "quality_sweep.py", "serve_bench.py")]
+                                              "quality_sweep.py", "serve_bench.py",
+                                              os.path.join("tests", "torch_dist_ranks.py"))]
     for new in ("eval/style_metrics.py", "eval/quality_protocol.py", "train/semantic.py",
                 "diffusion/parallel_sampling.py", "cli/train_semantic_discriminator.py",
                 "core/params.py", "core/rotations.py", "core/skeleton.py", "core/features.py",
@@ -734,7 +755,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "cli/eval_metrics.py", "cli/train_evaluator.py", "cli/train_t2m_generator.py",
                 "train/platforms.py", "native/build.py", "native/ingest.py",
                 "native/loader.py", "post/smplify.py", "post/vis_utils.py",
-                "post/motions2hik.py", "cli/fit_seq.py", "cli/render_mesh.py"):
+                "post/motions2hik.py", "cli/fit_seq.py", "cli/render_mesh.py",
+                "parallel/mesh.py", "parallel/pipeline.py", "parallel/sequence.py",
+                "train/checkpoints.py"):
         assert os.path.join(root, "motionstyle_torch", new) in files, new
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|motionstyle)(\.|\s|$)",
                      re.MULTILINE)

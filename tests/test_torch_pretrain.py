@@ -453,9 +453,22 @@ def test_cli_trains_with_the_prng_layer_and_writes_ema(xia_root, tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--pipeline_parallel", "2"], ["--fsdp", "1"], ["--data_parallel", "1"],
     ["--model_parallel", "2"]])
-def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pretrain_main(_cli(xia_root, str(tmp_path / "p"), "--num_steps", "1", *flag))
+def test_cli_refuses_what_is_not_ported(flag, xia_root, tmp_path, capsys):
+    """The scale-out flags are ported (tests/test_torch_pipeline.py, test_torch_
+    fsdp.py); on one rank each does what the JAX CLI does on one device:
+    --pipeline_parallel 2 and --model_parallel 2 do not divide it, --fsdp
+    needs a mesh, --data_parallel 1 trains on the one device."""
+    argv = _cli(xia_root, str(tmp_path / "p"), "--num_steps", "1", *flag)
+    if flag[0] in ("--pipeline_parallel", "--model_parallel"):
+        with pytest.raises(ValueError, match=f"{flag[0]} 2 does not divide"):
+            pretrain_main(argv)
+    elif flag[0] == "--fsdp":
+        with pytest.raises(SystemExit, match="--fsdp needs a mesh"):
+            pretrain_main(argv)
+    else:
+        pretrain_main(argv)
+        assert "running single-device" in capsys.readouterr().out
+        assert os.path.exists(tmp_path / "p" / "mdm.pt")
 
 
 @pytest.fixture(scope="module")

@@ -273,8 +273,15 @@ class TestServeCLI:
         it; at its default it parses."""
         from motionstyle_torch.cli import serve
 
-        with pytest.raises(NotImplementedError, match=item):
-            serve.parse_args(["--model_path", "m.pt", *flag])
+        if flag[0] == "--model_parallel":
+            # ported (item 11): it parses, and on one rank the sampler's
+            # build exits as the JAX server's does
+            args = serve.parse_args(["--model_path", "m.pt", *flag])
+            with pytest.raises(SystemExit, match="--model_parallel 2 does not divide 1"):
+                serve.build_sampler(args)
+        else:
+            with pytest.raises(NotImplementedError, match=item):
+                serve.parse_args(["--model_path", "m.pt", *flag])
         args = serve.parse_args(["--model_path", "m.pt"])
         assert (args.artifact, args.styles, args.style_strength, args.model_parallel) == (
             "", "", 1.0, 1)
