@@ -884,9 +884,10 @@ TRAIN_BATCHES, TRAIN_RATES = (64, 1), (0.1, 0.0)
 # head and F = 64 (a cluster of one, a half-empty tile), D = 1024 with 8
 # heads and F = 2048 (the largest cluster), B=3, S=1 (M = 3); S = 257
 # and 300, where the tensor-core attention takes its two-pass tiled route
-# and writes kernel 8's probs from there; and the humanml trainers' B=64,
-# S=197 (its CUDA-core attention backward over 197 keys, kernel 8's stored
-# probs 64 x 4 x 197^2 x 2 B = 19.9 MB a layer)
+# and writes kernel 8's probs from there (and kernels 7 and 9's attention
+# backward its tiled rows path); and the humanml trainers' B=64, S=197 (the
+# attention backward's rows launch with 13 chunks of keys in registers,
+# kernel 8's stored probs 64 x 4 x 197^2 x 2 B = 19.9 MB a layer)
 HUMANML_TRAIN = (64, 197)
 TRAIN_EXTRA_SHAPES = ((16, 197, D, H, F), (16, S, 384, 6, 1536), (8, S, 64, 1, 64),
                       (8, S, 1024, 8, 2048), (3, 1, D, H, F), (4, 257, D, H, F),
@@ -1007,11 +1008,11 @@ TRAIN_BWD_LAUNCHES = {
         "dw2_gemm", "dw1_gemm", "reduce_rows_kernel"),
     "fused_layer_train_bwd_attn": (
         "dropout_bwd_kernel", "dattn_bwd_gemm", "qkv_store_train_gemm",
-        "attention_bwd_rows_kernel", "attention_bwd_cols_kernel", "dwqkv_gemm", "dwo_gemm",
+        "attention_bwd_rows_tc", "attention_bwd_cols_tc", "dwqkv_gemm", "dwo_gemm",
         "dx_bwd_gemm", "reduce_rows_kernel"),
     "fused_layer_train_bwd_attn_stored": (
-        "dropout_bwd_kernel", "dattn_bwd_gemm", "attention_bwd_rows_kernel",
-        "attention_bwd_cols_kernel", "dwqkv_gemm", "dwo_gemm", "dx_bwd_gemm",
+        "dropout_bwd_kernel", "dattn_bwd_gemm", "attention_bwd_rows_tc",
+        "attention_bwd_cols_tc", "dwqkv_gemm", "dwo_gemm", "dx_bwd_gemm",
         "reduce_rows_kernel"),
 }
 
@@ -1024,12 +1025,16 @@ def train_bwd_gemm_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool =
     launch's activations or gradients; the last pass's bias and LayerNorm
     gradients). The blocks' column sums and the weight gradients' slices are
     the design's scratch and count in neither. The operations add up to
-    train_bounds' of the three kernels: the attention backward's rows launch
-    counts the scores (kernel 7), dp and dq, its cols launch dk and dv (it
-    forms the scores and dp again, which the bound does not count)."""
+    train_bounds' of the three kernels: the tensor-core attention backward's
+    rows launch (attention_bwd_rows_tc) counts the scores (kernel 7), dp and
+    dq over q*scale (or the stored p), k, v and dattn, its cols launch
+    (attention_bwd_cols_tc) dk and dv over q*scale, q, k, v and dattn (the
+    function's operands of dk and dv). The launches form dp twice, which the
+    bound does not count, and the bf16 p and ds that the rows launch hands
+    the cols launch (two S x S planes a head) are the design's scratch, as
+    the column sums are."""
     m, mk = b * s, (2 if masked else 0)
     core = 2 * b * s * s * d  # one S x S x D product over all heads
-    stats = b * h * s * 3 * 4  # the rows' (max, sum, delta)
     probs = b * h * s * s * 2
     dropout = (0, m * d * 4 + m * d * mk + m * d * 2)
     dattn = (2 * m * d * d, m * d * 2 + d * d * 2 + m * d * 2)
@@ -1051,13 +1056,13 @@ def train_bwd_gemm_bounds(b: int, s: int, d: int, h: int, f: int, masked: bool =
         "fused_layer_train_bwd_attn": [
             dropout, dattn,
             (2 * m * d * 3 * d, m * d * 2 + 3 * d * d * 2 + 3 * d * 4 + m * d * 2 + 3 * m * d * 2),
-            (3 * core, m * d * 2 + m * d * 2 + 2 * m * d * 2 + stats + m * d * 2),
-            (2 * core, m * d * 2 + m * d * 2 + 2 * m * d * 2 + m * d * 2 + stats + 2 * m * d * 2),
+            (3 * core, m * d * 2 + m * d * 2 + 2 * m * d * 2 + m * d * 2),
+            (2 * core, m * d * 2 + m * d * 2 + 2 * m * d * 2 + m * d * 2 + 2 * m * d * 2),
             *wgrads, dx, reduce_attn],
         "fused_layer_train_bwd_attn_stored": [
             dropout, dattn,
-            (2 * core, probs + m * d * 2 + 2 * m * d * 2 + stats + m * d * 2),
-            (2 * core, probs + m * d * 2 + m * d * 2 + m * d * 2 + stats + 2 * m * d * 2),
+            (2 * core, probs + m * d * 2 + 2 * m * d * 2 + m * d * 2),
+            (2 * core, probs + m * d * 2 + m * d * 2 + m * d * 2 + 2 * m * d * 2),
             *wgrads, dx, reduce_attn],
     }
 
@@ -1116,6 +1121,55 @@ def print_train_bwd_launches(name: str, rows: list, b: int, s: int, d: int, h: i
           f"other device rows: {others or 'none'}", flush=True)
     check(not any("gemm_kernel<" in k for k, _ in rows),
           f"{name} B={b} S={s}: no launch is the WMMA gemm_kernel")
+
+
+def sdpa_backward_us(b: int, s: int, d: int, h: int, device) -> dict:
+    """The library yardstick of kernels 7 and 9's attention backward: device
+    us of one backward through torch.nn.functional.scaled_dot_product_attention
+    (torch.autograd.grad of its output, bf16 q, k, v (B, H, S, dh) and dO)
+    with no mask, as the timed kernels run, and with an additive (B, 1, 1, S)
+    mask (all zero, so the same function), which keeps SDPA off its
+    mask-free backends; None where the profile records no device time."""
+    import torch
+    import torch.nn.functional as Fn
+
+    gen = torch.Generator().manual_seed(s)
+    q, k, v, dout = (torch.randn(b, h, s, d // h, generator=gen).to(device, torch.bfloat16)
+                     for _ in range(4))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = {}
+    with torch.enable_grad():
+        for label, mask in (("no mask", None),
+                            ("additive mask", torch.zeros(b, 1, 1, s, device=device,
+                                                          dtype=torch.bfloat16))):
+            y = Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            rows = device_profile(
+                lambda: torch.autograd.grad(y, (q, k, v), dout, retain_graph=True), iters=10)
+            out[label] = sum(us for _, us in rows) if rows else None
+    return out
+
+
+def print_attention_bwd(rows: dict, b: int, s: int, d: int, h: int, f: int, device) -> None:
+    """Kernels 7 and 9's two attention launches (device us from
+    torch.profiler rows of one call, by kernel) beside their bounds and SDPA's
+    backward at the same (B, H, S, dh)."""
+    lib = sdpa_backward_us(b, s, d, h, device)
+    text = lambda us: "not measured" if us is None else f"{us:.6g} us"  # noqa: E731
+    for name in ("fused_layer_train_bwd_attn", "fused_layer_train_bwd_attn_stored"):
+        launches = TRAIN_BWD_LAUNCHES[name]
+        bounds = dict(zip(launches, train_bwd_gemm_bounds(b, s, d, h, f, masked=True)[name]))
+        parts = []
+        total = 0.0
+        for launch in ("attention_bwd_rows_tc", "attention_bwd_cols_tc"):
+            us = sum(u for k, u in rows[name] if launch in k)
+            flops, nbytes = bounds[launch]
+            bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e6
+            total += us
+            parts.append(f"{launch} {text(us if rows[name] else None)} (bound {bound:.6g} us)")
+        print(f"  {name} attention backward B={b} S={s}: " + ", ".join(parts)
+              + f"; together {text(total if rows[name] else None)}; library SDPA backward "
+              f"(bf16, H={h}, dh={d // h}): no mask {text(lib['no mask'])}, additive mask "
+              f"{text(lib['additive mask'])}", flush=True)
 
 
 def probs_twin(x, p, h: int, kmask=None):
@@ -1335,8 +1389,13 @@ def train_kernel_phase(device) -> tuple:
     """Kernels 5-9 against their twins on the card at B=64 and B=1, S=77,
     full width, masks at rate 0.1 and 0, then past the old caps; the same in
     prng mode at rate 0.1 (and 0.5 at B=64, 0.1 at the pretrain's microbatch
-    B=32); times at B=64, rate 0.1. Returns each kernel's record fields by
-    name and the kernels' times at B=1."""
+    B=32); times at B=64, rate 0.1. Every backward half is called twice on
+    the same inputs at every shape and must give the same bits. Kernels 6, 7
+    and 9 are timed launch by launch beside their bounds at B=64 and B=1,
+    S=77, and kernels 7 and 9 also at the humanml trainers' B=64, S=197, their
+    two attention launches beside SDPA's backward at both B=64 shapes.
+    Returns each kernel's record fields by name and the kernels' times at
+    B=1."""
     import torch
     import torch.nn.functional as Fn
 
@@ -1389,13 +1448,23 @@ def train_kernel_phase(device) -> tuple:
                 lambda: ft.bwd_attn_stored_reference(da1, x, attn, probs, qkv, p, H, **drop)),
         }
 
-    # the humanml trainers' shape: each kernel's device time, masks and prng mode
+    # the humanml trainers' shape: each kernel's device time, masks and prng
+    # mode; kernels 7 and 9 launch by launch beside their bounds, and the
+    # attention backward's two launches beside SDPA's backward
     with torch.no_grad():
         for prng, (layer, inputs) in sorted(humanml_inputs.items()):
             print(f"  B={HUMANML_TRAIN[0]} S={HUMANML_TRAIN[1]} "
                   f"({'prng' if prng else 'masks'}) device time: " + "; ".join(
                       f"{n} {device_us(kern)}"
                       for n, (kern, _) in runs_at(inputs, layer).items()), flush=True)
+        layer, inputs = humanml_inputs[False]
+        runs = runs_at(inputs, layer)
+        attn_rows = {}
+        for name in ("fused_layer_train_bwd_attn", "fused_layer_train_bwd_attn_stored"):
+            attn_rows[name] = device_profile(runs[name][0], iters=10)
+            print(f"  {name} (masks) B={HUMANML_TRAIN[0]} S={HUMANML_TRAIN[1]}:", flush=True)
+            print_train_bwd_launches(name, attn_rows[name], *HUMANML_TRAIN, D, H, F, masked=True)
+    print_attention_bwd(attn_rows, *HUMANML_TRAIN, D, H, F, device)
 
     counts0 = {n: (getattr(ft, n).launches, getattr(ft, n).prng_launches) for n in TRAIN_NAMES}
     # the unroll's shape (B=1): kernel times only, for the finetune's breakdown
@@ -1428,10 +1497,13 @@ def train_kernel_phase(device) -> tuple:
                                      masked=mode == "masks", store=store)
             # kernels 6, 7 and 9 launch by launch
             runs = runs_at(inputs)
+            attn_rows = {}
             for name in TRAIN_BWD_LAUNCHES:
-                rows = device_profile(runs[name][0], iters=10)
+                rows = attn_rows[name] = device_profile(runs[name][0], iters=10)
                 print(f"  {name} ({mode}) B={bb} S={S}:", flush=True)
                 print_train_bwd_launches(name, rows, bb, S, D, H, F, masked=mode == "masks")
+            if (bb, mode) == (b, "masks"):
+                print_attention_bwd(attn_rows, bb, S, D, H, F, device)
     for name in TRAIN_NAMES:  # timing launches are not the main path's
         getattr(ft, name).launches, getattr(ft, name).prng_launches = counts0[name]
     print(f"  B={b} S={S} rate 0.1, masks vs prng mode (kernel 10 inside), in turns "

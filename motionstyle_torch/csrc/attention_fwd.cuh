@@ -2,9 +2,10 @@
 // (launch_forward_tc, further down), which the inference layers (kernel 1,
 // fused_encoder.cu, bf16 out; kernel 2, fused_encoder_int8.cu, fp32 out) and
 // the training forwards (fused_encoder_train.cu, kernels 5 and 8; kernel 8
-// also writes p) launch, and the row helpers the training file's CUDA-core
-// attention backward shares. It takes any sequence length S >= 1 and any
-// head width dh that is a multiple of 16 up to 128:
+// also writes p) launch, and its tile constants and warp-tile helpers
+// (pv_chunk, store_rows), which the training file's tensor-core attention
+// backward (kernels 7 and 9) shares. It takes any sequence length S >= 1 and
+// any head width dh that is a multiple of 16 up to 128:
 //
 //   p   = softmax(bf16(q*scale) bf16(k)^T + mask)     fp32 statistics
 //   out = bf16(p) bf16(v)                              fp32 sums
@@ -44,47 +45,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Shared row stride (bf16) of a head's rows: dh + 8 keeps every row 16-byte
 // aligned for 8-wide loads, and its (dh + 8) / 2 four-byte words, 4 times an
 // odd number when dh is a multiple of 16, put 8 lanes reading 16 bytes each
 // from 8 different rows on 8 disjoint groups of 4 banks: conflict-free.
 __host__ __device__ constexpr int smem_ld(int dh) { return dh + 8; }
-
-// dot of two bf16 rows of shared memory (16-byte aligned), dh values (a
-// multiple of 8), fp32 sums in column order
-__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b, int dh) {
-  float s = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < dh; c += 8) {
-    const uint4 ra = *reinterpret_cast<const uint4*>(a + c);
-    const uint4 rb = *reinterpret_cast<const uint4*>(b + c);
-    const bf162* a2 = reinterpret_cast<const bf162*>(&ra);
-    const bf162* b2 = reinterpret_cast<const bf162*>(&rb);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 fa = __bfloat1622float2(a2[e]), fb = __bfloat1622float2(b2[e]);
-      s = fmaf(fa.x, fb.x, s);
-      s = fmaf(fa.y, fb.y, s);
-    }
-  }
-  return s;
-}
-
-// rows [j0, j0 + n) of a (.., ld) bf16 matrix, columns [col, col + dh), into
-// shared rows of stride smem_ld(dh), 8 values per load
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t row0, int n, int ld,
-                                          int col, int dh) {
-  const int ldk = smem_ld(dh), per_row = dh / 8;
-  for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
-    const int j = i / per_row, c = (i % per_row) * 8;
-    *reinterpret_cast<uint4*>(dst + j * ldk + c) =
-        *reinterpret_cast<const uint4*>(src + (row0 + j) * ld + col + c);
-  }
-}
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it must be
 // asked for). `allowed` is the caller's record for that kernel (a static of

@@ -81,9 +81,10 @@
 //   * kernel 7 recomputes qkv with kernel 8's qkv launch (q, k, v unscaled
 //     into one (M, 3D) plane, q*scale apart), so it recomputes exactly the
 //     bits kernel 8 stores and both read q, k and v alike;
-//   * attention backward is two launches over 64-wide tiles on the CUDA
-//     cores (queries for dq, keys for dk and dv), so no head's S x S block
-//     has to fit in shared memory.
+//   * the attention backward is two tensor-core launches (mma.sync, see
+//     "The attention half of the backward" below) over 64-wide blocks of
+//     queries (dq) and of keys (dk and dv), so no head's S x S block has to
+//     fit in shared memory.
 // In prng mode each dropout site regenerates its bits with Philox4x32-10
 // (about 100 integer operations on the CUDA cores), one for every four
 // values: in the GEMM epilogues a pair of lanes shares a counter group
@@ -122,15 +123,6 @@ typedef __nv_bfloat162 bf162;
 namespace {
 
 constexpr int DROP_ROWS = 16;  // rows of a dropout_bwd_kernel block (one partial row)
-
-// attention backward: query rows and keys per tile, 8 warps
-constexpr int BWD_THREADS = 256;
-constexpr int BWD_WARPS = BWD_THREADS / 32;
-constexpr int BWD_T = 64;
-constexpr int BWD_RPW = BWD_T / BWD_WARPS;  // rows (or keys) per warp
-constexpr int BWD_KPL = BWD_T / 32;         // keys per lane
-constexpr int BWD_KT = 128;                 // key tile of the dq launch
-constexpr int BWD_RKPL = BWD_KT / 32;       // its keys per lane
 
 // One dropout site of one layer call, applied to elements (m, n) of an
 // (M = B*S, N) row-major activation (Site below; apply4 four at a time).
@@ -267,31 +259,83 @@ struct Site {
   }
 };
 
-using attention::dot_bf16;
-using attention::load_rows;
-using attention::warp_max;
+using attention::pv_chunk;
+using attention::round16;
+using attention::smem_ld;
+using attention::store_rows;
+using attention::TC_CPT;
+using attention::TC_KT;
+using attention::TC_QT;
+using attention::TC_THREADS;
+using attention::TC_WARPS;
 using attention::warp_sum;
 
-__device__ __forceinline__ float bfr(float v) { return attention::bf16_round(v); }
-
-
-// The attention half of the backward, tiled so that any S runs. For one
-// (batch row, head) with the probabilities p (recomputed from bf16(q*scale)
-// bf16(k)^T + mask in fp32, or read as the stored bf16 values):
-//   dp = bf16(da) bf16(v)^T;  delta_i = sum_j dp_ij p_ij;  ds = p (dp - delta)
-//   dq = scale bf16(ds) bf16(k);  dk = scale bf16(ds)^T bf16(q);  dv = bf16(p)^T bf16(da)
-// with q unscaled in dk. Two launches, each summing in a fixed order with no
-// atomics:
-//   rows: one block per (batch row, head, BWD_T queries) walks the key
-//     tiles of BWD_KT (recompute: pass 1 the row max and sum; pass 2 delta;
-//     pass 3 ds and dq; with one tile, S <= BWD_KT, all in one pass over
-//     each row), writes dq and the rows' (max, sum, delta);
-//   cols: one block per (batch row, head, BWD_T keys) walks the query tiles,
-//     forms bf16 p and ds of the (queries x keys) tile in shared memory and
-//     sums dk and dv over all queries.
-// Each block also writes the column sums of its dq (rows) or dk and dv (cols)
-// over its rows, the fp32 values before rounding, into
-// partial[(b * ntiles + tile)][3D]; a last pass adds them into dbqkv.
+// The attention half of the backward on the tensor cores. For one (batch
+// row, head), with the probabilities p recomputed from bf16(q*scale)
+// bf16(k)^T + mask in fp32 (the row max and sum over the whole row, p = e /
+// sum never rescaled after rounding) or read as the stored bf16 values:
+//   dp = bf16(da) bf16(v)^T;  delta_i = sum_j dp_ij p_ij (fp32 dp and p);
+//   ds = p (dp - delta);  dq = scale bf16(ds) bf16(k);
+//   dk = scale bf16(ds)^T bf16(q);  dv = bf16(p)^T bf16(da)
+// with q unscaled in dk. delta is not rowsum(dO o O): O was formed from
+// bf16(p), so the two differ. All five products (scores, dp, dq, dk, dv) are
+// mma.sync m16n8k16 bf16 -> fp32 (mma.cuh) in warp tiles of 16 rows, their
+// fragments read by ldmatrix (ldmatrix.trans for the right operand of dq,
+// dk and dv) from shared memory filled by cp.async, 16-wide k steps outside
+// and 16-row chunks inside (abt_tile) so consecutive products go to
+// different accumulators. Two launches, each summing in a fixed order with
+// no atomics, so two calls give the same bits:
+//   rows (attention_bwd_rows_tc): a warp per 16 queries of one (batch row,
+//     head), for dq, and bf16(p) and bf16(ds), which it hands the cols
+//     launch through two (S, sp) planes a head (pds). For S up to
+//     rows_reg_max (every CLI shape: 77, 197) the warp keeps its whole row
+//     of scores, then p, in registers (NC 16-key chunks, as the forward's
+//     forward_tc_regs) and the block, 64 queries (S <= 128) or 128, holds
+//     the head's keys and values whole in shared memory, loaded once a tile
+//     at a time, each pass waiting only for the tiles it reads: pass A
+//     forms the scores, then the exact max and sum and p in place; pass B
+//     dp and delta; pass C dp again (cheaper than a second row of
+//     registers), ds = p (dp - delta) rounded to bf16 and packed straight
+//     from the accumulator layout, which is the A layout of m16n8k16,
+//     dq += bf16(ds) k, and the packed bf16(ds) and bf16(p) stored. With the
+//     stored p (kernel 9) there is no pass A: the block's rows of p, one
+//     contiguous span, are staged in shared memory with 16-byte copies (a
+//     row of S bf16 values starts 16-byte aligned only where S is a
+//     multiple of 8) and read into the same registers. Longer rows take the
+//     tiled path (NC = 0, 64 queries a block): K and V tiles streamed
+//     through a two-slot ring, pass A the running max and sum tile by tile
+//     (as forward_tc_tiles), passes B and C each tile's scores and p again
+//     (the stored p read from device memory).
+//   cols (attention_bwd_cols_tc): a warp per 16 keys, COLS_WARPS warps a
+//     block, for dk = bf16(ds)^T q and dv = bf16(p)^T da: two products. The
+//     rows launch hands it p and ds as ready A fragments of p^T and ds^T:
+//     it transposes its packed 16 x 16 fragments in registers (movmatrix)
+//     and stores each with one 16-byte store a lane, a warp's 512 bytes
+//     contiguous (pds: two planes of ceil(S / 16)^2 fragments a head). The
+//     cols launch streams BWD_CQ-query stages of q, dattn and those
+//     fragments through a two-slot cp.async ring, and its fp32 dk and dv
+//     accumulators (16 keys x dh a warp) stay in registers across every
+//     query. Forming p and ds once (the rows launch needs them for dq)
+//     spares it the scores, dp and softmax it would otherwise form again,
+//     for 4 bf16 values a (query, key) pair of traffic.
+// Each group of 4 warps (64 rows) writes the column sums of its dq (rows)
+// or dk and dv (cols) over its rows, the fp32 values before rounding, into
+// partial[(b * ceil(S / BWD_T) + tile)][3D] (its warps' sums added in warp
+// order); a last pass adds them into dbqkv.
+// Bound (B=64, D=512, 4 heads, dh 128): at S=77 the five S x S x dh products
+// are 3.9 GFLOP (kernel 9 drops the scores) over ~20 MB, 4 us of tensor-core
+// work against 6 us of bytes; at S=197, 12.7 GFLOP and 20 MB of stored p.
+// The launches form 6 of those products against the bound's 5 (the rows
+// launch dp twice) and move the handed-over p and ds. What limits them
+// instead is the ldmatrix + mma.sync stream of 16-row warp tiles at two
+// warps a scheduler, as in the forward (PERF.md): at S=197 taking out any
+// one of the rows launch's products, its exponentials or its hand-over
+// saved 23-35 % of its time (profile_attention_bwd.py).
+// Registers: on the register path at dh 128 and NC 13, 104 of p and 64 of
+// dq in pass C, ~220 a thread; the cols launch 64 of dk and 64 of dv.
+// Shared memory at dh 128 and S=197: rows 183 KB (the head's k and v, the
+// block's dattn and q*scale rows; 201 KB with the staged p instead of
+// q*scale), one block of 8 warps an SM; cols 68 KB (two stages).
 struct AttnBwdArgs {
   const bf16* q_s;     // (M, D) q*scale, recompute only
   const bf16* q;       // unscaled q, k and v: row stride ldqkv, head h at column h*dh
@@ -301,336 +345,644 @@ struct AttnBwdArgs {
   const bf16* dattn;   // (M, D)
   const float* kmask;  // (B, S) additive or null, recompute only
   const bf16* probs;   // (B, H, S, S), stored only
-  float* stats;        // (B*H*S, 3): row max, row sum of exp, delta
+  uint4* pds;          // bf16(p), then bf16(ds), from the rows launch (hand_over)
+  int nb;              // 16-row blocks of a head's S rows
   bf16* dqkv;          // (M, 3D)
   float* partial;      // (B * ceil(S / BWD_T), 3D)
   int S, D, H, dh;
   float scale;
 };
 
-// column sums over the warps' rows, in warp order: vals[d] of lane l is
-// column l*DPL + d; writes dst[0, dh)
-template <int MAXD>
-__device__ void sum_columns(float* red, const float* vals, float* dst, int dh) {
-  constexpr int DPL = MAXD / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
+// queries (rows launch) or keys (cols launch) of a block, and the tile of
+// the blocks' column sums
+constexpr int BWD_T = TC_QT;
+constexpr int BWD_CQ = 32;  // query rows of a cols-launch stage
+constexpr int COLS_WARPS = 4;  // warps (16 keys each) of a cols-launch block
+// 16-key chunks whose dp the register path's pass C forms together
+constexpr int PASS_C_CHUNKS = 4;
+// the longest S of the rows launch's register path: at dh 128 its 13 chunks
+// (104 registers of p) beside 64 of dq; at dh <= 64, 16 chunks
+template <int DMAX>
+constexpr int rows_reg_max() { return DMAX <= 64 ? 256 : 208; }
+
+// The 16-row tiles a b^T of the warp's rows (Aw: its first row in shared
+// memory, dh wide) against chunks j < nch of 16 rows of Bt: c[2j] takes
+// chunk j's rows 0-7, c[2j + 1] rows 8-15. The 16-wide k steps go outside
+// and the chunks inside, so consecutive products go to different
+// accumulators (a chain over the k steps of one accumulator pair would wait
+// out mma.sync's latency at every step); the warp's A fragment of a k step
+// is read once for all chunks.
+template <int KC, int CW>
+__device__ __forceinline__ void abt_tile(float (&c)[2 * CW][4], const bf16* Aw, const bf16* Bt,
+                                         int nch, int ldk, int dh, int lane) {
 #pragma unroll
-  for (int d = 0; d < DPL; ++d) red[warp * MAXD + lane * DPL + d] = vals[d];
-  __syncthreads();
-  for (int c = threadIdx.x; c < dh; c += BWD_THREADS) {
-    float t = 0.f;
-    for (int w = 0; w < BWD_WARPS; ++w) t += red[w * MAXD + c];
-    dst[c] = t;
+  for (int j = 0; j < 2 * CW; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    if (kc * 16 >= dh) break;
+    uint32_t a[4];
+    mma::ldmatrix_x4(a, Aw + (lane & 15) * ldk + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      if (j < nch) mma::qk_step(c[2 * j], c[2 * j + 1], a, Bt + j * 16 * ldk + kc * 16, ldk, lane);
   }
 }
 
-template <int MAXD, bool STORED>
-__global__ void __launch_bounds__(BWD_THREADS) attention_bwd_rows_kernel(AttnBwdArgs a) {
-  constexpr int DPL = MAXD / 32;
-  static_assert(DPL == 2 || DPL == 4, "MAXD is 64 or 128");
+// two accumulators (16 rows x 16 columns) as one bf16 A fragment over those
+// 16 columns
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  pa[0] = mma::pack_bf16(c0[0], c0[1]);
+  pa[1] = mma::pack_bf16(c0[2], c0[3]);
+  pa[2] = mma::pack_bf16(c1[0], c1[1]);
+  pa[3] = mma::pack_bf16(c1[2], c1[3]);
+}
+
+// 16 x 16 of the stored bf16 probabilities, rows of S values, as fp32 in
+// the accumulator layout: element (r, c) for r = row0 + g (+ 8), c = col0 +
+// 2t (+ 1, + 8, + 9) at p[r * S + c], 0 where r >= rlim or c >= S (the
+// rows launch's rows staged in shared memory, or on its tiled path p in
+// device memory)
+__device__ __forceinline__ void load_p(float (&c0)[4], float (&c1)[4], const bf16* p, int row0,
+                                       int col0, int rlim, int S, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int r = row0 + g + 8 * ((e >> 1) & 1), c = col0 + 8 * (e >> 2) + 2 * t + (e & 1);
+    const float v = r < rlim && c < S ? __bfloat162float(p[(size_t)r * S + c]) : 0.f;
+    if (e < 4) c0[e] = v;
+    else c1[e - 4] = v;
+  }
+}
+
+// 16 bytes of shared memory at dst from the first `bytes` (1 to 16) at src,
+// the rest zero-filled, without passing through registers
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(mma::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The stored probabilities are rows of S bf16 values, so a row (or a run of
+// rows) starts 16-byte aligned only where S is a multiple of 8: a span of
+// n values at src goes to shared memory at dst + misalign(src) in 16-byte
+// cp.async copies of the aligned chunks that cover it (the values before
+// src in its first chunk are copied too; none past its end is read).
+__device__ __forceinline__ int misalign(const bf16* src) {
+  return (int)(reinterpret_cast<uintptr_t>(src) & 15) / 2;
+}
+
+// chunk c of that copy (a chunk wholly past the span copies nothing)
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src, int n, int c) {
+  const int off = misalign(src), total = off + n;
+  if (8 * c < total) cp_async_bytes(dst + 8 * c, src - off + 8 * c, min(16, 2 * (total - 8 * c)));
+}
+
+// The column sums of the block's accumulator tiles (each warp's 16 rows x dh
+// o, rows row0 + g and + 8, those at or past S left out): each group of
+// TC_WARPS warps (64 rows) adds its warps' in warp order into its row of the
+// partial sums, dst + group * ld, [0, dh); groups at or past `groups` are
+// left out. red: W x DMAX floats of shared memory. Every thread of the block
+// calls it.
+template <int DMAX, int W>
+__device__ void column_sums(float* red, const float (&o)[DMAX / 8][4], int row0, int S,
+                            float* dst, size_t ld, int groups, int dh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool r0 = row0 + g < S, r1 = row0 + g + 8 < S;
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n) {
+    float c0 = (r0 ? o[n][0] : 0.f) + (r1 ? o[n][2] : 0.f);
+    float c1 = (r0 ? o[n][1] : 0.f) + (r1 ? o[n][3] : 0.f);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {  // over g; every lane ends with the same sums
+      c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+      c1 += __shfl_xor_sync(0xffffffffu, c1, off);
+    }
+    if (g == 0 && n * 8 < dh) {
+      red[warp * DMAX + n * 8 + 2 * t] = c0;
+      red[warp * DMAX + n * 8 + 2 * t + 1] = c1;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (W / TC_WARPS) * dh; i += blockDim.x) {
+    const int grp = i / dh, c = i % dh;
+    if (grp >= groups) continue;
+    float s = 0.f;
+    for (int w = 0; w < TC_WARPS; ++w) s += red[(grp * TC_WARPS + w) * DMAX + c];
+    dst[grp * ld + c] = s;
+  }
+}
+
+// waits until at most n of this thread's cp.async groups are in flight (n
+// known only at run time; above 7, until 7 are)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: mma::cp_async_wait<0>(); break;
+    case 1: mma::cp_async_wait<1>(); break;
+    case 2: mma::cp_async_wait<2>(); break;
+    case 3: mma::cp_async_wait<3>(); break;
+    case 4: mma::cp_async_wait<4>(); break;
+    case 5: mma::cp_async_wait<5>(); break;
+    case 6: mma::cp_async_wait<6>(); break;
+    default: mma::cp_async_wait<7>(); break;
+  }
+}
+
+template <int NC, int W, int DMAX, bool STORED>
+__global__ void __launch_bounds__(W * 32) attention_bwd_rows_tc(AttnBwdArgs a) {
+  constexpr int KC = DMAX / 16, NDT = DMAX / 8;
+  constexpr bool REGS = NC > 0;
+  static_assert(REGS || W == TC_WARPS, "the tiled path runs TC_WARPS warps");
+  constexpr int NT = REGS ? (NC * 16 + TC_KT - 1) / TC_KT : 1;  // most key tiles (registers)
+  constexpr int FIRST = STORED ? 1 : 0;                         // first pass: B with stored p
   extern __shared__ __align__(16) unsigned char sm[];
-  const int S = a.S, D = a.D, H = a.H, dh = a.dh, ldk = attention::smem_ld(dh);
-  bf16* Qs = reinterpret_cast<bf16*>(sm);  // the block's q*scale rows (recompute)
-  bf16* As = Qs + BWD_T * ldk;             // the block's dattn rows
-  bf16* Ks = As + BWD_T * ldk;             // key tile of BWD_KT rows
-  bf16* Vs = Ks + BWD_KT * ldk;
-  float* Dw = reinterpret_cast<float*>(Vs + BWD_KT * ldk);  // per warp: bf16(ds) of a row
-  float* Red = Dw + BWD_WARPS * BWD_KT;                     // (BWD_WARPS, MAXD)
-  float* Rst = Red + BWD_WARPS * MAXD;     // per row: max, sum of exp, delta
-  float* Dq = Rst + BWD_T * 3;  // per row: dq summed over the key tiles (S > BWD_KT only)
+  const int S = a.S, D = a.D, H = a.H, dh = a.dh, ldk = smem_ld(dh);
+  const int tile_elems = TC_KT * ldk;
+  // the register path keeps the head's keys and values whole (NC 16-row
+  // chunks each), the tiled path two stages of a K tile and a V tile; then
+  // the block's dattn rows and (recompute) q*scale rows
+  bf16* kv = reinterpret_cast<bf16*>(sm);
+  bf16* Ks = kv;                                // keys (register path)
+  bf16* Vs = kv + (REGS ? NC * 16 : 0) * ldk;   // values (register path)
+  bf16* ring = kv;                              // the stages (tiled path)
+  bf16* As = kv + (REGS ? 2 * NC * 16 : 4 * TC_KT) * ldk;
+  bf16* Qs = As + W * 16 * ldk;
+  bf16* Ps = Qs;  // the stored path's p rows of the block (register path)
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.y * BWD_T, nq = min(BWD_T, S - q0);
-  const int nt = (S + BWD_KT - 1) / BWD_KT;  // key tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int q0 = blockIdx.y * W * 16, row0 = q0 + warp * 16;
+  const bool active = row0 < S;  // warp-uniform
   const size_t brow = (size_t)b * S, bh = (size_t)b * H + h;
-  const bool lane_on = lane * DPL < dh;
-  float* dsrow = Dw + warp * BWD_KT;
+  const int nt = (S + TC_KT - 1) / TC_KT, nc = (S + 15) / 16;
+  const bf16* probs = STORED ? a.probs + bh * S * S : nullptr;
 
-  if (!STORED) load_rows(Qs, a.q_s, brow + q0, nq, D, h * dh, dh);
-  load_rows(As, a.dattn, brow + q0, nq, D, h * dh, dh);
-  for (int i = threadIdx.x; i < BWD_T; i += BWD_THREADS) {
-    Rst[i * 3] = -INFINITY;
-    Rst[i * 3 + 1] = 0.f;
-    Rst[i * 3 + 2] = 0.f;
+  if (!STORED) mma::copy_rows_async(Qs, ldk, a.q_s, brow, q0, W * 16, S, D, h * dh, dh);
+  mma::copy_rows_async(As, ldk, a.dattn, brow, q0, W * 16, S, D, h * dh, dh);
+  // register path, stored p: the block's rows of p, one contiguous span
+  int poff = 0;
+  if (REGS && STORED) {
+    const bf16* src = probs + (size_t)q0 * S;
+    const int n = min(W * 16, S - q0) * S;
+    poff = misalign(src);
+    for (int c = threadIdx.x; c < (n + 15) / 8; c += blockDim.x) stage_chunk(Ps, src, n, c);
   }
-
-  // the scores of row il against this lane's keys of tile t (-inf past S)
-  auto scores = [&](int il, int t, float* s) {
-#pragma unroll
-    for (int kk = 0; kk < BWD_RKPL; ++kk) {
-      const int jl = lane + 32 * kk, j = t * BWD_KT + jl;
-      s[kk] = -INFINITY;
-      if (j < S) {
-        s[kk] = dot_bf16(Qs + il * ldk, Ks + jl * ldk, dh);
-        if (a.kmask != nullptr) s[kk] += a.kmask[brow + j];
-      }
+  // tiled path: the stream of tiles. Pass A (recompute) the K tiles; pass B
+  // the V tiles (and the K tiles when it recomputes the scores); pass C the K
+  // and V tiles. Element e is tile e % nt of pass FIRST + e / nt, in stage
+  // e & 1.
+  const int n_elems = (3 - FIRST) * nt;
+  auto issue = [&](int e) {
+    if (e < n_elems) {
+      const int pass = FIRST + e / nt, j0 = (e % nt) * TC_KT;
+      const int rows = min(TC_KT, round16(S - j0));
+      bf16* st = ring + (e & 1) * 2 * tile_elems;
+      if (pass != 1 || !STORED)
+        mma::copy_rows_async(st, ldk, a.k, brow, j0, rows, S, a.ldqkv, h * dh, dh);
+      if (pass != 0)
+        mma::copy_rows_async(st + tile_elems, ldk, a.v, brow, j0, rows, S, a.ldqkv, h * dh, dh);
     }
+    mma::cp_async_commit();
   };
-  // fold this tile's scores into row il's max and sum of exp(s - max)
-  auto fold_stats = [&](int il, const float* s) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int kk = 0; kk < BWD_RKPL; ++kk) mx = fmaxf(mx, s[kk]);
-    const float m_old = Rst[il * 3], m_new = fmaxf(m_old, warp_max(mx));
-    float e = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BWD_RKPL; ++kk) e += expf(s[kk] - m_new);  // 0 past S
-    e = warp_sum(e);
-    const float l = (m_old == -INFINITY ? 0.f : Rst[il * 3 + 1] * expf(m_old - m_new)) + e;
-    __syncwarp();
-    if (lane == 0) Rst[il * 3] = m_new, Rst[il * 3 + 1] = l;
-    __syncwarp();
-  };
-  // p (recomputed from the scores s, or stored) and dp of row il against
-  // this lane's keys of tile t; returns this lane's sum of dp * p
-  auto p_dp = [&](int il, int t, const float* s, float* p, float* dp) {
-    float sdp = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BWD_RKPL; ++kk) {
-      const int jl = lane + 32 * kk, j = t * BWD_KT + jl;
-      p[kk] = dp[kk] = 0.f;
-      if (j < S) {
-        p[kk] = STORED ? __bfloat162float(a.probs[(bh * S + q0 + il) * S + j])
-                       : expf(s[kk] - Rst[il * 3]) / Rst[il * 3 + 1];
-        dp[kk] = dot_bf16(As + il * ldk, Vs + jl * ldk, dh);
-        sdp += dp[kk] * p[kk];
-      }
-    }
-    return sdp;
-  };
-  // ds = p (dp - delta) of row il, rounded; acc = bf16(ds) k over the tile
-  auto tile_dq = [&](int il, int t, const float* p, const float* dp, float* acc) {
-    const int n = min(BWD_KT, S - t * BWD_KT);
-    const float delta = Rst[il * 3 + 2];
-#pragma unroll
-    for (int kk = 0; kk < BWD_RKPL; ++kk) {
-      const int jl = lane + 32 * kk;
-      if (jl < n) dsrow[jl] = bfr(p[kk] * (dp[kk] - delta));
-    }
-    __syncwarp();
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) acc[d] = 0.f;
-    if (lane_on) {
-      for (int jl = 0; jl < n; ++jl) {
-        const float dsj = dsrow[jl];
-        const bf16* kr = Ks + jl * ldk + lane * DPL;
-#pragma unroll
-        for (int d = 0; d < DPL; d += 2) {
-          const float2 kf = __bfloat1622float2(*reinterpret_cast<const bf162*>(kr + d));
-          acc[d] = fmaf(dsj, kf.x, acc[d]);
-          acc[d + 1] = fmaf(dsj, kf.y, acc[d + 1]);
-        }
-      }
-    }
-    __syncwarp();
-  };
-  // dq * scale of row il as bf16, and its share of the column sums
-  float csum[DPL];
-#pragma unroll
-  for (int d = 0; d < DPL; ++d) csum[d] = 0.f;
-  auto emit_dq = [&](int il, const float* acc) {
-    if (!lane_on) return;
-    bf16* og = a.dqkv + (brow + q0 + il) * 3 * D + h * dh + lane * DPL;
-#pragma unroll
-    for (int d = 0; d < DPL; d += 2) {
-      const float v0 = acc[d] * a.scale, v1 = acc[d + 1] * a.scale;
-      csum[d] += v0;
-      csum[d + 1] += v1;
-      *reinterpret_cast<bf162*>(og + d) = __floats2bfloat162_rn(v0, v1);
-    }
-  };
-  auto load_tile = [&](int t) {
-    const int j0 = t * BWD_KT, n = min(BWD_KT, S - j0);
+  int e = 0;  // the stream element in use
+  auto wait_tile = [&]() -> const bf16* {
+    mma::cp_async_wait<1>();
     __syncthreads();
-    load_rows(Ks, a.k, brow + j0, n, a.ldqkv, h * dh, dh);
-    load_rows(Vs, a.v, brow + j0, n, a.ldqkv, h * dh, dh);
-    __syncthreads();
+    return ring + (e & 1) * 2 * tile_elems;
   };
-
-  float s[BWD_RKPL], p[BWD_RKPL], dp[BWD_RKPL], acc[DPL];
-  if (nt == 1) {
-    // one key tile: each row in one pass, its scores, dp and dq in registers
-    load_tile(0);
-#pragma unroll 1
-    for (int il = warp; il < nq; il += BWD_WARPS) {
-      if (!STORED) {
-        scores(il, 0, s);
-        fold_stats(il, s);
+  auto next_tile = [&]() {
+    __syncthreads();
+    issue(e + 2);
+    ++e;
+  };
+  if constexpr (REGS) {
+    // register path: the keys' tiles, then the values' (the stored path,
+    // whose first pass reads the values, the other way round), a cp.async
+    // group each, loaded once; each pass waits only for the tiles it reads
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const bool keys = (half == 0) != STORED;
+      for (int t = 0; t < nt; ++t) {
+        const int j0 = t * TC_KT;
+        mma::copy_rows_async((keys ? Ks : Vs) + j0 * ldk, ldk, keys ? a.k : a.v, brow, j0,
+                             min(TC_KT, round16(S - j0)), S, a.ldqkv, h * dh, dh);
+        mma::cp_async_commit();
       }
-      const float delta = warp_sum(p_dp(il, 0, s, p, dp));
-      if (lane == 0) Rst[il * 3 + 2] = delta;
-      __syncwarp();
-      tile_dq(il, 0, p, dp, acc);
-      emit_dq(il, acc);
     }
   } else {
-    // pass 1 (recompute): row max and sum of exp(s - max)
-    if (!STORED) {
-      for (int t = 0; t < nt; ++t) {
-        load_tile(t);
-#pragma unroll 1
-        for (int il = warp; il < nq; il += BWD_WARPS) {
-          scores(il, t, s);
-          fold_stats(il, s);
-        }
-      }
-    }
-    // pass 2: delta = sum_j dp p
-    for (int t = 0; t < nt; ++t) {
-      load_tile(t);
-#pragma unroll 1
-      for (int il = warp; il < nq; il += BWD_WARPS) {
-        if (!STORED) scores(il, t, s);
-        const float part = warp_sum(p_dp(il, t, s, p, dp));
-        if (lane == 0) Rst[il * 3 + 2] += part;
-        __syncwarp();
-      }
-    }
-    // pass 3: ds and dq, summed over the tiles in Dq
-    for (int i = threadIdx.x; i < BWD_T * MAXD; i += BWD_THREADS) Dq[i] = 0.f;
-    for (int t = 0; t < nt; ++t) {
-      load_tile(t);
-#pragma unroll 1
-      for (int il = warp; il < nq; il += BWD_WARPS) {
-        if (!STORED) scores(il, t, s);
-        p_dp(il, t, s, p, dp);
-        tile_dq(il, t, p, dp, acc);
-        if (lane_on) {
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) Dq[il * MAXD + lane * DPL + d] += acc[d];
-        }
-      }
-    }
-#pragma unroll 1
-    for (int il = warp; il < nq; il += BWD_WARPS) {
-      if (lane_on) {
-#pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[d] = Dq[il * MAXD + lane * DPL + d];
-      }
-      emit_dq(il, acc);
-    }
+    issue(0);
+    issue(1);
   }
 
-  // the rows' statistics for the dk/dv launch, and the column sums of dq
-#pragma unroll 1
-  for (int il = warp; il < nq; il += BWD_WARPS)
-    if (lane < 3) a.stats[(bh * S + q0 + il) * 3 + lane] = Rst[il * 3 + lane];
-  sum_columns<MAXD>(Red, csum, a.partial + ((size_t)b * gridDim.y + blockIdx.y) * 3 * D + h * dh,
-                    dh);
-}
-
-template <int MAXD, bool STORED>
-__global__ void __launch_bounds__(BWD_THREADS) attention_bwd_cols_kernel(AttnBwdArgs a) {
-  constexpr int DPL = MAXD / 32;
-  constexpr int LDP = BWD_T + 2;
-  extern __shared__ __align__(16) unsigned char sm[];
-  const int S = a.S, D = a.D, H = a.H, dh = a.dh, ldk = attention::smem_ld(dh);
-  bf16* Ks = reinterpret_cast<bf16*>(sm);  // the block's keys
-  bf16* Vs = Ks + BWD_T * ldk;
-  bf16* Qs = Vs + BWD_T * ldk;             // query tile: q*scale (recompute)
-  bf16* Qr = Qs + BWD_T * ldk;             // unscaled q
-  bf16* As = Qr + BWD_T * ldk;             // dattn
-  bf16* Pb = As + BWD_T * ldk;             // (BWD_T, LDP) bf16(p)
-  bf16* Db = Pb + BWD_T * LDP;             // (BWD_T, LDP) bf16(ds)
-  float* St = reinterpret_cast<float*>(Db + BWD_T * LDP);  // (BWD_T, 3) row stats
-  float* Red = St + BWD_T * 3;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int j0 = blockIdx.y * BWD_T, nk = min(BWD_T, S - j0);
-  const int nt = (S + BWD_T - 1) / BWD_T;
-  const size_t brow = (size_t)b * S, bh = (size_t)b * H + h;
-  const bool lane_on = lane * DPL < dh;
-
-  load_rows(Ks, a.k, brow + j0, nk, a.ldqkv, h * dh, dh);
-  load_rows(Vs, a.v, brow + j0, nk, a.ldqkv, h * dh, dh);
-  float dk[BWD_RPW][DPL], dv[BWD_RPW][DPL];
+  // rows g and g + 8 of the warp: max, sum of exp, its reciprocal, delta
+  float m0 = 0.f, m1 = 0.f, l0 = 1.f, l1 = 1.f, r0 = 1.f, r1 = 1.f, dl0 = 0.f, dl1 = 0.f;
+  uint32_t qa[KC][4];  // the warp's q*scale fragments (pass A, register path)
+  float dq[NDT][4];
 #pragma unroll
-  for (int rr = 0; rr < BWD_RPW; ++rr)
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) dk[rr][d] = dv[rr][d] = 0.f;
+  for (int n = 0; n < NDT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  // ds of 16 keys as an A fragment, from their p and dp
+  auto ds_frag = [&](uint32_t (&pa)[4], const float (&p0)[4], const float (&p1)[4],
+                     const float (&d0)[4], const float (&d1)[4]) {
+    pa[0] = mma::pack_bf16(p0[0] * (d0[0] - dl0), p0[1] * (d0[1] - dl0));
+    pa[1] = mma::pack_bf16(p0[2] * (d0[2] - dl1), p0[3] * (d0[3] - dl1));
+    pa[2] = mma::pack_bf16(p1[0] * (d1[0] - dl0), p1[1] * (d1[1] - dl0));
+    pa[3] = mma::pack_bf16(p1[2] * (d1[2] - dl1), p1[3] * (d1[3] - dl1));
+  };
+  // bf16(p) or bf16(ds) (plane 0 or 1) of the warp's 16 queries x the 16
+  // keys of chunk jb (an A fragment) for the cols launch: transposed in
+  // registers into the A fragment of p^T or ds^T (keys as the rows;
+  // movmatrix transposes each 8x8 quarter, and the off-diagonal quarters
+  // trade places), stored 16 bytes a lane at fragment (jb, row0 / 16) of the
+  // head: two planes of (nb x nb) fragments, 512 bytes each, so every store
+  // and the cols launch's every load is 512 contiguous bytes a warp
+  auto hand_over = [&](const uint32_t (&f)[4], int plane, int jb) {
+    a.pds[((plane * gridDim.x + bh) * a.nb + jb) * a.nb * 32 + row0 / 16 * 32 + lane] =
+        make_uint4(mma::movmatrix_trans(f[0]), mma::movmatrix_trans(f[2]),
+                   mma::movmatrix_trans(f[1]), mma::movmatrix_trans(f[3]));
+  };
+  // this thread's share of delta from 16 keys
+  auto add_delta = [&](float& s0, float& s1, const float (&p0)[4], const float (&p1)[4],
+                       const float (&d0)[4], const float (&d1)[4]) {
+    s0 += p0[0] * d0[0] + p0[1] * d0[1] + p1[0] * d1[0] + p1[1] * d1[1];
+    s1 += p0[2] * d0[2] + p0[3] * d0[3] + p1[2] * d1[2] + p1[3] * d1[3];
+  };
 
-  for (int qt = 0; qt < nt; ++qt) {
-    const int i0 = qt * BWD_T, nq = min(BWD_T, S - i0);
-    __syncthreads();
-    if (!STORED) load_rows(Qs, a.q_s, brow + i0, nq, D, h * dh, dh);
-    load_rows(Qr, a.q, brow + i0, nq, a.ldqkv, h * dh, dh);
-    load_rows(As, a.dattn, brow + i0, nq, D, h * dh, dh);
-    for (int i = threadIdx.x; i < nq * 3; i += BWD_THREADS) St[i] = a.stats[(bh * S + i0) * 3 + i];
-    __syncthreads();
-    // bf16 p and ds of the (queries x keys) tile: a warp per query row, a lane per key
-#pragma unroll 1
-    for (int il = warp; il < nq; il += BWD_WARPS) {
+  if constexpr (REGS) {
+    float pr[2 * NC][4];  // the scores, then p, of every key
 #pragma unroll
-      for (int kk = 0; kk < BWD_KPL; ++kk) {
-        const int jl = lane + 32 * kk, j = j0 + jl;
-        if (jl >= nk) continue;
-        float p;
-        if (STORED) {
-          p = __bfloat162float(a.probs[(bh * S + i0 + il) * S + j]);
-        } else {
-          float s = dot_bf16(Qs + il * ldk, Ks + jl * ldk, dh);
-          if (a.kmask != nullptr) s += a.kmask[brow + j];
-          p = expf(s - St[il * 3]) / St[il * 3 + 1];
+    for (int n = 0; n < 2 * NC; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
+    if constexpr (!STORED) {
+      // pass A: the scores of every key
+#pragma unroll
+      for (int tt = 0; tt < NT; ++tt) {
+        if (tt >= nt) break;
+        cp_async_wait_upto(2 * nt - 1 - tt);  // the keys' tile tt
+        __syncthreads();
+        const bf16* Kt = Ks + tt * tile_elems;
+        if (active) {
+          if (tt == 0) mma::load_q_frags(qa, Qs + warp * 16 * ldk, ldk, dh, lane);
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            if (kc * 16 >= dh) break;
+#pragma unroll
+            for (int c = 0; c < TC_CPT; ++c) {
+              const int gc = tt * TC_CPT + c;
+              if (gc < NC && gc < nc)
+                mma::qk_step(pr[2 * gc], pr[2 * gc + 1], qa[kc], Kt + c * 16 * ldk + kc * 16,
+                             ldk, lane);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < TC_CPT; ++c) {
+            const int gc = tt * TC_CPT + c;
+            if (gc < NC && gc < nc) {
+              mma::mask_pair(pr[2 * gc], gc * 16 + 2 * t4, S, a.kmask, brow);
+              mma::mask_pair(pr[2 * gc + 1], gc * 16 + 8 + 2 * t4, S, a.kmask, brow);
+            }
+          }
         }
-        const float dp = dot_bf16(As + il * ldk, Vs + jl * ldk, dh);
-        Pb[il * LDP + jl] = __float2bfloat16_rn(p);
-        Db[il * LDP + jl] = __float2bfloat16_rn(p * (dp - St[il * 3 + 2]));
       }
+      // the exact row max and sum; p = e / sum in place, fp32
+      m0 = m1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2 * NC; ++n)
+        if (n < 2 * nc) {
+          m0 = fmaxf(m0, fmaxf(pr[n][0], pr[n][1]));
+          m1 = fmaxf(m1, fmaxf(pr[n][2], pr[n][3]));
+        }
+      m0 = mma::quad_max(m0);
+      m1 = mma::quad_max(m1);
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2 * NC; ++n)
+        if (n < 2 * nc) {
+          pr[n][0] = expf(pr[n][0] - m0);
+          pr[n][1] = expf(pr[n][1] - m0);
+          pr[n][2] = expf(pr[n][2] - m1);
+          pr[n][3] = expf(pr[n][3] - m1);
+          l0 += pr[n][0] + pr[n][1];
+          l1 += pr[n][2] + pr[n][3];
+        }
+      l0 = mma::quad_sum(l0);
+      l1 = mma::quad_sum(l1);
+      r0 = 1.f / l0;
+      r1 = 1.f / l1;
+#pragma unroll
+      for (int n = 0; n < 2 * NC; ++n)
+        if (n < 2 * nc) {
+          pr[n][0] = mma::div_by(pr[n][0], l0, r0);
+          pr[n][1] = mma::div_by(pr[n][1], l0, r0);
+          pr[n][2] = mma::div_by(pr[n][2], l1, r1);
+          pr[n][3] = mma::div_by(pr[n][3], l1, r1);
+        }
     }
-    __syncthreads();
-    // dk and dv: a warp per key, a lane per DPL dims, summed over the queries
-    if (lane_on) {
+    // pass B: dp and delta
 #pragma unroll
-      for (int rr = 0; rr < BWD_RPW; ++rr) {
-        const int jl = warp + BWD_WARPS * rr;
-        if (jl >= nk) continue;
-        for (int il = 0; il < nq; ++il) {
-          const float dsij = __bfloat162float(Db[il * LDP + jl]);
-          const float pij = __bfloat162float(Pb[il * LDP + jl]);
-          const bf16* qr = Qr + il * ldk + lane * DPL;
-          const bf16* ar = As + il * ldk + lane * DPL;
+    for (int tt = 0; tt < NT; ++tt) {
+      if (tt >= nt) break;
+      cp_async_wait_upto((STORED ? 2 * nt : nt) - 1 - tt);  // the values' tile tt
+      __syncthreads();
+      if (active) {
+        if (STORED && tt == 0) {  // p from the staged rows (the first group)
 #pragma unroll
-          for (int d = 0; d < DPL; d += 2) {
-            const float2 qf = __bfloat1622float2(*reinterpret_cast<const bf162*>(qr + d));
-            const float2 af = __bfloat1622float2(*reinterpret_cast<const bf162*>(ar + d));
-            dk[rr][d] = fmaf(dsij, qf.x, dk[rr][d]);
-            dk[rr][d + 1] = fmaf(dsij, qf.y, dk[rr][d + 1]);
-            dv[rr][d] = fmaf(pij, af.x, dv[rr][d]);
-            dv[rr][d + 1] = fmaf(pij, af.y, dv[rr][d + 1]);
+          for (int c = 0; c < NC; ++c)
+            if (c < nc)
+              load_p(pr[2 * c], pr[2 * c + 1], Ps + poff, row0 - q0, c * 16, S - q0, S, lane);
+        }
+        float d[2 * TC_CPT][4];
+        abt_tile<KC, TC_CPT>(d, As + warp * 16 * ldk, Vs + tt * tile_elems, nc - tt * TC_CPT, ldk,
+                             dh, lane);
+#pragma unroll
+        for (int c = 0; c < TC_CPT; ++c) {
+          const int gc = tt * TC_CPT + c;
+          if (gc < NC && gc < nc) {
+            add_delta(dl0, dl1, pr[2 * gc], pr[2 * gc + 1], d[2 * c], d[2 * c + 1]);
+            uint32_t pa[4];  // bf16(p) for the cols launch
+            pack_a(pa, pr[2 * gc], pr[2 * gc + 1]);
+            hand_over(pa, 0, gc);
           }
         }
       }
     }
-  }
-
-  float ksum[DPL], vsum[DPL];
+    dl0 = mma::quad_sum(dl0);
+    dl1 = mma::quad_sum(dl1);
+    // pass C: dp again, ds, dq += bf16(ds) k
+    if (STORED) {  // the keys' tiles
+      mma::cp_async_wait<0>();
+      __syncthreads();
+    }
+    constexpr int CG = PASS_C_CHUNKS;
 #pragma unroll
-  for (int d = 0; d < DPL; ++d) ksum[d] = vsum[d] = 0.f;
-  if (lane_on) {
+    for (int tt = 0; tt < NT; ++tt) {
+      if (tt >= nt) break;
+      const bf16* Kt = Ks + tt * tile_elems;
+      if (active) {
 #pragma unroll
-    for (int rr = 0; rr < BWD_RPW; ++rr) {
-      const int jl = warp + BWD_WARPS * rr;
-      if (jl >= nk) continue;
-      bf16* kg = a.dqkv + (brow + j0 + jl) * 3 * D + D + h * dh + lane * DPL;
-      bf16* vg = kg + D;
+        for (int c0 = 0; c0 < TC_CPT; c0 += CG) {
+          float d[2 * CG][4];
+          abt_tile<KC, CG>(d, As + warp * 16 * ldk, Vs + tt * tile_elems + c0 * 16 * ldk,
+                           nc - tt * TC_CPT - c0, ldk, dh, lane);
 #pragma unroll
-      for (int d = 0; d < DPL; d += 2) {
-        const float k0 = dk[rr][d] * a.scale, k1 = dk[rr][d + 1] * a.scale;
-        ksum[d] += k0;
-        ksum[d + 1] += k1;
-        vsum[d] += dv[rr][d];
-        vsum[d + 1] += dv[rr][d + 1];
-        *reinterpret_cast<bf162*>(kg + d) = __floats2bfloat162_rn(k0, k1);
-        *reinterpret_cast<bf162*>(vg + d) = __floats2bfloat162_rn(dv[rr][d], dv[rr][d + 1]);
+          for (int c = 0; c < CG; ++c) {
+            const int gc = tt * TC_CPT + c0 + c;
+            if (gc < NC && gc < nc) {
+              uint32_t dsa[4];
+              ds_frag(dsa, pr[2 * gc], pr[2 * gc + 1], d[2 * c], d[2 * c + 1]);
+              hand_over(dsa, 1, gc);
+              pv_chunk(dq, dsa, Kt + (c0 + c) * 16 * ldk, ldk, dh, lane);
+            }
+          }
+        }
       }
     }
+  } else {
+    // the tiled path: p of the tile's chunks, recomputed from the scores
+    // with the row's max and sum, or read
+    auto p_tile = [&](float (&p)[2 * TC_CPT][4], const bf16* Kt, int j0, int nch) {
+      if constexpr (STORED) {
+#pragma unroll
+        for (int c = 0; c < TC_CPT; ++c)
+          if (c < nch) load_p(p[2 * c], p[2 * c + 1], probs, row0, j0 + c * 16, S, S, lane);
+      } else {
+        abt_tile<KC, TC_CPT>(p, Qs + warp * 16 * ldk, Kt, nch, ldk, dh, lane);
+#pragma unroll
+        for (int c = 0; c < TC_CPT; ++c) {
+          mma::mask_pair(p[2 * c], j0 + c * 16 + 2 * t4, S, a.kmask, brow);
+          mma::mask_pair(p[2 * c + 1], j0 + c * 16 + 8 + 2 * t4, S, a.kmask, brow);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            p[2 * c][x] = mma::div_by(expf(p[2 * c][x] - m0), l0, r0);
+            p[2 * c][x + 2] = mma::div_by(expf(p[2 * c][x + 2] - m1), l1, r1);
+            p[2 * c + 1][x] = mma::div_by(expf(p[2 * c + 1][x] - m0), l0, r0);
+            p[2 * c + 1][x + 2] = mma::div_by(expf(p[2 * c + 1][x + 2] - m1), l1, r1);
+          }
+        }
+      }
+    };
+    if constexpr (!STORED) {
+      // pass A: the running row max and sum of exp(s - max), tile by tile
+      m0 = m1 = -INFINITY;
+      l0 = l1 = 0.f;
+      for (int tt = 0; tt < nt; ++tt) {
+        const bf16* Kt = wait_tile();
+        if (active) {
+          const int j0 = tt * TC_KT;
+          float s[2 * TC_CPT][4];
+          abt_tile<KC, TC_CPT>(s, Qs + warp * 16 * ldk, Kt, (S - j0 + 15) / 16, ldk, dh, lane);
+#pragma unroll
+          for (int c = 0; c < TC_CPT; ++c) {  // -inf past S, and for chunks past it
+            mma::mask_pair(s[2 * c], j0 + c * 16 + 2 * t4, S, a.kmask, brow);
+            mma::mask_pair(s[2 * c + 1], j0 + c * 16 + 8 + 2 * t4, S, a.kmask, brow);
+          }
+          float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < 2 * TC_CPT; ++n) {
+            x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
+            x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
+          }
+          const float n0 = fmaxf(m0, mma::quad_max(x0)), n1 = fmaxf(m1, mma::quad_max(x1));
+          float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+          for (int n = 0; n < 2 * TC_CPT; ++n) {
+            e0 += expf(s[n][0] - n0) + expf(s[n][1] - n0);
+            e1 += expf(s[n][2] - n1) + expf(s[n][3] - n1);
+          }
+          l0 = (m0 == -INFINITY ? 0.f : l0 * expf(m0 - n0)) + mma::quad_sum(e0);
+          l1 = (m1 == -INFINITY ? 0.f : l1 * expf(m1 - n1)) + mma::quad_sum(e1);
+          m0 = n0;
+          m1 = n1;
+        }
+        next_tile();
+      }
+      r0 = 1.f / l0;
+      r1 = 1.f / l1;
+    }
+    // pass B: p, dp and delta, a tile at a time
+    for (int tt = 0; tt < nt; ++tt) {
+      const bf16* Kt = wait_tile();
+      if (active) {
+        const int j0 = tt * TC_KT, nch = min(TC_CPT, (S - j0 + 15) / 16);
+        float p[2 * TC_CPT][4], d[2 * TC_CPT][4];
+        p_tile(p, Kt, j0, nch);
+        abt_tile<KC, TC_CPT>(d, As + warp * 16 * ldk, Kt + tile_elems, nch, ldk, dh, lane);
+#pragma unroll
+        for (int c = 0; c < TC_CPT; ++c) {
+          if (c < nch) {
+            add_delta(dl0, dl1, p[2 * c], p[2 * c + 1], d[2 * c], d[2 * c + 1]);
+            uint32_t pa[4];
+            pack_a(pa, p[2 * c], p[2 * c + 1]);
+            hand_over(pa, 0, j0 / 16 + c);
+          }
+        }
+      }
+      next_tile();
+    }
+    dl0 = mma::quad_sum(dl0);
+    dl1 = mma::quad_sum(dl1);
+    // pass C: p and dp again, ds, dq += bf16(ds) k
+    for (int tt = 0; tt < nt; ++tt) {
+      const bf16* Kt = wait_tile();
+      if (active) {
+        const int j0 = tt * TC_KT, nch = min(TC_CPT, (S - j0 + 15) / 16);
+        float p[2 * TC_CPT][4], d[2 * TC_CPT][4];
+        p_tile(p, Kt, j0, nch);
+        abt_tile<KC, TC_CPT>(d, As + warp * 16 * ldk, Kt + tile_elems, nch, ldk, dh, lane);
+#pragma unroll
+        for (int c = 0; c < TC_CPT; ++c) {
+          if (c < nch) {
+            uint32_t dsa[4];
+            ds_frag(dsa, p[2 * c], p[2 * c + 1], d[2 * c], d[2 * c + 1]);
+            hand_over(dsa, 1, j0 / 16 + c);
+            pv_chunk(dq, dsa, Kt + c * 16 * ldk, ldk, dh, lane);
+          }
+        }
+      }
+      next_tile();
+    }
   }
-  float* part = a.partial + ((size_t)b * nt + blockIdx.y) * 3 * D + h * dh;
-  sum_columns<MAXD>(Red, ksum, part + D, dh);
-  sum_columns<MAXD>(Red, vsum, part + 2 * D, dh);
+
+  // dq * scale as bf16, and the block's column sums of it
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dq[n][x] *= a.scale;
+  if (active) {
+    store_rows(a.dqkv, 3 * D, brow, row0, S, h * dh, dh, dq, lane);
+  }
+  const int ntiles = (S + BWD_T - 1) / BWD_T, tile0 = blockIdx.y * (W / TC_WARPS);
+  column_sums<DMAX, W>(reinterpret_cast<float*>(kv), dq, row0, S,
+                       a.partial + ((size_t)b * ntiles + tile0) * 3 * D + h * dh, (size_t)3 * D,
+                       ntiles - tile0, dh);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(COLS_WARPS * 32) attention_bwd_cols_tc(AttnBwdArgs a) {
+  constexpr int W = COLS_WARPS, NDT = DMAX / 8;
+  constexpr int CC = BWD_CQ / 16;  // 16-query chunks of a stage
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int S = a.S, D = a.D, H = a.H, dh = a.dh, ldk = smem_ld(dh), nb = a.nb;
+  // two stages of BWD_CQ queries: their q and dattn rows, then for each warp
+  // and chunk the A fragments of p^T and ds^T the rows launch handed over
+  bf16* ring = reinterpret_cast<bf16*>(sm);
+  const int mat = BWD_CQ * ldk, stage_elems = 2 * mat + W * CC * 2 * 256;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = blockIdx.y * W * 16, row0 = j0 + warp * 16;  // the warp's 16 keys
+  const bool active = row0 < S;
+  const size_t brow = (size_t)b * S, bh = (size_t)b * H + h;
+  const int nq = (S + BWD_CQ - 1) / BWD_CQ;
+  const size_t plane = (size_t)gridDim.x * nb * nb * 32;  // uint4 of a plane
+
+  auto issue = [&](int e) {
+    if (e < nq) {
+      const int i0 = e * BWD_CQ, rows = min(BWD_CQ, round16(S - i0));
+      bf16* st = ring + (e & 1) * stage_elems;
+      mma::copy_rows_async(st, ldk, a.q, brow, i0, rows, S, a.ldqkv, h * dh, dh);
+      mma::copy_rows_async(st + mat, ldk, a.dattn, brow, i0, rows, S, D, h * dh, dh);
+      // fragment (warp w's key block, query block e CC + c) of each plane:
+      // 32 copies of 16 bytes
+      uint4* frags = reinterpret_cast<uint4*>(st + 2 * mat);
+      for (int x = threadIdx.x; x < W * CC * 2 * 32; x += blockDim.x) {
+        const int l = x & 31, pl = (x >> 5) & 1, c = (x >> 6) % CC, w = (x >> 6) / CC;
+        const int jb = blockIdx.y * W + w, ib = e * CC + c;
+        if (jb < nb && ib < nb)
+          mma::cp_async16(frags + x, a.pds + pl * plane + ((bh * nb + jb) * nb + ib) * 32 + l,
+                          true);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
+  float dk[NDT][4], dv[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dk[n][x] = dv[n][x] = 0.f;
+
+  for (int qt = 0; qt < nq; ++qt) {
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      const bf16* st = ring + (qt & 1) * stage_elems;
+      const uint4* frags = reinterpret_cast<const uint4*>(st + 2 * mat) + warp * CC * 64 + lane;
+      const int nch = min(CC, (S - qt * BWD_CQ + 15) / 16);
+#pragma unroll
+      for (int c = 0; c < CC; ++c) {
+        if (c >= nch) break;
+        const uint4 p4 = frags[c * 64], d4 = frags[c * 64 + 32];
+        const uint32_t pa[4] = {p4.x, p4.y, p4.z, p4.w}, dsa[4] = {d4.x, d4.y, d4.z, d4.w};
+        pv_chunk(dv, pa, st + mat + c * 16 * ldk, ldk, dh, lane);
+        pv_chunk(dk, dsa, st + c * 16 * ldk, ldk, dh, lane);
+      }
+    }
+    __syncthreads();
+    issue(qt + 2);
+  }
+
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dk[n][x] *= a.scale;
+  if (active) {
+    store_rows(a.dqkv + D, 3 * D, brow, row0, S, h * dh, dh, dk, lane);
+    store_rows(a.dqkv + 2 * D, 3 * D, brow, row0, S, h * dh, dh, dv, lane);
+  }
+  const int ntiles = (S + BWD_T - 1) / BWD_T, tile0 = blockIdx.y * (W / TC_WARPS);
+  float* part = a.partial + ((size_t)b * ntiles + tile0) * 3 * D + h * dh;
+  column_sums<DMAX, W>(reinterpret_cast<float*>(ring), dk, row0, S, part + D, (size_t)3 * D,
+                       ntiles - tile0, dh);
+  column_sums<DMAX, W>(reinterpret_cast<float*>(ring), dv, row0, S, part + 2 * D, (size_t)3 * D,
+                       ntiles - tile0, dh);
+}
+
+// the rows launch with NC key chunks in registers (0: the tiled path) and W
+// warps a block
+template <int NC, int W, int DMAX, bool STORED>
+cudaError_t launch_attention_bwd_rows(const AttnBwdArgs& a, int B, cudaStream_t st) {
+  static size_t allowed = 48 * 1024;
+  const int ldk = smem_ld(a.dh);
+  const size_t smem =
+      ((size_t)((NC > 0 ? 2 * NC * 16 : 4 * TC_KT) + W * 16) * ldk +
+       (!STORED ? (size_t)W * 16 * ldk : NC > 0 ? (size_t)W * 16 * NC * 16 + 16 : 0)) *
+      sizeof(bf16);
+  const cudaError_t e =
+      attention::allow_smem(attention_bwd_rows_tc<NC, W, DMAX, STORED>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * a.H, (a.S + W * 16 - 1) / (W * 16));
+  attention_bwd_rows_tc<NC, W, DMAX, STORED><<<grid, W * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DMAX, bool STORED>
+cudaError_t launch_attention_bwd_t(const AttnBwdArgs& a, int B, cudaStream_t st) {
+  constexpr int NC_LONG = rows_reg_max<DMAX>() / 16;
+  cudaError_t e = a.S <= 128 ? launch_attention_bwd_rows<8, TC_WARPS, DMAX, STORED>(a, B, st)
+                  : a.S <= rows_reg_max<DMAX>()
+                      ? launch_attention_bwd_rows<NC_LONG, 2 * TC_WARPS, DMAX, STORED>(a, B, st)
+                      : launch_attention_bwd_rows<0, TC_WARPS, DMAX, STORED>(a, B, st);
+  if (e != cudaSuccess) return e;
+  constexpr int CW = COLS_WARPS;
+  static size_t allowed = 48 * 1024;
+  const size_t smem =
+      (size_t)2 * (2 * BWD_CQ * smem_ld(a.dh) + CW * (BWD_CQ / 16) * 2 * 256) * sizeof(bf16);
+  e = attention::allow_smem(attention_bwd_cols_tc<DMAX>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * a.H, (a.S + CW * 16 - 1) / (CW * 16));
+  attention_bwd_cols_tc<DMAX><<<grid, CW * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int B, bool stored, cudaStream_t st) {
+  if (a.dh % 16 != 0 || a.dh > 128) return cudaErrorInvalidValue;
+  if (a.dh <= 64)
+    return stored ? launch_attention_bwd_t<64, true>(a, B, st)
+                  : launch_attention_bwd_t<64, false>(a, B, st);
+  return stored ? launch_attention_bwd_t<128, true>(a, B, st)
+                : launch_attention_bwd_t<128, false>(a, B, st);
 }
 
 // LN1 statistics of a1 and h1 = LN1(a1) in bf16; one warp per row.
@@ -749,38 +1101,6 @@ cudaError_t launch_reduce(const ReduceJobs& jobs, int njobs, cudaStream_t st) {
     blocks = reduce_blocks(jobs.job[i]) > blocks ? reduce_blocks(jobs.job[i]) : blocks;
   reduce_rows_kernel<<<dim3(blocks, njobs), 256, 0, st>>>(jobs);
   return cudaGetLastError();
-}
-
-template <int MAXD, bool STORED>
-cudaError_t launch_attention_bwd_t(const AttnBwdArgs& a, int B, cudaStream_t st) {
-  const int ldk = attention::smem_ld(a.dh);
-  const size_t rows_smem =
-      (size_t)2 * (BWD_T + BWD_KT) * ldk * sizeof(bf16) +
-      (size_t)(BWD_WARPS * BWD_KT + BWD_WARPS * MAXD + BWD_T * 3) * 4 +
-      (a.S > BWD_KT ? (size_t)BWD_T * MAXD * 4 : 0);  // Dq, with more than one key tile
-  const size_t cols_smem = (size_t)5 * BWD_T * ldk * sizeof(bf16) +
-                           (size_t)2 * BWD_T * (BWD_T + 2) * sizeof(bf16) +
-                           (size_t)(BWD_T * 3 + BWD_WARPS * MAXD) * 4;
-  static size_t rows_allowed = 48 * 1024, cols_allowed = 48 * 1024;
-  cudaError_t e = attention::allow_smem(attention_bwd_rows_kernel<MAXD, STORED>, rows_smem,
-                                        rows_allowed);
-  if (e != cudaSuccess) return e;
-  e = attention::allow_smem(attention_bwd_cols_kernel<MAXD, STORED>, cols_smem, cols_allowed);
-  if (e != cudaSuccess) return e;
-  dim3 grid(B * a.H, (a.S + BWD_T - 1) / BWD_T);
-  attention_bwd_rows_kernel<MAXD, STORED><<<grid, BWD_THREADS, rows_smem, st>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attention_bwd_cols_kernel<MAXD, STORED><<<grid, BWD_THREADS, cols_smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_attention_bwd(const AttnBwdArgs& a, int B, bool stored, cudaStream_t st) {
-  if (a.dh <= 64)
-    return stored ? launch_attention_bwd_t<64, true>(a, B, st)
-                  : launch_attention_bwd_t<64, false>(a, B, st);
-  return stored ? launch_attention_bwd_t<128, true>(a, B, st)
-                : launch_attention_bwd_t<128, false>(a, B, st);
 }
 
 // The training forward's four GEMM launches on the shared wgmma GEMM
@@ -1199,7 +1519,7 @@ static int bwd_attn(const void* da1, const void* x, const void* key_mask, const 
                     const void* m0, const void* seeds, unsigned thresh, float scale,
                     const void* probs, void* qkv, const void* w_qkv, const void* b_qkv,
                     const void* w_o, void* dproj, void* dattn, void* q_s, void* dqkv,
-                    void* part_o, void* part_qkv, void* part_w, void* stats, void* dx,
+                    void* part_o, void* part_qkv, void* part_w, void* pds, void* dx,
                     void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B, int S, int D, int H,
                     void* stream) {
   if (!dims_ok(B, S, D, 64) || !heads_ok(D, H) || !dropout_ok(m0, nullptr, nullptr, seeds, thresh))
@@ -1251,7 +1571,8 @@ static int bwd_attn(const void* da1, const void* x, const void* key_mask, const 
   a.ldqkv = 3 * D;
   // 4. the softmax VJP per (batch row, head) -> dqkv
   a.dattn = BF(dattn);
-  a.stats = static_cast<float*>(stats);
+  a.pds = static_cast<uint4*>(pds);
+  a.nb = (S + 15) / 16;
   a.dqkv = static_cast<bf16*>(dqkv);
   a.partial = static_cast<float*>(part_qkv);
   a.S = S;
@@ -1293,17 +1614,19 @@ static int bwd_attn(const void* da1, const void* x, const void* key_mask, const 
 // Scratch: dproj, dattn, q_s (M, D) bf16; qkv, dqkv (M, 3D) bf16; part_o
 // (ceil(M/16), D), part_qkv (B * ceil(S/64), 3D), part_w (dWqkv's, then
 // dWo's slices: split x P x Q each, none for one slice; plan_wgrad) and
-// stats (B*H*S, 3) fp32. Outputs (fp32): dx (M, D), dwqkv (3D, D), dbqkv
+// pds (2, B*H, ceil(S/16)^2 * 256) bf16, the p and ds fragments the
+// attention backward's rows launch hands its cols launch. Outputs (fp32):
+// dx (M, D), dwqkv (3D, D), dbqkv
 // (3D), dwo (D, D), dbo (D).
 extern "C" int fused_layer_train_bwd_attn(
     const void* da1, const void* x, const void* key_mask, const void* attn, const void* m0,
     const void* seeds, unsigned thresh, float scale, const void* w_qkv, const void* b_qkv,
     const void* w_o, void* dproj, void* dattn, void* q_s, void* qkv, void* dqkv, void* part_o,
-    void* part_qkv, void* part_w, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo,
+    void* part_qkv, void* part_w, void* pds, void* dx, void* dwqkv, void* dbqkv, void* dwo,
     void* dbo, int B, int S, int D, int H, void* stream) {
   if (q_s == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
   return bwd_attn(da1, x, key_mask, attn, m0, seeds, thresh, scale, nullptr, qkv, w_qkv, b_qkv,
-                  w_o, dproj, dattn, q_s, dqkv, part_o, part_qkv, part_w, stats, dx, dwqkv,
+                  w_o, dproj, dattn, q_s, dqkv, part_o, part_qkv, part_w, pds, dx, dwqkv,
                   dbqkv, dwo, dbo, B, S, D, H, stream);
 }
 
@@ -1315,11 +1638,11 @@ extern "C" int fused_layer_train_bwd_attn_stored(
     const void* da1, const void* x, const void* attn, const void* m0, const void* seeds,
     unsigned thresh, float scale, const void* probs, const void* qkv, const void* w_qkv,
     const void* w_o, void* dproj, void* dattn, void* dqkv, void* part_o, void* part_qkv,
-    void* part_w, void* stats, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B,
+    void* part_w, void* pds, void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo, int B,
     int S, int D, int H, void* stream) {
   if (probs == nullptr || qkv == nullptr) return (int)cudaErrorInvalidValue;
   return bwd_attn(da1, x, nullptr, attn, m0, seeds, thresh, scale, probs,
                   const_cast<void*>(qkv), w_qkv, nullptr, w_o, dproj, dattn, nullptr, dqkv,
-                  part_o, part_qkv, part_w, stats, dx, dwqkv, dbqkv, dwo, dbo, B, S, D, H,
+                  part_o, part_qkv, part_w, pds, dx, dwqkv, dbqkv, dwo, dbo, B, S, D, H,
                   stream);
 }

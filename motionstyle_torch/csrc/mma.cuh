@@ -1,6 +1,8 @@
 // Warp-level tensor-core tools for Hopper (sm_90a), shared by the attention
-// kernels (attention_fwd.cuh's tensor-core forward, attention.cu):
-//   * ldmatrix (.x4, .x2, and .x4.trans for V) from shared memory;
+// kernels (attention_fwd.cuh's tensor-core forward, attention.cu, and the
+// training layer's attention backward in fused_encoder_train.cu):
+//   * ldmatrix (.x4, .x2, and .x4.trans for V) from shared memory, and
+//     movmatrix's in-register transpose of an 8x8 matrix;
 //   * mma.sync m16n8k16 bf16 x bf16 -> fp32 and m16n8k8 tf32 x tf32 -> fp32;
 //   * tf32 rounding as cvt.rna.tf32.f32 rounds, and the two-term split
 //     x = hi + lo, hi = tf32(x), lo = tf32(x - hi), for split-precision
@@ -55,6 +57,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
                : "memory");
+}
+
+// an 8x8 b16 matrix held one register a lane (lane 4 g + t: row g, cols 2t,
+// 2t+1), transposed across the warp into the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // d += a b, bf16 operands, fp32 accumulator (the products are exact in fp32)

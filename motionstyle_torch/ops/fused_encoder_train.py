@@ -290,16 +290,16 @@ def bwd_ffn_reference(dh2, a1, p, masks=None, seeds=None, rate=0.0):
     return da1.reshape(B, S, D), grads
 
 
-def _bwd_attn_half(da1, xb, attn, p, H, probs, q, k, v, drop):
-    """out-projection^T, the softmax VJP from fp32 probs (B, H, S, S) and
-    q (unscaled), k, v (B*S, D), then dWqkv and dx. xb (B*S, D) bf16."""
+def attention_vjp_reference(probs, q, k, v, dattn, H):
+    """The softmax VJP of a layer's heads, as the Pallas bodies compute it
+    (motionstyle/ops/fused_encoder_train.py:285-294): from fp32 probs
+    (B, H, S, S) and q (unscaled), k, v, dattn (B*S, D), dp = bf16(da)
+    bf16(v)^T, ds = p (dp - sum_j dp p), dq = scale bf16(ds) bf16(k), dk =
+    scale bf16(ds)^T bf16(q), dv = bf16(p)^T bf16(da). Returns dqkv (B*S, 3D)
+    fp32."""
     B, _, S, _ = probs.shape
-    D = xb.shape[-1]
+    D = q.shape[-1]
     scale = 1.0 / math.sqrt(D // H)
-    da1 = da1.reshape(B * S, D).float()
-    dproj = drop(0, da1)
-    dwo = _bf(dproj).t() @ _bf(attn.reshape(B * S, D))
-    dattn = _bf(dproj) @ _bf(p["out_proj_weight"])
     da = _heads(_bf(dattn), B, S, H)
     dv = _bf(probs).transpose(-1, -2) @ da
     dp = da @ _heads(_bf(v), B, S, H).transpose(-1, -2)
@@ -307,7 +307,20 @@ def _bwd_attn_half(da1, xb, attn, p, H, probs, q, k, v, drop):
     dq = (_bf(ds) @ _heads(_bf(k), B, S, H)) * scale
     dk = (_bf(ds).transpose(-1, -2) @ _heads(_bf(q), B, S, H)) * scale
     merge = lambda t: t.transpose(1, 2).reshape(B * S, D)  # noqa: E731
-    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+
+
+def _bwd_attn_half(da1, xb, attn, p, H, probs, q, k, v, drop):
+    """out-projection^T, the softmax VJP (attention_vjp_reference) from fp32
+    probs (B, H, S, S) and q (unscaled), k, v (B*S, D), then dWqkv and dx.
+    xb (B*S, D) bf16."""
+    B, _, S, _ = probs.shape
+    D = xb.shape[-1]
+    da1 = da1.reshape(B * S, D).float()
+    dproj = drop(0, da1)
+    dwo = _bf(dproj).t() @ _bf(attn.reshape(B * S, D))
+    dattn = _bf(dproj) @ _bf(p["out_proj_weight"])
+    dqkv = attention_vjp_reference(probs, q, k, v, dattn, H)
     dx = da1 + _bf(dqkv) @ _bf(p["in_proj_weight"])
     grads = {"in_proj_weight": _bf(dqkv).t() @ _bf(xb), "in_proj_bias": dqkv.sum(0),
              "out_proj_weight": dwo, "out_proj_bias": dproj.sum(0)}
@@ -601,8 +614,10 @@ fused_layer_train_bwd_ffn.launches = fused_layer_train_bwd_ffn.prng_launches = 0
 
 def _attn_bwd_buffers(B, S, D, H, F, dev) -> tuple:
     """Scratch shared by both attention halves (dproj, dattn, dqkv, the
-    partial column sums, the weight gradients' slices and the rows' softmax
-    statistics) and their outputs (dx, grads)."""
+    partial column sums, the weight gradients' slices, and bf16(p) and
+    bf16(ds) of every head, which the attention backward's rows launch hands
+    its cols launch as (ceil(S / 16))^2 transposed 16 x 16 fragments of 256
+    values each) and their outputs (dx, grads)."""
     f32 = dict(dtype=torch.float32, device=dev)
     M, nb, nt = B * S, -(-B * S // 16), -(-S // 64)
     slices = backward_partial_floats(B, S, D, F, _sm_count(dev))[1]
@@ -611,7 +626,7 @@ def _attn_bwd_buffers(B, S, D, H, F, dev) -> tuple:
                torch.empty((M, 3 * D), dtype=_BF16, device=dev),  # dqkv
                torch.empty((nb, D), **f32), torch.empty((B * nt, 3 * D), **f32),
                torch.empty((max(slices, 1),), **f32),
-               torch.empty((B * H * S, 3), **f32))
+               torch.empty((2, B * H, (-(-S // 16)) ** 2 * 256), dtype=_BF16, device=dev))
     dx = torch.empty((B, S, D), **f32)
     g = {"in_proj_weight": torch.empty((3 * D, D), **f32),
          "in_proj_bias": torch.empty((3 * D,), **f32),
@@ -634,7 +649,7 @@ def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=Non
 
     B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks, seeds, rate)
     lib = _build.load("fused_encoder_train")
-    (dproj, dattn, dqkv, part_o, part_qkv, part_w, stats), dx, g = _attn_bwd_buffers(
+    (dproj, dattn, dqkv, part_o, part_qkv, part_w, pds), dx, g = _attn_bwd_buffers(
         B, S, D, num_heads, F, x.device)
     xb = x.to(_BF16).contiguous()
     m0 = masks[0] if masks is not None else None
@@ -645,7 +660,7 @@ def fused_layer_train_bwd_attn(da1, x, attn, p, num_heads, kmask=None, masks=Non
         _ptr(da1.float().contiguous()), _ptr(xb), _ptr(kmask), _ptr(attn.contiguous()),
         _ptr(m0), *_drop_args(seeds, rate), _ptr(p["in_proj_weight"]), _ptr(p["in_proj_bias"]),
         _ptr(p["out_proj_weight"]), _ptr(dproj), _ptr(dattn), _ptr(q_s), _ptr(qkv),
-        _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(part_w), _ptr(stats), _ptr(dx),
+        _ptr(dqkv), _ptr(part_o), _ptr(part_qkv), _ptr(part_w), _ptr(pds), _ptr(dx),
         *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
     _raise_on(rc, "fused_layer_train_bwd_attn")
     _count(fused_layer_train_bwd_attn, seeds)
@@ -668,7 +683,7 @@ def fused_layer_train_bwd_attn_stored(da1, x, attn, probs, qkv, p, num_heads, ma
     B, S, D, F = _check_cuda_inputs(x, p, num_heads, masks, seeds, rate)
     _check_stored(probs, qkv, B, S, D, num_heads, x.device)
     lib = _build.load("fused_encoder_train")
-    (dproj, dattn, dqkv, part_o, part_qkv, part_w, stats), dx, g = _attn_bwd_buffers(
+    (dproj, dattn, dqkv, part_o, part_qkv, part_w, pds), dx, g = _attn_bwd_buffers(
         B, S, D, num_heads, F, x.device)
     xb = x.to(_BF16).contiguous()
     m0 = masks[0] if masks is not None else None
@@ -676,7 +691,7 @@ def fused_layer_train_bwd_attn_stored(da1, x, attn, probs, qkv, p, num_heads, ma
         _ptr(da1.float().contiguous()), _ptr(xb), _ptr(attn.contiguous()), _ptr(m0),
         *_drop_args(seeds, rate), _ptr(probs), _ptr(qkv), _ptr(p["in_proj_weight"]),
         _ptr(p["out_proj_weight"]), _ptr(dproj), _ptr(dattn), _ptr(dqkv), _ptr(part_o),
-        _ptr(part_qkv), _ptr(part_w), _ptr(stats), _ptr(dx),
+        _ptr(part_qkv), _ptr(part_w), _ptr(pds), _ptr(dx),
         *(_ptr(g[k]) for k in _GRAD_KEYS), B, S, D, num_heads, _stream(x))
     _raise_on(rc, "fused_layer_train_bwd_attn_stored")
     _count(fused_layer_train_bwd_attn_stored, seeds)

@@ -15,9 +15,13 @@ seconds per step of the 1000-step DDPM chain's last 50 steps through the
 inference layer (a seeded full-width prior, B=64, T=196, the fused update);
 and the prior pretraining CLI's seconds per step at batch 64, full width
 (the root's own chip_smoke.pretrain_phase: --fused_train 1, then
---fused_train_prng 1, then with --grad_accum 2), on a synthetic corpus.
+--fused_train_prng 1, then with --grad_accum 2), on a synthetic corpus; the
+humanml pretraining's (S=197) and the Xia finetune's seconds per step,
+recompute and store (training_steps). The attention-half backward (kernels
+7 and 9) is also timed at the humanml trainers' B=64, S=197.
 
     python3 profile_layers.py [ROOT ...]
+    python3 profile_layers.py --steps N ROOT_A ROOT_B   # training steps only
 
 Each ROOT is a checkout of the repository (default: the directory of this
 script); the kernels are built from its sources and timed with CUDA events
@@ -25,7 +29,10 @@ script); the kernels are built from its sources and timed with CUDA events
 launch). Give two checkouts, e.g. a `git archive` of the parent commit
 unpacked into a git-ignored directory and this one, to compare them on the
 same card in one run; they are measured in turns (A, B, B, A), each in its
-own process. Prints the card's name and power limit first.
+own process. With --steps N only the end-to-end part runs (the Xia pretrain
+phase and training_steps), in N pairs of turns (A B, B A, A B, ...), for
+host-clock step times whose spread needs more than two turns a root. Prints
+the card's name and power limit first.
 
 Every run also prints a digest of what it returned (SHA-256 of each
 tensor's bytes, in order), so two roots show which kernels give the same
@@ -181,6 +188,26 @@ def profile(root: str) -> None:
                   f"{cs.rel_l2(got, want):.6g}, worst gradient leaf rel_l2 {leaf:.6g}",
                   flush=True)
         if b == 64:
+            # kernels 7 and 9 at the humanml trainers' S=197, from the twins
+            # (their own generator: the other runs' inputs stay as they were)
+            gen197 = torch.Generator().manual_seed(197)
+            x197, dh197 = (torch.randn(b, 197, 512, generator=gen197).to(dev, torch.bfloat16)
+                           for _ in range(2))
+            m197 = ft.make_dropout_masks(torch.Generator(device=dev).manual_seed(197),
+                                         (b, 197, 512), 0.1, 1024)
+            _, a197, attn197, probs197, qkv197 = ft.fused_layer_train_forward_store_reference(
+                x197, p, 4, None, m197)
+            da197, _ = ft.bwd_ffn_reference(dh197, a197, p, m197)
+            runs["B=64 S=197 bwd_attn"] = (
+                lambda: ft.fused_layer_train_bwd_attn(da197, x197, attn197, p, 4, None, m197))
+            twins["B=64 S=197 bwd_attn"] = (
+                lambda: ft.bwd_attn_reference(da197, x197, attn197, p, 4, None, m197))
+            runs["B=64 S=197 bwd_attn_stored"] = (
+                lambda: ft.fused_layer_train_bwd_attn_stored(da197, x197, attn197, probs197,
+                                                             qkv197, p, 4, m197))
+            twins["B=64 S=197 bwd_attn_stored"] = (
+                lambda: ft.bwd_attn_stored_reference(da197, x197, attn197, probs197, qkv197, p,
+                                                     4, m197))
             train_lib = torch.nn.TransformerEncoderLayer(
                 512, 4, 1024, dropout=0.1, activation=partial(Fn.gelu, approximate="tanh"),
                 batch_first=True).to(dev, torch.bfloat16).train()
@@ -250,14 +277,79 @@ def profile(root: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "style_xia")
         cs.write_xia_corpus(data_dir)
-        cs.pretrain_phase(card, data_dir, tmp)
+        _, prior = cs.pretrain_phase(card, data_dir, tmp)
+        training_steps(cs, card, data_dir, prior, tmp)
+
+
+def training_steps(cs, card: str, xia_dir: str, prior: str, tmp: str) -> None:
+    """Seconds per step (the median after the first, from progress.csv) of
+    the humanml prior pretraining (--dataset humanml, 196 frames: S=197,
+    --fused_train 1, on a synthetic HumanML3D-layout corpus) and of the Xia
+    finetune from `prior` with --fused_train 1 (kernels 5, 6, 7) and then
+    --fused_train_store 1 (kernels 8, 6, 9): batch 64, full width, the
+    root's own CLIs."""
+    import csv
+    import random
+
+    import numpy as np
+
+    from motionstyle_torch.cli.finetune_style_diffusion import main as finetune_main
+    from motionstyle_torch.cli.pretrain_prior import main as pretrain_main
+    from motionstyle_torch.eval.quality_protocol import make_corpus
+
+    def step_seconds(save_dir: str) -> list:
+        with open(os.path.join(save_dir, "progress.csv")) as f:
+            return [float(r["step_seconds"]) for r in csv.DictReader(f)]
+
+    common = ["--batch_size", "64", "--layers", "8", "--seed", "10", "--device", "cuda"]
+    hml = os.path.join(tmp, "humanml")
+    make_corpus(hml, clips_per_pair=cs.HML_CLIPS_PER_PAIR, seed=10, dataset="humanml")
+    save = os.path.join(tmp, "hml_prior")
+    random.seed(10)
+    pretrain_main(["--dataset", "humanml", "--data_dir", hml, "--save_dir", save,
+                   "--num_steps", "8", "--num_frames", "196", "--log_interval", "1",
+                   "--fused_train", "1", *common])
+    secs = step_seconds(save)
+    print(f"  humanml pretrain --fused_train 1 (B=64, S=197): step seconds {secs}; median "
+          f"after the first {float(np.median(secs[1:])):.6g} s on {card}", flush=True)
+    for flag in ("--fused_train", "--fused_train_store"):
+        random.seed(10)
+        save = finetune_main(["--dataset", "stylexia_posrot", "--data_dir", xia_dir,
+                              "--mdm_path", prior, "--save_dir",
+                              os.path.join(tmp, "ft" + flag.replace("-", "_")), "--fused", "1",
+                              flag, "1", "--num_steps", "8", "--skip_render",
+                              "--train_platform_type", "NoPlatform", *common])
+        secs = step_seconds(save)
+        print(f"  Xia finetune {flag} 1 (B=64, S=77): step seconds {secs}; median after the "
+              f"first {float(np.median(secs[1:])):.6g} s on {card}", flush=True)
+
+
+def steps_only(root: str) -> None:
+    """The end-to-end part alone: the Xia pretrain phase's seconds per step
+    (chip_smoke.pretrain_phase), then training_steps from its prior."""
+    sys.path.insert(0, root)
+    import subprocess as sp
+
+    import chip_smoke as cs
+
+    card = sp.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                  capture_output=True, text=True, check=True).stdout.strip()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "style_xia")
+        cs.write_xia_corpus(data_dir)
+        _, prior = cs.pretrain_phase(card, data_dir, tmp)
+        training_steps(cs, card, data_dir, prior, tmp)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        profile(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--child", "--child_steps"):
+        (profile if sys.argv[1] == "--child" else steps_only)(sys.argv[2])
         return 0
-    roots = [os.path.abspath(r) for r in sys.argv[1:]] or [HERE]
+    args = sys.argv[1:]
+    pairs = 0
+    if args[:1] == ["--steps"]:  # --steps N: only the training steps, N turn pairs
+        pairs, args = int(args[1]), args[2:]
+    roots = [os.path.abspath(r) for r in args] or [HERE]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
@@ -271,9 +363,14 @@ def main() -> int:
     if any(p.wait() != 0 for p in procs):
         return 1
     order = roots if len(roots) == 1 else roots + roots[::-1]
+    child = "--child"
+    if pairs:
+        order, child = [], "--child_steps"
+        for i in range(pairs):
+            order += roots if i % 2 == 0 else roots[::-1]
     for r in order:
         print(f"=== {os.path.relpath(r)}", flush=True)
-        if subprocess.run([sys.executable, __file__, "--child", r]).returncode != 0:
+        if subprocess.run([sys.executable, __file__, child, r]).returncode != 0:
             return 1
     return 0
 

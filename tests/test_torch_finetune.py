@@ -729,13 +729,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     exporter, LoRA adapters, distiller, SMPL body model, other architectures,
     the humanml and bandai data path, the T2M evaluation stack, the trainer
     platforms, the native loader, the SMPLify chain and the scale-out
-    modules among them), chip_smoke.py, profile_layers.py, quality_sweep.py,
-    serve_bench.py and the multi-rank tests' rank bodies
+    modules among them), chip_smoke.py, profile_layers.py,
+    profile_attention_bwd.py, quality_sweep.py, serve_bench.py and the
+    multi-rank tests' rank bodies
     (tests/torch_dist_ranks.py) import nothing of JAX or of the JAX package; the native loader builds its
     own copy of the C++ source into the port's own build directory."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = glob.glob(os.path.join(root, "motionstyle_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(root, f) for f in ("chip_smoke.py", "profile_layers.py",
+                                              "profile_attention_bwd.py",
                                               "quality_sweep.py", "serve_bench.py",
                                               os.path.join("tests", "torch_dist_ranks.py"))]
     for new in ("eval/style_metrics.py", "eval/quality_protocol.py", "train/semantic.py",
