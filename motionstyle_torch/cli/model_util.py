@@ -26,6 +26,7 @@ import threading
 import numpy as np
 import torch
 
+from motionstyle_torch import tracing
 from motionstyle_torch.diffusion.schedule import make_schedule
 from motionstyle_torch.models import clip_text, lora
 from motionstyle_torch.models.denoiser import MDMConfig, StyleDiffusion
@@ -111,17 +112,33 @@ class ModelBundle:
         self._memo_lock = threading.Lock()
 
     def encode_text(self, texts, dataset: str) -> np.ndarray:
-        """(len(texts), clip_dim) float32 text features, memoised per caption."""
-        with self._memo_lock:
-            missing = [t for t in dict.fromkeys(texts) if (t, dataset) not in self._memo]
+        """(len(texts), clip_dim) float32 text features, memoised per caption.
+        The batch's hits are taken first and its distinct misses encoded in
+        one call; the answer is built from those two, and only then are the
+        misses memoised, the oldest entries evicted to make room, so a batch
+        is answered whatever its misses evict. The span text.encode; the
+        counters text.memo_hits and text.memo_misses count distinct captions."""
+        with tracing.span("text.encode"), self._memo_lock:
+            found, missing = {}, []
+            for t in dict.fromkeys(texts):
+                e = self._memo.get((t, dataset))
+                if e is None:
+                    missing.append(t)
+                else:
+                    found[t] = e
+            tracing.count("text.memo_hits", len(found))
+            tracing.count("text.memo_misses", len(missing))
             if missing:
                 enc = clip_text.encode_text(self.clip, missing, dataset=dataset)
                 for t, e in zip(missing, enc.float().cpu().numpy()):
-                    if len(self._memo) >= self._memo_size:
-                        self._memo.pop(next(iter(self._memo)))  # oldest first
                     e.setflags(write=False)
-                    self._memo[(t, dataset)] = e
-            return np.stack([self._memo[(t, dataset)] for t in texts])
+                    found[t] = e
+            out = np.stack([found[t] for t in texts])
+            for t in missing:
+                if len(self._memo) >= self._memo_size:
+                    self._memo.pop(next(iter(self._memo)))  # oldest first
+                self._memo[(t, dataset)] = found[t]
+            return out
 
 
 def build_model(args, device="cuda") -> ModelBundle:

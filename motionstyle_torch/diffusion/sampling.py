@@ -23,6 +23,7 @@ loop here (PyTorch runs eagerly):
     no grad, no x0 clipping, sigma_small, no cond_fn, no const_noise and no
     pinned step noise; otherwise the normal path runs. Its noise comes from
     the kernel's Philox stream, seeded once per loop from `generator`.
+  - each step runs inside the span sampler.step (tracing.py).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from motionstyle_torch import tracing
 from motionstyle_torch.diffusion import ddpm
 from motionstyle_torch.diffusion.ddpm import Inpainting, ModelFn
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
@@ -175,47 +177,48 @@ def sample_loop(
         xs = []
         x = img
         for i, t_scalar in enumerate(idx):
-            t = torch.full((shape[0],), int(t_scalar), dtype=torch.int64, device=device)
-            if fused:
-                model_output = model_fn(x, sched.timestep_map[t], cond)
-                x, pred_xstart = fused_ddpm_update(
-                    x, model_output.float().contiguous(), mask, motion, *table[i],
-                    base_seed + int(t_scalar))
-                if dump_all_xstart:
-                    xs.append(pred_xstart)  # the blended x0, as the JAX loop dumps
-                continue
-            if step_noise is not None:
-                noise_step = step_noise[i].to(device)
-            elif method == "ddim" and eta == 0.0:
-                noise_step = torch.zeros_like(x)  # multiplied by sigma = 0
-            else:
-                noise_step = draw_rows(lambda s: torch.randn(s, generator=generator,
-                                                             device=device), shape)
-            if const_noise:
-                noise_step = noise_step[:1].expand(shape)
+            with tracing.span("sampler.step"):
+                t = torch.full((shape[0],), int(t_scalar), dtype=torch.int64, device=device)
+                if fused:
+                    model_output = model_fn(x, sched.timestep_map[t], cond)
+                    x, pred_xstart = fused_ddpm_update(
+                        x, model_output.float().contiguous(), mask, motion, *table[i],
+                        base_seed + int(t_scalar))
+                    if dump_all_xstart:
+                        xs.append(pred_xstart)  # the blended x0, as the JAX loop dumps
+                    continue
+                if step_noise is not None:
+                    noise_step = step_noise[i].to(device)
+                elif method == "ddim" and eta == 0.0:
+                    noise_step = torch.zeros_like(x)  # multiplied by sigma = 0
+                else:
+                    noise_step = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                                                 device=device), shape)
+                if const_noise:
+                    noise_step = noise_step[:1].expand(shape)
 
-            def step(x_in, t=t, noise_step=noise_step):
-                pmv = ddpm.p_mean_variance(sched, model_fn, x_in, t, cond,
-                                           clip_denoised=clip_denoised, inpainting=inpainting,
-                                           sigma_small=sigma_small)
-                if cond_fn is not None:  # classifier guidance
+                def step(x_in, t=t, noise_step=noise_step):
+                    pmv = ddpm.p_mean_variance(sched, model_fn, x_in, t, cond,
+                                               clip_denoised=clip_denoised, inpainting=inpainting,
+                                               sigma_small=sigma_small)
+                    if cond_fn is not None:  # classifier guidance
+                        if method == "ddim":
+                            pmv = ddpm.condition_score(sched, cond_fn, pmv, x_in, t, cond)
+                        else:
+                            pmv = ddpm.PMeanVariance(
+                                ddpm.condition_mean(sched, cond_fn, pmv, x_in, t, cond),
+                                pmv.log_variance, pmv.pred_xstart)
                     if method == "ddim":
-                        pmv = ddpm.condition_score(sched, cond_fn, pmv, x_in, t, cond)
-                    else:
-                        pmv = ddpm.PMeanVariance(
-                            ddpm.condition_mean(sched, cond_fn, pmv, x_in, t, cond),
-                            pmv.log_variance, pmv.pred_xstart)
-                if method == "ddim":
-                    return _ddim_update(sched, pmv, x_in, t, noise_step, inpainting, eta), \
-                        pmv.pred_xstart
-                return _ddpm_update(pmv, x_in, t, noise_step, inpainting), pmv.pred_xstart
+                        return _ddim_update(sched, pmv, x_in, t, noise_step, inpainting, eta), \
+                            pmv.pred_xstart
+                    return _ddpm_update(pmv, x_in, t, noise_step, inpainting), pmv.pred_xstart
 
-            if differentiable and remat:
-                x, pred_xstart = checkpoint(step, x, use_reentrant=False)
-            else:
-                x, pred_xstart = step(x)
-            if differentiable:
-                x = x.detach()  # gradients reach each step's x0 only
-            if dump_all_xstart:
-                xs.append(pred_xstart)
+                if differentiable and remat:
+                    x, pred_xstart = checkpoint(step, x, use_reentrant=False)
+                else:
+                    x, pred_xstart = step(x)
+                if differentiable:
+                    x = x.detach()  # gradients reach each step's x0 only
+                if dump_all_xstart:
+                    xs.append(pred_xstart)
         return torch.stack(xs) if dump_all_xstart else x

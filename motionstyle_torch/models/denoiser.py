@@ -35,6 +35,10 @@ trans_enc only, as in the JAX package. DiffuseTransfer is the humanml
 variant (DiffuseTrasnfer, sic, :628-760): the condition is the CLIP text
 plus the residual style_code - content_code, through its own
 transfer_encoder (plain layers, as the JAX module runs it).
+
+MDM.forward and StyleDiffusion.forward each run inside the span denoiser
+(tracing.py); the style path does not pass through MDM.forward, so a call
+is one span.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from motionstyle_torch import tracing
 from motionstyle_torch.models.transformer import (
     GRUStack, TransformerDecoder, TransformerEncoder, dense)
 from motionstyle_torch.parallel.mesh import draw_rows
@@ -241,23 +246,24 @@ class MDM(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, C, F, T), timesteps (B,), enc_text (B, clip_dim) pre-masked.
         Parity: MDM.forward :315-364 (JAX :168-203)."""
-        cfg = self.cfg
-        if cfg.arch == "trans_enc":
-            xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
-            return self.output_head(self.run_encoder(self.seqTransEncoder, xseq,
-                                                     deterministic, generator))
-        dt = cfg.torch_dtype
-        emb, h = self.embed_frames(x, timesteps, enc_text)
-        if cfg.arch == "trans_dec":
-            xseq = (self.lead_with_condition(emb, h, deterministic, generator)
-                    if cfg.emb_trans_dec else self.apply_pe(h, deterministic, generator))
-            out = self.seqTransDecoder(xseq, emb[:, None, :], dt, deterministic, generator)
-            if cfg.emb_trans_dec:
-                out = out[:, 1:]
-        else:  # gru
-            out = self.gru(self.apply_pe(h + emb[:, None, :], deterministic, generator))
-        out = dense(self.output_process.poseFinal, out, dt)
-        return self.tokens_to_frames(out).float()
+        with tracing.span("denoiser"):
+            cfg = self.cfg
+            if cfg.arch == "trans_enc":
+                xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
+                return self.output_head(self.run_encoder(self.seqTransEncoder, xseq,
+                                                         deterministic, generator))
+            dt = cfg.torch_dtype
+            emb, h = self.embed_frames(x, timesteps, enc_text)
+            if cfg.arch == "trans_dec":
+                xseq = (self.lead_with_condition(emb, h, deterministic, generator)
+                        if cfg.emb_trans_dec else self.apply_pe(h, deterministic, generator))
+                out = self.seqTransDecoder(xseq, emb[:, None, :], dt, deterministic, generator)
+                if cfg.emb_trans_dec:
+                    out = out[:, 1:]
+            else:  # gru
+                out = self.gru(self.apply_pe(h + emb[:, None, :], deterministic, generator))
+            out = dense(self.output_process.poseFinal, out, dt)
+            return self.tokens_to_frames(out).float()
 
 
 class StyleDiffusion(nn.Module):
@@ -291,9 +297,10 @@ class StyleDiffusion(nn.Module):
         return self.mdm.output_head(encoded)
 
     def forward(self, x, timesteps, enc_text=None, deterministic=True, generator=None):
-        xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
-        return self.output_head(self.mdm.run_encoder(self.style_encoder, xseq,
-                                                     deterministic, generator))
+        with tracing.span("denoiser"):
+            xseq = self.embed_tokens(x, timesteps, enc_text, deterministic, generator)
+            return self.output_head(self.mdm.run_encoder(self.style_encoder, xseq,
+                                                         deterministic, generator))
 
     def encode_motion(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                       deterministic: bool = True,

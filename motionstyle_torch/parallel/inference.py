@@ -32,6 +32,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from motionstyle_torch import tracing
 from motionstyle_torch.diffusion import sampling
 from motionstyle_torch.diffusion.ddpm import Inpainting
 from motionstyle_torch.diffusion.schedule import DiffusionSchedule
@@ -39,21 +40,24 @@ from motionstyle_torch.parallel import mesh as mesh_lib
 
 
 def _as_tensor(a, device, dtype=torch.float32):
+    tracing.count_h2d(a, device, dtype)
     return None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def item_noise(seeds, item_shape: tuple, device, n_steps: int = 0):
     """(noise (B, ...), step_noise (S, B, ...) or None) from per-item seeds:
     item i's initial noise and then its n_steps-step noise stack come from
-    its own torch.Generator on `device` seeded with seeds[i]."""
-    inits, steps = [], []
-    for seed in seeds:
-        gen = torch.Generator(device=device).manual_seed(int(seed))
-        inits.append(torch.randn(item_shape, generator=gen, device=device))
-        if n_steps:
-            steps.append(torch.randn((n_steps,) + tuple(item_shape), generator=gen,
-                                     device=device))
-    return torch.stack(inits), (torch.stack(steps, dim=1) if steps else None)
+    its own torch.Generator on `device` seeded with seeds[i]. The span
+    sampler.item_noise."""
+    with tracing.span("sampler.item_noise"):
+        inits, steps = [], []
+        for seed in seeds:
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            inits.append(torch.randn(item_shape, generator=gen, device=device))
+            if n_steps:
+                steps.append(torch.randn((n_steps,) + tuple(item_shape), generator=gen,
+                                         device=device))
+        return torch.stack(inits), (torch.stack(steps, dim=1) if steps else None)
 
 
 def style_view(model, encoder_state: dict):
@@ -142,18 +146,21 @@ class Sampler:
         """batch: {'shape' | 'init_image' (B, C, 1, T), 'cond': dict,
         optional 'inpainting': Inpainting, 'noise', 'step_noise', or
         'item_seeds' (B,) for per-item pinned noise}; arrays may be numpy.
-        Returns the samples on the device."""
+        Returns the samples on the device. Putting the inputs on the device
+        is the span sampler.inputs, its bytes the counter copy.h2d_bytes."""
         dev = self.device
-        init_image = _as_tensor(batch.get("init_image"), dev)
-        shape = tuple(batch["shape"]) if "shape" in batch else tuple(init_image.shape)
-        cond = {k: _as_tensor(v, dev) for k, v in batch.get("cond", {}).items()}
-        inpainting = batch.get("inpainting")
-        if inpainting is not None:
-            inpainting = Inpainting(*(_as_tensor(a, dev) for a in inpainting))
+        with tracing.span("sampler.inputs"):
+            init_image = _as_tensor(batch.get("init_image"), dev)
+            shape = tuple(batch["shape"]) if "shape" in batch else tuple(init_image.shape)
+            cond = {k: _as_tensor(v, dev) for k, v in batch.get("cond", {}).items()}
+            inpainting = batch.get("inpainting")
+            if inpainting is not None:
+                inpainting = Inpainting(*(_as_tensor(a, dev) for a in inpainting))
+            noise = _as_tensor(batch.get("noise"), dev)
+            step_noise = _as_tensor(batch.get("step_noise"), dev)
         return self.make_run(shape)(
             self.params if params is None else params, init_image, cond, inpainting,
-            _as_tensor(batch.get("noise"), dev), _as_tensor(batch.get("step_noise"), dev),
-            batch.get("item_seeds"), generator)
+            noise, step_noise, batch.get("item_seeds"), generator)
 
 
 # the forecast sampler takes these of sample_loop's kwargs (JAX :48-52)

@@ -26,6 +26,14 @@ microbatch's dropout in turn (positional-encoding dropout and the encoder's
 masks or, with cfg.fused_train_prng, its per-layer seeds). The draws differ
 from the JAX trainer's PRNG keys.
 
+run_step is the span train.step (tracing.py), covered end to end by its
+phases: train.copy_in (the batch to the device, the loss-aware sampler's
+read-back), train.forward (timestep draws, q_sample, mask_cond, the
+denoiser and the loss), train.backward (backward and the gradient sync) and
+train.optimizer (opt.step, the LR schedule, the EMA and the step's
+bookkeeping: the loss's mean over data ranks, a log step's read, a
+checkpoint).
+
 Checkpoints in the reference torch layout: save() writes mdm.pt (the prior,
 for --mdm_path), model_pretrained.pt (its encoder, a style-encoder warm
 start for --resume_checkpoint) and with ema_rate mdm_ema.pt; save_step()
@@ -45,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from motionstyle_torch import tracing
 from motionstyle_torch.diffusion import ddpm
 from motionstyle_torch.diffusion.resample import (
     LossSecondMomentResampler, create_named_schedule_sampler)
@@ -154,18 +163,19 @@ class PriorTrainer(MeshMixin, PreemptionMixin):
         accum = max(1, cfg.grad_accum)
         if B % accum:
             raise ValueError(f"grad_accum={accum} must divide the batch size {B}")
-        # q_sample and the condition mask once at full batch, so grad_accum
-        # changes only the granularity of the model's forward and backward
-        if noise is None:
-            noise = mesh_lib.draw_rows(lambda shape: torch.randn(
-                shape, generator=self.generator, device=self.device), x_start.shape)
-        x_t = ddpm.q_sample(self.sched, x_start, t, noise)
-        if enc is None:
-            enc = mask_cond(batch["enc_text"], cfg.cond_mask_prob, self.generator)
-        self.opt.zero_grad(set_to_none=True)
-        n = B // accum
-        loss = torch.zeros((), device=self.device)
-        per_sample = []
+        with tracing.span("train.forward"):
+            # q_sample and the condition mask once at full batch, so grad_accum
+            # changes only the granularity of the model's forward and backward
+            if noise is None:
+                noise = mesh_lib.draw_rows(lambda shape: torch.randn(
+                    shape, generator=self.generator, device=self.device), x_start.shape)
+            x_t = ddpm.q_sample(self.sched, x_start, t, noise)
+            if enc is None:
+                enc = mask_cond(batch["enc_text"], cfg.cond_mask_prob, self.generator)
+            self.opt.zero_grad(set_to_none=True)
+            n = B // accum
+            loss = torch.zeros((), device=self.device)
+            per_sample = []
         for i in range(accum):
             mb = slice(i * n, (i + 1) * n)
             # on a mesh a microbatch draws its dropout as the rank's rows of
@@ -173,26 +183,31 @@ class PriorTrainer(MeshMixin, PreemptionMixin):
             # holds, so the draws differ from its, as grad_accum's own do)
             with self._drawing(None if self.dp == 1 or accum == 1 else
                                (self.dp_rank * n, (self.dp_rank + 1) * n, n * self.dp)):
-                out = self.denoise(x_t[mb], t[mb], enc[mb])
-                ps = micro = None
-                if out is not None:  # on a 'pipe' mesh, the last stage only
-                    ps = per_sample_loss(out, x_start[mb], batch["mask"][mb])
-                    micro = (ps * t_weights[mb]).mean()
-                    (micro / accum).backward()
-                if self.pipe > 1:
-                    self._stages.backward()
-                    ps, micro = self._from_last_stage(ps, micro, n)
-            loss = loss + micro.detach()
-            per_sample.append(ps.detach())
-        if self.pipe > 1:
-            sync_replicated_grads([p for key, p in self.model.mdm.named_parameters()
-                                   if not key.startswith("seqTransEncoder.")], self.mesh)
-        self._sync_grads()
-        self.opt.step()
-        self.lr_schedule.step()
-        if cfg.ema_rate > 0:
-            self._update_ema()
-        return loss / accum, torch.cat(per_sample)
+                with tracing.span("train.forward"):
+                    out = self.denoise(x_t[mb], t[mb], enc[mb])
+                    ps = micro = None
+                    if out is not None:  # on a 'pipe' mesh, the last stage only
+                        ps = per_sample_loss(out, x_start[mb], batch["mask"][mb])
+                        micro = (ps * t_weights[mb]).mean()
+                with tracing.span("train.backward"):
+                    if out is not None:
+                        (micro / accum).backward()
+                    if self.pipe > 1:
+                        self._stages.backward()
+                        ps, micro = self._from_last_stage(ps, micro, n)
+                    loss = loss + micro.detach()
+                    per_sample.append(ps.detach())
+        with tracing.span("train.backward"):
+            if self.pipe > 1:
+                sync_replicated_grads([p for key, p in self.model.mdm.named_parameters()
+                                       if not key.startswith("seqTransEncoder.")], self.mesh)
+            self._sync_grads()
+        with tracing.span("train.optimizer"):
+            self.opt.step()
+            self.lr_schedule.step()
+            if cfg.ema_rate > 0:
+                self._update_ema()
+            return loss / accum, torch.cat(per_sample)
 
     @property
     def dp_rank(self) -> int:
@@ -275,35 +290,43 @@ class PriorTrainer(MeshMixin, PreemptionMixin):
         the loss is read on the host, and step_seconds covers the step up to
         that read."""
         t0 = time.perf_counter()
-        batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
-                 for k, v in batch.items()}
-        if self._pending is not None:
-            t_prev, losses_prev = self._pending
-            self.sampler.update_with_local_losses(t_prev.cpu().numpy(), losses_prev.cpu().numpy())
-            self._pending = None
-        B = batch["x_start"].shape[0]
-        t, t_weights = self.sampler.sample(self.generator, B)
-        rows = self._rows(B)
-        if rows is None:
-            loss, per_sample = self.train_step(batch, t, t_weights)
-        else:
-            batch = mesh_lib.shard_batch(batch, self.mesh)
-            with self._drawing(rows):
-                loss, per_sample = self.train_step(batch, t[rows[0]:rows[1]],
-                                                   t_weights[rows[0]:rows[1]])
-            loss = self._data_mean({"loss": loss})["loss"]
-            # the sampler's history takes the global batch (mesh.py:198-204)
-            per_sample = mesh_lib.all_gather_batch(per_sample, self.mesh)
-        self.preempted = self._any_rank(self.preempted)
-        if isinstance(self.sampler, LossSecondMomentResampler):
-            self._pending = (t, per_sample)
-        self.step += 1
-        if self.cfg.log_interval and self.step % self.cfg.log_interval == 0:
-            logger.logkv("prior_step", self.step + self.resume_step)
-            logger.logkv("prior_loss", float(loss))
-            logger.logkv("step_seconds", time.perf_counter() - t0)
-        if self.cfg.save_interval and self.step % self.cfg.save_interval == 0:
-            self.save_step()
+        with tracing.span("train.step"):
+            with tracing.span("train.copy_in"):
+                batch = {k: np.asarray(v, np.float32) for k, v in batch.items()}
+                for v in batch.values():
+                    tracing.count_h2d(v, self.device)
+                batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+                if self._pending is not None:
+                    t_prev, losses_prev = self._pending
+                    self.sampler.update_with_local_losses(t_prev.cpu().numpy(),
+                                                          losses_prev.cpu().numpy())
+                    self._pending = None
+            with tracing.span("train.forward"):
+                B = batch["x_start"].shape[0]
+                t, t_weights = self.sampler.sample(self.generator, B)
+                rows = self._rows(B)
+            if rows is None:
+                loss, per_sample = self.train_step(batch, t, t_weights)
+            else:
+                batch = mesh_lib.shard_batch(batch, self.mesh)
+                with self._drawing(rows):
+                    loss, per_sample = self.train_step(batch, t[rows[0]:rows[1]],
+                                                       t_weights[rows[0]:rows[1]])
+            with tracing.span("train.optimizer"):
+                if rows is not None:
+                    loss = self._data_mean({"loss": loss})["loss"]
+                    # the sampler's history takes the global batch (mesh.py:198-204)
+                    per_sample = mesh_lib.all_gather_batch(per_sample, self.mesh)
+                self.preempted = self._any_rank(self.preempted)
+                if isinstance(self.sampler, LossSecondMomentResampler):
+                    self._pending = (t, per_sample)
+                self.step += 1
+                if self.cfg.log_interval and self.step % self.cfg.log_interval == 0:
+                    logger.logkv("prior_step", self.step + self.resume_step)
+                    logger.logkv("prior_loss", float(loss))
+                    logger.logkv("step_seconds", time.perf_counter() - t0)
+                if self.cfg.save_interval and self.step % self.cfg.save_interval == 0:
+                    self.save_step()
         return loss
 
     # ------------------------------------------------------------------

@@ -11,6 +11,8 @@ import random
 import numpy as np
 import torch
 
+from motionstyle_torch import tracing
+
 TRACE_FILE = "trace.json"  # the Chrome trace profile_trace writes into its directory
 
 
@@ -31,7 +33,8 @@ def profile_trace(log_dir: str, enabled: bool = True):
     trace, log_dir/trace.json (open it in Perfetto or chrome://tracing).
     Yields the profiler (its key_averages() summarise the region), or None
     when not enabled. The counterpart of the JAX package's jax.profiler
-    trace, which the CLIs' --profile DIR asks for."""
+    trace, which the CLIs' --profile DIR asks for. The port's spans
+    (tracing.py) appear in it as record_function ranges."""
     if not enabled:
         yield None
         return
@@ -40,7 +43,7 @@ def profile_trace(log_dir: str, enabled: bool = True):
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, tracing.ranges():
         yield prof
         if cuda:
             torch.cuda.synchronize()  # the region's kernels end inside the trace

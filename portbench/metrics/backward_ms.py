@@ -1,0 +1,9 @@
+"""Host milliseconds a training step spends in its train.backward phase
+(backward and the gradient sync), over the traced train.step spans."""
+from portbench import program_trace
+
+UNIT = "ms"
+
+
+def read(m, variant: str):
+    return program_trace.per_train_step_ms(m, "train.backward")

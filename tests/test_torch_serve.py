@@ -333,6 +333,37 @@ def test_caption_memo_under_concurrent_requests():
     assert len(bundle._memo) <= 4
 
 
+def test_caption_memo_answers_a_batch_that_evicts_its_own_hits():
+    """A full memo of 4 and a batch with two hits and five distinct misses:
+    memoising the misses evicts the hits, yet the batch is answered with the
+    tower's own features, and a profiler session counts 2 hits and 5 misses
+    (distinct captions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from motionstyle_torch import tracing
+    from motionstyle_torch.cli.model_util import ModelBundle
+    from motionstyle_torch.models import clip_text
+
+    tower = seeded_init_(clip_text.ClipTextEncoder(clip_text.ClipTextConfig(
+        layers=1, width=32, heads=2, embed_dim=8)), 42).eval()
+    bundle = ModelBundle(None, tower, None, torch.device("cpu"), memo_size=4)
+    bundle.encode_text([f"old {i}" for i in range(4)], "humanml")
+    batch = ["old 0", "new 0", "old 1", "new 1", "new 2", "new 3", "new 4", "old 0"]
+    tracing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = bundle.encode_text(batch, "humanml")
+        counts = tracing.snapshot().counts
+    finally:
+        tracing.reset()
+    want = clip_text.encode_text(tower, batch, dataset="humanml").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert {n: sum(c.n for c in counts if c.name == n)
+            for n in ("text.memo_hits", "text.memo_misses")} == \
+        {"text.memo_hits": 2, "text.memo_misses": 5}
+    assert len(bundle._memo) == 4
+
+
 def test_package_imports_no_jax():
     """Every module of motionstyle_torch imports without jax, flax, optax or
     the JAX package."""
